@@ -1,0 +1,82 @@
+"""The port stands alone: no module of tip_tpu_torch, and not chip_smoke.py,
+imports JAX, Flax or tip_tpu; and its entry points run on CUDA unless the
+caller asks for the CPU."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from tip_tpu_torch import resolve_device
+from tip_tpu_torch.models import tip_model as TM
+from tip_tpu_torch.ops import kinematics as tkin
+from tip_tpu_torch.runtime import runner as TR
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "tip_tpu")
+PORT_FILES = sorted((ROOT / "tip_tpu_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_nothing_of_jax_or_tip_tpu(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_files_found():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"tip_tpu_torch/runtime/runner.py", "tip_tpu_torch/ops/fused_rnn.py",
+            "tip_tpu_torch/ops/fused_tail.py", "chip_smoke.py"} <= names
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+
+
+def test_run_offline_without_device_raises_without_cuda():
+    _no_cuda()
+    cfg = TR.RunnerConfig(model=TM.ModelConfig(
+        tf_in_dim=32, tf_hid_size=64, n_heads=4, tf_layers=2,
+        rnn_hid_size=24))
+    model = TM.TIPModel(cfg.model, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TR.run_offline(model, cfg, tkin.amass_skeleton(), torch.zeros(114),
+                       torch.zeros(8, 72))
+
+
+@pytest.mark.parametrize("entry", ["model", "runner_init", "resolve"])
+def test_entry_points_default_to_cuda(entry):
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "model":
+            TM.TIPModel(TM.ModelConfig())
+        elif entry == "runner_init":
+            TR.runner_init(TR.RunnerConfig(), tkin.amass_skeleton(),
+                           torch.zeros(114))
+        else:
+            resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_runner_rejects_model_on_another_device():
+    model = TM.TIPModel(TM.ModelConfig(tf_in_dim=32, tf_hid_size=64,
+                                       n_heads=4, tf_layers=2,
+                                       rnn_hid_size=24), device="cpu")
+    cfg = TR.RunnerConfig(model=model.cfg)
+    with pytest.raises(ValueError, match="meta"):
+        TR.run_offline(model, cfg, tkin.amass_skeleton(), torch.zeros(114),
+                       torch.zeros(8, 72), device="meta")

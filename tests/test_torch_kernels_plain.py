@@ -1,0 +1,129 @@
+"""The plain PyTorch versions of the port's kernels against tip_tpu's Pallas
+kernels (run in interpret mode, as tip_tpu's own tests run them).
+
+K1 fused_rnn_plain, K2 decode_fused_plain and K3 tail_fused_plain are what
+the wrappers run for CPU tensors and what chip_smoke.py holds the CUDA
+kernels against on the card. In float64 they agree with the Pallas kernels
+to 1e-12 (1e-10 for the residues, which divide by dt = 1/60); float32 uses
+tip_tpu's own tolerances (tests/test_fused_tail.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy.spatial.transform import Rotation
+
+from tip_tpu.ops import fused_tail as JFT
+from tip_tpu.ops import kinematics as jkin
+from tip_tpu.ops import pallas_kernels as PK
+from tip_tpu_torch.ops import fused_rnn as TFR
+from tip_tpu_torch.ops import fused_tail as TFT
+from tip_tpu_torch.ops import kinematics as tkin
+
+torch.set_num_threads(1)
+
+F64 = dict(dtype=np.float64, tol=1e-12, tol_res=1e-10)
+# float32: tip_tpu's tolerances for its kernel vs the XLA ops
+F32 = dict(dtype=np.float32, tol=2e-6, tol_res=1e-4)
+DTYPES = {"f64": F64, "f32": F32}
+
+
+def _close(t, j, atol, name=""):
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=atol, rtol=0,
+                               err_msg=name)
+
+
+def test_fused_rnn_plain_matches_pallas():
+    rng = np.random.default_rng(0)
+    xin = rng.normal(size=(2, 40, 64))
+    w = rng.uniform(-1, 1, size=(64, 64)) / 8.0
+    j = PK.fused_rnn(jnp.asarray(xin), jnp.asarray(w), interpret=True)
+    t = TFR.fused_rnn_plain(torch.as_tensor(xin), torch.as_tensor(w))
+    _close(t, j, 1e-12)
+    # the wrapper runs the plain version for a CPU tensor
+    t_auto = TFR.fused_rnn(torch.as_tensor(xin), torch.as_tensor(w))
+    np.testing.assert_array_equal(t_auto.numpy(), t.numpy())
+
+
+def _decode_inputs(rng, dtype):
+    D, nf = 131, 6
+    y_t = rng.normal(size=D).astype(dtype)
+    filt = rng.normal(size=(nf, D)).astype(dtype)
+    coeff = (0.6 ** np.arange(nf)[::-1]).astype(dtype)
+    m9 = Rotation.from_rotvec(rng.normal(size=3)).as_matrix() \
+        .reshape(9).astype(dtype)
+    return y_t, filt, coeff, m9
+
+
+@pytest.mark.parametrize("dt_name", sorted(DTYPES))
+@pytest.mark.parametrize("use_filter", [False, True])
+def test_decode_fused_plain_matches_pallas(dt_name, use_filter):
+    d = DTYPES[dt_name]
+    rng = np.random.default_rng(11)
+    for _ in range(3):
+        y_t, filt, coeff, m9 = _decode_inputs(rng, d["dtype"])
+        j = JFT.decode_fused(jnp.asarray(y_t), jnp.asarray(filt),
+                             jnp.asarray(coeff), use_filter, jnp.asarray(m9),
+                             interpret=True)
+        t = TFT.decode_fused(*(torch.as_tensor(a) for a in (y_t, filt, coeff)),
+                             use_filter, torch.as_tensor(m9))
+        assert t.c_t[:, 0].min() == 0 and t.c_t[:, 0].max() == 1
+        for f in TFT.DecodeOut._fields:
+            _close(getattr(t, f), getattr(j, f), d["tol"], f)
+
+
+def _tail_inputs(rng, dtype, jskel):
+    s = rng.normal(size=114) * 0.4
+    s[2] += 0.9
+    ct = rng.normal(size=(5, 4))
+    ct[:, 0] = (ct[:, 0] > 0)                 # decoded flags, random
+    ct[:, 1:] *= 0.05
+    prev_s = s + rng.normal(size=114) * 0.01
+    prev_pq = np.asarray(jkin.fk_our_state(jskel, jnp.asarray(prev_s)))
+    return (s.astype(dtype), ct.reshape(-1).astype(dtype),
+            prev_pq.astype(dtype))
+
+
+@pytest.mark.parametrize("dt_name", sorted(DTYPES))
+@pytest.mark.parametrize("seed", [3, 4])
+def test_tail_fused_plain_matches_pallas(dt_name, seed):
+    d = DTYPES[dt_name]
+    dtype = d["dtype"]
+    rng = np.random.default_rng(seed)
+    jskel = jkin.amass_skeleton(dtype=dtype)
+    tskel = tkin.amass_skeleton(dtype=torch.float64 if dtype == np.float64
+                                else torch.float32)
+    for _ in range(3):
+        s, ct, prev_pq = _tail_inputs(rng, dtype, jskel)
+        j = JFT.tail_fused(jskel, jnp.asarray(s), jnp.asarray(ct),
+                           jnp.asarray(prev_pq), interpret=True)
+        t = TFT.tail_fused(tskel, *(torch.as_tensor(a)
+                                    for a in (s, ct, prev_pq)))
+        for f in TFT.TailOut._fields:
+            tol = d["tol_res"] if f in ("raw_res", "vel_res") else d["tol"]
+            if dtype == np.float32 and f in ("c_locs",):
+                tol = 2e-5                   # tip_tpu's own c_locs tolerance
+            np.testing.assert_array_equal(
+                np.isnan(getattr(t, f).numpy()),
+                np.isnan(np.asarray(getattr(j, f))), err_msg=f)
+            _close(getattr(t, f), getattr(j, f), tol, f)
+
+
+def test_wrappers_raise_for_explicit_kernel_on_cpu():
+    """A kernel asked for by name on CPU tensors raises; nothing falls back
+    silently."""
+    xin, w = torch.zeros(1, 4, 8), torch.zeros(8, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        TFR.fused_rnn(xin, w, impl="kernel")
+    y_t, filt, coeff, m9 = (torch.as_tensor(a) for a in
+                            _decode_inputs(np.random.default_rng(0),
+                                           np.float32))
+    with pytest.raises(ValueError, match="CUDA"):
+        TFT.decode_fused(y_t, filt, coeff, True, m9, impl="fused")
+    skel = tkin.amass_skeleton()
+    with pytest.raises(ValueError, match="CUDA"):
+        TFT.tail_fused(skel, torch.zeros(114), torch.zeros(20),
+                       torch.zeros(20, 7), impl="fused")
+    with pytest.raises(ValueError):
+        TFR.fused_rnn(xin, w, impl="pallas")

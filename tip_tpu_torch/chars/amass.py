@@ -1,0 +1,40 @@
+"""AMASS humanoid character index tables — pure data.
+
+Copy of the tables of tip_tpu/chars/amass.py that the streaming path uses.
+Joint indices follow the URDF file order (= PyBullet link order), root = -1.
+"""
+
+import numpy as np
+
+JOINT_NAMES = (
+    "lhip", "lknee", "lankle",
+    "rhip", "rknee", "rankle",
+    "lowerback", "upperback", "chest", "lowerneck", "upperneck",
+    "lclavicle", "lshoulder", "lelbow", "lwrist",
+    "rclavicle", "rshoulder", "relbow", "rwrist",
+)
+
+# fixed (weld) joints — the wrists carry IMUs but have no DoF
+FIXED_JOINTS = (14, 18)
+
+_JID = {n: i for i, n in enumerate(JOINT_NAMES)}
+
+# bullet joint index -> nimble *state* index; fixed joints -> -1
+NIMBLE_STATE_MAP = {
+    -1: 0,
+    _JID["lhip"]: 1, _JID["lknee"]: 2, _JID["lankle"]: 3,
+    _JID["lowerback"]: 4, _JID["upperback"]: 5, _JID["chest"]: 6,
+    _JID["lclavicle"]: 7, _JID["lshoulder"]: 8, _JID["lelbow"]: 9,
+    _JID["lowerneck"]: 10, _JID["upperneck"]: 11,
+    _JID["rclavicle"]: 12, _JID["rshoulder"]: 13, _JID["relbow"]: 14,
+    _JID["rhip"]: 15, _JID["rknee"]: 16, _JID["rankle"]: 17,
+    _JID["lwrist"]: -1, _JID["rwrist"]: -1,
+}
+
+# actuated (spherical) joints, excluding root and the fixed wrists
+NON_ROOT_ACTIVE_IDX = np.array(
+    [i for i in range(len(JOINT_NAMES)) if i not in FIXED_JOINTS], np.int64)
+
+# for each active joint (bullet order), the nimble-state aa slot
+BULLET_FROM_NIMBLE_GATHER = np.array(
+    [NIMBLE_STATE_MAP[int(i)] - 1 for i in NON_ROOT_ACTIVE_IDX], np.int64)

@@ -1,0 +1,30 @@
+"""Global pipeline constants (copy of tip_tpu/constants.py's values).
+
+These values define the wire/data formats (60 Hz IMU streams, 40-frame
+windows, 57-DoF pose vectors) that the pipeline is built around.
+"""
+
+# Stream timing
+DT = 1.0 / 60.0
+ACC_FD_N = 4                       # central-difference half window for synth acc
+DT_FIN_ACC = DT * ACC_FD_N
+
+# IMU pre-processing
+IMU_N_SMOOTH = 5                   # centered moving average half window
+ACC_SUM_WIN_LEN = 40               # running acc-sum feature window
+ACC_SUM_DOWN_SCALE = 15.0          # scale acc-sum to the range of acc itself
+
+N_DOFS = 57                        # 3 root xyz + 3 root aa + 17*3 joint aa
+
+# Model I/O geometry
+N_IMUS = 6
+IMU_DIM = N_IMUS * (9 + 3)         # 72: 6 sensors x (3x3 rot + 3 acc)
+ACC_SUM_DIM = 18                   # 6 sensors x 3
+N_JOINTS_MODEL = 18                # root + 17 actuated joints predicted as 6D
+ROOT_V_DIM = 3
+SBP_DIM = 4                        # (flag, offset xyz)
+
+
+def state_dim(n_sbps: int) -> int:
+    """Width of the model's per-frame output/history state vector."""
+    return N_JOINTS_MODEL * 6 + ROOT_V_DIM + n_sbps * SBP_DIM

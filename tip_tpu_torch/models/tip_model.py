@@ -1,0 +1,317 @@
+"""The TIP state predictor: causal transformer encoder + uni-directional RNN
+head (twin of tip_tpu/models/tip_model.py), as an ``nn.Module``.
+
+Parameters keep tip_tpu's layout — weights stored (in, out), q/k/v apart —
+so the state dict's keys follow the JAX param tree (``in_linear.w``,
+``layers.0.w_q``, ``rnn.w_hh``, ``out.b``, ...) and ``params_from_jax``
+is a rename.
+
+Reproduced forward quirks (they affect checkpoint compatibility):
+  * NaN past-state inputs are zeroed;
+  * root-velocity channels 108:111 of the history are zeroed;
+  * a fixed feature interleave between in_linear and the encoder (reshape
+    (heads, hd) and swap: ``head_interleave_perm``);
+  * post-norm transformer layers with ReLU feed-forward;
+  * the RNN hidden state is re-zeroed on every call;
+  * no dropout: inference is deterministic. Training (with dropout) comes
+    with the training slice; ``train=True`` raises until then.
+
+The layers are written out from matmuls, softmax and LayerNorm: torch's
+``nn.TransformerEncoderLayer``/``nn.MultiheadAttention`` switch to fused
+library kernels in eval mode.
+"""
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from tip_tpu_torch import resolve_device
+from tip_tpu_torch.ops.fused_rnn import fused_rnn
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    input_size_imu: int = 72          # 6*(9+3)
+    size_s: int = 131                 # 18*6 + 3 + 5*4
+    with_acc_sum: bool = True         # +18 input features
+    tf_in_dim: int = 256
+    tf_hid_size: int = 1024
+    n_heads: int = 16
+    tf_layers: int = 4
+    rnn_hid_size: int = 512
+    with_rnn: bool = True
+    # "auto" (kernel K1 on a CUDA tensor, plain on a CPU tensor) |
+    # "kernel" | "plain" (ops/fused_rnn.py)
+    rnn_impl: str = "auto"
+    # "plain" (this module's forward) | "fused" (the whole-model kernel,
+    # not ported yet: ROADMAP B, fused_forward_last)
+    forward_impl: str = "plain"
+
+    @property
+    def input_dim(self) -> int:
+        extra = 18 if self.with_acc_sum else 0
+        return self.input_size_imu + self.size_s + extra
+
+    @property
+    def head_dim(self) -> int:
+        return self.tf_in_dim // self.n_heads
+
+
+def head_interleave_perm(cfg: ModelConfig) -> np.ndarray:
+    """Static permutation equal to reshape(heads, hd).T flattening."""
+    d, h = cfg.tf_in_dim, cfg.n_heads
+    return np.arange(d).reshape(h, d // h).T.reshape(-1)
+
+
+def causal_mask(T, dtype=torch.float32, device=None):
+    """Additive upper-triangular -inf mask."""
+    i = torch.arange(T, device=device)[:, None]
+    j = torch.arange(T, device=device)[None, :]
+    zero = torch.zeros((), dtype=dtype, device=device)
+    return torch.where(j > i, torch.full((), -math.inf, dtype=dtype,
+                                         device=device), zero)
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """A state dict drawn with torch-equivalent distributions (Linear:
+    kaiming-uniform == U(±1/√fan_in); MHA in_proj: xavier-uniform; LN:
+    ones/zeros), on the CPU from ``generator``."""
+    def uniform(shape, bound):
+        u = torch.rand(shape, generator=generator, dtype=torch.float64)
+        return ((2.0 * u - 1.0) * bound).to(dtype)
+
+    sd = {}
+
+    def linear(name, in_d, out_d):
+        b = 1.0 / math.sqrt(in_d)
+        sd[f"{name}.w"] = uniform((in_d, out_d), b)
+        sd[f"{name}.b"] = uniform((out_d,), b)
+
+    d = cfg.tf_in_dim
+    linear("in_linear", cfg.input_dim, d)
+    xb = math.sqrt(6.0 / (2 * d))
+    for i in range(cfg.tf_layers):
+        p = f"layers.{i}"
+        for n in ("q", "k", "v"):
+            sd[f"{p}.w_{n}"] = uniform((d, d), xb)
+        for n in ("q", "k", "v"):
+            sd[f"{p}.b_{n}"] = torch.zeros(d, dtype=dtype)
+        linear(f"{p}.out_proj", d, d)
+        linear(f"{p}.ff1", d, cfg.tf_hid_size)
+        linear(f"{p}.ff2", cfg.tf_hid_size, d)
+        for n in ("ln1", "ln2"):
+            sd[f"{p}.{n}_s"] = torch.ones(d, dtype=dtype)
+            sd[f"{p}.{n}_b"] = torch.zeros(d, dtype=dtype)
+    linear("out", cfg.rnn_hid_size if cfg.with_rnn else d, cfg.size_s)
+    if cfg.with_rnn:
+        rb = 1.0 / math.sqrt(cfg.rnn_hid_size)
+        H = cfg.rnn_hid_size
+        sd["rnn.w_ih"] = uniform((d, H), rb)
+        sd["rnn.w_hh"] = uniform((H, H), rb)
+        sd["rnn.b_ih"] = uniform((H,), rb)
+        sd["rnn.b_hh"] = uniform((H,), rb)
+    return sd
+
+
+def params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """tip_tpu's param pytree (nested dicts/lists of numpy arrays) -> this
+    module's state dict. Both store weights (in, out), so it is a rename."""
+    sd = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}.{k}" if prefix else k, v)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(f"{prefix}.{i}", v)
+        else:
+            sd[prefix] = torch.as_tensor(np.array(node))
+
+    walk("", tree)
+    return sd
+
+
+def params_from_torch_state_dict(sd, cfg: ModelConfig,
+                                 dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """A reference ``TF_RNN_Past_State.state_dict()`` -> this module's state
+    dict. torch Linear stores (out, in), transposed here; MHA packs q/k/v
+    row-wise into in_proj_weight (3d, d). Keys saved from a
+    ``torch.nn.DataParallel``-wrapped model (all prefixed ``module.``) are
+    accepted."""
+    if sd and all(k.startswith("module.") for k in sd):
+        sd = {k[len("module."):]: v for k, v in sd.items()}
+
+    def t(name):
+        return torch.as_tensor(np.asarray(
+            sd[name].detach().cpu().numpy() if hasattr(sd[name], "detach")
+            else sd[name])).to(dtype)
+
+    out = {"in_linear.w": t("in_linear.weight").T,
+           "in_linear.b": t("in_linear.bias"),
+           "out.w": t("linear.weight").T, "out.b": t("linear.bias")}
+    d = cfg.tf_in_dim
+    for i in range(cfg.tf_layers):
+        p = f"tf_encode.layers.{i}."
+        q = f"layers.{i}."
+        w_in = t(p + "self_attn.in_proj_weight")     # (3d, d) rows [q;k;v]
+        b_in = t(p + "self_attn.in_proj_bias")
+        for j, n in enumerate(("q", "k", "v")):
+            out[q + f"w_{n}"] = w_in[j * d:(j + 1) * d].T
+            out[q + f"b_{n}"] = b_in[j * d:(j + 1) * d]
+        out[q + "out_proj.w"] = t(p + "self_attn.out_proj.weight").T
+        out[q + "out_proj.b"] = t(p + "self_attn.out_proj.bias")
+        out[q + "ff1.w"] = t(p + "linear1.weight").T
+        out[q + "ff1.b"] = t(p + "linear1.bias")
+        out[q + "ff2.w"] = t(p + "linear2.weight").T
+        out[q + "ff2.b"] = t(p + "linear2.bias")
+        out[q + "ln1_s"] = t(p + "norm1.weight")
+        out[q + "ln1_b"] = t(p + "norm1.bias")
+        out[q + "ln2_s"] = t(p + "norm2.weight")
+        out[q + "ln2_b"] = t(p + "norm2.bias")
+    if cfg.with_rnn:
+        out["rnn.w_ih"] = t("rnn.weight_ih_l0").T
+        out["rnn.w_hh"] = t("rnn.weight_hh_l0").T
+        out["rnn.b_ih"] = t("rnn.bias_ih_l0")
+        out["rnn.b_hh"] = t("rnn.bias_hh_l0")
+    return {k: v.contiguous() for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# module
+# ---------------------------------------------------------------------------
+
+def _param(*shape, device, dtype):
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+class _Linear(nn.Module):
+    def __init__(self, in_d, out_d, device, dtype):
+        super().__init__()
+        self.w = _param(in_d, out_d, device=device, dtype=dtype)
+        self.b = _param(out_d, device=device, dtype=dtype)
+
+    def forward(self, x):
+        return x @ self.w + self.b
+
+
+def _layer_norm(x, scale, bias, eps=1e-5):
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+class _EncoderLayer(nn.Module):
+    """One post-norm layer: x = LN1(x + MHA(x)); x = LN2(x + FF(x))."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        d = cfg.tf_in_dim
+        self.n_heads = cfg.n_heads
+        for n in ("q", "k", "v"):
+            setattr(self, f"w_{n}", _param(d, d, device=device, dtype=dtype))
+        for n in ("q", "k", "v"):
+            setattr(self, f"b_{n}", _param(d, device=device, dtype=dtype))
+        self.out_proj = _Linear(d, d, device, dtype)
+        self.ff1 = _Linear(d, cfg.tf_hid_size, device, dtype)
+        self.ff2 = _Linear(cfg.tf_hid_size, d, device, dtype)
+        for n in ("ln1_s", "ln1_b", "ln2_s", "ln2_b"):
+            setattr(self, n, _param(d, device=device, dtype=dtype))
+
+    def forward(self, x, mask):
+        B, T, d = x.shape
+        h = self.n_heads
+        hd = d // h
+
+        def split_heads(t):
+            return t.reshape(B, T, h, hd).transpose(1, 2)   # (B,h,T,hd)
+
+        q = split_heads(x @ self.w_q + self.b_q)
+        k = split_heads(x @ self.w_k + self.b_k)
+        v = split_heads(x @ self.w_v + self.b_v)
+        logits = q @ k.transpose(-1, -2) / math.sqrt(hd) + mask
+        o = torch.softmax(logits, dim=-1) @ v
+        a = self.out_proj(o.transpose(1, 2).reshape(B, T, d))
+        x = _layer_norm(x + a, self.ln1_s, self.ln1_b)
+        f = self.ff2(torch.relu(self.ff1(x)))
+        return _layer_norm(x + f, self.ln2_s, self.ln2_b)
+
+
+class _RNN(nn.Module):
+    def __init__(self, d, H, device, dtype):
+        super().__init__()
+        self.w_ih = _param(d, H, device=device, dtype=dtype)
+        self.w_hh = _param(H, H, device=device, dtype=dtype)
+        self.b_ih = _param(H, device=device, dtype=dtype)
+        self.b_hh = _param(H, device=device, dtype=dtype)
+
+
+class TIPModel(nn.Module):
+    """The predictor. Built on ``cuda`` unless ``device`` says otherwise;
+    weights from ``init_params(cfg, generator)`` (a generator seeded 0 when
+    none is given), replaceable with ``load_state_dict``."""
+
+    def __init__(self, cfg: ModelConfig = ModelConfig(), device=None,
+                 dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.forward_impl != "plain":
+            raise NotImplementedError(
+                f"forward_impl={cfg.forward_impl!r}: the whole-model kernel "
+                f"is not ported yet (ROADMAP B, fused_forward_last)")
+        device = resolve_device(device)
+        self.cfg = cfg
+        d = cfg.tf_in_dim
+        self.in_linear = _Linear(cfg.input_dim, d, device, dtype)
+        self.layers = nn.ModuleList(
+            [_EncoderLayer(cfg, device, dtype) for _ in range(cfg.tf_layers)])
+        if cfg.with_rnn:
+            self.rnn = _RNN(d, cfg.rnn_hid_size, device, dtype)
+        self.out = _Linear(cfg.rnn_hid_size if cfg.with_rnn else d,
+                           cfg.size_s, device, dtype)
+        self.register_buffer("perm", torch.as_tensor(
+            head_interleave_perm(cfg), device=device), persistent=False)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.load_state_dict(init_params(cfg, generator, dtype))
+
+    def forward(self, x_imu, x_s, mask=None, train: bool = False):
+        """Run the predictor.
+
+        Args:
+          x_imu: (B, T, 72 or 90) IMU features (acc-sum appended if enabled).
+          x_s:   (B, T, size_s) past-state history.
+          mask:  optional additive attention mask (T, T); defaults to causal.
+        Returns:
+          (B, T, size_s) next-state predictions at every window position.
+        """
+        if train:
+            raise NotImplementedError(
+                "training forward (dropout) comes with the training slice "
+                "(ROADMAP A, training)")
+        B, T, _ = x_imu.shape
+        x_s = torch.nan_to_num(x_s, nan=0.0)
+        x_s = torch.cat([x_s[..., :108], torch.zeros_like(x_s[..., 108:111]),
+                         x_s[..., 111:]], dim=-1)
+        x = self.in_linear(torch.cat([x_imu, x_s], dim=-1))
+        x = x[..., self.perm]
+        if mask is None:
+            mask = causal_mask(T, x.dtype, x.device)
+        for layer in self.layers:
+            x = layer(x, mask)
+        if self.cfg.with_rnn:
+            rnn = self.rnn
+            # input matmul hoisted; both biases folded into the pre-activation
+            xin = x @ rnn.w_ih + rnn.b_ih + rnn.b_hh
+            x = fused_rnn(xin.contiguous(), rnn.w_hh, impl=self.cfg.rnn_impl)
+        return self.out(x)

@@ -1,0 +1,144 @@
+"""Builds and loads the port's CUDA kernels, and counts their launches.
+
+Each ``csrc/<name>.cu`` is compiled by plain ``nvcc`` into its own shared
+library with a C interface (``build/tip_tpu_torch/<name>-<hash>.so`` at the
+repo root, named by a hash of the source so an edit rebuilds) and loaded
+with ``ctypes``. Nothing is built when a module is imported: the first call
+of a kernel wrapper builds, or ``build_all()`` builds every source at once,
+one ``nvcc`` process per source, all started together.
+
+Every C entry point takes pointers and the stream as ``c_void_p`` and
+returns ``cudaGetLastError()``; ``check`` raises if it is not 0.
+"""
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_ROOT = Path(__file__).resolve().parents[2]
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = _ROOT / "build" / "tip_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# launches per kernel wrapper; a wrapper adds one where it launches its
+# kernel and nowhere else
+launch_counts = collections.Counter()
+
+_libs = {}
+
+
+def reset_launch_counts():
+    launch_counts.clear()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def sources():
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build_all(names=None):
+    """Compile every source that has no up-to-date library, all in
+    parallel; raise with nvcc's output if one fails."""
+    names = sources() if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{log.decode(errors='replace')}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+
+
+def lib(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use, with
+    ``argtypes``/``restype`` declared from ``signatures``
+    (function name -> list of ctypes argument types)."""
+    if name not in _libs:
+        path = _lib_path(name)
+        if not path.exists():
+            build_all([name])
+        so = ctypes.CDLL(str(path))
+        for fn, argtypes in signatures.items():
+            f = getattr(so, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        _libs[name] = so
+    return _libs[name]
+
+
+def check_impl(impl: str, option: str, explicit: str):
+    """Raise unless ``impl`` is "auto", ``explicit`` (the option's name for
+    the kernel: "kernel" or "fused") or "plain"."""
+    if impl not in ("auto", explicit, "plain"):
+        raise ValueError(f"{option} must be auto|{explicit}|plain, got "
+                         f"{impl!r}")
+
+
+def use_kernel(impl: str, t, option: str, explicit: str) -> bool:
+    """Whether a wrapper launches its kernel on ``t`` under
+    ``option=impl``: "plain" never; "auto" for a CUDA tensor; ``explicit``
+    for a CUDA tensor, and it raises for a CPU one. A CUDA tensor thus
+    reaches the kernel unless the caller asked for "plain"."""
+    check_impl(impl, option, explicit)
+    if impl == "plain":
+        return False
+    if t.is_cuda:
+        return True
+    if impl == explicit:
+        raise ValueError(f"{option}={explicit!r} needs a CUDA tensor; the "
+                         f"CPU runs the plain version ({option}='auto' or "
+                         f"'plain')")
+    return False
+
+
+def check(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def check_input(t, name: str, shape, dtype, device):
+    """Raise unless ``t`` is a contiguous tensor of this shape and dtype on
+    ``device`` that needs no gradient (the kernels are inference-only)."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    if t.requires_grad:
+        raise NotImplementedError(
+            f"{name}: requires grad; the kernels are inference-only until "
+            f"the training slice (ROADMAP B, training)")

@@ -1,0 +1,191 @@
+"""Fused runner decode and tail (twin of tip_tpu/ops/fused_tail.py).
+
+Two kernels in ``csrc/fused_tail.cu``, each one launch per frame:
+
+  K2 ``decode_fused``: runner stages 4-5's heavy math — the exponential
+     output filter, SBP flag/offset decode, the root IMU matrix -> quat and
+     the 17 6D -> quat joint decodes. The quat -> axis-angle step stays
+     outside, as in tip_tpu, so the outputs compare one to one.
+  K3 ``tail_fused``: runner stages 6-7 — aa -> quat decode, the FK tree
+     walk, CoM/joint frames, the 5 SBP residues, the clipped feet mean and
+     the 18-row 6D history re-encode. The z fix and the -vel_res*dt shifts
+     stay in the runner.
+
+Beside each, a plain PyTorch version with the same outputs
+(``decode_fused_plain``, ``tail_fused_plain``). The wrappers take
+``impl``: "fused" launches the kernel (CUDA tensors only), "plain" runs the
+plain version, "auto" launches for a CUDA tensor and runs the plain
+version for a CPU tensor.
+"""
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tip_tpu_torch import constants as cst
+from tip_tpu_torch import device_const
+from tip_tpu_torch.chars import amass as _char
+from tip_tpu_torch.ops import _kernels as K
+from tip_tpu_torch.ops import kinematics as kin
+from tip_tpu_torch.ops import rotations as rot
+from tip_tpu_torch.ops import sbp as sbp_ops
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIG = {
+    "decode_fused_launch": [_P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P],
+    "tail_fused_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_float,
+                          _P, _P, _P, _P, _P, _P, _P, _P],
+}
+
+# joint j -> nimble aa slot whose quat is its local rotation (-1: fixed)
+_JOINT_SLOT = np.full(len(_char.JOINT_NAMES), -1, np.int32)
+_JOINT_SLOT[_char.NON_ROOT_ACTIVE_IDX] = _char.BULLET_FROM_NIMBLE_GATHER
+_JOINT_SLOT = tuple(int(i) for i in _JOINT_SLOT)
+
+
+class DecodeOut(NamedTuple):
+    y_f: torch.Tensor        # (131,) filtered model output
+    c_t: torch.Tensor        # (5, 4) decoded SBP rows [flag, offsets/5]
+    q_rows: torch.Tensor     # (18, 4) quats: row 0 = root (from IMU ori),
+    #                          rows 1..17 = model joints 1..17 (6D-decoded)
+
+
+class TailOut(NamedTuple):
+    pq_com: torch.Tensor     # (20, 7) CoM link frames (pre-correction)
+    pq_jf: torch.Tensor      # (20, 7) joint frames
+    hist_sixd: torch.Tensor  # (18, 6) two-axis encode of s[3:57]
+    vel_res: torch.Tensor    # (3,) clipped mean feet residue (pre z-fix)
+    c_locs: torch.Tensor     # (5, 3) world SBP positions (100s if inactive)
+    raw_res: torch.Tensor    # (5, 3) per-SBP residue (NaN rows if inactive)
+    active: torch.Tensor     # (5,) float 0/1 — SBP flag set
+
+
+# ---------------------------------------------------------------------------
+# K2: decode
+# ---------------------------------------------------------------------------
+
+def decode_fused_plain(y_t, filt_view, coeff, use_filter: bool, local9,
+                       n_sbps: int = 5) -> DecodeOut:
+    """Plain version of K2: the runner's stage 4-5 math before the
+    axis-angle step, plus matrix_to_q."""
+    y_smooth = torch.sum(filt_view * coeff[:, None], dim=0) / torch.sum(coeff)
+    y_f = y_smooth if use_filter else y_t
+    c = y_f[-n_sbps * 4:].reshape(n_sbps, 4)
+    flags = (c[:, 0] > 0.0).to(y_f.dtype)
+    c_t = torch.cat([flags[:, None], c[:, 1:] / 5.0], dim=1)
+    q_root = rot.matrix_to_q(local9.reshape(3, 3))
+    q_joints = rot.matrix_to_q(rot.sixd_to_matrix(y_f[:108].reshape(18, 6)))
+    return DecodeOut(y_f=y_f, c_t=c_t,
+                     q_rows=torch.cat([q_root[None], q_joints[1:]], dim=0))
+
+
+def decode_fused(y_t, filt_view, coeff, use_filter: bool, local9,
+                 filter_len: int = 6, n_sbps: int = 5,
+                 impl: str = "auto") -> DecodeOut:
+    """Output filter + SBP decode + 18 quat decodes as one op.
+
+    Args:
+      y_t: (D,) raw model output of this frame.
+      filt_view: (filter_len, D) chronological output ring (oldest first).
+      coeff: (filter_len,) filter weights.
+      use_filter: host bool — n_out >= filter_len.
+      local9: (9,) row-major root IMU rotation matrix.
+    """
+    if not K.use_kernel(impl, y_t, "tail_impl", "fused"):
+        return decode_fused_plain(y_t, filt_view, coeff, use_filter, local9,
+                                  n_sbps)
+    D = y_t.shape[0]
+    dev, f32 = y_t.device, torch.float32
+    K.check_input(y_t, "y_t", (D,), f32, dev)
+    K.check_input(filt_view, "filt_view", (filter_len, D), f32, dev)
+    K.check_input(coeff, "coeff", (filter_len,), f32, dev)
+    K.check_input(local9, "local9", (9,), f32, dev)
+    if D < 108 + 4 * n_sbps:
+        raise ValueError(f"y_t width {D} holds no 18 6D rows + SBPs")
+    if not 0 < n_sbps <= 96:
+        raise ValueError(f"decode_fused's block decodes 1..96 SBPs, got "
+                         f"{n_sbps}")
+    y_f = torch.empty(D, dtype=f32, device=dev)
+    c_t = torch.empty((n_sbps, 4), dtype=f32, device=dev)
+    q = torch.empty((18, 4), dtype=f32, device=dev)
+    so = K.lib("fused_tail", _SIG)
+    err = so.decode_fused_launch(
+        y_t.data_ptr(), filt_view.data_ptr(), coeff.data_ptr(), filter_len,
+        local9.data_ptr(), int(bool(use_filter)), D, n_sbps, y_f.data_ptr(),
+        c_t.data_ptr(), q.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    K.check(err, "decode_fused")
+    K.launch_counts["decode_fused"] += 1
+    return DecodeOut(y_f=y_f, c_t=c_t, q_rows=q)
+
+
+# ---------------------------------------------------------------------------
+# K3: tail
+# ---------------------------------------------------------------------------
+
+def tail_fused_plain(skel: kin.Skeleton, s_t, c_t, prev_pq,
+                     dt: float = cst.DT, n_sbps: int = 5) -> TailOut:
+    """Plain version of K3: fk_our_state + root_correction_from_constrs +
+    aa_to_sixd of s[3:57]. Unlike the kernel it takes any SBP count (the
+    first ``min(5, n_sbps)`` evaluated)."""
+    pq_com, pq_jf = kin.fk_our_state(skel, s_t, return_joint_frame=True)
+    corr = sbp_ops.root_correction_from_constrs(
+        prev_pq, pq_com, c_t, n_sbps=n_sbps, use_n_sbps=min(5, n_sbps), dt=dt)
+    hist = rot.aa_to_sixd(s_t[3:57].reshape(18, 3))
+    return TailOut(pq_com=pq_com, pq_jf=pq_jf, hist_sixd=hist,
+                   vel_res=corr.vel_res, c_locs=corr.c_locs,
+                   raw_res=corr.raw_residues,
+                   active=corr.active.to(s_t.dtype))
+
+
+def tail_fused(skel: kin.Skeleton, s_t, c_t, prev_pq, dt: float = cst.DT,
+               impl: str = "auto", n_sbps: int = 5) -> TailOut:
+    """Stages 6-7 of the runner for one (114,) nimble state and the 5-SBP
+    layout, minus the runner's z fix and -vel_res*dt shifts:
+
+        pq_com, pq_jf = kinematics.fk_our_state(skel, s_t, True)
+        corr = sbp.root_correction_from_constrs(prev_pq, pq_com, c_t)
+        hist_sixd = rotations.aa_to_sixd(s_t[3:57].reshape(18, 3))
+    """
+    if not K.use_kernel(impl, s_t, "tail_impl", "fused"):
+        return tail_fused_plain(skel, s_t, c_t, prev_pq, dt, n_sbps)
+    if n_sbps != 5:
+        raise ValueError(f"tail_fused's kernel takes the 5-SBP layout only, "
+                         f"got n_sbps={n_sbps}")
+    J = skel.n_joints
+    n_links = J + 1
+    if n_links > 32 or J != len(_JOINT_SLOT):
+        raise ValueError(f"tail_fused takes the 19-joint AMASS pose layout, "
+                         f"got {J} joints")
+    if any(p >= j for j, p in enumerate(skel.parent)):
+        raise ValueError("tail_fused walks joints in order: every parent "
+                         "must come before its children")
+    dev, f32 = s_t.device, torch.float32
+    K.check_input(s_t, "s_t", (114,), f32, dev)
+    K.check_input(c_t, "c_t", (20,), f32, dev)
+    K.check_input(prev_pq, "prev_pq", (n_links, 7), f32, dev)
+    K.check_input(skel.joint_offset, "joint_offset", (J, 3), f32, dev)
+    K.check_input(skel.com_offset, "com_offset", (n_links, 3), f32, dev)
+    K.check_input(skel.parent_i32, "parent", (J,), torch.int32, dev)
+    K.check_input(skel.is_fixed_i32, "is_fixed", (J,), torch.int32, dev)
+    slot = device_const(_JOINT_SLOT, torch.int32, dev)
+    out = torch.empty(2 * n_links * 7 + 108 + 3 + 15 + 15 + 5, dtype=f32,
+                      device=dev)
+    pq_com, pq_jf, hist, vres, clocs, rres, act = torch.split(
+        out, [n_links * 7, n_links * 7, 108, 3, 15, 15, 5])
+    so = K.lib("fused_tail", _SIG)
+    err = so.tail_fused_launch(
+        s_t.data_ptr(), c_t.data_ptr(), prev_pq.data_ptr(),
+        skel.joint_offset.data_ptr(), skel.com_offset.data_ptr(),
+        skel.parent_i32.data_ptr(), skel.is_fixed_i32.data_ptr(),
+        slot.data_ptr(), J, float(dt), pq_com.data_ptr(), pq_jf.data_ptr(),
+        hist.data_ptr(), vres.data_ptr(), clocs.data_ptr(), rres.data_ptr(),
+        act.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    K.check(err, "tail_fused")
+    K.launch_counts["tail_fused"] += 1
+    return TailOut(pq_com=pq_com.view(n_links, 7), pq_jf=pq_jf.view(n_links, 7),
+                   hist_sixd=hist.view(18, 6), vel_res=vres,
+                   c_locs=clocs.view(5, 3), raw_res=rres.view(5, 3),
+                   active=act)

@@ -1,0 +1,350 @@
+"""Streaming inference runtime, recompute mode (twin of
+tip_tpu/runtime/runner.py).
+
+One 60 Hz frame of the minimal runner is
+
+    runner_step : (model, carry, imu_t) -> (carry', out_t)
+
+over a carry of fixed-size tensors (ring buffers) plus three host ints.
+The frame pipeline (reference real_time_runner_minimal.py:114-200):
+
+  1. raw ring: acc smoothed over an 11-frame centered window; orientation
+     delayed 5 frames (fixed 5-frame algorithmic latency);
+  2. per-frame root-local IMU features + running 40-frame acc-sum;
+  3. model forward over the (<=40)-frame window, left-aligned, with the
+     output read at the last valid index;
+  4. exponential output filter (0.6^k over the last 6 raw outputs) and
+     SBP / 6D decode (kernel K2, ops/fused_tail.decode_fused);
+  5. state assembly: root ori from IMU0, root xyz integrated from the
+     predicted velocity, 2-frame pose blend;
+  6. FK + SBP root correction (kernel K3, ops/fused_tail.tail_fused) with
+     the flat-ground z fix;
+  7. history push for the next frame's autoregressive input.
+
+The frame counters ``t``, ``k`` and ``n_out`` depend only on the frame
+index, so they are host ints and tip_tpu's ``jnp.where(active, ...)``
+selects become host branches: a frame enqueues its work on the device and
+never waits for it. A frame before the first smoothed IMU frame (``t <
+imu_n_smooth``) runs no model and no kernel and returns ``s_init``.
+"""
+
+from dataclasses import dataclass, replace
+import numpy as np
+import torch
+
+from tip_tpu_torch import constants as cst
+from tip_tpu_torch import device_const, resolve_device
+from tip_tpu_torch.models import tip_model as M
+from tip_tpu_torch.ops import _kernels as K
+from tip_tpu_torch.ops import fused_tail as FT
+from tip_tpu_torch.ops import imu as imu_ops
+from tip_tpu_torch.ops import kinematics as kin
+from tip_tpu_torch.ops import rotations as rot
+
+
+@dataclass(frozen=True)
+class RunnerConfig:
+    model: M.ModelConfig = M.ModelConfig()
+    n_sbps: int = 5
+    window: int = 40                      # max_input_l
+    imu_n_smooth: int = cst.IMU_N_SMOOTH  # 5
+    with_acc_sum: bool = True
+    dt: float = cst.DT
+    # exponential output filter weights 0.6^[5..0]
+    filter_len: int = 6
+    # stages 4-7: "fused" launches kernels K2 (decode) and K3 (tail) and
+    # needs CUDA tensors; "plain" runs their plain PyTorch versions; "auto"
+    # is fused on a CUDA device and plain on the CPU. K3 takes the 5-SBP
+    # layout only: another SBP count on the card needs "plain"
+    tail_impl: str = "auto"
+    # only "recompute" (the windowed forward every frame) is ported
+    serving_mode: str = "recompute"
+
+    def __post_init__(self):
+        # the per-frame acc-sum equals the sum over the model window only
+        # when the two lengths coincide
+        if self.with_acc_sum and self.window != cst.ACC_SUM_WIN_LEN:
+            raise ValueError("acc-sum feature requires window == "
+                             "ACC_SUM_WIN_LEN")
+        K.check_impl(self.tail_impl, "tail_impl", "fused")
+        if self.tail_impl == "fused" and self.n_sbps != 5:
+            raise ValueError("tail_impl='fused' supports the 5-SBP layout only")
+        if self.serving_mode != "recompute":
+            raise NotImplementedError(
+                f"serving_mode={self.serving_mode!r}: the KV-cache serving "
+                f"modes are not ported yet (ROADMAP B, KV-cache serving)")
+        if self.model.forward_impl != "plain":
+            raise NotImplementedError(
+                f"forward_impl={self.model.forward_impl!r}: the whole-model "
+                f"kernel is not ported yet (ROADMAP B, fused_forward_last)")
+
+    @property
+    def smooth_win(self) -> int:
+        return 2 * self.imu_n_smooth + 1   # 11
+
+    @property
+    def state_dim(self) -> int:
+        return cst.state_dim(self.n_sbps)  # 131 for 5 SBPs
+
+
+@dataclass
+class RunnerCarry:
+    """Runner state. Window buffers are left-aligned and time-major; the
+    three counters are host ints."""
+    t: int                         # frames seen so far
+    raw_imu: torch.Tensor          # (11, 72) raw ring, newest last
+    k: int                         # smoothed frames seen (window holds
+    #                                the last min(k, window) of them)
+    imu_win: torch.Tensor          # (40, 72) local features, left-aligned
+    accsum_win: torch.Tensor       # (40, 18) acc-sum features (unscaled)
+    acc_runsum: torch.Tensor       # (18,) running 40-frame local-acc sum
+    s_and_c_win: torch.Tensor      # (40, state_dim) autoregressive history
+    out_buf: torch.Tensor          # (6, state_dim) raw outputs, newest last
+    n_out: int                     # outputs produced so far
+    last_s: torch.Tensor           # (114,) previous assembled state
+    prev_pq: torch.Tensor          # (20, 7) previous FK frames
+    prev_root: torch.Tensor        # (3,) previous root xyz (post-correction)
+    c_locs: torch.Tensor           # (n_sbps, 3)
+    s_init: torch.Tensor           # (114,) initial state (warmup output)
+
+
+def _filter_coeff(cfg: RunnerConfig, dtype, device) -> torch.Tensor:
+    return device_const(tuple(0.6 ** np.arange(cfg.filter_len)[::-1]),
+                        dtype, device)
+
+
+def state_to_history(s, c, n_sbps: int):
+    """(114,) state + (n_sbps*4,) SBP vector -> (state_dim,) history entry:
+    [root_aa + 17 joint aa] as two-axis 6D (108) + root velocity (3) + SBP
+    vector."""
+    aa = s[3:3 + 54].reshape(18, 3)
+    sixd = rot.aa_to_sixd(aa).reshape(108)
+    root_v = s[cst.N_DOFS:cst.N_DOFS + 3]
+    return torch.cat([sixd, root_v, c])
+
+
+def runner_init(cfg: RunnerConfig, skel: kin.Skeleton, s_init,
+                dtype=torch.float32, device=None) -> RunnerCarry:
+    """The carry before the first frame, on ``device`` (``cuda`` unless the
+    caller asks for another)."""
+    device = resolve_device(device)
+    _check_on(skel.joint_offset, device, "skeleton")
+    s_init = torch.as_tensor(s_init, dtype=dtype, device=device)
+    sd = cfg.state_dim
+    hist0 = state_to_history(
+        s_init, torch.zeros(cfg.n_sbps * 4, dtype=dtype, device=device),
+        cfg.n_sbps)
+    pq0 = kin.fk_our_state(skel, s_init)
+    s_and_c = torch.zeros((cfg.window, sd), dtype=dtype, device=device)
+    s_and_c[0] = hist0
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return RunnerCarry(
+        t=0,
+        raw_imu=zeros(cfg.smooth_win, cst.IMU_DIM),
+        k=0,
+        imu_win=zeros(cfg.window, cst.IMU_DIM),
+        accsum_win=zeros(cfg.window, cst.ACC_SUM_DIM),
+        acc_runsum=zeros(cst.ACC_SUM_DIM),
+        s_and_c_win=s_and_c,
+        out_buf=zeros(cfg.filter_len, sd),
+        n_out=0,
+        last_s=s_init,
+        prev_pq=pq0.to(dtype),
+        prev_root=s_init[:3],
+        c_locs=torch.full((cfg.n_sbps, 3), 100.0, dtype=dtype, device=device),
+        s_init=s_init,
+    )
+
+
+def _push_left_aligned(win, k: int, x, window: int):
+    """Append x to a left-aligned ring: write at slot k while k < window,
+    else shift left and write at the end."""
+    if k < window:
+        out = win.clone()
+        out[k] = x
+        return out
+    return torch.cat([win[1:], x[None]], dim=0)
+
+
+def push_history(cfg: RunnerConfig, old_win, k_new: int, hist):
+    """Append a history entry to the chronological left-aligned window the
+    recompute forward consumes."""
+    return _push_left_aligned(old_win, k_new, hist, cfg.window)
+
+
+class SensedFrame(tuple):
+    """(raw, k_new, imu_win, accsum_win, acc_runsum, out_buf, n_out, active,
+    s_t, c_t) — output of the sensing/prediction front-end. ``active`` is a
+    host bool (the model has at least one frame); s_t and c_t are None
+    when it is False."""
+    __slots__ = ()
+
+
+def sense_and_predict(model: M.TIPModel, carry: RunnerCarry, cur_imu,
+                      cfg: RunnerConfig) -> SensedFrame:
+    """Stages 1-5: raw-ring smoothing, local features + acc-sum, model
+    forward, output filter, state assembly. Returns (buffer updates…,
+    active flag, assembled s_t, SBP vector c_t)."""
+    dtype = carry.imu_win.dtype
+    dev = carry.imu_win.device
+    cur_imu = torch.as_tensor(cur_imu, dtype=dtype, device=dev)
+    W = cfg.window
+
+    # ---- 1. raw ring + smoothing ---------------------------------------------
+    if carry.t == 0:
+        raw = cur_imu.expand(carry.raw_imu.shape).clone()
+    else:
+        raw = torch.cat([carry.raw_imu[1:], cur_imu[None]], dim=0)
+    # a smoothed frame is available from t >= imu_n_smooth; before it the
+    # model has no input and nothing but the raw ring moves
+    if carry.t < cfg.imu_n_smooth:
+        return SensedFrame((raw, carry.k, carry.imu_win, carry.accsum_win,
+                            carry.acc_runsum, carry.out_buf, carry.n_out,
+                            False, None, None))
+    ori = raw[cfg.imu_n_smooth, :54]                  # 5-frame-delayed
+    acc = torch.mean(raw[:, 54:72], dim=0)            # 11-frame average
+
+    # ---- 2. per-frame local features + acc-sum -------------------------------
+    local = imu_ops.imu_rotate_to_local(torch.cat([ori, acc])[None])[0]
+    runsum = carry.acc_runsum + local[54:72]
+    if carry.k >= W:                                  # oldest acc leaves
+        runsum = runsum - carry.imu_win[0, 54:72]
+    imu_win = _push_left_aligned(carry.imu_win, carry.k, local, W)
+    accsum_win = _push_left_aligned(carry.accsum_win, carry.k, runsum, W)
+    k_new = carry.k + 1
+
+    # ---- 3. model forward ------------------------------------------------------
+    x_imu = imu_win
+    if cfg.with_acc_sum:
+        x_imu = torch.cat([imu_win, accsum_win / cst.ACC_SUM_DOWN_SCALE],
+                          dim=-1)
+    y = model(x_imu[None], carry.s_and_c_win[None])
+    y_t = y[0, min(k_new, W) - 1]            # last valid row, (state_dim,)
+
+    # ---- 4. output filter + decode (kernel K2) ---------------------------------
+    out_buf = torch.cat([carry.out_buf[1:], y_t[None]], dim=0)
+    n_out = carry.n_out + 1
+    dec = FT.decode_fused(y_t, out_buf, _filter_coeff(cfg, dtype, dev),
+                          n_out >= cfg.filter_len, local[:9],
+                          filter_len=cfg.filter_len, n_sbps=cfg.n_sbps,
+                          impl=cfg.tail_impl)
+    y_f = dec.y_f
+    c_t = dec.c_t.reshape(-1)
+    # quat -> axis-angle stays outside the kernel, as in tip_tpu
+    aa18 = rot.q_to_aa(dec.q_rows)              # row 0: root ori from IMU0
+
+    # ---- 5. state assembly -----------------------------------------------------
+    root_v = y_f[108:111]
+    s_t = torch.cat([carry.prev_root + root_v * cfg.dt, aa18.reshape(54),
+                     root_v, torch.zeros(cst.N_DOFS - 3, dtype=dtype,
+                                         device=dev)])
+    if carry.n_out >= 1:                     # last_s was a real frame
+        s_t = torch.cat([s_t[:6], (s_t[6:] + carry.last_s[6:]) / 2.0])
+    return SensedFrame((raw, k_new, imu_win, accsum_win, runsum, out_buf,
+                        n_out, True, s_t, c_t))
+
+
+def _tail(cfg: RunnerConfig, skel: kin.Skeleton, s_t, c_t, prev_pq):
+    """Stages 6-7's FK + SBP root-correction inputs + 6D history encode
+    (kernel K3 or its plain version): vel_res is the clipped mean feet
+    residue BEFORE the z fix, c_locs the world SBP positions before the
+    -vel_res*dt shift."""
+    return FT.tail_fused(skel, s_t, c_t, prev_pq, dt=cfg.dt,
+                         impl=cfg.tail_impl,
+                         n_sbps=cfg.n_sbps)
+
+
+def runner_step(model: M.TIPModel, carry: RunnerCarry, cur_imu,
+                cfg: RunnerConfig, skel: kin.Skeleton):
+    """One 60 Hz frame of the minimal runner (flat-ground assumption).
+    Returns (carry', dict(qdq, viz_locs, ct))."""
+    (raw, k_new, imu_win, accsum_win, acc_runsum, out_buf, n_out, active,
+     s_t, c_t) = sense_and_predict(model, carry, cur_imu, cfg)
+    if not active:
+        # warmup: return s_init, freeze the state
+        new_carry = replace(carry, t=carry.t + 1, raw_imu=raw)
+        return new_carry, {
+            "qdq": carry.s_init,
+            "viz_locs": torch.full_like(carry.c_locs, 100.0),
+            "ct": torch.zeros(cfg.n_sbps * 4, dtype=carry.s_init.dtype,
+                              device=carry.s_init.device)}
+
+    # ---- 6. FK + SBP root correction (kernel K3) ---------------------------
+    to = _tail(cfg, skel, s_t, c_t, carry.prev_pq)
+    # flat-ground assumption: z correction pulls active feet SBPs to z=0
+    act = to.active > 0.5
+    zero = torch.zeros((), dtype=s_t.dtype, device=s_t.device)
+    z = (torch.where(act[0], to.c_locs[0, 2], zero)
+         + torch.where(act[1], to.c_locs[1, 2], zero))
+    vel_res = torch.cat([to.vel_res[:2], z[None]])
+    shift = vel_res * cfg.dt
+    c_locs = to.c_locs - shift[None, :]
+    s_t = torch.cat([s_t[:3] - shift, s_t[3:]])
+    pq_g = torch.cat([to.pq_com[:, :3] - shift[None, :], to.pq_com[:, 3:]],
+                     dim=1)
+
+    # ---- 7. history push ----------------------------------------------------
+    hist = torch.cat([to.hist_sixd.reshape(108),
+                      s_t[cst.N_DOFS:cst.N_DOFS + 3], c_t])
+    s_and_c_win = push_history(cfg, carry.s_and_c_win, k_new, hist)
+
+    new_carry = RunnerCarry(
+        t=carry.t + 1, raw_imu=raw, k=k_new, imu_win=imu_win,
+        accsum_win=accsum_win, acc_runsum=acc_runsum,
+        s_and_c_win=s_and_c_win, out_buf=out_buf, n_out=n_out,
+        last_s=s_t, prev_pq=pq_g, prev_root=s_t[:3], c_locs=c_locs,
+        s_init=carry.s_init)
+    return new_carry, {"qdq": s_t, "viz_locs": c_locs, "ct": c_t}
+
+
+def _check_on(t: torch.Tensor, device: torch.device, what: str):
+    if t.device.type != device.type or (
+            device.index is not None and t.device.index != device.index):
+        raise ValueError(f"{what} is on {t.device}, the run is on {device}: "
+                         f"build it there")
+
+
+def run_offline(model: M.TIPModel, cfg: RunnerConfig, skel: kin.Skeleton,
+                s_init, imu_seq, device=None):
+    """Stream a recorded IMU sequence through the runner, frame by frame.
+
+    s_traj[0] = s_init, then s_traj[t+1] = step(imu[t]) (offline driver
+    loop, reference offline_testing_simple.py:109-155). The latency trim
+    (IMU_n_smooth + 2 frames) is applied by the caller (``trim_latency``).
+    Runs on ``device`` (``cuda`` unless the caller asks for another); the
+    model and skeleton must already be there, in the dtype of the run.
+
+    Returns (s_traj (T, 114), c_traj (T, n_sbps*4), viz (T, n_sbps, 3)).
+    """
+    device = resolve_device(device)
+    if model.cfg != cfg.model:
+        raise ValueError("the model was built for another ModelConfig than "
+                         "cfg.model")
+    _check_on(next(model.parameters()), device, "the model")
+    dtype = next(model.parameters()).dtype
+    carry = runner_init(cfg, skel, s_init, dtype=dtype, device=device)
+    imu_seq = torch.as_tensor(imu_seq, dtype=dtype, device=device)
+    qdq, ct, viz = [carry.s_init], [], []
+    with torch.no_grad():
+        for t in range(imu_seq.shape[0] - 1):
+            carry, out = runner_step(model, carry, imu_seq[t], cfg, skel)
+            qdq.append(out["qdq"])
+            ct.append(out["ct"])
+            viz.append(out["viz_locs"])
+    s_traj = torch.stack(qdq)
+    c_traj = torch.stack([torch.zeros_like(carry.s_init[:cfg.n_sbps * 4])]
+                         + ct)
+    viz = torch.stack([torch.full_like(carry.c_locs, 100.0)] + viz)
+    return s_traj, c_traj, viz
+
+
+def trim_latency(arr, trim: int):
+    """Shift predictions earlier by ``trim`` frames, repeating the final frame
+    (reference offline_testing_simple.py:148-153). Host-side numpy."""
+    arr = np.asarray(arr).copy()
+    arr[0:-trim] = arr[trim:]
+    arr[-trim:] = arr[-trim - 1]
+    return arr
