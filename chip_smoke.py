@@ -7,13 +7,20 @@ Phases, in order; any failure exits non-zero:
 
   1. require CUDA, turn TF32 off, print the card's name and power limit;
   2. build the CUDA kernels from tip_tpu_torch/csrc with nvcc;
-  3. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes, and time both (and K1's cuDNN yardstick);
-  4. run the main path: the full-width model (ModelConfig() defaults, random
-     weights from a seeded generator) in the recompute streaming runner over
-     the in-tree 720-frame motion, with every launch counter reset just
-     before and read just after; compare it with the plain path on the card
-     and with a float64 CPU run of the plain path; time frames;
+  3. hold each kernel (K1-K6) against its plain PyTorch version on the card
+     at the main paths' shapes, and time both (and K1's cuDNN yardstick);
+  4. run the main paths: the full-width model (ModelConfig() defaults,
+     random weights from a seeded generator) in the recompute streaming
+     runner over the in-tree 720-frame motion, each path with every launch
+     counter reset just before and read just after:
+       A  the default: eager model with K1, decode K2, tail K3;
+       C  forward_impl="fused" with f32 packing (K4), plain decode and tail
+          with the FK kernel (K6);
+       B  forward_impl="fused" with bf16 packing (K4), K2, K3; then a
+          teacher-forced replay of every window path B saw through K5;
+     compare A and C with the plain path on the card and with a float64 CPU
+     run of the plain path, hold B's recorded outputs against K5 and the
+     plain version window by window; time and profile frames;
   5. print one {"kernels": [...]} line, then the {"ok": true, ...} line.
 """
 
@@ -32,11 +39,14 @@ ROOT = Path(__file__).resolve().parent
 MOTION = ROOT / "artifacts" / "corpus_run_v3" / "corpus_extra" / \
     "freeform2_0000.pkl"
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores (every kernel here computes in f32 on the
-# CUDA cores)
+# H100 SXM published peaks (NVIDIA data sheet, dense rates): HBM bytes/s,
+# f32 FLOP/s outside the tensor cores, bf16 FLOP/s of the tensor cores.
+# Work on f32 values is held to the f32 peak; the products of K4/K5 with
+# bf16 packing are bf16 x bf16 with f32 sums, which the tensor cores can
+# do, so their bound uses the bf16 peak
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
+PEAK_BF16_FLOP_S = 989e12
 
 # tolerances of the kernel checks (f32 on the card, kernel vs plain)
 TOL = 1e-5
@@ -48,6 +58,18 @@ TOL_RES = 1e-4
 TOL_PATH = 1e-3
 PATH_FRAMES = 300
 CPU_FRAMES = 120
+# K4/K5 against their plain versions. f32 packing: the same f32 products
+# summed in another order over up to 1024 terms, through 4 layers and 40
+# RNN steps; the card shows 1.3e-6, so 1e-5 (not the 1e-4 a first guess
+# allowed). bf16 packing: a sum that lands on the other side of a rounding
+# boundary moves an activation by one bf16 step (2^-8 relative) before it
+# is multiplied on; the card shows 2.8e-3 on outputs of order 1, so 1e-2
+TOL_FF = {"float32": 1e-5, "bfloat16": 1e-2}
+# K4's row against the same row of K5, and K6's frames against K3's: the
+# same device code on the same values in the same order (the card shows 0)
+TOL_SAME = 1e-6
+KERNELS = ("fused_rnn", "decode_fused", "tail_fused", "fused_forward_last",
+           "fused_forward", "fk_bullet_fused")
 
 # arithmetic per item of K2/K3, counted from csrc/fused_tail.cu (an add,
 # multiply, divide, sqrt, compare or transcendental each counts one)
@@ -122,10 +144,10 @@ def timings(kernel, plain, library=None):
     return out
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, peak_flop_s=PEAK_F32_FLOP_S):
     """Least time (ms) for the work on the card, and what bounds it."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_F32_FLOP_S * 1e3
+    t_ops = ops / peak_flop_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -285,8 +307,149 @@ def check_tail_fused(dev, gen, skel):
                 **times)
 
 
+def fused_forward_work(cfg, T, rows_out, itemsize):
+    """Compulsory bytes and operations of one whole-model forward over T
+    rows that emits rows_out rows: every packed weight, x and the output
+    once; a multiply and an add per product term, the causal half of the
+    attention, 8 per LayerNorm element, 5 per softmax entry, 1 per tanh."""
+    d, ff, H, L = cfg.tf_in_dim, cfg.tf_hid_size, cfg.rnn_hid_size, \
+        cfg.tf_layers
+    n_w = (cfg.input_dim * d + d + L * (3 * d * d + 3 * d + d * d + d
+                                        + 2 * d * ff + ff + d)
+           + d * H + H + H * H + H * cfg.size_s + cfg.size_s)
+    nbytes = (n_w * itemsize + L * 4 * d * 4 + T * cfg.input_dim * 4
+              + rows_out * cfg.size_s * 4)
+    causal = T * (T + 1) // 2
+    ops = (2 * T * (cfg.input_dim * d + L * (4 * d * d + 2 * d * ff) + d * H)
+           + L * (4 * d * causal + 5 * cfg.n_heads * causal + 2 * 8 * T * d)
+           + 2 * T * H * H + T * H + 2 * rows_out * H * cfg.size_s)
+    return nbytes, ops
+
+
+def check_fused_forward(dev, gen, model):
+    """K4 and K5 against their plain versions at the runner's window
+    (40, 221) and a short one (7, 221), both packing dtypes, at full width;
+    then at the CPU tests' small widths."""
+    from tip_tpu_torch.ops import fused_forward as FF
+    cfg = model.cfg
+    errs = {"last": {}, "all": {}}
+    worst = {"last": 0.0, "all": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        ws = model.packed_weights(dt)
+        for T in (40, 7):
+            x = torch.randn(T, cfg.input_dim, generator=gen, device=dev)
+            x[::3, 100] = float("nan")               # NaN history entries
+            x[:, 90 + 108:90 + 111] = 5.0            # root-velocity columns
+            full = FF.fused_forward(ws, x, cfg, impl="fused")
+            e = max_err(full, FF.fused_forward_plain(ws, x, cfg))
+            errs["all"][f"{name}_T{T}"] = (e, TOL_FF[name])
+            worst["all"] = max(worst["all"], e)
+            for k in sorted({0, 6, T - 1}):
+                y = FF.fused_forward_last(ws, x, k, cfg, impl="fused")
+                e = max_err(y, FF.fused_forward_last_plain(ws, x, k, cfg))
+                errs["last"][f"{name}_T{T}_k{k}"] = (e, TOL_FF[name])
+                errs["last"][f"{name}_T{T}_k{k}_vs_all"] = (
+                    max_err(y, full[k]), TOL_SAME)
+                worst["last"] = max(worst["last"], e)
+    # the widths are arguments of the kernel: the CPU tests' small config
+    # (edges everywhere: 32 output columns of a 256-column unit, 8-wide
+    # heads, fewer W_hh columns than blocks) goes through the same code
+    from tip_tpu_torch.models import tip_model as M
+    small = M.TIPModel(M.ModelConfig(tf_in_dim=32, tf_hid_size=64, n_heads=4,
+                                     tf_layers=2, rnn_hid_size=24,
+                                     forward_impl="fused"), device=dev,
+                       generator=torch.Generator().manual_seed(2))
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        ws = small.packed_weights(dt)
+        for T in (1, 12, 40):
+            x = torch.randn(T, cfg.input_dim, generator=gen, device=dev)
+            full = FF.fused_forward(ws, x, small.cfg, impl="fused")
+            y = FF.fused_forward_last(ws, x, T - 1, small.cfg, impl="fused")
+            errs["all"][f"small_{name}_T{T}"] = (
+                max_err(full, FF.fused_forward_plain(ws, x, small.cfg)),
+                TOL_FF[name])
+            errs["last"][f"small_{name}_T{T}_vs_all"] = (
+                max_err(y, full[T - 1]), TOL_SAME)
+    check("fused_forward_last", errs["last"])
+    check("fused_forward", errs["all"])
+
+    T = 40
+    x = torch.randn(T, cfg.input_dim, generator=gen, device=dev)
+    out = []
+    for kname, rows_out, replaces, kernel, plain in (
+            ("fused_forward_last", 1, "tip_tpu/ops/fused_forward.py:146",
+             lambda ws: FF.fused_forward_last(ws, x, T - 1, cfg,
+                                              impl="fused"),
+             lambda ws: FF.fused_forward_last_plain(ws, x, T - 1, cfg)),
+            ("fused_forward", T, "tip_tpu/ops/fused_forward.py:233",
+             lambda ws: FF.fused_forward(ws, x, cfg, impl="fused"),
+             lambda ws: FF.fused_forward_plain(ws, x, cfg))):
+        # the entry's own numbers are bf16 packing (the fused path's
+        # default, path B); f32 packing (path C) rides beside them
+        ws16 = model.packed_weights(torch.bfloat16)
+        ws32 = model.packed_weights(torch.float32)
+        t16 = timings(lambda: kernel(ws16), lambda: plain(ws16))
+        t32 = timings(lambda: kernel(ws32), lambda: plain(ws32))
+        b16 = bound(*fused_forward_work(cfg, T, rows_out, 2),
+                    PEAK_BF16_FLOP_S)
+        b32 = bound(*fused_forward_work(cfg, T, rows_out, 4))
+        key = "last" if rows_out == 1 else "all"
+        out.append(dict(
+            name=kname, route="cuda",
+            source="tip_tpu_torch/csrc/fused_forward.cu", replaces=replaces,
+            shape=[T, cfg.input_dim], packing="bfloat16",
+            max_abs_err=worst[key], tol=TOL_FF["bfloat16"],
+            bound_ms=b16[0], bound_by=b16[1], **t16,
+            f32_packing=dict(ms=t32["ms"], plain_ms=t32["plain_ms"],
+                             call_ms=t32["call_ms"],
+                             plain_call_ms=t32["plain_call_ms"],
+                             bound_ms=b32[0], bound_by=b32[1],
+                             tol=TOL_FF["float32"])))
+    return out
+
+
+def check_fk_bullet_fused(dev, gen, skel):
+    from tip_tpu_torch.ops import fused_tail as FT
+    from tip_tpu_torch.ops import kinematics as kin
+    errs = {}
+    pose = None
+    for _ in range(8):
+        s = torch.randn(114, generator=gen, device=dev) * 0.4
+        s[2] += 0.9
+        pose = kin.our_pose_to_bullet(s).contiguous()
+        out = kin.fk_bullet_fused(skel, pose, impl="kernel")
+        ref = kin.fk_bullet_fused_plain(skel, pose)
+        # K3 walks the same tree over the same pose
+        k3 = FT.tail_fused(skel, s, torch.zeros(20, device=dev),
+                           ref[0].contiguous(), impl="fused")
+        for f, a, b, c in (("pq_com", out[0], ref[0], k3.pq_com),
+                           ("pq_jf", out[1], ref[1], k3.pq_jf)):
+            errs[f] = (max(max_err(a, b), errs.get(f, (0.0,))[0]), TOL)
+            errs[f + "_vs_tail_fused"] = (
+                max(max_err(a, c), errs.get(f + "_vs_tail_fused", (0.0,))[0]),
+                TOL_SAME)
+    err = max(errs["pq_com"][0], errs["pq_jf"][0])
+    check("fk_bullet_fused", errs)
+    times = timings(lambda: kin.fk_bullet_fused(skel, pose, impl="kernel"),
+                    lambda: kin.fk_bullet_fused_plain(skel, pose))
+    J, L = skel.n_joints, skel.n_joints + 1
+    # the pose, both offset tables and the three int32 tables in; the CoM
+    # and joint frames out
+    nbytes = 4 * (57 + 3 * J + 3 * L + 3 * J) + 4 * 2 * 7 * L
+    ops = 18 * OPS_AA_TO_Q + J * OPS_TREE_STEP + L * OPS_LINK_FRAME
+    b_ms, b_by = bound(nbytes, ops)
+    return dict(name="fk_bullet_fused", route="cuda",
+                source="tip_tpu_torch/csrc/fused_fk.cu",
+                replaces="tip_tpu/ops/kinematics.py:320", shape=[57],
+                max_abs_err=err, tol=TOL, bound_ms=b_ms, bound_by=b_by,
+                **times)
+
+
+
 # ---------------------------------------------------------------------------
-# 4. the main path
+# 4. the main paths
 # ---------------------------------------------------------------------------
 
 def load_motion():
@@ -324,11 +487,12 @@ def frame_times_ms(model, cfg, skel, s_init, imu, dev):
     from tip_tpu_torch.runtime import runner as R
     carry = R.runner_init(cfg, skel, s_init, device=dev)
     imu = torch.as_tensor(imu, dtype=torch.float32, device=dev)
+    packed = R.pack_fused_weights(model, cfg)
     times = []
     with torch.no_grad():
         for t in range(imu.shape[0] - 1):
             t0 = time.perf_counter()
-            carry, _ = R.runner_step(model, carry, imu[t], cfg, skel)
+            carry, _ = R.runner_step(model, carry, imu[t], cfg, skel, packed)
             torch.cuda.synchronize()
             if t >= cfg.imu_n_smooth:
                 times.append((time.perf_counter() - t0) * 1e3)
@@ -344,16 +508,18 @@ def profile_frames(model, cfg, skel, s_init, imu, dev, first=100, n=50):
     from tip_tpu_torch.runtime import runner as R
     carry = R.runner_init(cfg, skel, s_init, device=dev)
     imu = torch.as_tensor(imu, dtype=torch.float32, device=dev)
+    packed = R.pack_fused_weights(model, cfg)
     with torch.no_grad():
         for t in range(first):
-            carry, _ = R.runner_step(model, carry, imu[t], cfg, skel)
+            carry, _ = R.runner_step(model, carry, imu[t], cfg, skel, packed)
         torch.cuda.synchronize()
         times = []
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for t in range(first, first + n):
                 t0 = time.perf_counter()
-                carry, _ = R.runner_step(model, carry, imu[t], cfg, skel)
+                carry, _ = R.runner_step(model, carry, imu[t], cfg, skel,
+                                         packed)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
     rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count // n)
@@ -365,82 +531,169 @@ def profile_frames(model, cfg, skel, s_init, imu, dev, first=100, n=50):
             statistics.median(times))
 
 
-def main_path(dev):
-    from tip_tpu_torch.models import tip_model as M
+def run_path(name, model, cfg, skel, s_init, imu, dev, on_path):
+    """Drive one path over the whole motion through run_offline with the
+    launch counters set to 0 just before and read just after. Every kernel
+    in on_path must have been launched once per model frame and every
+    other kernel not at all; the outputs must be finite and of the
+    expected shape."""
     from tip_tpu_torch.ops import _kernels as K
-    from tip_tpu_torch.ops import kinematics as kin
     from tip_tpu_torch.runtime import runner as R
-
-    imu, s_init = load_motion()
-    cfg = R.RunnerConfig()                  # rnn_impl / tail_impl "auto"
-    model = M.TIPModel(cfg.model, device=dev,
-                       generator=torch.Generator().manual_seed(0))
-    skel = kin.amass_skeleton(device=dev)
     n_frames = imu.shape[0] - 1
     n_model = sum(1 for t in range(n_frames) if t >= cfg.imu_n_smooth)
-
     K.reset_launch_counts()
     t0 = time.perf_counter()
     runs = R.run_offline(model, cfg, skel, s_init, imu, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(K.launch_counts)
-    log(f"main path: {n_frames} frames in {wall:.3f} s "
+    launches = {k: K.launch_counts.get(k, 0) for k in KERNELS}
+    log(f"path {name}: {n_frames} frames in {wall:.3f} s "
         f"({wall / n_frames * 1e3:.3f} ms/frame, no per-frame sync); "
         f"launches {launches}")
-    for name in ("fused_rnn", "decode_fused", "tail_fused"):
-        if launches.get(name, 0) != n_model:
+    for k in KERNELS:
+        want = n_model if k in on_path else 0
+        if launches[k] != want:
             raise AssertionError(
-                f"{name} launched {launches.get(name, 0)} times on the main "
-                f"path, expected one per model frame ({n_model})")
+                f"path {name}: {k} launched {launches[k]} times, expected "
+                f"{want} ({n_model} model frames)")
     for a, shape in zip(runs, [(imu.shape[0], 114), (imu.shape[0], 20),
                                (imu.shape[0], 5, 3)]):
         if tuple(a.shape) != shape or not torch.isfinite(a).all():
-            raise AssertionError(f"main path output {tuple(a.shape)} is not "
-                                 f"a finite {shape}")
+            raise AssertionError(f"path {name}: output {tuple(a.shape)} is "
+                                 f"not a finite {shape}")
+    return runs, launches
 
-    # the same stream through the plain versions on the card
-    cfg_p = R.RunnerConfig(model=M.ModelConfig(rnn_impl="plain"),
-                           tail_impl="plain")
-    model_p = M.TIPModel(cfg_p.model, device=dev)
-    model_p.load_state_dict(model.state_dict())
-    K.reset_launch_counts()
-    runs_p = R.run_offline(model_p, cfg_p, skel, s_init, imu, device=dev)
-    torch.cuda.synchronize()
-    if sum(K.launch_counts.values()):
-        raise AssertionError(f"plain path launched {dict(K.launch_counts)}")
-    compare_runs("kernels vs plain (card)", runs, runs_p, PATH_FRAMES,
-                 TOL_PATH)
+
+def replay_path_b(model, cfg, skel, s_init, imu, dev):
+    """Path B teacher-forced: a free-running bf16 trajectory of a random
+    model drifts from the f32 one chaotically, so each frame is held on its
+    own. Step the runner, rebuild every frame's model input from the
+    carries and read the raw output y_t it produced (K4); then push every
+    recorded window through K5 and through the plain version and compare
+    row k-1 with the recorded y_t. Returns K5's launches and the errors."""
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.ops import fused_forward as FF
+    from tip_tpu_torch.runtime import runner as R
+    carry = R.runner_init(cfg, skel, s_init, device=dev)
+    imu = torch.as_tensor(imu, dtype=torch.float32, device=dev)
+    packed = R.pack_fused_weights(model, cfg)
+    records = []
+    with torch.no_grad():
+        for t in range(imu.shape[0] - 1):
+            new, _ = R.runner_step(model, carry, imu[t], cfg, skel, packed)
+            if new.n_out > carry.n_out:              # the model ran
+                x_imu, x_s = R.model_window(cfg, new.imu_win, new.accsum_win,
+                                            carry.s_and_c_win)
+                records.append((torch.cat([x_imu, x_s], dim=-1),
+                                min(new.k, cfg.window) - 1,
+                                new.out_buf[-1].clone()))
+            carry = new
+        K.reset_launch_counts()
+        e_k5 = e_plain = 0.0
+        for x, k, y_t in records:
+            full = FF.fused_forward(packed, x, cfg.model, impl="fused")
+            e_k5 = max(e_k5, max_err(full[k], y_t))
+        torch.cuda.synchronize()
+        launches = K.launch_counts.get("fused_forward", 0)
+        others = sum(K.launch_counts.values()) - launches
+        for x, k, y_t in records:
+            e_plain = max(e_plain, max_err(
+                FF.fused_forward_last_plain(packed, x, k, cfg.model), y_t))
+    if launches != len(records) or others:
+        raise AssertionError(f"replay: fused_forward launched {launches} "
+                             f"times for {len(records)} windows, other "
+                             f"kernels {others}")
+    check("path B replay", {"K5_row_vs_recorded_K4": (e_k5, TOL_SAME),
+                            "plain_vs_recorded_K4":
+                                (e_plain, TOL_FF["bfloat16"])})
+    log(f"  path B teacher-forced over {len(records)} windows: max |K5 row "
+        f"- K4| = {e_k5:.3g}, max |plain - K4| = {e_plain:.3g}")
+    return launches
+
+
+def main_paths(dev):
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.ops import kinematics as kin
+    from tip_tpu_torch.ops import metrics
+    from tip_tpu_torch.runtime import runner as R
+
+    imu, s_init = load_motion()
+    skel = kin.amass_skeleton(device=dev)
+    cfgs = {
+        "A": R.RunnerConfig(),              # rnn_impl / tail_impl "auto"
+        "B": R.RunnerConfig(model=M.ModelConfig(forward_impl="fused")),
+        "C": R.RunnerConfig(model=M.ModelConfig(forward_impl="fused",
+                                                compute_dtype="float32"),
+                            tail_impl="plain", fk_impl="kernel"),
+        "plain": R.RunnerConfig(model=M.ModelConfig(rnn_impl="plain"),
+                                tail_impl="plain"),
+    }
+    on_path = {"A": ("fused_rnn", "decode_fused", "tail_fused"),
+               "B": ("fused_forward_last", "decode_fused", "tail_fused"),
+               "C": ("fused_forward_last", "fk_bullet_fused"),
+               "plain": ()}
+    models = {"A": M.TIPModel(cfgs["A"].model, device=dev,
+                              generator=torch.Generator().manual_seed(0))}
+    for name in ("B", "C", "plain"):        # the same weights on every path
+        models[name] = M.TIPModel(cfgs[name].model, device=dev)
+        models[name].load_state_dict(models["A"].state_dict())
+
+    runs, launches = {}, {}
+    for name in ("A", "plain", "C", "B"):
+        runs[name], launches[name] = run_path(
+            name, models[name], cfgs[name], skel, s_init, imu, dev,
+            on_path[name])
+    launches["replay"] = {"fused_forward": replay_path_b(
+        models["B"], cfgs["B"], skel, s_init, imu, dev)}
 
     # reference: the plain path in float64 on the CPU, first frames
-    cfg_c = R.RunnerConfig(model=M.ModelConfig(rnn_impl="plain"),
-                           tail_impl="plain")
-    model_c = M.TIPModel(cfg_c.model, device="cpu", dtype=torch.float64)
-    model_c.load_state_dict(model.state_dict())
-    runs_c = R.run_offline(model_c, cfg_c,
-                           kin.amass_skeleton(dtype=torch.float64),
-                           s_init, imu[:CPU_FRAMES + 1], device="cpu")
-    compare_runs("card f32 vs CPU f64", runs, runs_c, CPU_FRAMES, TOL_PATH)
+    model_c = M.TIPModel(cfgs["plain"].model, device="cpu",
+                         dtype=torch.float64)
+    model_c.load_state_dict(models["A"].state_dict())
+    runs_cpu = R.run_offline(model_c, cfgs["plain"],
+                             kin.amass_skeleton(dtype=torch.float64),
+                             s_init, imu[:CPU_FRAMES + 1], device="cpu")
+    for name in ("A", "C"):
+        compare_runs(f"path {name} vs plain (card)", runs[name],
+                     runs["plain"], PATH_FRAMES, TOL_PATH)
+        compare_runs(f"path {name} card f32 vs CPU f64", runs[name],
+                     runs_cpu, CPU_FRAMES, TOL_PATH)
 
-    # per-frame time, eager, kernels and plain in turns
-    t_k, t_p = [], []
-    for _ in range(2):
-        t_k.append(frame_times_ms(model, cfg, skel, s_init, imu, dev))
-        t_p.append(frame_times_ms(model_p, cfg_p, skel, s_init, imu, dev))
-    log(f"per-frame median ms (eager, sync per frame): kernels {t_k}, "
-        f"plain {t_p}")
-    frame_ms = statistics.median(t_k)
+    # information, no tolerance: bf16 free-running against f32 free-running
+    poses = {n: kin.our_pose_to_bullet(runs[n][0]) for n in ("A", "B", "C")}
+    log(json.dumps({"joint_angle_err_deg": {
+        "B_vs_A_all_frames": metrics.loss_angle(poses["A"],
+                                                poses["B"]).item(),
+        "B_vs_A_first_120": metrics.loss_angle(poses["A"][:120],
+                                               poses["B"][:120]).item(),
+        "C_vs_A_all_frames": metrics.loss_angle(poses["A"],
+                                                poses["C"]).item()}}))
 
-    dev_ms, n_kernels, rows, prof_frame_ms = profile_frames(
-        model, cfg, skel, s_init, imu, dev)
-    # busy share of the profiled frames themselves: their device time over
-    # their median host time (the profiler's own host cost included)
-    log(json.dumps({"profile": {
-        "device_ms_per_frame": dev_ms, "kernels_per_frame": n_kernels,
-        "frame_ms_profiled": prof_frame_ms,
-        "device_busy_share": dev_ms / prof_frame_ms,
-        "top": [[k[:70], ms, c] for k, ms, c in rows[:12]]}}))
-    return launches, frame_ms, statistics.median(t_p)
+    # per-frame time, eager, one pass each, in one call on one card
+    frame_ms = {name: frame_times_ms(models[name], cfgs[name], skel, s_init,
+                                     imu, dev)
+                for name in ("A", "B", "C", "plain")}
+    log(f"per-frame median ms (eager, sync per frame): {frame_ms}")
+
+    for name in ("A", "B", "C"):
+        dev_ms, n_kernels, rows, prof_frame_ms = profile_frames(
+            models[name], cfgs[name], skel, s_init, imu, dev)
+        # busy share of the profiled frames themselves: their device time
+        # over their median host time (the profiler's own host cost
+        # included)
+        log(json.dumps({"profile": {
+            "path": name, "device_ms_per_frame": dev_ms,
+            "kernels_per_frame": n_kernels,
+            "frame_ms_profiled": prof_frame_ms,
+            "device_busy_share": dev_ms / prof_frame_ms,
+            "top": [[k[:70], ms, c] for k, ms, c in rows[:8]]}}))
+    return launches, frame_ms
+
+
+# the path whose launches a kernel's entry reports
+COUNTED_ON = {"fused_rnn": "A", "decode_fused": "A", "tail_fused": "A",
+              "fused_forward_last": "B", "fused_forward": "replay",
+              "fk_bullet_fused": "C"}
 
 
 def main():
@@ -450,6 +703,7 @@ def main():
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from tip_tpu_torch.models import tip_model as M
     from tip_tpu_torch.ops import _kernels as K
     from tip_tpu_torch.ops import kinematics as kin
 
@@ -465,8 +719,12 @@ def main():
 
     gen = torch.Generator(device=dev).manual_seed(1)
     skel = kin.amass_skeleton(device=dev)
+    model = M.TIPModel(M.ModelConfig(forward_impl="fused"), device=dev,
+                       generator=torch.Generator().manual_seed(0))
     kernels = [check_fused_rnn(dev, gen), check_decode_fused(dev, gen),
-               check_tail_fused(dev, gen, skel)]
+               check_tail_fused(dev, gen, skel),
+               *check_fused_forward(dev, gen, model),
+               check_fk_bullet_fused(dev, gen, skel)]
     torch.cuda.synchronize()
     for k in kernels:
         log(f"  {k['name']}: max err {k['max_abs_err']:.3g} (tol "
@@ -475,10 +733,13 @@ def main():
             f"({k['plain_call_ms']:.4f}), bound {k['bound_ms']:.2e} ms "
             f"({k['bound_by']}), library {k['library_ms']}")
 
-    launches, frame_ms, frame_plain_ms = main_path(dev)
+    launches, frame_ms = main_paths(dev)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-    log(json.dumps({"frame_ms": frame_ms, "frame_plain_ms": frame_plain_ms,
+        k["launches"] = launches[COUNTED_ON[k["name"]]][k["name"]]
+        k["launches_on"] = COUNTED_ON[k["name"]]
+        if not k["launches"] > 0:
+            raise AssertionError(f"{k['name']} was not launched on its path")
+    log(json.dumps({"frame_ms": frame_ms, "launches": launches,
                     "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -39,7 +39,10 @@ def test_port_imports_nothing_of_jax_or_tip_tpu(path):
 def test_port_files_found():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"tip_tpu_torch/runtime/runner.py", "tip_tpu_torch/ops/fused_rnn.py",
-            "tip_tpu_torch/ops/fused_tail.py", "chip_smoke.py"} <= names
+            "tip_tpu_torch/ops/fused_tail.py", "chip_smoke.py",
+            "tip_tpu_torch/ops/fused_forward.py",
+            "tip_tpu_torch/ops/metrics.py",
+            "tip_tpu_torch/utils/urdf.py"} <= names
 
 
 def _no_cuda():

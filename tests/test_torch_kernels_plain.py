@@ -1,7 +1,8 @@
 """The plain PyTorch versions of the port's kernels against tip_tpu's Pallas
 kernels (run in interpret mode, as tip_tpu's own tests run them).
 
-K1 fused_rnn_plain, K2 decode_fused_plain and K3 tail_fused_plain are what
+K1 fused_rnn_plain, K2 decode_fused_plain, K3 tail_fused_plain and K6
+fk_bullet_fused_plain (K4/K5: tests/test_torch_fused_forward.py) are what
 the wrappers run for CPU tensors and what chip_smoke.py holds the CUDA
 kernels against on the card. In float64 they agree with the Pallas kernels
 to 1e-12 (1e-10 for the residues, which divide by dt = 1/60); float32 uses
@@ -110,6 +111,59 @@ def test_tail_fused_plain_matches_pallas(dt_name, seed):
             _close(getattr(t, f), getattr(j, f), tol, f)
 
 
+@pytest.mark.parametrize("i", range(5))
+def test_fk_bullet_fused_plain_matches_pallas(i):
+    """K6's plain version against tip_tpu's fused FK kernel, five poses at
+    tip_tpu's own tolerance (tests/test_kinematics.py)."""
+    rng = np.random.default_rng(i)
+    state = rng.normal(size=57).astype(np.float32) * 0.4
+    j_com, j_jf = jkin.fk_bullet_fused(jkin.amass_skeleton(),
+                                       jnp.asarray(state), interpret=True)
+    tskel = tkin.amass_skeleton()
+    t_com, t_jf = tkin.fk_bullet_fused(tskel, torch.as_tensor(state))
+    assert t_com.shape == t_jf.shape == (20, 7)
+    _close(t_com, j_com, 2e-6, "pq_com")
+    _close(t_jf, j_jf, 2e-6, "pq_jf")
+    # the fixed wrists inherit the elbows' orientation
+    np.testing.assert_array_equal(t_jf[15, 3:].numpy(), t_jf[14, 3:].numpy())
+    p_com, p_jf = tkin.fk_bullet_fused_plain(tskel, torch.as_tensor(state))
+    assert torch.equal(p_com, t_com) and torch.equal(p_jf, t_jf)
+
+
+def test_fk_bullet_fused_f64_matches_tip_tpu():
+    state = np.random.default_rng(9).normal(size=57) * 0.4
+    j_com, j_jf = jkin.fk_bullet_state(jkin.amass_skeleton(dtype=np.float64),
+                                       jnp.asarray(state), True)
+    t_com, t_jf = tkin.fk_bullet_fused_plain(
+        tkin.amass_skeleton(dtype=torch.float64), torch.as_tensor(state))
+    _close(t_com, j_com, 1e-12)
+    _close(t_jf, j_jf, 1e-12)
+
+
+def test_pose_skeleton_check():
+    """K3 and K6 walk joints in index order over the 19-joint pose layout;
+    another skeleton is refused before any launch."""
+    skel = tkin.amass_skeleton()
+    tkin.check_pose_skeleton(skel, "fk")
+    parent = list(skel.parent)
+    parent[1] = 2                               # a child before its parent
+    bad = tkin.make_skeleton(parent, skel.is_fixed, skel.joint_offset,
+                             skel.com_offset, skel.link_mass)
+    with pytest.raises(ValueError, match="parent"):
+        tkin.check_pose_skeleton(bad, "fk")
+    short = tkin.make_skeleton(skel.parent[:3], skel.is_fixed[:3],
+                               skel.joint_offset[:3], skel.com_offset[:4],
+                               skel.link_mass[:4])
+    with pytest.raises(ValueError, match="19-joint"):
+        tkin.check_pose_skeleton(short, "fk")
+    fixed = list(skel.is_fixed)
+    fixed[0] = True                             # another joint fixed
+    other = tkin.make_skeleton(skel.parent, fixed, skel.joint_offset,
+                               skel.com_offset, skel.link_mass)
+    with pytest.raises(ValueError, match="19-joint"):
+        tkin.check_pose_skeleton(other, "fk")
+
+
 def test_wrappers_raise_for_explicit_kernel_on_cpu():
     """A kernel asked for by name on CPU tensors raises; nothing falls back
     silently."""
@@ -125,5 +179,9 @@ def test_wrappers_raise_for_explicit_kernel_on_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         TFT.tail_fused(skel, torch.zeros(114), torch.zeros(20),
                        torch.zeros(20, 7), impl="fused")
+    with pytest.raises(ValueError, match="CUDA"):
+        tkin.fk_bullet_fused(skel, torch.zeros(57), impl="kernel")
     with pytest.raises(ValueError):
         TFR.fused_rnn(xin, w, impl="pallas")
+    with pytest.raises(ValueError):
+        tkin.fk_bullet_fused(skel, torch.zeros(57), impl="pallas")

@@ -179,10 +179,48 @@ def test_causal_mask_matches_tip_tpu():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError):
-        TM.TIPModel(TM.ModelConfig(**TINY, forward_impl="fused"),
-                    device="cpu")
-    model = TM.TIPModel(TM.ModelConfig(**TINY), device="cpu")
+    """The training forward is not ported; forward_impl="fused" is: the
+    model builds, and its own forward stays the plain one."""
+    model = TM.TIPModel(TM.ModelConfig(**TINY, forward_impl="fused"),
+                        device="cpu")
+    plain = TM.TIPModel(TM.ModelConfig(**TINY), device="cpu")
+    plain.load_state_dict(model.state_dict())
     x = torch.zeros(1, 4, 90)
     with pytest.raises(NotImplementedError):
         model(x, torch.zeros(1, 4, 131), train=True)
+    with torch.no_grad():
+        assert torch.equal(model(x, torch.ones(1, 4, 131)),
+                           plain(x, torch.ones(1, 4, 131)))
+
+
+@pytest.mark.parametrize("kw", [dict(forward_impl="xla"),
+                                dict(compute_dtype="float16")])
+def test_model_config_rejects_unknown_values(kw):
+    with pytest.raises(ValueError):
+        TM.ModelConfig(**kw)
+
+
+def test_packed_weights_cached_until_the_parameters_change():
+    model = TM.TIPModel(TM.ModelConfig(**TINY, forward_impl="fused"),
+                        device="cpu")
+    a = model.packed_weights(torch.float32)
+    assert model.packed_weights(torch.float32) is a
+    b = model.packed_weights(torch.bfloat16)
+    assert b[0].dtype == torch.bfloat16 and a[0].dtype == torch.float32
+    assert model.packed_weights(torch.float32) is a       # one per dtype
+    # load_state_dict writes in place: the pack is made again, new values
+    sd = {k: v + 1.0 for k, v in model.state_dict().items()}
+    model.load_state_dict(sd)
+    c = model.packed_weights(torch.float32)
+    assert c is not a
+    assert torch.equal(c[-1], sd["out.b"])
+    assert model.packed_weights(torch.float32) is c
+    # .to() replaces the storage
+    model.to(torch.float64)
+    d = model.packed_weights(torch.float32)
+    assert d is not c and d[0].dtype == torch.float32
+    # an in-place write to one parameter
+    with torch.no_grad():
+        model.out.b.zero_()
+    assert torch.equal(model.packed_weights(torch.float32)[-1],
+                       torch.zeros(131))

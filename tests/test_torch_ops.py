@@ -189,3 +189,171 @@ def test_root_correction_matches_tip_tpu(seed):
     _close(t.raw_residues, j.raw_residues, atol=1e-10)
     _close(t.vel_res, j.vel_res, atol=1e-10)
     _close(t.c_locs, j.c_locs)
+
+
+# ---------------------------------------------------------------------------
+# rotations: q_inv, q_diff, slerp
+# ---------------------------------------------------------------------------
+
+def _unit_quats(rng, n):
+    q = rng.normal(size=(n, 4))
+    return q / np.linalg.norm(q, axis=1, keepdims=True)
+
+
+@pytest.mark.parametrize("name", ["q_inv", "q_diff"])
+def test_q_inv_q_diff_match_tip_tpu(name):
+    rng = np.random.default_rng(20)
+    a, b = _unit_quats(rng, 32), _unit_quats(rng, 32)
+    args = (a,) if name == "q_inv" else (a, b)
+    _close(getattr(trot, name)(*(_t(x) for x in args)),
+           getattr(jrot, name)(*(jnp.asarray(x) for x in args)))
+    # q ∘ q⁻¹ is the identity rotation
+    ident = trot.q_diff(_t(a), _t(a)).numpy()
+    np.testing.assert_allclose(ident, np.tile([0, 0, 0, 1.0], (32, 1)),
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("t", [0.0, 0.3, 1.0])
+def test_slerp_matches_tip_tpu(t):
+    """Random pairs, plus the near-parallel pair (linear branch), the same
+    quaternion twice and an antipodal pair (sign flip)."""
+    rng = np.random.default_rng(21)
+    q0, q1 = _unit_quats(rng, 16), _unit_quats(rng, 16)
+    q1[0] = q0[0] + 1e-9
+    q1[0] /= np.linalg.norm(q1[0])
+    q1[1] = q0[1]
+    q1[2] = -q0[2]
+    got = trot.slerp(_t(q0), _t(q1), t)
+    _close(got, jrot.slerp(jnp.asarray(q0), jnp.asarray(q1), t))
+    _close(torch.linalg.vector_norm(got, dim=-1), np.ones(16))
+    # a tensor t broadcasts like a scalar
+    got_t = trot.slerp(_t(q0), _t(q1), torch.full((16, 1), t,
+                                                  dtype=torch.float64))
+    _close(got_t, got.numpy())
+
+
+# ---------------------------------------------------------------------------
+# URDF skeleton
+# ---------------------------------------------------------------------------
+
+def test_skeleton_from_urdf_matches_tip_tpu(tmp_path):
+    """The generated AMASS URDF through the port's own parser copy and
+    skeleton_from_urdf: the same tables as tip_tpu's, and FK over it equals
+    tip_tpu's FK over its URDF skeleton."""
+    from tip_tpu.utils import urdf as jurdf
+    from tip_tpu.viz import urdf_export
+    from tip_tpu_torch.utils import urdf as turdf
+
+    path = str(tmp_path / "amass.urdf")
+    urdf_export.skeleton_to_urdf(path)
+    ju = jurdf.parse_urdf(path, prefer_native=False)
+    tu = turdf.parse_urdf(path, prefer_native=False)
+    assert tu.joint_names == ju.joint_names
+    for f in ("parent", "joint_offset", "joint_rpy", "is_fixed", "com_offset",
+              "link_mass"):
+        np.testing.assert_array_equal(getattr(tu, f), getattr(ju, f), f)
+    jskel = jkin.skeleton_from_urdf(ju, scale=1.1, dtype=jnp.float64)
+    tskel = tkin.skeleton_from_urdf(tu, scale=1.1, dtype=torch.float64)
+    assert tskel.parent == tuple(jskel.parent)
+    assert tskel.is_fixed == tuple(jskel.is_fixed)
+    assert tskel.parent_i32.dtype == torch.int32
+    _close(tskel.joint_offset, jskel.joint_offset)
+    _close(tskel.com_offset, jskel.com_offset)
+    _close(tskel.link_mass, jskel.link_mass)
+    tkin.check_pose_skeleton(tskel, "fk")      # fits kernels K3 and K6
+    s = np.random.default_rng(22).normal(size=114) * 0.3
+    _close(tkin.fk_our_state(tskel, _t(s)),
+           jkin.fk_our_state(jskel, jnp.asarray(s)))
+
+
+def test_skeleton_from_urdf_rejects_joint_rpy(tmp_path):
+    from tip_tpu.viz import urdf_export
+    from tip_tpu_torch.utils import urdf as turdf
+
+    path = str(tmp_path / "amass.urdf")
+    urdf_export.skeleton_to_urdf(path)
+    u = turdf.parse_urdf(path, prefer_native=False)
+    u.joint_rpy[3, 1] = 0.2
+    with pytest.raises(NotImplementedError, match="rpy"):
+        tkin.skeleton_from_urdf(u)
+
+
+def test_urdf_parser_copy_forward_refs_and_undeclared_link(tmp_path):
+    """The port's parser copy resolves a child joint listed before its
+    parent joint and rejects an undeclared link, like tip_tpu's."""
+    from tip_tpu.utils import urdf as jurdf
+    from tip_tpu_torch.utils import urdf as turdf
+
+    text = """<?xml version="1.0"?>
+<robot name="t">
+  <link name="base"><inertial><origin xyz="0 0 0"/><mass value="1"/></inertial></link>
+  <link name="a"><inertial><origin xyz="0.1 0 0"/><mass value="2"/></inertial></link>
+  <link name="b"><inertial><origin xyz="0 0.2 0"/><mass value="3"/></inertial></link>
+  <joint name="j_ab" type="spherical">
+    <origin xyz="0 0 0.5"/><parent link="a"/><child link="b"/>
+  </joint>
+  <joint name="j_base_a" type="fixed">
+    <origin xyz="0 0 1"/><parent link="base"/><child link="a"/>
+  </joint>
+</robot>
+"""
+    p = tmp_path / "fwd.urdf"
+    p.write_text(text)
+    t, j = turdf._parse_python(str(p)), jurdf._parse_python(str(p))
+    np.testing.assert_array_equal(t.parent, [1, -1])
+    for f in ("parent", "joint_offset", "is_fixed", "com_offset", "link_mass"):
+        np.testing.assert_array_equal(getattr(t, f), getattr(j, f), f)
+    bad = tmp_path / "bad.urdf"
+    bad.write_text(text.replace('<child link="b"/>', '<child link="bb"/>'))
+    with pytest.raises(ValueError, match="undeclared"):
+        turdf._parse_python(str(bad))
+
+
+# ---------------------------------------------------------------------------
+# metrics
+# ---------------------------------------------------------------------------
+
+METRICS = ["loss_angle", "loss_j_pos", "loss_global_angle", "loss_max_jerk",
+           "loss_root_jerk", "loss_sip", "loss_root_dist_pos"]
+
+
+@pytest.fixture(scope="module")
+def metric_trajs():
+    """Two (T, 57) bullet-pose trajectories (a smooth one and a perturbed
+    copy) with their (T, 20, 7) FK frames."""
+    rng = np.random.default_rng(23)
+    T = 90
+    a1 = np.cumsum(rng.normal(size=(T, 57)) * 0.02, axis=0)
+    a1[:, 2] += 0.9
+    a2 = a1 + rng.normal(size=(T, 57)) * 0.05
+    skel = jkin.amass_skeleton(dtype=jnp.float64)
+    pq = [np.array(jkin.fk_bullet_state(skel, jnp.asarray(a)))
+          for a in (a1, a2)]
+    return a1, a2, pq[0], pq[1]
+
+
+@pytest.mark.parametrize("name", METRICS)
+def test_metric_matches_tip_tpu(metric_trajs, name):
+    from tip_tpu.ops import metrics as jmet
+    from tip_tpu_torch.ops import metrics as tmet
+
+    a1, a2, pq1, pq2 = metric_trajs
+    j = getattr(jmet, name)(*(jnp.asarray(x) for x in metric_trajs))
+    t = getattr(tmet, name)(*(_t(x) for x in metric_trajs))
+    assert t.shape == () and float(t) > 0.0
+    _close(t, j, atol=1e-10)
+    # identical trajectories: no error; the jerks read traj 2 only
+    same = getattr(tmet, name)(_t(a2), _t(a2), _t(pq2), _t(pq2))
+    if "jerk" in name:
+        _close(same, t.numpy())
+    else:
+        assert abs(float(same)) < 1e-5
+
+
+def test_root_dist_pos_clamps_the_index(metric_trajs):
+    from tip_tpu.ops import metrics as jmet
+    from tip_tpu_torch.ops import metrics as tmet
+
+    short = [x[:20] for x in metric_trajs]
+    _close(tmet.loss_root_dist_pos(*(_t(x) for x in short), t=2.0),
+           jmet.loss_root_dist_pos(*(jnp.asarray(x) for x in short), t=2.0))

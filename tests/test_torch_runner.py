@@ -4,6 +4,12 @@ tip_tpu_torch.runtime.runner.run_offline on the CPU (plain path: the
 wrappers run the kernels' plain versions for CPU tensors) and
 tip_tpu.runtime.runner.run_offline (XLA path) stream the same recorded
 motion through the same weights in float64; trajectories agree to 1e-8.
+
+The opt-in paths run in float32 as tip_tpu's own tests run them:
+``forward_impl="fused"`` against tip_tpu's fused runner while the window
+grows (tip_tpu's returns the bare output bias once it slides) and against
+the port's plain path past the slide; ``fk_impl`` with the plain tail
+against tip_tpu's ``fk_impl="pallas"``.
 """
 
 import pickle
@@ -118,13 +124,146 @@ def test_warmup_frames_return_s_init(runs, stream):
 
 @pytest.mark.parametrize("kw,err", [
     (dict(serving_mode="kv_cache"), NotImplementedError),
-    (dict(model=TM.ModelConfig(forward_impl="fused")), NotImplementedError),
+    (dict(model=TM.ModelConfig(forward_impl="fused")), None),
     (dict(tail_impl="xla"), ValueError),
     (dict(n_sbps=2, tail_impl="fused"), ValueError),
+    (dict(fk_impl="pallas"), ValueError),
+    (dict(fk_impl="kernel"), ValueError),          # needs tail_impl="plain"
+    (dict(fk_impl="auto", tail_impl="fused"), ValueError),
+    (dict(fk_impl="kernel", tail_impl="plain"), None),
 ])
 def test_runner_config_rejects_unported(kw, err):
+    """The KV-cache modes are not ported and unknown values raise; the
+    fused forward and the FK kernel of the plain tail are accepted."""
+    if err is None:
+        cfg = TR.RunnerConfig(**kw)
+        assert TR.pack_dtype(cfg) == torch.bfloat16
+        return
     with pytest.raises(err):
         TR.RunnerConfig(**kw)
+
+
+# ---------------------------------------------------------------------------
+# the opt-in paths: forward_impl="fused", fk_impl
+# ---------------------------------------------------------------------------
+
+def _pair(stream, n_frames, jkw, tkw, seed=0):
+    """The same float32 stream and weights through tip_tpu's run_offline
+    (options jkw) and the port's (options tkw)."""
+    imu, s_init = (a.astype(np.float32) for a in stream)
+    jm = dict(TINY, **jkw.pop("model", {}))
+    tm = dict(TINY, **tkw.pop("model", {}))
+    jcfg = JR.RunnerConfig(model=JM.ModelConfig(**jm), **jkw)
+    params = JM.init_params(jax.random.PRNGKey(seed), jcfg.model)
+    j_out = JR.run_offline(params, jcfg, jkin.amass_skeleton(),
+                           jax.numpy.asarray(s_init),
+                           jax.numpy.asarray(imu[:n_frames]))
+    tcfg = TR.RunnerConfig(model=TM.ModelConfig(**tm), **tkw)
+    model = TM.TIPModel(tcfg.model, device="cpu")
+    model.load_state_dict(TM.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    t_out = TR.run_offline(model, tcfg, tkin.amass_skeleton(), s_init,
+                           imu[:n_frames], device="cpu")
+    return [np.asarray(a) for a in j_out], [a.numpy() for a in t_out], model
+
+
+@pytest.fixture(scope="module")
+def fused_runs(stream):
+    """46 frames = 5 warmup + 40 model frames: the window fills and never
+    slides, where tip_tpu's fused runner is still right."""
+    fused = dict(forward_impl="fused", compute_dtype="float32")
+    return _pair(stream, 46, dict(model=dict(fused)), dict(model=dict(fused)))
+
+
+@pytest.mark.parametrize("i,name", [(0, "s_traj"), (1, "c_traj"),
+                                    (2, "viz")])
+def test_run_offline_fused_matches_tip_tpu_while_the_window_grows(
+        fused_runs, i, name):
+    j, t = fused_runs[0][i], fused_runs[1][i]
+    assert t.shape == j.shape and t.dtype == np.float32
+    assert np.isfinite(t).all()
+    # f32 on both sides, the same casts, sums in another order, fed back
+    # through the autoregressive window of a random model for 40 frames;
+    # tip_tpu holds its fused runner to its XLA runner at 2e-3 over 12
+    np.testing.assert_allclose(t, j, atol=2e-3, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("dt,atol", [("float32", 2e-3), (None, None)])
+def test_run_offline_fused_matches_plain_past_the_slide(stream, dt, atol):
+    """70 frames: 65 model frames, 25 of them after the 40-row window
+    starts to slide (where tip_tpu's fused runner returns the output bias).
+    f32 packing tracks the port's plain path; the default bf16 packing
+    drifts from it chaotically on a random model, so that run is held to
+    be finite and, like the f32 one, to keep moving after the slide (a
+    bias-only output would freeze the pose)."""
+    imu, s_init = (a.astype(np.float32) for a in stream)
+    outs = {}
+    for impl in ("plain", "fused"):
+        cfg = TR.RunnerConfig(model=TM.ModelConfig(
+            **TINY, forward_impl=impl, compute_dtype=dt))
+        model = TM.TIPModel(cfg.model, device="cpu",
+                            generator=torch.Generator().manual_seed(3))
+        K.reset_launch_counts()
+        outs[impl] = TR.run_offline(model, cfg, tkin.amass_skeleton(), s_init,
+                                    imu[:70], device="cpu")
+        assert sum(K.launch_counts.values()) == 0
+    for p, f in zip(outs["plain"], outs["fused"]):
+        assert f.shape == p.shape and torch.isfinite(f).all()
+    s_p, s_f = outs["plain"][0].numpy(), outs["fused"][0].numpy()
+    if atol is not None:
+        np.testing.assert_allclose(s_f, s_p, atol=atol, rtol=0)
+    else:
+        assert TR.pack_dtype(cfg) == torch.bfloat16
+    # the pose keeps moving after the slide: the output is not a constant
+    assert np.abs(np.diff(s_f[50:, 6:57], axis=0)).max() > 1e-4
+
+
+def test_runner_step_packed_ws_is_the_models_pack(stream):
+    """pack_fused_weights hoists the pack out of the frame loop: a step
+    with it equals a step that looks the pack up in the model; None unless
+    the fused forward is on."""
+    imu, s_init = (a.astype(np.float32) for a in stream)
+    cfg = TR.RunnerConfig(model=TM.ModelConfig(**TINY, forward_impl="fused"))
+    model = TM.TIPModel(cfg.model, device="cpu")
+    skel = tkin.amass_skeleton()
+    ws = TR.pack_fused_weights(model, cfg)
+    assert ws is model.packed_weights(torch.bfloat16)
+    assert ws[0].dtype == torch.bfloat16
+    carries = [TR.runner_init(cfg, skel, s_init, device="cpu")
+               for _ in range(2)]
+    with torch.no_grad():
+        for t in range(8):
+            carries[0], a = TR.runner_step(model, carries[0],
+                                           torch.as_tensor(imu[t]), cfg, skel)
+            carries[1], b = TR.runner_step(model, carries[1],
+                                           torch.as_tensor(imu[t]), cfg, skel,
+                                           packed_ws=ws)
+            assert torch.equal(a["qdq"], b["qdq"])
+    plain = TR.RunnerConfig(model=TM.ModelConfig(**TINY))
+    assert TR.pack_fused_weights(TM.TIPModel(plain.model, device="cpu"),
+                                 plain) is None
+
+
+@pytest.mark.parametrize("fk_impl", ["auto", "plain"])
+def test_run_offline_fk_impl_matches_tip_tpu_pallas(stream, fk_impl):
+    """tail_impl="plain" with the FK by fk_impl (on the CPU "auto" runs
+    K6's plain version) against tip_tpu's fk_impl="pallas" run, at
+    tip_tpu's own tolerance for that pair (tests/test_kinematics.py)."""
+    j_out, t_out, _ = _pair(stream, 30, dict(fk_impl="pallas"),
+                            dict(fk_impl=fk_impl, tail_impl="plain"))
+    for j, t in zip(j_out, t_out):
+        assert t.shape == j.shape
+        np.testing.assert_allclose(t, j, atol=5e-5, rtol=0)
+
+
+def test_fk_impl_kernel_on_cpu_raises(stream):
+    imu, s_init = stream
+    cfg = TR.RunnerConfig(model=TM.ModelConfig(**TINY), fk_impl="kernel",
+                          tail_impl="plain")
+    model = TM.TIPModel(cfg.model, device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        TR.run_offline(model, cfg, tkin.amass_skeleton(), s_init, imu[:8],
+                       device="cpu")
 
 
 class _OnCard:
@@ -138,7 +277,9 @@ def test_tail_impl_auto_resolution():
     wrapper then raises for n_sbps != 5) and the plain version for a CPU
     tensor; 'plain' is plain everywhere."""
     cpu, card = torch.zeros(1), _OnCard()
-    for option, explicit in (("tail_impl", "fused"), ("rnn_impl", "kernel")):
+    for option, explicit in (("tail_impl", "fused"), ("rnn_impl", "kernel"),
+                             ("forward_impl", "fused"),
+                             ("fk_impl", "kernel")):
         assert not K.use_kernel("auto", cpu, option, explicit)
         assert K.use_kernel("auto", card, option, explicit)
         assert K.use_kernel(explicit, card, option, explicit)

@@ -47,9 +47,23 @@ class ModelConfig:
     # "auto" (kernel K1 on a CUDA tensor, plain on a CPU tensor) |
     # "kernel" | "plain" (ops/fused_rnn.py)
     rnn_impl: str = "auto"
-    # "plain" (this module's forward) | "fused" (the whole-model kernel,
-    # not ported yet: ROADMAP B, fused_forward_last)
+    # "plain" (this module's forward) | "fused" (the whole-model kernel K4,
+    # ops/fused_forward.py — inference only, taken by the streaming runner
+    # for its one output row; bf16 weights by default). "fused" launches
+    # the kernel for CUDA tensors and runs its plain version on the CPU
     forward_impl: str = "plain"
+    # packing dtype of the fused path, "float32" or "bfloat16"; None is the
+    # fused path's default (bfloat16). The plain forward computes in the
+    # parameters' own dtype whatever this says
+    compute_dtype: Optional[str] = None
+
+    def __post_init__(self):
+        if self.forward_impl not in ("plain", "fused"):
+            raise ValueError(f"forward_impl must be plain|fused, got "
+                             f"{self.forward_impl!r}")
+        if self.compute_dtype not in (None, "float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be float32|bfloat16, got "
+                             f"{self.compute_dtype!r}")
 
     @property
     def input_dim(self) -> int:
@@ -265,12 +279,9 @@ class TIPModel(nn.Module):
                  dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.forward_impl != "plain":
-            raise NotImplementedError(
-                f"forward_impl={cfg.forward_impl!r}: the whole-model kernel "
-                f"is not ported yet (ROADMAP B, fused_forward_last)")
         device = resolve_device(device)
         self.cfg = cfg
+        self._packed = {}     # packing dtype -> (parameter stamp, weights)
         d = cfg.tf_in_dim
         self.in_linear = _Linear(cfg.input_dim, d, device, dtype)
         self.layers = nn.ModuleList(
@@ -285,8 +296,24 @@ class TIPModel(nn.Module):
             generator = torch.Generator().manual_seed(0)
         self.load_state_dict(init_params(cfg, generator, dtype))
 
+    def packed_weights(self, dtype=torch.bfloat16):
+        """The fused kernels' weight list (ops/fused_forward.pack_weights)
+        packed from this module's parameters, made once per dtype and made
+        again after the parameters change (``load_state_dict``, ``.to``, an
+        in-place write that the parameter's version counter sees; a write
+        through ``.data`` is not seen)."""
+        from tip_tpu_torch.ops import fused_forward as FF
+        stamp = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        hit = self._packed.get(dtype)
+        if hit is None or hit[0] != stamp:
+            hit = (stamp, FF.pack_weights(self.state_dict(), self.cfg, dtype))
+            self._packed[dtype] = hit
+        return hit[1]
+
     def forward(self, x_imu, x_s, mask=None, train: bool = False):
-        """Run the predictor.
+        """Run the predictor in the parameters' dtype (the plain forward,
+        whatever ``cfg.forward_impl`` says: the fused kernels take one
+        stream's window and packed weights, see ops/fused_forward.py).
 
         Args:
           x_imu: (B, T, 72 or 90) IMU features (acc-sum appended if enabled).

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` is compiled by plain ``nvcc`` into its own shared
 library with a C interface (``build/tip_tpu_torch/<name>-<hash>.so`` at the
-repo root, named by a hash of the source so an edit rebuilds) and loaded
-with ``ctypes``. Nothing is built when a module is imported: the first call
-of a kernel wrapper builds, or ``build_all()`` builds every source at once,
-one ``nvcc`` process per source, all started together.
+repo root, named by a hash of the source and of every ``csrc/*.cuh`` header,
+so an edit to either rebuilds) and loaded with ``ctypes``. Nothing is built
+when a module is imported: the first call of a kernel wrapper builds, or
+``build_all()`` builds every source at once, one ``nvcc`` process per
+source, all started together.
 
 Every C entry point takes pointers and the stream as ``c_void_p`` and
 returns ``cudaGetLastError()``; ``check`` raises if it is not 0.
@@ -45,8 +46,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:12]
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # shared device code
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest = digest.hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,0 +1,270 @@
+"""Whole-model fused forward for single-stream inference (twin of
+tip_tpu/ops/fused_forward.py, its single-stream kernels).
+
+The whole windowed forward — in-projection with the head-interleave
+permutation folded in, the post-norm encoder layers, the tanh-RNN head and
+the out-projection — as one op over pre-packed weights:
+
+  K4 ``fused_forward_last``: the (size_s,) prediction at one window index,
+     the only row the streaming runner consumes;
+  K5 ``fused_forward``: the (T, size_s) predictions at every index.
+
+Both are one cooperative launch of ``csrc/fused_forward.cu``. Beside them
+the plain PyTorch versions (``fused_forward_last_plain``,
+``fused_forward_plain``), which repeat the kernel's arithmetic cast by
+cast: every product is taken between values rounded to the packing dtype
+and summed in float32, the model input stays float32 into the
+in-projection, biases are the packed values widened to float32, LayerNorm
+and softmax run in float32. ``impl`` is "fused" (the kernel, CUDA tensors
+only), "plain", or "auto" (the kernel for a CUDA tensor, the plain version
+for a CPU tensor).
+
+Inference only: no dropout, no gradient.
+"""
+
+import ctypes
+import math
+
+import torch
+
+from tip_tpu_torch.models import tip_model as M
+from tip_tpu_torch.ops import _kernels as K
+
+PACK_DTYPES = (torch.float32, torch.bfloat16)
+# limits of csrc/fused_forward.cu (kMaxT, kMaxLayers, kMaxHeadDim)
+MAX_T = 64
+MAX_LAYERS = 8
+MAX_HEAD_DIM = 64
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIG = {"fused_forward_launch": [_P, _P, _I, _I] + [_I] * 10 + [_P, _P, _P]}
+# launcher's own return codes (CUDA's are positive)
+_ERR_SHAPE = -1
+_ERR_SMEM = -2
+
+
+def n_packed(cfg: M.ModelConfig) -> int:
+    return 2 + 12 * cfg.tf_layers + 5
+
+
+def pack_weights(params, cfg: M.ModelConfig, dtype=torch.bfloat16):
+    """Flatten a state dict of ``TIPModel`` (``in_linear.w``,
+    ``layers.0.w_q``, ...) into the kernels' input list: the head-interleave
+    permutation folded into the in-projection's columns, q/k/v packed as
+    one (d, 3d) matrix, both RNN biases summed before the cast. Matrices
+    and biases are cast to ``dtype``; LayerNorm scales and biases stay
+    float32. Same order and values as tip_tpu's ``pack_weights``."""
+    if dtype not in PACK_DTYPES:
+        raise TypeError(f"packing dtype {dtype}: float32 or bfloat16")
+    if not cfg.with_rnn:
+        raise ValueError("the fused forward needs the RNN head (with_rnn)")
+    perm = torch.as_tensor(M.head_interleave_perm(cfg),
+                           device=params["in_linear.w"].device)
+    f32 = torch.float32
+
+    def c(t, dt=dtype):
+        return t.detach().to(dt).contiguous()
+
+    ws = [c(params["in_linear.w"][:, perm]), c(params["in_linear.b"][perm])]
+    for i in range(cfg.tf_layers):
+        p = f"layers.{i}."
+        ws += [c(torch.cat([params[p + "w_q"], params[p + "w_k"],
+                            params[p + "w_v"]], dim=1)),
+               c(torch.cat([params[p + "b_q"], params[p + "b_k"],
+                            params[p + "b_v"]])),
+               c(params[p + "out_proj.w"]), c(params[p + "out_proj.b"]),
+               c(params[p + "ff1.w"]), c(params[p + "ff1.b"]),
+               c(params[p + "ff2.w"]), c(params[p + "ff2.b"]),
+               c(params[p + "ln1_s"], f32), c(params[p + "ln1_b"], f32),
+               c(params[p + "ln2_s"], f32), c(params[p + "ln2_b"], f32)]
+    ws += [c(params["rnn.w_ih"]),
+           c(params["rnn.b_ih"] + params["rnn.b_hh"]),
+           c(params["rnn.w_hh"]),
+           c(params["out.w"]), c(params["out.b"])]
+    return ws
+
+
+def _imu_dim(cfg: M.ModelConfig) -> int:
+    return cfg.input_size_imu + (18 if cfg.with_acc_sum else 0)
+
+
+def _check_k_last(k_last, T: int) -> int:
+    """``k_last`` as a host int in [0, T). A 0-d integer tensor is read
+    back (on a CUDA tensor that waits for the device). An index outside the
+    window raises: it is never clamped and never answered with the bare
+    output bias."""
+    k_last = int(k_last)
+    if not 0 <= k_last < T:
+        raise IndexError(f"k_last={k_last} is outside the {T}-row window")
+    return k_last
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _round(a, cd):
+    """Round to the packing dtype and widen back to float32."""
+    return a.to(cd).to(torch.float32)
+
+
+def _ln(x, s, b, eps=1e-5):
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * s + b
+
+
+def _hiddens_plain(ws, x, cfg: M.ModelConfig):
+    """The forward up to the RNN: x (T, input_dim) -> hidden states (T, H),
+    float32, with the kernels' casts."""
+    if len(ws) != n_packed(cfg):
+        raise ValueError(f"{len(ws)} packed weights, expected "
+                         f"{n_packed(cfg)}")
+    T = x.shape[0]
+    d, h, hd = cfg.tf_in_dim, cfg.n_heads, cfg.head_dim
+    cd = ws[0].dtype
+    f32 = torch.float32
+
+    def r(a):
+        return _round(a, cd)
+
+    def w(i):
+        return ws[i].to(f32)
+
+    zc = _imu_dim(cfg) + 108
+    x = torch.nan_to_num(x.to(f32), nan=0.0)
+    x = torch.cat([x[:, :zc], torch.zeros_like(x[:, zc:zc + 3]),
+                   x[:, zc + 3:]], dim=1)
+    x = x @ w(0) + w(1)            # the input is not rounded
+
+    rows = torch.arange(T, device=x.device)
+    mask = torch.where(rows[None, :] > rows[:, None],
+                       torch.full((), -1e30, dtype=f32, device=x.device),
+                       torch.zeros((), dtype=f32, device=x.device))
+    scale = 1.0 / math.sqrt(hd)
+
+    def heads(t):                  # (T, d) -> (h, T, hd)
+        return r(t).reshape(T, h, hd).transpose(0, 1)
+
+    for li in range(cfg.tf_layers):
+        o = 2 + 12 * li
+        qkv = r(x) @ w(o) + w(o + 1)
+        q, k, v = heads(qkv[:, :d]), heads(qkv[:, d:2 * d]), \
+            heads(qkv[:, 2 * d:])
+        logits = q @ k.transpose(-1, -2) * scale + mask
+        att = (r(torch.softmax(logits, dim=-1)) @ v).transpose(0, 1) \
+            .reshape(T, d)
+        a = r(att) @ w(o + 2) + w(o + 3)
+        x = _ln(x + a, ws[o + 8], ws[o + 9])
+        f = torch.relu(r(x) @ w(o + 4) + w(o + 5))
+        f = r(f) @ w(o + 6) + w(o + 7)
+        x = _ln(x + f, ws[o + 10], ws[o + 11])
+
+    o = 2 + 12 * cfg.tf_layers
+    xin = r(x) @ w(o) + w(o + 1)
+    w_hh = w(o + 2)
+    hcur = torch.zeros((1, cfg.rnn_hid_size), dtype=f32, device=x.device)
+    hs = []
+    for t in range(T):
+        hcur = torch.tanh(xin[t][None] + r(hcur) @ w_hh)
+        hs.append(hcur[0])
+    return torch.stack(hs)
+
+
+def fused_forward_plain(packed_ws, x, cfg: M.ModelConfig):
+    """Plain version of K5: x (T, input_dim) -> (T, size_s) float32."""
+    hs = _hiddens_plain(packed_ws, x, cfg)
+    return (_round(hs, packed_ws[0].dtype) @ packed_ws[-2].float()
+            + packed_ws[-1].float())
+
+
+def fused_forward_last_plain(packed_ws, x, k_last, cfg: M.ModelConfig):
+    """Plain version of K4: the (size_s,) prediction at window index
+    ``k_last``. Rows after it cannot reach it (causal attention, a forward
+    RNN), so only rows 0..k_last are computed."""
+    k_last = _check_k_last(k_last, x.shape[0])
+    hs = _hiddens_plain(packed_ws, x[:k_last + 1], cfg)
+    return (_round(hs[k_last], packed_ws[0].dtype) @ packed_ws[-2].float()
+            + packed_ws[-1].float())
+
+
+# ---------------------------------------------------------------------------
+# K4 / K5
+# ---------------------------------------------------------------------------
+
+def scratch_floats(T: int, cfg: M.ModelConfig) -> int:
+    """Size of the kernels' activation scratch: x, qkv, att, the pre-norm
+    sum, the feed-forward hidden, the RNN input and the hidden states."""
+    d = cfg.tf_in_dim
+    return T * (6 * d + cfg.tf_hid_size + 2 * cfg.rnn_hid_size)
+
+
+def _launch(packed_ws, x, k_last: int, cfg: M.ModelConfig, name: str):
+    """One cooperative launch; ``k_last`` -1 asks for every row."""
+    T = x.shape[0]
+    dev = x.device
+    cd = packed_ws[0].dtype
+    d, ff, H = cfg.tf_in_dim, cfg.tf_hid_size, cfg.rnn_hid_size
+    if len(packed_ws) != n_packed(cfg):
+        raise ValueError(f"{len(packed_ws)} packed weights, expected "
+                         f"{n_packed(cfg)}")
+    if cd not in PACK_DTYPES:
+        raise TypeError(f"packing dtype {cd}: float32 or bfloat16")
+    if not (1 <= T <= MAX_T and 1 <= cfg.tf_layers <= MAX_LAYERS
+            and d % cfg.n_heads == 0 and cfg.head_dim <= MAX_HEAD_DIM):
+        raise ValueError(
+            f"{name}: the kernel holds 1..{MAX_T} rows, 1..{MAX_LAYERS} "
+            f"layers and heads up to {MAX_HEAD_DIM} wide; got T={T}, "
+            f"{cfg.tf_layers} layers, d={d}, {cfg.n_heads} heads")
+    K.check_input(x, "x", (T, cfg.input_dim), torch.float32, dev)
+    f32 = torch.float32
+    shapes = [((cfg.input_dim, d), cd), ((d,), cd)]
+    for _ in range(cfg.tf_layers):
+        shapes += [((d, 3 * d), cd), ((3 * d,), cd), ((d, d), cd), ((d,), cd),
+                   ((d, ff), cd), ((ff,), cd), ((ff, d), cd), ((d,), cd),
+                   ((d,), f32), ((d,), f32), ((d,), f32), ((d,), f32)]
+    shapes += [((d, H), cd), ((H,), cd), ((H, H), cd),
+               ((H, cfg.size_s), cd), ((cfg.size_s,), cd)]
+    for i, (t, (shape, dt)) in enumerate(zip(packed_ws, shapes)):
+        K.check_input(t, f"packed_ws[{i}]", shape, dt, dev)
+    out = torch.empty((cfg.size_s,) if k_last >= 0 else (T, cfg.size_s),
+                      dtype=f32, device=dev)
+    scratch = torch.empty(scratch_floats(T, cfg), dtype=f32, device=dev)
+    ptrs = (ctypes.c_void_p * len(packed_ws))(
+        *[t.data_ptr() for t in packed_ws])
+    so = K.lib("fused_forward", _SIG)
+    err = so.fused_forward_launch(
+        x.data_ptr(), ptrs, len(packed_ws), int(cd == torch.bfloat16),
+        T, cfg.input_dim, d, cfg.n_heads, ff, cfg.tf_layers, H, cfg.size_s,
+        _imu_dim(cfg) + 108, k_last, scratch.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err == _ERR_SHAPE:
+        raise ValueError(f"{name}: the kernel refused the shape")
+    if err == _ERR_SMEM:
+        raise ValueError(
+            f"{name}: d={d}, ff={ff}, H={H} need more shared memory or "
+            f"registers than a block of this card has")
+    K.check(err, name)
+    K.launch_counts[name] += 1
+    return out
+
+
+def fused_forward_last(packed_ws, x, k_last, cfg: M.ModelConfig,
+                       impl: str = "auto"):
+    """The (size_s,) prediction at window index ``k_last`` (0-based, a host
+    int or a 0-d integer tensor) of the window x (T, input_dim); equals
+    ``fused_forward(...)[k_last]``. Raises unless 0 <= k_last < T."""
+    if not K.use_kernel(impl, x, "forward_impl", "fused"):
+        return fused_forward_last_plain(packed_ws, x, k_last, cfg)
+    k_last = _check_k_last(k_last, x.shape[0])
+    return _launch(packed_ws, x, k_last, cfg, "fused_forward_last")
+
+
+def fused_forward(packed_ws, x, cfg: M.ModelConfig, impl: str = "auto"):
+    """x (T, input_dim), a single-stream window (imu features ++ history)
+    -> (T, size_s) predictions. The input quirks (NaN -> 0, root-velocity
+    history channels zeroed) are applied inside."""
+    if not K.use_kernel(impl, x, "forward_impl", "fused"):
+        return fused_forward_plain(packed_ws, x, cfg)
+    return _launch(packed_ws, x, -1, cfg, "fused_forward")

@@ -56,7 +56,8 @@ class DecodeOut(NamedTuple):
 class TailOut(NamedTuple):
     pq_com: torch.Tensor     # (20, 7) CoM link frames (pre-correction)
     pq_jf: torch.Tensor      # (20, 7) joint frames
-    hist_sixd: torch.Tensor  # (18, 6) two-axis encode of s[3:57]
+    hist_sixd: torch.Tensor  # (18, 6) two-axis encode of s[3:57] (None from
+    #                          the runner's plain tail, which encodes later)
     vel_res: torch.Tensor    # (3,) clipped mean feet residue (pre z-fix)
     c_locs: torch.Tensor     # (5, 3) world SBP positions (100s if inactive)
     raw_res: torch.Tensor    # (5, 3) per-SBP residue (NaN rows if inactive)
@@ -154,14 +155,9 @@ def tail_fused(skel: kin.Skeleton, s_t, c_t, prev_pq, dt: float = cst.DT,
     if n_sbps != 5:
         raise ValueError(f"tail_fused's kernel takes the 5-SBP layout only, "
                          f"got n_sbps={n_sbps}")
+    kin.check_pose_skeleton(skel, "tail_fused")
     J = skel.n_joints
     n_links = J + 1
-    if n_links > 32 or J != len(_JOINT_SLOT):
-        raise ValueError(f"tail_fused takes the 19-joint AMASS pose layout, "
-                         f"got {J} joints")
-    if any(p >= j for j, p in enumerate(skel.parent)):
-        raise ValueError("tail_fused walks joints in order: every parent "
-                         "must come before its children")
     dev, f32 = s_t.device, torch.float32
     K.check_input(s_t, "s_t", (114,), f32, dev)
     K.check_input(c_t, "c_t", (20,), f32, dev)

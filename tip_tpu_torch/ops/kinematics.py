@@ -5,10 +5,13 @@ Two frame conventions are produced, matching PyBullet's link states: the
 *joint frame* (URDF link frame) and the *CoM frame* (joint frame shifted by
 the inertial origin). Quaternions are xyzw throughout.
 
-The fused tree walk that the runner uses on the card lives in
-ops/fused_tail.py (kernel K3, which subsumes tip_tpu's fk_bullet_fused).
+``fk`` is the plain level-parallel tree walk. ``fk_bullet_fused`` (kernel
+K6, csrc/fused_fk.cu) is the whole pose -> link-frames pipeline of one pose
+as one launch; the runner's fused tail (ops/fused_tail.py, kernel K3) holds
+the same walk plus the SBP and history chains.
 """
 
+import ctypes
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -18,6 +21,7 @@ import torch
 from tip_tpu_torch import device_const
 from tip_tpu_torch.chars import amass as _char
 from tip_tpu_torch.chars import amass_skeleton as _amass
+from tip_tpu_torch.ops import _kernels as K
 from tip_tpu_torch.ops import rotations as rot
 
 
@@ -68,6 +72,17 @@ def amass_skeleton(scale: float = 1.0, dtype=torch.float32,
                          _amass.JOINT_OFFSET * scale,
                          _amass.COM_OFFSET * scale, _amass.LINK_MASS,
                          dtype=dtype, device=device)
+
+
+def skeleton_from_urdf(urdf, scale: float = 1.0, dtype=torch.float32,
+                       device="cpu") -> Skeleton:
+    """Build a Skeleton from a parsed URDF
+    (tip_tpu_torch.utils.urdf.UrdfSkeleton)."""
+    if not np.allclose(urdf.joint_rpy, 0.0):
+        raise NotImplementedError("non-zero joint rpy not supported yet")
+    return make_skeleton(urdf.parent, urdf.is_fixed,
+                         urdf.joint_offset * scale, urdf.com_offset * scale,
+                         urdf.link_mass, dtype=dtype, device=device)
 
 
 def _levels(parent) -> Tuple[Tuple[int, ...], ...]:
@@ -171,3 +186,62 @@ def fk_bullet_state(skel: Skeleton, state_bullet, return_joint_frame=False):
 def fk_our_state(skel: Skeleton, s, return_joint_frame=False):
     """FK straight from a nimble-ordered 114-d state."""
     return fk_bullet_state(skel, our_pose_to_bullet(s), return_joint_frame)
+
+
+# ---------------------------------------------------------------------------
+# K6: the whole pose -> link-frames pipeline of one pose as one launch
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_SIG = {"fk_bullet_fused_launch": [_P, _P, _P, _P, _P, _P, ctypes.c_int, _P,
+                                   _P, _P]}
+
+# joint j -> its place among the 17 active joints of a bullet pose (-1: fixed)
+_ACTIVE_SLOT = tuple(_ACTIVE.index(j) if j in _ACTIVE else -1
+                     for j in range(len(_char.JOINT_NAMES)))
+
+
+def check_pose_skeleton(skel: Skeleton, what: str):
+    """Raise unless ``skel`` fits the kernels' tree walk: the 19-joint pose
+    layout (17 spherical joints + 2 fixed), parents before children."""
+    if skel.n_joints != len(_ACTIVE_SLOT) or tuple(
+            j for j, f in enumerate(skel.is_fixed) if not f) != _ACTIVE:
+        raise ValueError(f"{what} takes the 19-joint AMASS pose layout "
+                         f"(17 active joints), got {skel.n_joints} joints")
+    if any(p >= j for j, p in enumerate(skel.parent)):
+        raise ValueError(f"{what} walks joints in order: every parent must "
+                         f"come before its children")
+
+
+def fk_bullet_fused_plain(skel: Skeleton, state_bullet):
+    """Plain version of K6: ``fk_bullet_state(..., return_joint_frame=True)``
+    (any dtype, any leading batch dimensions)."""
+    return fk_bullet_state(skel, state_bullet, return_joint_frame=True)
+
+
+def fk_bullet_fused(skel: Skeleton, state_bullet, impl: str = "auto"):
+    """(pq_com, pq_jf), both (J+1, 7), for a single (57,) bullet pose, as
+    one op. ``impl``: "kernel" launches K6 (a float32 CUDA tensor), "plain"
+    runs ``fk_bullet_fused_plain``, "auto" launches for a CUDA tensor and
+    runs the plain version for a CPU tensor."""
+    if not K.use_kernel(impl, state_bullet, "fk_impl", "kernel"):
+        return fk_bullet_fused_plain(skel, state_bullet)
+    check_pose_skeleton(skel, "fk_bullet_fused")
+    J = skel.n_joints
+    dev, f32 = state_bullet.device, torch.float32
+    K.check_input(state_bullet, "state_bullet", (57,), f32, dev)
+    K.check_input(skel.joint_offset, "joint_offset", (J, 3), f32, dev)
+    K.check_input(skel.com_offset, "com_offset", (J + 1, 3), f32, dev)
+    K.check_input(skel.parent_i32, "parent", (J,), torch.int32, dev)
+    K.check_input(skel.is_fixed_i32, "is_fixed", (J,), torch.int32, dev)
+    slot = device_const(_ACTIVE_SLOT, torch.int32, dev)
+    out = torch.empty((2, J + 1, 7), dtype=f32, device=dev)
+    so = K.lib("fused_fk", _SIG)
+    err = so.fk_bullet_fused_launch(
+        state_bullet.data_ptr(), skel.joint_offset.data_ptr(),
+        skel.com_offset.data_ptr(), skel.parent_i32.data_ptr(),
+        skel.is_fixed_i32.data_ptr(), slot.data_ptr(), J, out[0].data_ptr(),
+        out[1].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    K.check(err, "fk_bullet_fused")
+    K.launch_counts["fk_bullet_fused"] += 1
+    return out[0], out[1]

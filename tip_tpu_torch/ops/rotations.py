@@ -48,6 +48,17 @@ def q_conj(q):
     return torch.cat([-q[..., :3], q[..., 3:4]], dim=-1)
 
 
+def q_inv(q):
+    """Inverse for unit quaternions (= conjugate)."""
+    return q_conj(q)
+
+
+def q_diff(q1, q2):
+    """Relative rotation q1 ∘ q2⁻¹ (the angle metrics consume only its
+    magnitude)."""
+    return q_mult(q1, q_inv(q2))
+
+
 def q_rotate(q, v):
     """Rotate vector(s) v by unit quaternion(s) q."""
     qv, qw = q[..., :3], q[..., 3:4]
@@ -185,6 +196,20 @@ def sixd_to_matrix(sixd):
 
 def sixd_to_aa(sixd):
     return matrix_to_aa(sixd_to_matrix(sixd))
+
+
+def slerp(q0, q1, t):
+    """Spherical interpolation between unit quaternions (xyzw)."""
+    d = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(d < 0.0, -q1, q1)
+    d = torch.abs(d)
+    theta = torch.acos(torch.clamp(d, -1.0, 1.0))
+    sin_t = torch.sin(theta)
+    near = sin_t < 1e-6
+    den = torch.where(near, torch.ones_like(sin_t), sin_t)
+    w0 = torch.where(near, 1.0 - t, torch.sin((1.0 - t) * theta) / den)
+    w1 = torch.where(near, t, torch.sin(t * theta) / den)
+    return q_normalize(w0 * q0 + w1 * q1)
 
 
 def angular_velocity_from_quats(q1, q2, dt):

@@ -12,13 +12,15 @@ The frame pipeline (reference real_time_runner_minimal.py:114-200):
      delayed 5 frames (fixed 5-frame algorithmic latency);
   2. per-frame root-local IMU features + running 40-frame acc-sum;
   3. model forward over the (<=40)-frame window, left-aligned, with the
-     output read at the last valid index;
+     output read at the last valid index (``forward_impl="fused"``: the
+     whole model as kernel K4, ops/fused_forward.fused_forward_last);
   4. exponential output filter (0.6^k over the last 6 raw outputs) and
      SBP / 6D decode (kernel K2, ops/fused_tail.decode_fused);
   5. state assembly: root ori from IMU0, root xyz integrated from the
      predicted velocity, 2-frame pose blend;
-  6. FK + SBP root correction (kernel K3, ops/fused_tail.tail_fused) with
-     the flat-ground z fix;
+  6. FK + SBP root correction (kernel K3, ops/fused_tail.tail_fused; with
+     ``tail_impl="plain"`` the plain ops, their FK by ``fk_impl``: plain or
+     kernel K6, ops/kinematics.fk_bullet_fused) with the flat-ground z fix;
   7. history push for the next frame's autoregressive input.
 
 The frame counters ``t``, ``k`` and ``n_out`` depend only on the frame
@@ -36,10 +38,12 @@ from tip_tpu_torch import constants as cst
 from tip_tpu_torch import device_const, resolve_device
 from tip_tpu_torch.models import tip_model as M
 from tip_tpu_torch.ops import _kernels as K
+from tip_tpu_torch.ops import fused_forward as FF
 from tip_tpu_torch.ops import fused_tail as FT
 from tip_tpu_torch.ops import imu as imu_ops
 from tip_tpu_torch.ops import kinematics as kin
 from tip_tpu_torch.ops import rotations as rot
+from tip_tpu_torch.ops import sbp as sbp_ops
 
 
 @dataclass(frozen=True)
@@ -57,6 +61,12 @@ class RunnerConfig:
     # is fused on a CUDA device and plain on the CPU. K3 takes the 5-SBP
     # layout only: another SBP count on the card needs "plain"
     tail_impl: str = "auto"
+    # FK of the plain tail (tail_impl="plain"; the fused tail holds its own
+    # tree walk): "plain" is the level-parallel ops/kinematics.fk, "kernel"
+    # the whole pose -> frames pipeline as kernel K6
+    # (kinematics.fk_bullet_fused, CUDA tensors only), "auto" K6 on a CUDA
+    # device and plain on the CPU
+    fk_impl: str = "plain"
     # only "recompute" (the windowed forward every frame) is ported
     serving_mode: str = "recompute"
 
@@ -73,10 +83,12 @@ class RunnerConfig:
             raise NotImplementedError(
                 f"serving_mode={self.serving_mode!r}: the KV-cache serving "
                 f"modes are not ported yet (ROADMAP B, KV-cache serving)")
-        if self.model.forward_impl != "plain":
-            raise NotImplementedError(
-                f"forward_impl={self.model.forward_impl!r}: the whole-model "
-                f"kernel is not ported yet (ROADMAP B, fused_forward_last)")
+        K.check_impl(self.fk_impl, "fk_impl", "kernel")
+        if self.fk_impl != "plain" and self.tail_impl != "plain":
+            raise ValueError(
+                f"fk_impl={self.fk_impl!r} selects the FK of the plain tail: "
+                f"it needs tail_impl='plain' (the fused tail holds its own "
+                f"FK), got tail_impl={self.tail_impl!r}")
 
     @property
     def smooth_win(self) -> int:
@@ -183,11 +195,38 @@ class SensedFrame(tuple):
     __slots__ = ()
 
 
+def model_window(cfg: RunnerConfig, imu_win, accsum_win, s_and_c_win):
+    """The model's input over the window: (window, 72 or 90) IMU features
+    (the scaled acc-sum appended if enabled) and the (window, state_dim)
+    history."""
+    if cfg.with_acc_sum:
+        imu_win = torch.cat([imu_win, accsum_win / cst.ACC_SUM_DOWN_SCALE],
+                            dim=-1)
+    return imu_win, s_and_c_win
+
+
+def pack_dtype(cfg: RunnerConfig) -> torch.dtype:
+    """Packing dtype of the fused forward: ``compute_dtype`` or bfloat16."""
+    return getattr(torch, cfg.model.compute_dtype or "bfloat16")
+
+
+def pack_fused_weights(model: M.TIPModel, cfg: RunnerConfig):
+    """The fused kernel's weights in the dtype the runner's fused path uses
+    (None unless ``forward_impl="fused"``). Pass the result as
+    ``packed_ws`` to ``runner_step`` so that a frame does not look the
+    pack up in the model (``TIPModel.packed_weights`` walks every
+    parameter to see that none changed)."""
+    if cfg.model.forward_impl != "fused":
+        return None
+    return model.packed_weights(pack_dtype(cfg))
+
+
 def sense_and_predict(model: M.TIPModel, carry: RunnerCarry, cur_imu,
-                      cfg: RunnerConfig) -> SensedFrame:
+                      cfg: RunnerConfig, packed_ws=None) -> SensedFrame:
     """Stages 1-5: raw-ring smoothing, local features + acc-sum, model
     forward, output filter, state assembly. Returns (buffer updates…,
-    active flag, assembled s_t, SBP vector c_t)."""
+    active flag, assembled s_t, SBP vector c_t). ``packed_ws``: the fused
+    forward's pre-packed weights (``pack_fused_weights``)."""
     dtype = carry.imu_win.dtype
     dev = carry.imu_win.device
     cur_imu = torch.as_tensor(cur_imu, dtype=dtype, device=dev)
@@ -217,12 +256,17 @@ def sense_and_predict(model: M.TIPModel, carry: RunnerCarry, cur_imu,
     k_new = carry.k + 1
 
     # ---- 3. model forward ------------------------------------------------------
-    x_imu = imu_win
-    if cfg.with_acc_sum:
-        x_imu = torch.cat([imu_win, accsum_win / cst.ACC_SUM_DOWN_SCALE],
-                          dim=-1)
-    y = model(x_imu[None], carry.s_and_c_win[None])
-    y_t = y[0, min(k_new, W) - 1]            # last valid row, (state_dim,)
+    x_imu, x_s = model_window(cfg, imu_win, accsum_win, carry.s_and_c_win)
+    last_idx = min(k_new, W) - 1             # last valid row
+    if cfg.model.forward_impl == "fused":
+        # the whole model as one kernel, emitting that row only
+        if packed_ws is None:
+            packed_ws = pack_fused_weights(model, cfg)
+        x_full = torch.cat([x_imu, x_s], dim=-1).to(torch.float32)
+        y_t = FF.fused_forward_last(packed_ws, x_full, last_idx,
+                                    cfg.model).to(dtype)
+    else:
+        y_t = model(x_imu[None], x_s[None])[0, last_idx]    # (state_dim,)
 
     # ---- 4. output filter + decode (kernel K2) ---------------------------------
     out_buf = torch.cat([carry.out_buf[1:], y_t[None]], dim=0)
@@ -247,22 +291,44 @@ def sense_and_predict(model: M.TIPModel, carry: RunnerCarry, cur_imu,
                         n_out, True, s_t, c_t))
 
 
-def _tail(cfg: RunnerConfig, skel: kin.Skeleton, s_t, c_t, prev_pq):
-    """Stages 6-7's FK + SBP root-correction inputs + 6D history encode
-    (kernel K3 or its plain version): vel_res is the clipped mean feet
-    residue BEFORE the z fix, c_locs the world SBP positions before the
-    -vel_res*dt shift."""
-    return FT.tail_fused(skel, s_t, c_t, prev_pq, dt=cfg.dt,
-                         impl=cfg.tail_impl,
-                         n_sbps=cfg.n_sbps)
+def _fk(cfg: RunnerConfig, skel: kin.Skeleton, s_t):
+    """Pose -> (CoM frames, joint frames) by ``fk_impl``."""
+    if cfg.fk_impl == "plain":
+        return kin.fk_our_state(skel, s_t, return_joint_frame=True)
+    return kin.fk_bullet_fused(skel, kin.our_pose_to_bullet(s_t),
+                               impl=cfg.fk_impl)
+
+
+def _tail(cfg: RunnerConfig, skel: kin.Skeleton, s_t, c_t,
+          prev_pq) -> FT.TailOut:
+    """Stages 6-7's FK + SBP root-correction inputs + 6D history encode:
+    vel_res is the clipped mean feet residue BEFORE the z fix, c_locs the
+    world SBP positions before the -vel_res*dt shift. ``tail_impl="plain"``
+    runs the plain ops with the FK of ``fk_impl`` and leaves ``hist_sixd``
+    None (the caller encodes the history with ``state_to_history``, which
+    never reads the root position the correction moves); otherwise kernel
+    K3, or its plain version for CPU tensors."""
+    if cfg.tail_impl != "plain":
+        return FT.tail_fused(skel, s_t, c_t, prev_pq, dt=cfg.dt,
+                             impl=cfg.tail_impl, n_sbps=cfg.n_sbps)
+    pq_com, pq_jf = _fk(cfg, skel, s_t)
+    corr = sbp_ops.root_correction_from_constrs(
+        prev_pq, pq_com, c_t, n_sbps=cfg.n_sbps,
+        use_n_sbps=min(5, cfg.n_sbps), dt=cfg.dt)
+    return FT.TailOut(pq_com=pq_com, pq_jf=pq_jf, hist_sixd=None,
+                      vel_res=corr.vel_res, c_locs=corr.c_locs,
+                      raw_res=corr.raw_residues,
+                      active=corr.active.to(s_t.dtype))
 
 
 def runner_step(model: M.TIPModel, carry: RunnerCarry, cur_imu,
-                cfg: RunnerConfig, skel: kin.Skeleton):
+                cfg: RunnerConfig, skel: kin.Skeleton, packed_ws=None):
     """One 60 Hz frame of the minimal runner (flat-ground assumption).
+    ``packed_ws``: the fused forward's pre-packed weights
+    (``pack_fused_weights``), else looked up in the model each frame.
     Returns (carry', dict(qdq, viz_locs, ct))."""
     (raw, k_new, imu_win, accsum_win, acc_runsum, out_buf, n_out, active,
-     s_t, c_t) = sense_and_predict(model, carry, cur_imu, cfg)
+     s_t, c_t) = sense_and_predict(model, carry, cur_imu, cfg, packed_ws)
     if not active:
         # warmup: return s_init, freeze the state
         new_carry = replace(carry, t=carry.t + 1, raw_imu=raw)
@@ -287,8 +353,11 @@ def runner_step(model: M.TIPModel, carry: RunnerCarry, cur_imu,
                      dim=1)
 
     # ---- 7. history push ----------------------------------------------------
-    hist = torch.cat([to.hist_sixd.reshape(108),
-                      s_t[cst.N_DOFS:cst.N_DOFS + 3], c_t])
+    if to.hist_sixd is None:
+        hist = state_to_history(s_t, c_t, cfg.n_sbps)
+    else:
+        hist = torch.cat([to.hist_sixd.reshape(108),
+                          s_t[cst.N_DOFS:cst.N_DOFS + 3], c_t])
     s_and_c_win = push_history(cfg, carry.s_and_c_win, k_new, hist)
 
     new_carry = RunnerCarry(
@@ -327,10 +396,12 @@ def run_offline(model: M.TIPModel, cfg: RunnerConfig, skel: kin.Skeleton,
     dtype = next(model.parameters()).dtype
     carry = runner_init(cfg, skel, s_init, dtype=dtype, device=device)
     imu_seq = torch.as_tensor(imu_seq, dtype=dtype, device=device)
+    packed_ws = pack_fused_weights(model, cfg)
     qdq, ct, viz = [carry.s_init], [], []
     with torch.no_grad():
         for t in range(imu_seq.shape[0] - 1):
-            carry, out = runner_step(model, carry, imu_seq[t], cfg, skel)
+            carry, out = runner_step(model, carry, imu_seq[t], cfg, skel,
+                                     packed_ws)
             qdq.append(out["qdq"])
             ct.append(out["ct"])
             viz.append(out["viz_locs"])
