@@ -7,23 +7,33 @@ Phases, in order; any failure exits non-zero:
 
   1. require CUDA, turn TF32 off, print the card's name and power limit;
   2. build the CUDA kernels from tip_tpu_torch/csrc with nvcc;
-  3. hold each kernel (K1-K6) against its plain PyTorch version on the card
+  3. hold each kernel (K1-K7) against its plain PyTorch version on the card
      at the main paths' shapes, and time both (and K1's cuDNN yardstick);
   4. run the main paths: the full-width model (ModelConfig() defaults,
-     random weights from a seeded generator) in the recompute streaming
-     runner over the in-tree 720-frame motion, each path with every launch
-     counter reset just before and read just after:
+     random weights from a seeded generator) in the streaming runner over
+     the in-tree 720-frame motion, each path with every launch counter
+     reset just before and read just after. Recompute mode:
        A  the default: eager model with K1, decode K2, tail K3;
        C  forward_impl="fused" with f32 packing (K4), plain decode and tail
           with the FK kernel (K6);
        B  forward_impl="fused" with bf16 packing (K4), K2, K3; then a
           teacher-forced replay of every window path B saw through K5;
+     KV-cache modes:
+       D  serving_mode="kv_cache", forward_impl="fused", f32 rings: the
+          cached step K7 (RNN replay), K2, K3;
+       E  serving_mode="kv_cache_rnn_carry", forward_impl="fused", bf16
+          rings: K7 (carried hidden), K2, K3;
+       F  serving_mode="kv_cache" with the plain cached step, K2, K3;
      compare A and C with the plain path on the card and with a float64 CPU
      run of the plain path, hold B's recorded outputs against K5 and the
-     plain version window by window; time and profile frames;
+     plain version window by window; compare D with F, with C while the
+     window grows and with a float64 CPU run of F's configuration, hold
+     every frame of E against K7's plain version on E's own tokens; time
+     and profile frames;
   5. print one {"kernels": [...]} line, then the {"ok": true, ...} line.
 """
 
+import dataclasses
 import json
 import math
 import pickle
@@ -68,8 +78,15 @@ TOL_FF = {"float32": 1e-5, "bfloat16": 1e-2}
 # K4's row against the same row of K5, and K6's frames against K3's: the
 # same device code on the same values in the same order (the card shows 0)
 TOL_SAME = 1e-6
+# K7's rings with bf16 packing, kernel against plain: a stored row differs
+# by a bf16 step or two where a sum rounded the other way, 2^-8 of the
+# value each; held relative to the ring's largest magnitude
+TOL_RING_BF16_REL = 2.0 ** -7
+# trajectory rows while the 40-row window still grows (5 warm-up frames,
+# 40 model frames, s_init): the cached step is the windowed forward there
+GROW_ROWS = 46
 KERNELS = ("fused_rnn", "decode_fused", "tail_fused", "fused_forward_last",
-           "fused_forward", "fk_bullet_fused")
+           "fused_forward", "fk_bullet_fused", "fused_cached_forward_step")
 
 # arithmetic per item of K2/K3, counted from csrc/fused_tail.cu (an add,
 # multiply, divide, sqrt, compare or transcendental each counts one)
@@ -447,6 +464,123 @@ def check_fk_bullet_fused(dev, gen, skel):
                 **times)
 
 
+def fused_cached_work(cfg, W, itemsize, rnn_carry, steps):
+    """Compulsory bytes and operations of one committed cached step: every
+    packed weight, the token, the K/V rings and (replay) the encoder ring
+    or (carry) the hidden read once; the written rows, the hidden, the
+    validity byte and y written once. A multiply and an add per product
+    term, W keys per head, 8 per LayerNorm element, 5 per softmax entry, 1
+    per tanh; the replay's W x d x H input product and `steps` RNN steps
+    (the valid slots of this call's ring)."""
+    d, ff, H, L = cfg.tf_in_dim, cfg.tf_hid_size, cfg.rnn_hid_size, \
+        cfg.tf_layers
+    n_w = (cfg.input_dim * d + d + L * (3 * d * d + 3 * d + d * d + d
+                                        + 2 * d * ff + ff + d)
+           + d * H + H + H * H + H * cfg.size_s + cfg.size_s)
+    nbytes = (n_w * itemsize + L * 4 * d * 4 + cfg.input_dim * 4
+              + 2 * L * W * d * itemsize + W
+              + (2 * L + 1) * d * itemsize + 1 + cfg.size_s * 4)
+    ops = (2 * (cfg.input_dim * d + L * (4 * d * d + 2 * d * ff) + d * H)
+           + L * (4 * d * W + 5 * cfg.n_heads * W + 2 * 8 * d)
+           + 2 * H * cfg.size_s)
+    if rnn_carry:
+        nbytes += 2 * H * itemsize
+        ops += 2 * H * H + H
+    else:
+        nbytes += W * d * itemsize
+        ops += 2 * (W - 1) * d * H + steps * (2 * H * H + H)
+    return nbytes, ops
+
+
+def check_fused_cached(dev, gen, model):
+    """K7 against its plain version: a stream of 2 W + 3 tokens (the cursor
+    wraps) entered at slot 5 with an uncommitted step in the middle, both
+    packing dtypes, both RNN variants, at full width over 40 slots and at
+    the CPU tests' small width over 8. y is compared every step, the rings,
+    h and the validity bits at the end; after the uncommitted step the
+    kernel's cache equals its clone bit for bit. Timed at a slot of a full
+    window."""
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.runtime import streaming_cache as SC
+    small = M.TIPModel(M.ModelConfig(tf_in_dim=32, tf_hid_size=64, n_heads=4,
+                                     tf_layers=2, rnn_hid_size=24,
+                                     forward_impl="fused"), device=dev,
+                       generator=torch.Generator().manual_seed(2))
+    errs, worst, timed = {}, {}, {}
+    for tag, mdl, W in (("full", model, 40), ("small", small, 8)):
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            cfg = dataclasses.replace(mdl.cfg, compute_dtype=name)
+            ws = mdl.packed_weights(dt)
+            for rnn_carry in (False, True):
+                key = f"{tag}_{name}_{'carry' if rnn_carry else 'replay'}"
+                ck = SC.cache_init(cfg, W, device=dev)
+                cp = SC.cache_init(cfg, W, device=dev)
+                e_y = 0.0
+                for step in range(2 * W + 3):
+                    x = torch.randn(cfg.input_dim, generator=gen, device=dev)
+                    if step % 3 == 0:
+                        x[100] = float("nan")        # a NaN history entry
+                    x[90 + 108:90 + 111] = 5.0       # root-velocity columns
+                    commit = step != W + 1
+                    slot = (step + 5) % W
+                    before = ck.clone()
+                    _, y = SC.fused_cached_step_slot(
+                        ws, ck, x, slot, commit, cfg, rnn_carry=rnn_carry,
+                        impl="fused")
+                    _, ref = SC.fused_cached_forward_step_plain(
+                        ws, cp, x, slot, commit, cfg, rnn_carry=rnn_carry)
+                    e_y = max(e_y, max_err(y, ref))
+                    if not commit and not all(
+                            torch.equal(getattr(before, n), getattr(ck, n))
+                            for n in ("k", "v", "enc", "h", "valid")):
+                        raise AssertionError(
+                            f"fused_cached_forward_step.{key}: an "
+                            f"uncommitted step changed the cache")
+                errs[f"{key}_y"] = (e_y, TOL_FF[name])
+                worst[(name, rnn_carry)] = max(
+                    worst.get((name, rnn_carry), 0.0), e_y)
+                for n in ("k", "v", "enc", "h"):
+                    a, b = getattr(ck, n).float(), getattr(cp, n).float()
+                    tol = TOL_FF[name] if dt == torch.float32 else \
+                        TOL_RING_BF16_REL * max(1.0, b.abs().max().item())
+                    errs[f"{key}_{n}"] = (max_err(a, b), tol)
+                if not torch.equal(ck.valid, cp.valid):
+                    raise AssertionError(f"{key}: validity bits differ")
+                if tag == "full":
+                    timed[(name, rnn_carry)] = (cfg, ws, ck, cp, x)
+    check("fused_cached_forward_step", errs)
+
+    variants = {}
+    for (name, rnn_carry), (cfg, ws, ck, cp, x) in timed.items():
+        W = ck.enc.shape[0]
+        t = timings(
+            lambda: SC.fused_cached_step_slot(ws, ck, x, 7, True, cfg,
+                                              rnn_carry=rnn_carry,
+                                              impl="fused"),
+            lambda: SC.fused_cached_forward_step_plain(ws, cp, x, 7, True,
+                                                       cfg,
+                                                       rnn_carry=rnn_carry))
+        steps = int(ck.valid.sum().item())           # the ring is full: W
+        b_ms, b_by = bound(
+            *fused_cached_work(cfg, W, 4 if name == "float32" else 2,
+                               rnn_carry, steps),
+            PEAK_F32_FLOP_S if name == "float32" else PEAK_BF16_FLOP_S)
+        variants[f"{'carry' if rnn_carry else 'replay'}_{name}"] = dict(
+            ms=t["ms"], plain_ms=t["plain_ms"], call_ms=t["call_ms"],
+            plain_call_ms=t["plain_call_ms"], bound_ms=b_ms, bound_by=b_by,
+            rnn_steps=steps, max_abs_err=worst[(name, rnn_carry)],
+            tol=TOL_FF[name])
+    # the entry's own numbers are path D's: replay, f32 rings
+    own = variants.pop("replay_float32")
+    own.pop("rnn_steps")
+    return dict(name="fused_cached_forward_step", route="cuda",
+                source="tip_tpu_torch/csrc/fused_cached.cu",
+                replaces="tip_tpu/runtime/streaming_cache.py:341",
+                shape=[model.cfg.input_dim], variant="replay_float32",
+                ring_slots=40, library_ms=None, library_call_ms=None, **own,
+                variants=variants)
+
 
 # ---------------------------------------------------------------------------
 # 4. the main paths
@@ -611,6 +745,52 @@ def replay_path_b(model, cfg, skel, s_init, imu, dev):
     return launches
 
 
+def replay_path_e(model, cfg, skel, s_init, imu, dev):
+    """Path E teacher-forced: its bf16 free-running trajectory drifts from
+    any other run chaotically, so each frame is held on its own. Step the
+    runner with the cached step's wrapper recording every token, cursor and
+    raw output y_t (K7); then feed the recorded tokens from a fresh cache
+    through K7's plain version and compare frame by frame."""
+    from tip_tpu_torch.runtime import runner as R
+    from tip_tpu_torch.runtime import streaming_cache as SC
+    records = []
+    wrapper = SC.fused_cached_step_slot
+
+    def recording(ws, cache, x, slot, commit, mcfg, **kw):
+        out = wrapper(ws, cache, x, slot, commit, mcfg, **kw)
+        records.append((x.clone(), slot, out[1].clone()))
+        return out
+
+    carry = R.runner_init(cfg, skel, s_init, device=dev)
+    imu = torch.as_tensor(imu, dtype=torch.float32, device=dev)
+    packed = R.pack_fused_weights(model, cfg)
+    SC.fused_cached_step_slot = recording
+    try:
+        with torch.no_grad():
+            for t in range(imu.shape[0] - 1):
+                carry, _ = R.runner_step(model, carry, imu[t], cfg, skel,
+                                         packed)
+    finally:
+        SC.fused_cached_step_slot = wrapper
+    cache = SC.cache_init(cfg.model, cfg.window, device=dev)
+    err = 0.0
+    with torch.no_grad():
+        for x, slot, y_t in records:
+            _, ref = SC.fused_cached_forward_step_plain(
+                packed, cache, x, slot, True, cfg.model, rnn_carry=True)
+            err = max(err, max_err(ref, y_t))
+    for n in ("k", "v", "enc", "h"):
+        a, b = getattr(carry.cache, n).float(), getattr(cache, n).float()
+        check("path E replay", {f"ring_{n}": (
+            max_err(a, b),
+            TOL_RING_BF16_REL * max(1.0, b.abs().max().item()))})
+    check("path E replay", {"plain_vs_recorded_K7":
+                            (err, TOL_FF["bfloat16"])})
+    log(f"  path E teacher-forced over {len(records)} frames: max |plain - "
+        f"K7| = {err:.3g}")
+    return len(records)
+
+
 def main_paths(dev):
     from tip_tpu_torch.models import tip_model as M
     from tip_tpu_torch.ops import kinematics as kin
@@ -627,24 +807,39 @@ def main_paths(dev):
                             tail_impl="plain", fk_impl="kernel"),
         "plain": R.RunnerConfig(model=M.ModelConfig(rnn_impl="plain"),
                                 tail_impl="plain"),
+        "D": R.RunnerConfig(model=M.ModelConfig(forward_impl="fused",
+                                                compute_dtype="float32"),
+                            serving_mode="kv_cache"),
+        "E": R.RunnerConfig(model=M.ModelConfig(forward_impl="fused",
+                                                compute_dtype="bfloat16"),
+                            serving_mode="kv_cache_rnn_carry"),
+        "F": R.RunnerConfig(serving_mode="kv_cache"),
     }
+    k7 = "fused_cached_forward_step"
     on_path = {"A": ("fused_rnn", "decode_fused", "tail_fused"),
                "B": ("fused_forward_last", "decode_fused", "tail_fused"),
                "C": ("fused_forward_last", "fk_bullet_fused"),
-               "plain": ()}
+               "plain": (),
+               "D": (k7, "decode_fused", "tail_fused"),
+               "E": (k7, "decode_fused", "tail_fused"),
+               "F": ("decode_fused", "tail_fused")}
     models = {"A": M.TIPModel(cfgs["A"].model, device=dev,
                               generator=torch.Generator().manual_seed(0))}
-    for name in ("B", "C", "plain"):        # the same weights on every path
+    for name in ("B", "C", "plain", "D", "E", "F"):   # the same weights
         models[name] = M.TIPModel(cfgs[name].model, device=dev)
         models[name].load_state_dict(models["A"].state_dict())
 
     runs, launches = {}, {}
-    for name in ("A", "plain", "C", "B"):
+    for name in ("A", "plain", "C", "B", "D", "E", "F"):
         runs[name], launches[name] = run_path(
             name, models[name], cfgs[name], skel, s_init, imu, dev,
             on_path[name])
     launches["replay"] = {"fused_forward": replay_path_b(
         models["B"], cfgs["B"], skel, s_init, imu, dev)}
+    n_e = replay_path_e(models["E"], cfgs["E"], skel, s_init, imu, dev)
+    if n_e != launches["E"][k7]:
+        raise AssertionError(f"path E replay recorded {n_e} frames, the "
+                             f"run launched K7 {launches['E'][k7]} times")
 
     # reference: the plain path in float64 on the CPU, first frames
     model_c = M.TIPModel(cfgs["plain"].model, device="cpu",
@@ -659,23 +854,48 @@ def main_paths(dev):
         compare_runs(f"path {name} card f32 vs CPU f64", runs[name],
                      runs_cpu, CPU_FRAMES, TOL_PATH)
 
-    # information, no tolerance: bf16 free-running against f32 free-running
-    poses = {n: kin.our_pose_to_bullet(runs[n][0]) for n in ("A", "B", "C")}
+    # the cached modes: D against the plain cached step on the card, against
+    # the windowed fused forward while the window grows (the cached step is
+    # exact there), and against a float64 CPU run of F's configuration
+    compare_runs("path D vs F (card)", runs["D"], runs["F"], PATH_FRAMES,
+                 TOL_PATH)
+    compare_runs("path D vs C while the window grows", runs["D"], runs["C"],
+                 GROW_ROWS, TOL_PATH)
+    model_c = M.TIPModel(cfgs["F"].model, device="cpu", dtype=torch.float64)
+    model_c.load_state_dict(models["A"].state_dict())
+    runs_cpu_f = R.run_offline(model_c, cfgs["F"],
+                               kin.amass_skeleton(dtype=torch.float64),
+                               s_init, imu[:CPU_FRAMES + 1], device="cpu")
+    for name in ("D", "F"):
+        compare_runs(f"path {name} card f32 vs CPU f64 (kv_cache)",
+                     runs[name], runs_cpu_f, CPU_FRAMES, TOL_PATH)
+
+    # information, no tolerance: bf16 free-running against f32 free-running,
+    # and the serving modes against recompute (random weights)
+    poses = {n: kin.our_pose_to_bullet(runs[n][0])
+             for n in ("A", "B", "C", "D", "E")}
+
+    def angle(a, b, rows=slice(None)):
+        return metrics.loss_angle(poses[a][rows], poses[b][rows]).item()
+
+    after = slice(GROW_ROWS, None)
     log(json.dumps({"joint_angle_err_deg": {
-        "B_vs_A_all_frames": metrics.loss_angle(poses["A"],
-                                                poses["B"]).item(),
-        "B_vs_A_first_120": metrics.loss_angle(poses["A"][:120],
-                                               poses["B"][:120]).item(),
-        "C_vs_A_all_frames": metrics.loss_angle(poses["A"],
-                                                poses["C"]).item()}}))
+        "B_vs_A_all_frames": angle("A", "B"),
+        "B_vs_A_first_120": angle("A", "B", slice(0, 120)),
+        "C_vs_A_all_frames": angle("A", "C"),
+        "D_vs_C_after_the_slide": angle("C", "D", after),
+        "D_vs_A_after_the_slide": angle("A", "D", after),
+        "E_vs_C_after_the_slide": angle("C", "E", after),
+        "E_vs_A_after_the_slide": angle("A", "E", after),
+        "E_vs_D_after_the_slide": angle("D", "E", after)}}))
 
     # per-frame time, eager, one pass each, in one call on one card
     frame_ms = {name: frame_times_ms(models[name], cfgs[name], skel, s_init,
                                      imu, dev)
-                for name in ("A", "B", "C", "plain")}
+                for name in ("A", "B", "C", "plain", "D", "E", "F")}
     log(f"per-frame median ms (eager, sync per frame): {frame_ms}")
 
-    for name in ("A", "B", "C"):
+    for name in ("A", "B", "C", "D", "E", "F"):
         dev_ms, n_kernels, rows, prof_frame_ms = profile_frames(
             models[name], cfgs[name], skel, s_init, imu, dev)
         # busy share of the profiled frames themselves: their device time
@@ -693,7 +913,7 @@ def main_paths(dev):
 # the path whose launches a kernel's entry reports
 COUNTED_ON = {"fused_rnn": "A", "decode_fused": "A", "tail_fused": "A",
               "fused_forward_last": "B", "fused_forward": "replay",
-              "fk_bullet_fused": "C"}
+              "fk_bullet_fused": "C", "fused_cached_forward_step": "D"}
 
 
 def main():
@@ -724,7 +944,8 @@ def main():
     kernels = [check_fused_rnn(dev, gen), check_decode_fused(dev, gen),
                check_tail_fused(dev, gen, skel),
                *check_fused_forward(dev, gen, model),
-               check_fk_bullet_fused(dev, gen, skel)]
+               check_fk_bullet_fused(dev, gen, skel),
+               check_fused_cached(dev, gen, model)]
     torch.cuda.synchronize()
     for k in kernels:
         log(f"  {k['name']}: max err {k['max_abs_err']:.3g} (tol "

@@ -12,6 +12,7 @@ from tip_tpu_torch import resolve_device
 from tip_tpu_torch.models import tip_model as TM
 from tip_tpu_torch.ops import kinematics as tkin
 from tip_tpu_torch.runtime import runner as TR
+from tip_tpu_torch.runtime import streaming_cache as TSC
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "tip_tpu")
@@ -42,6 +43,7 @@ def test_port_files_found():
             "tip_tpu_torch/ops/fused_tail.py", "chip_smoke.py",
             "tip_tpu_torch/ops/fused_forward.py",
             "tip_tpu_torch/ops/metrics.py",
+            "tip_tpu_torch/runtime/streaming_cache.py",
             "tip_tpu_torch/utils/urdf.py"} <= names
 
 
@@ -61,7 +63,9 @@ def test_run_offline_without_device_raises_without_cuda():
                        torch.zeros(8, 72))
 
 
-@pytest.mark.parametrize("entry", ["model", "runner_init", "resolve"])
+@pytest.mark.parametrize("entry", ["model", "runner_init",
+                                   "runner_init_kv_cache", "cache_init",
+                                   "resolve"])
 def test_entry_points_default_to_cuda(entry):
     _no_cuda()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -70,6 +74,11 @@ def test_entry_points_default_to_cuda(entry):
         elif entry == "runner_init":
             TR.runner_init(TR.RunnerConfig(), tkin.amass_skeleton(),
                            torch.zeros(114))
+        elif entry == "runner_init_kv_cache":
+            TR.runner_init(TR.RunnerConfig(serving_mode="kv_cache"),
+                           tkin.amass_skeleton(), torch.zeros(114))
+        elif entry == "cache_init":
+            TSC.cache_init(TM.ModelConfig(), 40)
         else:
             resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -78,6 +78,40 @@ def test_tiny_forward_nan_history_matches_tip_tpu(rnn_impl):
     np.testing.assert_array_equal(t2, t)
 
 
+@pytest.mark.parametrize("cd", ["bfloat16", "float32", None])
+def test_plain_forward_compute_dtype_matches_tip_tpu(cd):
+    """With compute_dtype set the plain forward casts float32 parameters
+    and inputs to it, computes there and answers in the inputs' dtype, as
+    tip_tpu's forward does (bf16: 2e-2, the two frameworks round at other
+    places); float32 and None leave a float32 model's forward bit for bit
+    as it was."""
+    kw = dict(TINY, compute_dtype=cd)
+    cfg = JM.ModelConfig(**kw)
+    params = jax.tree_util.tree_map(
+        lambda p: np.asarray(p, np.float32),
+        JM.init_params(jax.random.PRNGKey(6), cfg))
+    rng = np.random.default_rng(6)
+    x_imu, x_s = (a.astype(np.float32) for a in _inputs(rng, cfg, 2, 12))
+    j = JM.forward(params, jnp.asarray(x_imu), jnp.asarray(x_s), cfg)
+    model = TM.TIPModel(TM.ModelConfig(**kw), device="cpu")
+    model.load_state_dict(TM.params_from_jax(params))
+    own = TM.TIPModel(TM.ModelConfig(**TINY), device="cpu")
+    own.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        t = model(torch.as_tensor(x_imu), torch.as_tensor(x_s))
+        t_own = own(torch.as_tensor(x_imu), torch.as_tensor(x_s))
+    assert t.dtype == torch.float32 and j.dtype == jnp.float32
+    np.testing.assert_allclose(t.numpy(), np.asarray(j),
+                               atol=2e-2 if cd == "bfloat16" else 1e-5,
+                               rtol=0)
+    if cd == "bfloat16":
+        assert not torch.equal(t, t_own)          # it did compute in bf16
+        assert model.params_as()["out.w"].dtype == torch.bfloat16
+        assert model.params_as() is model.params_as()     # cast once
+    else:
+        assert torch.equal(t, t_own)
+
+
 @pytest.mark.parametrize("k", [1, 7, 40])
 def test_left_aligned_padding_equals_short_window(k):
     """Output at the last valid row of a zero-padded 40-frame window equals

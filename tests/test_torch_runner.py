@@ -123,7 +123,11 @@ def test_warmup_frames_return_s_init(runs, stream):
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(serving_mode="kv_cache"), NotImplementedError),
+    (dict(serving_mode="paged"), ValueError),
+    (dict(serving_mode="kv_cache"), None),
+    (dict(serving_mode="kv_cache_rnn_carry",
+          model=TM.ModelConfig(forward_impl="fused",
+                               compute_dtype="bfloat16")), None),
     (dict(model=TM.ModelConfig(forward_impl="fused")), None),
     (dict(tail_impl="xla"), ValueError),
     (dict(n_sbps=2, tail_impl="fused"), ValueError),
@@ -133,11 +137,16 @@ def test_warmup_frames_return_s_init(runs, stream):
     (dict(fk_impl="kernel", tail_impl="plain"), None),
 ])
 def test_runner_config_rejects_unported(kw, err):
-    """The KV-cache modes are not ported and unknown values raise; the
-    fused forward and the FK kernel of the plain tail are accepted."""
+    """Unknown values raise (an unknown serving mode with ValueError); the
+    KV-cache modes, the fused forward and the FK kernel of the plain tail
+    are accepted. The packing dtype is ``compute_dtype``, else bfloat16 for
+    the windowed forward and the carry's dtype for the cached modes."""
     if err is None:
         cfg = TR.RunnerConfig(**kw)
-        assert TR.pack_dtype(cfg) == torch.bfloat16
+        assert cfg.cached == (cfg.serving_mode != "recompute")
+        want = torch.float32 if kw.get("serving_mode") == "kv_cache" \
+            else torch.bfloat16
+        assert TR.pack_dtype(cfg) == want
         return
     with pytest.raises(err):
         TR.RunnerConfig(**kw)

@@ -52,9 +52,11 @@ class ModelConfig:
     # for its one output row; bf16 weights by default). "fused" launches
     # the kernel for CUDA tensors and runs its plain version on the CPU
     forward_impl: str = "plain"
-    # packing dtype of the fused path, "float32" or "bfloat16"; None is the
-    # fused path's default (bfloat16). The plain forward computes in the
-    # parameters' own dtype whatever this says
+    # "float32" or "bfloat16". The plain forward and the plain cached step
+    # cast the parameters and their input to it and compute there; the
+    # fused paths pack their weights in it, and the KV-cache rings are
+    # stored in it. None: the parameters' own dtype for the plain paths and
+    # the rings, bfloat16 for the packing of the windowed fused forward
     compute_dtype: Optional[str] = None
 
     def __post_init__(self):
@@ -215,9 +217,6 @@ class _Linear(nn.Module):
         self.w = _param(in_d, out_d, device=device, dtype=dtype)
         self.b = _param(out_d, device=device, dtype=dtype)
 
-    def forward(self, x):
-        return x @ self.w + self.b
-
 
 def _layer_norm(x, scale, bias, eps=1e-5):
     mu = torch.mean(x, dim=-1, keepdim=True)
@@ -225,13 +224,35 @@ def _layer_norm(x, scale, bias, eps=1e-5):
     return (x - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
+def _encoder_layer(p, pre: str, x, mask, n_heads: int):
+    """One post-norm layer over the parameters ``p[pre + name]``:
+    x = LN1(x + MHA(x)); x = LN2(x + FF(x))."""
+    B, T, d = x.shape
+    h = n_heads
+    hd = d // h
+
+    def split_heads(t):
+        return t.reshape(B, T, h, hd).transpose(1, 2)   # (B,h,T,hd)
+
+    q = split_heads(x @ p[pre + "w_q"] + p[pre + "b_q"])
+    k = split_heads(x @ p[pre + "w_k"] + p[pre + "b_k"])
+    v = split_heads(x @ p[pre + "w_v"] + p[pre + "b_v"])
+    logits = q @ k.transpose(-1, -2) / math.sqrt(hd) + mask
+    o = torch.softmax(logits, dim=-1) @ v
+    a = o.transpose(1, 2).reshape(B, T, d) @ p[pre + "out_proj.w"] \
+        + p[pre + "out_proj.b"]
+    x = _layer_norm(x + a, p[pre + "ln1_s"], p[pre + "ln1_b"])
+    f = torch.relu(x @ p[pre + "ff1.w"] + p[pre + "ff1.b"])
+    f = f @ p[pre + "ff2.w"] + p[pre + "ff2.b"]
+    return _layer_norm(x + f, p[pre + "ln2_s"], p[pre + "ln2_b"])
+
+
 class _EncoderLayer(nn.Module):
-    """One post-norm layer: x = LN1(x + MHA(x)); x = LN2(x + FF(x))."""
+    """The parameters of one encoder layer (``_encoder_layer``)."""
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
         d = cfg.tf_in_dim
-        self.n_heads = cfg.n_heads
         for n in ("q", "k", "v"):
             setattr(self, f"w_{n}", _param(d, d, device=device, dtype=dtype))
         for n in ("q", "k", "v"):
@@ -241,24 +262,6 @@ class _EncoderLayer(nn.Module):
         self.ff2 = _Linear(cfg.tf_hid_size, d, device, dtype)
         for n in ("ln1_s", "ln1_b", "ln2_s", "ln2_b"):
             setattr(self, n, _param(d, device=device, dtype=dtype))
-
-    def forward(self, x, mask):
-        B, T, d = x.shape
-        h = self.n_heads
-        hd = d // h
-
-        def split_heads(t):
-            return t.reshape(B, T, h, hd).transpose(1, 2)   # (B,h,T,hd)
-
-        q = split_heads(x @ self.w_q + self.b_q)
-        k = split_heads(x @ self.w_k + self.b_k)
-        v = split_heads(x @ self.w_v + self.b_v)
-        logits = q @ k.transpose(-1, -2) / math.sqrt(hd) + mask
-        o = torch.softmax(logits, dim=-1) @ v
-        a = self.out_proj(o.transpose(1, 2).reshape(B, T, d))
-        x = _layer_norm(x + a, self.ln1_s, self.ln1_b)
-        f = self.ff2(torch.relu(self.ff1(x)))
-        return _layer_norm(x + f, self.ln2_s, self.ln2_b)
 
 
 class _RNN(nn.Module):
@@ -281,7 +284,9 @@ class TIPModel(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        self._packed = {}     # packing dtype -> (parameter stamp, weights)
+        # what is derived from the parameters, made again when they change:
+        # ("packed" | "cast", dtype) -> (parameter stamp, value)
+        self._derived = {}
         d = cfg.tf_in_dim
         self.in_linear = _Linear(cfg.input_dim, d, device, dtype)
         self.layers = nn.ModuleList(
@@ -296,24 +301,45 @@ class TIPModel(nn.Module):
             generator = torch.Generator().manual_seed(0)
         self.load_state_dict(init_params(cfg, generator, dtype))
 
+    def _derive(self, key, make):
+        """``make()`` once per key, and again after the parameters change
+        (``load_state_dict``, ``.to``, an in-place write that the
+        parameter's version counter sees; a write through ``.data`` is not
+        seen)."""
+        stamp = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        hit = self._derived.get(key)
+        if hit is None or hit[0] != stamp:
+            hit = (stamp, make())
+            self._derived[key] = hit
+        return hit[1]
+
     def packed_weights(self, dtype=torch.bfloat16):
         """The fused kernels' weight list (ops/fused_forward.pack_weights)
         packed from this module's parameters, made once per dtype and made
-        again after the parameters change (``load_state_dict``, ``.to``, an
-        in-place write that the parameter's version counter sees; a write
-        through ``.data`` is not seen)."""
+        again after the parameters change (``_derive``)."""
         from tip_tpu_torch.ops import fused_forward as FF
-        stamp = tuple((p.data_ptr(), p._version) for p in self.parameters())
-        hit = self._packed.get(dtype)
-        if hit is None or hit[0] != stamp:
-            hit = (stamp, FF.pack_weights(self.state_dict(), self.cfg, dtype))
-            self._packed[dtype] = hit
-        return hit[1]
+        return self._derive(("packed", dtype), lambda: FF.pack_weights(
+            self.state_dict(), self.cfg, dtype))
+
+    def params_as(self, dtype=None):
+        """The parameters by state-dict name, cast to ``dtype`` (None: to
+        ``cfg.compute_dtype``, and as they are when that is None too). The
+        cast copy is made once per dtype (``_derive``)."""
+        if dtype is None and self.cfg.compute_dtype is not None:
+            dtype = getattr(torch, self.cfg.compute_dtype)
+        own = dict(self.named_parameters())
+        if dtype is None or all(p.dtype == dtype for p in own.values()):
+            return own
+        return self._derive(("cast", dtype), lambda: {
+            k: p.detach().to(dtype) for k, p in own.items()})
 
     def forward(self, x_imu, x_s, mask=None, train: bool = False):
-        """Run the predictor in the parameters' dtype (the plain forward,
-        whatever ``cfg.forward_impl`` says: the fused kernels take one
-        stream's window and packed weights, see ops/fused_forward.py).
+        """Run the predictor (the plain forward, whatever
+        ``cfg.forward_impl`` says: the fused kernels take one stream's
+        window and packed weights, see ops/fused_forward.py). With
+        ``cfg.compute_dtype`` set, the parameters and both inputs are cast
+        to it, the forward runs there and the result comes back in the
+        inputs' dtype; else it runs in the parameters' dtype.
 
         Args:
           x_imu: (B, T, 72 or 90) IMU features (acc-sum appended if enabled).
@@ -327,18 +353,24 @@ class TIPModel(nn.Module):
                 "training forward (dropout) comes with the training slice "
                 "(ROADMAP A, training)")
         B, T, _ = x_imu.shape
+        out_dtype = x_imu.dtype
+        p = self.params_as()
+        if self.cfg.compute_dtype is not None:
+            cd = getattr(torch, self.cfg.compute_dtype)
+            x_imu, x_s = x_imu.to(cd), x_s.to(cd)
         x_s = torch.nan_to_num(x_s, nan=0.0)
         x_s = torch.cat([x_s[..., :108], torch.zeros_like(x_s[..., 108:111]),
                          x_s[..., 111:]], dim=-1)
-        x = self.in_linear(torch.cat([x_imu, x_s], dim=-1))
+        x = torch.cat([x_imu, x_s], dim=-1) @ p["in_linear.w"] \
+            + p["in_linear.b"]
         x = x[..., self.perm]
         if mask is None:
             mask = causal_mask(T, x.dtype, x.device)
-        for layer in self.layers:
-            x = layer(x, mask)
+        for li in range(self.cfg.tf_layers):
+            x = _encoder_layer(p, f"layers.{li}.", x, mask, self.cfg.n_heads)
         if self.cfg.with_rnn:
-            rnn = self.rnn
             # input matmul hoisted; both biases folded into the pre-activation
-            xin = x @ rnn.w_ih + rnn.b_ih + rnn.b_hh
-            x = fused_rnn(xin.contiguous(), rnn.w_hh, impl=self.cfg.rnn_impl)
-        return self.out(x)
+            xin = x @ p["rnn.w_ih"] + p["rnn.b_ih"] + p["rnn.b_hh"]
+            x = fused_rnn(xin.contiguous(), p["rnn.w_hh"],
+                          impl=self.cfg.rnn_impl)
+        return (x @ p["out.w"] + p["out.b"]).to(out_dtype)

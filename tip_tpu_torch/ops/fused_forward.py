@@ -9,7 +9,9 @@ the out-projection — as one op over pre-packed weights:
      the only row the streaming runner consumes;
   K5 ``fused_forward``: the (T, size_s) predictions at every index.
 
-Both are one cooperative launch of ``csrc/fused_forward.cu``. Beside them
+Both are one cooperative launch of ``csrc/fused_forward.cu`` (its phases
+live in ``csrc/fused_phases.cuh``, shared with the cached step's kernel
+K7, runtime/streaming_cache.py). Beside them
 the plain PyTorch versions (``fused_forward_last_plain``,
 ``fused_forward_plain``), which repeat the kernel's arithmetic cast by
 cast: every product is taken between values rounded to the packing dtype
@@ -31,7 +33,7 @@ from tip_tpu_torch.models import tip_model as M
 from tip_tpu_torch.ops import _kernels as K
 
 PACK_DTYPES = (torch.float32, torch.bfloat16)
-# limits of csrc/fused_forward.cu (kMaxT, kMaxLayers, kMaxHeadDim)
+# limits of csrc/fused_phases.cuh (kMaxT, kMaxLayers, kMaxHeadDim)
 MAX_T = 64
 MAX_LAYERS = 8
 MAX_HEAD_DIM = 64
@@ -200,10 +202,10 @@ def scratch_floats(T: int, cfg: M.ModelConfig) -> int:
     return T * (6 * d + cfg.tf_hid_size + 2 * cfg.rnn_hid_size)
 
 
-def _launch(packed_ws, x, k_last: int, cfg: M.ModelConfig, name: str):
-    """One cooperative launch; ``k_last`` -1 asks for every row."""
-    T = x.shape[0]
-    dev = x.device
+def check_packed(packed_ws, cfg: M.ModelConfig, dev, name: str):
+    """Raise unless ``packed_ws`` is ``pack_weights``' list for ``cfg``:
+    count, one packing dtype, every shape, contiguous, on ``dev``; and
+    unless the widths are inside the kernels' limits."""
     cd = packed_ws[0].dtype
     d, ff, H = cfg.tf_in_dim, cfg.tf_hid_size, cfg.rnn_hid_size
     if len(packed_ws) != n_packed(cfg):
@@ -211,13 +213,12 @@ def _launch(packed_ws, x, k_last: int, cfg: M.ModelConfig, name: str):
                          f"{n_packed(cfg)}")
     if cd not in PACK_DTYPES:
         raise TypeError(f"packing dtype {cd}: float32 or bfloat16")
-    if not (1 <= T <= MAX_T and 1 <= cfg.tf_layers <= MAX_LAYERS
-            and d % cfg.n_heads == 0 and cfg.head_dim <= MAX_HEAD_DIM):
+    if not (1 <= cfg.tf_layers <= MAX_LAYERS and d % cfg.n_heads == 0
+            and cfg.head_dim <= MAX_HEAD_DIM):
         raise ValueError(
-            f"{name}: the kernel holds 1..{MAX_T} rows, 1..{MAX_LAYERS} "
-            f"layers and heads up to {MAX_HEAD_DIM} wide; got T={T}, "
-            f"{cfg.tf_layers} layers, d={d}, {cfg.n_heads} heads")
-    K.check_input(x, "x", (T, cfg.input_dim), torch.float32, dev)
+            f"{name}: the kernel holds 1..{MAX_LAYERS} layers and heads up "
+            f"to {MAX_HEAD_DIM} wide; got {cfg.tf_layers} layers, d={d}, "
+            f"{cfg.n_heads} heads")
     f32 = torch.float32
     shapes = [((cfg.input_dim, d), cd), ((d,), cd)]
     for _ in range(cfg.tf_layers):
@@ -228,6 +229,32 @@ def _launch(packed_ws, x, k_last: int, cfg: M.ModelConfig, name: str):
                ((H, cfg.size_s), cd), ((cfg.size_s,), cd)]
     for i, (t, (shape, dt)) in enumerate(zip(packed_ws, shapes)):
         K.check_input(t, f"packed_ws[{i}]", shape, dt, dev)
+
+
+def check_launch(err: int, name: str, cfg: M.ModelConfig):
+    """Raise for a launcher's return code other than 0."""
+    if err == _ERR_SHAPE:
+        raise ValueError(f"{name}: the kernel refused the shape")
+    if err == _ERR_SMEM:
+        raise ValueError(
+            f"{name}: d={cfg.tf_in_dim}, ff={cfg.tf_hid_size}, "
+            f"H={cfg.rnn_hid_size} need more shared memory or registers "
+            f"than a block of this card has")
+    K.check(err, name)
+
+
+def _launch(packed_ws, x, k_last: int, cfg: M.ModelConfig, name: str):
+    """One cooperative launch; ``k_last`` -1 asks for every row."""
+    T = x.shape[0]
+    dev = x.device
+    cd = packed_ws[0].dtype
+    d, ff, H = cfg.tf_in_dim, cfg.tf_hid_size, cfg.rnn_hid_size
+    if not 1 <= T <= MAX_T:
+        raise ValueError(f"{name}: the kernel holds 1..{MAX_T} rows, got "
+                         f"T={T}")
+    check_packed(packed_ws, cfg, dev, name)
+    K.check_input(x, "x", (T, cfg.input_dim), torch.float32, dev)
+    f32 = torch.float32
     out = torch.empty((cfg.size_s,) if k_last >= 0 else (T, cfg.size_s),
                       dtype=f32, device=dev)
     scratch = torch.empty(scratch_floats(T, cfg), dtype=f32, device=dev)
@@ -239,13 +266,7 @@ def _launch(packed_ws, x, k_last: int, cfg: M.ModelConfig, name: str):
         T, cfg.input_dim, d, cfg.n_heads, ff, cfg.tf_layers, H, cfg.size_s,
         _imu_dim(cfg) + 108, k_last, scratch.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    if err == _ERR_SHAPE:
-        raise ValueError(f"{name}: the kernel refused the shape")
-    if err == _ERR_SMEM:
-        raise ValueError(
-            f"{name}: d={d}, ff={ff}, H={H} need more shared memory or "
-            f"registers than a block of this card has")
-    K.check(err, name)
+    check_launch(err, name, cfg)
     K.launch_counts[name] += 1
     return out
 
