@@ -7,8 +7,10 @@ Phases, in order; any failure exits non-zero:
 
   1. require CUDA, turn TF32 off, print the card's name and power limit;
   2. build the CUDA kernels from tip_tpu_torch/csrc with nvcc;
-  3. hold each kernel (K1-K7) against its plain PyTorch version on the card
+  3. hold each kernel (K1-K9) against its plain PyTorch version on the card
      at the main paths' shapes, and time both (and K1's cuDNN yardstick);
+     the pool's kernels K8 and K9 also against the single-stream K7 and K4
+     stream by stream, and the batched K2, K3, K6 against B unbatched calls;
   4. run the main paths: the full-width model (ModelConfig() defaults,
      random weights from a seeded generator) in the streaming runner over
      the in-tree 720-frame motion, each path with every launch counter
@@ -30,7 +32,20 @@ Phases, in order; any failure exits non-zero:
      window grows and with a float64 CPU run of F's configuration, hold
      every frame of E against K7's plain version on E's own tokens; time
      and profile frames;
-  5. print one {"kernels": [...]} line, then the {"ok": true, ...} line.
+  5. run the pool paths: StreamPool at capacity 64 over the 60 in-tree
+     motions (four slots join later, one stream is removed and its slot
+     re-added), 300 ticks, counters reset before and read after each:
+       G  kv_cache_rnn_carry, fused, bf16: K8 (carry), K2, K3;
+       H  kv_cache, fused, f32: K8 (replay), K2, K3;
+       I  kv_cache, plain batched cached step, f32, K2, K3: H's reference;
+       J  recompute, fused, f32: K9, K2, K3;
+       K  recompute, plain model (K1 at (64, 40, 512)), plain tail with the
+          batched FK kernel K6, 120 ticks;
+     compare H with I over all streams, four streams of H with the
+     single-stream path D and of J with C from each stream's own first
+     frame, G teacher-forced with K8's plain version on its own tokens, K
+     with J; time and profile ticks;
+  6. print one {"kernels": [...]} line, then the {"ok": true, ...} line.
 """
 
 import dataclasses
@@ -46,8 +61,8 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
-MOTION = ROOT / "artifacts" / "corpus_run_v3" / "corpus_extra" / \
-    "freeform2_0000.pkl"
+CORPUS = ROOT / "artifacts" / "corpus_run_v3" / "corpus_extra"
+MOTION = CORPUS / "freeform2_0000.pkl"
 
 # H100 SXM published peaks (NVIDIA data sheet, dense rates): HBM bytes/s,
 # f32 FLOP/s outside the tensor cores, bf16 FLOP/s of the tensor cores.
@@ -68,6 +83,8 @@ TOL_RES = 1e-4
 TOL_PATH = 1e-3
 PATH_FRAMES = 300
 CPU_FRAMES = 120
+# frames of the per-frame timing pass of each single-stream path
+TIMED_FRAMES = 300
 # K4/K5 against their plain versions. f32 packing: the same f32 products
 # summed in another order over up to 1024 terms, through 4 layers and 40
 # RNN steps; the card shows 1.3e-6, so 1e-5 (not the 1e-4 a first guess
@@ -86,7 +103,22 @@ TOL_RING_BF16_REL = 2.0 ** -7
 # 40 model frames, s_init): the cached step is the windowed forward there
 GROW_ROWS = 46
 KERNELS = ("fused_rnn", "decode_fused", "tail_fused", "fused_forward_last",
-           "fused_forward", "fk_bullet_fused", "fused_cached_forward_step")
+           "fused_forward", "fk_bullet_fused", "fused_cached_forward_step",
+           "fused_cached_batch", "fused_recompute_batch")
+
+# the pool paths: capacity, ticks, and who sits where. Slots 0-59 hold the
+# 60 motions from tick 0; slots 60-63 join later with motions reused from
+# their first frame; slot 5's stream is removed and the slot re-added.
+# Motion 0 sits in slot 0, in two late slots and in the re-added slot, so
+# that one single-stream run of it is the reference of all four
+POOL_CAPACITY = 64
+POOL_TICKS = 300
+POOL_TICKS_K = 120
+POOL_JOINS = {7: (60, 0), 50: (61, 1), 100: (62, 0), 130: (63, 3)}
+POOL_REMOVE = (150, 5)          # (tick, slot)
+POOL_READD = (160, 5, 0)        # (tick, slot, motion)
+# (slot, first tick) of the four streams held against a single-stream run
+POOL_CHECKED = ((0, 0), (60, 7), (62, 100), (5, 160))
 
 # arithmetic per item of K2/K3, counted from csrc/fused_tail.cu (an add,
 # multiply, divide, sqrt, compare or transcendental each counts one)
@@ -149,15 +181,21 @@ def graph_ms(fn, per_graph=20, replays=50):
     return s.elapsed_time(e) / (replays * per_graph)
 
 
-def timings(kernel, plain, library=None):
+def timings(kernel, plain, library=None, graph=None, light=False):
     """ms (kernel device time), plain_ms and library_ms the same way, and
-    the eager per-call times beside them."""
-    out = dict(ms=graph_ms(kernel), plain_ms=graph_ms(plain),
-               call_ms=time_ms(kernel), plain_call_ms=time_ms(plain),
+    the eager per-call times beside them. graph: (kernel, plain) forms for
+    the graph replay where the eager forms copy from the host (a copy from
+    pageable memory cannot be captured). light: fewer calls, for the pool's
+    kernels, whose calls take milliseconds."""
+    g = dict(per_graph=5, replays=10) if light else {}
+    e = dict(n=30, warmup=5) if light else {}
+    g_kernel, g_plain = graph if graph is not None else (kernel, plain)
+    out = dict(ms=graph_ms(g_kernel, **g), plain_ms=graph_ms(g_plain, **g),
+               call_ms=time_ms(kernel, **e), plain_call_ms=time_ms(plain, **e),
                library_ms=None, library_call_ms=None)
     if library is not None:
-        out.update(library_ms=graph_ms(library),
-                   library_call_ms=time_ms(library))
+        out.update(library_ms=graph_ms(library, **g),
+                   library_call_ms=time_ms(library, **e))
     return out
 
 
@@ -206,7 +244,7 @@ def check_fused_rnn(dev, gen):
     w = ((torch.rand(H, H, generator=gen, device=dev) * 2 - 1)
          / math.sqrt(H))
     errs = {}
-    for B in (1, 8):
+    for B in (1, 8, POOL_CAPACITY):      # one stream, a few, the pool's
         xin = torch.randn(B, T, H, generator=gen, device=dev) * 0.5
         out = FR.fused_rnn(xin, w, impl="kernel")
         ref = FR.fused_rnn_plain(xin, w)
@@ -324,23 +362,47 @@ def check_tail_fused(dev, gen, skel):
                 **times)
 
 
-def fused_forward_work(cfg, T, rows_out, itemsize):
-    """Compulsory bytes and operations of one whole-model forward over T
-    rows that emits rows_out rows: every packed weight, x and the output
-    once; a multiply and an add per product term, the causal half of the
-    attention, 8 per LayerNorm element, 5 per softmax entry, 1 per tanh."""
+def weight_bytes(cfg, itemsize):
+    """Bytes of the packed weights: matrices and biases in the packing
+    dtype, the LayerNorm vectors in f32."""
     d, ff, H, L = cfg.tf_in_dim, cfg.tf_hid_size, cfg.rnn_hid_size, \
         cfg.tf_layers
     n_w = (cfg.input_dim * d + d + L * (3 * d * d + 3 * d + d * d + d
                                         + 2 * d * ff + ff + d)
            + d * H + H + H * H + H * cfg.size_s + cfg.size_s)
-    nbytes = (n_w * itemsize + L * 4 * d * 4 + T * cfg.input_dim * 4
-              + rows_out * cfg.size_s * 4)
+    return n_w * itemsize + L * 4 * d * 4
+
+
+def forward_ops(cfg, T, rows_out):
+    """Operations of one whole-model forward over T rows that emits
+    rows_out rows: a multiply and an add per product term, the causal half
+    of the attention, 8 per LayerNorm element, 5 per softmax entry, 1 per
+    tanh."""
+    d, ff, H, L = cfg.tf_in_dim, cfg.tf_hid_size, cfg.rnn_hid_size, \
+        cfg.tf_layers
     causal = T * (T + 1) // 2
-    ops = (2 * T * (cfg.input_dim * d + L * (4 * d * d + 2 * d * ff) + d * H)
-           + L * (4 * d * causal + 5 * cfg.n_heads * causal + 2 * 8 * T * d)
-           + 2 * T * H * H + T * H + 2 * rows_out * H * cfg.size_s)
-    return nbytes, ops
+    return (2 * T * (cfg.input_dim * d + L * (4 * d * d + 2 * d * ff) + d * H)
+            + L * (4 * d * causal + 5 * cfg.n_heads * causal + 2 * 8 * T * d)
+            + 2 * T * H * H + T * H + 2 * rows_out * H * cfg.size_s)
+
+
+def fused_forward_work(cfg, T, rows_out, itemsize):
+    """Compulsory bytes and operations of one whole-model forward over T
+    rows that emits rows_out rows: every packed weight, x and the output
+    once (``forward_ops`` for the operations)."""
+    nbytes = (weight_bytes(cfg, itemsize) + T * cfg.input_dim * 4
+              + rows_out * cfg.size_s * 4)
+    return nbytes, forward_ops(cfg, T, rows_out)
+
+
+def fused_recompute_batch_work(cfg, T, k_last, itemsize):
+    """Compulsory bytes and operations of K9 on these inputs: every packed
+    weight once, the B windows, k_last and the B output rows; per stream
+    the forward over the rows 0..k_last[b] that its output needs."""
+    B = len(k_last)
+    nbytes = (weight_bytes(cfg, itemsize) + B * T * cfg.input_dim * 4 + B * 4
+              + B * cfg.size_s * 4)
+    return nbytes, sum(forward_ops(cfg, k + 1, 1) for k in k_last)
 
 
 def check_fused_forward(dev, gen, model):
@@ -370,13 +432,8 @@ def check_fused_forward(dev, gen, model):
                     max_err(y, full[k]), TOL_SAME)
                 worst["last"] = max(worst["last"], e)
     # the widths are arguments of the kernel: the CPU tests' small config
-    # (edges everywhere: 32 output columns of a 256-column unit, 8-wide
-    # heads, fewer W_hh columns than blocks) goes through the same code
-    from tip_tpu_torch.models import tip_model as M
-    small = M.TIPModel(M.ModelConfig(tf_in_dim=32, tf_hid_size=64, n_heads=4,
-                                     tf_layers=2, rnn_hid_size=24,
-                                     forward_impl="fused"), device=dev,
-                       generator=torch.Generator().manual_seed(2))
+    # goes through the same code
+    small = small_model(dev)
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[1]
         ws = small.packed_weights(dt)
@@ -464,31 +521,31 @@ def check_fk_bullet_fused(dev, gen, skel):
                 **times)
 
 
-def fused_cached_work(cfg, W, itemsize, rnn_carry, steps):
-    """Compulsory bytes and operations of one committed cached step: every
-    packed weight, the token, the K/V rings and (replay) the encoder ring
-    or (carry) the hidden read once; the written rows, the hidden, the
-    validity byte and y written once. A multiply and an add per product
-    term, W keys per head, 8 per LayerNorm element, 5 per softmax entry, 1
-    per tanh; the replay's W x d x H input product and `steps` RNN steps
-    (the valid slots of this call's ring)."""
+def fused_cached_work(cfg, W, itemsize, rnn_carry, steps, B=1):
+    """Compulsory bytes and operations of one cached step of B committed
+    streams (K7: B = 1; K8): every packed weight once; per stream the
+    token, the K/V rings and (replay) the encoder ring or (carry) the
+    hidden read once, the written rows, the hidden, the validity byte and y
+    written once. A multiply and an add per product term, W keys per head,
+    8 per LayerNorm element, 5 per softmax entry, 1 per tanh; the replay's
+    W x d x H input product per stream and `steps` RNN steps (the valid
+    slots of this call's rings, summed over the streams)."""
     d, ff, H, L = cfg.tf_in_dim, cfg.tf_hid_size, cfg.rnn_hid_size, \
         cfg.tf_layers
-    n_w = (cfg.input_dim * d + d + L * (3 * d * d + 3 * d + d * d + d
-                                        + 2 * d * ff + ff + d)
-           + d * H + H + H * H + H * cfg.size_s + cfg.size_s)
-    nbytes = (n_w * itemsize + L * 4 * d * 4 + cfg.input_dim * 4
-              + 2 * L * W * d * itemsize + W
-              + (2 * L + 1) * d * itemsize + 1 + cfg.size_s * 4)
-    ops = (2 * (cfg.input_dim * d + L * (4 * d * d + 2 * d * ff) + d * H)
-           + L * (4 * d * W + 5 * cfg.n_heads * W + 2 * 8 * d)
-           + 2 * H * cfg.size_s)
+    nbytes = weight_bytes(cfg, itemsize) + B * (
+        cfg.input_dim * 4 + 2 * L * W * d * itemsize + W
+        + (2 * L + 1) * d * itemsize + 1 + cfg.size_s * 4)
+    ops = B * (2 * (cfg.input_dim * d + L * (4 * d * d + 2 * d * ff) + d * H)
+               + L * (4 * d * W + 5 * cfg.n_heads * W + 2 * 8 * d)
+               + 2 * H * cfg.size_s)
     if rnn_carry:
-        nbytes += 2 * H * itemsize
-        ops += 2 * H * H + H
+        nbytes += B * 2 * H * itemsize
+        ops += B * (2 * H * H + H)
     else:
-        nbytes += W * d * itemsize
-        ops += 2 * (W - 1) * d * H + steps * (2 * H * H + H)
+        nbytes += B * W * d * itemsize
+        ops += B * 2 * (W - 1) * d * H + steps * (2 * H * H + H)
+    if B > 1:
+        nbytes += B             # the commit flags
     return nbytes, ops
 
 
@@ -500,12 +557,8 @@ def check_fused_cached(dev, gen, model):
     h and the validity bits at the end; after the uncommitted step the
     kernel's cache equals its clone bit for bit. Timed at a slot of a full
     window."""
-    from tip_tpu_torch.models import tip_model as M
     from tip_tpu_torch.runtime import streaming_cache as SC
-    small = M.TIPModel(M.ModelConfig(tf_in_dim=32, tf_hid_size=64, n_heads=4,
-                                     tf_layers=2, rnn_hid_size=24,
-                                     forward_impl="fused"), device=dev,
-                       generator=torch.Generator().manual_seed(2))
+    small = small_model(dev)
     errs, worst, timed = {}, {}, {}
     for tag, mdl, W in (("full", model, 40), ("small", small, 8)):
         for dt in (torch.float32, torch.bfloat16):
@@ -582,6 +635,305 @@ def check_fused_cached(dev, gen, model):
                 variants=variants)
 
 
+def small_model(dev):
+    """The CPU tests' small widths (edges everywhere: 32 output columns of a
+    256-column unit, 8-wide heads, fewer W_hh columns than blocks)."""
+    from tip_tpu_torch.models import tip_model as M
+    return M.TIPModel(M.ModelConfig(tf_in_dim=32, tf_hid_size=64, n_heads=4,
+                                    tf_layers=2, rnn_hid_size=24,
+                                    forward_impl="fused"), device=dev,
+                      generator=torch.Generator().manual_seed(2))
+
+
+def check_batched_tail(dev, gen, skel, B=POOL_CAPACITY):
+    """K2, K3 and K6 with a leading stream axis (one launch of B blocks)
+    against B unbatched calls (the same device code on the same values, so
+    TOL_SAME) and against their plain versions on the same B inputs (the
+    single-stream tolerances); and their device time at the pool's B beside
+    one stream's."""
+    from tip_tpu_torch.ops import fused_tail as FT
+    from tip_tpu_torch.ops import kinematics as kin
+    from tip_tpu_torch.ops import rotations as rot
+    coeff = torch.tensor([0.6 ** i for i in range(5, -1, -1)],
+                         dtype=torch.float32, device=dev)
+    y_t = torch.randn(B, 131, generator=gen, device=dev)
+    filt = torch.randn(B, 6, 131, generator=gen, device=dev)
+    local9 = rot.aa_to_matrix(torch.randn(B, 3, generator=gen, device=dev)) \
+        .reshape(B, 9).contiguous()
+    flags = torch.arange(B, device=dev) % 3 != 0     # per-stream filter flags
+    s = torch.randn(B, 114, generator=gen, device=dev) * 0.4
+    s[:, 2] += 0.9
+    ct = torch.randn(B, 5, 4, generator=gen, device=dev)
+    ct[..., 0] = (ct[..., 0] > 0).float()
+    ct[..., 1:] *= 0.05
+    ct = ct.reshape(B, 20)
+    prev = kin.fk_our_state(
+        skel, s + 0.01 * torch.randn(B, 114, generator=gen, device=dev)) \
+        .contiguous()
+    pose = kin.our_pose_to_bullet(s).contiguous()
+
+    def nn(a):
+        return torch.nan_to_num(a)
+
+    dec = FT.decode_fused(y_t, filt, coeff, flags, local9, impl="fused")
+    tail = FT.tail_fused(skel, s, ct, prev, impl="fused")
+    fk = kin.fk_bullet_fused(skel, pose, impl="kernel")
+    host_flags = flags.tolist()
+    e = {"decode_fused": 0.0, "tail_fused": 0.0, "fk_bullet_fused": 0.0}
+    for b in range(B):
+        one = FT.decode_fused(y_t[b], filt[b], coeff, host_flags[b],
+                              local9[b], impl="fused")
+        e["decode_fused"] = max(e["decode_fused"], *(
+            max_err(getattr(dec, f)[b], getattr(one, f)) for f in dec._fields))
+        one = FT.tail_fused(skel, s[b], ct[b], prev[b], impl="fused")
+        e["tail_fused"] = max(e["tail_fused"], *(
+            max_err(nn(getattr(tail, f)[b]), nn(getattr(one, f)))
+            for f in tail._fields))
+        one = kin.fk_bullet_fused(skel, pose[b], impl="kernel")
+        e["fk_bullet_fused"] = max(e["fk_bullet_fused"],
+                                   max_err(fk[0][b], one[0]),
+                                   max_err(fk[1][b], one[1]))
+    check("batched vs unbatched", {k: (v, TOL_SAME) for k, v in e.items()})
+    # and each against its plain version on the same B inputs
+    ref = FT.decode_fused_plain(y_t, filt, coeff, flags, local9)
+    e_plain = {"decode_fused": check("decode_fused batched vs plain", {
+        f: (max_err(getattr(dec, f), getattr(ref, f)), TOL)
+        for f in dec._fields})}
+    ref = FT.tail_fused_plain(skel, s, ct, prev)
+    tols = dict(pq_com=TOL, pq_jf=TOL, hist_sixd=TOL, c_locs=TOL,
+                active=0.0, vel_res=TOL_RES, raw_res=TOL_RES)
+    e_plain["tail_fused"] = check("tail_fused batched vs plain", {
+        f: (max_err(getattr(tail, f), getattr(ref, f)), tols[f])
+        for f in tail._fields})
+    ref = kin.fk_bullet_fused_plain(skel, pose)
+    e_plain["fk_bullet_fused"] = check("fk_bullet_fused batched vs plain", {
+        "pq_com": (max_err(fk[0], ref[0]), TOL),
+        "pq_jf": (max_err(fk[1], ref[1]), TOL)})
+    ms = {"decode_fused": graph_ms(lambda: FT.decode_fused(
+              y_t, filt, coeff, flags, local9, impl="fused")),
+          "tail_fused": graph_ms(lambda: FT.tail_fused(skel, s, ct, prev,
+                                                       impl="fused")),
+          "fk_bullet_fused": graph_ms(lambda: kin.fk_bullet_fused(
+              skel, pose, impl="kernel"))}
+    log(f"  batched K2/K3/K6 at B={B}: max |batched - unbatched| {e}, "
+        f"max |batched - plain| {e_plain}, device ms {ms}")
+    return {k: dict(batch=B, ms=v, max_abs_err_vs_unbatched=e[k],
+                    max_abs_err_vs_plain=e_plain[k])
+            for k, v in ms.items()}
+
+
+def _masked(ring, valid):
+    """A pool's ring with its invalid slots zeroed: k, v (B, L, W, d) or
+    enc (B, W, d)."""
+    m = valid[:, None, :, None] if ring.dim() == 4 else valid[:, :, None]
+    return ring.float() * m
+
+
+def check_fused_cached_batch(dev, gen, model):
+    """K8 against its plain version and against K7 stream by stream: B
+    streams at one global cursor, joining at staggered ticks (commit false
+    before a stream's join), 2 W + 3 ticks (the cursor wraps twice), both
+    packing dtypes, both RNN variants, at B = 1, 5, 64 at full width over
+    40 slots and B = 6 at the CPU tests' small width over 8. y of the
+    committed streams every tick; h, the validity bits and the valid-masked
+    rings at the end. Timed at a slot of full rings at B = 64 and 256."""
+    from tip_tpu_torch.runtime import streaming_cache as SC
+    small = small_model(dev)
+    errs, worst, worst7 = {}, {}, {}
+    for tag, mdl, W, B in (("full", model, 40, 1), ("full", model, 40, 5),
+                           ("full", model, 40, POOL_CAPACITY),
+                           ("small", small, 8, 6)):
+        held = range(B)              # every stream against its own K7
+        joins = [(5 * b) % (W + 3) for b in range(B)]
+        joins_t = torch.tensor(joins, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            cfg = dataclasses.replace(mdl.cfg, compute_dtype=name)
+            ws = mdl.packed_weights(dt)
+            for rnn_carry in (False, True):
+                var = "carry" if rnn_carry else "replay"
+                key = f"{tag}_B{B}_{name}_{var}"
+                ck = SC.cache_init(cfg, W, device=dev, batch=B)
+                cp = SC.cache_init(cfg, W, device=dev, batch=B)
+                c7 = {b: SC.cache_init(cfg, W, device=dev) for b in held}
+                e_y = e_7 = 0.0
+                for step in range(2 * W + 3):
+                    x = torch.randn(B, cfg.input_dim, generator=gen,
+                                    device=dev)
+                    if step % 3 == 0:
+                        x[:, 100] = float("nan")     # a NaN history entry
+                    x[:, 90 + 108:90 + 111] = 5.0    # root-velocity columns
+                    commit = joins_t <= step
+                    slot = (step + 5) % W
+                    _, y = SC.fused_cached_batch(ws, ck, x, slot, commit, cfg,
+                                                 rnn_carry=rnn_carry,
+                                                 impl="fused")
+                    _, ref = SC.fused_cached_batch_plain(
+                        ws, cp, x, slot, commit, cfg, rnn_carry=rnn_carry)
+                    e_y = max(e_y, max_err(y[commit], ref[commit]))
+                    for b, c in c7.items():
+                        if joins[b] <= step:
+                            _, y7 = SC.fused_cached_step_slot(
+                                ws, c, x[b], slot, True, cfg,
+                                rnn_carry=rnn_carry, impl="fused")
+                            e_7 = max(e_7, max_err(y[b], y7))
+                errs[f"{key}_y"] = (e_y, TOL_FF[name])
+                errs[f"{key}_y_vs_K7"] = (e_7, TOL_FF[name])
+                worst[(name, rnn_carry)] = max(
+                    worst.get((name, rnn_carry), 0.0), e_y)
+                worst7[(name, rnn_carry)] = max(
+                    worst7.get((name, rnn_carry), 0.0), e_7)
+                if not torch.equal(ck.valid, cp.valid):
+                    raise AssertionError(f"{key}: validity bits differ")
+                for b, c in c7.items():
+                    if not torch.equal(ck.valid[b], c.valid):
+                        raise AssertionError(
+                            f"{key}: stream {b}'s validity bits differ from "
+                            f"the single-stream step's")
+                for n in ("k", "v", "enc", "h"):
+                    a, b_ = getattr(ck, n), getattr(cp, n)
+                    if n != "h":
+                        a, b_ = _masked(a, cp.valid), _masked(b_, cp.valid)
+                    tol = TOL_FF[name] if dt == torch.float32 else \
+                        TOL_RING_BF16_REL * max(1.0, b_.abs().max().item())
+                    errs[f"{key}_{n}"] = (max_err(a.float(), b_.float()), tol)
+    check("fused_cached_batch", errs)
+
+    variants = {}
+    for B in (POOL_CAPACITY, 256):
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            cfg = dataclasses.replace(model.cfg, compute_dtype=name)
+            ws = model.packed_weights(dt)
+            W = 40
+            x = torch.randn(B, cfg.input_dim, generator=gen, device=dev)
+            commit = torch.ones(B, dtype=torch.bool, device=dev)
+            for rnn_carry in (False, True):
+                ck = SC.cache_init(cfg, W, device=dev, batch=B)
+                cp = SC.cache_init(cfg, W, device=dev, batch=B)
+                for c in (ck, cp):           # full rings of plausible rows
+                    for n in ("k", "v", "enc", "h"):
+                        getattr(c, n).copy_(torch.randn(
+                            getattr(c, n).shape, generator=gen, device=dev))
+                    c.valid.fill_(True)
+                t = timings(
+                    lambda: SC.fused_cached_batch(ws, ck, x, 7, commit, cfg,
+                                                  rnn_carry=rnn_carry,
+                                                  impl="fused"),
+                    lambda: SC.fused_cached_batch_plain(
+                        ws, cp, x, 7, commit, cfg, rnn_carry=rnn_carry),
+                    light=True)
+                steps = int(ck.valid.sum().item())   # full rings: B * W
+                b_ms, b_by = bound(
+                    *fused_cached_work(cfg, W, 4 if name == "float32" else 2,
+                                       rnn_carry, steps, B),
+                    PEAK_F32_FLOP_S if name == "float32"
+                    else PEAK_BF16_FLOP_S)
+                var = "carry" if rnn_carry else "replay"
+                variants[f"{var}_{name}_B{B}"] = dict(
+                    ms=t["ms"], plain_ms=t["plain_ms"], call_ms=t["call_ms"],
+                    plain_call_ms=t["plain_call_ms"], bound_ms=b_ms,
+                    bound_by=b_by, rnn_steps=steps,
+                    max_abs_err=worst[(name, rnn_carry)],
+                    max_abs_err_vs_K7=worst7[(name, rnn_carry)],
+                    tol=TOL_FF[name])
+    for k, v in variants.items():
+        log(f"  fused_cached_batch {k}: device {v['ms']:.4f} ms (eager "
+            f"{v['call_ms']:.4f}), plain {v['plain_ms']:.4f} "
+            f"({v['plain_call_ms']:.4f}), bound {v['bound_ms']:.2e} "
+            f"({v['bound_by']})")
+    # the entry's own numbers are path H's: replay, f32 rings, 64 streams
+    own = variants.pop(f"replay_float32_B{POOL_CAPACITY}")
+    own.pop("rnn_steps")
+    return dict(name="fused_cached_batch", route="cuda",
+                source="tip_tpu_torch/csrc/fused_cached_batch.cu",
+                replaces="tip_tpu/runtime/streaming_cache.py:617",
+                shape=[POOL_CAPACITY, model.cfg.input_dim],
+                variant=f"replay_float32_B{POOL_CAPACITY}", ring_slots=40,
+                library_ms=None, library_call_ms=None, **own,
+                variants=variants)
+
+
+def check_fused_recompute_batch(dev, gen, model):
+    """K9 against its plain version and against K4 stream by stream: B
+    windows of 40 rows with mixed k_last, NaN history entries and the
+    root-velocity columns set, both packing dtypes, at B = 1, 5, 64 at full
+    width and B = 6 at the small width. Timed at B = 64 and 256 with every
+    window full (k_last 39), as a pool in its steady state."""
+    from tip_tpu_torch.ops import fused_forward as FF
+    small = small_model(dev)
+    errs, worst, worst4 = {}, {}, {}
+    for tag, mdl, T, B in (("full", model, 40, 1), ("full", model, 40, 5),
+                           ("full", model, 40, POOL_CAPACITY),
+                           ("small", small, 12, 6)):
+        cfg = mdl.cfg
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            ws = mdl.packed_weights(dt)
+            x = torch.randn(B, T, cfg.input_dim, generator=gen, device=dev)
+            x[:, ::3, 100] = float("nan")            # NaN history entries
+            x[:, :, 90 + 108:90 + 111] = 5.0         # root-velocity columns
+            ks = [(0, 3, 17, T - 1)[b % 4] % T for b in range(B)]
+            y = FF.fused_recompute_batch(ws, x, ks, cfg, impl="fused")
+            e = max_err(y, FF.fused_recompute_batch_plain(ws, x, ks, cfg))
+            e4 = max(max_err(y[b], FF.fused_forward_last(ws, x[b], ks[b], cfg,
+                                                         impl="fused"))
+                     for b in range(B))
+            errs[f"{tag}_B{B}_{name}"] = (e, TOL_FF[name])
+            # the same phases in the same order: bit-equal
+            errs[f"{tag}_B{B}_{name}_vs_K4"] = (e4, TOL_SAME)
+            worst[name] = max(worst.get(name, 0.0), e)
+            worst4[name] = max(worst4.get(name, 0.0), e4)
+        try:
+            FF.fused_recompute_batch(ws, x, [T] * B, cfg, impl="fused")
+        except IndexError:
+            pass
+        else:
+            raise AssertionError("fused_recompute_batch took k_last = T")
+    check("fused_recompute_batch", errs)
+
+    cfg, T = model.cfg, 40
+    variants = {}
+    for B in (POOL_CAPACITY, 256):
+        x = torch.randn(B, T, cfg.input_dim, generator=gen, device=dev)
+        ks = [T - 1] * B
+        k_dev = torch.tensor(ks, dtype=torch.int32, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            ws = model.packed_weights(dt)
+            # the eager forms check k_last on the host and copy it up, as a
+            # pool tick does; the captured forms take it on the device
+            t = timings(
+                lambda: FF.fused_recompute_batch(ws, x, ks, cfg,
+                                                 impl="fused"),
+                lambda: FF.fused_recompute_batch_plain(ws, x, ks, cfg),
+                graph=(lambda: FF._launch_batch(ws, x, k_dev, cfg),
+                       lambda: FF._recompute_batch_rows(ws, x, k_dev, cfg)),
+                light=True)
+            b_ms, b_by = bound(
+                *fused_recompute_batch_work(
+                    cfg, T, ks, 4 if name == "float32" else 2),
+                PEAK_F32_FLOP_S if name == "float32" else PEAK_BF16_FLOP_S)
+            variants[f"{name}_B{B}"] = dict(
+                ms=t["ms"], plain_ms=t["plain_ms"], call_ms=t["call_ms"],
+                plain_call_ms=t["plain_call_ms"], bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=worst[name],
+                max_abs_err_vs_K4=worst4[name], tol=TOL_FF[name])
+    for k, v in variants.items():
+        log(f"  fused_recompute_batch {k}: device {v['ms']:.4f} ms (eager "
+            f"{v['call_ms']:.4f}), plain {v['plain_ms']:.4f} "
+            f"({v['plain_call_ms']:.4f}), bound {v['bound_ms']:.2e} "
+            f"({v['bound_by']})")
+    # the entry's own numbers are path J's: f32 packing, 64 streams
+    own = variants.pop(f"float32_B{POOL_CAPACITY}")
+    return dict(name="fused_recompute_batch", route="cuda",
+                source="tip_tpu_torch/csrc/fused_recompute_batch.cu",
+                replaces="tip_tpu/ops/fused_forward.py:328",
+                shape=[POOL_CAPACITY, T, cfg.input_dim],
+                variant=f"float32_B{POOL_CAPACITY}", library_ms=None,
+                library_call_ms=None, **own, variants=variants)
+
+
 # ---------------------------------------------------------------------------
 # 4. the main paths
 # ---------------------------------------------------------------------------
@@ -617,10 +969,12 @@ def compare_runs(what, runs_a, runs_b, frames, tol):
 
 def frame_times_ms(model, cfg, skel, s_init, imu, dev):
     """Per-frame host time of runner_step with a synchronise after each
-    frame (eager launches), over the frames that run the model."""
+    frame (eager launches), over the frames that run the model among the
+    first TIMED_FRAMES (the window has slid long before the last)."""
     from tip_tpu_torch.runtime import runner as R
     carry = R.runner_init(cfg, skel, s_init, device=dev)
-    imu = torch.as_tensor(imu, dtype=torch.float32, device=dev)
+    imu = torch.as_tensor(imu[:TIMED_FRAMES + 1], dtype=torch.float32,
+                          device=dev)
     packed = R.pack_fused_weights(model, cfg)
     times = []
     with torch.no_grad():
@@ -831,8 +1185,10 @@ def main_paths(dev):
 
     runs, launches = {}, {}
     for name in ("A", "plain", "C", "B", "D", "E", "F"):
+        # the plain path is only ever compared over PATH_FRAMES frames
         runs[name], launches[name] = run_path(
-            name, models[name], cfgs[name], skel, s_init, imu, dev,
+            name, models[name], cfgs[name], skel, s_init,
+            imu[:PATH_FRAMES + 1] if name == "plain" else imu, dev,
             on_path[name])
     launches["replay"] = {"fused_forward": replay_path_b(
         models["B"], cfgs["B"], skel, s_init, imu, dev)}
@@ -907,13 +1263,289 @@ def main_paths(dev):
             "frame_ms_profiled": prof_frame_ms,
             "device_busy_share": dev_ms / prof_frame_ms,
             "top": [[k[:70], ms, c] for k, ms, c in rows[:8]]}}))
-    return launches, frame_ms
+    return launches, frame_ms, runs, models["A"].state_dict()
+
+
+# ---------------------------------------------------------------------------
+# 5. the pool paths
+# ---------------------------------------------------------------------------
+
+def pool_schedule(n_ticks):
+    """The pool's traffic over n_ticks: the IMU batch of every tick
+    (n_ticks, capacity, 72), which slots hold a stream at each tick
+    (n_ticks, capacity), the joins and removals by tick, and the s_init of
+    every motion. A slot with no stream is fed zeros."""
+    imus, s_inits = [], []
+    for i in range(60):
+        with open(CORPUS / f"freeform2_{i:04d}.pkl", "rb") as f:
+            d = pickle.load(f)    # in-tree motions written by data gen
+        imus.append(d["imu"])
+        s_inits.append(d["nimble_qdq"][0])
+    batch = torch.zeros(n_ticks, POOL_CAPACITY, 72)
+    active = torch.zeros(n_ticks, POOL_CAPACITY, dtype=torch.bool)
+    events = {0: [("add", slot, slot) for slot in range(60)]}
+    spans = [(slot, slot, 0, n_ticks) for slot in range(60)
+             if slot != POOL_REMOVE[1]]
+    spans.append((POOL_REMOVE[1], POOL_REMOVE[1], 0, POOL_REMOVE[0]))
+    events[POOL_REMOVE[0]] = [("remove", POOL_REMOVE[1], None)]
+    for tick, (slot, motion) in list(POOL_JOINS.items()) + \
+            [(POOL_READD[0], POOL_READD[1:])]:
+        events.setdefault(tick, []).append(("add", slot, motion))
+        spans.append((slot, motion, tick, n_ticks))
+    for slot, motion, t0, t1 in spans:
+        t1 = min(t1, n_ticks)
+        if t1 > t0:
+            batch[t0:t1, slot] = torch.as_tensor(imus[motion][:t1 - t0],
+                                                 dtype=torch.float32)
+            active[t0:t1, slot] = True
+    return batch, active, events, s_inits
+
+
+def run_pool_path(name, model, cfg, skel, sched, dev, on_path, n_ticks,
+                  record=None):
+    """Drive one pool path through StreamPool.step with the launch counters
+    set to 0 just before and read just after, a synchronise after every
+    tick (so that ticks can be timed). Every kernel in on_path must have
+    been launched exactly once per tick and every other kernel not at all.
+    Returns the pool, the stacked outputs by name, the launches, the median
+    steady tick in ms and the peak memory."""
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.runtime.serving import StreamPool
+    batch, active, events, s_inits = sched
+    pool = StreamPool(model, cfg, skel, capacity=POOL_CAPACITY, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    outs, times = [], []
+    for t in range(n_ticks):
+        for kind, slot, motion in events.get(t, ()):
+            if kind == "remove":
+                pool.remove_stream(slot)
+            else:
+                got = pool.add_stream(s_inits[motion])
+                if got != slot:
+                    raise AssertionError(f"path {name}: slot {got} handed "
+                                         f"out at tick {t}, expected {slot}")
+                if record is not None:
+                    record.append(("reset", t, slot))
+        t0 = time.perf_counter()
+        out = pool.step(batch[t])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    launches = {k: K.launch_counts.get(k, 0) for k in KERNELS}
+    mem = torch.cuda.max_memory_allocated()
+    # steady ticks: every slot holds a stream whose window is full
+    steady = times[max(POOL_READD[0] + 45, n_ticks // 2) if
+                   n_ticks > POOL_READD[0] + 60 else n_ticks // 2:]
+    tick_ms = statistics.median(steady)
+    log(f"pool path {name}: {n_ticks} ticks of {POOL_CAPACITY} slots, steady "
+        f"tick {tick_ms:.3f} ms (synced), "
+        f"{POOL_CAPACITY / tick_ms * 1e3:.0f} stream-frames/s, peak memory "
+        f"{mem / 2 ** 20:.1f} MiB; launches {launches}")
+    for k in KERNELS:
+        want = n_ticks if k in on_path else 0
+        if launches[k] != want:
+            raise AssertionError(
+                f"pool path {name}: {k} launched {launches[k]} times, "
+                f"expected {want} ({n_ticks} ticks)")
+    stacked = {n: torch.stack([o[n] for o in outs])
+               for n in ("qdq", "ct", "viz_locs")}
+    on = active[:n_ticks].to(dev)
+    for n, a in stacked.items():
+        if tuple(a.shape[:2]) != (n_ticks, POOL_CAPACITY) or \
+                not torch.isfinite(a[on]).all():
+            raise AssertionError(f"pool path {name}: {n} of the active "
+                                 f"streams is not finite")
+    return pool, stacked, launches, tick_ms, mem
+
+
+def profile_pool(pool, batch, first, n=30):
+    """Device time per tick by kernel over n further ticks (torch.profiler)
+    and the median host time of those ticks (synchronised each tick,
+    profiler on)."""
+    from torch.profiler import ProfilerActivity, profile
+    times = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for t in range(first, first + n):
+            t0 = time.perf_counter()
+            pool.step(batch[t])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count // n)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return (sum(r[1] for r in rows), sum(r[2] for r in rows), rows,
+            statistics.median(times))
+
+
+def compare_pool(what, a, b, on, ticks, tol):
+    """Max |a - b| of every output over the (tick, slot) pairs of `on`
+    within the first `ticks` ticks."""
+    worst = 0.0
+    for n in ("qdq", "ct", "viz_locs"):
+        m = on[:ticks]
+        err = (a[n][:ticks][m].double() - b[n][:ticks][m].double()) \
+            .abs().max().item()
+        worst = max(worst, err)
+        if not err <= tol:
+            bad = ((a[n][:ticks] - b[n][:ticks]).abs().flatten(2).amax(2)
+                   > tol) & m
+            t_bad, s_bad = (int(v) for v in torch.nonzero(bad)[0])
+            raise AssertionError(
+                f"{what}: {n} differs by {err:.3g} > {tol:g}; first at tick "
+                f"{t_bad}, slot {s_bad}")
+    log(f"  {what}: max |diff| over {int(on[:ticks].sum())} stream-frames = "
+        f"{worst:.3g}")
+    return worst
+
+
+def compare_with_single(what, pooled, single, n_ticks, tol):
+    """The four checked streams of a pool path against a single-stream run
+    of motion 0 (s_traj, c_traj, viz of run_offline), each from its own
+    first frame: the pool's output at tick t of a stream that joined at
+    tick j is the single stream's row t - j + 1."""
+    for slot, j in POOL_CHECKED:
+        n = n_ticks - j
+        for name, ref in zip(("qdq", "ct", "viz_locs"), single):
+            a = pooled[name][j:n_ticks, slot].double().cpu()
+            b = ref[1:n + 1].double().cpu()
+            err = (a - b).abs().max().item()
+            if not err <= tol:
+                f0 = first_disagreement(a, b, tol)
+                raise AssertionError(
+                    f"{what}: slot {slot} (joined at tick {j}) {name} "
+                    f"differs from the single stream by {err:.3g} > {tol:g}, "
+                    f"first at its frame {f0}")
+        log(f"  {what}: slot {slot} (joined at tick {j}) equals the single "
+            f"stream over {n} frames (qdq max |diff| = "
+            f"{(pooled['qdq'][j:n_ticks, slot].double().cpu() - single[0][1:n + 1].double().cpu()).abs().max().item():.3g})")
+
+
+def replay_path_g(packed, cfg, records, active, dev):
+    """Path G teacher-forced: its bf16 free-running trajectories drift from
+    any other run chaotically, so each tick is held on its own. Feed every
+    recorded token batch, cursor and commit mask from a fresh pool cache
+    through K8's plain version (a slot's cache zeroed where the pool wrote a
+    fresh carry into it) and compare y_t of the streams that are active and
+    committed, tick by tick."""
+    from tip_tpu_torch.runtime import streaming_cache as SC
+    cache = SC.cache_init(cfg.model, cfg.window, device=dev,
+                          batch=POOL_CAPACITY)
+    err, n_ticks = 0.0, 0
+    with torch.no_grad():
+        for rec in records:
+            if rec[0] == "reset":
+                for n in SC._LEAVES:
+                    getattr(cache, n)[rec[2]].zero_()
+                continue
+            _, x, slot, commit, y_t = rec
+            _, ref = SC.fused_cached_batch_plain(
+                packed, cache, x, slot, commit, cfg.model, rnn_carry=True)
+            m = commit & active[n_ticks].to(dev)
+            if m.any():
+                err = max(err, max_err(ref[m], y_t[m]))
+            n_ticks += 1
+    check("path G replay", {"plain_vs_recorded_K8": (err, TOL_FF["bfloat16"])})
+    log(f"  path G teacher-forced over {n_ticks} ticks: max |plain - K8| = "
+        f"{err:.3g}")
+    return n_ticks
+
+
+def pool_paths(dev, single_runs, state_dict):
+    """Drive the pool paths G-K; `single_runs`: the single-stream paths'
+    outputs on motion 0, `state_dict`: their weights."""
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.ops import kinematics as kin
+    from tip_tpu_torch.runtime import runner as R
+    from tip_tpu_torch.runtime import streaming_cache as SC
+
+    skel = kin.amass_skeleton(device=dev)
+    n_prof = 30
+    sched = pool_schedule(POOL_TICKS + n_prof)
+    batch, active = sched[0], sched[1]
+    f32 = dict(forward_impl="fused", compute_dtype="float32")
+    cfgs = {
+        "G": R.RunnerConfig(model=M.ModelConfig(forward_impl="fused",
+                                                compute_dtype="bfloat16"),
+                            serving_mode="kv_cache_rnn_carry"),
+        "H": R.RunnerConfig(model=M.ModelConfig(**f32),
+                            serving_mode="kv_cache"),
+        "I": R.RunnerConfig(serving_mode="kv_cache"),
+        "J": R.RunnerConfig(model=M.ModelConfig(**f32)),
+        "K": R.RunnerConfig(tail_impl="plain", fk_impl="kernel"),
+    }
+    k8, k9 = "fused_cached_batch", "fused_recompute_batch"
+    on_path = {"G": (k8, "decode_fused", "tail_fused"),
+               "H": (k8, "decode_fused", "tail_fused"),
+               "I": ("decode_fused", "tail_fused"),
+               "J": (k9, "decode_fused", "tail_fused"),
+               "K": ("fused_rnn", "fk_bullet_fused")}
+    ticks = {n: POOL_TICKS_K if n == "K" else POOL_TICKS for n in cfgs}
+    outs, launches, summary = {}, {}, {}
+    records = []
+    for name in ("G", "H", "I", "J", "K"):
+        model = M.TIPModel(cfgs[name].model, device=dev)
+        model.load_state_dict(state_dict)
+        wrapper = SC.fused_cached_batch
+        if name == "G":
+            def recording(ws, cache, x, slot, commit, mcfg, **kw):
+                out = wrapper(ws, cache, x, slot, commit, mcfg, **kw)
+                records.append(("step", x.clone(), slot, commit.clone(),
+                                out[1].clone()))
+                return out
+            SC.fused_cached_batch = recording
+        try:
+            pool, outs[name], launches[name], tick_ms, mem = run_pool_path(
+                name, model, cfgs[name], skel, sched, dev, on_path[name],
+                ticks[name], record=records if name == "G" else None)
+        finally:
+            SC.fused_cached_batch = wrapper
+        dev_ms, n_kernels, rows, prof_tick_ms = profile_pool(
+            pool, batch.to(dev), ticks[name], n_prof)
+        summary[name] = dict(
+            path=name, capacity=POOL_CAPACITY, ticks=ticks[name],
+            tick_ms=tick_ms,
+            stream_frames_per_s=POOL_CAPACITY / tick_ms * 1e3,
+            needed_stream_frames_per_s=60 * POOL_CAPACITY,
+            kernels_per_tick=n_kernels, device_ms_per_tick=dev_ms,
+            tick_ms_profiled=prof_tick_ms,
+            device_busy_share=dev_ms / prof_tick_ms,
+            max_memory_allocated=mem,
+            top=[[k[:70], ms, c] for k, ms, c in rows[:6]])
+        log(json.dumps({"pool": summary[name]}))
+        if name == "G":
+            n_g = replay_path_g(pool._packed, cfgs["G"], records, active, dev)
+            if n_g != launches["G"][k8]:
+                raise AssertionError(
+                    f"path G replay saw {n_g} ticks, the run launched K8 "
+                    f"{launches['G'][k8]} times")
+            records.clear()
+        del pool
+
+    on = active.to(dev)
+    compare_pool("pool path H vs I (card)", outs["H"], outs["I"], on,
+                 POOL_TICKS, TOL_PATH)
+    compare_with_single("pool path H vs single-stream path D", outs["H"],
+                        single_runs["D"], POOL_TICKS, TOL_PATH)
+    compare_with_single("pool path J vs single-stream path C", outs["J"],
+                        single_runs["C"], POOL_TICKS, TOL_PATH)
+    compare_pool("pool path K vs J while the window grows", outs["K"],
+                 outs["J"], on, GROW_ROWS, TOL_PATH)
+    # information: the same two over all of K's ticks
+    d = (outs["K"]["qdq"] - outs["J"]["qdq"][:POOL_TICKS_K]).abs()
+    log(f"  pool path K vs J over {POOL_TICKS_K} ticks: max |diff| = "
+        f"{d[on[:POOL_TICKS_K]].max().item():.3g} (no tolerance)")
+    return launches, summary
 
 
 # the path whose launches a kernel's entry reports
 COUNTED_ON = {"fused_rnn": "A", "decode_fused": "A", "tail_fused": "A",
               "fused_forward_last": "B", "fused_forward": "replay",
-              "fk_bullet_fused": "C", "fused_cached_forward_step": "D"}
+              "fk_bullet_fused": "C", "fused_cached_forward_step": "D",
+              "fused_cached_batch": "H", "fused_recompute_batch": "J"}
 
 
 def main():
@@ -945,7 +1577,13 @@ def main():
                check_tail_fused(dev, gen, skel),
                *check_fused_forward(dev, gen, model),
                check_fk_bullet_fused(dev, gen, skel),
-               check_fused_cached(dev, gen, model)]
+               check_fused_cached(dev, gen, model),
+               check_fused_cached_batch(dev, gen, model),
+               check_fused_recompute_batch(dev, gen, model)]
+    batched = check_batched_tail(dev, gen, skel)
+    for k in kernels:
+        if k["name"] in batched:
+            k["pool"] = batched[k["name"]]
     torch.cuda.synchronize()
     for k in kernels:
         log(f"  {k['name']}: max err {k['max_abs_err']:.3g} (tol "
@@ -954,13 +1592,17 @@ def main():
             f"({k['plain_call_ms']:.4f}), bound {k['bound_ms']:.2e} ms "
             f"({k['bound_by']}), library {k['library_ms']}")
 
-    launches, frame_ms = main_paths(dev)
+    launches, frame_ms, runs, state_dict = main_paths(dev)
+    pool_launches, pool_summary = pool_paths(dev, runs, state_dict)
+    launches.update(pool_launches)
     for k in kernels:
         k["launches"] = launches[COUNTED_ON[k["name"]]][k["name"]]
         k["launches_on"] = COUNTED_ON[k["name"]]
         if not k["launches"] > 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
     log(json.dumps({"frame_ms": frame_ms, "launches": launches,
+                    "pool_tick_ms": {n: v["tick_ms"]
+                                     for n, v in pool_summary.items()},
                     "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

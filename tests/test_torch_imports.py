@@ -13,6 +13,7 @@ from tip_tpu_torch.models import tip_model as TM
 from tip_tpu_torch.ops import kinematics as tkin
 from tip_tpu_torch.runtime import runner as TR
 from tip_tpu_torch.runtime import streaming_cache as TSC
+from tip_tpu_torch.runtime.serving import StreamPool
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "tip_tpu")
@@ -44,6 +45,7 @@ def test_port_files_found():
             "tip_tpu_torch/ops/fused_forward.py",
             "tip_tpu_torch/ops/metrics.py",
             "tip_tpu_torch/runtime/streaming_cache.py",
+            "tip_tpu_torch/runtime/serving.py",
             "tip_tpu_torch/utils/urdf.py"} <= names
 
 
@@ -65,7 +67,7 @@ def test_run_offline_without_device_raises_without_cuda():
 
 @pytest.mark.parametrize("entry", ["model", "runner_init",
                                    "runner_init_kv_cache", "cache_init",
-                                   "resolve"])
+                                   "pool_init", "stream_pool", "resolve"])
 def test_entry_points_default_to_cuda(entry):
     _no_cuda()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -78,7 +80,16 @@ def test_entry_points_default_to_cuda(entry):
             TR.runner_init(TR.RunnerConfig(serving_mode="kv_cache"),
                            tkin.amass_skeleton(), torch.zeros(114))
         elif entry == "cache_init":
-            TSC.cache_init(TM.ModelConfig(), 40)
+            TSC.cache_init(TM.ModelConfig(), 40, batch=2)
+        elif entry == "pool_init":
+            TR.pool_init(TR.RunnerConfig(), tkin.amass_skeleton(),
+                         torch.zeros(2, 114))
+        elif entry == "stream_pool":
+            cfg = TR.RunnerConfig(model=TM.ModelConfig(
+                tf_in_dim=32, tf_hid_size=64, n_heads=4, tf_layers=2,
+                rnn_hid_size=24))
+            StreamPool(TM.TIPModel(cfg.model, device="cpu"), cfg,
+                       tkin.amass_skeleton(), capacity=2)
         else:
             resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")

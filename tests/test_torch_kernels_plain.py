@@ -185,3 +185,76 @@ def test_wrappers_raise_for_explicit_kernel_on_cpu():
         TFR.fused_rnn(xin, w, impl="pallas")
     with pytest.raises(ValueError):
         tkin.fk_bullet_fused(skel, torch.zeros(57), impl="pallas")
+
+
+# ---------------------------------------------------------------------------
+# a pool of B streams: one call with a leading stream axis equals B calls
+# ---------------------------------------------------------------------------
+
+def _pool_inputs(rng, B, dtype):
+    dec = [_decode_inputs(rng, dtype) for _ in range(B)]
+    y_t, filt, m9 = (np.stack([d[i] for d in dec]) for i in (0, 1, 3))
+    s = (rng.normal(size=(B, 114)) * 0.4).astype(dtype)
+    s[:, 2] += 0.9
+    ct = rng.normal(size=(B, 5, 4)).astype(dtype)
+    ct[..., 0] = ct[..., 0] > 0
+    ct[..., 1:] *= 0.05
+    return y_t, filt, dec[0][2], m9, s, ct.reshape(B, 20)
+
+
+@pytest.mark.parametrize("dt_name", sorted(DTYPES))
+@pytest.mark.parametrize("kernel", ["decode_fused", "tail_fused",
+                                    "fk_bullet_fused"])
+def test_batched_plain_versions_equal_unbatched_calls(kernel, dt_name):
+    """K2, K3 and K6 serve a pool tick with one call: the plain versions
+    with a leading stream axis give exactly what B single-stream calls give
+    (per-stream filter flags for K2)."""
+    dtype = DTYPES[dt_name]["dtype"]
+    B = 5
+    y_t, filt, coeff, m9, s, ct = (
+        torch.as_tensor(a) for a in _pool_inputs(np.random.default_rng(7), B,
+                                                 dtype))
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    skel = tkin.amass_skeleton(dtype=tdt)
+
+    def same(a, b):
+        return torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+    if kernel == "decode_fused":
+        flags = torch.tensor([True, False, True, True, False])
+        out = TFT.decode_fused(y_t, filt, coeff, flags, m9)
+        assert out.q_rows.shape == (B, 18, 4) and out.c_t.shape == (B, 5, 4)
+        for b in range(B):
+            one = TFT.decode_fused(y_t[b], filt[b], coeff, bool(flags[b]),
+                                   m9[b])
+            assert all(same(getattr(out, f)[b], getattr(one, f))
+                       for f in out._fields)
+        # one host flag for every stream
+        every = TFT.decode_fused(y_t, filt, coeff, True, m9)
+        assert same(every.y_f[1], TFT.decode_fused(y_t[1], filt[1], coeff,
+                                                   True, m9[1]).y_f)
+    elif kernel == "tail_fused":
+        prev = tkin.fk_our_state(skel, s + 0.01)
+        out = TFT.tail_fused(skel, s, ct, prev)
+        assert out.pq_com.shape == (B, 20, 7) and out.vel_res.shape == (B, 3)
+        assert torch.isnan(out.raw_res).any() and (out.active > 0).any()
+        for b in range(B):
+            one = TFT.tail_fused(skel, s[b], ct[b], prev[b])
+            assert all(same(getattr(out, f)[b], getattr(one, f))
+                       for f in out._fields)
+    else:
+        pose = tkin.our_pose_to_bullet(s)
+        out = tkin.fk_bullet_fused(skel, pose)
+        assert out[0].shape == (B, 20, 7)
+        for b in range(B):
+            one = tkin.fk_bullet_fused(skel, pose[b])
+            assert same(out[0][b], one[0]) and same(out[1][b], one[1])
+    with pytest.raises(ValueError, match="CUDA"):
+        if kernel == "fk_bullet_fused":
+            tkin.fk_bullet_fused(skel, tkin.our_pose_to_bullet(s),
+                                 impl="kernel")
+        elif kernel == "tail_fused":
+            TFT.tail_fused(skel, s, ct, tkin.fk_our_state(skel, s),
+                           impl="fused")
+        else:
+            TFT.decode_fused(y_t, filt, coeff, True, m9, impl="fused")

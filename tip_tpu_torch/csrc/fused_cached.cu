@@ -159,71 +159,21 @@ __device__ inline void layernorm_row(float* v, int d,
   __syncthreads();
 }
 
-template <typename WT>
-__device__ __forceinline__ WT to_ring(float v);
-template <>
-__device__ __forceinline__ float to_ring<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_ring<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 // Attention of the newest token for heads h_lo..h_hi over layer ring rows
-// kr, vr (W, d): att[c] = round(sum_w round(softmax_w(q . k_w / sqrt(hd) +
-// mask_w)) v_w[c]) for the heads' columns, one warp per head. Slot `slot`
-// is the token itself when committed: its k and v come from qkv (shared,
-// rounded here as the ring stores them), not from the ring. An invalid
-// slot gets the additive -1e30, so its weight is an exact 0 unless no slot
-// is valid at all (an uncommitted step on an empty cache: uniform weights
-// over whatever the ring holds, as the plain version).
+// kr, vr (W, d), one warp per head (attend_head, fused_phases.cuh): slot
+// `slot` is the token itself when committed, its k and v taken from qkv
+// (shared memory), not from the ring.
 template <typename WT>
 __device__ void attend_heads(const float* qkv, const WT* kr, const WT* vr,
                              const unsigned char* valid, const Dims& p,
                              int h_lo, int h_hi, float* att, float* ps) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int d = p.d, hd = p.d / p.heads, W = p.W;
-  const float scale = 1.0f / sqrtf(static_cast<float>(hd));
+  const int warp = threadIdx.x >> 5;
+  const int d = p.d, hd = p.d / p.heads;
   for (int hh = h_lo + warp; hh <= h_hi; hh += kWarps) {
-    float* pw = ps + warp * kMaxT;
     const float* q = qkv + hh * hd;
-    float mx = -INFINITY;
-    for (int w = lane; w < W; w += 32) {
-      const bool own = p.commit && w == p.slot;
-      float s = 0.0f;
-      if (own) {
-        for (int c = 0; c < hd; ++c)
-          s = fmaf(round_cd<WT>(q[c]), round_cd<WT>(q[d + c]), s);
-      } else {
-        const WT* kw = kr + static_cast<size_t>(w) * d + hh * hd;
-        for (int c = 0; c < hd; ++c)
-          s = fmaf(round_cd<WT>(q[c]), wvalue(kw[c]), s);
-      }
-      s = s * scale + ((own || valid[w]) ? 0.0f : -1e30f);
-      pw[w] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int w = lane; w < W; w += 32) {
-      const float e = expf(pw[w] - mx);
-      pw[w] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int w = lane; w < W; w += 32) pw[w] = round_cd<WT>(pw[w] / sum);
-    __syncwarp();
-    for (int c = lane; c < hd; c += 32) {
-      float o = 0.0f;
-      for (int w = 0; w < W; ++w) {
-        const float v =
-            (p.commit && w == p.slot)
-                ? round_cd<WT>(q[2 * d + c])
-                : wvalue(vr[static_cast<size_t>(w) * d + hh * hd + c]);
-        o = fmaf(pw[w], v, o);
-      }
-      att[hh * hd + c] = round_cd<WT>(o);
-    }
-    __syncwarp();
+    attend_head<WT>(q, q + d, q + 2 * d, kr + hh * hd, vr + hh * hd, d, valid,
+                    p.W, hd, p.slot, p.commit != 0, false, ps + warp * kMaxT,
+                    att + hh * hd);
   }
 }
 
@@ -265,7 +215,7 @@ fused_cached_kernel(const float* __restrict__ tok, Weights w, Dims p,
     // the old ring rows' RNN inputs wait for nothing; row `slot` is
     // replaced after the layers when the token is committed
     product_phase<WT>(enc, d, W, d, Wt(w.w_ih), Wt(w.b_r), H, nullptr, s.xin,
-                      false, false, -1, stage);
+                      kActNone, false, -1, stage);
   grid.sync();
   {
     const Cut c = cut_of(p.Din, d, G);

@@ -1,4 +1,5 @@
-// K6 fk_bullet_fused: forward kinematics of one pose, f32, one block.
+// K6 fk_bullet_fused: forward kinematics of one pose, f32, one block a
+// pose (B poses with a leading axis are one launch of B blocks).
 //
 // Replaces tip_tpu/ops/kinematics.py::fk_bullet_fused (Pallas kernel
 // _fk_kernel): a (57,) bullet-ordered pose (root position, root axis-angle,
@@ -30,6 +31,10 @@ __global__ void fk_kernel(const float* __restrict__ pose,
                           float* __restrict__ pq_com,
                           float* __restrict__ pq_jf) {
   __shared__ tipq::FkShared sh;
+  const int b = blockIdx.x;       // this block's pose
+  pose += 57 * b;
+  pq_com += 7 * (J + 1) * b;
+  pq_jf += 7 * (J + 1) * b;
   tipq::fk_block(pose, joff, coff, parent, is_fixed, slot, J, sh, pq_com,
                  pq_jf);
 }
@@ -39,10 +44,10 @@ __global__ void fk_kernel(const float* __restrict__ pose,
 extern "C" int fk_bullet_fused_launch(const void* pose, const void* joff,
                                       const void* coff, const void* parent,
                                       const void* is_fixed, const void* slot,
-                                      int J, void* pq_com, void* pq_jf,
-                                      void* stream) {
-  if (J < 0 || J + 1 > tipq::kMaxLinks) return -1;
-  fk_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+                                      int B, int J, void* pq_com,
+                                      void* pq_jf, void* stream) {
+  if (B < 1 || J < 0 || J + 1 > tipq::kMaxLinks) return -1;
+  fk_kernel<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pose), static_cast<const float*>(joff),
       static_cast<const float*>(coff), static_cast<const int*>(parent),
       static_cast<const int*>(is_fixed), static_cast<const int*>(slot), J,

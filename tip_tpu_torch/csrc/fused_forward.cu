@@ -68,41 +68,41 @@ fused_forward_kernel(const float* __restrict__ x, Weights w, Dims p,
   auto W = [](const void* q) { return static_cast<const WT*>(q); };
 
   product_phase<WT>(x, p.Din, T, p.Din, W(w.w_in), W(w.b_in), d, nullptr, s.x,
-                    false, false, p.zero0, sm);
+                    kActNone, false, p.zero0, sm);
   grid.sync();
   for (int l = 0; l < p.layers; ++l) {
     const Layer& L = w.layer[l];
     product_phase<WT>(s.x, d, T, d, W(L.w_qkv), W(L.b_qkv), 3 * d, nullptr,
-                      s.qkv, false, true, -1, sm);
+                      s.qkv, kActNone, true, -1, sm);
     grid.sync();
     attention_phase<WT>(s.qkv, T, d, p.heads, s.att, sm);
     grid.sync();
-    product_phase<WT>(s.att, d, T, d, W(L.w_o), W(L.b_o), d, s.x, s.a, false,
-                      true, -1, sm);
+    product_phase<WT>(s.att, d, T, d, W(L.w_o), W(L.b_o), d, s.x, s.a,
+                      kActNone, true, -1, sm);
     grid.sync();
     layernorm_phase(s.a, T, d, L.ln1_s, L.ln1_b, s.x);
     grid.sync();
     product_phase<WT>(s.x, d, T, d, W(L.w_f1), W(L.b_f1), p.ff, nullptr, s.f,
-                      true, true, -1, sm);
+                      kActRelu, true, -1, sm);
     grid.sync();
     product_phase<WT>(s.f, p.ff, T, p.ff, W(L.w_f2), W(L.b_f2), d, s.x, s.a,
-                      false, true, -1, sm);
+                      kActNone, true, -1, sm);
     grid.sync();
     layernorm_phase(s.a, T, d, L.ln2_s, L.ln2_b, s.x);
     grid.sync();
   }
   product_phase<WT>(s.x, d, T, d, W(w.w_ih), W(w.b_r), p.H, nullptr, s.xin,
-                    false, true, -1, sm);
+                    kActNone, true, -1, sm);
   grid.sync();
   rnn_phase<WT>(grid, s.xin, W(w.w_hh), T, p.H, p.cpb, s.hs,
                 sm_raw + p.rnn_off);
   if (p.k_last >= 0)
     product_phase<WT>(s.hs + static_cast<size_t>(p.k_last) * p.H, p.H, 1, p.H,
-                      W(w.w_out), W(w.b_out), p.S, nullptr, out, false, true,
-                      -1, sm);
+                      W(w.w_out), W(w.b_out), p.S, nullptr, out, kActNone,
+                      true, -1, sm);
   else
     product_phase<WT>(s.hs, p.H, T, p.H, W(w.w_out), W(w.b_out), p.S, nullptr,
-                      out, false, true, -1, sm);
+                      out, kActNone, true, -1, sm);
 }
 
 template <typename WT>

@@ -1,6 +1,8 @@
 // Device code shared by the whole-model kernels: K4/K5 (fused_forward.cu,
-// the windowed forward) and K7 (fused_cached.cu, the cached single-token
-// step). Every function is a phase of one cooperative launch of kThreads
+// the windowed forward of one stream), K7 (fused_cached.cu, the cached
+// single-token step of one stream) and their pool forms K9
+// (fused_recompute_batch.cu) and K8 (fused_cached_batch.cu) over B
+// streams. Every function is a phase of one cooperative launch of kThreads
 // threads a block: all blocks call it, a block takes the units
 // blockIdx.x, blockIdx.x + gridDim.x, ..., and the caller closes the phase
 // with grid.sync(). Activations written by other blocks in an earlier phase
@@ -29,6 +31,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 4;          // rows of a product unit
+constexpr int kRnnRows = 32;      // streams of one pass of rnn_batch_phase
+constexpr int kActNone = 0, kActRelu = 1, kActTanh = 2;
 constexpr int kMaxT = 64;
 constexpr int kMaxLayers = 8;
 constexpr int kMaxHeadDim = 64;
@@ -123,22 +127,43 @@ __device__ __forceinline__ float input_fix(float v, int k, int zero0) {
   return v;
 }
 
-// out (T, N) = [relu](round?(A (T, K)) W (K, N) + bias [+ res (T, N)]).
-// zero0 >= 0 marks A as the raw model input (input_fix). A (f32 scratch, or
-// a ring in the packing dtype), res and out may have been written by other
-// blocks in the phase before: read with ld.cg.
-template <typename WT, typename AT>
+// acc[r] += a[r] * w for the ROWS staged values of one k
+template <int ROWS>
+__device__ __forceinline__ void fma_rows(float (&acc)[ROWS], const float4* a4,
+                                         float w) {
+#pragma unroll
+  for (int q = 0; q < ROWS / 4; ++q) {
+    const float4 a = a4[q];
+    acc[4 * q + 0] = fmaf(a.x, w, acc[4 * q + 0]);
+    acc[4 * q + 1] = fmaf(a.y, w, acc[4 * q + 1]);
+    acc[4 * q + 2] = fmaf(a.z, w, acc[4 * q + 2]);
+    acc[4 * q + 3] = fmaf(a.w, w, acc[4 * q + 3]);
+  }
+}
+
+// out (T, N) = act(round?(A (T, K)) W (K, N) + bias [+ res (T, N)]), act one
+// of kActNone, kActRelu, kActTanh; bias may be null. zero0 >= 0 marks A as
+// the raw model input (input_fix). A (f32 scratch, or a ring in the packing
+// dtype), res and out may have been written by other blocks in the phase
+// before: read with ld.cg. Row r of out starts at out + r * ldo (ldo = 0:
+// N). A unit is ROWS rows (a multiple of 4) x kThreads columns; a row's
+// sum runs over k in order whatever ROWS is, so the result does not depend
+// on it. sm: ROWS * K floats.
+template <typename WT, typename AT, int ROWS = kRows>
 __device__ void product_phase(const AT* A, int lda, int T, int K,
                               const WT* __restrict__ W,
                               const WT* __restrict__ bias, int N,
-                              const float* res, float* out, bool relu,
-                              bool round_a, int zero0, float* sm) {
-  const int n_rg = (T + kRows - 1) / kRows;
+                              const float* res, float* out, int act,
+                              bool round_a, int zero0, float* sm,
+                              int ldo = 0) {
+  static_assert(ROWS % 4 == 0, "rows of a unit: a multiple of 4");
+  if (ldo == 0) ldo = N;
+  const int n_rg = (T + ROWS - 1) / ROWS;
   const int n_cc = (N + kThreads - 1) / kThreads;
   for (int unit = blockIdx.x; unit < n_rg * n_cc; unit += gridDim.x) {
     const int rg = unit % n_rg, cc = unit / n_rg;
-    const int row0 = rg * kRows;
-    for (int idx = threadIdx.x; idx < kRows * K; idx += kThreads) {
+    const int row0 = rg * ROWS;
+    for (int idx = threadIdx.x; idx < ROWS * K; idx += kThreads) {
       const int r = idx / K, k = idx - r * K;
       const int row = row0 + r;
       float v = 0.0f;
@@ -147,34 +172,48 @@ __device__ void product_phase(const AT* A, int lda, int T, int K,
         if (zero0 >= 0) v = input_fix(v, k, zero0);
         if (round_a) v = round_cd<WT>(v);
       }
-      sm[k * kRows + r] = v;
+      sm[k * ROWS + r] = v;
     }
     __syncthreads();
     const int n = cc * kThreads + threadIdx.x;
     if (n < N) {
-      float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc3 = 0.0f;
+      float acc[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
       const float4* a4 = reinterpret_cast<const float4*>(sm);
       const WT* wp = W + n;
+      if (ROWS == kRows) {
 #pragma unroll 8
-      for (int k = 0; k < K; ++k) {
-        const float w = wload(wp + static_cast<size_t>(k) * N);
-        const float4 a = a4[k];
-        acc0 = fmaf(a.x, w, acc0);
-        acc1 = fmaf(a.y, w, acc1);
-        acc2 = fmaf(a.z, w, acc2);
-        acc3 = fmaf(a.w, w, acc3);
-      }
-      const float b = wload(bias + n);
-      const float acc[kRows] = {acc0, acc1, acc2, acc3};
+        for (int k = 0; k < K; ++k)
+          fma_rows<ROWS>(acc, a4 + k * (ROWS / 4),
+                         wload(wp + static_cast<size_t>(k) * N));
+      } else {
+        // a taller unit has few warps to hide a weight load behind: eight
+        // loads are in flight before their sums, which stay in k's order
+        for (int k0 = 0; k0 < K; k0 += 8) {
+          float wv[8];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+          for (int j = 0; j < 8; ++j)
+            wv[j] = k0 + j < K
+                        ? wload(wp + static_cast<size_t>(k0 + j) * N)
+                        : 0.0f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (k0 + j < K)
+              fma_rows<ROWS>(acc, a4 + (k0 + j) * (ROWS / 4), wv[j]);
+        }
+      }
+      const float b = bias != nullptr ? wload(bias + n) : 0.0f;
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
         const int row = row0 + r;
         if (row < T) {
-          const size_t at = static_cast<size_t>(row) * N + n;
           float v = acc[r] + b;
-          if (res != nullptr) v = __ldcg(res + at) + v;
-          if (relu) v = fmaxf(v, 0.0f);
-          out[at] = v;
+          if (res != nullptr)
+            v = __ldcg(res + static_cast<size_t>(row) * N + n) + v;
+          if (act == kActRelu) v = fmaxf(v, 0.0f);
+          if (act == kActTanh) v = tanhf(v);
+          out[static_cast<size_t>(row) * ldo + n] = v;
         }
       }
     }
@@ -185,9 +224,11 @@ __device__ void product_phase(const AT* A, int lda, int T, int K,
 // att (T, d): per head, softmax(q k^T / sqrt(hd) + causal mask) v, with q,
 // k, the softmax weights and v each rounded to the packing dtype before
 // their product. Masked keys contribute an exact 0, so they are skipped.
+// n_streams windows of T rows each lie one after the other in qkv and att;
+// attention never crosses from one to the next.
 template <typename WT>
 __device__ void attention_phase(const float* qkv, int T, int d, int heads,
-                                float* att, float* sm) {
+                                float* att, float* sm, int n_streams = 1) {
   const int hd = d / heads;
   const int hs = hd | 1;          // odd row stride: no bank conflicts
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -197,8 +238,14 @@ __device__ void attention_phase(const float* qkv, int T, int d, int heads,
   float* ps = vs + T * hs;        // [kWarps][kMaxT]
   const int n_rb = (T + kWarps - 1) / kWarps;
   const float scale = 1.0f / sqrtf(static_cast<float>(hd));
-  for (int unit = blockIdx.x; unit < heads * n_rb; unit += gridDim.x) {
-    const int hh = unit / n_rb, rb = unit - hh * n_rb;
+  const float* qkv0 = qkv;
+  float* att0 = att;
+  for (int unit = blockIdx.x; unit < n_streams * heads * n_rb;
+       unit += gridDim.x) {
+    const int st = unit / (heads * n_rb), u = unit - st * heads * n_rb;
+    qkv = qkv0 + static_cast<size_t>(st) * T * 3 * d;
+    att = att0 + static_cast<size_t>(st) * T * d;
+    const int hh = u / n_rb, rb = u - hh * n_rb;
     const int i0 = rb * kWarps;
     const int n_keys = min(T, i0 + kWarps);
     for (int idx = threadIdx.x; idx < n_keys * hd; idx += kThreads) {
@@ -307,6 +354,175 @@ __device__ void rnn_phase(cg::grid_group& grid, const float* xin,
         }
         s = warp_sum(s);
         if (lane == 0) hs[at] = tanhf(xv + s);
+      }
+    }
+    grid.sync();
+  }
+}
+
+template <typename WT>
+__device__ __forceinline__ WT to_ring(float v);
+template <>
+__device__ __forceinline__ float to_ring<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_ring<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// One head of the newest token's attention over a ring, by one warp:
+// out[c] = round(sum_w round(softmax_w(q . k_w / sqrt(hd) + mask_w)) v_w[c])
+// for c < hd. q, k_own, v_own: the token's own hd values of this head
+// (rounded here as the ring stores them). kr, vr: row 0 of the ring at this
+// head's columns, rows ld apart. Slot `slot` is the token itself when `own`:
+// its k and v come from k_own, v_own, not from the ring, so the ring row
+// may be written while this runs. A slot that is not valid gets the
+// additive -1e30, and with `evict` so does `slot` when it is not the
+// token's: its weight is an exact 0 unless no slot counts at all (uniform
+// weights over whatever the ring holds, as the plain versions). pw: kMaxT
+// floats of this warp.
+template <typename WT>
+__device__ void attend_head(const float* q, const float* k_own,
+                            const float* v_own, const WT* kr, const WT* vr,
+                            int ld, const unsigned char* valid, int W, int hd,
+                            int slot, bool own, bool evict, float* pw,
+                            float* out) {
+  const int lane = threadIdx.x & 31;
+  const float scale = 1.0f / sqrtf(static_cast<float>(hd));
+  float mx = -INFINITY;
+  for (int w = lane; w < W; w += 32) {
+    const bool own_w = own && w == slot;
+    float s = 0.0f;
+    if (own_w) {
+      for (int c = 0; c < hd; ++c)
+        s = fmaf(round_cd<WT>(q[c]), round_cd<WT>(k_own[c]), s);
+    } else {
+      const WT* kw = kr + static_cast<size_t>(w) * ld;
+      for (int c = 0; c < hd; ++c)
+        s = fmaf(round_cd<WT>(q[c]), wvalue(kw[c]), s);
+    }
+    const bool counts = own_w || (valid[w] && !(evict && w == slot));
+    s = s * scale + (counts ? 0.0f : -1e30f);
+    pw[w] = s;
+    mx = fmaxf(mx, s);
+  }
+  mx = warp_max(mx);
+  float sum = 0.0f;
+  for (int w = lane; w < W; w += 32) {
+    const float e = expf(pw[w] - mx);
+    pw[w] = e;
+    sum += e;
+  }
+  sum = warp_sum(sum);
+  for (int w = lane; w < W; w += 32) pw[w] = round_cd<WT>(pw[w] / sum);
+  __syncwarp();
+  for (int c = lane; c < hd; c += 32) {
+    float o = 0.0f;
+    for (int w = 0; w < W; ++w) {
+      const float v = (own && w == slot)
+                          ? round_cd<WT>(v_own[c])
+                          : wvalue(vr[static_cast<size_t>(w) * ld + c]);
+      o = fmaf(pw[w], v, o);
+    }
+    out[c] = round_cd<WT>(o);
+  }
+  __syncwarp();
+}
+
+// The tanh RNN of B streams over T steps, each stream with its own gate:
+//   h[b] <- gate(b, t) ? tanh(xin[row(b, t)] + round(h[b]) W_hh) : h[b],
+// h[b] = 0 before step 0. hs: two (B, H) f32 buffers in the global scratch;
+// step t reads hs[t & 1] and writes hs[(t + 1) & 1], so the last hidden
+// states are in hs + (T & 1) * B * H. Block b owns columns b*cpb ..
+// b*cpb+cpb-1 of W_hh, resident in shared memory, and per step takes the
+// streams kRnnRows at a time: their previous hidden states, rounded, go to
+// shared memory (16-byte loads where H allows), then a warp per stream
+// takes the dot products of its row with the block's columns, four columns
+// at a time, each in rnn_phase's order (lanes stride over k, then a
+// butterfly), so a stream whose gates are open for steps 0..n gets
+// rnn_phase's hidden state bit for bit. Every block reaches every
+// grid.sync(). sm: cpb * H values of WT (16-byte aligned size), then
+// kRnnRows * H floats.
+template <typename WT, typename RowOf, typename Gate>
+__device__ void rnn_batch_phase(cg::grid_group& grid, const float* xin,
+                                const WT* __restrict__ w_hh, int B, int T,
+                                int H, int cpb, float* hs, unsigned char* sm,
+                                RowOf row_of, Gate gate) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c0 = blockIdx.x * cpb;
+  const int ncols = max(0, min(cpb, H - c0));
+  WT* wsl = reinterpret_cast<WT*>(sm);                    // [cpb][H]
+  const size_t w_bytes =
+      (static_cast<size_t>(cpb) * H * sizeof(WT) + 15) / 16 * 16;
+  float* hsm = reinterpret_cast<float*>(sm + w_bytes);    // [kRnnRows][H]
+  for (int idx = threadIdx.x; idx < ncols * H; idx += kThreads) {
+    const int k = idx / ncols, c = idx - k * ncols;
+    wsl[c * H + k] = w_hh[static_cast<size_t>(k) * H + c0 + c];
+  }
+  const size_t BH = static_cast<size_t>(B) * H;
+  // every row of hs starts on 16 bytes
+  const bool vec4 = H % 4 == 0 && (reinterpret_cast<uintptr_t>(hs) & 15) == 0;
+  for (int t = 0; t < T; ++t) {
+    const float* h_prev = hs + (t & 1) * BH;
+    float* h_next = hs + ((t + 1) & 1) * BH;
+    if (ncols > 0) {
+      for (int b0 = 0; b0 < B; b0 += kRnnRows) {
+        const int nb = min(kRnnRows, B - b0);
+        __syncthreads();          // the pass before is done with hsm
+        if (t > 0) {
+          const float* src = h_prev + static_cast<size_t>(b0) * H;
+          if (vec4) {
+            const float4* src4 = reinterpret_cast<const float4*>(src);
+            float4* dst4 = reinterpret_cast<float4*>(hsm);
+#pragma unroll 8
+            for (int idx = threadIdx.x; idx < nb * H / 4; idx += kThreads) {
+              float4 v = __ldcg(src4 + idx);
+              v.x = round_cd<WT>(v.x);
+              v.y = round_cd<WT>(v.y);
+              v.z = round_cd<WT>(v.z);
+              v.w = round_cd<WT>(v.w);
+              dst4[idx] = v;
+            }
+          } else {
+            for (int idx = threadIdx.x; idx < nb * H; idx += kThreads)
+              hsm[idx] = round_cd<WT>(__ldcg(src + idx));
+          }
+        }
+        __syncthreads();
+        for (int r = warp; r < nb; r += kWarps) {
+          const int b = b0 + r;
+          const bool open = gate(b, t);
+          const float* hr = hsm + r * H;
+          for (int cg0 = 0; cg0 < ncols; cg0 += 4) {
+            const int nc = min(4, ncols - cg0);
+            float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+            if (open && t > 0) {
+              const WT* wc = wsl + cg0 * H;
+              for (int k = lane; k < H; k += 32) {
+                const float hv = hr[k];
+                s0 = fmaf(hv, wvalue(wc[k]), s0);
+                if (nc > 1) s1 = fmaf(hv, wvalue(wc[H + k]), s1);
+                if (nc > 2) s2 = fmaf(hv, wvalue(wc[2 * H + k]), s2);
+                if (nc > 3) s3 = fmaf(hv, wvalue(wc[3 * H + k]), s3);
+              }
+            }
+            s0 = warp_sum(s0);
+            s1 = warp_sum(s1);
+            s2 = warp_sum(s2);
+            s3 = warp_sum(s3);
+            if (lane < nc) {      // lane j finishes column cg0 + j
+              const float s = lane == 0 ? s0 : lane == 1 ? s1
+                                        : lane == 2 ? s2 : s3;
+              const size_t at = static_cast<size_t>(b) * H + c0 + cg0 + lane;
+              float v;
+              if (open)
+                v = tanhf(__ldcg(xin + static_cast<size_t>(row_of(b, t)) * H +
+                                 c0 + cg0 + lane) + s);
+              else
+                v = t > 0 ? __ldcg(h_prev + at) : 0.0f;
+              h_next[at] = v;
+            }
+          }
+        }
       }
     }
     grid.sync();

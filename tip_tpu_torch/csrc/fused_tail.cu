@@ -1,5 +1,7 @@
 // K2 decode_fused and K3 tail_fused: the streaming runner's per-frame
-// decode (stages 4-5) and tail (stages 6-7), f32, one block each.
+// decode (stages 4-5) and tail (stages 6-7), f32, one block a stream: a
+// single stream is a grid of one block, a pool of B streams one launch of B
+// blocks over inputs and outputs with a leading stream axis.
 //
 // Replaces tip_tpu/ops/fused_tail.py::decode_fused (Pallas kernel
 // _decode_kernel) and tip_tpu/ops/fused_tail.py::tail_fused (Pallas kernel
@@ -13,9 +15,9 @@
 // card's rates both are well under a microsecond of work; what is left is
 // the launch and the dependent chain of the tree walk in one thread.
 //
-// Design: one small block per kernel, every intermediate in registers or
-// shared memory, one launch per frame instead of the dozens of small
-// PyTorch ops of the plain path. K2: threads stride over the output
+// Design: one small block per stream, every intermediate in registers or
+// shared memory, one launch per frame (or per pool tick) instead of the
+// dozens of small PyTorch ops of the plain path. K2: threads stride over the output
 // columns for the filter, then one thread per SBP row and one per quat.
 // K3: 18 threads decode axis-angle -> quat, thread 0 walks the tree
 // (parents first), one thread per link builds the CoM and joint frames,
@@ -37,9 +39,21 @@ __global__ void decode_kernel(const float* __restrict__ y_t,
                               const float* __restrict__ filt,
                               const float* __restrict__ coeff, int nf,
                               const float* __restrict__ local9, int use_filter,
+                              const unsigned char* __restrict__ use_filter_b,
                               int D, int n_sbps, float* __restrict__ y_f,
                               float* __restrict__ c_t, float* __restrict__ q) {
   extern __shared__ float yf[];
+  // this block's stream; use_filter_b holds one flag a stream (a pool's
+  // streams switch to the filter at their own frames), else the flag is
+  // use_filter for every stream
+  const int b = blockIdx.x;
+  y_t += static_cast<size_t>(b) * D;
+  filt += static_cast<size_t>(b) * nf * D;
+  local9 += 9 * b;
+  y_f += static_cast<size_t>(b) * D;
+  c_t += 4 * n_sbps * b;
+  q += 4 * 18 * b;
+  if (use_filter_b != nullptr) use_filter = use_filter_b[b];
   float csum = 0.0f;
   for (int k = 0; k < nf; ++k) csum += coeff[k];
   for (int c = threadIdx.x; c < D; c += blockDim.x) {
@@ -100,6 +114,19 @@ __global__ void tail_kernel(const float* __restrict__ s,
   __shared__ V res_s[kSbps];
   __shared__ float fl_s[kSbps];
   const int tid = threadIdx.x;
+  // this block's stream
+  const int b = blockIdx.x;
+  const int n_pq = 7 * (J + 1);
+  s += 114 * b;
+  ct += 4 * kSbps * b;
+  prev_pq += n_pq * b;
+  pq_com += n_pq * b;
+  pq_jf += n_pq * b;
+  hist += 108 * b;
+  vres += 3 * b;
+  clocs += 3 * kSbps * b;
+  rres += 3 * kSbps * b;
+  act += kSbps * b;
 
   // s[0:57] has the layout of a pose: root xyz, root axis-angle, 17 joint
   // axis-angles (in nimble order, which slot[] maps the joints to)
@@ -163,27 +190,36 @@ __global__ void tail_kernel(const float* __restrict__ s,
 
 }  // namespace
 
+// B streams: y_t (B, D), filt (B, nf, D), local9 (B, 9) -> y_f (B, D), c_t
+// (B, n_sbps, 4), q (B, 18, 4). use_filter_b: (B,) bytes, one flag a
+// stream, or null for use_filter on every stream.
 extern "C" int decode_fused_launch(const void* y_t, const void* filt,
                                    const void* coeff, int nf,
-                                   const void* local9, int use_filter, int D,
+                                   const void* local9, int use_filter,
+                                   const void* use_filter_b, int B, int D,
                                    int n_sbps, void* y_f, void* c_t, void* q,
                                    void* stream) {
-  decode_kernel<<<1, 128, D * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
+  if (B < 1) return -1;
+  decode_kernel<<<B, 128, D * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(y_t), static_cast<const float*>(filt),
       static_cast<const float*>(coeff), nf, static_cast<const float*>(local9),
-      use_filter, D, n_sbps, static_cast<float*>(y_f), static_cast<float*>(c_t),
+      use_filter, static_cast<const unsigned char*>(use_filter_b), D, n_sbps,
+      static_cast<float*>(y_f), static_cast<float*>(c_t),
       static_cast<float*>(q));
   return static_cast<int>(cudaGetLastError());
 }
 
+// B streams: every input but the skeleton's tables, and every output,
+// carries a leading stream axis.
 extern "C" int tail_fused_launch(const void* s, const void* ct,
                                  const void* prev_pq, const void* joff,
                                  const void* coff, const void* parent,
-                                 const void* is_fixed, const void* slot, int J,
-                                 float dt, void* pq_com, void* pq_jf,
+                                 const void* is_fixed, const void* slot, int B,
+                                 int J, float dt, void* pq_com, void* pq_jf,
                                  void* hist, void* vres, void* clocs,
                                  void* rres, void* act, void* stream) {
-  tail_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (B < 1 || J < 0 || J + 1 > kMaxLinks) return -1;
+  tail_kernel<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(s), static_cast<const float*>(ct),
       static_cast<const float*>(prev_pq), static_cast<const float*>(joff),
       static_cast<const float*>(coff), static_cast<const int*>(parent),

@@ -1,5 +1,5 @@
-"""Whole-model fused forward for single-stream inference (twin of
-tip_tpu/ops/fused_forward.py, its single-stream kernels).
+"""Whole-model fused forward for inference (twin of
+tip_tpu/ops/fused_forward.py).
 
 The whole windowed forward — in-projection with the head-interleave
 permutation folded in, the post-norm encoder layers, the tanh-RNN head and
@@ -7,13 +7,20 @@ the out-projection — as one op over pre-packed weights:
 
   K4 ``fused_forward_last``: the (size_s,) prediction at one window index,
      the only row the streaming runner consumes;
-  K5 ``fused_forward``: the (T, size_s) predictions at every index.
+  K5 ``fused_forward``: the (T, size_s) predictions at every index;
+  K9 ``fused_recompute_batch``: K4 for a pool of B streams, each at its own
+     window index, as one launch.
 
-Both are one cooperative launch of ``csrc/fused_forward.cu`` (its phases
-live in ``csrc/fused_phases.cuh``, shared with the cached step's kernel
-K7, runtime/streaming_cache.py). Beside them
+K4 and K5 are one cooperative launch of ``csrc/fused_forward.cu``, K9 one
+of ``csrc/fused_recompute_batch.cu`` (their phases live in
+``csrc/fused_phases.cuh``, shared with the cached steps' kernels K7 and K8,
+runtime/streaming_cache.py). tip_tpu reaches its batched kernels through a
+``custom_vmap`` rule; here the pool's frame step calls
+``fused_recompute_batch`` directly, and tip_tpu's tile sizes (``bt``,
+``bt_rnn``: VMEM tiles) have no counterpart: K9 takes any B. Beside them
 the plain PyTorch versions (``fused_forward_last_plain``,
-``fused_forward_plain``), which repeat the kernel's arithmetic cast by
+``fused_forward_plain``, ``fused_recompute_batch_plain``), which repeat
+the kernel's arithmetic cast by
 cast: every product is taken between values rounded to the packing dtype
 and summed in float32, the model input stays float32 into the
 in-projection, biases are the packed values widened to float32, LayerNorm
@@ -41,6 +48,10 @@ MAX_HEAD_DIM = 64
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {"fused_forward_launch": [_P, _P, _I, _I] + [_I] * 10 + [_P, _P, _P]}
+_SIG_BATCH = {
+    "fused_recompute_batch_launch": [_P, _P, _P] + [_I] * 12
+    + [_P, ctypes.c_longlong, _P, _P],
+    "fused_recompute_batch_scratch_floats": [_I] * 5}
 # launcher's own return codes (CUDA's are positive)
 _ERR_SHAPE = -1
 _ERR_SMEM = -2
@@ -118,12 +129,14 @@ def _ln(x, s, b, eps=1e-5):
 
 
 def _hiddens_plain(ws, x, cfg: M.ModelConfig):
-    """The forward up to the RNN: x (T, input_dim) -> hidden states (T, H),
-    float32, with the kernels' casts."""
+    """The forward up to the RNN: x (T, input_dim), or (B, T, input_dim) for
+    B windows that never see each other -> hidden states (T, H) or (B, T,
+    H), float32, with the kernels' casts."""
     if len(ws) != n_packed(cfg):
         raise ValueError(f"{len(ws)} packed weights, expected "
                          f"{n_packed(cfg)}")
-    T = x.shape[0]
+    lead = tuple(x.shape[:-2])
+    T = x.shape[-2]
     d, h, hd = cfg.tf_in_dim, cfg.n_heads, cfg.head_dim
     cd = ws[0].dtype
     f32 = torch.float32
@@ -136,8 +149,8 @@ def _hiddens_plain(ws, x, cfg: M.ModelConfig):
 
     zc = _imu_dim(cfg) + 108
     x = torch.nan_to_num(x.to(f32), nan=0.0)
-    x = torch.cat([x[:, :zc], torch.zeros_like(x[:, zc:zc + 3]),
-                   x[:, zc + 3:]], dim=1)
+    x = torch.cat([x[..., :zc], torch.zeros_like(x[..., zc:zc + 3]),
+                   x[..., zc + 3:]], dim=-1)
     x = x @ w(0) + w(1)            # the input is not rounded
 
     rows = torch.arange(T, device=x.device)
@@ -147,16 +160,16 @@ def _hiddens_plain(ws, x, cfg: M.ModelConfig):
     scale = 1.0 / math.sqrt(hd)
 
     def heads(t):                  # (T, d) -> (h, T, hd)
-        return r(t).reshape(T, h, hd).transpose(0, 1)
+        return r(t).reshape(lead + (T, h, hd)).transpose(-3, -2)
 
     for li in range(cfg.tf_layers):
         o = 2 + 12 * li
         qkv = r(x) @ w(o) + w(o + 1)
-        q, k, v = heads(qkv[:, :d]), heads(qkv[:, d:2 * d]), \
-            heads(qkv[:, 2 * d:])
+        q, k, v = heads(qkv[..., :d]), heads(qkv[..., d:2 * d]), \
+            heads(qkv[..., 2 * d:])
         logits = q @ k.transpose(-1, -2) * scale + mask
-        att = (r(torch.softmax(logits, dim=-1)) @ v).transpose(0, 1) \
-            .reshape(T, d)
+        att = (r(torch.softmax(logits, dim=-1)) @ v).transpose(-3, -2) \
+            .reshape(lead + (T, d))
         a = r(att) @ w(o + 2) + w(o + 3)
         x = _ln(x + a, ws[o + 8], ws[o + 9])
         f = torch.relu(r(x) @ w(o + 4) + w(o + 5))
@@ -166,12 +179,13 @@ def _hiddens_plain(ws, x, cfg: M.ModelConfig):
     o = 2 + 12 * cfg.tf_layers
     xin = r(x) @ w(o) + w(o + 1)
     w_hh = w(o + 2)
-    hcur = torch.zeros((1, cfg.rnn_hid_size), dtype=f32, device=x.device)
+    hcur = torch.zeros(lead + (1, cfg.rnn_hid_size), dtype=f32,
+                       device=x.device)
     hs = []
     for t in range(T):
-        hcur = torch.tanh(xin[t][None] + r(hcur) @ w_hh)
-        hs.append(hcur[0])
-    return torch.stack(hs)
+        hcur = torch.tanh(xin[..., t:t + 1, :] + r(hcur) @ w_hh)
+        hs.append(hcur[..., 0, :])
+    return torch.stack(hs, dim=-2)
 
 
 def fused_forward_plain(packed_ws, x, cfg: M.ModelConfig):
@@ -289,3 +303,104 @@ def fused_forward(packed_ws, x, cfg: M.ModelConfig, impl: str = "auto"):
     if not K.use_kernel(impl, x, "forward_impl", "fused"):
         return fused_forward_plain(packed_ws, x, cfg)
     return _launch(packed_ws, x, -1, cfg, "fused_forward")
+
+
+# ---------------------------------------------------------------------------
+# K9: K4 for a pool of B streams
+# ---------------------------------------------------------------------------
+
+def _check_k_last_batch(k_last, B: int, T: int):
+    """``k_last`` as B host ints, each in [0, T). A host sequence or numpy
+    array is checked as it is; a tensor is read back (on a CUDA tensor that
+    waits for the device). An index outside the window raises."""
+    ks = [int(k) for k in (k_last.tolist() if hasattr(k_last, "tolist")
+                           else k_last)]
+    if len(ks) != B:
+        raise ValueError(f"k_last holds {len(ks)} indices for {B} streams")
+    bad = [(b, k) for b, k in enumerate(ks) if not 0 <= k < T]
+    if bad:
+        raise IndexError(f"k_last[{bad[0][0]}]={bad[0][1]} is outside the "
+                         f"{T}-row window")
+    return ks
+
+
+def fused_recompute_batch_plain(packed_ws, x, k_last, cfg: M.ModelConfig):
+    """Plain version of K9: x (B, T, input_dim), k_last B indices -> the
+    (B, size_s) float32 predictions, row b at window index k_last[b] of
+    stream b (``fused_forward_last_plain`` per stream: rows after k_last[b]
+    cannot reach it)."""
+    B, T = x.shape[:2]
+    ks = _check_k_last_batch(k_last, B, T)
+    return _recompute_batch_rows(packed_ws, x,
+                                 torch.as_tensor(ks, device=x.device), cfg)
+
+
+def _recompute_batch_rows(packed_ws, x, k_idx, cfg: M.ModelConfig):
+    """``fused_recompute_batch_plain`` for indices already checked, as an
+    integer tensor on x's device: copies nothing from the host."""
+    hs = _hiddens_plain(packed_ws, x, cfg)
+    h = hs[torch.arange(x.shape[0], device=x.device), k_idx.long()]
+    return (_round(h, packed_ws[0].dtype) @ packed_ws[-2].float()
+            + packed_ws[-1].float())
+
+
+def _launch_batch(packed_ws, x, k_dev, cfg: M.ModelConfig):
+    """One cooperative launch of csrc/fused_recompute_batch.cu."""
+    name = "fused_recompute_batch"
+    B, T = x.shape[:2]
+    dev = x.device
+    cd = packed_ws[0].dtype
+    d, ff, H = cfg.tf_in_dim, cfg.tf_hid_size, cfg.rnn_hid_size
+    so = K.lib("fused_recompute_batch", _SIG_BATCH)
+    n_scratch = so.fused_recompute_batch_scratch_floats(B, T, d, ff, H)
+    if n_scratch < 0:
+        raise ValueError(
+            f"{name}: B={B} streams need more scratch than one launch "
+            f"addresses (31-bit offsets: fewer than "
+            f"{(2 ** 31 - 1) // (T * max(H, cfg.input_dim))} streams of {T} "
+            f"rows)")
+    f32 = torch.float32
+    out = torch.empty((B, cfg.size_s), dtype=f32, device=dev)
+    scratch = torch.empty(n_scratch, dtype=f32, device=dev)
+    ptrs = (ctypes.c_void_p * len(packed_ws))(
+        *[t.data_ptr() for t in packed_ws])
+    err = so.fused_recompute_batch_launch(
+        x.data_ptr(), k_dev.data_ptr(), ptrs, len(packed_ws),
+        int(cd == torch.bfloat16), B, T, cfg.input_dim, d, cfg.n_heads, ff,
+        cfg.tf_layers, H, cfg.size_s, _imu_dim(cfg) + 108,
+        scratch.data_ptr(), n_scratch, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(err, name, cfg)
+    K.launch_counts[name] += 1
+    return out
+
+
+def fused_recompute_batch(packed_ws, x, k_last, cfg: M.ModelConfig,
+                          impl: str = "auto"):
+    """The exact windowed recompute of a pool in one op (twin of tip_tpu's
+    ``fused_recompute_batch``): x (B, T, input_dim) float32 left-aligned
+    windows, raw (the input quirks are applied inside, per stream); k_last
+    B window indices, a host sequence or numpy array (checked on the host
+    and copied up) or an integer tensor (read back to be checked). Returns
+    (B, size_s) float32; row b equals ``fused_forward_last(packed_ws, x[b],
+    k_last[b], cfg)``. Raises ``IndexError`` unless every 0 <= k_last[b] <
+    T. Kernel K9 for a CUDA tensor, the plain version for a CPU tensor or
+    ``impl="plain"``; ``impl="fused"`` on a CPU tensor raises. One launch
+    serves the whole pool; a pool beyond the kernel's 31-bit scratch offsets
+    (B * T * H elements, about 10^5 streams at the serving widths) raises."""
+    if not K.use_kernel(impl, x, "forward_impl", "fused"):
+        return fused_recompute_batch_plain(packed_ws, x, k_last, cfg)
+    name = "fused_recompute_batch"
+    if x.dim() != 3:
+        raise ValueError(f"{name}: x is (B, T, input_dim), got "
+                         f"{tuple(x.shape)}")
+    B, T = x.shape[:2]
+    dev = x.device
+    if not 1 <= T <= MAX_T:
+        raise ValueError(f"{name}: the kernel holds 1..{MAX_T} rows, got "
+                         f"T={T}")
+    ks = _check_k_last_batch(k_last, B, T)
+    check_packed(packed_ws, cfg, dev, name)
+    K.check_input(x, "x", (B, T, cfg.input_dim), torch.float32, dev)
+    k_dev = torch.tensor(ks, dtype=torch.int32, device=dev)
+    return _launch_batch(packed_ws, x, k_dev, cfg)

@@ -1,6 +1,8 @@
 """Fused runner decode and tail (twin of tip_tpu/ops/fused_tail.py).
 
-Two kernels in ``csrc/fused_tail.cu``, each one launch per frame:
+Two kernels in ``csrc/fused_tail.cu``, each one launch per frame. Both take
+one stream's inputs or, with a leading stream axis B on every input and
+output, a pool's: one launch of one block a stream either way.
 
   K2 ``decode_fused``: runner stages 4-5's heavy math — the exponential
      output filter, SBP flag/offset decode, the root IMU matrix -> quat and
@@ -35,9 +37,10 @@ from tip_tpu_torch.ops import sbp as sbp_ops
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {
-    "decode_fused_launch": [_P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P],
-    "tail_fused_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_float,
-                          _P, _P, _P, _P, _P, _P, _P, _P],
+    "decode_fused_launch": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P,
+                            _P, _P],
+    "tail_fused_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          ctypes.c_float, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 # joint j -> nimble aa slot whose quat is its local rotation (-1: fixed)
@@ -68,55 +71,77 @@ class TailOut(NamedTuple):
 # K2: decode
 # ---------------------------------------------------------------------------
 
-def decode_fused_plain(y_t, filt_view, coeff, use_filter: bool, local9,
+def decode_fused_plain(y_t, filt_view, coeff, use_filter, local9,
                        n_sbps: int = 5) -> DecodeOut:
     """Plain version of K2: the runner's stage 4-5 math before the
-    axis-angle step, plus matrix_to_q."""
-    y_smooth = torch.sum(filt_view * coeff[:, None], dim=0) / torch.sum(coeff)
-    y_f = y_smooth if use_filter else y_t
-    c = y_f[-n_sbps * 4:].reshape(n_sbps, 4)
-    flags = (c[:, 0] > 0.0).to(y_f.dtype)
-    c_t = torch.cat([flags[:, None], c[:, 1:] / 5.0], dim=1)
-    q_root = rot.matrix_to_q(local9.reshape(3, 3))
-    q_joints = rot.matrix_to_q(rot.sixd_to_matrix(y_f[:108].reshape(18, 6)))
+    axis-angle step, plus matrix_to_q. One stream, or B streams with a
+    leading axis on ``y_t``, ``filt_view`` and ``local9`` (and on the
+    outputs); ``use_filter`` is a host bool or a (B,) bool tensor."""
+    lead = y_t.shape[:-1]
+    y_smooth = torch.sum(filt_view * coeff[:, None], dim=-2) \
+        / torch.sum(coeff)
+    if isinstance(use_filter, torch.Tensor):
+        y_f = torch.where(use_filter[..., None], y_smooth, y_t)
+    else:
+        y_f = y_smooth if use_filter else y_t
+    c = y_f[..., -n_sbps * 4:].reshape(lead + (n_sbps, 4))
+    flags = (c[..., 0] > 0.0).to(y_f.dtype)
+    c_t = torch.cat([flags[..., None], c[..., 1:] / 5.0], dim=-1)
+    q_root = rot.matrix_to_q(local9.reshape(lead + (3, 3)))
+    q_joints = rot.matrix_to_q(
+        rot.sixd_to_matrix(y_f[..., :108].reshape(lead + (18, 6))))
     return DecodeOut(y_f=y_f, c_t=c_t,
-                     q_rows=torch.cat([q_root[None], q_joints[1:]], dim=0))
+                     q_rows=torch.cat([q_root[..., None, :],
+                                       q_joints[..., 1:, :]], dim=-2))
 
 
-def decode_fused(y_t, filt_view, coeff, use_filter: bool, local9,
+def decode_fused(y_t, filt_view, coeff, use_filter, local9,
                  filter_len: int = 6, n_sbps: int = 5,
                  impl: str = "auto") -> DecodeOut:
-    """Output filter + SBP decode + 18 quat decodes as one op.
+    """Output filter + SBP decode + 18 quat decodes as one op, for one
+    stream or for B streams in one launch (a leading axis B on ``y_t``,
+    ``filt_view``, ``local9`` and every output).
 
     Args:
       y_t: (D,) raw model output of this frame.
       filt_view: (filter_len, D) chronological output ring (oldest first).
-      coeff: (filter_len,) filter weights.
-      use_filter: host bool — n_out >= filter_len.
+      coeff: (filter_len,) filter weights, shared by all streams.
+      use_filter: host bool — n_out >= filter_len — or a (B,) bool tensor,
+        one flag a stream.
       local9: (9,) row-major root IMU rotation matrix.
     """
     if not K.use_kernel(impl, y_t, "tail_impl", "fused"):
         return decode_fused_plain(y_t, filt_view, coeff, use_filter, local9,
                                   n_sbps)
-    D = y_t.shape[0]
+    lead = tuple(y_t.shape[:-1])
+    if len(lead) > 1:
+        raise ValueError(f"y_t: one stream (D,) or a pool (B, D), got "
+                         f"{tuple(y_t.shape)}")
+    D = y_t.shape[-1]
+    B = lead[0] if lead else 1
     dev, f32 = y_t.device, torch.float32
-    K.check_input(y_t, "y_t", (D,), f32, dev)
-    K.check_input(filt_view, "filt_view", (filter_len, D), f32, dev)
+    K.check_input(y_t, "y_t", lead + (D,), f32, dev)
+    K.check_input(filt_view, "filt_view", lead + (filter_len, D), f32, dev)
     K.check_input(coeff, "coeff", (filter_len,), f32, dev)
-    K.check_input(local9, "local9", (9,), f32, dev)
+    K.check_input(local9, "local9", lead + (9,), f32, dev)
+    flags = 0
+    if isinstance(use_filter, torch.Tensor):
+        K.check_input(use_filter, "use_filter", lead, torch.bool, dev)
+        flags = use_filter.data_ptr()
     if D < 108 + 4 * n_sbps:
         raise ValueError(f"y_t width {D} holds no 18 6D rows + SBPs")
     if not 0 < n_sbps <= 96:
         raise ValueError(f"decode_fused's block decodes 1..96 SBPs, got "
                          f"{n_sbps}")
-    y_f = torch.empty(D, dtype=f32, device=dev)
-    c_t = torch.empty((n_sbps, 4), dtype=f32, device=dev)
-    q = torch.empty((18, 4), dtype=f32, device=dev)
+    y_f = torch.empty(lead + (D,), dtype=f32, device=dev)
+    c_t = torch.empty(lead + (n_sbps, 4), dtype=f32, device=dev)
+    q = torch.empty(lead + (18, 4), dtype=f32, device=dev)
     so = K.lib("fused_tail", _SIG)
     err = so.decode_fused_launch(
         y_t.data_ptr(), filt_view.data_ptr(), coeff.data_ptr(), filter_len,
-        local9.data_ptr(), int(bool(use_filter)), D, n_sbps, y_f.data_ptr(),
-        c_t.data_ptr(), q.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        local9.data_ptr(), 0 if flags else int(bool(use_filter)), flags, B,
+        D, n_sbps, y_f.data_ptr(), c_t.data_ptr(), q.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     K.check(err, "decode_fused")
     K.launch_counts["decode_fused"] += 1
     return DecodeOut(y_f=y_f, c_t=c_t, q_rows=q)
@@ -129,12 +154,13 @@ def decode_fused(y_t, filt_view, coeff, use_filter: bool, local9,
 def tail_fused_plain(skel: kin.Skeleton, s_t, c_t, prev_pq,
                      dt: float = cst.DT, n_sbps: int = 5) -> TailOut:
     """Plain version of K3: fk_our_state + root_correction_from_constrs +
-    aa_to_sixd of s[3:57]. Unlike the kernel it takes any SBP count (the
-    first ``min(5, n_sbps)`` evaluated)."""
+    aa_to_sixd of s[3:57], for one stream or with a leading stream axis on
+    ``s_t``, ``c_t``, ``prev_pq`` and every output. Unlike the kernel it
+    takes any SBP count (the first ``min(5, n_sbps)`` evaluated)."""
     pq_com, pq_jf = kin.fk_our_state(skel, s_t, return_joint_frame=True)
     corr = sbp_ops.root_correction_from_constrs(
         prev_pq, pq_com, c_t, n_sbps=n_sbps, use_n_sbps=min(5, n_sbps), dt=dt)
-    hist = rot.aa_to_sixd(s_t[3:57].reshape(18, 3))
+    hist = rot.aa_to_sixd(s_t[..., 3:57].reshape(s_t.shape[:-1] + (18, 3)))
     return TailOut(pq_com=pq_com, pq_jf=pq_jf, hist_sixd=hist,
                    vel_res=corr.vel_res, c_locs=corr.c_locs,
                    raw_res=corr.raw_residues,
@@ -149,6 +175,9 @@ def tail_fused(skel: kin.Skeleton, s_t, c_t, prev_pq, dt: float = cst.DT,
         pq_com, pq_jf = kinematics.fk_our_state(skel, s_t, True)
         corr = sbp.root_correction_from_constrs(prev_pq, pq_com, c_t)
         hist_sixd = rotations.aa_to_sixd(s_t[3:57].reshape(18, 3))
+
+    or for B streams in one launch: ``s_t`` (B, 114), ``c_t`` (B, 20),
+    ``prev_pq`` (B, 20, 7), every output with the leading B.
     """
     if not K.use_kernel(impl, s_t, "tail_impl", "fused"):
         return tail_fused_plain(skel, s_t, c_t, prev_pq, dt, n_sbps)
@@ -159,29 +188,38 @@ def tail_fused(skel: kin.Skeleton, s_t, c_t, prev_pq, dt: float = cst.DT,
     J = skel.n_joints
     n_links = J + 1
     dev, f32 = s_t.device, torch.float32
-    K.check_input(s_t, "s_t", (114,), f32, dev)
-    K.check_input(c_t, "c_t", (20,), f32, dev)
-    K.check_input(prev_pq, "prev_pq", (n_links, 7), f32, dev)
+    lead = tuple(s_t.shape[:-1])
+    if len(lead) > 1:
+        raise ValueError(f"s_t: one stream (114,) or a pool (B, 114), got "
+                         f"{tuple(s_t.shape)}")
+    B = lead[0] if lead else 1
+    K.check_input(s_t, "s_t", lead + (114,), f32, dev)
+    K.check_input(c_t, "c_t", lead + (20,), f32, dev)
+    K.check_input(prev_pq, "prev_pq", lead + (n_links, 7), f32, dev)
     K.check_input(skel.joint_offset, "joint_offset", (J, 3), f32, dev)
     K.check_input(skel.com_offset, "com_offset", (n_links, 3), f32, dev)
     K.check_input(skel.parent_i32, "parent", (J,), torch.int32, dev)
     K.check_input(skel.is_fixed_i32, "is_fixed", (J,), torch.int32, dev)
     slot = device_const(_JOINT_SLOT, torch.int32, dev)
-    out = torch.empty(2 * n_links * 7 + 108 + 3 + 15 + 15 + 5, dtype=f32,
-                      device=dev)
+    # one allocation, one contiguous piece per output (B rows each)
+    sizes = [n_links * 7, n_links * 7, 108, 3, 15, 15, 5]
+    out = torch.empty(B * sum(sizes), dtype=f32, device=dev)
     pq_com, pq_jf, hist, vres, clocs, rres, act = torch.split(
-        out, [n_links * 7, n_links * 7, 108, 3, 15, 15, 5])
+        out, [B * n for n in sizes])
     so = K.lib("fused_tail", _SIG)
     err = so.tail_fused_launch(
         s_t.data_ptr(), c_t.data_ptr(), prev_pq.data_ptr(),
         skel.joint_offset.data_ptr(), skel.com_offset.data_ptr(),
         skel.parent_i32.data_ptr(), skel.is_fixed_i32.data_ptr(),
-        slot.data_ptr(), J, float(dt), pq_com.data_ptr(), pq_jf.data_ptr(),
+        slot.data_ptr(), B, J, float(dt), pq_com.data_ptr(), pq_jf.data_ptr(),
         hist.data_ptr(), vres.data_ptr(), clocs.data_ptr(), rres.data_ptr(),
         act.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     K.check(err, "tail_fused")
     K.launch_counts["tail_fused"] += 1
-    return TailOut(pq_com=pq_com.view(n_links, 7), pq_jf=pq_jf.view(n_links, 7),
-                   hist_sixd=hist.view(18, 6), vel_res=vres,
-                   c_locs=clocs.view(5, 3), raw_res=rres.view(5, 3),
-                   active=act)
+    return TailOut(pq_com=pq_com.view(lead + (n_links, 7)),
+                   pq_jf=pq_jf.view(lead + (n_links, 7)),
+                   hist_sixd=hist.view(lead + (18, 6)),
+                   vel_res=vres.view(lead + (3,)),
+                   c_locs=clocs.view(lead + (5, 3)),
+                   raw_res=rres.view(lead + (5, 3)),
+                   active=act.view(lead + (5,)))

@@ -6,9 +6,10 @@ Two frame conventions are produced, matching PyBullet's link states: the
 the inertial origin). Quaternions are xyzw throughout.
 
 ``fk`` is the plain level-parallel tree walk. ``fk_bullet_fused`` (kernel
-K6, csrc/fused_fk.cu) is the whole pose -> link-frames pipeline of one pose
-as one launch; the runner's fused tail (ops/fused_tail.py, kernel K3) holds
-the same walk plus the SBP and history chains.
+K6, csrc/fused_fk.cu) is the whole pose -> link-frames pipeline of one pose,
+or of a pool's B poses, as one launch; the runner's fused tail
+(ops/fused_tail.py, kernel K3) holds the same walk plus the SBP and history
+chains.
 """
 
 import ctypes
@@ -193,8 +194,8 @@ def fk_our_state(skel: Skeleton, s, return_joint_frame=False):
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
-_SIG = {"fk_bullet_fused_launch": [_P, _P, _P, _P, _P, _P, ctypes.c_int, _P,
-                                   _P, _P]}
+_SIG = {"fk_bullet_fused_launch": [_P, _P, _P, _P, _P, _P, ctypes.c_int,
+                                   ctypes.c_int, _P, _P, _P]}
 
 # joint j -> its place among the 17 active joints of a bullet pose (-1: fixed)
 _ACTIVE_SLOT = tuple(_ACTIVE.index(j) if j in _ACTIVE else -1
@@ -220,27 +221,33 @@ def fk_bullet_fused_plain(skel: Skeleton, state_bullet):
 
 
 def fk_bullet_fused(skel: Skeleton, state_bullet, impl: str = "auto"):
-    """(pq_com, pq_jf), both (J+1, 7), for a single (57,) bullet pose, as
-    one op. ``impl``: "kernel" launches K6 (a float32 CUDA tensor), "plain"
-    runs ``fk_bullet_fused_plain``, "auto" launches for a CUDA tensor and
-    runs the plain version for a CPU tensor."""
+    """(pq_com, pq_jf), both (J+1, 7), for a single (57,) bullet pose, or
+    both (B, J+1, 7) for B poses (B, 57), as one op and one launch.
+    ``impl``: "kernel" launches K6 (a float32 CUDA tensor), "plain" runs
+    ``fk_bullet_fused_plain``, "auto" launches for a CUDA tensor and runs
+    the plain version for a CPU tensor."""
     if not K.use_kernel(impl, state_bullet, "fk_impl", "kernel"):
         return fk_bullet_fused_plain(skel, state_bullet)
     check_pose_skeleton(skel, "fk_bullet_fused")
     J = skel.n_joints
     dev, f32 = state_bullet.device, torch.float32
-    K.check_input(state_bullet, "state_bullet", (57,), f32, dev)
+    lead = tuple(state_bullet.shape[:-1])
+    if len(lead) > 1:
+        raise ValueError(f"state_bullet: one pose (57,) or (B, 57), got "
+                         f"{tuple(state_bullet.shape)}")
+    K.check_input(state_bullet, "state_bullet", lead + (57,), f32, dev)
     K.check_input(skel.joint_offset, "joint_offset", (J, 3), f32, dev)
     K.check_input(skel.com_offset, "com_offset", (J + 1, 3), f32, dev)
     K.check_input(skel.parent_i32, "parent", (J,), torch.int32, dev)
     K.check_input(skel.is_fixed_i32, "is_fixed", (J,), torch.int32, dev)
     slot = device_const(_ACTIVE_SLOT, torch.int32, dev)
-    out = torch.empty((2, J + 1, 7), dtype=f32, device=dev)
+    out = torch.empty((2,) + lead + (J + 1, 7), dtype=f32, device=dev)
     so = K.lib("fused_fk", _SIG)
     err = so.fk_bullet_fused_launch(
         state_bullet.data_ptr(), skel.joint_offset.data_ptr(),
         skel.com_offset.data_ptr(), skel.parent_i32.data_ptr(),
-        skel.is_fixed_i32.data_ptr(), slot.data_ptr(), J, out[0].data_ptr(),
+        skel.is_fixed_i32.data_ptr(), slot.data_ptr(),
+        lead[0] if lead else 1, J, out[0].data_ptr(),
         out[1].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     K.check(err, "fk_bullet_fused")
     K.launch_counts["fk_bullet_fused"] += 1

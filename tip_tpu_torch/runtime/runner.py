@@ -1,5 +1,7 @@
-"""Streaming inference runtime: the single-stream minimal runner in its
-three serving modes (twin of tip_tpu/runtime/runner.py).
+"""Streaming inference runtime: the minimal runner in its three serving
+modes, for one stream (``runner_step``) and for a pool of B streams that
+tick together (``pool_step``, ``make_multi_stream_step``); twin of
+tip_tpu/runtime/runner.py.
 
 One 60 Hz frame of the minimal runner is
 
@@ -31,6 +33,20 @@ index, so they are host ints and tip_tpu's ``jnp.where(active, ...)``
 selects become host branches: a frame enqueues its work on the device and
 never waits for it. A frame before the first smoothed IMU frame (``t <
 imu_n_smooth``) runs no model and no kernel and returns ``s_init``.
+
+**The pool's frame step.** tip_tpu gets it from ``jax.vmap`` over its
+``runner_step``; here it is written out over a leading stream axis B
+(``pool_step`` over a ``PoolCarry``). Each stream of a pool joins at its own
+tick, so the single stream's host branches become per-stream selects. The
+counters stay on the host, as (B,) integer arrays: the masks they give
+(first frame, commit, window full, active, filter on, blend, the
+left-aligned push positions) go up to the device in two small tensors with
+the IMU batch, every select is a ``torch.where`` on the device, and a tick
+reads nothing back but the outputs it returns. With
+``forward_impl="fused"`` the model stage of a tick is one launch (K8
+``streaming_cache.fused_cached_batch`` in the KV-cache modes, K9
+``ops.fused_forward.fused_recompute_batch`` in recompute mode), and decode,
+tail and FK (K2, K3, K6) are one launch each for the whole pool.
 """
 
 from dataclasses import dataclass, replace
@@ -162,31 +178,33 @@ def _filter_coeff(cfg: RunnerConfig, dtype, device) -> torch.Tensor:
 def state_to_history(s, c, n_sbps: int):
     """(114,) state + (n_sbps*4,) SBP vector -> (state_dim,) history entry:
     [root_aa + 17 joint aa] as two-axis 6D (108) + root velocity (3) + SBP
-    vector."""
-    aa = s[3:3 + 54].reshape(18, 3)
-    sixd = rot.aa_to_sixd(aa).reshape(108)
-    root_v = s[cst.N_DOFS:cst.N_DOFS + 3]
-    return torch.cat([sixd, root_v, c])
+    vector. Leading batch dimensions carry over."""
+    lead = s.shape[:-1]
+    aa = s[..., 3:3 + 54].reshape(lead + (18, 3))
+    sixd = rot.aa_to_sixd(aa).reshape(lead + (108,))
+    root_v = s[..., cst.N_DOFS:cst.N_DOFS + 3]
+    return torch.cat([sixd, root_v, c], dim=-1)
 
 
-def runner_init(cfg: RunnerConfig, skel: kin.Skeleton, s_init,
-                dtype=torch.float32, device=None) -> RunnerCarry:
-    """The carry before the first frame, on ``device`` (``cuda`` unless the
-    caller asks for another)."""
-    device = resolve_device(device)
+def _init_leaves(cfg: RunnerConfig, skel: kin.Skeleton, s_init, dtype,
+                 device):
+    """The tensor leaves of a carry before the first frame, by field name:
+    one stream's for s_init (114,), a pool's (a leading B) for (B, 114)."""
     _check_on(skel.joint_offset, device, "skeleton")
     s_init = torch.as_tensor(s_init, dtype=dtype, device=device)
+    lead = tuple(s_init.shape[:-1])
     sd = cfg.state_dim
     hist0 = state_to_history(
-        s_init, torch.zeros(cfg.n_sbps * 4, dtype=dtype, device=device),
-        cfg.n_sbps)
+        s_init, torch.zeros(lead + (cfg.n_sbps * 4,), dtype=dtype,
+                            device=device), cfg.n_sbps)
     pq0 = kin.fk_our_state(skel, s_init)
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
 
     if cfg.cached:
-        cache = SC.cache_init(cfg.model, cfg.window, dtype, device)
+        cache = SC.cache_init(cfg.model, cfg.window, dtype, device,
+                              batch=lead[0] if lead else None)
         imu_win = zeros(cfg.window, cst.ACC_SUM_DIM)
         accsum_win = None
         s_and_c = hist0
@@ -195,24 +213,31 @@ def runner_init(cfg: RunnerConfig, skel: kin.Skeleton, s_init,
         imu_win = zeros(cfg.window, cst.IMU_DIM)
         accsum_win = zeros(cfg.window, cst.ACC_SUM_DIM)
         s_and_c = zeros(cfg.window, sd)
-        s_and_c[0] = hist0
-    return RunnerCarry(
+        s_and_c[..., 0, :] = hist0
+    return dict(
         cache=cache,
-        t=0,
         raw_imu=zeros(cfg.smooth_win, cst.IMU_DIM),
-        k=0,
         imu_win=imu_win,
         accsum_win=accsum_win,
         acc_runsum=zeros(cst.ACC_SUM_DIM),
         s_and_c_win=s_and_c,
         out_buf=zeros(cfg.filter_len, sd),
-        n_out=0,
         last_s=s_init,
         prev_pq=pq0.to(dtype),
-        prev_root=s_init[:3],
-        c_locs=torch.full((cfg.n_sbps, 3), 100.0, dtype=dtype, device=device),
+        prev_root=s_init[..., :3],
+        c_locs=torch.full(lead + (cfg.n_sbps, 3), 100.0, dtype=dtype,
+                          device=device),
         s_init=s_init,
     )
+
+
+def runner_init(cfg: RunnerConfig, skel: kin.Skeleton, s_init,
+                dtype=torch.float32, device=None) -> RunnerCarry:
+    """The carry before the first frame, on ``device`` (``cuda`` unless the
+    caller asks for another)."""
+    device = resolve_device(device)
+    return RunnerCarry(t=0, k=0, n_out=0,
+                       **_init_leaves(cfg, skel, s_init, dtype, device))
 
 
 def _push_left_aligned(win, k: int, x, window: int):
@@ -375,7 +400,7 @@ def sense_and_predict(model: M.TIPModel, carry: RunnerCarry, cur_imu,
             # the whole model as one kernel, emitting that row only
             if packed_ws is None:
                 packed_ws = pack_fused_weights(model, cfg)
-            x_full = torch.cat([x_imu, x_s], dim=-1).to(torch.float32)
+            x_full =torch.cat([x_imu, x_s], dim=-1).to(torch.float32)
             y_t = FF.fused_forward_last(packed_ws, x_full, last_idx,
                                         cfg.model).to(dtype)
         else:
@@ -546,3 +571,362 @@ def trim_latency(arr, trim: int):
     arr[0:-trim] = arr[trim:]
     arr[-trim:] = arr[-trim - 1]
     return arr
+
+
+# ---------------------------------------------------------------------------
+# a pool of B streams: the batched frame step
+# ---------------------------------------------------------------------------
+
+# the tensor leaves of a carry, in RunnerCarry's order (cache apart)
+_TENSOR_LEAVES = ("raw_imu", "imu_win", "accsum_win", "acc_runsum",
+                  "s_and_c_win", "out_buf", "last_s", "prev_pq", "prev_root",
+                  "c_locs", "s_init")
+_COUNTERS = ("t", "k", "n_out")
+
+
+@dataclass
+class PoolCarry:
+    """The stacked carry of a pool: every tensor leaf of ``RunnerCarry``
+    with a leading stream axis B (``cache`` a pool's ``KVCache``), and the
+    three counters per stream as (B,) int64 arrays on the host. ``pool_step``
+    returns a new carry and leaves the old one's tensors as they were,
+    except ``cache``, whose rings are updated in place."""
+    t: np.ndarray
+    raw_imu: torch.Tensor
+    k: np.ndarray
+    imu_win: torch.Tensor
+    accsum_win: Optional[torch.Tensor]
+    acc_runsum: torch.Tensor
+    s_and_c_win: torch.Tensor
+    out_buf: torch.Tensor
+    n_out: np.ndarray
+    last_s: torch.Tensor
+    prev_pq: torch.Tensor
+    prev_root: torch.Tensor
+    c_locs: torch.Tensor
+    s_init: torch.Tensor
+    cache: Optional[SC.KVCache] = None
+
+    @property
+    def n_streams(self) -> int:
+        return self.t.shape[0]
+
+    def streams(self, lo: int, hi: int) -> "PoolCarry":
+        """Streams lo..hi-1 as a carry of their own (views of the tensors,
+        copies of the counters)."""
+        kw = {n: getattr(self, n)[lo:hi].copy() for n in _COUNTERS}
+        for n in _TENSOR_LEAVES:
+            leaf = getattr(self, n)
+            kw[n] = None if leaf is None else leaf[lo:hi]
+        cache = None if self.cache is None else self.cache.streams(lo, hi)
+        return PoolCarry(cache=cache, **kw)
+
+
+def pool_init(cfg: RunnerConfig, skel: kin.Skeleton, s_inits,
+              dtype=torch.float32, device=None) -> PoolCarry:
+    """The stacked carry of B streams before their first frames, from
+    their initial states s_inits (B, 114), on ``device`` (``cuda`` unless
+    the caller asks for another)."""
+    device = resolve_device(device)
+    s_inits = torch.as_tensor(s_inits, dtype=dtype, device=device)
+    if s_inits.dim() != 2:
+        raise ValueError(f"s_inits is (B, 114), got {tuple(s_inits.shape)}")
+    zero = np.zeros(s_inits.shape[0], np.int64)
+    return PoolCarry(t=zero.copy(), k=zero.copy(), n_out=zero.copy(),
+                     **_init_leaves(cfg, skel, s_inits, dtype, device))
+
+
+def pool_write_slot(carries: PoolCarry, slot: int, fresh: RunnerCarry):
+    """Write one stream's carry into slot ``slot`` of a pool's, in place
+    (a stream joins, or restarts)."""
+    for n in _COUNTERS:
+        getattr(carries, n)[slot] = getattr(fresh, n)
+    for n in _TENSOR_LEAVES:
+        leaf = getattr(carries, n)
+        if leaf is not None:
+            leaf[slot] = getattr(fresh, n)
+    if carries.cache is not None:
+        for n in SC._LEAVES:
+            getattr(carries.cache, n)[slot] = getattr(fresh.cache, n)
+
+
+def join_carries(parts, cache=None) -> PoolCarry:
+    """Carries of consecutive stream ranges (``PoolCarry.streams``) as one
+    again; ``cache``: the whole pool's cache, of which the parts' caches
+    are views."""
+    kw = {n: np.concatenate([getattr(c, n) for c in parts])
+          for n in _COUNTERS}
+    for n in _TENSOR_LEAVES:
+        leaves = [getattr(c, n) for c in parts]
+        kw[n] = None if leaves[0] is None else torch.cat(leaves)
+    return PoolCarry(cache=cache, **kw)
+
+
+def pool_carry_from_jax(carry, dtype=None, device="cpu") -> PoolCarry:
+    """A stacked tip_tpu ``RunnerCarry`` (every leaf with a leading stream
+    axis; numpy arrays, or anything ``numpy.asarray`` takes, by attribute or
+    by key) as a pool's carry of this module, so that both pools can go on
+    from one mid-session state. Floating leaves are cast to ``dtype`` when
+    it is given (bfloat16 leaves arrive as float32 arrays); the cache rings
+    keep the dtype they come in."""
+    def get(node, name):
+        return node[name] if isinstance(node, dict) else getattr(node, name)
+
+    def tensor(a, cast=True):
+        t = torch.as_tensor(np.array(a)).to(device)
+        return t.to(dtype) if cast and dtype is not None \
+            and t.is_floating_point() else t
+
+    kw = {n: np.array(get(carry, n), np.int64).reshape(-1)
+          for n in _COUNTERS}
+    for n in _TENSOR_LEAVES:
+        leaf = get(carry, n)
+        kw[n] = None if leaf is None else tensor(leaf)
+    jc = get(carry, "cache")
+    cache = None
+    if jc is not None:
+        cache = SC.KVCache(*(tensor(get(jc, n), cast=False)
+                             for n in SC._LEAVES))
+    return PoolCarry(cache=cache, **kw)
+
+
+def _pool_masks(cfg: RunnerConfig, carries: PoolCarry, dev):
+    """What the host counters say about this tick, per stream: the new
+    counters, and two small tensors on ``dev`` (one copy up each, nothing
+    read back): bool rows [first frame, smoothed frame (the commit), window
+    full, active, filter on, blend] and int64 rows [imu push shift, imu
+    push position, history push shift, history push position, last valid
+    window row]."""
+    t, k, n_out = carries.t, carries.k, carries.n_out
+    W = cfg.window
+    have = t >= cfg.imu_n_smooth
+    k_new = k + have
+    active = k_new >= 1
+    n_out_new = n_out + active
+    # the port's clamp: the last valid row is min(k_new, W) - 1, and row 0
+    # for a stream with no frame yet
+    k_last = np.where(active, np.minimum(k_new, W) - 1, 0)
+    flags = np.stack([t == 0, have, k >= W, active,
+                      n_out_new >= cfg.filter_len, n_out >= 1])
+    idx = np.stack([have & (k >= W), np.minimum(k, W - 1),
+                    active & (k_new >= W), np.minimum(k_new, W - 1),
+                    k_last]).astype(np.int64)
+    return (k_new, n_out_new, k_last,
+            torch.as_tensor(flags).to(dev, non_blocking=True),
+            torch.as_tensor(idx).to(dev, non_blocking=True))
+
+
+def _rows(n: int, dev) -> torch.Tensor:
+    return device_const(tuple(range(n)), torch.int64, dev)
+
+
+def _push_left_aligned_batch(win, shift, pos, x, gate):
+    """``_push_left_aligned`` per stream: win (B, W, C); a stream whose
+    ``shift`` is set moves its rows one to the left; then row ``pos`` takes
+    x (B, C) where ``gate`` is set. shift, pos: (B,) int64; gate: (B,)
+    bool."""
+    B, W, C = win.shape
+    src = torch.clamp(_rows(W, win.device)[None, :] + shift[:, None],
+                      max=W - 1)
+    out = torch.gather(win, 1, src[:, :, None].expand(B, W, C))
+    rows = _rows(B, win.device)
+    out[rows, pos] = torch.where(gate[:, None], x, out[rows, pos])
+    return out
+
+
+def _ring_push_batch(buf, slot: int, new_rows, gate):
+    """``_ring_push`` for a pool at one global slot: returns (the old rows
+    at the slot, a copy of buf (B, R, C) whose row ``slot`` is new_rows
+    where ``gate`` (B,) is set)."""
+    old = buf[:, slot]
+    out = buf.clone()
+    out[:, slot] = torch.where(gate[:, None], new_rows, old)
+    return old, out
+
+
+def pool_step(model: M.TIPModel, carries: PoolCarry, imu_batch,
+              cfg: RunnerConfig, skel: kin.Skeleton, tick=None,
+              packed_ws=None):
+    """One 60 Hz tick of the minimal runner for every stream of a pool:
+    ``runner_step`` written out over a leading stream axis B, each stream at
+    its own frame count (a stream joins a running pool with a fresh slot of
+    the carry). imu_batch: (B, 72). ``tick``: the pool's global tick, a host
+    int — the ring cursor of the KV-cache modes (required there, ignored in
+    recompute mode). ``packed_ws``: ``pack_fused_weights``' result for a
+    carry of this dtype, required with ``forward_impl="fused"`` (packed once
+    by whoever owns the pool; a tick never looks the pack up in the model).
+
+    A stream that has no smoothed frame yet returns its ``s_init``, 100s
+    and zeros and keeps its carry but for ``t`` and the raw ring (its rows
+    run through the model all the same and are dropped by a select).
+    Returns (carries', {"qdq" (B, 114), "viz_locs" (B, n_sbps, 3), "ct" (B,
+    n_sbps*4)})."""
+    dtype = carries.raw_imu.dtype
+    dev = carries.raw_imu.device
+    imu = torch.as_tensor(imu_batch, dtype=dtype, device=dev)
+    B, W = carries.n_streams, cfg.window
+    if tuple(imu.shape) != (B, cst.IMU_DIM):
+        raise ValueError(f"imu_batch is ({B}, {cst.IMU_DIM}) for this pool, "
+                         f"got {tuple(imu.shape)}")
+    if cfg.cached and tick is None:
+        raise ValueError("a pool's KV-cache modes write every stream at one "
+                         "global ring cursor: pass the pool's tick")
+    if cfg.model.forward_impl == "fused" and packed_ws is None:
+        raise ValueError('forward_impl="fused" takes the packed weights: pass '
+                         "packed_ws=pack_fused_weights(model, cfg, dtype)")
+    k_new, n_out_new, k_last, flags, idx = _pool_masks(cfg, carries, dev)
+    first, have, win_full, active, use_filter, has_last = flags
+    col = [m[:, None] for m in flags]        # (B, 1) forms of the masks
+
+    # ---- 1. raw ring + smoothing ---------------------------------------------
+    raw = torch.where(col[0][:, :, None],
+                      imu[:, None, :].expand(carries.raw_imu.shape),
+                      torch.cat([carries.raw_imu[:, 1:], imu[:, None]], dim=1))
+    ori = raw[:, cfg.imu_n_smooth, :54]
+    acc = torch.mean(raw[:, :, 54:72], dim=1)
+
+    # ---- 2. per-frame local features + acc-sum -------------------------------
+    local = imu_ops.imu_rotate_to_local(torch.cat([ori, acc], dim=1))
+    acc_local = local[:, 54:72]
+    if cfg.cached:
+        slot = int(tick) % W
+        # the row under the cursor of a freshly joined slot is whatever the
+        # fresh carry holds: it leaves the sum only for a stream whose own
+        # window is full
+        evicted, imu_win = _ring_push_batch(carries.imu_win, slot, acc_local,
+                                            have)
+        accsum_win = None
+    else:
+        evicted = carries.imu_win[:, 0, 54:72]
+    runsum = carries.acc_runsum + acc_local \
+        - torch.where(col[2], evicted, torch.zeros_like(evicted))
+    acc_runsum = torch.where(col[1], runsum, carries.acc_runsum)
+
+    # ---- 3. model forward ------------------------------------------------------
+    if cfg.cached:
+        parts = [local]
+        if cfg.with_acc_sum:
+            parts.append(runsum / cst.ACC_SUM_DOWN_SCALE)
+        x_tokens = torch.cat(parts + [carries.s_and_c_win], dim=1)
+        rnn_carry = cfg.serving_mode == "kv_cache_rnn_carry"
+        if cfg.model.forward_impl == "fused":
+            y_t = SC.fused_cached_batch(
+                packed_ws, carries.cache, x_tokens.to(torch.float32), slot,
+                have, cfg.model, rnn_carry=rnn_carry)[1]
+        else:
+            y_t = SC.cached_forward_step_batch(
+                model, carries.cache, x_tokens, slot, have, cfg.model,
+                rnn_carry=rnn_carry)[1]
+        y_t = y_t.to(dtype)
+    else:
+        imu_win = _push_left_aligned_batch(carries.imu_win, idx[0], idx[1],
+                                           local, have)
+        accsum_win = _push_left_aligned_batch(carries.accsum_win, idx[0],
+                                              idx[1], runsum, have)
+        x_imu, x_s = model_window(cfg, imu_win, accsum_win,
+                                  carries.s_and_c_win)
+        if cfg.model.forward_impl == "fused":
+            x_full = torch.cat([x_imu, x_s], dim=-1).to(torch.float32)
+            y_t = FF.fused_recompute_batch(packed_ws, x_full, k_last,
+                                           cfg.model).to(dtype)
+        else:
+            y_t = model(x_imu, x_s)[_rows(B, dev), idx[4]]
+
+    # ---- 4. output filter + decode (kernel K2) ---------------------------------
+    if cfg.cached:
+        nf = cfg.filter_len
+        oslot = int(tick) % nf
+        _, out_buf = _ring_push_batch(carries.out_buf, oslot, y_t, active)
+        filt_view = out_buf[:, device_const(
+            tuple((oslot + 1 + i) % nf for i in range(nf)), torch.int64, dev)]
+    else:
+        out_buf = torch.where(
+            col[3][:, :, None],
+            torch.cat([carries.out_buf[:, 1:], y_t[:, None]], dim=1),
+            carries.out_buf)
+        filt_view = out_buf
+    dec = FT.decode_fused(y_t, filt_view, _filter_coeff(cfg, dtype, dev),
+                          use_filter, local[:, :9].contiguous(),
+                          filter_len=cfg.filter_len, n_sbps=cfg.n_sbps,
+                          impl=cfg.tail_impl)
+    y_f = dec.y_f
+    c_t = dec.c_t.reshape(B, -1)
+    aa18 = rot.q_to_aa(dec.q_rows)              # row 0: root ori from IMU0
+
+    # ---- 5. state assembly -----------------------------------------------------
+    root_v = y_f[:, 108:111]
+    s_t = torch.cat([carries.prev_root + root_v * cfg.dt,
+                     aa18.reshape(B, 54), root_v,
+                     torch.zeros((B, cst.N_DOFS - 3), dtype=dtype,
+                                 device=dev)], dim=1)
+    blended = torch.cat([s_t[:, :6],
+                         (s_t[:, 6:] + carries.last_s[:, 6:]) / 2.0], dim=1)
+    s_t = torch.where(col[5], blended, s_t)
+
+    # ---- 6. FK + SBP root correction (kernel K3) ---------------------------
+    to = _tail(cfg, skel, s_t, c_t, carries.prev_pq)
+    act = to.active > 0.5
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    z = (torch.where(act[:, 0], to.c_locs[:, 0, 2], zero)
+         + torch.where(act[:, 1], to.c_locs[:, 1, 2], zero))
+    vel_res = torch.cat([to.vel_res[:, :2], z[:, None]], dim=1)
+    shift = vel_res * cfg.dt
+    c_locs = to.c_locs - shift[:, None, :]
+    s_t = torch.cat([s_t[:, :3] - shift, s_t[:, 3:]], dim=1)
+    pq_g = torch.cat([to.pq_com[:, :, :3] - shift[:, None, :],
+                      to.pq_com[:, :, 3:]], dim=2)
+
+    # ---- 7. history push ----------------------------------------------------
+    if to.hist_sixd is None:
+        hist = state_to_history(s_t, c_t, cfg.n_sbps)
+    else:
+        hist = torch.cat([to.hist_sixd.reshape(B, 108),
+                          s_t[:, cst.N_DOFS:cst.N_DOFS + 3], c_t], dim=1)
+    if cfg.cached:
+        s_and_c_win = torch.where(col[3], hist, carries.s_and_c_win)
+    else:
+        s_and_c_win = _push_left_aligned_batch(carries.s_and_c_win, idx[2],
+                                               idx[3], hist, active)
+
+    # ---- outputs and carry: a stream with no frame yet keeps its state ------
+    new_carries = PoolCarry(
+        t=carries.t + 1, raw_imu=raw, k=k_new, imu_win=imu_win,
+        accsum_win=accsum_win, acc_runsum=acc_runsum,
+        s_and_c_win=s_and_c_win, out_buf=out_buf, n_out=n_out_new,
+        last_s=torch.where(col[3], s_t, carries.last_s),
+        prev_pq=torch.where(col[3][:, :, None], pq_g, carries.prev_pq),
+        prev_root=torch.where(col[3], s_t[:, :3], carries.prev_root),
+        c_locs=torch.where(col[3][:, :, None], c_locs, carries.c_locs),
+        s_init=carries.s_init, cache=carries.cache)
+    return new_carries, {
+        "qdq": torch.where(col[3], s_t, carries.s_init),
+        "viz_locs": torch.where(col[3][:, :, None], c_locs,
+                                torch.full_like(c_locs, 100.0)),
+        "ct": torch.where(col[3], c_t, torch.zeros_like(c_t))}
+
+
+def make_multi_stream_step(cfg: RunnerConfig, skel: kin.Skeleton,
+                           packed_ws=None):
+    """The batched runner step that serves many IMU streams on one card
+    (twin of tip_tpu's ``make_multi_stream_step``, whose ``vmap`` is
+    ``pool_step`` here).
+
+    ``packed_ws``: ``pack_fused_weights(model, cfg, dtype)`` of the model
+    and carry dtype the step will be given, required with
+    ``forward_impl="fused"``; it is bound here, once, as ``StreamPool``
+    binds its own.
+
+    Returns step(model, carries, imu_batch, tick) -> (carries', outputs)
+    with ``carries`` a ``PoolCarry`` (``pool_init``), imu_batch (B, 72) and
+    ``tick`` a host int, the global counter shared by all streams (the
+    KV-cache ring cursor; ignored in recompute mode)."""
+    if cfg.model.forward_impl == "fused" and packed_ws is None:
+        raise ValueError('forward_impl="fused" takes the packed weights: pass '
+                         "packed_ws=pack_fused_weights(model, cfg, dtype)")
+
+    def step(model, carries, imu_batch, tick):
+        with torch.no_grad():
+            return pool_step(model, carries, imu_batch, cfg, skel, tick=tick,
+                             packed_ws=packed_ws)
+
+    return step
