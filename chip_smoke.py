@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero:
 
   1. require CUDA, turn TF32 off, print the card's name and power limit;
   2. build the CUDA kernels from tip_tpu_torch/csrc with nvcc;
-  3. hold each kernel (K1-K9) against its plain PyTorch version on the card
+  3. hold each kernel (K1-K12) against its plain PyTorch version on the card
      at the main paths' shapes, and time both (and K1's cuDNN yardstick);
      the pool's kernels K8 and K9 also against the single-stream K7 and K4
      stream by stream, and the batched K2, K3, K6 against B unbatched calls;
@@ -45,7 +45,17 @@ Phases, in order; any failure exits non-zero:
      single-stream path D and of J with C from each stream's own first
      frame, G teacher-forced with K8's plain version on its own tokens, K
      with J; time and profile ticks;
-  6. print one {"kernels": [...]} line, then the {"ok": true, ...} line.
+  6. the training paths: pack the 60 in-tree motions with the port's
+     data_gen/combine.py into output/, then
+       L  one epoch of train_loop at the paper recipe (B 256, T 40, AdamW,
+          cosine, clip 5, history noise 0.15, past dropout 0.8, layer
+          dropout 0.1), full width, f32: one launch of K1 and K10 and four
+          of K11 and K12 a step, none of a serving kernel; a checkpoint
+          written and restored bit-equal; the step timed and profiled;
+          held against a float64 step on the CPU and, ten steps, against
+       M  the same training with the plain versions on the card;
+     (K10, K11, K12 are held against their plain versions in phase 3);
+  7. print one {"kernels": [...]} line, then the {"ok": true, ...} line.
 """
 
 import dataclasses
@@ -104,7 +114,8 @@ TOL_RING_BF16_REL = 2.0 ** -7
 GROW_ROWS = 46
 KERNELS = ("fused_rnn", "decode_fused", "tail_fused", "fused_forward_last",
            "fused_forward", "fk_bullet_fused", "fused_cached_forward_step",
-           "fused_cached_batch", "fused_recompute_batch")
+           "fused_cached_batch", "fused_recompute_batch", "fused_rnn_bwd",
+           "encoder_layer_fwd", "encoder_layer_bwd")
 
 # the pool paths: capacity, ticks, and who sits where. Slots 0-59 hold the
 # 60 motions from tick 0; slots 60-63 join later with motions reused from
@@ -1541,11 +1552,502 @@ def pool_paths(dev, single_runs, state_dict):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# training: kernels K10-K12 and paths L, M
+# ---------------------------------------------------------------------------
+
+# K10-K12 against their plain versions on the card: f32 products summed in
+# another order, over up to B*T = 10240 rows for a weight gradient; held
+# relative to each output's largest entry
+TOL_TRAIN_K = {"fused_rnn_bwd": 1e-4, "encoder_layer_fwd": 1e-4,
+               "encoder_layer_bwd": 1e-3}
+# the training paths: the paper recipe at full width, one epoch over the 60
+# in-tree motions packed at downsample 4 (39 steps of 256 windows)
+TRAIN_RATE = 4
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED = 5, 20, 10
+# path L against a float64 step on the CPU: B = 16 windows
+F64_BATCH = 16
+F64_DRAWS = 8
+TOL_F64_LOSS = 1e-4
+TOL_F64_GRAD = 1e-3
+TOL_F64_GRAD_FRO = 1e-2
+# path L against path M (plain versions on the card) step by step
+LM_STEPS = 10
+TOL_LM_LOSS = 1e-3
+# the ReLU of the encoder's feed-forward: where a pre-activation lies
+# within f32 rounding (~1e-7) of 0, two f32 runs that sum in another order
+# can take the two sides of the kink, and its derivative flips from 0 to 1
+# for that entry: a gradient entry then differs by the whole term (the card
+# showed 1.4e-2 of the largest dx entry at B = 256, p = 0.1, one flip in
+# 10.5 M pre-activations). K12's check at the path's shape therefore
+# centres the ff1 pre-activations at +2 (0.03% of them stay negative and
+# exercise the other side); the small shapes keep the layer's own bias
+K12_FF1_SHIFT = 2.0
+
+
+def rel_err(a, b):
+    """max |a - b| over the largest |b|."""
+    return ((a.double() - b.double()).abs().max()
+            / b.double().abs().max().clamp_min(1e-30)).item()
+
+
+def rnn_bwd_work(B, T, H):
+    """Compulsory bytes (hs, g, W in; dxin, dW out) and operations of K10:
+    the recurrence da_{t+1} W^T for t < T-1 and the tanh' update per
+    entry, and dW over the steps t >= 1 (h_{-1} = 0)."""
+    nbytes = 4 * (3 * B * T * H + 2 * H * H)
+    ops = 2 * B * (T - 1) * H * H + 4 * B * T * H + 2 * B * (T - 1) * H * H
+    return nbytes, ops
+
+
+def check_fused_rnn_bwd(dev, gen):
+    from tip_tpu_torch.ops import fused_rnn as FR
+    tol = TOL_TRAIN_K["fused_rnn_bwd"]
+    errs = {}
+    main = None
+    for B, T, H in ((3, 7, 40), (256, 40, 512)):
+        hs = torch.tanh(torch.randn(B, T, H, generator=gen, device=dev))
+        w = torch.randn(H, H, generator=gen, device=dev) / math.sqrt(H)
+        g = torch.randn(B, T, H, generator=gen, device=dev)
+        dx, dw = FR.fused_rnn_bwd(hs, w, g, impl="kernel")
+        dx2, dw2 = FR.fused_rnn_bwd(hs, w, g, impl="kernel")
+        if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+            raise AssertionError("fused_rnn_bwd: two calls differ")
+        rx, rw = FR.fused_rnn_bwd_plain(hs, w, g)
+        errs[f"dx_B{B}"] = (rel_err(dx, rx), tol)
+        errs[f"dw_B{B}"] = (rel_err(dw, rw), tol)
+        main = (hs, w, g)
+    err = check("fused_rnn_bwd", errs)
+    hs, w, g = main
+    times = timings(lambda: FR.fused_rnn_bwd(hs, w, g, impl="kernel"),
+                    lambda: FR.fused_rnn_bwd_plain(hs, w, g), light=True)
+    b_ms, b_by = bound(*rnn_bwd_work(*hs.shape))
+    return dict(name="fused_rnn_bwd", route="cuda",
+                source="tip_tpu_torch/csrc/fused_rnn_bwd.cu",
+                replaces="tip_tpu/ops/pallas_kernels.py:148",
+                shape=list(hs.shape), max_abs_err=err, tol=tol,
+                err_is="relative to the largest entry", bound_ms=b_ms,
+                bound_by=b_by, **times)
+
+
+def encoder_layer_ops(B, T, d, ff, nh):
+    """Operations of one training layer's forward: the four products, the
+    causal half of attention (4 d per entry, 5 per softmax entry), 8 per
+    LayerNorm element."""
+    N = B * T
+    causal = T * (T + 1) // 2
+    return (2 * N * d * (3 * d + d + 2 * ff) + B * (4 * d + 5 * nh) * causal
+            + 16 * N * d)
+
+
+def encoder_layer_work(B, T, d, ff, nh, backward):
+    """Compulsory bytes and operations of K11 (x, 12 weights in, y out) or
+    K12 (x, dy, 12 weights in, dx and 12 gradients out; the forward it
+    recomputes plus twice the products, the attention backward with 4
+    products per causal entry and 8 more per LayerNorm element)."""
+    n_w = 3 * d * d + 3 * d + d * d + d + 2 * d * ff + ff + d + 4 * d
+    N = B * T
+    if not backward:
+        return 4 * (2 * N * d + n_w), encoder_layer_ops(B, T, d, ff, nh)
+    causal = T * (T + 1) // 2
+    ops = (encoder_layer_ops(B, T, d, ff, nh)
+           + 4 * N * d * (3 * d + d + 2 * ff) + B * (8 * d + 4 * nh) * causal
+           + 16 * N * d)
+    return 4 * (3 * N * d + 2 * n_w), ops
+
+
+def library_encoder_layer(ws, n_heads, dev):
+    """Yardstick only, never called by the port: torch's post-norm
+    TransformerEncoderLayer with dropout 0 and these weights."""
+    w_qkv, b_qkv, w_o, b_o, w_f1, b_f1, w_f2, b_f2, g1, be1, g2, be2 = ws
+    d, ff = w_o.shape[0], w_f1.shape[1]
+    layer = torch.nn.TransformerEncoderLayer(
+        d, n_heads, dim_feedforward=ff, dropout=0.0, batch_first=True).to(dev)
+    with torch.no_grad():
+        layer.self_attn.in_proj_weight.copy_(w_qkv.T)
+        layer.self_attn.in_proj_bias.copy_(b_qkv)
+        layer.self_attn.out_proj.weight.copy_(w_o.T)
+        layer.self_attn.out_proj.bias.copy_(b_o)
+        layer.linear1.weight.copy_(w_f1.T)
+        layer.linear1.bias.copy_(b_f1)
+        layer.linear2.weight.copy_(w_f2.T)
+        layer.linear2.bias.copy_(b_f2)
+        layer.norm1.weight.copy_(g1)
+        layer.norm1.bias.copy_(be1)
+        layer.norm2.weight.copy_(g2)
+        layer.norm2.bias.copy_(be2)
+    return layer
+
+
+def check_encoder_train(dev, gen, model):
+    """K11 and K12 against their plain versions at the path's shape (B 256,
+    T 40, the model's layer 0, p 0.1 and 0) and at small widths (two
+    tiles; a tile of 3), twice each bit-equal; times at the path's shape,
+    and beside them at p = 0 torch's TransformerEncoderLayer (K11) and its
+    autograd backward (K12)."""
+    from tip_tpu_torch.ops import encoder_train as ET
+    cfg = model.cfg
+    p_layer = 0.1
+    ws_full = tuple(w.detach().contiguous() for w in ET.pack_layer_weights(
+        dict(model.named_parameters()), "layers.0."))
+    ws_k12 = list(ws_full)
+    ws_k12[5] = (ws_k12[5] + K12_FF1_SHIFT).contiguous()
+    ws_k12 = tuple(ws_k12)
+    small = small_model(dev)
+    ws_small = tuple(w.detach().contiguous() for w in ET.pack_layer_weights(
+        dict(small.named_parameters()), "layers.0."))
+    cases = [("full_p0.1", 256, 40, ws_full, ws_k12, cfg.n_heads, p_layer, 8),
+             ("full_p0", 256, 40, ws_full, ws_k12, cfg.n_heads, 0.0, 8),
+             ("small_2tiles", 16, 10, ws_small, ws_small, small.cfg.n_heads,
+              p_layer, 8),
+             ("small_bt3", 6, 10, ws_small, ws_small, small.cfg.n_heads, 0.3,
+              3)]
+    e_fwd, e_bwd = {}, {}
+    inputs = {}
+    for name, B, T, ws, ws_b, nh, p, bt in cases:
+        d = ws[2].shape[0]
+        x = torch.randn(B, T, d, generator=gen, device=dev)
+        dy = torch.randn(B, T, d, generator=gen, device=dev)
+        seed = -123457 if name != "full_p0" else 99
+        y = ET.encoder_layer_fwd(x, ws, seed, nh, p, True, bt, impl="kernel")
+        y2 = ET.encoder_layer_fwd(x, ws, seed, nh, p, True, bt,
+                                  impl="kernel")
+        dx, dws = ET.encoder_layer_bwd(x, ws_b, seed, dy, nh, p, True, bt,
+                                       impl="kernel")
+        dx2, dws2 = ET.encoder_layer_bwd(x, ws_b, seed, dy, nh, p, True, bt,
+                                         impl="kernel")
+        if not (torch.equal(y, y2) and torch.equal(dx, dx2)
+                and all(torch.equal(a, b) for a, b in zip(dws, dws2))):
+            raise AssertionError(f"encoder layer {name}: two calls differ")
+        yr = ET.encoder_layer_train_plain(x, ws, seed, nh, p, True, bt)
+        rdx, rdws = ET.encoder_layer_bwd_plain(x, ws_b, seed, dy, nh, p,
+                                               True, bt)
+        e_fwd[name] = (rel_err(y, yr), TOL_TRAIN_K["encoder_layer_fwd"])
+        e_bwd[f"{name}.dx"] = (rel_err(dx, rdx),
+                               TOL_TRAIN_K["encoder_layer_bwd"])
+        for wn, a, b in zip(ET.WEIGHT_NAMES, dws, rdws):
+            e_bwd[f"{name}.{wn}"] = (rel_err(a, b),
+                                     TOL_TRAIN_K["encoder_layer_bwd"])
+        inputs[name] = (x, dy, seed)
+    err_f = check("encoder_layer_fwd", e_fwd)
+    err_b = check("encoder_layer_bwd", e_bwd)
+    log(f"  encoder layer: K11 vs plain {e_fwd}; K12 worst "
+        f"{max(e_bwd.items(), key=lambda kv: kv[1][0])}")
+
+    nh = cfg.n_heads
+    out = {}
+    for p, key in ((p_layer, "full_p0.1"), (0.0, "full_p0")):
+        x, dy, seed = inputs[key]
+        lib_f = lib_b = None
+        if p == 0.0:
+            layer = library_encoder_layer(ws_full, nh, dev)
+            mask = torch.nn.Transformer.generate_square_subsequent_mask(
+                40, device=dev)
+            with torch.no_grad():
+                lib_y = layer(x, src_mask=mask, is_causal=True)
+            lib_err = rel_err(lib_y, ET.encoder_layer_train_plain(
+                x, ws_full, seed, nh, 0.0, True, 8))
+            if not lib_err <= TOL_TRAIN_K["encoder_layer_fwd"]:
+                raise AssertionError(f"TransformerEncoderLayer yardstick "
+                                     f"disagrees: {lib_err:.3g}")
+            xr = x.clone().requires_grad_(True)
+            params = [xr] + list(layer.parameters())
+
+            def lib_f():
+                with torch.no_grad():
+                    layer(x, src_mask=mask, is_causal=True)
+
+            def lib_b():
+                torch.autograd.grad(layer(xr, src_mask=mask, is_causal=True),
+                                    params, dy)
+        t_f = timings(
+            lambda: ET.encoder_layer_fwd(x, ws_full, seed, nh, p, True, 8,
+                                         impl="kernel"),
+            lambda: ET.encoder_layer_train_plain(x, ws_full, seed, nh, p,
+                                                 True, 8),
+            lib_f, light=True)
+        t_b = timings(
+            lambda: ET.encoder_layer_bwd(x, ws_k12, seed, dy, nh, p, True, 8,
+                                         impl="kernel"),
+            lambda: ET.encoder_layer_bwd_plain(x, ws_k12, seed, dy, nh, p,
+                                               True, 8),
+            lib_b, light=True)
+        out[p] = (t_f, t_b)
+    d, ff = cfg.tf_in_dim, cfg.tf_hid_size
+    entries = []
+    for name, backward, err, src_line in (
+            ("encoder_layer_fwd", False, err_f, 290),
+            ("encoder_layer_bwd", True, err_b, 327)):
+        b_ms, b_by = bound(*encoder_layer_work(256, 40, d, ff, nh, backward))
+        t_main, t_p0 = out[p_layer][backward], out[0.0][backward]
+        entries.append(dict(
+            name=name, route="cuda",
+            source="tip_tpu_torch/csrc/encoder_train.cu",
+            replaces=f"tip_tpu/ops/pallas_encoder.py:{src_line}",
+            shape=[256, 40, d], p=p_layer, max_abs_err=err,
+            tol=TOL_TRAIN_K[name], err_is="relative to the largest entry",
+            bound_ms=b_ms, bound_by=b_by, **t_main,
+            at_p0={k: t_p0[k] for k in ("ms", "call_ms", "plain_ms",
+                                         "library_ms", "library_call_ms")},
+            library="torch.nn.TransformerEncoderLayer (p = 0 only)"
+                    + (", its autograd backward" if backward else "")))
+    return entries
+
+
+def pack_training_blobs():
+    """The 60 in-tree motions packed by the port's combine into output/."""
+    from tip_tpu_torch.data_gen import combine as TC
+    from tip_tpu_torch.train import data as TD
+    prefix = ROOT / "output" / "chip_smoke_train"
+    t0 = time.perf_counter()
+    TC.combine([str(CORPUS)], [TRAIN_RATE], str(prefix), seed=42)
+    log(f"  packed the in-tree motions in {time.perf_counter() - t0:.1f} s")
+    return TD.PackedDataset.from_prefix(str(prefix))
+
+
+def train_config(**model_kw):
+    """The paper recipe (tip_tpu/cli/train.py's paper run) at full width."""
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.train import train as TT
+    return TT.TrainConfig(model=M.ModelConfig(**model_kw), batch_size=256,
+                          seq_len=40, lr=1e-4, optimizer="AdamW",
+                          weight_decay=1e-4, clip=5.0, epochs=1100,
+                          cosine_lr=True, noise_input_hist=0.15, seed=5104,
+                          log_interval=1)
+
+
+def step_batches(ds, n, B, dev, seed):
+    """n batches of B windows drawn with numpy, gathered on the device."""
+    from tip_tpu_torch.train import data as TD
+    import numpy as np
+    rng = torch.Generator().manual_seed(seed)
+    dds = TD.to_device(ds, dev)
+    idx = torch.as_tensor(TD.sample_epoch_indices(
+        ds.info, 40, np.random.default_rng(seed)))
+    out = []
+    for i in range(n):
+        pick = torch.randperm(len(idx), generator=rng)[:B]
+        out.append(TD.device_gather(dds, idx[pick].to(dev), 40))
+    return out
+
+
+def time_train_steps(state, cfg, batches):
+    """Median synced step time after TRAIN_WARMUP steps, peak memory, then
+    device time and kernels per step over TRAIN_PROFILED steps
+    (torch.profiler) against those steps' own host time."""
+    from torch.profiler import ProfilerActivity, profile
+    from tip_tpu_torch.train import train as TT
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        t0 = time.perf_counter()
+        TT.train_step(state, batches[i % len(batches)], cfg)
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    prof_times = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(TRAIN_PROFILED):
+            t0 = time.perf_counter()
+            TT.train_step(state, batches[i % len(batches)], cfg)
+            torch.cuda.synchronize()
+            prof_times.append((time.perf_counter() - t0) * 1e3)
+    n = TRAIN_PROFILED
+    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return dict(step_ms=statistics.median(times),
+                step_ms_all=times,
+                windows_per_s=cfg.batch_size / statistics.median(times) * 1e3,
+                device_ms_per_step=sum(r[1] for r in rows),
+                kernels_per_step=sum(r[2] for r in rows),
+                step_ms_profiled=statistics.median(prof_times),
+                device_busy_share=sum(r[1] for r in rows)
+                / statistics.median(prof_times),
+                peak_mib=peak,
+                top=[[k[:70], ms, c] for k, ms, c in rows[:8]])
+
+
+def grads_of(model, batch, noise, seeds, cfg):
+    """Loss, its terms, the gradient of every parameter and their global
+    norm: the part of a train step before the optimizer."""
+    from tip_tpu_torch.train import train as TT
+    for p in model.parameters():
+        p.grad = None
+    total, aux = TT.loss_fn(model, *batch, noise, seeds, cfg)
+    total.backward()
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values()))
+    return ({k: v.item() for k, v in aux.items()}, grads, norm.item())
+
+
+def check_l_against_f64(state, cfg, ds, dev):
+    """Path L's step (kernels, f32, on the card) against the same step run
+    plain in float64 on the CPU, from the same parameters, batch, noise and
+    seeds. Loss and grad_norm within 1e-4 and every gradient within 1e-2 of
+    its norm in every draw; every gradient within 1e-3 of its largest
+    entry in at least one draw. A draw whose two runs fall on two sides of
+    a ReLU kink or of a dropout threshold (the f64 run compares its layer
+    masks in f64, as tip_tpu's f64 run does) moves a few entries by a
+    whole term (see K12_FF1_SHIFT): such draws are counted and shown.
+    b_k's gradient is 0 in exact arithmetic (softmax ignores a constant
+    per row): it is held to 1e-6 of the largest gradient entry."""
+    import copy
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.train import train as TT
+    ref = M.TIPModel(dataclasses.replace(cfg.model, rnn_impl="plain",
+                                         encoder_impl="plain"),
+                     device="cpu", dtype=torch.float64)
+    ref.load_state_dict({k: v.detach().double().cpu()
+                         for k, v in state.model.state_dict().items()})
+    ref.requires_grad_(True)
+    card = copy.deepcopy(state.model)
+    gen = torch.Generator().manual_seed(77)
+    batches = step_batches(ds, F64_DRAWS, F64_BATCH, dev, 11)
+    clean, rows = 0, []
+    for i, batch in enumerate(batches):
+        noise = (torch.rand(batch[1].shape, generator=gen,
+                            dtype=torch.float64) - 0.5) * 0.3
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (1 + cfg.model.tf_layers,),
+                              generator=gen).tolist()
+        seeds = (seeds[0], seeds[1:])
+        a_c, g_c, n_c = grads_of(card, batch, noise.float().to(dev), seeds,
+                                 cfg)
+        a_r, g_r, n_r = grads_of(ref, tuple(t.double().cpu() for t in batch),
+                                 noise, seeds, cfg)
+        scale = max(g.abs().max().item() for g in g_r.values())
+        worst, worst_fro = 0.0, 0.0
+        for k in g_r:
+            a, b = g_c[k].double().cpu(), g_r[k]
+            if k.endswith("b_k"):
+                e = (a - b).abs().max().item() / scale
+                if not e <= 1e-6:
+                    raise AssertionError(f"path L vs f64: {k} {e:.3g}")
+                continue
+            worst = max(worst, rel_err(a, b))
+            worst_fro = max(worst_fro, ((a - b).norm() / b.norm()).item())
+        e_loss = abs(a_c["loss"] - a_r["loss"]) / abs(a_r["loss"])
+        e_norm = abs(n_c - n_r) / n_r
+        rows.append(dict(draw=i, loss=e_loss, grad_norm=e_norm,
+                         grad_max=worst, grad_fro=worst_fro))
+        if not (e_loss <= TOL_F64_LOSS and e_norm <= TOL_F64_LOSS
+                and worst_fro <= TOL_F64_GRAD_FRO):
+            raise AssertionError(f"path L vs f64, draw {i}: {rows[-1]}")
+        clean += worst <= TOL_F64_GRAD
+    log(f"  path L vs a float64 CPU step (B {F64_BATCH}): {rows}")
+    if clean == 0:
+        raise AssertionError("path L vs f64: no draw within "
+                             f"{TOL_F64_GRAD:g} of the largest entries")
+    return dict(draws=rows, clean=clean)
+
+
+def training_paths(dev):
+    """Path L: one epoch of train_loop at the paper recipe, full width, on
+    the packed in-tree motions, with the kernels K1, K10, K11, K12; a
+    checkpoint written and restored; step timing and a profile; held
+    against a float64 CPU step and, ten steps, against path M (the same
+    training with the plain versions on the card)."""
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.train import train as TT
+    ds = pack_training_blobs()
+    cfg = train_config()
+    ckpt = ROOT / "output" / "chip_smoke_ckpt"
+    if ckpt.exists():
+        for f in ckpt.iterdir():
+            f.unlink()
+    records = []
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = TT.train_loop(cfg, ds, ckpt_dir=str(ckpt), log_fn=records.append,
+                          max_epochs=1, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: K.launch_counts.get(k, 0) for k in KERNELS}
+    losses = [r["loss"] for r in records if "loss" in r]
+    steps = len(losses)
+    log(f"path L: one epoch, {steps} steps of {cfg.batch_size} in "
+        f"{wall:.2f} s; launches {launches}")
+    want = {"fused_rnn": steps, "fused_rnn_bwd": steps,
+            "encoder_layer_fwd": 4 * steps, "encoder_layer_bwd": 4 * steps}
+    for k in KERNELS:
+        if launches[k] != want.get(k, 0):
+            raise AssertionError(f"path L: {k} launched {launches[k]} times, "
+                                 f"expected {want.get(k, 0)} ({steps} "
+                                 f"steps)")
+    if not 30 <= steps <= 60:
+        raise AssertionError(f"path L: {steps} steps in the epoch")
+    if any(r.get("event") for r in records) or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"path L: a non-finite loss: {records[:3]}")
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    log(f"  path L losses: first 10 {first:.4f}, last 10 {last:.4f}; "
+        f"{losses}")
+    if not last < first:
+        raise AssertionError("path L: the loss did not fall over the epoch")
+    # the checkpoint round trip: the restored state is the live one, and it
+    # steps as the live one does
+    back = TT.restore_checkpoint(str(ckpt), cfg, device=dev)
+    if back.step != state.step:
+        raise AssertionError("checkpoint: step differs")
+    for k, p in state.model.state_dict().items():
+        if not (torch.equal(back.model.state_dict()[k], p)
+                and torch.equal(back.mu[k], state.mu[k])
+                and torch.equal(back.nu[k], state.nu[k])):
+            raise AssertionError(f"checkpoint: {k} differs")
+    batches = step_batches(ds, 4, cfg.batch_size, dev, 5)
+    a = TT.train_step(state, batches[0], cfg)
+    b = TT.train_step(back, batches[0], cfg)
+    if a != b:
+        raise AssertionError(f"checkpoint: the restored state steps "
+                             f"otherwise: {a} vs {b}")
+    log(f"  path L checkpoint: written and restored bit-equal, the next "
+        f"step equal ({a['loss']:.6f})")
+    del back
+    K.reset_launch_counts()
+    summary = time_train_steps(state, cfg, batches)
+    summary["launches_per_step"] = {
+        k: v / (TRAIN_WARMUP + TRAIN_TIMED + TRAIN_PROFILED)
+        for k, v in K.launch_counts.items() if v}
+    summary.update(path="L", steps_in_epoch=steps, epoch_s=wall,
+                   loss_first10=first, loss_last10=last)
+    log(json.dumps({"train": summary}))
+    summary["f64"] = check_l_against_f64(state, cfg, ds, dev)
+    del state
+
+    # path L against path M, ten steps from the same initial state
+    lm = {}
+    lm_batches = step_batches(ds, LM_STEPS, cfg.batch_size, dev, 6)
+    for name, kw in (("L", {}), ("M", dict(rnn_impl="plain",
+                                           encoder_impl="plain"))):
+        c = train_config(**kw)
+        st = TT.init_state(c, dev)
+        K.reset_launch_counts()
+        lm[name] = [TT.train_step(st, bt, c)["loss"] for bt in lm_batches]
+        lm[name + "_launches"] = dict(K.launch_counts)
+        del st
+    if lm["M_launches"]:
+        raise AssertionError(f"path M launched kernels: {lm['M_launches']}")
+    errs = [abs(a - b) / abs(b) for a, b in zip(lm["L"], lm["M"])]
+    log(f"  path L vs path M over {LM_STEPS} steps: loss rel diff "
+        f"{max(errs):.3g}; L {lm['L']}; M {lm['M']}")
+    if not max(errs) <= TOL_LM_LOSS:
+        raise AssertionError(f"path L vs M: {errs}")
+    summary["vs_M_max_rel"] = max(errs)
+    return launches, summary
+
+
 # the path whose launches a kernel's entry reports
 COUNTED_ON = {"fused_rnn": "A", "decode_fused": "A", "tail_fused": "A",
               "fused_forward_last": "B", "fused_forward": "replay",
               "fk_bullet_fused": "C", "fused_cached_forward_step": "D",
-              "fused_cached_batch": "H", "fused_recompute_batch": "J"}
+              "fused_cached_batch": "H", "fused_recompute_batch": "J",
+              "fused_rnn_bwd": "L", "encoder_layer_fwd": "L",
+              "encoder_layer_bwd": "L"}
 
 
 def main():
@@ -1579,7 +2081,9 @@ def main():
                check_fk_bullet_fused(dev, gen, skel),
                check_fused_cached(dev, gen, model),
                check_fused_cached_batch(dev, gen, model),
-               check_fused_recompute_batch(dev, gen, model)]
+               check_fused_recompute_batch(dev, gen, model),
+               check_fused_rnn_bwd(dev, gen),
+               *check_encoder_train(dev, gen, model)]
     batched = check_batched_tail(dev, gen, skel)
     for k in kernels:
         if k["name"] in batched:
@@ -1595,6 +2099,7 @@ def main():
     launches, frame_ms, runs, state_dict = main_paths(dev)
     pool_launches, pool_summary = pool_paths(dev, runs, state_dict)
     launches.update(pool_launches)
+    launches["L"], train_summary = training_paths(dev)
     for k in kernels:
         k["launches"] = launches[COUNTED_ON[k["name"]]][k["name"]]
         k["launches_on"] = COUNTED_ON[k["name"]]
@@ -1603,6 +2108,7 @@ def main():
     log(json.dumps({"frame_ms": frame_ms, "launches": launches,
                     "pool_tick_ms": {n: v["tick_ms"]
                                      for n, v in pool_summary.items()},
+                    "train_step_ms": train_summary["step_ms"],
                     "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,8 @@ from tip_tpu_torch.ops import kinematics as tkin
 from tip_tpu_torch.runtime import runner as TR
 from tip_tpu_torch.runtime import streaming_cache as TSC
 from tip_tpu_torch.runtime.serving import StreamPool
+from tip_tpu_torch.train import train as TT
+from tip_tpu_torch.cli import train as TCT
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "tip_tpu")
@@ -46,7 +48,11 @@ def test_port_files_found():
             "tip_tpu_torch/ops/metrics.py",
             "tip_tpu_torch/runtime/streaming_cache.py",
             "tip_tpu_torch/runtime/serving.py",
-            "tip_tpu_torch/utils/urdf.py"} <= names
+            "tip_tpu_torch/utils/urdf.py",
+            "tip_tpu_torch/ops/hashmask.py",
+            "tip_tpu_torch/ops/encoder_train.py",
+            "tip_tpu_torch/train/train.py", "tip_tpu_torch/cli/train.py",
+            "tip_tpu_torch/data_gen/combine.py"} <= names
 
 
 def _no_cuda():
@@ -67,8 +73,9 @@ def test_run_offline_without_device_raises_without_cuda():
 
 @pytest.mark.parametrize("entry", ["model", "runner_init",
                                    "runner_init_kv_cache", "cache_init",
-                                   "pool_init", "stream_pool", "resolve"])
-def test_entry_points_default_to_cuda(entry):
+                                   "pool_init", "stream_pool", "resolve",
+                                   "train_state", "train_loop", "cli_train"])
+def test_entry_points_default_to_cuda(entry, tmp_path):
     _no_cuda()
     with pytest.raises(RuntimeError, match="CUDA"):
         if entry == "model":
@@ -90,9 +97,27 @@ def test_entry_points_default_to_cuda(entry):
                 rnn_hid_size=24))
             StreamPool(TM.TIPModel(cfg.model, device="cpu"), cfg,
                        tkin.amass_skeleton(), capacity=2)
+        elif entry == "train_state":
+            TT.init_state(TT.TrainConfig())
+        elif entry == "train_loop":
+            TT.train_loop(TT.TrainConfig(), None)
+        elif entry == "cli_train":
+            TCT.main(["--data_prefix", str(_tiny_blobs(tmp_path)),
+                      "--save_path", str(tmp_path / "run"),
+                      "--with_acc_sum"])
         else:
             resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _tiny_blobs(d):
+    """A prefix of blobs that exist (the CLI loads them before it trains)."""
+    import numpy as np
+    for name, shape in (("imu", (50, 72)), ("sum_imu", (50, 18)),
+                        ("s", (50, 131))):
+        np.save(d / f"b_{name}.npy", np.zeros(shape, np.float32))
+    np.save(d / "b_info.npy", np.array([[0, 50, 1]], np.int64))
+    return d / "b"
 
 
 def test_runner_rejects_model_on_another_device():

@@ -213,15 +213,20 @@ def test_causal_mask_matches_tip_tpu():
 
 
 def test_unported_modes_raise():
-    """The training forward is not ported; forward_impl="fused" is: the
-    model builds, and its own forward stays the plain one."""
+    """tip_tpu's rng dropout stream is not ported (the training forward
+    is: train=True runs it, and without seeds it is deterministic);
+    forward_impl="fused" is: the model builds, and its own forward stays
+    the plain one."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TM.ModelConfig(**TINY, dropout_impl="rng")
     model = TM.TIPModel(TM.ModelConfig(**TINY, forward_impl="fused"),
                         device="cpu")
     plain = TM.TIPModel(TM.ModelConfig(**TINY), device="cpu")
     plain.load_state_dict(model.state_dict())
     x = torch.zeros(1, 4, 90)
-    with pytest.raises(NotImplementedError):
-        model(x, torch.zeros(1, 4, 131), train=True)
+    with torch.no_grad():
+        assert torch.equal(model(x, torch.ones(1, 4, 131), train=True),
+                           model(x, torch.ones(1, 4, 131), train=True))
     with torch.no_grad():
         assert torch.equal(model(x, torch.ones(1, 4, 131)),
                            plain(x, torch.ones(1, 4, 131)))

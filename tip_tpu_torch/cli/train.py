@@ -1,0 +1,117 @@
+"""CLI: train the TIP state predictor (twin of tip_tpu/cli/train.py).
+
+Paper run, on the card (pack the blobs first, cli/combine_data.py):
+  python -m tip_tpu_torch.cli.train --data_prefix data/train_v1 \
+      --save_path output/model-v1 --batch_size 256 --lr 1e-4 --epochs 1100 \
+      --seq_len 40 --cosine_lr --weight_decay 1e-4 --optim AdamW --n_sbps 5 \
+      --with_acc_sum --noise_input_hist 0.15 --seed 5104
+
+The port trains tip_tpu's kernel configuration (``--dropout_impl hash
+--rnn_impl pallas --encoder_impl pallas``, here the defaults) in float32,
+on ``cuda`` unless ``--device cpu`` is given; the windows are always
+gathered on the device. What it does not port raises: more than one model
+shard, ``--bf16``, ``--dropout_rng rbg``, ``--dropout_impl rng``,
+``--encoder_impl xla`` (ROADMAP.md, queue A, training).
+"""
+
+import argparse
+
+# what the port does not train yet, by flag value -> the ROADMAP item
+UNPORTED = {
+    "n_model_shards": "a model-sharded mesh (ROADMAP A, training: the mesh)",
+    "bf16": "bf16 training (ROADMAP A, training: bf16)",
+    "dropout_rng": "tip_tpu's rbg dropout generator (ROADMAP A, training: "
+                   "the rng dropout path)",
+    "dropout_impl": "tip_tpu's rng dropout path (ROADMAP A, training: the "
+                    "rng dropout path)",
+    "encoder_impl": "tip_tpu's xla encoder loop (ROADMAP A, training: the "
+                    "encoder_impl='xla' loop)",
+}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--data_prefix", required=True,
+                    help="blob prefix: <prefix>_imu.npy etc.")
+    ap.add_argument("--save_path", required=True)
+    ap.add_argument("--batch_size", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=1e-4)
+    ap.add_argument("--epochs", type=int, default=1100)
+    ap.add_argument("--seq_len", type=int, default=40)
+    ap.add_argument("--clip", type=float, default=5.0)
+    ap.add_argument("--optim", default="Adam", choices=["Adam", "AdamW"])
+    ap.add_argument("--weight_decay", type=float, default=1e-4)
+    ap.add_argument("--cosine_lr", action="store_true")
+    ap.add_argument("--n_sbps", type=int, default=5)
+    ap.add_argument("--with_acc_sum", action="store_true")
+    ap.add_argument("--noise_input_hist", type=float, default=0.15)
+    ap.add_argument("--past_dropout", type=float, default=0.8)
+    ap.add_argument("--in_dropout", type=float, default=0.0)
+    ap.add_argument("--rnn_nhid", type=int, default=512)
+    ap.add_argument("--tf_nhid", type=int, default=1024)
+    ap.add_argument("--tf_in_dim", type=int, default=256)
+    ap.add_argument("--n_heads", type=int, default=16)
+    ap.add_argument("--tf_layers", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=5104)
+    ap.add_argument("--n_model_shards", type=int, default=1)
+    ap.add_argument("--warm_start", default=None,
+                    help="checkpoint dir of this package or reference .pt: "
+                         "load weights only")
+    ap.add_argument("--metrics", default=None,
+                    help="structured jsonl training log (default: "
+                         "<save_path>/metrics.jsonl)")
+    ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--dropout_rng", default="threefry",
+                    choices=["threefry", "rbg"],
+                    help="only the hash masks are ported; rbg raises")
+    ap.add_argument("--dropout_impl", default="hash", choices=["rng", "hash"])
+    ap.add_argument("--rnn_impl", default="pallas", choices=["scan", "pallas"],
+                    help="pallas: the RNN kernels K1/K10 on the card; scan: "
+                         "the plain loop")
+    ap.add_argument("--encoder_impl", default="pallas",
+                    choices=["xla", "pallas"],
+                    help="pallas: the encoder-layer kernels K11/K12 on the "
+                         "card")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' runs the plain "
+                         "versions)")
+    args = ap.parse_args(argv)
+
+    given = {"n_model_shards": args.n_model_shards > 1, "bf16": args.bf16,
+             "dropout_rng": args.dropout_rng == "rbg",
+             "dropout_impl": args.dropout_impl == "rng",
+             "encoder_impl": args.encoder_impl == "xla"}
+    for flag, on in given.items():
+        if on:
+            raise NotImplementedError(f"--{flag}: {UNPORTED[flag]} is not "
+                                      f"ported")
+
+    import os
+    from tip_tpu_torch import constants as cst
+    from tip_tpu_torch.models.tip_model import ModelConfig
+    from tip_tpu_torch.train import data as data_lib
+    from tip_tpu_torch.train import train as train_lib
+
+    model_cfg = ModelConfig(
+        size_s=cst.state_dim(args.n_sbps), with_acc_sum=args.with_acc_sum,
+        tf_in_dim=args.tf_in_dim, tf_hid_size=args.tf_nhid,
+        n_heads=args.n_heads, tf_layers=args.tf_layers,
+        rnn_hid_size=args.rnn_nhid, in_dropout=args.in_dropout,
+        past_dropout=args.past_dropout,
+        rnn_impl="auto" if args.rnn_impl == "pallas" else "plain")
+    cfg = train_lib.TrainConfig(
+        model=model_cfg, n_sbps=args.n_sbps, batch_size=args.batch_size,
+        seq_len=args.seq_len, lr=args.lr, optimizer=args.optim,
+        weight_decay=args.weight_decay, clip=args.clip, epochs=args.epochs,
+        cosine_lr=args.cosine_lr, noise_input_hist=args.noise_input_hist,
+        seed=args.seed)
+    ds = data_lib.PackedDataset.from_prefix(args.data_prefix,
+                                            with_acc_sum=args.with_acc_sum)
+    metrics = args.metrics or os.path.join(args.save_path, "metrics.jsonl")
+    return train_lib.train_loop(cfg, ds, ckpt_dir=args.save_path,
+                                warm_start=args.warm_start,
+                                metrics_path=metrics, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

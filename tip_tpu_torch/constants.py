@@ -11,8 +11,10 @@ DT_FIN_ACC = DT * ACC_FD_N
 
 # IMU pre-processing
 IMU_N_SMOOTH = 5                   # centered moving average half window
+ACC_MOVING_AVE_LEN = IMU_N_SMOOTH * 2 + 1      # 11-frame window
 ACC_SUM_WIN_LEN = 40               # running acc-sum feature window
 ACC_SUM_DOWN_SCALE = 15.0          # scale acc-sum to the range of acc itself
+BIAS_NOISE_ACC = 0.1               # constant per-sequence acc bias noise (train)
 
 N_DOFS = 57                        # 3 root xyz + 3 root aa + 17*3 joint aa
 

@@ -1,0 +1,524 @@
+// K11 and K12: one post-norm transformer encoder layer for training, its
+// forward with the four hash-dropout sites and its backward, f32.
+//
+// Replaces tip_tpu/ops/pallas_encoder.py::encoder_layer_train: K11 its
+// forward kernel (_fwd_kernel via _encoder_layer_fwd_call), K12 its
+// rematerialising backward (_bwd_kernel via _encoder_layer_bwd_call).
+// For x (N = B*T, d):
+//
+//   qkv = x Wqkv + bqkv;  per sample and head h: P = softmax(q k^T / sqrt(hd)
+//   causal), att_h = (P * mask_h) v_h;  a = (att Wo + bo) * mask_100;
+//   y1 = LN1(x + a);  f1 = relu(y1 W1 + b1);  f1d = f1 * mask_101;
+//   y = LN2(y1 + (f1d W2 + b2) * mask_102)
+//
+// Masks (ops/hashmask.py) are indexed as tip_tpu's batch tiles index them:
+// the batch is cut into tiles of bt samples, tile i seeded seed + i * 104729;
+// within a tile the attention mask of head h (site h) is indexed over the
+// (bt*T, bt*T) score matrix of the tile, row s*T + i and column s*T + j for
+// sample s of the tile, and the (N, d) and (N, ff) sites by the row within
+// the tile. The TPU kernel computes attention over that block-diagonal
+// matrix (a Mosaic layout choice); per-sample causal attention here gives
+// the same values, since exp(-1e30 - m) is exactly 0.
+//
+// What bounds them on the H100: at B = 256, T = 40, d 256, 16 heads, ff 1024
+// the forward is 16.5 GFLOP (0.25 ms at 67 TFLOP/s f32) against ~21 MB of
+// compulsory bytes: operations. The backward is 33 GFLOP; K12 recomputes
+// the forward first, as the TPU kernel does, 50 GFLOP (0.74 ms).
+//
+// Design, simple first: each entry point is a sequence of launches. The
+// products are train_gemm.cuh's tiled f32 GEMM with fused epilogues (bias,
+// ReLU + mask, dReLU + mask, residual add); the residual + mask + LayerNorm
+// and its backward are one warp per row; attention and its backward one
+// block per (sample, head) with q, k, v, the 40x40 probabilities and the
+// masks in shared memory. Weight and bias gradients are reductions over
+// all N rows, split into partial sums added in a fixed order: no float
+// atomics, two calls give the same bits. Activations live in a scratch
+// buffer the wrapper allocates (encoder_layer_scratch floats: ~190 MB for
+// the forward, ~330 MB with the backward, at the training shape); nothing
+// is kept between K11 and K12.
+
+#include <cuda_runtime.h>
+
+#include "hashmask.cuh"
+#include "train_gemm.cuh"
+
+namespace {
+
+constexpr int kSiteAttn = 0;   // heads use sites 0 .. n_heads - 1
+constexpr int kSitePostAttn = 100;
+constexpr int kSiteFfMid = 101;
+constexpr int kSitePostFf = 102;
+constexpr int kMaxD = 1024;    // row kernels hold a row in registers
+
+struct Weights {
+  const float *wqkv, *bqkv, *wo, *bo, *wf1, *bf1, *wf2, *bf2, *g1, *be1, *g2,
+      *be2;
+};
+
+struct Dims {
+  int N, T, d, ff, nh, tile_rows;
+};
+
+struct Fwd {   // forward activations, (N, ·) each
+  float *qkv, *att, *pre, *y1, *xhat1, *rs1, *f1, *f1d, *pre2, *xhat2, *rs2;
+};
+
+struct Bwd {
+  float *y, *dr2, *df2, *dh1, *dy1, *dr1, *da, *datt, *dqkv, *part;
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// y = LN((pre * mask) + res), one warp per row; xhat and rs kept
+__global__ void ln_fwd_rows(const float* __restrict__ pre,
+                            const float* __restrict__ res,
+                            const float* __restrict__ g,
+                            const float* __restrict__ b, hm::Drop drop, int N,
+                            int d, float* __restrict__ y,
+                            float* __restrict__ xhat, float* __restrict__ rs) {
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= N) return;
+  const size_t base = static_cast<size_t>(row) * d;
+  float v[kMaxD / 32];
+  float s = 0.0f;
+  const int n = (d + 31) / 32;
+  for (int i = 0; i < n; ++i) {
+    const int c = lane + 32 * i;
+    float r = 0.0f;
+    if (c < d) {
+      float a = pre[base + c];
+      a = a * hm::drop_at(drop, row, c, d);
+      r = res[base + c] + a;
+      s += r;
+    }
+    v[i] = r;
+  }
+  const float mu = warp_sum(s) / d;
+  float q = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    const int c = lane + 32 * i;
+    if (c < d) q += (v[i] - mu) * (v[i] - mu);
+  }
+  const float var = warp_sum(q) / d;
+  const float r_s = 1.0f / sqrtf(var + 1e-5f);
+  for (int i = 0; i < n; ++i) {
+    const int c = lane + 32 * i;
+    if (c < d) {
+      const float xh = (v[i] - mu) * r_s;
+      xhat[base + c] = xh;
+      y[base + c] = xh * g[c] + b[c];
+    }
+  }
+  if (lane == 0) rs[row] = r_s;
+}
+
+// dr = LN backward of dy (the LayerNorm's input gradient); dm = dr * mask
+__global__ void ln_bwd_rows(const float* __restrict__ dy,
+                            const float* __restrict__ xhat,
+                            const float* __restrict__ rs,
+                            const float* __restrict__ g, hm::Drop drop, int N,
+                            int d, float* __restrict__ dr,
+                            float* __restrict__ dm) {
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= N) return;
+  const size_t base = static_cast<size_t>(row) * d;
+  float dxh[kMaxD / 32], xh[kMaxD / 32];
+  float s1 = 0.0f, s2 = 0.0f;
+  const int n = (d + 31) / 32;
+  for (int i = 0; i < n; ++i) {
+    const int c = lane + 32 * i;
+    dxh[i] = 0.0f;
+    xh[i] = 0.0f;
+    if (c < d) {
+      dxh[i] = dy[base + c] * g[c];
+      xh[i] = xhat[base + c];
+      s1 += dxh[i];
+      s2 += dxh[i] * xh[i];
+    }
+  }
+  const float m1 = warp_sum(s1) / d;
+  const float m2 = warp_sum(s2) / d;
+  const float r_s = rs[row];
+  for (int i = 0; i < n; ++i) {
+    const int c = lane + 32 * i;
+    if (c < d) {
+      const float v = r_s * (dxh[i] - m1 - xh[i] * m2);
+      dr[base + c] = v;
+      dm[base + c] = v * hm::drop_at(drop, row, c, d);
+    }
+  }
+}
+
+// Shared memory of one (sample, head): q, k, v, do at stride hd + 1, then
+// P, the masks and dS (T, T) each.
+inline size_t attn_smem(int T, int hd) {
+  return (4 * static_cast<size_t>(T) * (hd + 1) +
+          3 * static_cast<size_t>(T) * T) * sizeof(float);
+}
+
+// Load q, k, v of (sample b, head h) and compute P = softmax(causal scores)
+// and the keep values M of the head's mask. Rows of P past the diagonal
+// are 0.
+__device__ void attn_probs(const float* __restrict__ qkv, int b, int h,
+                           const Dims& D, float scale, const hm::Drop& drop,
+                           float* q, float* k, float* v, float* P, float* M) {
+  const int T = D.T, d = D.d, hd = d / D.nh, ld = hd + 1;
+  const size_t d3 = 3 * static_cast<size_t>(d);
+  for (int e = threadIdx.x; e < T * hd; e += blockDim.x) {
+    const int t = e / hd, c = e % hd;
+    const float* src = qkv + (static_cast<size_t>(b) * T + t) * d3 + h * hd + c;
+    q[t * ld + c] = src[0];
+    k[t * ld + c] = src[d];
+    v[t * ld + c] = src[2 * d];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < T * T; e += blockDim.x) {
+    const int i = e / T, j = e % T;
+    float s = 0.0f;
+    if (j <= i) {
+      for (int c = 0; c < hd; ++c) s = fmaf(q[i * ld + c], k[j * ld + c], s);
+      s = s * scale;
+    }
+    P[e] = s;
+    float m = 1.0f;
+    if (drop.on) {
+      // index over the tile's (tile_rows, tile_rows) score matrix
+      const int gi = b * T + i;
+      const int tile = gi / drop.tile_rows;
+      const int ri = gi - tile * drop.tile_rows;
+      const int cj = b * T + j - tile * drop.tile_rows;
+      m = hm::keep(hm::tile_seed(drop.seed, tile), drop.site,
+                   static_cast<unsigned>(ri) *
+                           static_cast<unsigned>(drop.tile_rows) +
+                       static_cast<unsigned>(cj),
+                   drop.p_keep, drop.inv_keep);
+    }
+    M[e] = m;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = warp; i < T; i += blockDim.x / 32) {
+    float mx = __int_as_float(0xff800000);   // -inf
+    for (int j = lane; j <= i; j += 32) mx = fmaxf(mx, P[i * T + j]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float sum = 0.0f;
+    for (int j = lane; j < T; j += 32) {
+      const float e = j <= i ? expf(P[i * T + j] - mx) : 0.0f;
+      P[i * T + j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j <= i; j += 32) P[i * T + j] = P[i * T + j] / sum;
+  }
+  __syncthreads();
+}
+
+__global__ void attn_fwd_kernel(const float* __restrict__ qkv,
+                                float* __restrict__ att, Dims D, float scale,
+                                hm::Drop drop) {
+  extern __shared__ float sh[];
+  const int T = D.T, hd = D.d / D.nh, ld = hd + 1;
+  const int b = blockIdx.x / D.nh, h = blockIdx.x % D.nh;
+  float* q = sh;
+  float* k = q + T * ld;
+  float* v = k + T * ld;
+  float* P = v + 2 * T * ld;   // (the do slot is unused here)
+  float* M = P + T * T;
+  drop.site = kSiteAttn + h;
+  attn_probs(qkv, b, h, D, scale, drop, q, k, v, P, M);
+  for (int e = threadIdx.x; e < T * hd; e += blockDim.x) {
+    const int i = e / hd, c = e % hd;
+    float o = 0.0f;
+    for (int j = 0; j <= i; ++j)
+      o = fmaf(P[i * T + j] * M[i * T + j], v[j * ld + c], o);
+    att[(static_cast<size_t>(b) * T + i) * D.d + h * hd + c] = o;
+  }
+}
+
+__global__ void attn_bwd_kernel(const float* __restrict__ qkv,
+                                const float* __restrict__ datt,
+                                float* __restrict__ dqkv, Dims D, float scale,
+                                hm::Drop drop) {
+  extern __shared__ float sh[];
+  const int T = D.T, d = D.d, hd = d / D.nh, ld = hd + 1;
+  const int b = blockIdx.x / D.nh, h = blockIdx.x % D.nh;
+  float* q = sh;
+  float* k = q + T * ld;
+  float* v = k + T * ld;
+  float* dO = v + T * ld;
+  float* P = dO + T * ld;
+  float* M = P + T * T;
+  float* dS = M + T * T;
+  drop.site = kSiteAttn + h;
+  for (int e = threadIdx.x; e < T * hd; e += blockDim.x) {
+    const int t = e / hd, c = e % hd;
+    dO[t * ld + c] = datt[(static_cast<size_t>(b) * T + t) * d + h * hd + c];
+  }
+  attn_probs(qkv, b, h, D, scale, drop, q, k, v, P, M);   // syncs
+  // dp = (dO v^T) * M on the causal entries
+  for (int e = threadIdx.x; e < T * T; e += blockDim.x) {
+    const int i = e / T, j = e % T;
+    float s = 0.0f;
+    if (j <= i) {
+      for (int c = 0; c < hd; ++c) s = fmaf(dO[i * ld + c], v[j * ld + c], s);
+      s = s * M[e];
+    }
+    dS[e] = s;
+  }
+  __syncthreads();
+  // dS = P (dp - rowsum(dp P))
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = warp; i < T; i += blockDim.x / 32) {
+    float s = 0.0f;
+    for (int j = lane; j <= i; j += 32) s += dS[i * T + j] * P[i * T + j];
+    s = warp_sum(s);
+    for (int j = lane; j <= i; j += 32)
+      dS[i * T + j] = P[i * T + j] * (dS[i * T + j] - s);
+  }
+  __syncthreads();
+  const size_t d3 = 3 * static_cast<size_t>(d);
+  for (int e = threadIdx.x; e < T * hd; e += blockDim.x) {
+    const int t = e / hd, c = e % hd;
+    float dq = 0.0f, dk = 0.0f, dv = 0.0f;
+    for (int j = 0; j <= t; ++j) dq = fmaf(dS[t * T + j], k[j * ld + c], dq);
+    for (int i = t; i < T; ++i) {
+      dk = fmaf(dS[i * T + t], q[i * ld + c], dk);
+      dv = fmaf(P[i * T + t] * M[i * T + t], dO[i * ld + c], dv);
+    }
+    float* dst = dqkv + (static_cast<size_t>(b) * T + t) * d3 + h * hd + c;
+    dst[0] = dq * scale;
+    dst[d] = dk * scale;
+    dst[2 * d] = dv;
+  }
+}
+
+size_t fwd_floats(const Dims& D) {
+  const size_t N = D.N;
+  return N * (9 * static_cast<size_t>(D.d) + 2 * D.ff + 2);
+}
+
+size_t part_floats(const Dims& D) {
+  size_t p = 0;
+  auto upd = [&p](size_t v) { if (v > p) p = v; };
+  upd(tg::wgrad_scratch(D.ff, D.d, D.N));
+  upd(tg::wgrad_scratch(D.d, D.ff, D.N));
+  upd(tg::wgrad_scratch(D.d, D.d, D.N));
+  upd(tg::wgrad_scratch(D.d, 3 * D.d, D.N));
+  upd(tg::colsum_scratch(D.N, 3 * D.d));
+  upd(tg::colsum_scratch(D.N, D.ff));
+  return p;
+}
+
+size_t bwd_floats(const Dims& D) {
+  const size_t N = D.N;
+  return N * (7 * static_cast<size_t>(D.d) + D.ff + 3 * D.d) + part_floats(D);
+}
+
+Fwd carve_fwd(float* s, const Dims& D) {
+  const size_t N = D.N, d = D.d, ff = D.ff;
+  Fwd f;
+  f.qkv = s; s += N * 3 * d;
+  f.att = s; s += N * d;
+  f.pre = s; s += N * d;
+  f.y1 = s; s += N * d;
+  f.xhat1 = s; s += N * d;
+  f.rs1 = s; s += N;
+  f.f1 = s; s += N * ff;
+  f.f1d = s; s += N * ff;
+  f.pre2 = s; s += N * d;
+  f.xhat2 = s; s += N * d;
+  f.rs2 = s;
+  return f;
+}
+
+Bwd carve_bwd(float* s, const Dims& D) {
+  const size_t N = D.N, d = D.d, ff = D.ff;
+  Bwd g;
+  g.y = s; s += N * d;
+  g.dr2 = s; s += N * d;
+  g.df2 = s; s += N * d;
+  g.dh1 = s; s += N * ff;
+  g.dy1 = s; s += N * d;
+  g.dr1 = s; s += N * d;
+  g.da = s; s += N * d;
+  g.datt = s; s += N * d;
+  g.dqkv = s; s += N * 3 * d;
+  g.part = s;
+  return g;
+}
+
+hm::Drop site(const hm::Drop& base, int s) {
+  hm::Drop d = base;
+  d.site = s;
+  return d;
+}
+
+int forward(const float* x, const Weights& w, const Dims& D,
+            const hm::Drop& drop, float* y, const Fwd& f, cudaStream_t st) {
+  using namespace tg;
+  const int N = D.N, d = D.d, ff = D.ff;
+  const float scale = 1.0f / sqrtf(static_cast<float>(d / D.nh));
+  const int rows_per_block = 8;
+  const int row_blocks = (N + rows_per_block - 1) / rows_per_block;
+  gemm<false, false, E_BIAS>(x, w.wqkv, f.qkv, N, 3 * d, d, d, 3 * d,
+                             EpiArgs{w.bqkv, nullptr, nullptr, drop}, st);
+  TG_CHECK();
+  const size_t smem = attn_smem(D.T, d / D.nh);
+  cudaFuncSetAttribute(attn_fwd_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem));
+  attn_fwd_kernel<<<(N / D.T) * D.nh, 128, smem, st>>>(f.qkv, f.att, D, scale,
+                                                       drop);
+  TG_CHECK();
+  gemm<false, false, E_BIAS>(f.att, w.wo, f.pre, N, d, d, d, d,
+                             EpiArgs{w.bo, nullptr, nullptr, drop}, st);
+  TG_CHECK();
+  ln_fwd_rows<<<row_blocks, 32 * rows_per_block, 0, st>>>(
+      f.pre, x, w.g1, w.be1, site(drop, kSitePostAttn), N, d, f.y1, f.xhat1,
+      f.rs1);
+  TG_CHECK();
+  gemm<false, false, E_BIAS_RELU_DROP>(
+      f.y1, w.wf1, f.f1, N, ff, d, d, ff,
+      EpiArgs{w.bf1, nullptr, f.f1d, site(drop, kSiteFfMid)}, st);
+  TG_CHECK();
+  gemm<false, false, E_BIAS>(f.f1d, w.wf2, f.pre2, N, d, ff, ff, d,
+                             EpiArgs{w.bf2, nullptr, nullptr, drop}, st);
+  TG_CHECK();
+  ln_fwd_rows<<<row_blocks, 32 * rows_per_block, 0, st>>>(
+      f.pre2, f.y1, w.g2, w.be2, site(drop, kSitePostFf), N, d, y, f.xhat2,
+      f.rs2);
+  TG_CHECK();
+  return 0;
+}
+
+Weights weights_of(const void* const* ws) {
+  const float* p[12];
+  for (int i = 0; i < 12; ++i) p[i] = static_cast<const float*>(ws[i]);
+  return Weights{p[0], p[1], p[2], p[3], p[4], p[5],
+                 p[6], p[7], p[8], p[9], p[10], p[11]};
+}
+
+bool dims_ok(int B, int T, int d, int ff, int nh, int bt) {
+  return B > 0 && T > 0 && d > 0 && d <= kMaxD && ff > 0 && nh > 0 &&
+         d % nh == 0 && bt > 0 && B % bt == 0 &&
+         attn_smem(T, d / nh) <= 227 * 1024;
+}
+
+}  // namespace
+
+// Floats of scratch that encoder_layer_fwd_launch (bwd = 0) or
+// encoder_layer_bwd_launch (bwd = 1) needs for N = B*T rows.
+extern "C" int encoder_layer_scratch(int N, int d, int ff, int bwd,
+                                     long long* floats) {
+  const Dims D{N, 1, d, ff, 1, 1};
+  *floats = static_cast<long long>(fwd_floats(D) + (bwd ? bwd_floats(D) : 0));
+  return 0;
+}
+
+extern "C" int encoder_layer_fwd_launch(const void* x, const void* const* ws,
+                                        void* y, void* scratch, int B, int T,
+                                        int d, int ff, int nh, int bt,
+                                        int seed, float p_keep,
+                                        float inv_keep, int use_drop,
+                                        void* stream) {
+  if (!dims_ok(B, T, d, ff, nh, bt)) return static_cast<int>(cudaErrorInvalidValue);
+  const Dims D{B * T, T, d, ff, nh, bt * T};
+  const hm::Drop drop{use_drop, seed, 0, bt * T, p_keep, inv_keep};
+  const Fwd f = carve_fwd(static_cast<float*>(scratch), D);
+  return forward(static_cast<const float*>(x), weights_of(ws), D, drop,
+                 static_cast<float*>(y), f, static_cast<cudaStream_t>(stream));
+}
+
+// grads: the 12 gradients in the order of the weights, f32
+extern "C" int encoder_layer_bwd_launch(const void* x, const void* dy_v,
+                                        const void* const* ws, void* dx_v,
+                                        void* const* grads, void* scratch,
+                                        int B, int T, int d, int ff, int nh,
+                                        int bt, int seed, float p_keep,
+                                        float inv_keep, int use_drop,
+                                        void* stream) {
+  using namespace tg;
+  if (!dims_ok(B, T, d, ff, nh, bt)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dims D{B * T, T, d, ff, nh, bt * T};
+  const int N = D.N;
+  const hm::Drop drop{use_drop, seed, 0, bt * T, p_keep, inv_keep};
+  const Weights w = weights_of(ws);
+  float* s = static_cast<float*>(scratch);
+  const Fwd f = carve_fwd(s, D);
+  const Bwd g = carve_bwd(s + fwd_floats(D), D);
+  float* gr[12];
+  for (int i = 0; i < 12; ++i) gr[i] = static_cast<float*>(grads[i]);
+  float *dwqkv = gr[0], *dbqkv = gr[1], *dwo = gr[2], *dbo = gr[3],
+        *dwf1 = gr[4], *dbf1 = gr[5], *dwf2 = gr[6], *dbf2 = gr[7],
+        *dg1 = gr[8], *dbe1 = gr[9], *dg2 = gr[10], *dbe2 = gr[11];
+  const float* xf = static_cast<const float*>(x);
+  const float* dy = static_cast<const float*>(dy_v);
+  float* dx = static_cast<float*>(dx_v);
+  const float scale = 1.0f / sqrtf(static_cast<float>(d / nh));
+  const int rows_per_block = 8;
+  const int row_blocks = (N + rows_per_block - 1) / rows_per_block;
+
+  const int err = forward(xf, w, D, drop, g.y, f, st);
+  if (err) return err;
+
+  // LN2, then the post-FF mask
+  ln_bwd_rows<<<row_blocks, 32 * rows_per_block, 0, st>>>(
+      dy, f.xhat2, f.rs2, w.g2, site(drop, kSitePostFf), N, d, g.dr2, g.df2);
+  TG_CHECK();
+  colsum(dy, f.xhat2, dg2, N, d, g.part, st);
+  colsum(dy, nullptr, dbe2, N, d, g.part, st);
+  TG_CHECK();
+  // W2
+  wgrad(f.f1d, g.df2, dwf2, ff, d, N, g.part, st);
+  colsum(g.df2, nullptr, dbf2, N, d, g.part, st);
+  TG_CHECK();
+  // dh1 = (df2 W2^T) * mask_101 * (f1 > 0)
+  gemm<false, true, E_DRELU_DROP>(
+      g.df2, w.wf2, g.dh1, N, ff, d, d, d,
+      EpiArgs{nullptr, f.f1, nullptr, site(drop, kSiteFfMid)}, st);
+  TG_CHECK();
+  wgrad(f.y1, g.dh1, dwf1, d, ff, N, g.part, st);
+  colsum(g.dh1, nullptr, dbf1, N, ff, g.part, st);
+  TG_CHECK();
+  // dy1 = dr2 + dh1 W1^T; LN1; the post-attention mask
+  gemm<false, true, E_ADD>(g.dh1, w.wf1, g.dy1, N, d, ff, ff, ff,
+                           EpiArgs{nullptr, g.dr2, nullptr, drop}, st);
+  TG_CHECK();
+  ln_bwd_rows<<<row_blocks, 32 * rows_per_block, 0, st>>>(
+      g.dy1, f.xhat1, f.rs1, w.g1, site(drop, kSitePostAttn), N, d, g.dr1,
+      g.da);
+  TG_CHECK();
+  colsum(g.dy1, f.xhat1, dg1, N, d, g.part, st);
+  colsum(g.dy1, nullptr, dbe1, N, d, g.part, st);
+  TG_CHECK();
+  // out projection
+  wgrad(f.att, g.da, dwo, d, d, N, g.part, st);
+  colsum(g.da, nullptr, dbo, N, d, g.part, st);
+  gemm<false, true, E_STORE>(g.da, w.wo, g.datt, N, d, d, d, d, EpiArgs{},
+                             st);
+  TG_CHECK();
+  // attention
+  const size_t smem = attn_smem(T, d / nh);
+  cudaFuncSetAttribute(attn_bwd_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem));
+  attn_bwd_kernel<<<B * nh, 128, smem, st>>>(f.qkv, g.datt, g.dqkv, D, scale,
+                                             drop);
+  TG_CHECK();
+  // qkv projection; dx = dr1 + dqkv Wqkv^T
+  wgrad(xf, g.dqkv, dwqkv, d, 3 * d, N, g.part, st);
+  colsum(g.dqkv, nullptr, dbqkv, N, 3 * d, g.part, st);
+  gemm<false, true, E_ADD>(g.dqkv, w.wqkv, dx, N, d, 3 * d, 3 * d, 3 * d,
+                           EpiArgs{nullptr, g.dr1, nullptr, drop}, st);
+  TG_CHECK();
+  return 0;
+}

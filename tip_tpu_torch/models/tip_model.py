@@ -13,8 +13,13 @@ Reproduced forward quirks (they affect checkpoint compatibility):
     (heads, hd) and swap: ``head_interleave_perm``);
   * post-norm transformer layers with ReLU feed-forward;
   * the RNN hidden state is re-zeroed on every call;
-  * no dropout: inference is deterministic. Training (with dropout) comes
-    with the training slice; ``train=True`` raises until then.
+  * inference is deterministic (no dropout). ``train=True`` runs the
+    training forward of tip_tpu's kernel configuration
+    (``encoder_impl="pallas"``, ``rnn_impl="pallas"``,
+    ``dropout_impl="hash"``): hash-mask dropout on the IMU input (site 200)
+    and the past-state history (site 201), the differentiable encoder
+    layers of ``ops/encoder_train.py`` (K11/K12) and the differentiable RNN
+    of ``ops/fused_rnn.py`` (K1/K10).
 
 The layers are written out from matmuls, softmax and LayerNorm: torch's
 ``nn.TransformerEncoderLayer``/``nn.MultiheadAttention`` switch to fused
@@ -30,7 +35,18 @@ import torch
 from torch import nn
 
 from tip_tpu_torch import resolve_device
-from tip_tpu_torch.ops.fused_rnn import fused_rnn
+from tip_tpu_torch.ops import _kernels as K
+from tip_tpu_torch.ops.encoder_train import (encoder_layer_train,
+                                             pack_layer_weights)
+from tip_tpu_torch.ops.fused_rnn import fused_rnn, fused_rnn_train
+from tip_tpu_torch.ops.hashmask import hash_keep_mask
+
+# dropout sites of the model's inputs (tip_tpu/models/tip_model.py)
+SITE_IMU = 200
+SITE_PAST = 201
+# the batch tile of the encoder layers' dropout masks, as tip_tpu's model
+# passes it
+ENCODER_TILE = 8
 
 
 @dataclass(frozen=True)
@@ -47,6 +63,17 @@ class ModelConfig:
     # "auto" (kernel K1 on a CUDA tensor, plain on a CPU tensor) |
     # "kernel" | "plain" (ops/fused_rnn.py)
     rnn_impl: str = "auto"
+    # the training forward's encoder layers: "auto" (K11/K12 on a CUDA
+    # tensor, plain on a CPU tensor) | "kernel" | "plain"
+    # (ops/encoder_train.py). The inference forward is the plain layer loop
+    encoder_impl: str = "auto"
+    # dropout of the training forward (train=True with seeds)
+    in_dropout: float = 0.0
+    past_dropout: float = 0.8
+    layer_dropout: float = 0.1        # torch TransformerEncoderLayer default
+    # "hash": counter-based masks (ops/hashmask.py), tip_tpu's
+    # dropout_impl="hash"; tip_tpu's "rng" stream is not ported
+    dropout_impl: str = "hash"
     # "plain" (this module's forward) | "fused" (the whole-model kernel K4,
     # ops/fused_forward.py — inference only, taken by the streaming runner
     # for its one output row; bf16 weights by default). "fused" launches
@@ -66,6 +93,16 @@ class ModelConfig:
         if self.compute_dtype not in (None, "float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32|bfloat16, got "
                              f"{self.compute_dtype!r}")
+        K.check_impl(self.rnn_impl, "rnn_impl", "kernel")
+        K.check_impl(self.encoder_impl, "encoder_impl", "kernel")
+        if self.dropout_impl == "rng":
+            raise NotImplementedError(
+                "dropout_impl='rng' (tip_tpu's jax.random masks) is not "
+                "ported; the port trains with dropout_impl='hash' (ROADMAP "
+                "A, training: the rng dropout path)")
+        if self.dropout_impl != "hash":
+            raise ValueError(f"dropout_impl must be hash, got "
+                             f"{self.dropout_impl!r}")
 
     @property
     def input_dim(self) -> int:
@@ -333,7 +370,8 @@ class TIPModel(nn.Module):
         return self._derive(("cast", dtype), lambda: {
             k: p.detach().to(dtype) for k, p in own.items()})
 
-    def forward(self, x_imu, x_s, mask=None, train: bool = False):
+    def forward(self, x_imu, x_s, mask=None, train: bool = False,
+                seeds=None):
         """Run the predictor (the plain forward, whatever
         ``cfg.forward_impl`` says: the fused kernels take one stream's
         window and packed weights, see ops/fused_forward.py). With
@@ -345,13 +383,16 @@ class TIPModel(nn.Module):
           x_imu: (B, T, 72 or 90) IMU features (acc-sum appended if enabled).
           x_s:   (B, T, size_s) past-state history.
           mask:  optional additive attention mask (T, T); defaults to causal.
+          train: run the training forward (``train_forward``) instead.
+          seeds: with ``train``, the dropout seeds (seed0, layer_seeds).
         Returns:
           (B, T, size_s) next-state predictions at every window position.
         """
         if train:
-            raise NotImplementedError(
-                "training forward (dropout) comes with the training slice "
-                "(ROADMAP A, training)")
+            if mask is not None:
+                raise ValueError("the training forward takes the causal "
+                                 "mask only")
+            return self.train_forward(x_imu, x_s, seeds)
         B, T, _ = x_imu.shape
         out_dtype = x_imu.dtype
         p = self.params_as()
@@ -374,3 +415,55 @@ class TIPModel(nn.Module):
             x = fused_rnn(xin.contiguous(), p["rnn.w_hh"],
                           impl=self.cfg.rnn_impl)
         return (x @ p["out.w"] + p["out.b"]).to(out_dtype)
+
+    def train_forward(self, x_imu, x_s, seeds=None):
+        """The differentiable training forward, tip_tpu's ``forward(...,
+        train=True, rng)`` with ``encoder_impl="pallas"``,
+        ``rnn_impl="pallas"`` and ``dropout_impl="hash"``, in the
+        parameters' dtype.
+
+        seeds: (seed0, layer_seeds), int32 values: seed0 seeds the IMU
+        (site 200) and past-state (site 201) masks, ``layer_seeds[li]`` the
+        masks of encoder layer li. tip_tpu draws them from its rng as
+        ``bits(rng)`` and ``bits(split(rng, 2 + 4L)[2 + 4 li])``. None:
+        dropout off, as tip_tpu without an rng.
+        """
+        cfg = self.cfg
+        p = dict(self.named_parameters())
+        dtype = p["out.w"].dtype
+        if cfg.compute_dtype not in (None, str(dtype).split(".")[1]):
+            raise NotImplementedError(
+                f"training in compute_dtype={cfg.compute_dtype!r} is not "
+                f"ported; the port trains in the parameters' dtype (ROADMAP "
+                f"A, training: bf16)")
+        drop = seeds is not None
+        if drop:
+            seed0, layer_seeds = seeds
+            if len(layer_seeds) != cfg.tf_layers:
+                raise ValueError(f"{len(layer_seeds)} layer seeds for "
+                                 f"{cfg.tf_layers} layers")
+        x_s = torch.nan_to_num(x_s, nan=0.0)
+        if drop and cfg.in_dropout > 0.0:
+            x_imu = x_imu * hash_keep_mask(
+                seed0, SITE_IMU, x_imu.shape, 1.0 - cfg.in_dropout,
+                torch.float32, x_imu.device).to(x_imu.dtype)
+        x_s = torch.cat([x_s[..., :108], torch.zeros_like(x_s[..., 108:111]),
+                         x_s[..., 111:]], dim=-1)
+        if drop and cfg.past_dropout > 0.0:
+            x_s = x_s * hash_keep_mask(
+                seed0, SITE_PAST, x_s.shape, 1.0 - cfg.past_dropout,
+                torch.float32, x_s.device).to(x_s.dtype)
+        x = torch.cat([x_imu, x_s], dim=-1) @ p["in_linear.w"] \
+            + p["in_linear.b"]
+        x = x[..., self.perm]
+        for li in range(cfg.tf_layers):
+            ws = pack_layer_weights(p, f"layers.{li}.", x.dtype)
+            x = encoder_layer_train(
+                x.contiguous(), ws, layer_seeds[li] if drop else 0,
+                cfg.n_heads, cfg.layer_dropout, drop, ENCODER_TILE,
+                impl=cfg.encoder_impl)
+        if cfg.with_rnn:
+            xin = x @ p["rnn.w_ih"] + p["rnn.b_ih"] + p["rnn.b_hh"]
+            x = fused_rnn_train(xin.contiguous(), p["rnn.w_hh"],
+                                impl=cfg.rnn_impl)
+        return x @ p["out.w"] + p["out.b"]

@@ -131,7 +131,9 @@ def check(err: int, what: str):
 
 def check_input(t, name: str, shape, dtype, device):
     """Raise unless ``t`` is a contiguous tensor of this shape and dtype on
-    ``device`` that needs no gradient (the kernels are inference-only)."""
+    ``device`` that needs no gradient: a kernel reads raw memory and autograd
+    does not see it. The training kernels' ``torch.autograd.Function``s
+    hand them detached tensors."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -142,6 +144,6 @@ def check_input(t, name: str, shape, dtype, device):
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
     if t.requires_grad:
-        raise NotImplementedError(
-            f"{name}: requires grad; the kernels are inference-only until "
-            f"the training slice (ROADMAP B, training)")
+        raise ValueError(
+            f"{name}: requires grad; a kernel's wrapper takes detached "
+            f"tensors (train through fused_rnn_train / encoder_layer_train)")

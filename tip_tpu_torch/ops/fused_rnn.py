@@ -1,4 +1,5 @@
-"""Fused tanh-RNN head (twin of tip_tpu/ops/pallas_kernels.py::fused_rnn).
+"""Fused tanh-RNN head (twin of tip_tpu/ops/pallas_kernels.py::fused_rnn
+and ``fused_rnn_train``).
 
     h_t = tanh(xin_t + h_{t-1} @ W_hh),  h_{-1} = 0
 
@@ -7,6 +8,13 @@ pays T=40 dependent (B, H) x (H, H) steps. Kernel K1
 (``csrc/fused_rnn.cu``) walks all T steps in one launch with the hidden
 state in shared memory; ``fused_rnn_plain`` is the same function as a
 Python loop over T.
+
+For training, ``fused_rnn_train`` is differentiable: its forward is K1, its
+backward the BPTT kernel K10 (``csrc/fused_rnn_bwd.cu``), which reads only
+the saved hidden states (tanh' = 1 - h^2):
+
+    dh_t = g_t + da_{t+1} @ W_hh^T,  da_t = dh_t * (1 - h_t^2) -> dxin_t
+    dW_hh = sum over t of h_{t-1}^T @ da_t     (h_{-1} = 0)
 """
 
 import ctypes
@@ -18,6 +26,11 @@ from tip_tpu_torch.ops import _kernels as K
 _SIG = {"fused_rnn_launch": [ctypes.c_void_p, ctypes.c_void_p,
                              ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                              ctypes.c_int, ctypes.c_void_p]}
+_SIG_BWD = {
+    "fused_rnn_bwd_scratch": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              ctypes.POINTER(ctypes.c_longlong)],
+    "fused_rnn_bwd_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                            + [ctypes.c_void_p]}
 
 
 def fused_rnn_plain(xin, w_hh):
@@ -53,3 +66,77 @@ def fused_rnn(xin, w_hh, impl: str = "auto"):
     if K.use_kernel(impl, xin, "rnn_impl", "kernel"):
         return _launch(xin, w_hh)
     return fused_rnn_plain(xin, w_hh)
+
+
+def fused_rnn_bwd_plain(hs, w_hh, g):
+    """Plain PyTorch version of K10: hs (B, T, H) the hidden states, w_hh
+    (H, H), g (B, T, H) the gradient of the hidden states. Returns (dxin
+    (B, T, H), dw (H, H)) in the order of tip_tpu's ``_rnn_bwd``: dW summed
+    from t = T-1 down to 0."""
+    B, T, H = hs.shape
+    wt = w_hh.T
+    da = hs.new_zeros((B, H))
+    dw = hs.new_zeros((H, H))
+    dx = torch.empty_like(hs)
+    for t in range(T - 1, -1, -1):
+        h_t = hs[:, t]
+        dh = g[:, t] + da @ wt
+        da = dh * (1.0 - h_t * h_t)
+        dx[:, t] = da
+        h_prev = hs[:, t - 1] if t > 0 else torch.zeros_like(h_t)
+        dw = dw + h_prev.T @ da
+    return dx, dw
+
+
+def _launch_bwd(hs, w_hh, g):
+    B, T, H = hs.shape
+    for t, name, shape in ((hs, "hs", (B, T, H)), (w_hh, "w_hh", (H, H)),
+                           (g, "g", (B, T, H))):
+        K.check_input(t, name, shape, torch.float32, hs.device)
+    so = K.lib("fused_rnn_bwd", _SIG_BWD)
+    n = ctypes.c_longlong()
+    K.check(so.fused_rnn_bwd_scratch(B, T, H, ctypes.byref(n)),
+            "fused_rnn_bwd_scratch")
+    scratch = torch.empty(n.value, dtype=torch.float32, device=hs.device)
+    dx = torch.empty_like(hs)
+    dw = torch.empty((H, H), dtype=torch.float32, device=hs.device)
+    stream = torch.cuda.current_stream(hs.device).cuda_stream
+    err = so.fused_rnn_bwd_launch(hs.data_ptr(), w_hh.data_ptr(),
+                                  g.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                                  scratch.data_ptr(), B, T, H, stream)
+    K.check(err, "fused_rnn_bwd")
+    K.launch_counts["fused_rnn_bwd"] += 1
+    return dx, dw
+
+
+def fused_rnn_bwd(hs, w_hh, g, impl: str = "auto"):
+    """The RNN head's backward by ``impl``, as ``fused_rnn``: "kernel"
+    launches K10 (CUDA tensors only), "plain" runs ``fused_rnn_bwd_plain``,
+    "auto" K10 for a CUDA tensor and the plain version for a CPU one."""
+    if K.use_kernel(impl, hs, "rnn_impl", "kernel"):
+        return _launch_bwd(hs, w_hh, g)
+    return fused_rnn_bwd_plain(hs, w_hh, g)
+
+
+class _FusedRNNTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xin, w_hh, impl):
+        hs = fused_rnn(xin.detach().contiguous(), w_hh.detach().contiguous(),
+                       impl=impl)
+        ctx.save_for_backward(hs, w_hh)
+        ctx.impl = impl
+        return hs
+
+    @staticmethod
+    def backward(ctx, g):
+        hs, w_hh = ctx.saved_tensors
+        dxin, dw = fused_rnn_bwd(hs.detach(), w_hh.detach().contiguous(),
+                                 g.contiguous(), impl=ctx.impl)
+        return dxin, dw, None
+
+
+def fused_rnn_train(xin, w_hh, impl: str = "auto"):
+    """Differentiable fused tanh-RNN (twin of tip_tpu's ``fused_rnn_train``):
+    forward K1, backward K10 on CUDA tensors, the plain versions on CPU
+    tensors (``impl`` as ``fused_rnn``). Saves only the hidden states."""
+    return _FusedRNNTrain.apply(xin, w_hh, impl)

@@ -1,0 +1,119 @@
+"""Training-window sampling from packed blobs (twin of
+tip_tpu/train/data.py).
+
+The blobs (``data_gen/combine.py``) are memory-mapped once; an epoch draws
+new window-end indices with numpy's ``default_rng`` in tip_tpu's order, so
+one seed gives tip_tpu's windows. ``to_device`` puts the blobs on the card
+once and ``device_gather`` gathers a batch's windows there from a (B,)
+index tensor, so a step copies B indices up instead of the batch.
+
+Blob format:
+  <prefix>_imu.npy      (N, 72)  root-local IMU features, float32
+  <prefix>_sum_imu.npy  (N, 18)  scaled acc-sum features
+  <prefix>_s.npy        (N, 131) [108 two-axis pose, 3 root vel, n_sbps*4 SBP]
+  <prefix>_info.npy     (M, 3)   [start_frame, end_frame, downsample] segments
+"""
+
+import dataclasses
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class PackedDataset:
+    imu: np.ndarray                 # (N, 72)
+    acc_sum: Optional[np.ndarray]   # (N, 18) or None
+    s: np.ndarray                   # (N, state_dim)
+    info: np.ndarray                # (M, 3)
+
+    @classmethod
+    def load(cls, imu_path: str, s_path: str, info_path: str,
+             with_acc_sum: bool = True) -> "PackedDataset":
+        return cls(
+            imu=np.load(imu_path, mmap_mode="r"),
+            acc_sum=(np.load(imu_path.replace("imu", "sum_imu"),
+                             mmap_mode="r") if with_acc_sum else None),
+            s=np.load(s_path, mmap_mode="r"),
+            info=np.asarray(np.load(info_path)),
+        )
+
+    @classmethod
+    def from_prefix(cls, prefix: str, with_acc_sum: bool = True):
+        return cls.load(prefix + "_imu.npy", prefix + "_s.npy",
+                        prefix + "_info.npy", with_acc_sum=with_acc_sum)
+
+
+def sample_epoch_indices(info: np.ndarray, seq_len: int,
+                         rng: np.random.Generator) -> np.ndarray:
+    """Window-end indices for one epoch: per segment [start, end, rate] the
+    candidate ends are start+seq_len .. end-2; round(n / rate) of them (at
+    least 1) are drawn without replacement; then all are shuffled."""
+    out = []
+    for start, end, rate in info.astype(np.int64):
+        lo, hi = start + seq_len, end - 1
+        n = hi - lo
+        if n <= 0:
+            continue
+        k = max(int(round(n / rate)), 1)
+        out.append(rng.choice(np.arange(lo, hi), size=min(k, n),
+                              replace=False))
+    idx = np.concatenate(out) if out else np.zeros((0,), np.int64)
+    rng.shuffle(idx)
+    return idx
+
+
+def gather_batch(ds: PackedDataset, ends: np.ndarray, seq_len: int
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(x_imu (B,T,72[+18]), x_s (B,T,sd), y (B,T,sd)) for end indices:
+    x_s the teacher-forced history s[t-T:t], y the targets s[t-T+1:t+1]."""
+    win = ends[:, None] + np.arange(-seq_len, 0)            # (B, T)
+    x_imu = ds.imu[win]
+    if ds.acc_sum is not None:
+        x_imu = np.concatenate([x_imu, ds.acc_sum[win]], axis=-1)
+    return (np.ascontiguousarray(x_imu, np.float32),
+            np.ascontiguousarray(ds.s[win], np.float32),
+            np.ascontiguousarray(ds.s[win + 1], np.float32))
+
+
+def epoch_batches(ds: PackedDataset, seq_len: int, batch_size: int,
+                  rng: np.random.Generator, drop_remainder: bool = True
+                  ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """One epoch of shuffled batches. As in tip_tpu the trailing partial
+    batch is dropped unless ``drop_remainder=False``."""
+    idx = sample_epoch_indices(ds.info, seq_len, rng)
+    n_full = len(idx) // batch_size
+    for b in range(n_full):
+        yield gather_batch(ds, idx[b * batch_size:(b + 1) * batch_size],
+                           seq_len)
+    if not drop_remainder and len(idx) % batch_size:
+        yield gather_batch(ds, idx[n_full * batch_size:], seq_len)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceDataset:
+    """Packed blobs resident on the device (float32)."""
+    imu: torch.Tensor                 # (N, 72)
+    acc_sum: Optional[torch.Tensor]   # (N, 18) or None
+    s: torch.Tensor                   # (N, state_dim)
+
+
+def to_device(ds: PackedDataset, device) -> DeviceDataset:
+    """Copy the blobs to ``device`` once."""
+    def put(a):
+        if a is None:
+            return None
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    return DeviceDataset(imu=put(ds.imu), acc_sum=put(ds.acc_sum),
+                         s=put(ds.s))
+
+
+def device_gather(dds: DeviceDataset, ends: torch.Tensor, seq_len: int):
+    """``gather_batch`` on the device: (B,) int64 end indices -> windows."""
+    win = ends[:, None] + torch.arange(-seq_len, 0, device=ends.device)
+    x_imu = dds.imu[win]
+    if dds.acc_sum is not None:
+        x_imu = torch.cat([x_imu, dds.acc_sum[win]], dim=-1)
+    return x_imu, dds.s[win], dds.s[win + 1]

@@ -1,0 +1,369 @@
+"""Training of the TIP state predictor on one device (twin of
+tip_tpu/train/train.py in tip_tpu's kernel configuration:
+``rnn_impl="pallas"``, ``encoder_impl="pallas"``, ``dropout_impl="hash"``).
+
+The reference recipe: Adam or AdamW, cosine learning rate stepped per
+batch with T_max = epochs + 850, global-norm clip 5.0, uniform noise on the
+past-state history, fresh windows every epoch, loss = jerk + pose and
+root velocity + SBP. The optimizer is written out with optax's formulas, not
+torch's (whose clip divides by norm + 1e-6 and whose AdamW decays before
+the moment update):
+
+  clip:  g <- g / |g| * clip only when |g| >= clip (|g| over all leaves)
+  Adam:  mu <- (1 - b1) g + b1 mu;  nu <- (1 - b2) g^2 + b2 nu;
+         u = (mu / (1 - b1^c)) / (sqrt(nu / (1 - b2^c)) + eps), c = step + 1
+  AdamW: u <- u + weight_decay * p
+  p <- p + (-lr(step)) u
+
+Random numbers come from two explicit generators of the train state: a
+CPU one for the dropout seeds (host ints, no device sync) and one on the
+device for the history noise. ``train_step`` also takes the noise and the
+seeds as arguments, so that a test can hand it tip_tpu's.
+"""
+
+import dataclasses
+import math
+import os
+import re
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from tip_tpu_torch import resolve_device
+from tip_tpu_torch.models import losses as L
+from tip_tpu_torch.models import tip_model as M
+from tip_tpu_torch.train import data as data_lib
+
+B1, B2, EPS = 0.9, 0.999, 1e-8
+MAX_BAD_STEPS = 20
+_CKPT = re.compile(r"ckpt_(\d+)\.pt$")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    model: M.ModelConfig = M.ModelConfig()
+    n_sbps: int = 5
+    batch_size: int = 256
+    seq_len: int = 40
+    lr: float = 1e-4
+    optimizer: str = "Adam"            # or "AdamW"
+    weight_decay: float = 1e-4
+    clip: float = 5.0
+    epochs: int = 1100
+    cosine_lr: bool = True
+    cosine_extra: int = 850            # T_max = epochs + cosine_extra
+    noise_input_hist: float = 0.15
+    seed: int = 5104
+    log_interval: int = 100
+
+    def __post_init__(self):
+        if self.optimizer not in ("Adam", "AdamW"):
+            raise ValueError(f"optimizer must be Adam|AdamW, got "
+                             f"{self.optimizer!r}")
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: M.TIPModel                  # its parameters require grad
+    mu: Dict[str, torch.Tensor]        # Adam's moments, by parameter name
+    nu: Dict[str, torch.Tensor]
+    step: int                          # updates so far (Adam's count)
+    gen: torch.Generator               # CPU: dropout seeds
+    noise_gen: torch.Generator         # on the device: history noise
+
+
+def lr_schedule(cfg: TrainConfig):
+    """torch CosineAnnealingLR with eta_min=0 stepped per batch:
+    lr(t) = lr0 (1 + cos(pi t / T_max)) / 2, periodic beyond T_max."""
+    t_max = cfg.epochs + cfg.cosine_extra
+
+    def sched(step: int) -> float:
+        if not cfg.cosine_lr:
+            return cfg.lr
+        return cfg.lr * (1.0 + math.cos(math.pi * step / t_max)) / 2.0
+
+    return sched
+
+
+def _state(cfg, model, mu, nu, step, device):
+    model.requires_grad_(True)
+    return TrainState(
+        model=model, mu=mu, nu=nu, step=step,
+        gen=torch.Generator().manual_seed(cfg.seed),
+        noise_gen=torch.Generator(device=device).manual_seed(cfg.seed + 1))
+
+
+def init_state(cfg: TrainConfig, device=None,
+               dtype=torch.float32) -> TrainState:
+    """A fresh state: weights from a generator seeded ``cfg.seed``, zero
+    moments, on ``cuda`` unless ``device`` says otherwise."""
+    device = resolve_device(device)
+    model = M.TIPModel(cfg.model, device=device, dtype=dtype,
+                       generator=torch.Generator().manual_seed(cfg.seed))
+    zeros = {k: torch.zeros_like(p) for k, p in model.named_parameters()}
+    return _state(cfg, model, zeros,
+                  {k: torch.zeros_like(v) for k, v in zeros.items()}, 0,
+                  device)
+
+
+def train_state_from_jax(params, count, mu, nu, cfg: TrainConfig,
+                         device=None, dtype=None) -> TrainState:
+    """tip_tpu's params and Adam state (``count``, ``mu``, ``nu``: param
+    pytrees of numpy arrays) -> a port state that continues that run. The
+    step is Adam's count; the generators start from ``cfg.seed``."""
+    device = resolve_device(device)
+    sd = M.params_from_jax(params)
+    dtype = next(iter(sd.values())).dtype if dtype is None else dtype
+    model = M.TIPModel(cfg.model, device=device, dtype=dtype)
+    model.load_state_dict(sd)
+
+    def moments(tree):
+        return {k: v.to(device=device, dtype=dtype)
+                for k, v in M.params_from_jax(tree).items()}
+
+    return _state(cfg, model, moments(mu), moments(nu), int(count), device)
+
+
+def loss_fn(model, x_imu, x_s, y, noise, seeds, cfg: TrainConfig):
+    """Composite loss on one batch: the training forward of ``x_s + noise``
+    with dropout ``seeds`` (None: off), then jerk + pose and root velocity
+    + SBP."""
+    y_pred = model.train_forward(x_imu, x_s + noise, seeds)
+    nc = cfg.n_sbps * 4
+    l_jerk = L.loss_jerk(y_pred[:, :, :-3 - nc])
+    yp = y_pred.reshape(-1, y_pred.shape[-1])
+    yt = y.reshape(-1, y.shape[-1])
+    l_q = L.loss_q_only_2axis(yt[:, :-nc], yp[:, :-nc])
+    l_c = L.loss_constr_multi(yt[:, -nc:], yp[:, -nc:], cfg.n_sbps)
+    total = l_q + l_c + l_jerk
+    return total, {"loss": total, "loss_q": l_q, "loss_c": l_c,
+                   "loss_jerk": l_jerk}
+
+
+def draw_seeds(state: TrainState):
+    """(seed0, layer_seeds) as int32 values from the state's CPU
+    generator."""
+    s = torch.randint(-2 ** 31, 2 ** 31, (1 + state.model.cfg.tf_layers,),
+                      generator=state.gen, dtype=torch.int64).tolist()
+    return s[0], s[1:]
+
+
+def draw_noise(state: TrainState, x_s, cfg: TrainConfig):
+    """History noise, uniform in [-noise, noise), from the device
+    generator."""
+    u = torch.rand(x_s.shape, generator=state.noise_gen, dtype=x_s.dtype,
+                   device=x_s.device)
+    return (u - 0.5) * (2.0 * cfg.noise_input_hist)
+
+
+def train_step(state: TrainState, batch, cfg: TrainConfig, noise=None,
+               seeds=None):
+    """One update on ``batch`` = (x_imu, x_s, y) tensors on the model's
+    device. ``noise`` and ``seeds`` default to draws from the state's
+    generators. Returns tip_tpu's aux as floats: loss, loss_q, loss_c,
+    loss_jerk, the pre-clip grad_norm, lr at the step before the update,
+    and ``skipped``. A step whose loss is not finite changes nothing: not
+    the parameters, the moments, the step or the generators.
+    """
+    x_imu, x_s, y = batch
+    rng_states = (state.gen.get_state(), state.noise_gen.get_state())
+    if seeds is None:
+        seeds = draw_seeds(state)
+    if noise is None:
+        noise = draw_noise(state, x_s, cfg)
+    model = state.model
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.grad = None
+    total, aux = loss_fn(model, x_imu, x_s, y, noise, seeds, cfg)
+    total.backward()
+    names = list(params)
+    grads = [params[k].grad for k in names]
+    g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    vals = torch.stack([aux["loss"], aux["loss_q"], aux["loss_c"],
+                        aux["loss_jerk"], g_norm]).tolist()
+    out = dict(zip(("loss", "loss_q", "loss_c", "loss_jerk", "grad_norm"),
+                   vals))
+    out["lr"] = lr_schedule(cfg)(state.step)
+    out["skipped"] = not math.isfinite(out["loss"])
+    if out["skipped"]:
+        state.gen.set_state(rng_states[0])
+        state.noise_gen.set_state(rng_states[1])
+        for p in params.values():
+            p.grad = None
+        return out
+    with torch.no_grad():
+        if cfg.clip > 0:
+            trig = g_norm < cfg.clip
+            one = torch.ones((), dtype=g_norm.dtype, device=g_norm.device)
+            grads = torch._foreach_mul(
+                torch._foreach_div(grads, torch.where(trig, one, g_norm)),
+                torch.where(trig, one, one * cfg.clip))
+        mu = [state.mu[k] for k in names]
+        nu = [state.nu[k] for k in names]
+        new_mu = torch._foreach_add(torch._foreach_mul(grads, 1.0 - B1),
+                                    torch._foreach_mul(mu, B1))
+        g2 = torch._foreach_mul(grads, grads)
+        new_nu = torch._foreach_add(torch._foreach_mul(g2, 1.0 - B2),
+                                    torch._foreach_mul(nu, B2))
+        c = state.step + 1
+        m_hat = torch._foreach_div(new_mu, 1.0 - B1 ** c)
+        v_hat = torch._foreach_div(new_nu, 1.0 - B2 ** c)
+        u = torch._foreach_div(m_hat, torch._foreach_add(
+            torch._foreach_sqrt(v_hat), EPS))
+        plist = [params[k] for k in names]
+        if cfg.optimizer == "AdamW":
+            u = torch._foreach_add(u, torch._foreach_mul(plist,
+                                                         cfg.weight_decay))
+        torch._foreach_add_(plist, torch._foreach_mul(u, -out["lr"]))
+        for k, m, v in zip(names, new_mu, new_nu):
+            state.mu[k] = m
+            state.nu[k] = v
+        for p in plist:
+            p.grad = None
+    state.step += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# checkpoints: parameters, moments, step and generators, resume-exact
+# ---------------------------------------------------------------------------
+
+def _ckpt_steps(ckpt_dir: str):
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(m.group(1)) for f in os.listdir(ckpt_dir)
+                  if (m := _CKPT.match(f)))
+
+
+def save_checkpoint(ckpt_dir: str, state: TrainState, step: int,
+                    max_to_keep: int = 4):
+    """Write the full state as ``<ckpt_dir>/ckpt_<step>.pt`` and keep only
+    the newest ``max_to_keep`` checkpoints."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"ckpt_{step}.pt")
+    tmp = path + ".tmp"
+    torch.save({"params": {k: v.detach() for k, v in
+                           state.model.state_dict().items()},
+                "mu": state.mu, "nu": state.nu, "step": state.step,
+                "gen": state.gen.get_state(),
+                "noise_gen": state.noise_gen.get_state()}, tmp)
+    os.replace(tmp, path)
+    for old in _ckpt_steps(ckpt_dir)[:-max_to_keep]:
+        os.remove(os.path.join(ckpt_dir, f"ckpt_{old}.pt"))
+
+
+def restore_checkpoint(ckpt_dir: str, cfg: TrainConfig,
+                       step: Optional[int] = None, params_only: bool = False,
+                       device=None) -> TrainState:
+    """The state saved at ``step`` (None: the newest). The parameters must
+    match the model config (names and shapes), else ValueError.
+    ``params_only``: the parameters, step and generators with fresh
+    moments (a warm start)."""
+    device = resolve_device(device)
+    steps = _ckpt_steps(ckpt_dir)
+    if not steps:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    step = steps[-1] if step is None else step
+    ck = torch.load(os.path.join(ckpt_dir, f"ckpt_{step}.pt"),
+                    map_location="cpu", weights_only=True)
+    state = init_state(cfg, device, dtype=ck["params"]["out.w"].dtype)
+    want = {k: tuple(v.shape) for k, v in state.model.state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in ck["params"].items()}
+    if want != got:
+        bad = sorted(set(want.items()) ^ set(got.items()))[:5]
+        raise ValueError(f"checkpoint at {ckpt_dir} does not match the "
+                         f"model config (check size_s / with_acc_sum / "
+                         f"widths): {bad}")
+    with torch.no_grad():
+        for k, p in state.model.named_parameters():
+            p.copy_(ck["params"][k])
+    if not params_only:
+        state.mu = {k: v.to(device) for k, v in ck["mu"].items()}
+        state.nu = {k: v.to(device) for k, v in ck["nu"].items()}
+    state.step = int(ck["step"])
+    state.gen.set_state(ck["gen"])
+    state.noise_gen.set_state(ck["noise_gen"])
+    return state
+
+
+def train_loop(cfg: TrainConfig, dataset, *, ckpt_dir=None, log_fn=print,
+               max_epochs: Optional[int] = None,
+               warm_start: Optional[str] = None,
+               metrics_path: Optional[str] = None,
+               device=None) -> TrainState:
+    """The training loop (tip_tpu's ``train_loop``): per epoch fresh
+    windows, one ``train_step`` per full batch, a log record every
+    ``cfg.log_interval`` steps and per epoch, a checkpoint after epoch 1,
+    every 10th and the last. A step with a non-finite loss is skipped and
+    logged; more than 20 raise. The blobs go to the device once and each
+    batch's windows are gathered there (``data.device_gather``).
+
+    dataset: ``data.PackedDataset``. The run starts from
+    ``init_state(cfg, device)``; warm_start: a checkpoint directory of
+    this package or a reference ``.pt`` state dict, weights only.
+    metrics_path: jsonl file receiving every record.
+    """
+    state = init_state(cfg, device)
+    device = state.model.out.w.device
+    writer = None
+    if metrics_path is not None:
+        from tip_tpu_torch.utils.observability import MetricsWriter
+        writer = MetricsWriter(metrics_path)
+        console_log = log_fn
+
+        def log_fn(record):
+            writer.write(**record)
+            console_log(record)
+
+    try:
+        if warm_start:
+            if warm_start.endswith(".pt"):
+                sd = M.params_from_torch_state_dict(
+                    torch.load(warm_start, map_location="cpu"), cfg.model)
+            else:
+                sd = restore_checkpoint(warm_start, cfg, params_only=True,
+                                        device=device).model.state_dict()
+            with torch.no_grad():
+                for k, p in state.model.named_parameters():
+                    p.copy_(sd[k])
+        dds = data_lib.to_device(dataset, device)
+        np_rng = np.random.default_rng(cfg.seed)
+        epochs = max_epochs if max_epochs is not None else cfg.epochs
+        bad_steps = 0
+        for ep in range(1, epochs + 1):
+            idx = data_lib.sample_epoch_indices(dataset.info, cfg.seq_len,
+                                                np_rng)
+            idx = torch.as_tensor(idx, dtype=torch.int64).to(device)
+            running = []
+            for bi in range(len(idx) // cfg.batch_size):
+                ends = idx[bi * cfg.batch_size:(bi + 1) * cfg.batch_size]
+                aux = train_step(state, data_lib.device_gather(
+                    dds, ends, cfg.seq_len), cfg)
+                if aux["skipped"]:
+                    bad_steps += 1
+                    log_fn({"epoch": ep, "batch": bi + 1,
+                            "event": "non_finite_loss_skipped",
+                            "bad_steps": bad_steps})
+                    if bad_steps > MAX_BAD_STEPS:
+                        raise FloatingPointError(
+                            f"training diverged: >{MAX_BAD_STEPS} non-finite "
+                            f"losses")
+                    continue
+                running.append(aux["loss"])
+                if (bi + 1) % cfg.log_interval == 0:
+                    log_fn({"epoch": ep, "batch": bi + 1,
+                            "loss": float(np.mean(
+                                running[-cfg.log_interval:])),
+                            "lr": aux["lr"], "grad_norm": aux["grad_norm"]})
+            if ckpt_dir and (ep == 1 or ep % 10 == 0):
+                save_checkpoint(ckpt_dir, state, ep)
+            log_fn({"epoch": ep, "mean_loss": float(np.mean(running))
+                    if running else None})
+        if ckpt_dir:
+            save_checkpoint(ckpt_dir, state, epochs)
+    finally:
+        if writer is not None:
+            writer.close()
+    return state
