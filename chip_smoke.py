@@ -8,7 +8,10 @@ Phases, in order; any failure exits non-zero:
   1. require CUDA, turn TF32 off, print the card's name and power limit;
   2. build the CUDA kernels from tip_tpu_torch/csrc with nvcc;
   3. hold each kernel (K1-K12) against its plain PyTorch version on the card
-     at the main paths' shapes, and time both (and K1's cuDNN yardstick);
+     at the main paths' shapes, and time both, with one PyTorch call that
+     computes the same function where there is one (cuDNN's RNN beside K1
+     at B 1, 64 and 256; TransformerEncoderLayer beside K11 and K12, and
+     K11's forward on K12's tensor-core GEMM beside K11);
      the pool's kernels K8 and K9 also against the single-stream K7 and K4
      stream by stream, and the batched K2, K3, K6 against B unbatched calls;
   4. run the main paths: the full-width model (ModelConfig() defaults,
@@ -51,7 +54,9 @@ Phases, in order; any failure exits non-zero:
           cosine, clip 5, history noise 0.15, past dropout 0.8, layer
           dropout 0.1), full width, f32: one launch of K1 and K10 and four
           of K11 and K12 a step, none of a serving kernel; a checkpoint
-          written and restored bit-equal; the step timed and profiled;
+          written and restored bit-equal; the restored model (it requires
+          grad) serves a frame of paths A and F outside no_grad, equal to
+          the detached model's; the step timed and profiled;
           held against a float64 step on the CPU and, ten steps, against
        M  the same training with the plain versions on the card;
      (K10, K11, K12 are held against their plain versions in phase 3);
@@ -82,9 +87,17 @@ MOTION = CORPUS / "freeform2_0000.pkl"
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 PEAK_BF16_FLOP_S = 989e12
+# K12's products run 3xTF32 on the tensor cores: three TF32 products (495
+# TFLOP/s) for each f32 one, so K11 and K12 also get a bound at 165
+PEAK_3XTF32_FLOP_S = 495e12 / 3
 
 # tolerances of the kernel checks (f32 on the card, kernel vs plain)
 TOL = 1e-5
+# K1's batch sizes: checked (one stream, tiles of 1 and 2 rows, a cluster
+# with a partial tile, the pool's 64, the training batch), and timed with
+# cuDNN beside it
+RNN_CHECKED_B = (1, 3, 8, 17, 64, 256)
+RNN_TIMED_B = (1, 64, 256)
 # residues (and their clipped feet mean) divide a position difference by
 # dt = 1/60: rounding of ~1e-7 m is amplified 60x, hence 1e-4
 TOL_RES = 1e-4
@@ -210,6 +223,21 @@ def timings(kernel, plain, library=None, graph=None, light=False):
     return out
 
 
+def kernel_breakdown(fn, n=5):
+    """Device ms a call by kernel of fn (torch.profiler over n calls after
+    one warm-up call), largest first: [[name, ms, launches], ...]."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [[e.key[:80], e.self_device_time_total / 1e3 / n, e.count / n]
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[1])
+
+
 def bound(nbytes, ops, peak_flop_s=PEAK_F32_FLOP_S):
     """Least time (ms) for the work on the card, and what bounds it."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
@@ -249,42 +277,66 @@ def card_info():
 # 3. kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_fused_rnn(dev, gen):
-    from tip_tpu_torch.ops import fused_rnn as FR
-    H, T = 512, 40
-    w = ((torch.rand(H, H, generator=gen, device=dev) * 2 - 1)
-         / math.sqrt(H))
-    errs = {}
-    for B in (1, 8, POOL_CAPACITY):      # one stream, a few, the pool's
-        xin = torch.randn(B, T, H, generator=gen, device=dev) * 0.5
-        out = FR.fused_rnn(xin, w, impl="kernel")
-        ref = FR.fused_rnn_plain(xin, w)
-        errs[f"B{B}"] = (max_err(out, ref), TOL)
-    err = check("fused_rnn", errs)
-    # time at the main path's shape
-    xin = torch.randn(1, T, H, generator=gen, device=dev) * 0.5
-    # yardstick only: cuDNN's tanh RNN with W_ih = I and zero biases is the
-    # same function of xin; the port never calls it
+def rnn_work(B, T, H):
+    """Compulsory bytes (xin, W_hh in; the hidden states out) and operations
+    (a product and the add and tanh per entry) of K1."""
+    return 4 * (2 * B * T * H + H * H), B * T * H * (2 * H + 2)
+
+
+def cudnn_rnn(w, H, dev):
+    """Yardstick only, never called by the port: cuDNN's tanh RNN with
+    W_ih = I and zero biases is the same function of xin."""
     rnn = torch.nn.RNN(H, H, nonlinearity="tanh", batch_first=True).to(dev)
     with torch.no_grad():
         rnn.weight_ih_l0.copy_(torch.eye(H, device=dev))
         rnn.weight_hh_l0.copy_(w.T)
         rnn.bias_ih_l0.zero_()
         rnn.bias_hh_l0.zero_()
-        lib_err = max_err(rnn(xin)[0], FR.fused_rnn_plain(xin, w))
-        if not lib_err <= TOL:
-            raise AssertionError(f"cuDNN yardstick disagrees: {lib_err:.3g}")
-        times = timings(lambda: FR.fused_rnn(xin, w, impl="kernel"),
-                        lambda: FR.fused_rnn_plain(xin, w),
-                        lambda: rnn(xin))
-    nbytes = 4 * (2 * T * H + H * H)
-    ops = T * H * (2 * H + 2)
-    b_ms, b_by = bound(nbytes, ops)
+    return rnn
+
+
+def check_fused_rnn(dev, gen):
+    """K1 against its plain version at RNN_CHECKED_B (two calls bit-equal),
+    timed at RNN_TIMED_B beside cuDNN; the entry's own numbers are B 1's,
+    the other Bs are its variants."""
+    from tip_tpu_torch.ops import fused_rnn as FR
+    H, T = 512, 40
+    w = ((torch.rand(H, H, generator=gen, device=dev) * 2 - 1)
+         / math.sqrt(H))
+    errs = {}
+    for B in RNN_CHECKED_B:
+        xin = torch.randn(B, T, H, generator=gen, device=dev) * 0.5
+        out = FR.fused_rnn(xin, w, impl="kernel")
+        if not torch.equal(out, FR.fused_rnn(xin, w, impl="kernel")):
+            raise AssertionError(f"fused_rnn B {B}: two calls differ")
+        errs[f"B{B}"] = (max_err(out, FR.fused_rnn_plain(xin, w)), TOL)
+    err = check("fused_rnn", errs)
+    rnn = cudnn_rnn(w, H, dev)
+    variants = []
+    for B in RNN_TIMED_B:
+        xin = torch.randn(B, T, H, generator=gen, device=dev) * 0.5
+        with torch.no_grad():
+            lib_err = max_err(rnn(xin)[0], FR.fused_rnn_plain(xin, w))
+            if not lib_err <= TOL:
+                raise AssertionError(f"cuDNN yardstick disagrees at B {B}: "
+                                     f"{lib_err:.3g}")
+            times = timings(lambda: FR.fused_rnn(xin, w, impl="kernel"),
+                            lambda: FR.fused_rnn_plain(xin, w),
+                            lambda: rnn(xin))
+        b_ms, b_by = bound(*rnn_work(B, T, H))
+        variants.append(dict(
+            B=B, bound_ms=b_ms, bound_by=b_by,
+            plan=dataclasses.asdict(FR.fused_rnn_plan(B, H)), **times))
+        log(f"  fused_rnn B {B}: device {times['ms']:.4f} ms, cuDNN "
+            f"{times['library_ms']:.4f}, plain {times['plain_ms']:.4f}, "
+            f"bound {b_ms:.2e} ({b_by})")
+    own = {k: v for k, v in variants[0].items() if k != "B"}
     return dict(name="fused_rnn", route="cuda",
                 source="tip_tpu_torch/csrc/fused_rnn.cu",
                 replaces="tip_tpu/ops/pallas_kernels.py:67",
-                shape=[1, T, H], max_abs_err=err, tol=TOL, bound_ms=b_ms,
-                bound_by=b_by, **times)
+                shape=[1, T, H], max_abs_err=err, tol=TOL,
+                library="cuDNN torch.nn.RNN (tanh)", **own,
+                variants=variants[1:])
 
 
 def check_decode_fused(dev, gen):
@@ -1712,6 +1764,8 @@ def check_encoder_train(dev, gen, model):
         y = ET.encoder_layer_fwd(x, ws, seed, nh, p, True, bt, impl="kernel")
         y2 = ET.encoder_layer_fwd(x, ws, seed, nh, p, True, bt,
                                   impl="kernel")
+        # the same forward on K12's tensor-core products
+        y_mma = ET.encoder_layer_fwd_mma(x, ws, seed, nh, p, True, bt)
         dx, dws = ET.encoder_layer_bwd(x, ws_b, seed, dy, nh, p, True, bt,
                                        impl="kernel")
         dx2, dws2 = ET.encoder_layer_bwd(x, ws_b, seed, dy, nh, p, True, bt,
@@ -1723,6 +1777,8 @@ def check_encoder_train(dev, gen, model):
         rdx, rdws = ET.encoder_layer_bwd_plain(x, ws_b, seed, dy, nh, p,
                                                True, bt)
         e_fwd[name] = (rel_err(y, yr), TOL_TRAIN_K["encoder_layer_fwd"])
+        e_fwd[f"{name}.mma"] = (rel_err(y_mma, yr),
+                                TOL_TRAIN_K["encoder_layer_fwd"])
         e_bwd[f"{name}.dx"] = (rel_err(dx, rdx),
                                TOL_TRAIN_K["encoder_layer_bwd"])
         for wn, a, b in zip(ET.WEIGHT_NAMES, dws, rdws):
@@ -1772,13 +1828,28 @@ def check_encoder_train(dev, gen, model):
             lambda: ET.encoder_layer_bwd_plain(x, ws_k12, seed, dy, nh, p,
                                                True, 8),
             lib_b, light=True)
+        if p == p_layer:
+            t_b["by_kernel"] = kernel_breakdown(
+                lambda: ET.encoder_layer_bwd(x, ws_k12, seed, dy, nh, p,
+                                             True, 8, impl="kernel"))
+            log(f"  K12 by kernel, p {p}: {json.dumps(t_b['by_kernel'])}")
+        # K11's forward on K12's GEMM, beside K11's own
+        t_f["mma_forward_ms"] = graph_ms(
+            lambda: ET.encoder_layer_fwd_mma(x, ws_full, seed, nh, p, True,
+                                             8), per_graph=5, replays=10)
+        log(f"  encoder layer p {p}: K11 {t_f['ms']:.4f} ms (CUDA-core "
+            f"GEMM), the same forward on the tensor-core GEMM "
+            f"{t_f['mma_forward_ms']:.4f} ms; K12 {t_b['ms']:.4f} ms; "
+            f"library fwd {t_f['library_ms']}, fwd+bwd {t_b['library_ms']}")
         out[p] = (t_f, t_b)
     d, ff = cfg.tf_in_dim, cfg.tf_hid_size
     entries = []
     for name, backward, err, src_line in (
             ("encoder_layer_fwd", False, err_f, 290),
             ("encoder_layer_bwd", True, err_b, 327)):
-        b_ms, b_by = bound(*encoder_layer_work(256, 40, d, ff, nh, backward))
+        work = encoder_layer_work(256, 40, d, ff, nh, backward)
+        b_ms, b_by = bound(*work)
+        b3_ms, b3_by = bound(*work, peak_flop_s=PEAK_3XTF32_FLOP_S)
         t_main, t_p0 = out[p_layer][backward], out[0.0][backward]
         entries.append(dict(
             name=name, route="cuda",
@@ -1786,9 +1857,11 @@ def check_encoder_train(dev, gen, model):
             replaces=f"tip_tpu/ops/pallas_encoder.py:{src_line}",
             shape=[256, 40, d], p=p_layer, max_abs_err=err,
             tol=TOL_TRAIN_K[name], err_is="relative to the largest entry",
-            bound_ms=b_ms, bound_by=b_by, **t_main,
+            bound_ms=b_ms, bound_by=b_by, bound_3xtf32_ms=b3_ms,
+            bound_3xtf32_by=b3_by, **t_main,
             at_p0={k: t_p0[k] for k in ("ms", "call_ms", "plain_ms",
-                                         "library_ms", "library_call_ms")},
+                                         "library_ms", "library_call_ms",
+                                         "mma_forward_ms") if k in t_p0},
             library="torch.nn.TransformerEncoderLayer (p = 0 only)"
                     + (", its autograd backward" if backward else "")))
     return entries
@@ -1946,6 +2019,60 @@ def check_l_against_f64(state, cfg, ds, dev):
     return dict(draws=rows, clean=clean)
 
 
+def check_trained_model_serves(model, dev):
+    """Fault C1 repaired: path L's restored model, whose parameters require
+    grad, runs the warm-up and one model frame of paths A and F outside
+    torch.no_grad(), through K1 (A) and K2, K3 (A, F), and gives the frames
+    of the same weights with requires_grad(False)."""
+    import copy
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.ops import kinematics as kin
+    from tip_tpu_torch.runtime import runner as R
+    if not (torch.is_grad_enabled()
+            and all(p.requires_grad for p in model.parameters())):
+        raise AssertionError("C1: the restored model should require grad")
+    frozen = copy.deepcopy(model).requires_grad_(False)
+    imu, s_init = load_motion()
+    skel = kin.amass_skeleton(device=dev)
+    out = {}
+    for name, cfg, on in (
+            ("A", R.RunnerConfig(), ("fused_rnn", "decode_fused",
+                                     "tail_fused")),
+            ("F", R.RunnerConfig(serving_mode="kv_cache"),
+             ("decode_fused", "tail_fused"))):
+        if model.cfg != cfg.model:
+            raise AssertionError(f"C1: path {name}'s model config differs")
+        frames = torch.as_tensor(imu[:cfg.imu_n_smooth + 1],
+                                 dtype=torch.float32, device=dev)
+        runs = []
+        for m in (model, frozen):
+            carry = R.runner_init(cfg, skel, s_init, device=dev)
+            K.reset_launch_counts()
+            rows = []
+            for t in range(frames.shape[0]):
+                carry, o = R.runner_step(m, carry, frames[t], cfg, skel)
+                rows.append(torch.cat([o["qdq"], o["ct"],
+                                       o["viz_locs"].reshape(-1)]))
+            torch.cuda.synchronize()
+            runs.append((torch.stack(rows), {k: v for k, v in
+                                             K.launch_counts.items() if v}))
+        (a, launches), (b, _) = runs
+        if launches != {k: 1 for k in on}:
+            raise AssertionError(f"C1 path {name}: launches {launches}, "
+                                 f"expected one of each of {on}")
+        if a.requires_grad or not torch.isfinite(a).all():
+            raise AssertionError(f"C1 path {name}: the frames require grad "
+                                 f"or are not finite")
+        err = max_err(a, b)
+        if not err <= TOL_PATH:
+            raise AssertionError(f"C1 path {name}: {err:.3g} from the "
+                                 f"detached model's frames")
+        out[name] = dict(launches=launches, max_abs_err=err)
+    log(f"  C1: path L's restored model serves paths A and F outside "
+        f"no_grad: {out}")
+    return out
+
+
 def training_paths(dev):
     """Path L: one epoch of train_loop at the paper recipe, full width, on
     the packed in-tree motions, with the kernels K1, K10, K11, K12; a
@@ -2007,6 +2134,7 @@ def training_paths(dev):
                              f"otherwise: {a} vs {b}")
     log(f"  path L checkpoint: written and restored bit-equal, the next "
         f"step equal ({a['loss']:.6f})")
+    c1 = check_trained_model_serves(back.model, dev)
     del back
     K.reset_launch_counts()
     summary = time_train_steps(state, cfg, batches)
@@ -2014,7 +2142,7 @@ def training_paths(dev):
         k: v / (TRAIN_WARMUP + TRAIN_TIMED + TRAIN_PROFILED)
         for k, v in K.launch_counts.items() if v}
     summary.update(path="L", steps_in_epoch=steps, epoch_s=wall,
-                   loss_first10=first, loss_last10=last)
+                   loss_first10=first, loss_last10=last, c1=c1)
     log(json.dumps({"train": summary}))
     summary["f64"] = check_l_against_f64(state, cfg, ds, dev)
     del state

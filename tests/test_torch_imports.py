@@ -1,5 +1,5 @@
-"""The port stands alone: no module of tip_tpu_torch, and not chip_smoke.py,
-imports JAX, Flax or tip_tpu; and its entry points run on CUDA unless the
+"""The port stands alone: no module of tip_tpu_torch, and not chip_smoke.py
+or scripts/torch_k12_variants.py, imports JAX, Flax or tip_tpu; and its entry points run on CUDA unless the
 caller asks for the CPU."""
 
 import ast
@@ -20,7 +20,7 @@ from tip_tpu_torch.cli import train as TCT
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "tip_tpu")
 PORT_FILES = sorted((ROOT / "tip_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_k12_variants.py"]
 
 
 def _imported_roots(path):

@@ -47,6 +47,30 @@ def test_fused_rnn_plain_matches_pallas():
     np.testing.assert_array_equal(t_auto.numpy(), t.numpy())
 
 
+@pytest.mark.parametrize("B", [1, 3, 8, 17, 64, 256, 1000])
+def test_fused_rnn_plan_fits_and_covers_every_row(B):
+    """K1's launch plan at the model's H 512: W_hh's slice and two h
+    buffers fit in a block's shared memory, the clusters' tiles cover every
+    batch row once, and B 256 fills at most the H100's 132 SMs."""
+    plan = TFR.fused_rnn_plan(B, 512)
+    assert plan.smem_bytes <= 232448
+    assert plan.cluster * plan.cols == 512
+    tiles = [range(i * plan.batch_tile, min(B, (i + 1) * plan.batch_tile))
+             for i in range(plan.clusters)]
+    assert [r for rows in tiles for r in rows] == list(range(B))
+    assert all(len(rows) > 0 for rows in tiles)
+    if B <= 256:
+        assert plan.cluster * plan.clusters <= 132
+    if B == 1:
+        assert plan.clusters == 1
+
+
+@pytest.mark.parametrize("H", [1024, 2048, 24, 100])
+def test_fused_rnn_plan_raises_where_the_slice_cannot_fit(H):
+    with pytest.raises(ValueError, match="fused_rnn"):
+        TFR.fused_rnn_plan(1, H)
+
+
 def _decode_inputs(rng, dtype):
     D, nf = 131, 6
     y_t = rng.normal(size=D).astype(dtype)

@@ -1,0 +1,136 @@
+"""What grounds K12's tolerance on the card now that its products run on
+the tensor cores in 3xTF32 (csrc/train_mma.cuh).
+
+chip_smoke.py holds K12 against ``encoder_layer_bwd_plain`` within
+``TOL_TRAIN_K["encoder_layer_bwd"]`` (1e-3 of each output's largest
+entry). Here, on the CPU, the plain backward runs in float32 with its 2-D
+products (the ones K12 takes to the tensor cores; attention's batched
+products stay f32 on the CUDA cores) replaced by an emulation of TF32
+products, summed in f32. Two 3xTF32 splits are emulated: the kernel's
+(the high part is x with its 13 low mantissa bits cleared, the residual
+x - hi is read by the tensor cores, which ignore its 13 low bits) and the
+one with both parts rounded as ``cvt.rna.tf32.f32`` rounds (10 explicit
+mantissa bits, to nearest, ties away from zero). Against the float64
+plain version the kernel's split stays within 3x the plain f32 version's
+error (1.0-1.7e-6 of the largest entry against 4-8e-7), the rounded one
+within 2x (5-7e-7), both more than 300x inside the tolerance; one TF32
+product (rounded as cvt.rna) does not: on chip_smoke.py's small case it
+misses the tolerance by more than 5x (7.1e-3), and on a wider case it
+lands within 2x of it (5-6e-4) with 300x the 3xTF32 error.
+"""
+
+import numpy as np
+import pytest
+import torch
+from torch.overrides import TorchFunctionMode
+
+from chip_smoke import TOL_TRAIN_K
+from tip_tpu_torch.models import tip_model as TM
+from tip_tpu_torch.ops import encoder_train as ET
+
+torch.set_num_threads(1)
+
+TOL = TOL_TRAIN_K["encoder_layer_bwd"]
+SEED = -5
+# name: (d, ff, heads, B, T, p, ff1 bias shift); the shift of 2 centres the
+# ff1 pre-activations away from the ReLU kink, as chip_smoke.py's
+# full-width check does
+CASES = {"small_2tiles": (32, 64, 4, 16, 10, 0.1, 0.0),
+         "wide_shifted": (64, 256, 4, 8, 40, 0.1, 2.0)}
+
+
+def tf32(x):
+    """Round float32 to TF32 as cvt.rna.tf32.f32: add half of the 13
+    dropped bits' unit to the magnitude and drop them (ties away)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_cut(x):
+    """The TF32 value the tensor cores read from a float32 register: the
+    13 low mantissa bits dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def one_tf32(a, b):
+    return tf32(a) @ tf32(b)
+
+
+def three_tf32(a, b, rnd):
+    a_hi, b_hi = rnd(a), rnd(b)
+    a_lo, b_lo = rnd(a - a_hi), rnd(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+SPLITS = {"kernel": lambda a, b: three_tf32(a, b, tf32_cut),
+          "rna": lambda a, b: three_tf32(a, b, tf32)}
+# each split's error at most this many times the plain f32 version's
+F32_FACTOR = {"kernel": 3.0, "rna": 2.0}
+
+
+class Products(TorchFunctionMode):
+    """Every product of two matrices through ``fn``."""
+
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if (func in (torch.matmul, torch.Tensor.matmul,
+                     torch.Tensor.__matmul__)
+                and args[0].dim() == 2 and args[1].dim() == 2):
+            return self.fn(*args)
+        return func(*args, **(kwargs or {}))
+
+
+def _worst(name, fn):
+    """The largest error, relative to each output's largest entry, of the
+    f32 backward with products ``fn`` (None: plain f32) against f64."""
+    d, ff, nh, B, T, p, shift = CASES[name]
+    model = TM.TIPModel(TM.ModelConfig(tf_in_dim=d, tf_hid_size=ff,
+                                       n_heads=nh, tf_layers=1,
+                                       rnn_hid_size=32), device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    ws = list(ET.pack_layer_weights(dict(model.named_parameters()),
+                                    "layers.0."))
+    ws[5] = ws[5] + shift
+    ws = tuple(w.detach() for w in ws)
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(size=(B, T, d)), dtype=torch.float32)
+    dy = torch.as_tensor(rng.normal(size=(B, T, d)), dtype=torch.float32)
+    ref = ET.encoder_layer_bwd_plain(x.double(), tuple(w.double() for w in ws),
+                                     SEED, dy.double(), nh, p, True)
+    if fn is None:
+        out = ET.encoder_layer_bwd_plain(x, ws, SEED, dy, nh, p, True)
+    else:
+        with Products(fn):
+            out = ET.encoder_layer_bwd_plain(x, ws, SEED, dy, nh, p, True)
+    pairs = [(out[0], ref[0])] + list(zip(out[1], ref[1]))
+    return max(((a.double() - b).abs().max() / b.abs().max()).item()
+               for a, b in pairs)
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -11 - 2.0 ** -20],
+                     dtype=torch.float32)
+    want = [1.0 + 2.0 ** -10, 1.0 + 2 * 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0]
+    assert tf32(x).tolist() == want
+    assert tf32_cut(x).tolist() == [1.0, 1.0 + 2.0 ** -10, -1.0, 1.0]
+
+
+@pytest.mark.parametrize("split", sorted(SPLITS))
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_3xtf32_products_hold_k12_within_its_tolerance(name, split):
+    err_3x = _worst(name, SPLITS[split])
+    err_f32 = _worst(name, None)
+    err_1x = _worst(name, one_tf32)
+    assert err_3x <= TOL / 300, (err_3x, err_f32)
+    assert err_3x <= F32_FACTOR[split] * err_f32, (err_3x, err_f32)
+    # one TF32 product: at least 300x the error, and no headroom
+    assert err_1x >= 300 * err_3x and err_1x >= TOL / 2, (err_1x, err_3x)
+
+
+def test_one_tf32_product_misses_k12s_tolerance():
+    err_1x = _worst("small_2tiles", one_tf32)
+    assert err_1x > 5 * TOL, err_1x

@@ -9,7 +9,8 @@ Paper run, on the card (pack the blobs first, cli/combine_data.py):
 The port trains tip_tpu's kernel configuration (``--dropout_impl hash
 --rnn_impl pallas --encoder_impl pallas``, here the defaults) in float32,
 on ``cuda`` unless ``--device cpu`` is given; the windows are always
-gathered on the device. What it does not port raises: more than one model
+gathered on the device, so ``--device_data`` is accepted and changes
+nothing. What it does not port raises: more than one model
 shard, ``--bf16``, ``--dropout_rng rbg``, ``--dropout_impl rng``,
 ``--encoder_impl xla`` (ROADMAP.md, queue A, training).
 """
@@ -57,6 +58,9 @@ def main(argv=None):
     ap.add_argument("--warm_start", default=None,
                     help="checkpoint dir of this package or reference .pt: "
                          "load weights only")
+    ap.add_argument("--device_data", action="store_true",
+                    help="accepted for tip_tpu's command lines; the port "
+                         "always gathers the windows on the device")
     ap.add_argument("--metrics", default=None,
                     help="structured jsonl training log (default: "
                          "<save_path>/metrics.jsonl)")

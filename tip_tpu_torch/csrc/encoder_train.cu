@@ -21,26 +21,32 @@
 // the same values, since exp(-1e30 - m) is exactly 0.
 //
 // What bounds them on the H100: at B = 256, T = 40, d 256, 16 heads, ff 1024
-// the forward is 16.5 GFLOP (0.25 ms at 67 TFLOP/s f32) against ~21 MB of
-// compulsory bytes: operations. The backward is 33 GFLOP; K12 recomputes
-// the forward first, as the TPU kernel does, 50 GFLOP (0.74 ms).
+// the forward is 16.5 GFLOP (0.25 ms at 67 TFLOP/s f32 on the CUDA cores,
+// 0.10 ms at 165 TFLOP/s, the tensor cores' TF32 rate over the three
+// products of 3xTF32) against ~21 MB of compulsory bytes: operations. The
+// backward is 33 GFLOP; K12 recomputes the forward first, as the TPU kernel
+// does, 50 GFLOP (0.74 ms f32, 0.30 ms 3xTF32).
 //
-// Design, simple first: each entry point is a sequence of launches. The
-// products are train_gemm.cuh's tiled f32 GEMM with fused epilogues (bias,
-// ReLU + mask, dReLU + mask, residual add); the residual + mask + LayerNorm
-// and its backward are one warp per row; attention and its backward one
-// block per (sample, head) with q, k, v, the 40x40 probabilities and the
-// masks in shared memory. Weight and bias gradients are reductions over
-// all N rows, split into partial sums added in a fixed order: no float
-// atomics, two calls give the same bits. Activations live in a scratch
-// buffer the wrapper allocates (encoder_layer_scratch floats: ~190 MB for
-// the forward, ~330 MB with the backward, at the training shape); nothing
-// is kept between K11 and K12.
+// Design: each entry point is a sequence of launches. K11's products are
+// train_gemm.cuh's tiled f32 GEMM on the CUDA cores; K12's (its recomputed
+// forward and its backward) train_mma.cuh's 3xTF32 GEMM on the tensor
+// cores, which keeps about f32 accuracy. Both fuse the same epilogues
+// (bias, ReLU + mask, dReLU + mask, residual add); forward() takes the
+// GEMM as a template parameter. The residual + mask + LayerNorm and its
+// backward are one warp per row; attention and its backward one block per
+// (sample, head) with q, k, v, the 40x40 probabilities and the masks in
+// shared memory. Weight and bias gradients are reductions over all N rows,
+// split into partial sums added in a fixed order: no float atomics, two
+// calls give the same bits. Activations live in a scratch buffer the
+// wrapper allocates (encoder_layer_scratch floats: ~190 MB for the
+// forward, ~330 MB with the backward, at the training shape); nothing is
+// kept between K11 and K12. No shared-memory attribute is set per call.
 
 #include <cuda_runtime.h>
 
 #include "hashmask.cuh"
 #include "train_gemm.cuh"
+#include "train_mma.cuh"
 
 namespace {
 
@@ -49,6 +55,7 @@ constexpr int kSitePostAttn = 100;
 constexpr int kSiteFfMid = 101;
 constexpr int kSitePostFf = 102;
 constexpr int kMaxD = 1024;    // row kernels hold a row in registers
+constexpr size_t kMaxSmem = 232448;   // dynamic shared memory of a block
 
 struct Weights {
   const float *wqkv, *bqkv, *wo, *bo, *wf1, *bf1, *wf2, *bf2, *g1, *be1, *g2,
@@ -243,75 +250,200 @@ __global__ void attn_fwd_kernel(const float* __restrict__ qkv,
   }
 }
 
+// Shared memory of K12's attention backward for one (sample, head): q, k,
+// v, dO at a row stride of hd + 4 (rows 16-byte aligned; a quarter warp's
+// float4 loads of 8 rows hit 32 banks), then P, P * M and dS at T + 1.
+__host__ __device__ inline int attn_bwd_ld(int hd) { return hd + 4; }
+inline size_t attn_bwd_smem(int T, int hd) {
+  return (4 * static_cast<size_t>(T) * attn_bwd_ld(hd) +
+          3 * static_cast<size_t>(T) * (T + 1)) * sizeof(float);
+}
+
+__device__ __forceinline__ float dot4(const float4 a, const float4 b,
+                                      float s) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, s))));
+}
+
+__device__ __forceinline__ void axpy4(float w, const float4 x, float4& a) {
+  a.x = fmaf(w, x.x, a.x);
+  a.y = fmaf(w, x.y, a.y);
+  a.z = fmaf(w, x.z, a.z);
+  a.w = fmaf(w, x.w, a.w);
+}
+
+// K12's attention backward, a block per (sample, head), the sums in the
+// order of the forward's attn_probs and of the first version of this
+// kernel. A warp per row i recomputes the row's probabilities P and keep
+// values M, then dP = (dO v^T) * M and dS = P (dP - rowsum(dP P)), a lane
+// per column j: no block barrier falls between the phases of a row. Then a
+// thread per 4 columns of one row of dq, dk or dv sums over the other
+// axis with float4 reads (4 multiply-adds a scalar read, where a thread
+// per column had 1 per 2).
 __global__ void attn_bwd_kernel(const float* __restrict__ qkv,
                                 const float* __restrict__ datt,
                                 float* __restrict__ dqkv, Dims D, float scale,
                                 hm::Drop drop) {
-  extern __shared__ float sh[];
-  const int T = D.T, d = D.d, hd = d / D.nh, ld = hd + 1;
+  extern __shared__ float4 sh4[];
+  const int T = D.T, d = D.d, hd = d / D.nh, ld = attn_bwd_ld(hd);
+  const int tp = T + 1, q4 = hd / 4, ld4 = ld / 4;
   const int b = blockIdx.x / D.nh, h = blockIdx.x % D.nh;
-  float* q = sh;
-  float* k = q + T * ld;
-  float* v = k + T * ld;
-  float* dO = v + T * ld;
-  float* P = dO + T * ld;
-  float* M = P + T * T;
-  float* dS = M + T * T;
+  float* sq = reinterpret_cast<float*>(sh4);   // q, k, v, dO: (T, ld) each
+  float* P = sq + 4 * T * ld;                   // (T, tp) each
+  float* PM = P + T * tp;
+  float* dS = PM + T * tp;
   drop.site = kSiteAttn + h;
-  for (int e = threadIdx.x; e < T * hd; e += blockDim.x) {
-    const int t = e / hd, c = e % hd;
-    dO[t * ld + c] = datt[(static_cast<size_t>(b) * T + t) * d + h * hd + c];
-  }
-  attn_probs(qkv, b, h, D, scale, drop, q, k, v, P, M);   // syncs
-  // dp = (dO v^T) * M on the causal entries
-  for (int e = threadIdx.x; e < T * T; e += blockDim.x) {
-    const int i = e / T, j = e % T;
-    float s = 0.0f;
-    if (j <= i) {
-      for (int c = 0; c < hd; ++c) s = fmaf(dO[i * ld + c], v[j * ld + c], s);
-      s = s * M[e];
-    }
-    dS[e] = s;
+  const size_t d3 = 3 * static_cast<size_t>(d);
+  for (int e = threadIdx.x; e < 4 * T * q4; e += blockDim.x) {
+    const int which = e / (T * q4), r = e % (T * q4);
+    const int t = r / q4, c = 4 * (r % q4);
+    const size_t row = static_cast<size_t>(b) * T + t;
+    const float* src = which < 3 ? qkv + row * d3 + which * d + h * hd + c
+                                 : datt + row * d + h * hd + c;
+    *reinterpret_cast<float4*>(sq + (which * T + t) * ld + c) =
+        *reinterpret_cast<const float4*>(src);
   }
   __syncthreads();
-  // dS = P (dp - rowsum(dp P))
+  const float4* q = reinterpret_cast<const float4*>(sq);
+  const float4* k = q + T * ld4;
+  const float4* v = k + T * ld4;
+  const float4* dO = v + T * ld4;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int i = warp; i < T; i += blockDim.x / 32) {
-    float s = 0.0f;
-    for (int j = lane; j <= i; j += 32) s += dS[i * T + j] * P[i * T + j];
-    s = warp_sum(s);
-    for (int j = lane; j <= i; j += 32)
-      dS[i * T + j] = P[i * T + j] * (dS[i * T + j] - s);
+    const float4* qi = q + i * ld4;
+    const float4* oi = dO + i * ld4;
+    float* Pi = P + i * tp;
+    float* PMi = PM + i * tp;
+    float* dSi = dS + i * tp;
+    float mx = __int_as_float(0xff800000);   // -inf
+    for (int j = lane; j <= i; j += 32) {
+      float s = 0.0f;
+      for (int c = 0; c < q4; ++c) s = dot4(qi[c], k[j * ld4 + c], s);
+      s = s * scale;
+      Pi[j] = s;
+      mx = fmaxf(mx, s);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float sum = 0.0f;
+    for (int j = lane; j <= i; j += 32) {
+      const float e = expf(Pi[j] - mx);
+      Pi[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    float rs = 0.0f;
+    for (int j = lane; j <= i; j += 32) {
+      const float p = Pi[j] / sum;
+      float m = 1.0f;
+      if (drop.on) {
+        // index over the tile's (tile_rows, tile_rows) score matrix
+        const int gi = b * T + i;
+        const int tile = gi / drop.tile_rows;
+        const int ri = gi - tile * drop.tile_rows;
+        const int cj = b * T + j - tile * drop.tile_rows;
+        m = hm::keep(hm::tile_seed(drop.seed, tile), drop.site,
+                     static_cast<unsigned>(ri) *
+                             static_cast<unsigned>(drop.tile_rows) +
+                         static_cast<unsigned>(cj),
+                     drop.p_keep, drop.inv_keep);
+      }
+      float dp = 0.0f;
+      for (int c = 0; c < q4; ++c) dp = dot4(oi[c], v[j * ld4 + c], dp);
+      dp = dp * m;
+      Pi[j] = p;
+      PMi[j] = p * m;
+      dSi[j] = dp;
+      rs += dp * p;
+    }
+    rs = warp_sum(rs);
+    for (int j = lane; j < T; j += 32) {   // each lane its own columns
+      dSi[j] = j <= i ? Pi[j] * (dSi[j] - rs) : 0.0f;
+      if (j > i) PMi[j] = 0.0f;
+    }
   }
   __syncthreads();
-  const size_t d3 = 3 * static_cast<size_t>(d);
-  for (int e = threadIdx.x; e < T * hd; e += blockDim.x) {
-    const int t = e / hd, c = e % hd;
-    float dq = 0.0f, dk = 0.0f, dv = 0.0f;
-    for (int j = 0; j <= t; ++j) dq = fmaf(dS[t * T + j], k[j * ld + c], dq);
-    for (int i = t; i < T; ++i) {
-      dk = fmaf(dS[i * T + t], q[i * ld + c], dk);
-      dv = fmaf(P[i * T + t] * M[i * T + t], dO[i * ld + c], dv);
+  const int per = T * q4;   // float4s of one of dq, dk, dv
+  for (int e = threadIdx.x; e < 3 * per; e += blockDim.x) {
+    const int which = e / per, r = e % per;
+    const int t = r / q4, c = r % q4;
+    float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (which == 0) {          // dq_t = sum over j <= t of dS[t, j] k_j
+      for (int j = 0; j <= t; ++j) axpy4(dS[t * tp + j], k[j * ld4 + c], a);
+    } else if (which == 1) {   // dk_t = sum over i >= t of dS[i, t] q_i
+      for (int i = t; i < T; ++i) axpy4(dS[i * tp + t], q[i * ld4 + c], a);
+    } else {                   // dv_t = sum over i >= t of (P M)[i, t] dO_i
+      for (int i = t; i < T; ++i) axpy4(PM[i * tp + t], dO[i * ld4 + c], a);
     }
-    float* dst = dqkv + (static_cast<size_t>(b) * T + t) * d3 + h * hd + c;
-    dst[0] = dq * scale;
-    dst[d] = dk * scale;
-    dst[2 * d] = dv;
+    if (which < 2) {
+      a.x *= scale;
+      a.y *= scale;
+      a.z *= scale;
+      a.w *= scale;
+    }
+    *reinterpret_cast<float4*>(dqkv + (static_cast<size_t>(b) * T + t) * d3 +
+                               which * d + h * hd + 4 * c) = a;
   }
 }
 
+// The attention kernels' shared memory beyond the 48 KB a launch may take
+// without asking: the attribute is set only when a call needs more than
+// every call before it (the training shape needs 30 and 33 KB: never)
+cudaError_t smem_attr(const void* kernel, size_t smem, size_t* allowed) {
+  if (smem <= *allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e == cudaSuccess) *allowed = smem;
+  return e;
+}
+
+cudaError_t attn_fwd_smem_attr(size_t smem) {
+  static size_t allowed = 48 * 1024;
+  return smem_attr(reinterpret_cast<const void*>(attn_fwd_kernel), smem,
+                   &allowed);
+}
+
+cudaError_t attn_bwd_smem_attr(size_t smem) {
+  static size_t allowed = 48 * 1024;
+  return smem_attr(reinterpret_cast<const void*>(attn_bwd_kernel), smem,
+                   &allowed);
+}
+
+// the products of forward(): K11's on the CUDA cores, K12's on the tensor
+// cores
+struct SimtProducts {
+  template <bool TA, bool TB, int EPI>
+  static void gemm(const float* A, const float* B, float* C, int M, int N,
+                   int K, int lda, int ldb, tg::EpiArgs ep, cudaStream_t st) {
+    tg::gemm<TA, TB, EPI>(A, B, C, M, N, K, lda, ldb, ep, st);
+  }
+};
+
+struct MmaProducts {
+  template <bool TA, bool TB, int EPI>
+  static void gemm(const float* A, const float* B, float* C, int M, int N,
+                   int K, int lda, int ldb, tg::EpiArgs ep, cudaStream_t st) {
+    tf3::gemm<TA, TB, EPI>(A, B, C, M, N, K, lda, ldb, ep, st);
+  }
+};
+
+// n floats rounded up to 16 bytes: every carved array starts aligned, as
+// train_mma.cuh's copies need
+inline size_t up4(size_t n) { return (n + 3) / 4 * 4; }
+
 size_t fwd_floats(const Dims& D) {
   const size_t N = D.N;
-  return N * (9 * static_cast<size_t>(D.d) + 2 * D.ff + 2);
+  return N * (9 * static_cast<size_t>(D.d) + 2 * D.ff) + 2 * up4(N);
 }
 
 size_t part_floats(const Dims& D) {
   size_t p = 0;
   auto upd = [&p](size_t v) { if (v > p) p = v; };
-  upd(tg::wgrad_scratch(D.ff, D.d, D.N));
-  upd(tg::wgrad_scratch(D.d, D.ff, D.N));
-  upd(tg::wgrad_scratch(D.d, D.d, D.N));
-  upd(tg::wgrad_scratch(D.d, 3 * D.d, D.N));
+  upd(tf3::wgrad_scratch(D.ff, D.d, D.N));
+  upd(tf3::wgrad_scratch(D.d, D.ff, D.N));
+  upd(tf3::wgrad_scratch(D.d, D.d, D.N));
+  upd(tf3::wgrad_scratch(D.d, 3 * D.d, D.N));
   upd(tg::colsum_scratch(D.N, 3 * D.d));
   upd(tg::colsum_scratch(D.N, D.ff));
   return p;
@@ -330,11 +462,11 @@ Fwd carve_fwd(float* s, const Dims& D) {
   f.pre = s; s += N * d;
   f.y1 = s; s += N * d;
   f.xhat1 = s; s += N * d;
-  f.rs1 = s; s += N;
   f.f1 = s; s += N * ff;
   f.f1d = s; s += N * ff;
   f.pre2 = s; s += N * d;
   f.xhat2 = s; s += N * d;
+  f.rs1 = s; s += up4(N);
   f.rs2 = s;
   return f;
 }
@@ -361,36 +493,41 @@ hm::Drop site(const hm::Drop& base, int s) {
   return d;
 }
 
+template <class P>
 int forward(const float* x, const Weights& w, const Dims& D,
             const hm::Drop& drop, float* y, const Fwd& f, cudaStream_t st) {
-  using namespace tg;
+  using tg::EpiArgs;
+  using tg::E_BIAS;
+  using tg::E_BIAS_RELU_DROP;
   const int N = D.N, d = D.d, ff = D.ff;
   const float scale = 1.0f / sqrtf(static_cast<float>(d / D.nh));
   const int rows_per_block = 8;
   const int row_blocks = (N + rows_per_block - 1) / rows_per_block;
-  gemm<false, false, E_BIAS>(x, w.wqkv, f.qkv, N, 3 * d, d, d, 3 * d,
-                             EpiArgs{w.bqkv, nullptr, nullptr, drop}, st);
+  P::template gemm<false, false, E_BIAS>(
+      x, w.wqkv, f.qkv, N, 3 * d, d, d, 3 * d,
+      EpiArgs{w.bqkv, nullptr, nullptr, drop}, st);
   TG_CHECK();
   const size_t smem = attn_smem(D.T, d / D.nh);
-  cudaFuncSetAttribute(attn_fwd_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
+  const cudaError_t attr = attn_fwd_smem_attr(smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   attn_fwd_kernel<<<(N / D.T) * D.nh, 128, smem, st>>>(f.qkv, f.att, D, scale,
                                                        drop);
   TG_CHECK();
-  gemm<false, false, E_BIAS>(f.att, w.wo, f.pre, N, d, d, d, d,
-                             EpiArgs{w.bo, nullptr, nullptr, drop}, st);
+  P::template gemm<false, false, E_BIAS>(
+      f.att, w.wo, f.pre, N, d, d, d, d,
+      EpiArgs{w.bo, nullptr, nullptr, drop}, st);
   TG_CHECK();
   ln_fwd_rows<<<row_blocks, 32 * rows_per_block, 0, st>>>(
       f.pre, x, w.g1, w.be1, site(drop, kSitePostAttn), N, d, f.y1, f.xhat1,
       f.rs1);
   TG_CHECK();
-  gemm<false, false, E_BIAS_RELU_DROP>(
+  P::template gemm<false, false, E_BIAS_RELU_DROP>(
       f.y1, w.wf1, f.f1, N, ff, d, d, ff,
       EpiArgs{w.bf1, nullptr, f.f1d, site(drop, kSiteFfMid)}, st);
   TG_CHECK();
-  gemm<false, false, E_BIAS>(f.f1d, w.wf2, f.pre2, N, d, ff, ff, d,
-                             EpiArgs{w.bf2, nullptr, nullptr, drop}, st);
+  P::template gemm<false, false, E_BIAS>(
+      f.f1d, w.wf2, f.pre2, N, d, ff, ff, d,
+      EpiArgs{w.bf2, nullptr, nullptr, drop}, st);
   TG_CHECK();
   ln_fwd_rows<<<row_blocks, 32 * rows_per_block, 0, st>>>(
       f.pre2, f.y1, w.g2, w.be2, site(drop, kSitePostFf), N, d, y, f.xhat2,
@@ -409,7 +546,32 @@ Weights weights_of(const void* const* ws) {
 bool dims_ok(int B, int T, int d, int ff, int nh, int bt) {
   return B > 0 && T > 0 && d > 0 && d <= kMaxD && ff > 0 && nh > 0 &&
          d % nh == 0 && bt > 0 && B % bt == 0 &&
-         attn_smem(T, d / nh) <= 227 * 1024;
+         attn_smem(T, d / nh) <= kMaxSmem;
+}
+
+// K12 reads 16 bytes at a time (train_mma.cuh's copies along a row, the
+// attention backward's head rows): d, ff and the head width multiples of
+// 4, and the attention backward's shared memory within a block's
+bool bwd_dims_ok(int T, int d, int ff, int nh) {
+  return d % 4 == 0 && ff % 4 == 0 && (d / nh) % 4 == 0 &&
+         attn_bwd_smem(T, d / nh) <= kMaxSmem;
+}
+
+int fwd_launch(bool mma, const void* x, const void* const* ws, void* y,
+               void* scratch, int B, int T, int d, int ff, int nh, int bt,
+               int seed, float p_keep, float inv_keep, int use_drop,
+               void* stream) {
+  // train_mma.cuh copies 16 bytes along a row
+  if (!dims_ok(B, T, d, ff, nh, bt) || (mma && (d % 4 || ff % 4)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Dims D{B * T, T, d, ff, nh, bt * T};
+  const hm::Drop drop{use_drop, seed, 0, bt * T, p_keep, inv_keep};
+  const Fwd f = carve_fwd(static_cast<float*>(scratch), D);
+  const float* xf = static_cast<const float*>(x);
+  float* yf = static_cast<float*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return mma ? forward<MmaProducts>(xf, weights_of(ws), D, drop, yf, f, st)
+             : forward<SimtProducts>(xf, weights_of(ws), D, drop, yf, f, st);
 }
 
 }  // namespace
@@ -423,18 +585,25 @@ extern "C" int encoder_layer_scratch(int N, int d, int ff, int bwd,
   return 0;
 }
 
+// K11: the forward on train_gemm.cuh's products
 extern "C" int encoder_layer_fwd_launch(const void* x, const void* const* ws,
                                         void* y, void* scratch, int B, int T,
                                         int d, int ff, int nh, int bt,
                                         int seed, float p_keep,
                                         float inv_keep, int use_drop,
                                         void* stream) {
-  if (!dims_ok(B, T, d, ff, nh, bt)) return static_cast<int>(cudaErrorInvalidValue);
-  const Dims D{B * T, T, d, ff, nh, bt * T};
-  const hm::Drop drop{use_drop, seed, 0, bt * T, p_keep, inv_keep};
-  const Fwd f = carve_fwd(static_cast<float*>(scratch), D);
-  return forward(static_cast<const float*>(x), weights_of(ws), D, drop,
-                 static_cast<float*>(y), f, static_cast<cudaStream_t>(stream));
+  return fwd_launch(false, x, ws, y, scratch, B, T, d, ff, nh, bt, seed,
+                    p_keep, inv_keep, use_drop, stream);
+}
+
+// The same forward on train_mma.cuh's products, as K12 recomputes it: no
+// path launches it; it is timed beside K11
+extern "C" int encoder_layer_fwd_mma_launch(
+    const void* x, const void* const* ws, void* y, void* scratch, int B,
+    int T, int d, int ff, int nh, int bt, int seed, float p_keep,
+    float inv_keep, int use_drop, void* stream) {
+  return fwd_launch(true, x, ws, y, scratch, B, T, d, ff, nh, bt, seed,
+                    p_keep, inv_keep, use_drop, stream);
 }
 
 // grads: the 12 gradients in the order of the weights, f32
@@ -445,8 +614,14 @@ extern "C" int encoder_layer_bwd_launch(const void* x, const void* dy_v,
                                         int bt, int seed, float p_keep,
                                         float inv_keep, int use_drop,
                                         void* stream) {
-  using namespace tg;
-  if (!dims_ok(B, T, d, ff, nh, bt)) return static_cast<int>(cudaErrorInvalidValue);
+  using tg::colsum;
+  using tg::EpiArgs;
+  using tg::E_ADD;
+  using tg::E_DRELU_DROP;
+  using tg::E_STORE;
+  using tf3::wgrad;
+  if (!dims_ok(B, T, d, ff, nh, bt) || !bwd_dims_ok(T, d, ff, nh))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims D{B * T, T, d, ff, nh, bt * T};
   const int N = D.N;
@@ -467,7 +642,7 @@ extern "C" int encoder_layer_bwd_launch(const void* x, const void* dy_v,
   const int rows_per_block = 8;
   const int row_blocks = (N + rows_per_block - 1) / rows_per_block;
 
-  const int err = forward(xf, w, D, drop, g.y, f, st);
+  const int err = forward<MmaProducts>(xf, w, D, drop, g.y, f, st);
   if (err) return err;
 
   // LN2, then the post-FF mask
@@ -482,7 +657,7 @@ extern "C" int encoder_layer_bwd_launch(const void* x, const void* dy_v,
   colsum(g.df2, nullptr, dbf2, N, d, g.part, st);
   TG_CHECK();
   // dh1 = (df2 W2^T) * mask_101 * (f1 > 0)
-  gemm<false, true, E_DRELU_DROP>(
+  tf3::gemm<false, true, E_DRELU_DROP>(
       g.df2, w.wf2, g.dh1, N, ff, d, d, d,
       EpiArgs{nullptr, f.f1, nullptr, site(drop, kSiteFfMid)}, st);
   TG_CHECK();
@@ -490,8 +665,8 @@ extern "C" int encoder_layer_bwd_launch(const void* x, const void* dy_v,
   colsum(g.dh1, nullptr, dbf1, N, ff, g.part, st);
   TG_CHECK();
   // dy1 = dr2 + dh1 W1^T; LN1; the post-attention mask
-  gemm<false, true, E_ADD>(g.dh1, w.wf1, g.dy1, N, d, ff, ff, ff,
-                           EpiArgs{nullptr, g.dr2, nullptr, drop}, st);
+  tf3::gemm<false, true, E_ADD>(g.dh1, w.wf1, g.dy1, N, d, ff, ff, ff,
+                                EpiArgs{nullptr, g.dr2, nullptr, drop}, st);
   TG_CHECK();
   ln_bwd_rows<<<row_blocks, 32 * rows_per_block, 0, st>>>(
       g.dy1, f.xhat1, f.rs1, w.g1, site(drop, kSitePostAttn), N, d, g.dr1,
@@ -503,22 +678,22 @@ extern "C" int encoder_layer_bwd_launch(const void* x, const void* dy_v,
   // out projection
   wgrad(f.att, g.da, dwo, d, d, N, g.part, st);
   colsum(g.da, nullptr, dbo, N, d, g.part, st);
-  gemm<false, true, E_STORE>(g.da, w.wo, g.datt, N, d, d, d, d, EpiArgs{},
-                             st);
+  tf3::gemm<false, true, E_STORE>(g.da, w.wo, g.datt, N, d, d, d, d,
+                                  EpiArgs{}, st);
   TG_CHECK();
   // attention
-  const size_t smem = attn_smem(T, d / nh);
-  cudaFuncSetAttribute(attn_bwd_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
-  attn_bwd_kernel<<<B * nh, 128, smem, st>>>(f.qkv, g.datt, g.dqkv, D, scale,
-                                             drop);
+  const size_t attn_smem_b = attn_bwd_smem(T, d / nh);
+  const cudaError_t attr = attn_bwd_smem_attr(attn_smem_b);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  attn_bwd_kernel<<<B * nh, 128, attn_smem_b, st>>>(f.qkv, g.datt, g.dqkv, D,
+                                                    scale, drop);
   TG_CHECK();
   // qkv projection; dx = dr1 + dqkv Wqkv^T
   wgrad(xf, g.dqkv, dwqkv, d, 3 * d, N, g.part, st);
   colsum(g.dqkv, nullptr, dbqkv, N, 3 * d, g.part, st);
-  gemm<false, true, E_ADD>(g.dqkv, w.wqkv, dx, N, d, 3 * d, 3 * d, 3 * d,
-                           EpiArgs{nullptr, g.dr1, nullptr, drop}, st);
+  tf3::gemm<false, true, E_ADD>(g.dqkv, w.wqkv, dx, N, d, 3 * d, 3 * d,
+                                3 * d, EpiArgs{nullptr, g.dr1, nullptr, drop},
+                                st);
   TG_CHECK();
   return 0;
 }

@@ -1,5 +1,6 @@
 // Hand-written f32 products and column sums of the training kernels
-// (K10 fused_rnn_bwd.cu, K11/K12 encoder_train.cu).
+// (K10 fused_rnn_bwd.cu, K11 encoder_train.cu; K12 takes its products
+// from train_mma.cuh and its column sums from here).
 //
 // gemm: C (M, N) = op(A) op(B) over K, op a transpose or not, with a fused
 // epilogue (bias, ReLU + dropout mask, dReLU + mask, residual add). 64x64
@@ -29,6 +30,26 @@ struct EpiArgs {
   float* out2;         // E_BIAS_RELU_DROP: the masked copy
   hm::Drop drop;       // E_BIAS_RELU_DROP, E_DRELU_DROP
 };
+
+// Output (gm, gn) of an (M, N) result whose product sum is v, through the
+// epilogue EPI, stored to C (the aux and out2 arrays are (M, N) too).
+template <int EPI>
+__device__ __forceinline__ void epilogue(float v, int gm, int gn, int N,
+                                         const EpiArgs& ep, float* C) {
+  const size_t o = static_cast<size_t>(gm) * N + gn;
+  if (EPI == E_BIAS) {
+    v = v + ep.bias[gn];
+  } else if (EPI == E_BIAS_RELU_DROP) {
+    v = fmaxf(v + ep.bias[gn], 0.0f);
+    ep.out2[o] = v * hm::drop_at(ep.drop, gm, gn, N);
+  } else if (EPI == E_DRELU_DROP) {
+    v = v * hm::drop_at(ep.drop, gm, gn, N);
+    v = v * (ep.aux[o] > 0.0f ? 1.0f : 0.0f);
+  } else if (EPI == E_ADD) {
+    v = ep.aux[o] + v;
+  }
+  C[o] = v;
+}
 
 // A logical (M, K): stored (M, K) with row stride lda, or (K, M) if TA.
 // B logical (K, N): stored (K, N) with row stride ldb, or (N, K) if TB.
@@ -97,21 +118,7 @@ gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gn = n0 + tx + 16 * j;
-      if (gn >= N) continue;
-      const size_t o = static_cast<size_t>(gm) * N + gn;
-      float v = acc[i][j];
-      if (EPI == E_BIAS) {
-        v = v + ep.bias[gn];
-      } else if (EPI == E_BIAS_RELU_DROP) {
-        v = fmaxf(v + ep.bias[gn], 0.0f);
-        ep.out2[o] = v * hm::drop_at(ep.drop, gm, gn, N);
-      } else if (EPI == E_DRELU_DROP) {
-        v = v * hm::drop_at(ep.drop, gm, gn, N);
-        v = v * (ep.aux[o] > 0.0f ? 1.0f : 0.0f);
-      } else if (EPI == E_ADD) {
-        v = ep.aux[o] + v;
-      }
-      Cz[o] = v;
+      if (gn < N) epilogue<EPI>(acc[i][j], gm, gn, N, ep, Cz);
     }
   }
 }

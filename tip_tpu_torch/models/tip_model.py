@@ -412,8 +412,18 @@ class TIPModel(nn.Module):
         if self.cfg.with_rnn:
             # input matmul hoisted; both biases folded into the pre-activation
             xin = x @ p["rnn.w_ih"] + p["rnn.b_ih"] + p["rnn.b_hh"]
-            x = fused_rnn(xin.contiguous(), p["rnn.w_hh"],
-                          impl=self.cfg.rnn_impl)
+            # with grad on and weights that require it, the differentiable
+            # head (K1 forward, K10 backward), as tip_tpu's forward always
+            # takes fused_rnn_train; else K1 alone, whose wrapper takes
+            # detached tensors (no gradient is lost: none is recorded)
+            w_hh = p["rnn.w_hh"]
+            if torch.is_grad_enabled() and (xin.requires_grad
+                                            or w_hh.requires_grad):
+                x = fused_rnn_train(xin.contiguous(), w_hh,
+                                    impl=self.cfg.rnn_impl)
+            else:
+                x = fused_rnn(xin.contiguous(), w_hh.detach(),
+                              impl=self.cfg.rnn_impl)
         return (x @ p["out.w"] + p["out.b"]).to(out_dtype)
 
     def train_forward(self, x_imu, x_s, seeds=None):

@@ -5,9 +5,9 @@ and ``fused_rnn_train``).
 
 The RNN head is the one inherently sequential op of the model: each frame
 pays T=40 dependent (B, H) x (H, H) steps. Kernel K1
-(``csrc/fused_rnn.cu``) walks all T steps in one launch with the hidden
-state in shared memory; ``fused_rnn_plain`` is the same function as a
-Python loop over T.
+(``csrc/fused_rnn.cu``) walks all T steps in one launch with W_hh resident
+in a thread-block cluster's shared memory (``fused_rnn_plan``);
+``fused_rnn_plain`` is the same function as a Python loop over T.
 
 For training, ``fused_rnn_train`` is differentiable: its forward is K1, its
 backward the BPTT kernel K10 (``csrc/fused_rnn_bwd.cu``), which reads only
@@ -18,14 +18,14 @@ the saved hidden states (tanh' = 1 - h^2):
 """
 
 import ctypes
+import dataclasses
 
 import torch
 
 from tip_tpu_torch.ops import _kernels as K
 
-_SIG = {"fused_rnn_launch": [ctypes.c_void_p, ctypes.c_void_p,
-                             ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_int, ctypes.c_void_p]}
+_SIG = {"fused_rnn_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                            + [ctypes.c_longlong, ctypes.c_void_p]}
 _SIG_BWD = {
     "fused_rnn_bwd_scratch": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                               ctypes.POINTER(ctypes.c_longlong)],
@@ -45,15 +45,59 @@ def fused_rnn_plain(xin, w_hh):
     return torch.stack(hs, dim=1)
 
 
+# K1's launch: a cluster of 8 blocks (the portable cluster size) shares
+# W_hh, each block H/8 columns (32 or 64) in its shared memory and 256
+# threads (8 warps, one per eighth of W_hh's rows); a cluster owns a tile of
+# batch rows. 16 clusters are 128 of the H100's 132 SMs, so the tile grows
+# with B until B fills them, up to 16 rows (the largest tile whose two h
+# buffers and partial sums fit beside a 512-wide slice)
+RNN_CLUSTER = 8
+RNN_SPLITS = 8
+RNN_TILES = (1, 2, 4, 8, 16)
+RNN_FULL_CLUSTERS = 16
+MAX_SMEM = 232448            # bytes of shared memory a block can have
+
+
+@dataclasses.dataclass(frozen=True)
+class RNNPlan:
+    cluster: int             # blocks of a cluster
+    cols: int                # columns of W_hh a block keeps
+    batch_tile: int          # batch rows of a cluster
+    clusters: int            # cluster i takes rows i * batch_tile, ...
+    smem_bytes: int          # shared memory of a block
+
+
+def fused_rnn_plan(B: int, H: int) -> RNNPlan:
+    """K1's launch plan for B rows of width H; raises where W_hh's slice
+    and the h buffers do not fit in a block's shared memory (there is no
+    other kernel to fall back to)."""
+    if B <= 0 or H <= 0:
+        raise ValueError(f"fused_rnn: B={B}, H={H}")
+    cols = H // RNN_CLUSTER
+    if H % RNN_CLUSTER or cols % 32 or H % (4 * RNN_SPLITS):
+        raise ValueError(f"fused_rnn: H={H} does not split into "
+                         f"{RNN_CLUSTER} blocks of a multiple of 32 columns")
+    want = -(-B // RNN_FULL_CLUSTERS)
+    bt = next((t for t in RNN_TILES if t >= want), RNN_TILES[-1])
+    smem = 4 * (H * cols + 2 * bt * H + RNN_SPLITS * bt * cols)
+    if smem > MAX_SMEM:
+        raise ValueError(f"fused_rnn: H={H} needs {smem} bytes of shared "
+                         f"memory a block, more than {MAX_SMEM}")
+    return RNNPlan(RNN_CLUSTER, cols, bt, -(-B // bt), smem)
+
+
 def _launch(xin, w_hh):
     B, T, H = xin.shape
     K.check_input(xin, "xin", (B, T, H), torch.float32, xin.device)
     K.check_input(w_hh, "w_hh", (H, H), torch.float32, xin.device)
+    plan = fused_rnn_plan(B, H)
     out = torch.empty_like(xin)
     so = K.lib("fused_rnn", _SIG)
     stream = torch.cuda.current_stream(xin.device).cuda_stream
     err = so.fused_rnn_launch(xin.data_ptr(), w_hh.data_ptr(), out.data_ptr(),
-                              B, T, H, stream)
+                              B, T, H, plan.cluster, plan.cols,
+                              plan.batch_tile, plan.clusters,
+                              plan.smem_bytes, stream)
     K.check(err, "fused_rnn")
     K.launch_counts["fused_rnn"] += 1
     return out

@@ -332,6 +332,7 @@ def _cached_forward(model: M.TIPModel, carry: RunnerCarry, x_token,
         slot_override=tick, commit=True)[1]
 
 
+@torch.no_grad()
 def sense_and_predict(model: M.TIPModel, carry: RunnerCarry, cur_imu,
                       cfg: RunnerConfig, packed_ws=None,
                       tick=None) -> SensedFrame:
@@ -469,6 +470,7 @@ def _tail(cfg: RunnerConfig, skel: kin.Skeleton, s_t, c_t,
                       active=corr.active.to(s_t.dtype))
 
 
+@torch.no_grad()
 def runner_step(model: M.TIPModel, carry: RunnerCarry, cur_imu,
                 cfg: RunnerConfig, skel: kin.Skeleton, packed_ws=None,
                 tick=None):
@@ -476,7 +478,9 @@ def runner_step(model: M.TIPModel, carry: RunnerCarry, cur_imu,
     ``packed_ws``: the fused forward's pre-packed weights
     (``pack_fused_weights``), else looked up in the model each frame.
     ``tick``: a global ring cursor for the KV-cache modes
-    (``sense_and_predict``). Returns (carry', dict(qdq, viz_locs, ct))."""
+    (``sense_and_predict``). Runs without autograd, so a model that
+    requires grad (a training state's) serves as it is. Returns (carry',
+    dict(qdq, viz_locs, ct))."""
     (raw, k_new, imu_win, accsum_win, acc_runsum, out_buf, n_out, active,
      s_t, c_t) = sense_and_predict(model, carry, cur_imu, cfg, packed_ws,
                                    tick)
@@ -744,6 +748,7 @@ def _ring_push_batch(buf, slot: int, new_rows, gate):
     return old, out
 
 
+@torch.no_grad()
 def pool_step(model: M.TIPModel, carries: PoolCarry, imu_batch,
               cfg: RunnerConfig, skel: kin.Skeleton, tick=None,
               packed_ws=None):
@@ -759,7 +764,7 @@ def pool_step(model: M.TIPModel, carries: PoolCarry, imu_batch,
     A stream that has no smoothed frame yet returns its ``s_init``, 100s
     and zeros and keeps its carry but for ``t`` and the raw ring (its rows
     run through the model all the same and are dropped by a select).
-    Returns (carries', {"qdq" (B, 114), "viz_locs" (B, n_sbps, 3), "ct" (B,
+    Runs without autograd, as ``runner_step``. Returns (carries', {"qdq" (B, 114), "viz_locs" (B, n_sbps, 3), "ct" (B,
     n_sbps*4)})."""
     dtype = carries.raw_imu.dtype
     dev = carries.raw_imu.device
