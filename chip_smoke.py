@@ -10,15 +10,18 @@ Phases, in order; any failure exits non-zero:
   3. hold each kernel (K1-K12) against its plain PyTorch version on the card
      at the main paths' shapes, and time both, with one PyTorch call that
      computes the same function where there is one (cuDNN's RNN beside K1
-     at B 1, 64 and 256; TransformerEncoderLayer beside K11 and K12, and
-     K11's forward on K12's tensor-core GEMM beside K11);
-     the pool's kernels K8 and K9 also against the single-stream K7 and K4
+     at B 1, 64 and 256; TransformerEncoderLayer beside K11 and K12); the
+     pool's kernels K8 and K9 also against the single-stream K7 and K4
      stream by stream, and the batched K2, K3, K6 against B unbatched calls;
+     K9's device time split by phase (its per-phase clock) at B 64;
   4. run the main paths: the full-width model (ModelConfig() defaults,
      random weights from a seeded generator) in the streaming runner over
      the in-tree 720-frame motion, each path with every launch counter
      reset just before and read just after. Recompute mode:
-       A  the default: eager model with K1, decode K2, tail K3;
+       A  eager model with the plain encoder loop (encoder_impl="plain")
+          and K1, decode K2, tail K3;
+       A-enc  A with the encoder layers through K11 (encoder_impl="kernel",
+          which the default "auto" takes on the card), 120 frames;
        C  forward_impl="fused" with f32 packing (K4), plain decode and tail
           with the FK kernel (K6);
        B  forward_impl="fused" with bf16 packing (K4), K2, K3; then a
@@ -30,11 +33,11 @@ Phases, in order; any failure exits non-zero:
           rings: K7 (carried hidden), K2, K3;
        F  serving_mode="kv_cache" with the plain cached step, K2, K3;
      compare A and C with the plain path on the card and with a float64 CPU
-     run of the plain path, hold B's recorded outputs against K5 and the
-     plain version window by window; compare D with F, with C while the
-     window grows and with a float64 CPU run of F's configuration, hold
-     every frame of E against K7's plain version on E's own tokens; time
-     and profile frames;
+     run of the plain path, A-enc with A, hold B's recorded outputs against
+     K5 and the plain version window by window; compare D with F, with C
+     while the window grows and with a float64 CPU run of F's
+     configuration, hold every frame of E against K7's plain version on
+     E's own tokens; time and profile frames;
   5. run the pool paths: StreamPool at capacity 64 over the 60 in-tree
      motions (four slots join later, one stream is removed and its slot
      re-added), 300 ticks, counters reset before and read after each:
@@ -42,8 +45,8 @@ Phases, in order; any failure exits non-zero:
        H  kv_cache, fused, f32: K8 (replay), K2, K3;
        I  kv_cache, plain batched cached step, f32, K2, K3: H's reference;
        J  recompute, fused, f32: K9, K2, K3;
-       K  recompute, plain model (K1 at (64, 40, 512)), plain tail with the
-          batched FK kernel K6, 120 ticks;
+       K  recompute, plain model (plain encoder loop, K1 at (64, 40, 512)),
+          plain tail with the batched FK kernel K6, 120 ticks;
      compare H with I over all streams, four streams of H with the
      single-stream path D and of J with C from each stream's own first
      frame, G teacher-forced with K8's plain version on its own tokens, K
@@ -55,8 +58,10 @@ Phases, in order; any failure exits non-zero:
           dropout 0.1), full width, f32: one launch of K1 and K10 and four
           of K11 and K12 a step, none of a serving kernel; a checkpoint
           written and restored bit-equal; the restored model (it requires
-          grad) serves a frame of paths A and F outside no_grad, equal to
-          the detached model's; the step timed and profiled;
+          grad; its encoder takes K11, and with grad on K12) serves a frame
+          of paths A and F outside no_grad, equal to the detached model's,
+          and runs one forward and backward with grad on; the step timed
+          and profiled;
           held against a float64 step on the CPU and, ten steps, against
        M  the same training with the plain versions on the card;
      (K10, K11, K12 are held against their plain versions in phase 3);
@@ -106,6 +111,8 @@ TOL_RES = 1e-4
 TOL_PATH = 1e-3
 PATH_FRAMES = 300
 CPU_FRAMES = 120
+# path A-enc (the encoder through K11) against path A
+ENC_FRAMES = 120
 # frames of the per-frame timing pass of each single-stream path
 TIMED_FRAMES = 300
 # K4/K5 against their plain versions. f32 packing: the same f32 products
@@ -922,7 +929,8 @@ def check_fused_recompute_batch(dev, gen, model):
     windows of 40 rows with mixed k_last, NaN history entries and the
     root-velocity columns set, both packing dtypes, at B = 1, 5, 64 at full
     width and B = 6 at the small width. Timed at B = 64 and 256 with every
-    window full (k_last 39), as a pool in its steady state."""
+    window full (k_last 39), as a pool in its steady state, and split by
+    phase at B = 64 (one launch with K9's per-phase clock, each packing)."""
     from tip_tpu_torch.ops import fused_forward as FF
     small = small_model(dev)
     errs, worst, worst4 = {}, {}, {}
@@ -943,8 +951,10 @@ def check_fused_recompute_batch(dev, gen, model):
                                                          impl="fused"))
                      for b in range(B))
             errs[f"{tag}_B{B}_{name}"] = (e, TOL_FF[name])
-            # the same phases in the same order: bit-equal
-            errs[f"{tag}_B{B}_{name}_vs_K4"] = (e4, TOL_SAME)
+            # K9's products (tensor cores) and K4's (CUDA cores) sum in
+            # another order: K4 is held to its own plain version, so the
+            # two kernels to the same tolerance
+            errs[f"{tag}_B{B}_{name}_vs_K4"] = (e4, TOL_FF[name])
             worst[name] = max(worst.get(name, 0.0), e)
             worst4[name] = max(worst4.get(name, 0.0), e4)
         try:
@@ -987,6 +997,22 @@ def check_fused_recompute_batch(dev, gen, model):
             f"{v['call_ms']:.4f}), plain {v['plain_ms']:.4f} "
             f"({v['plain_call_ms']:.4f}), bound {v['bound_ms']:.2e} "
             f"({v['bound_by']})")
+    # the device time by phase, one launch each after the timed ones
+    x = torch.randn(POOL_CAPACITY, T, cfg.input_dim, generator=gen,
+                    device=dev)
+    ks = [T - 1] * POOL_CAPACITY
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        ws = model.packed_weights(dt)
+        FF.recompute_batch_phases(ws, x, ks, cfg)          # warm
+        y, split, n = FF.recompute_batch_phases(ws, x, ks, cfg)
+        check("fused_recompute_batch phases", {f"clock_{name}": (max_err(
+            y, FF.fused_recompute_batch(ws, x, ks, cfg, impl="fused")),
+            TOL_SAME)})
+        variants[f"{name}_B{POOL_CAPACITY}"]["phases_ms"] = split
+        log(f"  fused_recompute_batch {name} B {POOL_CAPACITY} by phase "
+            f"({n} phases): " + json.dumps(
+                {k: round(v, 4) for k, v in split.items()}))
     # the entry's own numbers are path J's: f32 packing, 64 streams
     own = variants.pop(f"float32_B{POOL_CAPACITY}")
     return dict(name="fused_recompute_batch", route="cuda",
@@ -1085,13 +1111,16 @@ def profile_frames(model, cfg, skel, s_init, imu, dev, first=100, n=50):
 def run_path(name, model, cfg, skel, s_init, imu, dev, on_path):
     """Drive one path over the whole motion through run_offline with the
     launch counters set to 0 just before and read just after. Every kernel
-    in on_path must have been launched once per model frame and every
-    other kernel not at all; the outputs must be finite and of the
-    expected shape."""
+    in on_path must have been launched once per model frame (or as often
+    as on_path says) and every other kernel not at all; the outputs must be
+    finite and of the expected shape."""
     from tip_tpu_torch.ops import _kernels as K
     from tip_tpu_torch.runtime import runner as R
     n_frames = imu.shape[0] - 1
     n_model = sum(1 for t in range(n_frames) if t >= cfg.imu_n_smooth)
+    # on_path: the kernels of the path, or {kernel: launches a frame}
+    per_frame = (on_path if isinstance(on_path, dict)
+                 else dict.fromkeys(on_path, 1))
     K.reset_launch_counts()
     t0 = time.perf_counter()
     runs = R.run_offline(model, cfg, skel, s_init, imu, device=dev)
@@ -1102,7 +1131,7 @@ def run_path(name, model, cfg, skel, s_init, imu, dev, on_path):
         f"({wall / n_frames * 1e3:.3f} ms/frame, no per-frame sync); "
         f"launches {launches}")
     for k in KERNELS:
-        want = n_model if k in on_path else 0
+        want = n_model * per_frame.get(k, 0)
         if launches[k] != want:
             raise AssertionError(
                 f"path {name}: {k} launched {launches[k]} times, expected "
@@ -1216,13 +1245,18 @@ def main_paths(dev):
 
     imu, s_init = load_motion()
     skel = kin.amass_skeleton(device=dev)
+    plain_enc = dict(encoder_impl="plain")
     cfgs = {
-        "A": R.RunnerConfig(),              # rnn_impl / tail_impl "auto"
+        # rnn_impl / tail_impl "auto"
+        "A": R.RunnerConfig(model=M.ModelConfig(**plain_enc)),
+        "A-enc": R.RunnerConfig(model=M.ModelConfig(encoder_impl="kernel")),
         "B": R.RunnerConfig(model=M.ModelConfig(forward_impl="fused")),
         "C": R.RunnerConfig(model=M.ModelConfig(forward_impl="fused",
-                                                compute_dtype="float32"),
+                                                compute_dtype="float32",
+                                                **plain_enc),
                             tail_impl="plain", fk_impl="kernel"),
-        "plain": R.RunnerConfig(model=M.ModelConfig(rnn_impl="plain"),
+        "plain": R.RunnerConfig(model=M.ModelConfig(rnn_impl="plain",
+                                                    **plain_enc),
                                 tail_impl="plain"),
         "D": R.RunnerConfig(model=M.ModelConfig(forward_impl="fused",
                                                 compute_dtype="float32"),
@@ -1230,10 +1264,13 @@ def main_paths(dev):
         "E": R.RunnerConfig(model=M.ModelConfig(forward_impl="fused",
                                                 compute_dtype="bfloat16"),
                             serving_mode="kv_cache_rnn_carry"),
-        "F": R.RunnerConfig(serving_mode="kv_cache"),
+        "F": R.RunnerConfig(model=M.ModelConfig(**plain_enc),
+                            serving_mode="kv_cache"),
     }
     k7 = "fused_cached_forward_step"
     on_path = {"A": ("fused_rnn", "decode_fused", "tail_fused"),
+               "A-enc": {"fused_rnn": 1, "decode_fused": 1, "tail_fused": 1,
+                         "encoder_layer_fwd": 4},
                "B": ("fused_forward_last", "decode_fused", "tail_fused"),
                "C": ("fused_forward_last", "fk_bullet_fused"),
                "plain": (),
@@ -1242,17 +1279,18 @@ def main_paths(dev):
                "F": ("decode_fused", "tail_fused")}
     models = {"A": M.TIPModel(cfgs["A"].model, device=dev,
                               generator=torch.Generator().manual_seed(0))}
-    for name in ("B", "C", "plain", "D", "E", "F"):   # the same weights
+    for name in ("A-enc", "B", "C", "plain", "D", "E", "F"):  # same weights
         models[name] = M.TIPModel(cfgs[name].model, device=dev)
         models[name].load_state_dict(models["A"].state_dict())
 
     runs, launches = {}, {}
-    for name in ("A", "plain", "C", "B", "D", "E", "F"):
-        # the plain path is only ever compared over PATH_FRAMES frames
+    # the plain path is only ever compared over PATH_FRAMES frames, A-enc
+    # over ENC_FRAMES
+    cut = {"plain": PATH_FRAMES + 1, "A-enc": ENC_FRAMES + 1}
+    for name in ("A", "A-enc", "plain", "C", "B", "D", "E", "F"):
         runs[name], launches[name] = run_path(
             name, models[name], cfgs[name], skel, s_init,
-            imu[:PATH_FRAMES + 1] if name == "plain" else imu, dev,
-            on_path[name])
+            imu[:cut.get(name, len(imu))], dev, on_path[name])
     launches["replay"] = {"fused_forward": replay_path_b(
         models["B"], cfgs["B"], skel, s_init, imu, dev)}
     n_e = replay_path_e(models["E"], cfgs["E"], skel, s_init, imu, dev)
@@ -1272,6 +1310,8 @@ def main_paths(dev):
                      runs["plain"], PATH_FRAMES, TOL_PATH)
         compare_runs(f"path {name} card f32 vs CPU f64", runs[name],
                      runs_cpu, CPU_FRAMES, TOL_PATH)
+    compare_runs("path A-enc vs A (card)", runs["A-enc"], runs["A"],
+                 ENC_FRAMES, TOL_PATH)
 
     # the cached modes: D against the plain cached step on the card, against
     # the windowed fused forward while the window grows (the cached step is
@@ -1311,10 +1351,10 @@ def main_paths(dev):
     # per-frame time, eager, one pass each, in one call on one card
     frame_ms = {name: frame_times_ms(models[name], cfgs[name], skel, s_init,
                                      imu, dev)
-                for name in ("A", "B", "C", "plain", "D", "E", "F")}
+                for name in ("A", "A-enc", "B", "C", "plain", "D", "E", "F")}
     log(f"per-frame median ms (eager, sync per frame): {frame_ms}")
 
-    for name in ("A", "B", "C", "D", "E", "F"):
+    for name in ("A", "A-enc", "B", "C", "D", "E", "F"):
         dev_ms, n_kernels, rows, prof_frame_ms = profile_frames(
             models[name], cfgs[name], skel, s_init, imu, dev)
         # busy share of the profiled frames themselves: their device time
@@ -1538,7 +1578,8 @@ def pool_paths(dev, single_runs, state_dict):
                             serving_mode="kv_cache"),
         "I": R.RunnerConfig(serving_mode="kv_cache"),
         "J": R.RunnerConfig(model=M.ModelConfig(**f32)),
-        "K": R.RunnerConfig(tail_impl="plain", fk_impl="kernel"),
+        "K": R.RunnerConfig(model=M.ModelConfig(encoder_impl="plain"),
+                            tail_impl="plain", fk_impl="kernel"),
     }
     k8, k9 = "fused_cached_batch", "fused_recompute_batch"
     on_path = {"G": (k8, "decode_fused", "tail_fused"),
@@ -1764,8 +1805,6 @@ def check_encoder_train(dev, gen, model):
         y = ET.encoder_layer_fwd(x, ws, seed, nh, p, True, bt, impl="kernel")
         y2 = ET.encoder_layer_fwd(x, ws, seed, nh, p, True, bt,
                                   impl="kernel")
-        # the same forward on K12's tensor-core products
-        y_mma = ET.encoder_layer_fwd_mma(x, ws, seed, nh, p, True, bt)
         dx, dws = ET.encoder_layer_bwd(x, ws_b, seed, dy, nh, p, True, bt,
                                        impl="kernel")
         dx2, dws2 = ET.encoder_layer_bwd(x, ws_b, seed, dy, nh, p, True, bt,
@@ -1777,8 +1816,6 @@ def check_encoder_train(dev, gen, model):
         rdx, rdws = ET.encoder_layer_bwd_plain(x, ws_b, seed, dy, nh, p,
                                                True, bt)
         e_fwd[name] = (rel_err(y, yr), TOL_TRAIN_K["encoder_layer_fwd"])
-        e_fwd[f"{name}.mma"] = (rel_err(y_mma, yr),
-                                TOL_TRAIN_K["encoder_layer_fwd"])
         e_bwd[f"{name}.dx"] = (rel_err(dx, rdx),
                                TOL_TRAIN_K["encoder_layer_bwd"])
         for wn, a, b in zip(ET.WEIGHT_NAMES, dws, rdws):
@@ -1833,14 +1870,9 @@ def check_encoder_train(dev, gen, model):
                 lambda: ET.encoder_layer_bwd(x, ws_k12, seed, dy, nh, p,
                                              True, 8, impl="kernel"))
             log(f"  K12 by kernel, p {p}: {json.dumps(t_b['by_kernel'])}")
-        # K11's forward on K12's GEMM, beside K11's own
-        t_f["mma_forward_ms"] = graph_ms(
-            lambda: ET.encoder_layer_fwd_mma(x, ws_full, seed, nh, p, True,
-                                             8), per_graph=5, replays=10)
-        log(f"  encoder layer p {p}: K11 {t_f['ms']:.4f} ms (CUDA-core "
-            f"GEMM), the same forward on the tensor-core GEMM "
-            f"{t_f['mma_forward_ms']:.4f} ms; K12 {t_b['ms']:.4f} ms; "
-            f"library fwd {t_f['library_ms']}, fwd+bwd {t_b['library_ms']}")
+        log(f"  encoder layer p {p}: K11 {t_f['ms']:.4f} ms; K12 "
+            f"{t_b['ms']:.4f} ms; library fwd {t_f['library_ms']}, fwd+bwd "
+            f"{t_b['library_ms']}")
         out[p] = (t_f, t_b)
     d, ff = cfg.tf_in_dim, cfg.tf_hid_size
     entries = []
@@ -1860,8 +1892,7 @@ def check_encoder_train(dev, gen, model):
             bound_ms=b_ms, bound_by=b_by, bound_3xtf32_ms=b3_ms,
             bound_3xtf32_by=b3_by, **t_main,
             at_p0={k: t_p0[k] for k in ("ms", "call_ms", "plain_ms",
-                                         "library_ms", "library_call_ms",
-                                         "mma_forward_ms") if k in t_p0},
+                                         "library_ms", "library_call_ms")},
             library="torch.nn.TransformerEncoderLayer (p = 0 only)"
                     + (", its autograd backward" if backward else "")))
     return entries
@@ -2022,8 +2053,12 @@ def check_l_against_f64(state, cfg, ds, dev):
 def check_trained_model_serves(model, dev):
     """Fault C1 repaired: path L's restored model, whose parameters require
     grad, runs the warm-up and one model frame of paths A and F outside
-    torch.no_grad(), through K1 (A) and K2, K3 (A, F), and gives the frames
-    of the same weights with requires_grad(False)."""
+    torch.no_grad(), through K1 and four K11 (A: its config's encoder_impl
+    "auto" takes K11 on the card) and K2, K3 (A, F), and gives the frames
+    of the same weights with requires_grad(False). The runner steps its
+    model under no_grad, so K12 is not launched there: one forward of a
+    window with grad on, and its backward, go through K1, K10 and four K11
+    and K12."""
     import copy
     from tip_tpu_torch.ops import _kernels as K
     from tip_tpu_torch.ops import kinematics as kin
@@ -2036,10 +2071,11 @@ def check_trained_model_serves(model, dev):
     skel = kin.amass_skeleton(device=dev)
     out = {}
     for name, cfg, on in (
-            ("A", R.RunnerConfig(), ("fused_rnn", "decode_fused",
-                                     "tail_fused")),
+            ("A", R.RunnerConfig(), {"fused_rnn": 1, "decode_fused": 1,
+                                     "tail_fused": 1,
+                                     "encoder_layer_fwd": 4}),
             ("F", R.RunnerConfig(serving_mode="kv_cache"),
-             ("decode_fused", "tail_fused"))):
+             {"decode_fused": 1, "tail_fused": 1})):
         if model.cfg != cfg.model:
             raise AssertionError(f"C1: path {name}'s model config differs")
         frames = torch.as_tensor(imu[:cfg.imu_n_smooth + 1],
@@ -2057,9 +2093,9 @@ def check_trained_model_serves(model, dev):
             runs.append((torch.stack(rows), {k: v for k, v in
                                              K.launch_counts.items() if v}))
         (a, launches), (b, _) = runs
-        if launches != {k: 1 for k in on}:
+        if launches != on:
             raise AssertionError(f"C1 path {name}: launches {launches}, "
-                                 f"expected one of each of {on}")
+                                 f"expected {on}")
         if a.requires_grad or not torch.isfinite(a).all():
             raise AssertionError(f"C1 path {name}: the frames require grad "
                                  f"or are not finite")
@@ -2068,8 +2104,25 @@ def check_trained_model_serves(model, dev):
             raise AssertionError(f"C1 path {name}: {err:.3g} from the "
                                  f"detached model's frames")
         out[name] = dict(launches=launches, max_abs_err=err)
-    log(f"  C1: path L's restored model serves paths A and F outside "
-        f"no_grad: {out}")
+    cfg = model.cfg
+    x_imu = torch.randn(2, 40, cfg.input_dim - cfg.size_s, device=dev)
+    x_s = torch.randn(2, 40, cfg.size_s, device=dev)
+    K.reset_launch_counts()
+    model(x_imu, x_s).square().sum().backward()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in K.launch_counts.items() if v}
+    want = {"fused_rnn": 1, "fused_rnn_bwd": 1, "encoder_layer_fwd": 4,
+            "encoder_layer_bwd": 4}
+    if launches != want or not all(
+            p.grad is not None and torch.isfinite(p.grad).all()
+            for p in model.parameters()):
+        raise AssertionError(f"C1 with grad on: launches {launches}, "
+                             f"expected {want}, or a gradient not finite")
+    model.zero_grad(set_to_none=True)
+    out["grad_on"] = dict(launches=launches)
+    log(f"  C1: path L's restored model serves paths A (K1, K11 x4, K2, K3) "
+        f"and F outside no_grad; with grad on a window's forward and "
+        f"backward take K1, K10 and K11 x4, K12 x4: {out}")
     return out
 
 

@@ -13,8 +13,8 @@ place of the port's encoder_train library. K12 then runs at the training
 shape (B 256, T 40, the full-width model's layer 0 with chip_smoke.py's
 ff1 shift, p 0.1) in each variant, in two passes: its error against
 encoder_layer_bwd_plain (relative to each output's largest entry), its
-device time (chip_smoke.graph_ms) and the same forward on the variant's
-GEMM. Prints a line per variant and pass, then one JSON object.
+device time (chip_smoke.graph_ms) and K11's (the forward K12 recomputes)
+on the variant's GEMM. Prints a line per variant and pass, then one JSON object.
 """
 
 import ctypes
@@ -38,17 +38,17 @@ SPLIT = '''  hi = __float_as_uint(x) & 0xffffe000u;
 RNA_HI = '''  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(x));'''
 RNA_LO = '''  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));'''
 PRODUCTS = '''#pragma unroll
-        for (int nt = 0; nt < W::NT; ++nt) {
-          mma(acc[mt][nt], al, bh[nt]);
-          mma(acc[mt][nt], ah, bl[nt]);
-          mma(acc[mt][nt], ah, bh[nt]);
-        }'''
+      for (int nt = 0; nt < W::NT; ++nt) {
+        mma(acc[mt][nt], al, bh[nt]);
+        mma(acc[mt][nt], ah, bl[nt]);
+        mma(acc[mt][nt], ah, bh[nt]);
+      }'''
 INTERLEAVED = '''#pragma unroll
-        for (int nt = 0; nt < W::NT; ++nt) mma(acc[mt][nt], al, bh[nt]);
+      for (int nt = 0; nt < W::NT; ++nt) mma(acc[mt][nt], al, bh[nt]);
 #pragma unroll
-        for (int nt = 0; nt < W::NT; ++nt) mma(acc[mt][nt], ah, bl[nt]);
+      for (int nt = 0; nt < W::NT; ++nt) mma(acc[mt][nt], ah, bl[nt]);
 #pragma unroll
-        for (int nt = 0; nt < W::NT; ++nt) mma(acc[mt][nt], ah, bh[nt]);'''
+      for (int nt = 0; nt < W::NT; ++nt) mma(acc[mt][nt], ah, bh[nt]);'''
 WIDE = "using WideTile = Tile<128, 2, 4>;     // N > 256"
 NARROW = "using NarrowTile = Tile<64, 4, 2>;    // N <= 256"
 # name: [(text of train_mma.cuh, its replacement), ...]
@@ -144,13 +144,14 @@ def main():
             err = max([cs.rel_err(dx, ref[0])]
                       + [cs.rel_err(a, b) for a, b in zip(dws, ref[1])])
             ms = cs.graph_ms(k12, per_graph=5, replays=10)
-            fwd = cs.graph_ms(lambda: ET.encoder_layer_fwd_mma(
-                x, ws, seed, nh, p, True, 8), per_graph=5, replays=10)
+            fwd = cs.graph_ms(lambda: ET.encoder_layer_fwd(
+                x, ws, seed, nh, p, True, 8, impl="kernel"), per_graph=5,
+                replays=10)
             r = res.setdefault(name, dict(err=err, k12_ms=[],
                                           forward_ms=[]))
             r["k12_ms"].append(ms)
             r["forward_ms"].append(fwd)
-            print(f"pass {rep} {name}: K12 {ms:.4f} ms, the forward "
+            print(f"pass {rep} {name}: K12 {ms:.4f} ms, K11 "
                   f"{fwd:.4f} ms, error {err:.3g}", flush=True)
     print(json.dumps({"k12_variants": res, "card": cs.card_info()}))
     return 0

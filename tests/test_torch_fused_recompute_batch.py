@@ -100,3 +100,28 @@ def test_k_last_outside_the_window_raises(ks):
         TFF.fused_recompute_batch_plain(tws, xt, ks, tcfg)
     with pytest.raises(ValueError, match="CUDA"):
         TFF.fused_recompute_batch(tws, xt, [0, 1, 2, 3], tcfg, impl="fused")
+
+
+def test_phase_split_reads_k9s_clock_rows():
+    """The per-phase clock's rows (end, first and last arrival, kind; row 0
+    the start) become ms by kind: a phase's work runs from the barrier
+    before it to the last arrival, its barrier from there to the end; the
+    RNN (no arrivals) counts whole; rows after the last end are not
+    read."""
+    big = 2 ** 62
+    rows = [[1_000_000, big, 0, 0],
+            [1_300_000, 1_100_000, 1_200_000, 1],     # in_proj
+            [1_700_000, 1_500_000, 1_650_000, 2],     # qkv
+            [2_700_000, big, 0, 10],                  # the RNN
+            [2_900_000, 2_800_000, 2_850_000, 11],    # out_proj
+            [0, big, 0, 0], [5, 5, 5, 5]]
+    split, n = TFF.phase_split(rows)
+    assert n == 4
+    assert split["in_proj"] == pytest.approx(0.2)
+    assert split["qkv"] == pytest.approx(0.35)
+    assert split["rnn"] == pytest.approx(1.0)
+    assert split["out_proj"] == pytest.approx(0.15)
+    assert split["barrier"] == pytest.approx(0.1 + 0.05 + 0.05)
+    assert split["imbalance"] == pytest.approx(0.1 + 0.15 + 0.05)
+    assert split["total"] == pytest.approx(1.9)
+    assert split["attention"] == 0.0

@@ -84,9 +84,11 @@ def test_plain_forward_compute_dtype_matches_tip_tpu(cd):
     and inputs to it, computes there and answers in the inputs' dtype, as
     tip_tpu's forward does (bf16: 2e-2, the two frameworks round at other
     places); float32 and None leave a float32 model's forward bit for bit
-    as it was."""
-    kw = dict(TINY, compute_dtype=cd)
-    cfg = JM.ModelConfig(**kw)
+    as it was. Both run the plain layer loop (tip_tpu's default "xla",
+    the port's "plain"): the encoder kernel's route takes float32 only."""
+    plain = dict(TINY, encoder_impl="plain")
+    kw = dict(plain, compute_dtype=cd)
+    cfg = JM.ModelConfig(**dict(TINY, compute_dtype=cd))
     params = jax.tree_util.tree_map(
         lambda p: np.asarray(p, np.float32),
         JM.init_params(jax.random.PRNGKey(6), cfg))
@@ -95,7 +97,7 @@ def test_plain_forward_compute_dtype_matches_tip_tpu(cd):
     j = JM.forward(params, jnp.asarray(x_imu), jnp.asarray(x_s), cfg)
     model = TM.TIPModel(TM.ModelConfig(**kw), device="cpu")
     model.load_state_dict(TM.params_from_jax(params))
-    own = TM.TIPModel(TM.ModelConfig(**TINY), device="cpu")
+    own = TM.TIPModel(TM.ModelConfig(**plain), device="cpu")
     own.load_state_dict(model.state_dict())
     with torch.no_grad():
         t = model(torch.as_tensor(x_imu), torch.as_tensor(x_s))

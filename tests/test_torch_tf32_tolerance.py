@@ -134,3 +134,56 @@ def test_3xtf32_products_hold_k12_within_its_tolerance(name, split):
 def test_one_tf32_product_misses_k12s_tolerance():
     err_1x = _worst("small_2tiles", one_tf32)
     assert err_1x > 5 * TOL, err_1x
+
+
+# K9 (csrc/fused_recompute_batch.cu) with f32 packing takes its seven
+# kinds of weight products to the tensor cores in 3xTF32 (K = 221, 256,
+# 1024, 512: the in-projection, qkv / out / ff1 / w_ih, ff2, the
+# out-projection); attention and the RNN's steps stay f32 on the CUDA
+# cores. chip_smoke.py holds K9 against fused_recompute_batch_plain within
+# TOL_FF["float32"].
+class WeightProducts(TorchFunctionMode):
+    """Every product whose right operand is one of ``weights`` (a matrix
+    times a stack of rows) through ``fn``; every other product as it is."""
+
+    def __init__(self, fn, weights):
+        super().__init__()
+        self.fn, self.ids = fn, {id(w) for w in weights}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if (func in (torch.matmul, torch.Tensor.matmul,
+                     torch.Tensor.__matmul__) and id(args[1]) in self.ids):
+            a = args[0]
+            out = self.fn(a.reshape(-1, a.shape[-1]), args[1])
+            return out.reshape(a.shape[:-1] + (args[1].shape[1],))
+        return func(*args, **(kwargs or {}))
+
+
+def test_3xtf32_products_hold_k9_within_its_tolerance():
+    """The kernel's 3xTF32 split through the plain recompute of a (4, 40)
+    batch at full width (mixed k_last, NaN history entries): within 1e-5
+    of the f32 plain version, 5x inside (1.0e-6, the size of the 1.3e-6
+    that K4's f32 sums in another order show on the card); one TF32 product
+    is not (4.7e-4)."""
+    from chip_smoke import TOL_FF
+    from tip_tpu_torch.ops import fused_forward as FF
+    model = TM.TIPModel(TM.ModelConfig(), device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    ws = model.packed_weights(torch.float32)
+    L = model.cfg.tf_layers
+    w_hh = ws[2 + 12 * L + 2]
+    mats = [w for w in ws if w.dim() == 2 and w is not w_hh]
+    assert sorted({w.shape[0] for w in mats}) == [221, 256, 512, 1024]
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.normal(size=(4, 40, model.cfg.input_dim)),
+                        dtype=torch.float32)
+    x[:, ::3, 100] = float("nan")
+    ks = [0, 3, 17, 39]
+    ref = FF.fused_recompute_batch_plain(ws, x, ks, model.cfg)
+    errs = {}
+    for name, fn in (("3xtf32", SPLITS["kernel"]), ("1xtf32", one_tf32)):
+        with WeightProducts(fn, mats):
+            y = FF.fused_recompute_batch_plain(ws, x, ks, model.cfg)
+        errs[name] = (y - ref).abs().max().item()
+    assert errs["3xtf32"] <= TOL_FF["float32"] / 5, errs
+    assert errs["1xtf32"] > TOL_FF["float32"], errs

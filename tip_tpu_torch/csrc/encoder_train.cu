@@ -27,12 +27,13 @@
 // backward is 33 GFLOP; K12 recomputes the forward first, as the TPU kernel
 // does, 50 GFLOP (0.74 ms f32, 0.30 ms 3xTF32).
 //
-// Design: each entry point is a sequence of launches. K11's products are
-// train_gemm.cuh's tiled f32 GEMM on the CUDA cores; K12's (its recomputed
-// forward and its backward) train_mma.cuh's 3xTF32 GEMM on the tensor
-// cores, which keeps about f32 accuracy. Both fuse the same epilogues
-// (bias, ReLU + mask, dReLU + mask, residual add); forward() takes the
-// GEMM as a template parameter. The residual + mask + LayerNorm and its
+// Design: each entry point is a sequence of launches. Every product of
+// K11 and of K12 (its recomputed forward and its backward) is
+// train_mma.cuh's 3xTF32 GEMM on the tensor cores, which keeps about f32
+// accuracy, with fused epilogues (bias, ReLU + mask, dReLU + mask,
+// residual add); K11 is forward(), the forward K12 recomputes, so the two
+// give the same bits. Its copies read 16 bytes at a time: d, ff and the
+// head width are multiples of 4. The residual + mask + LayerNorm and its
 // backward are one warp per row; attention and its backward one block per
 // (sample, head) with q, k, v, the 40x40 probabilities and the masks in
 // shared memory. Weight and bias gradients are reductions over all N rows,
@@ -410,24 +411,6 @@ cudaError_t attn_bwd_smem_attr(size_t smem) {
                    &allowed);
 }
 
-// the products of forward(): K11's on the CUDA cores, K12's on the tensor
-// cores
-struct SimtProducts {
-  template <bool TA, bool TB, int EPI>
-  static void gemm(const float* A, const float* B, float* C, int M, int N,
-                   int K, int lda, int ldb, tg::EpiArgs ep, cudaStream_t st) {
-    tg::gemm<TA, TB, EPI>(A, B, C, M, N, K, lda, ldb, ep, st);
-  }
-};
-
-struct MmaProducts {
-  template <bool TA, bool TB, int EPI>
-  static void gemm(const float* A, const float* B, float* C, int M, int N,
-                   int K, int lda, int ldb, tg::EpiArgs ep, cudaStream_t st) {
-    tf3::gemm<TA, TB, EPI>(A, B, C, M, N, K, lda, ldb, ep, st);
-  }
-};
-
 // n floats rounded up to 16 bytes: every carved array starts aligned, as
 // train_mma.cuh's copies need
 inline size_t up4(size_t n) { return (n + 3) / 4 * 4; }
@@ -493,7 +476,6 @@ hm::Drop site(const hm::Drop& base, int s) {
   return d;
 }
 
-template <class P>
 int forward(const float* x, const Weights& w, const Dims& D,
             const hm::Drop& drop, float* y, const Fwd& f, cudaStream_t st) {
   using tg::EpiArgs;
@@ -503,7 +485,7 @@ int forward(const float* x, const Weights& w, const Dims& D,
   const float scale = 1.0f / sqrtf(static_cast<float>(d / D.nh));
   const int rows_per_block = 8;
   const int row_blocks = (N + rows_per_block - 1) / rows_per_block;
-  P::template gemm<false, false, E_BIAS>(
+  tf3::gemm<false, false, E_BIAS>(
       x, w.wqkv, f.qkv, N, 3 * d, d, d, 3 * d,
       EpiArgs{w.bqkv, nullptr, nullptr, drop}, st);
   TG_CHECK();
@@ -513,7 +495,7 @@ int forward(const float* x, const Weights& w, const Dims& D,
   attn_fwd_kernel<<<(N / D.T) * D.nh, 128, smem, st>>>(f.qkv, f.att, D, scale,
                                                        drop);
   TG_CHECK();
-  P::template gemm<false, false, E_BIAS>(
+  tf3::gemm<false, false, E_BIAS>(
       f.att, w.wo, f.pre, N, d, d, d, d,
       EpiArgs{w.bo, nullptr, nullptr, drop}, st);
   TG_CHECK();
@@ -521,11 +503,11 @@ int forward(const float* x, const Weights& w, const Dims& D,
       f.pre, x, w.g1, w.be1, site(drop, kSitePostAttn), N, d, f.y1, f.xhat1,
       f.rs1);
   TG_CHECK();
-  P::template gemm<false, false, E_BIAS_RELU_DROP>(
+  tf3::gemm<false, false, E_BIAS_RELU_DROP>(
       f.y1, w.wf1, f.f1, N, ff, d, d, ff,
       EpiArgs{w.bf1, nullptr, f.f1d, site(drop, kSiteFfMid)}, st);
   TG_CHECK();
-  P::template gemm<false, false, E_BIAS>(
+  tf3::gemm<false, false, E_BIAS>(
       f.f1d, w.wf2, f.pre2, N, d, ff, ff, d,
       EpiArgs{w.bf2, nullptr, nullptr, drop}, st);
   TG_CHECK();
@@ -549,29 +531,11 @@ bool dims_ok(int B, int T, int d, int ff, int nh, int bt) {
          attn_smem(T, d / nh) <= kMaxSmem;
 }
 
-// K12 reads 16 bytes at a time (train_mma.cuh's copies along a row, the
-// attention backward's head rows): d, ff and the head width multiples of
-// 4, and the attention backward's shared memory within a block's
-bool bwd_dims_ok(int T, int d, int ff, int nh) {
-  return d % 4 == 0 && ff % 4 == 0 && (d / nh) % 4 == 0 &&
-         attn_bwd_smem(T, d / nh) <= kMaxSmem;
-}
-
-int fwd_launch(bool mma, const void* x, const void* const* ws, void* y,
-               void* scratch, int B, int T, int d, int ff, int nh, int bt,
-               int seed, float p_keep, float inv_keep, int use_drop,
-               void* stream) {
-  // train_mma.cuh copies 16 bytes along a row
-  if (!dims_ok(B, T, d, ff, nh, bt) || (mma && (d % 4 || ff % 4)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Dims D{B * T, T, d, ff, nh, bt * T};
-  const hm::Drop drop{use_drop, seed, 0, bt * T, p_keep, inv_keep};
-  const Fwd f = carve_fwd(static_cast<float*>(scratch), D);
-  const float* xf = static_cast<const float*>(x);
-  float* yf = static_cast<float*>(y);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return mma ? forward<MmaProducts>(xf, weights_of(ws), D, drop, yf, f, st)
-             : forward<SimtProducts>(xf, weights_of(ws), D, drop, yf, f, st);
+// K11 and K12 read 16 bytes at a time (train_mma.cuh's copies along a
+// row, the attention backward's head rows): d, ff and the head width
+// multiples of 4
+bool mma_dims_ok(int d, int ff, int nh) {
+  return d % 4 == 0 && ff % 4 == 0 && (d / nh) % 4 == 0;
 }
 
 }  // namespace
@@ -585,25 +549,21 @@ extern "C" int encoder_layer_scratch(int N, int d, int ff, int bwd,
   return 0;
 }
 
-// K11: the forward on train_gemm.cuh's products
+// K11: the forward on train_mma.cuh's products
 extern "C" int encoder_layer_fwd_launch(const void* x, const void* const* ws,
                                         void* y, void* scratch, int B, int T,
                                         int d, int ff, int nh, int bt,
                                         int seed, float p_keep,
                                         float inv_keep, int use_drop,
                                         void* stream) {
-  return fwd_launch(false, x, ws, y, scratch, B, T, d, ff, nh, bt, seed,
-                    p_keep, inv_keep, use_drop, stream);
-}
-
-// The same forward on train_mma.cuh's products, as K12 recomputes it: no
-// path launches it; it is timed beside K11
-extern "C" int encoder_layer_fwd_mma_launch(
-    const void* x, const void* const* ws, void* y, void* scratch, int B,
-    int T, int d, int ff, int nh, int bt, int seed, float p_keep,
-    float inv_keep, int use_drop, void* stream) {
-  return fwd_launch(true, x, ws, y, scratch, B, T, d, ff, nh, bt, seed,
-                    p_keep, inv_keep, use_drop, stream);
+  if (!dims_ok(B, T, d, ff, nh, bt) || !mma_dims_ok(d, ff, nh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Dims D{B * T, T, d, ff, nh, bt * T};
+  const hm::Drop drop{use_drop, seed, 0, bt * T, p_keep, inv_keep};
+  return forward(static_cast<const float*>(x), weights_of(ws), D, drop,
+                 static_cast<float*>(y),
+                 carve_fwd(static_cast<float*>(scratch), D),
+                 static_cast<cudaStream_t>(stream));
 }
 
 // grads: the 12 gradients in the order of the weights, f32
@@ -620,7 +580,8 @@ extern "C" int encoder_layer_bwd_launch(const void* x, const void* dy_v,
   using tg::E_DRELU_DROP;
   using tg::E_STORE;
   using tf3::wgrad;
-  if (!dims_ok(B, T, d, ff, nh, bt) || !bwd_dims_ok(T, d, ff, nh))
+  if (!dims_ok(B, T, d, ff, nh, bt) || !mma_dims_ok(d, ff, nh) ||
+      attn_bwd_smem(T, d / nh) > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims D{B * T, T, d, ff, nh, bt * T};
@@ -642,7 +603,7 @@ extern "C" int encoder_layer_bwd_launch(const void* x, const void* dy_v,
   const int rows_per_block = 8;
   const int row_blocks = (N + rows_per_block - 1) / rows_per_block;
 
-  const int err = forward<MmaProducts>(xf, w, D, drop, g.y, f, st);
+  const int err = forward(xf, w, D, drop, g.y, f, st);
   if (err) return err;
 
   // LN2, then the post-FF mask

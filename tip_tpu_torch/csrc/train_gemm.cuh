@@ -1,6 +1,7 @@
-// Hand-written f32 products and column sums of the training kernels
-// (K10 fused_rnn_bwd.cu, K11 encoder_train.cu; K12 takes its products
-// from train_mma.cuh and its column sums from here).
+// Hand-written f32 products and column sums of the training kernels: the
+// products of K10 (fused_rnn_bwd.cu, its dW), the epilogues and column
+// sums of K11 and K12 (encoder_train.cu, whose products are
+// train_mma.cuh's).
 //
 // gemm: C (M, N) = op(A) op(B) over K, op a transpose or not, with a fused
 // epilogue (bias, ReLU + dropout mask, dReLU + mask, residual add). 64x64

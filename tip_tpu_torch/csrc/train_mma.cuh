@@ -25,6 +25,9 @@
 // the N = 256 products give the card more blocks), cut among the warps of
 // the block (Tile); A and B in slices 32 deep, staged by cp.async through
 // a 3-stage pipeline (105 KB of shared memory at most: two blocks an SM).
+// The block's part is a __device__ routine (mma_tile, over mma_slice), so
+// that a block of another launch can take tiles of its own (K9,
+// fused_recompute_batch.cu, with 64-row tiles: Tile's fourth parameter).
 // Shared rows are padded so that the fragment loads of a warp hit 32
 // banks. Rows and columns past M, N, K are zero-filled by the copies; the
 // dimension a copy runs along (and every row stride) must be a multiple
@@ -46,9 +49,10 @@ namespace tf3 {
 constexpr int BM = 128, BK = 32, kStages = 3;
 constexpr int kTargetBlocks = 264;   // two blocks per SM of an H100
 
-// a block's 128 x BN outputs cut among WM x WN warps
-template <int BN_, int WM, int WN>
+// a block's BM x BN outputs (BM 128 unless given) cut among WM x WN warps
+template <int BN_, int WM, int WN, int BM_ = BM>
 struct Tile {
+  static constexpr int BM = BM_;
   static constexpr int BN = BN_;
   static constexpr int THREADS = 32 * WM * WN;
   static constexpr int TM = BM / WM;   // rows of a warp
@@ -59,8 +63,9 @@ using WideTile = Tile<128, 2, 4>;     // N > 256
 using NarrowTile = Tile<64, 4, 2>;    // N <= 256
 
 // one pipeline stage: A then B, each in the layout of its memory
-template <bool TA, bool TB, int BN>
+template <bool TA, bool TB, class L>
 struct Stage {
+  static constexpr int BM = L::BM, BN = L::BN;
   static constexpr int A_LD = TA ? BM + 8 : BK + 4;
   static constexpr int A_FLOATS = TA ? BK * (BM + 8) : BM * (BK + 4);
   static constexpr int B_LD = TB ? BK + 4 : BN + 8;
@@ -107,8 +112,8 @@ __device__ __forceinline__ void load_stage(float* As, float* Bs,
                                            int M, int N, int lda, int ldb,
                                            int m0, int n0, int k0, int k_end,
                                            int tid) {
-  using S = Stage<TA, TB, L::BN>;
-  constexpr int BN = L::BN, kThreads = L::THREADS;
+  using S = Stage<TA, TB, L>;
+  constexpr int BM = L::BM, BN = L::BN, kThreads = L::THREADS;
   if (!TA) {   // A (M, K): BK / 4 copies a row
     for (int e = tid; e < BM * (BK / 4); e += kThreads) {
       const int mm = e / (BK / 4), q = e % (BK / 4);
@@ -145,29 +150,97 @@ __device__ __forceinline__ void load_stage(float* As, float* Bs,
   }
 }
 
+// The three products of an 8-deep step summed from 0 and added to acc in
+// f32 (mma_slice's kPromote)
+template <int NT>
+__device__ __forceinline__ void mma3_promoted(float (&acc)[NT][4],
+                                              const uint32_t* ah,
+                                              const uint32_t* al,
+                                              const uint32_t (&bh)[NT][2],
+                                              const uint32_t (&bl)[NT][2]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma(t, al, bh[nt]);
+    mma(t, ah, bl[nt]);
+    mma(t, ah, bh[nt]);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nt][r] += t[r];
+  }
+}
+
+// The products of one staged slice, As and Bs, added to a warp's
+// fragments acc: the warp (wm, wn) of the block, thread (g, q) of its
+// fragments. The tensor cores add a product to the sum they are given
+// with a rounding toward zero, an error that grows with the count of
+// products a sum takes; kPromote sums each 8-deep step's three products
+// from 0 and adds them to acc in f32 (round to nearest), which keeps the
+// error of a long K near that of f32 sums (K12 sums straight into acc).
+template <bool TA, bool TB, class L, bool kPromote = false>
+__device__ __forceinline__ void mma_slice(const float* As, const float* Bs,
+                                          float (&acc)[L::MT][L::NT][4],
+                                          int wm, int wn, int g, int q) {
+  using S = Stage<TA, TB, L>;
+  using W = L;
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 8) {
+    uint32_t bh[W::NT][2], bl[W::NT][2];
+#pragma unroll
+    for (int nt = 0; nt < W::NT; ++nt) {
+      const int n = wn * W::TN + nt * 8 + g;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int k = kk + q + 4 * r;
+        split(TB ? Bs[n * S::B_LD + k] : Bs[k * S::B_LD + n], bh[nt][r],
+              bl[nt][r]);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < W::MT; ++mt) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {   // rows g, g+8; columns q, q+4
+        const int m = wm * W::TM + mt * 16 + g + 8 * (r & 1);
+        const int k = kk + q + 4 * (r >> 1);
+        split(TA ? As[k * S::A_LD + m] : As[m * S::A_LD + k], ah[r], al[r]);
+      }
+      if (kPromote) {
+        mma3_promoted<W::NT>(acc[mt], ah, al, bh, bl);
+        continue;
+      }
+#pragma unroll
+      for (int nt = 0; nt < W::NT; ++nt) {
+        mma(acc[mt][nt], al, bh[nt]);
+        mma(acc[mt][nt], ah, bl[nt]);
+        mma(acc[mt][nt], ah, bh[nt]);
+      }
+    }
+  }
+}
+
+// One block's BM x BN tile of op(A) op(B) at rows m0.., columns n0.., over
+// rows k_begin .. k_end of K (a multiple of BK apart from the operands'
+// start): acc gets the sums in the fragments' layout (warp wm = warp %
+// (BM / TM), wn = warp / (BM / TM); piece (mt, nt) holds rows g, g+8 and
+// columns 2q, 2q+1 of its 16 x 8 outputs). sm: Stage<TA, TB, L>::BYTES.
+// Every thread of the block calls it; a caller that stages again into sm
+// syncs the block first. kPromote: as mma_slice's.
 // A logical (M, K): stored (M, K) with row stride lda, or (K, M) if TA.
 // B logical (K, N): stored (K, N) with row stride ldb, or (N, K) if TB.
-// blockIdx.z takes rows [z * kchunk, (z + 1) * kchunk) of K (kchunk a
-// multiple of BK) and writes its partial product to C + z * M * N.
-template <bool TA, bool TB, int EPI, class L>
-__global__ void __launch_bounds__(L::THREADS, 2)
-mma_kernel(const float* __restrict__ A, const float* __restrict__ B,
-           float* __restrict__ C, int M, int N, int K, int lda, int ldb,
-           int kchunk, tg::EpiArgs ep) {
-  using S = Stage<TA, TB, L::BN>;
+template <bool TA, bool TB, class L, bool kPromote = false>
+__device__ __forceinline__ void mma_tile(const float* __restrict__ A,
+                                         const float* __restrict__ B, int M,
+                                         int N, int lda, int ldb, int m0,
+                                         int n0, int k_begin, int k_end,
+                                         float* sm,
+                                         float (&acc)[L::MT][L::NT][4]) {
+  using S = Stage<TA, TB, L>;
   using W = L;
-  constexpr int BN = L::BN;
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, q = lane & 3;   // the fragments' group, thread
-  const int wm = warp % (BM / W::TM), wn = warp / (BM / W::TM);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * kchunk;
-  const int k_end = min(K, k_begin + kchunk);
+  const int wm = warp % (L::BM / W::TM), wn = warp / (L::BM / W::TM);
   const int nk = (k_end - k_begin + BK - 1) / BK;
 
-  float acc[W::MT][W::NT][4];
 #pragma unroll
   for (int i = 0; i < W::MT; ++i)
 #pragma unroll
@@ -194,39 +267,29 @@ mma_kernel(const float* __restrict__ A, const float* __restrict__ B,
     }
     cp_commit();
     const float* As = sm + (kt % kStages) * S::FLOATS;
-    const float* Bs = As + S::A_FLOATS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 8) {
-      uint32_t bh[W::NT][2], bl[W::NT][2];
-#pragma unroll
-      for (int nt = 0; nt < W::NT; ++nt) {
-        const int n = wn * W::TN + nt * 8 + g;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int k = kk + q + 4 * r;
-          split(TB ? Bs[n * S::B_LD + k] : Bs[k * S::B_LD + n], bh[nt][r],
-                bl[nt][r]);
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < W::MT; ++mt) {
-        uint32_t ah[4], al[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {   // rows g, g+8; columns q, q+4
-          const int m = wm * W::TM + mt * 16 + g + 8 * (r & 1);
-          const int k = kk + q + 4 * (r >> 1);
-          split(TA ? As[k * S::A_LD + m] : As[m * S::A_LD + k], ah[r], al[r]);
-        }
-#pragma unroll
-        for (int nt = 0; nt < W::NT; ++nt) {
-          mma(acc[mt][nt], al, bh[nt]);
-          mma(acc[mt][nt], ah, bl[nt]);
-          mma(acc[mt][nt], ah, bh[nt]);
-        }
-      }
-    }
+    mma_slice<TA, TB, L, kPromote>(As, As + S::A_FLOATS, acc, wm, wn, g, q);
   }
   cp_wait<0>();
+}
+
+// blockIdx.z takes rows [z * kchunk, (z + 1) * kchunk) of K (kchunk a
+// multiple of BK) and writes its partial product to C + z * M * N.
+template <bool TA, bool TB, int EPI, class L>
+__global__ void __launch_bounds__(L::THREADS, 2)
+mma_kernel(const float* __restrict__ A, const float* __restrict__ B,
+           float* __restrict__ C, int M, int N, int K, int lda, int ldb,
+           int kchunk, tg::EpiArgs ep) {
+  using W = L;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = warp % (L::BM / W::TM), wn = warp / (L::BM / W::TM);
+  const int m0 = blockIdx.y * L::BM, n0 = blockIdx.x * L::BN;
+  const int k_begin = blockIdx.z * kchunk;
+  const int k_end = min(K, k_begin + kchunk);
+  float acc[W::MT][W::NT][4];
+  mma_tile<TA, TB, L>(A, B, M, N, lda, ldb, m0, n0, k_begin, k_end, sm, acc);
 
   float* Cz = C + static_cast<size_t>(blockIdx.z) * M * N;
 #pragma unroll
@@ -246,13 +309,13 @@ template <bool TA, bool TB, int EPI, class L>
 inline void launch(const float* A, const float* B, float* C, int M, int N,
                    int K, int lda, int ldb, tg::EpiArgs ep, cudaStream_t st,
                    int kchunk, int splits) {
-  constexpr size_t smem = Stage<TA, TB, L::BN>::BYTES;
+  constexpr size_t smem = Stage<TA, TB, L>::BYTES;
   // once per process and instantiation; a refusal shows at the launch
   static const cudaError_t attr = cudaFuncSetAttribute(
       mma_kernel<TA, TB, EPI, L>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   (void)attr;
-  dim3 grid((N + L::BN - 1) / L::BN, (M + BM - 1) / BM, splits);
+  dim3 grid((N + L::BN - 1) / L::BN, (M + L::BM - 1) / L::BM, splits);
   mma_kernel<TA, TB, EPI, L><<<grid, L::THREADS, smem, st>>>(
       A, B, C, M, N, K, lda, ldb, kchunk, ep);
 }

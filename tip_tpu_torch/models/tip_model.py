@@ -13,7 +13,9 @@ Reproduced forward quirks (they affect checkpoint compatibility):
     (heads, hd) and swap: ``head_interleave_perm``);
   * post-norm transformer layers with ReLU feed-forward;
   * the RNN hidden state is re-zeroed on every call;
-  * inference is deterministic (no dropout). ``train=True`` runs the
+  * inference is deterministic (no dropout); its encoder layers run
+    through K11 as tip_tpu's run its Pallas layer (``encoder_impl``, no
+    custom mask). ``train=True`` runs the
     training forward of tip_tpu's kernel configuration
     (``encoder_impl="pallas"``, ``rnn_impl="pallas"``,
     ``dropout_impl="hash"``): hash-mask dropout on the IMU input (site 200)
@@ -36,7 +38,8 @@ from torch import nn
 
 from tip_tpu_torch import resolve_device
 from tip_tpu_torch.ops import _kernels as K
-from tip_tpu_torch.ops.encoder_train import (encoder_layer_train,
+from tip_tpu_torch.ops.encoder_train import (encoder_layer_fwd,
+                                             encoder_layer_train,
                                              pack_layer_weights)
 from tip_tpu_torch.ops.fused_rnn import fused_rnn, fused_rnn_train
 from tip_tpu_torch.ops.hashmask import hash_keep_mask
@@ -63,9 +66,12 @@ class ModelConfig:
     # "auto" (kernel K1 on a CUDA tensor, plain on a CPU tensor) |
     # "kernel" | "plain" (ops/fused_rnn.py)
     rnn_impl: str = "auto"
-    # the training forward's encoder layers: "auto" (K11/K12 on a CUDA
-    # tensor, plain on a CPU tensor) | "kernel" | "plain"
-    # (ops/encoder_train.py). The inference forward is the plain layer loop
+    # the encoder layers, as tip_tpu's encoder_impl: "auto" (K11, and with
+    # grad on K12, for a CUDA tensor; their plain versions for a CPU
+    # tensor) | "kernel" | "plain" (the layer loop of this module, tip_tpu's
+    # "xla"; the training forward takes ops/encoder_train.py's plain
+    # versions). The inference forward takes the plain loop also with a
+    # custom mask, as tip_tpu does
     encoder_impl: str = "auto"
     # dropout of the training forward (train=True with seeds)
     in_dropout: float = 0.0
@@ -372,9 +378,11 @@ class TIPModel(nn.Module):
 
     def forward(self, x_imu, x_s, mask=None, train: bool = False,
                 seeds=None):
-        """Run the predictor (the plain forward, whatever
+        """Run the predictor (this module's forward, whatever
         ``cfg.forward_impl`` says: the fused kernels take one stream's
-        window and packed weights, see ops/fused_forward.py). With
+        window and packed weights, see ops/fused_forward.py). Its encoder
+        layers go through K11 (``_encoder_layers``) unless
+        ``cfg.encoder_impl`` is "plain" or a custom mask is given. With
         ``cfg.compute_dtype`` set, the parameters and both inputs are cast
         to it, the forward runs there and the result comes back in the
         inputs' dtype; else it runs in the parameters' dtype.
@@ -405,10 +413,14 @@ class TIPModel(nn.Module):
         x = torch.cat([x_imu, x_s], dim=-1) @ p["in_linear.w"] \
             + p["in_linear.b"]
         x = x[..., self.perm]
-        if mask is None:
-            mask = causal_mask(T, x.dtype, x.device)
-        for li in range(self.cfg.tf_layers):
-            x = _encoder_layer(p, f"layers.{li}.", x, mask, self.cfg.n_heads)
+        if mask is None and self.cfg.encoder_impl != "plain":
+            x = self._encoder_layers(x, p)
+        else:
+            if mask is None:
+                mask = causal_mask(T, x.dtype, x.device)
+            for li in range(self.cfg.tf_layers):
+                x = _encoder_layer(p, f"layers.{li}.", x, mask,
+                                   self.cfg.n_heads)
         if self.cfg.with_rnn:
             # input matmul hoisted; both biases folded into the pre-activation
             xin = x @ p["rnn.w_ih"] + p["rnn.b_ih"] + p["rnn.b_hh"]
@@ -425,6 +437,40 @@ class TIPModel(nn.Module):
                 x = fused_rnn(xin.contiguous(), w_hh.detach(),
                               impl=self.cfg.rnn_impl)
         return (x @ p["out.w"] + p["out.b"]).to(out_dtype)
+
+    def _encoder_layers(self, x, p):
+        """The encoder as tip_tpu's inference forward runs it with
+        ``encoder_impl="pallas"``: each layer through K11
+        (``ops/encoder_train.py``) with dropout off and seed 0, batch tiles
+        of 8. With grad on and weights (or x) that require it, the
+        differentiable layer (K11 forward, K12 backward), as tip_tpu's
+        ``custom_vjp``; else K11 on detached weights packed once."""
+        cfg = self.cfg
+        if x.dtype not in (torch.float32, torch.float64):
+            raise NotImplementedError(
+                f"the encoder layer kernel K11 takes float32 (its plain "
+                f"version float64 too); compute_dtype={cfg.compute_dtype!r} "
+                f"is not ported (ROADMAP B1): use encoder_impl='plain'")
+        grad = torch.is_grad_enabled() and (
+            x.requires_grad or any(w.requires_grad for w in p.values()))
+        if grad:
+            packs = [pack_layer_weights(p, f"layers.{li}.", x.dtype)
+                     for li in range(cfg.tf_layers)]
+        else:
+            packs = self._derive(("layers", x.dtype), lambda: [
+                tuple(w.detach().contiguous() for w in pack_layer_weights(
+                    p, f"layers.{li}.", x.dtype))
+                for li in range(cfg.tf_layers)])
+        for ws in packs:
+            if grad:
+                x = encoder_layer_train(x.contiguous(), ws, 0, cfg.n_heads,
+                                        cfg.layer_dropout, False,
+                                        ENCODER_TILE, impl=cfg.encoder_impl)
+            else:
+                x = encoder_layer_fwd(x.detach().contiguous(), ws, 0,
+                                      cfg.n_heads, cfg.layer_dropout, False,
+                                      ENCODER_TILE, impl=cfg.encoder_impl)
+        return x
 
     def train_forward(self, x_imu, x_s, seeds=None):
         """The differentiable training forward, tip_tpu's ``forward(...,

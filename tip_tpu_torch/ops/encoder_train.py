@@ -6,9 +6,9 @@
     f1 = relu(y1 W1 + b1); y = LN2(y1 + ((f1 * mask_101) W2 + b2) * mask_102)
 
 Kernel K11 (``csrc/encoder_train.cu``, ``encoder_layer_fwd``) computes the
-forward with f32 products on the CUDA cores, K12 (``encoder_layer_bwd``)
-the backward with 3xTF32 products on the tensor cores (about f32's
-accuracy): it recomputes the forward from x, as tip_tpu's kernel does, and
+forward, K12 (``encoder_layer_bwd``) the backward, both with 3xTF32
+products on the tensor cores (about f32's accuracy): K12 recomputes the
+forward from x (K11's launches), as tip_tpu's kernel does, and
 regenerates the four dropout sites' masks from the seed, so nothing but x
 is saved between them.
 ``encoder_layer_train`` is the differentiable layer (a
@@ -46,10 +46,6 @@ _SIG = {
     "encoder_layer_scratch": [ctypes.c_int] * 4
                              + [ctypes.POINTER(ctypes.c_longlong)],
     "encoder_layer_fwd_launch": [ctypes.c_void_p, ctypes.POINTER(
-        ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p]
-        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float,
-                                ctypes.c_int, ctypes.c_void_p],
-    "encoder_layer_fwd_mma_launch": [ctypes.c_void_p, ctypes.POINTER(
         ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p]
         + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float,
                                 ctypes.c_int, ctypes.c_void_p],
@@ -254,10 +250,10 @@ def encoder_layer_bwd_plain(x, ws, seed, dy, n_heads: int, p: float,
             tuple(g.to(w.dtype) for g, w in zip(grads, ws)))
 
 
-def _check(x, ws, n_heads, bt, mma=False, extra=()):
-    """Check the layer's inputs; ``mma``: for K12's tensor-core products
-    and attention backward, which read 16 bytes at a time (d, ff and the
-    head width multiples of 4, aligned data)."""
+def _check(x, ws, n_heads, bt, extra=()):
+    """Check the layer's inputs. K11's and K12's tensor-core products and
+    K12's attention backward read 16 bytes at a time: d, ff and the head
+    width multiples of 4, aligned data."""
     B, T, d = x.shape
     ff = ws[4].shape[1]
     shapes = ((d, 3 * d), (3 * d,), (d, d), (d,), (d, ff), (ff,), (ff, d),
@@ -268,7 +264,7 @@ def _check(x, ws, n_heads, bt, mma=False, extra=()):
     if d % n_heads or d > 1024:
         raise ValueError(f"encoder_layer: d={d} must be a multiple of "
                          f"n_heads={n_heads} and at most 1024")
-    if mma and (d % 4 or ff % 4 or (d // n_heads) % 4 or any(
+    if (d % 4 or ff % 4 or (d // n_heads) % 4 or any(
             t.data_ptr() % 16 for t in (x, *ws, *extra))):
         raise ValueError(f"encoder_layer: the tensor-core kernels take d, "
                          f"ff and d / n_heads multiples of 4 (d={d}, "
@@ -302,31 +298,22 @@ def _ptrs(ts):
     return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
 
-def _launch_fwd(x, ws, seed, n_heads, p, train, bt, name="encoder_layer_fwd"):
-    B, T, d, ff, bt = _check(x, ws, n_heads, bt,
-                             mma=name == "encoder_layer_fwd_mma")
+def _launch_fwd(x, ws, seed, n_heads, p, train, bt):
+    B, T, d, ff, bt = _check(x, ws, n_heads, bt)
     so = K.lib("encoder_train", _SIG)
     scratch = _scratch(so, B * T, d, ff, 0, x.device)
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = getattr(so, name + "_launch")(
+    err = so.encoder_layer_fwd_launch(
         x.data_ptr(), _ptrs(ws), y.data_ptr(), scratch.data_ptr(), B, T, d,
         ff, n_heads, bt, _int32(seed), *_drop_args(p, train), stream)
-    K.check(err, name)
-    K.launch_counts[name] += 1
+    K.check(err, "encoder_layer_fwd")
+    K.launch_counts["encoder_layer_fwd"] += 1
     return y
 
 
-def encoder_layer_fwd_mma(x, ws, seed, n_heads, p, train, bt=8):
-    """K11's forward on K12's tensor-core products (the forward K12
-    recomputes), CUDA tensors only. No path runs it: chip_smoke.py times it
-    beside K11, the two GEMMs side by side."""
-    return _launch_fwd(x, ws, seed, n_heads, p, train, bt,
-                       name="encoder_layer_fwd_mma")
-
-
 def _launch_bwd(x, ws, seed, dy, n_heads, p, train, bt):
-    B, T, d, ff, bt = _check(x, ws, n_heads, bt, mma=True, extra=(dy,))
+    B, T, d, ff, bt = _check(x, ws, n_heads, bt, extra=(dy,))
     K.check_input(dy, "dy", (B, T, d), torch.float32, x.device)
     so = K.lib("encoder_train", _SIG)
     scratch = _scratch(so, B * T, d, ff, 1, x.device)

@@ -11,12 +11,13 @@ the out-projection — as one op over pre-packed weights:
   K9 ``fused_recompute_batch``: K4 for a pool of B streams, each at its own
      window index, as one launch.
 
-K4 and K5 are one cooperative launch of ``csrc/fused_forward.cu``, K9 one
-of ``csrc/fused_recompute_batch.cu`` (their phases live in
-``csrc/fused_phases.cuh``, shared with the cached steps' kernels K7 and K8,
-runtime/streaming_cache.py). tip_tpu reaches its batched kernels through a
-``custom_vmap`` rule; here the pool's frame step calls
-``fused_recompute_batch`` directly, and tip_tpu's tile sizes (``bt``,
+K4 and K5 are one cooperative launch of ``csrc/fused_forward.cu`` (their
+phases live in ``csrc/fused_phases.cuh``, shared with the cached steps'
+kernels K7 and K8, runtime/streaming_cache.py), K9 one of
+``csrc/fused_recompute_batch.cu`` (its products on the tensor cores, its
+per-phase clock read by ``recompute_batch_phases``). tip_tpu reaches its
+batched kernels through a ``custom_vmap`` rule; here the pool's frame step
+calls ``fused_recompute_batch`` directly, and tip_tpu's tile sizes (``bt``,
 ``bt_rnn``: VMEM tiles) have no counterpart: K9 takes any B. Beside them
 the plain PyTorch versions (``fused_forward_last_plain``,
 ``fused_forward_plain``, ``fused_recompute_batch_plain``), which repeat
@@ -50,7 +51,7 @@ _I = ctypes.c_int
 _SIG = {"fused_forward_launch": [_P, _P, _I, _I] + [_I] * 10 + [_P, _P, _P]}
 _SIG_BATCH = {
     "fused_recompute_batch_launch": [_P, _P, _P] + [_I] * 12
-    + [_P, ctypes.c_longlong, _P, _P],
+    + [_P, ctypes.c_longlong, _P, _P, _I, _P],
     "fused_recompute_batch_scratch_floats": [_I] * 5}
 # launcher's own return codes (CUDA's are positive)
 _ERR_SHAPE = -1
@@ -344,8 +345,9 @@ def _recompute_batch_rows(packed_ws, x, k_idx, cfg: M.ModelConfig):
             + packed_ws[-1].float())
 
 
-def _launch_batch(packed_ws, x, k_dev, cfg: M.ModelConfig):
-    """One cooperative launch of csrc/fused_recompute_batch.cu."""
+def _launch_batch(packed_ws, x, k_dev, cfg: M.ModelConfig, clock=None):
+    """One cooperative launch of csrc/fused_recompute_batch.cu; ``clock``:
+    None, or the (rows, 4) int64 tensor of ``recompute_batch_phases``."""
     name = "fused_recompute_batch"
     B, T = x.shape[:2]
     dev = x.device
@@ -369,10 +371,61 @@ def _launch_batch(packed_ws, x, k_dev, cfg: M.ModelConfig):
         int(cd == torch.bfloat16), B, T, cfg.input_dim, d, cfg.n_heads, ff,
         cfg.tf_layers, H, cfg.size_s, _imu_dim(cfg) + 108,
         scratch.data_ptr(), n_scratch, out.data_ptr(),
+        None if clock is None else clock.data_ptr(),
+        0 if clock is None else clock.shape[0],
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, name, cfg)
     K.launch_counts[name] += 1
     return out
+
+
+# the kinds of K9's phases, as csrc/fused_recompute_batch.cu numbers them
+K9_PHASES = ("start", "in_proj", "qkv", "attention", "attn_out", "ln1",
+             "ff1", "ff2", "ln2", "w_ih", "rnn", "out_proj")
+_CLOCK_ROWS = 1024
+
+
+def recompute_batch_phases(packed_ws, x, k_last, cfg: M.ModelConfig):
+    """One launch of K9 (CUDA tensors) with its per-phase clock on: the
+    device ms of each kind of phase, summed over the launch. A phase's
+    work is the time from the barrier before it to the last block's
+    arrival at the barrier after it; ``barrier`` sums the time from that
+    arrival to block 0's leaving the barrier, ``imbalance`` the time
+    between the first and the last block's arrival (inside the work). The
+    RNN runs its own barriers: its work includes them. Returns (out,
+    {kind: ms}, phases)."""
+    B, T = x.shape[:2]
+    ks = _check_k_last_batch(k_last, B, T)
+    check_packed(packed_ws, cfg, x.device, "fused_recompute_batch")
+    K.check_input(x, "x", (B, T, cfg.input_dim), torch.float32, x.device)
+    clock = torch.zeros((_CLOCK_ROWS, 4), dtype=torch.int64, device=x.device)
+    clock[:, 1] = 2 ** 62
+    out = _launch_batch(packed_ws, x, torch.tensor(ks, dtype=torch.int32,
+                                                   device=x.device),
+                        cfg, clock)
+    split, n = phase_split(clock.cpu().tolist())
+    return out, split, n
+
+
+def phase_split(rows):
+    """K9's clock rows (end, first arrival, last arrival, kind), row 0 the
+    start -> ({kind: ms, "barrier", "imbalance", "total"}, phases): see
+    ``recompute_batch_phases``. Rows after the last written one (end 0)
+    are not read."""
+    split = dict.fromkeys(K9_PHASES[1:] + ("barrier", "imbalance"), 0.0)
+    n = 0
+    for prev, (end, first, last, kind) in zip(rows, rows[1:]):
+        if end == 0:
+            break
+        n += 1
+        if last == 0:                      # no arrivals: the RNN
+            split[K9_PHASES[kind]] += (end - prev[0]) / 1e6
+            continue
+        split[K9_PHASES[kind]] += (last - prev[0]) / 1e6
+        split["barrier"] += (end - last) / 1e6
+        split["imbalance"] += (last - first) / 1e6
+    split["total"] = (rows[n][0] - rows[0][0]) / 1e6
+    return split, n
 
 
 def fused_recompute_batch(packed_ws, x, k_last, cfg: M.ModelConfig,
