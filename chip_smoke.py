@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero:
      at B 1, 64 and 256; TransformerEncoderLayer beside K11 and K12); the
      pool's kernels K8 and K9 also against the single-stream K7 and K4
      stream by stream, and the batched K2, K3, K6 against B unbatched calls;
-     K9's device time split by phase (its per-phase clock) at B 64;
+     K8's and K9's device time split by phase (their per-phase clock) at B
+     64; K10 beside cuDNN's RNN backward and split by kernel;
   4. run the main paths: the full-width model (ModelConfig() defaults,
      random weights from a seeded generator) in the streaming runner over
      the in-tree 720-frame motion, each path with every launch counter
@@ -715,6 +716,16 @@ def small_model(dev):
                       generator=torch.Generator().manual_seed(2))
 
 
+def wide_head_model(dev):
+    """Heads 48 wide, which do not divide a warp: in K8's attention a lane
+    takes two output channels or one."""
+    from tip_tpu_torch.models import tip_model as M
+    return M.TIPModel(M.ModelConfig(tf_in_dim=96, tf_hid_size=64, n_heads=2,
+                                    tf_layers=1, rnn_hid_size=24,
+                                    forward_impl="fused"), device=dev,
+                      generator=torch.Generator().manual_seed(3))
+
+
 def check_batched_tail(dev, gen, skel, B=POOL_CAPACITY):
     """K2, K3 and K6 with a leading stream axis (one launch of B blocks)
     against B unbatched calls (the same device code on the same values, so
@@ -799,21 +810,47 @@ def _masked(ring, valid):
     return ring.float() * m
 
 
+# K8's variants whose device time chip_smoke.py splits by phase
+K8_CLOCKED = (("replay", "float32", POOL_CAPACITY),
+              ("carry", "bfloat16", POOL_CAPACITY), ("replay", "float32", 256))
+
+
+def cached_batch_clock(ws, cache, x, commit, cfg, rnn_carry, what):
+    """K8's device time by phase (its per-phase clock), one launch at slot 7
+    after a warm one, on a copy of ``cache``; its y equals a launch without
+    the clock on another copy (TOL_SAME)."""
+    from tip_tpu_torch.runtime import streaming_cache as SC
+    SC.cached_batch_phases(ws, cache.clone(), x, 7, commit, cfg,
+                           rnn_carry=rnn_carry)                  # warm
+    y, split, n = SC.cached_batch_phases(ws, cache.clone(), x, 7, commit, cfg,
+                                         rnn_carry=rnn_carry)
+    _, ref = SC.fused_cached_batch(ws, cache.clone(), x, 7, commit, cfg,
+                                   rnn_carry=rnn_carry, impl="fused")
+    check("fused_cached_batch phases", {what: (max_err(y, ref), TOL_SAME)})
+    log(f"  fused_cached_batch {what} by phase ({n} phases): " + json.dumps(
+        {k: round(v, 4) for k, v in split.items()}))
+    return split
+
+
 def check_fused_cached_batch(dev, gen, model):
     """K8 against its plain version and against K7 stream by stream: B
     streams at one global cursor, joining at staggered ticks (commit false
     before a stream's join), 2 W + 3 ticks (the cursor wraps twice), both
-    packing dtypes, both RNN variants, at B = 1, 5, 64 at full width over
-    40 slots and B = 6 at the CPU tests' small width over 8. y of the
-    committed streams every tick; h, the validity bits and the valid-masked
-    rings at the end. Timed at a slot of full rings at B = 64 and 256."""
+    packing dtypes, both RNN variants, at B = 1, 5, 64 and 256 (where the
+    replay's walk keeps 2 W_hh columns a thread) at full width over 40
+    slots, B = 6 at the CPU tests' small width over 8 and B = 6 with heads
+    48 wide over 12. y of the committed streams every tick; h, the validity
+    bits and the valid-masked rings at the end; at B 256 every 32nd stream
+    against its own K7. Timed at a slot of full rings at B = 64 and 256,
+    and split by phase (K8_CLOCKED)."""
     from tip_tpu_torch.runtime import streaming_cache as SC
-    small = small_model(dev)
+    small, wide = small_model(dev), wide_head_model(dev)
     errs, worst, worst7 = {}, {}, {}
     for tag, mdl, W, B in (("full", model, 40, 1), ("full", model, 40, 5),
                            ("full", model, 40, POOL_CAPACITY),
-                           ("small", small, 8, 6)):
-        held = range(B)              # every stream against its own K7
+                           ("full", model, 40, 256),
+                           ("small", small, 8, 6), ("wide", wide, 12, 6)):
+        held = range(0, B, 32 if B > POOL_CAPACITY else 1)
         joins = [(5 * b) % (W + 3) for b in range(B)]
         joins_t = torch.tensor(joins, device=dev)
         for dt in (torch.float32, torch.bfloat16):
@@ -907,6 +944,10 @@ def check_fused_cached_batch(dev, gen, model):
                     max_abs_err=worst[(name, rnn_carry)],
                     max_abs_err_vs_K7=worst7[(name, rnn_carry)],
                     tol=TOL_FF[name])
+                if (var, name, B) in K8_CLOCKED:
+                    variants[f"{var}_{name}_B{B}"]["phases_ms"] = \
+                        cached_batch_clock(ws, ck, x, commit, cfg, rnn_carry,
+                                           f"{var} {name} B {B}")
     for k, v in variants.items():
         log(f"  fused_cached_batch {k}: device {v['ms']:.4f} ms (eager "
             f"{v['call_ms']:.4f}), plain {v['plain_ms']:.4f} "
@@ -1693,7 +1734,31 @@ def rnn_bwd_work(B, T, H):
     return nbytes, ops
 
 
+def library_rnn_bwd(w, x, g, dev):
+    """Yardstick only, never called by the port: cuDNN's tanh RNN (W_ih =
+    I, zero biases: the same function of xin as K1) run forward with grad
+    on, then its backward to x and W_hh for the output gradient g. cuDNN
+    also forms dW_ih (one more H x H x B T product), so it does about 1.5x
+    K10's product work. Returns (forward + backward, forward alone,
+    (dx, dW (in, out)))."""
+    rnn = cudnn_rnn(w, w.shape[0], dev)
+    xr = x.clone().requires_grad_(True)
+
+    def fwd():
+        return rnn(xr)[0]
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), (xr, rnn.weight_hh_l0), g)
+
+    dx, dw_t = fwd_bwd()
+    return fwd_bwd, fwd, (dx, dw_t.T)
+
+
 def check_fused_rnn_bwd(dev, gen):
+    """K10 against its plain version at (3, 7, 40) and at path L's (256,
+    40, 512), two calls bit-equal; timed at path L's shape, split by
+    kernel, beside cuDNN's RNN backward (library_rnn_bwd) on hidden states
+    that its forward gives (the forward's time subtracted)."""
     from tip_tpu_torch.ops import fused_rnn as FR
     tol = TOL_TRAIN_K["fused_rnn_bwd"]
     errs = {}
@@ -1712,15 +1777,42 @@ def check_fused_rnn_bwd(dev, gen):
         main = (hs, w, g)
     err = check("fused_rnn_bwd", errs)
     hs, w, g = main
+    # the library's inputs: hidden states its own forward gives
+    x = torch.randn(hs.shape, generator=gen, device=dev)
+    lib_fb, lib_f, lib_out = library_rnn_bwd(w, x, g, dev)
+    hs_lib = FR.fused_rnn_plain(x, w)
+    lib_err = max(rel_err(a, b) for a, b in zip(
+        lib_out, FR.fused_rnn_bwd_plain(hs_lib, w, g)))
+    if not lib_err <= tol:
+        raise AssertionError(f"cuDNN's RNN backward yardstick disagrees: "
+                             f"{lib_err:.3g}")
     times = timings(lambda: FR.fused_rnn_bwd(hs, w, g, impl="kernel"),
                     lambda: FR.fused_rnn_bwd_plain(hs, w, g), light=True)
-    b_ms, b_by = bound(*rnn_bwd_work(*hs.shape))
+    fb = timings(lib_fb, lib_f, light=True)
+    times.update(library_ms=fb["ms"] - fb["plain_ms"],
+                 library_call_ms=fb["call_ms"] - fb["plain_call_ms"],
+                 library_fwd_bwd_ms=fb["ms"], library_fwd_ms=fb["plain_ms"],
+                 library_fwd_bwd_call_ms=fb["call_ms"],
+                 library_fwd_call_ms=fb["plain_call_ms"])
+    times["by_kernel"] = kernel_breakdown(
+        lambda: FR.fused_rnn_bwd(hs, w, g, impl="kernel"))
+    log(f"  K10 by kernel: {json.dumps(times['by_kernel'])}")
+    log(f"  K10 {times['ms']:.4f} ms; cuDNN forward + backward "
+        f"{fb['ms']:.4f}, forward {fb['plain_ms']:.4f}, backward "
+        f"{times['library_ms']:.4f}")
+    work = rnn_bwd_work(*hs.shape)
+    b_ms, b_by = bound(*work)
+    b3_ms, b3_by = bound(*work, peak_flop_s=PEAK_3XTF32_FLOP_S)
     return dict(name="fused_rnn_bwd", route="cuda",
                 source="tip_tpu_torch/csrc/fused_rnn_bwd.cu",
                 replaces="tip_tpu/ops/pallas_kernels.py:148",
                 shape=list(hs.shape), max_abs_err=err, tol=tol,
                 err_is="relative to the largest entry", bound_ms=b_ms,
-                bound_by=b_by, **times)
+                bound_by=b_by, bound_3xtf32_ms=b3_ms,
+                bound_3xtf32_by=b3_by, library_err=lib_err,
+                library="cuDNN nn.RNN backward (to x and W_hh; it also "
+                        "forms dW_ih), forward + backward less forward",
+                **times)
 
 
 def encoder_layer_ops(B, T, d, ff, nh):

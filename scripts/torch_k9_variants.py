@@ -4,11 +4,13 @@ by side and timed on one GPU.
 
     python3 scripts/torch_k9_variants.py [variant ...]   # default: all
 
-Each variant is a text patch of the kernel's sources: the encoder's pass
-length, the products' tiles, the pipeline depth and slice depth of
-train_mma.cuh's tile routine, the f32 sums of each 8-deep step; two diagnostics
-time the pipelined products' staging alone and their mma alone (their
-outputs are wrong and not checked). Every variant is
+Each variant is a text patch of the kernel's sources
+(fused_recompute_batch.cu, the phases it shares with K8 in
+pool_phases.cuh, train_mma.cuh): the encoder's pass length, the
+products' tiles, the pipeline depth and slice depth of train_mma.cuh's
+tile routine, the f32 sums of each 8-deep step; two diagnostics time the
+pipelined products' staging alone and their mma alone (their outputs are
+wrong and not checked). Every variant is
 built with nvcc into its own library under build/tip_tpu_torch/k9_variants/
 (its namespaces renamed so that the libraries share no symbol) and loaded in
 place of the port's fused_recompute_batch library. K9 then runs at the pool
@@ -36,34 +38,33 @@ from tip_tpu_torch.ops import _kernels as K  # noqa: E402
 
 OUT = K.BUILD_DIR / "k9_variants"
 K9 = "fused_recompute_batch.cu"
+POOL = "pool_phases.cuh"
 MMA = "train_mma.cuh"
 # name: [(file, text, its replacement), ...]
 VARIANTS = {
     "base": [],
     "passes_of_1280_rows": [(K9, "kChunkRows = 2560;", "kChunkRows = 1280;")],
-    "narrow_64_rows": [(K9, "using NarrowTile = tf3::Tile<64, 1, 8, 80>;",
+    "narrow_64_rows": [(POOL, "using NarrowTile = tf3::Tile<64, 1, 8, 80>;",
                         "using NarrowTile = tf3::Tile<64, 2, 4, 64>;")],
     "stages_4": [(MMA, "kStages = 3;", "kStages = 4;")],
     "slices_64_deep": [(MMA, "BM = 128, BK = 32,", "BM = 128, BK = 64,")],
-    "no_f32_step_sums": [(K9, "tf3::mma_tile<false, false, L, true>",
+    "no_f32_step_sums": [(POOL, "tf3::mma_tile<false, false, L, true>",
                            "tf3::mma_tile<false, false, L, false>"),
-                          (K9, "tf3::mma_slice<false, false, L, true>",
+                          (POOL, "tf3::mma_slice<false, false, L, true>",
                            "tf3::mma_slice<false, false, L, false>")],
     # diagnostics, their outputs wrong: the pipelined products' staging
     # without their mma, and their mma on whatever shared memory holds
     "staging_only": [(MMA, "    mma_slice<TA, TB, L, kPromote>(",
                       "    if (false) mma_slice<TA, TB, L, kPromote>("),
-                     (K9, "    bf16_slice<L>(As, reinterpret_cast",
+                     (POOL, "    bf16_slice<L>(As, reinterpret_cast",
                       "    if (false) bf16_slice<L>(As, reinterpret_cast")],
-    "mma_only": [(MMA, "      load_stage<TA, TB, L>(sm + s * S::FLOATS,",
-                  "      if (false) load_stage<TA, TB, L>("
-                  "sm + s * S::FLOATS,"),
-                 (MMA, "      load_stage<TA, TB, L>(st, st + S::A_FLOATS,",
-                  "      if (false) load_stage<TA, TB, L>("
-                  "st, st + S::A_FLOATS,"),
-                 (K9, "      load_bf16_stage<L>(\n          sm + s",
+    "mma_only": [(MMA, "      load_stage<TA, TB, L, kShiftA>(sm + s",
+                  "      if (false) load_stage<TA, TB, L, kShiftA>(sm + s"),
+                 (MMA, "      load_stage<TA, TB, L, kShiftA>(st, st",
+                  "      if (false) load_stage<TA, TB, L, kShiftA>(st, st"),
+                 (POOL, "      load_bf16_stage<L>(\n          sm + s",
                   "      if (false) load_bf16_stage<L>(\n          sm + s"),
-                 (K9, "      load_bf16_stage<L>(st,",
+                 (POOL, "      load_bf16_stage<L>(st,",
                   "      if (false) load_bf16_stage<L>(st,")],
 }
 DIAGNOSTIC = ("staging_only", "mma_only")

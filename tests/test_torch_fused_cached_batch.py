@@ -30,6 +30,7 @@ from tip_tpu.ops import fused_forward as JFF
 from tip_tpu.runtime import streaming_cache as JSC
 from tip_tpu_torch.models import tip_model as TM
 from tip_tpu_torch.ops import _kernels as K
+from tip_tpu_torch.ops import fused_forward as TFF
 from tip_tpu_torch.runtime import streaming_cache as TSC
 
 torch.set_num_threads(1)
@@ -337,3 +338,36 @@ def test_fused_cached_batch_wrapper_rules():
     part = cache.streams(1, 3)
     TSC.fused_cached_batch(ws, part, x[1:], 2, commit[1:], tcfg)
     assert cache.valid[:, 2].tolist() == [False, True, True]   # views
+
+
+def test_phase_split_reads_k8s_clock_rows():
+    """K8's per-phase clock rows split under ``K8_PHASES``: each kind of
+    phase named as csrc/fused_cached_batch.cu numbers it, a replay's walk
+    (no arrivals) counted whole, barriers and the first-to-last arrival
+    summed apart, rows after the last end not read."""
+    assert TSC.K8_PHASES == ("start", "in_proj", "qkv", "attention",
+                             "attn_out", "ln1", "ff1", "ff2", "ln2",
+                             "rnn_in", "rnn", "out_proj")
+    big = 2 ** 62
+    rows = [[1_000_000, big, 0, 0],
+            [1_400_000, 1_100_000, 1_300_000, 1],     # in_proj
+            [1_600_000, 1_450_000, 1_550_000, 3],     # attention
+            [1_800_000, 1_650_000, 1_700_000, 9],     # rnn_in
+            [2_800_000, big, 0, 10],                  # the replay's walk
+            [2_900_000, 2_820_000, 2_880_000, 11],    # out_proj
+            [0, big, 0, 0], [7, 7, 7, 7]]
+    split, n = TFF.phase_split(rows, TSC.K8_PHASES)
+    assert n == 5
+    assert set(split) == set(TSC.K8_PHASES[1:]) | {"barrier", "imbalance",
+                                                   "total"}
+    assert split["in_proj"] == pytest.approx(0.3)
+    assert split["attention"] == pytest.approx(0.15)
+    assert split["rnn_in"] == pytest.approx(0.1)
+    assert split["rnn"] == pytest.approx(1.0)
+    assert split["out_proj"] == pytest.approx(0.08)
+    assert split["barrier"] == pytest.approx(0.1 + 0.05 + 0.1 + 0.02)
+    assert split["imbalance"] == pytest.approx(0.2 + 0.1 + 0.05 + 0.06)
+    assert split["total"] == pytest.approx(1.9)
+    assert sum(split[k] for k in TSC.K8_PHASES[1:]) + split["barrier"] \
+        == pytest.approx(split["total"])
+    assert split["qkv"] == split["ff2"] == 0.0

@@ -72,3 +72,49 @@ def test_plain_impl_equals_auto_on_the_cpu():
     a = FR.fused_rnn_bwd(xin, w, g, impl="auto")
     b = FR.fused_rnn_bwd(xin, w, g, impl="plain")
     assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("B,T,H", [(256, 40, 512), (1, 40, 512), (3, 7, 40),
+                                   (17, 40, 512), (64, 40, 256),
+                                   (1000, 40, 512), (2, 5, 4)])
+def test_fused_rnn_bwd_plan_fits_and_covers_every_row(B, T, H):
+    """K10's plan: the walk's cluster of 8 blocks covers H with 32 or 64
+    columns each (64 only above 256), its slice and row buffers fit in a
+    block's shared memory, the clusters' tiles cover every batch row once
+    and B <= 256 takes at most the H100's 132 SMs; dW's splits are whole
+    32-row slices that cover the B T rows once."""
+    plan = FR.fused_rnn_bwd_plan(B, T, H)
+    walk = plan.walk
+    assert walk.cluster == 8
+    assert walk.cols == (64 if H > 256 else 32)
+    assert walk.cluster * walk.cols >= H
+    assert walk.smem_bytes <= FR.MAX_SMEM
+    tiles = [range(i * walk.batch_tile, min(B, (i + 1) * walk.batch_tile))
+             for i in range(walk.clusters)]
+    assert [r for rows in tiles for r in rows] == list(range(B))
+    assert all(len(rows) > 0 for rows in tiles)
+    if B <= 256:
+        assert walk.cluster * walk.clusters <= 132
+    rows = B * T
+    assert plan.dw_rows % 32 == 0
+    assert plan.dw_rows * plan.dw_splits >= rows
+    assert plan.dw_rows * (plan.dw_splits - 1) < rows
+    if rows <= 256:
+        assert plan.dw_splits == 1
+
+
+def test_fused_rnn_bwd_plan_at_the_training_shape():
+    """(256, 40, 512): K1's walk plan (16 clusters of 16 rows, 229,376
+    bytes a block), dW in 17 splits of 608 rows (17 x 16 tiles of 128 x
+    128: about two blocks an SM)."""
+    plan = FR.fused_rnn_bwd_plan(256, 40, 512)
+    assert plan.walk == FR.fused_rnn_plan(256, 512)
+    assert (plan.walk.batch_tile, plan.walk.clusters,
+            plan.walk.smem_bytes) == (16, 16, 229376)
+    assert (plan.dw_rows, plan.dw_splits) == (608, 17)
+
+
+@pytest.mark.parametrize("H", [1024, 2048, 516, 42, 0])
+def test_fused_rnn_bwd_plan_raises_where_the_slice_cannot_fit(H):
+    with pytest.raises(ValueError, match="fused_rnn_bwd"):
+        FR.fused_rnn_bwd_plan(4, 40, H)

@@ -187,3 +187,91 @@ def test_3xtf32_products_hold_k9_within_its_tolerance():
         errs[name] = (y - ref).abs().max().item()
     assert errs["3xtf32"] <= TOL_FF["float32"] / 5, errs
     assert errs["1xtf32"] > TOL_FF["float32"], errs
+
+
+# K10 (csrc/fused_rnn_bwd.cu) computes dW = sum over b, t of h_{t-1}^T da_t
+# as one (H x B T) (B T x H) product on the tensor cores in 3xTF32, after
+# its walk has formed da in f32 on the CUDA cores. chip_smoke.py holds it
+# against fused_rnn_bwd_plain within TOL_TRAIN_K["fused_rnn_bwd"], 1e-4 of
+# the largest entry.
+def _rnn_dw_errors(B, T, H):
+    """dW's error, relative to its largest entry, against the float64
+    plain backward: as one f32 product of the f32 walk's da, and through
+    the kernel's 3xTF32 split and one TF32 product."""
+    from tip_tpu_torch.ops import fused_rnn as FR
+    rng = np.random.default_rng(0)
+    xin = torch.as_tensor(rng.normal(size=(B, T, H)) * 0.7)
+    w = torch.as_tensor(rng.normal(size=(H, H)) / np.sqrt(H))
+    g = torch.as_tensor(rng.normal(size=(B, T, H)))
+    hs = FR.fused_rnn_plain(xin, w)
+    _, ref = FR.fused_rnn_bwd_plain(hs, w, g)
+    da, _ = FR.fused_rnn_bwd_plain(hs.float(), w.float(), g.float())
+    h_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], 1)
+    a = h_prev.float().reshape(-1, H).T.contiguous()
+    b = da.reshape(-1, H)
+    return {name: ((fn(a, b).double() - ref).abs().max()
+                   / ref.abs().max()).item()
+            for name, fn in (("f32", torch.matmul),
+                             ("3xtf32", SPLITS["kernel"]),
+                             ("1xtf32", one_tf32))}
+
+
+def test_3xtf32_dw_holds_k10_within_its_tolerance():
+    """At (8, 40, 128): the kernel's split within 2x of one f32 product's
+    error and over 100x inside the tolerance (7.6e-7 against 5.4e-7); one
+    TF32 product misses it (2.5e-4)."""
+    from chip_smoke import TOL_TRAIN_K
+    tol = TOL_TRAIN_K["fused_rnn_bwd"]
+    errs = _rnn_dw_errors(8, 40, 128)
+    assert errs["3xtf32"] <= tol / 100, errs
+    assert errs["3xtf32"] <= 2 * errs["f32"], errs
+    assert errs["1xtf32"] > 2 * tol, errs
+
+
+# K8 (csrc/fused_cached_batch.cu) with f32 packing takes its weight
+# products to the tensor cores in 3xTF32 too: the in-projection, the
+# layers' four, the RNN inputs of the ring rows and of the token, a
+# carry's product of the carried hidden with W_hh, and the out-projection;
+# attention and a replay's RNN steps stay f32 on the CUDA cores.
+# chip_smoke.py holds K8 against fused_cached_batch_plain within
+# TOL_FF["float32"].
+@pytest.mark.parametrize("rnn_carry", [False, True], ids=["replay", "carry"])
+def test_3xtf32_products_hold_k8_within_its_tolerance(rnn_carry):
+    """The kernel's 3xTF32 split through K8's plain version at full width:
+    4 streams over rings of 40 random rows (a few slots invalid), one
+    stream uncommitted, NaN history entries; the committed streams' y
+    within 1e-5 of the f32 plain version, over 10x inside (7.2e-7 in
+    both variants); one TF32 product is not (3.6e-4 replay, 4.2e-4
+    carry)."""
+    from chip_smoke import TOL_FF
+    from tip_tpu_torch.runtime import streaming_cache as SC
+    model = TM.TIPModel(TM.ModelConfig(), device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    cfg = model.cfg
+    ws = model.packed_weights(torch.float32)
+    w_hh = ws[2 + 12 * cfg.tf_layers + 2]
+    mats = [w for w in ws if w.dim() == 2 and (rnn_carry or w is not w_hh)]
+    rng = np.random.default_rng(5)
+    B, W = 4, 40
+    cache = SC.cache_init(cfg, W, device="cpu", batch=B)
+    for n in ("k", "v", "enc", "h"):
+        t = getattr(cache, n)
+        t.copy_(torch.as_tensor(rng.normal(size=t.shape), dtype=t.dtype))
+    cache.valid.copy_(torch.as_tensor(rng.random((B, W)) > 0.1))
+    x = torch.as_tensor(rng.normal(size=(B, cfg.input_dim)),
+                        dtype=torch.float32)
+    x[:, 100] = float("nan")
+    commit = torch.tensor([True, True, False, True])
+
+    def y_of():
+        _, y = SC.fused_cached_batch_plain(ws, cache.clone(), x, 7, commit,
+                                           cfg, rnn_carry=rnn_carry)
+        return y[commit]
+
+    ref = y_of()
+    errs = {}
+    for name, fn in (("3xtf32", SPLITS["kernel"]), ("1xtf32", one_tf32)):
+        with WeightProducts(fn, mats):
+            errs[name] = (y_of() - ref).abs().max().item()
+    assert errs["3xtf32"] <= TOL_FF["float32"] / 5, errs
+    assert errs["1xtf32"] > TOL_FF["float32"], errs

@@ -19,36 +19,64 @@
 // 21 MB in f32 (10.5 MB in bf16) and are read once, beside 14.7 MB (7.3 MB)
 // of packed weights, about 11 microseconds at the card's memory rate, where
 // the products are 0.45 GFLOP (carry) or 3.8 GFLOP (a replay over full
-// rings). What the kernel pays instead is the chain of dependent phases,
-// each closed by a grid-wide barrier, and CUDA-core products.
-//
-// Barriers (grid.sync), L layers: in-projection 1, each layer 7 (qkv,
-// attention, out-projection, LayerNorm, ff1, ff2, LayerNorm), then
-//   rnn_carry:  2 (both RNN products)             = 31 at L = 4
-//   replay:     1 (the token's RNN input) + W     = 70 at L = 4, W = 40
+// rings). What the kernel pays instead is a chain of dependent phases, each
+// closed by a grid-wide barrier, and a replay's 40 dependent RNN steps.
 //
 // Design: one block per SM, 256 threads, activations of the B rows in an
-// L2-resident f32 scratch read with ld.cg. With B rows the products are
-// real matrix products, so they are the windowed kernels' product_phase (4
-// rows x 256 columns a unit, rows staged and rounded once in shared
-// memory), not the single-stream step's matrix-vector cut. Attention is a
-// warp per (stream, head): a 16-wide dot over the W ring slots with the
-// token's own k and v taken from the scratch, so the warp can write its
-// head's slice of the ring row at the cursor right after, with no barrier:
-// no other warp reads that slice. No 0/1 head-selector products, no
-// chronological pre-gather: the replay walks each stream's ring from the
-// slot after the cursor with the validity bits as gates
-// (rnn_batch_phase: W_hh's columns split over the grid and resident in
-// shared memory, the B hidden states in the scratch, a barrier a step). The
-// RNN inputs of the old ring rows (B W x d by d x H) are computed in the
-// first phase, where they wait for nothing; the token's own replaces its
-// slot's after the layers.
+// L2-resident f32 scratch; the phases are pool_phases.cuh's, shared with K9.
+//   - The layers' products have M = B rows (64 at the timed shape), too few
+//     for K9's 80-row tiles (4 tiles of N 256 for 132 SMs). They run as
+//     split_product: tiles of 16 rows x 8 NT columns, the depth over the
+//     block's 8 warps, on the tensor cores (3xTF32 with f32 step sums for
+//     f32 packing, bf16 mma.sync for bf16). NT is the smallest of 1, 2, 4, 8
+//     that takes the fewest rounds of the grid: at B = 64 the products of N
+//     256 (in-projection, out-projection, ff2), 512 (the RNN inputs) and
+//     1024 (ff1) are 128 tiles and qkv (768) 96, one round each, and every
+//     SM reads its own part of the weights once. The other choice, K9's
+//     row tiles with the depth split over blocks, needs a second pass (and
+//     a barrier) to add the partial sums.
+//   - The old ring rows' RNN inputs (B W rows x d by d x H) are K9's
+//     product, on 80-row tiles (128 tiles at B 64), in the first phase,
+//     where they wait for nothing. The carry's product of the carried hidden
+//     with W_hh runs there too, and the token's RNN input adds it in its
+//     epilogue before the tanh: a carry has no phase for the RNN.
+//   - Attention is a warp per (stream, head) (attend_ring_head): a lane a
+//     ring slot for the scores, its 16-wide row of k loaded whole, and for
+//     the output a lane a channel of every other slot, so that a unit waits
+//     on a few rounds of loads, not on W in series; the token's own k and v
+//     come from the scratch, so the warp writes its head's slice of the
+//     ring row at the cursor right after, with no barrier: no other warp
+//     reads that slice. LayerNorm is a warp a row, the row in registers.
+//   - The replay's RNN is K9's register-resident walk (rnn_groups_phase):
+//     W_hh's columns in registers over groups of 16 columns x groups of
+//     streams, one barrier a step. Where that would give a block more than
+//     one pass of 16 streams a step (B > 64), a thread keeps 2 columns
+//     (groups of 32): half the hidden states staged from L2 a step, twice
+//     the products a staged value feeds (at B 256 the walk takes 0.64 ms
+//     instead of 0.84; at B 64 it would take 0.31 instead of 0.25: 8
+//     streams a block are too little work; an H100 80GB HBM3 at 700 W).
+//     Each stream's ring is walked from the slot after the cursor with the
+//     validity bits as gates (the token's own step gated by `commit`). No
+//     0/1 head-selector products, no chronological pre-gather.
+// Barriers (grid.sync), L layers: in-projection 1, each layer 7 (qkv,
+// attention, out-projection, LayerNorm, ff1, ff2, LayerNorm), the token's
+// RNN input 1, then a replay's W steps: 30 at L = 4 in a carry, 70 in a
+// replay over 40 slots. A per-phase clock (PhaseClock) records them when
+// asked.
 
-#include "fused_phases.cuh"
+#include "pool_phases.cuh"
 
 namespace {
 
-constexpr int kXinRows = 16;      // rows of a unit of the old rows' product
+// The kinds of the phases the per-phase clock (pool_phases.cuh's
+// PhaseClock) records, as runtime/streaming_cache.py::K8_PHASES names them:
+// the in-projection (with the old ring rows' RNN inputs in a replay, the
+// carried hidden's product in a carry), a layer's seven phases, the token's
+// RNN input (a carry's RNN step), a replay's walk and the out-projection
+enum PhaseKind {
+  kPhIn = 1, kPhQkv = 2, kPhAttn = 3, kPhAttnOut = 4, kPhLn1 = 5, kPhFf1 = 6,
+  kPhFf2 = 7, kPhLn2 = 8, kPhRnnIn = 9, kPhRnn = 10, kPhOut = 11
+};
 
 struct Dims {
   int B;        // streams
@@ -56,13 +84,14 @@ struct Dims {
   int Din, d, heads, ff, layers, H, S;
   int zero0;    // first of the three zeroed input columns
   int slot, rnn_carry;
-  int cpb;      // W_hh columns per block in the replay
-  int rnn_off;  // byte offset of the replay's shared-memory region
+  int vec;      // the weights' and activations' rows take 16-byte copies
+  int spb;      // streams of a block's group in the replay's RNN
+  int rnn_cp;   // W_hh columns a thread keeps there (rnn_groups_phase's CP)
 };
 
 // global scratch, f32: x (B, d), qkv (B, 3 d), att (B, d), the pre-norm sum
-// a (B, d), the feed-forward hidden f (B, ff), the token's RNN input pre
-// (B, H), two hidden-state buffers hs (2, B, H) and, for the replay, the
+// a (B, d), the feed-forward hidden f (B, ff), the carried hidden's product
+// pre (B, H), two hidden-state buffers hs (2, B, H) and, for the replay, the
 // ring rows' RNN inputs xin (B, W, H)
 struct Scratch {
   float *x, *qkv, *att, *a, *f, *pre, *hs, *xin;
@@ -94,11 +123,96 @@ struct RingGate {
   }
 };
 
+// One head of the token's attention over its stream's ring, by one warp:
+// attend_head's function (fused_phases.cuh: the same roundings, the cursor
+// slot evicted unless it is the token's own) with the ring's loads in
+// parallel. A lane scores slots lane and lane + 32 (W < kMaxT), its row of
+// k loaded whole before its dot. For the output, where hd divides 32, the
+// lanes split into 32 / hd groups over the slots (a lane one channel of
+// every group's slots), the groups' sums added by a butterfly; otherwise
+// one group, a lane channels lane and lane + 32 (hd <= kMaxHeadDim). q,
+// k_own, v_own: the token's own hd values of this head; kr, vr: row 0 of
+// the ring at this head's columns, rows ld apart; pw: kMaxT floats of this
+// warp.
+template <typename WT>
+__device__ void attend_ring_head(const float* q, const float* k_own,
+                                 const float* v_own, const WT* kr,
+                                 const WT* vr, int ld,
+                                 const unsigned char* valid, int W, int hd,
+                                 int slot, bool own, float* pw, float* out) {
+  const int lane = threadIdx.x & 31;
+  const float scale = 1.0f / sqrtf(static_cast<float>(hd));
+  float sc[2];
+  float mx = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int w = lane + 32 * i;
+    sc[i] = -INFINITY;
+    if (w < W) {
+      const bool own_w = own && w == slot;
+      const WT* kw = kr + static_cast<size_t>(w) * ld;
+      float s = 0.0f;
+#pragma unroll 16
+      for (int c = 0; c < hd; ++c)
+        s = fmaf(round_cd<WT>(q[c]),
+                 own_w ? round_cd<WT>(k_own[c]) : wvalue(kw[c]), s);
+      const bool counts = own_w || (valid[w] && w != slot);
+      sc[i] = s * scale + (counts ? 0.0f : -1e30f);
+      mx = fmaxf(mx, sc[i]);
+    }
+  }
+  mx = warp_max(mx);
+  float sum = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (lane + 32 * i < W) {
+      sc[i] = expf(sc[i] - mx);
+      sum += sc[i];
+    }
+  }
+  sum = warp_sum(sum);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (lane + 32 * i < W) pw[lane + 32 * i] = round_cd<WT>(sc[i] / sum);
+  __syncwarp();
+  // groups > 1: every lane has a channel, so the butterfly has all 32 lanes.
+  // One group: lanes hd..31 (h > 0) sum slots they never write; lane + 32
+  // is a lane's second channel where hd > 32. (Gating one body per lane, or
+  // a loop over a lane's channels, makes the f32 phase 1.5x slower on an
+  // H100.)
+  const int groups = 32 % hd == 0 ? 32 / hd : 1, c = lane % hd, h = lane / hd;
+  float o = 0.0f;
+#pragma unroll 8
+  for (int w = h; w < W; w += groups) {
+    const float v = (own && w == slot)
+                        ? round_cd<WT>(v_own[c])
+                        : wvalue(vr[static_cast<size_t>(w) * ld + c]);
+    o = fmaf(pw[w], v, o);
+  }
+  for (int off = hd; groups > 1 && off < 32; off *= 2)
+    o += __shfl_xor_sync(0xffffffffu, o, off);
+  if (h == 0) out[c] = round_cd<WT>(o);
+  if (lane + 32 < hd) {
+    const int c1 = lane + 32;
+    float o1 = 0.0f;
+    for (int w = 0; w < W; ++w) {
+      const float v = (own && w == slot)
+                          ? round_cd<WT>(v_own[c1])
+                          : wvalue(vr[static_cast<size_t>(w) * ld + c1]);
+      o1 = fmaf(pw[w], v, o1);
+    }
+    out[c1] = round_cd<WT>(o1);
+  }
+  __syncwarp();
+}
+
 template <typename WT>
 __global__ void __launch_bounds__(kThreads)
 fused_cached_batch_kernel(const float* __restrict__ tok, Weights w, Dims p,
-                          Scratch s, Rings r, float* __restrict__ y) {
+                          Scratch s, Rings r, float* __restrict__ y,
+                          PhaseClock clock) {
   cg::grid_group grid = cg::this_grid();
+  clock.start();
   extern __shared__ __align__(16) unsigned char sm_raw[];
   float* sm = reinterpret_cast<float*>(sm_raw);
   const int B = p.B, d = p.d, H = p.H, W = p.W;
@@ -109,22 +223,30 @@ fused_cached_batch_kernel(const float* __restrict__ tok, Weights w, Dims p,
   WT* v_ring = static_cast<WT*>(r.v);
   WT* enc = static_cast<WT*>(r.enc);
   WT* h_ring = static_cast<WT*>(r.h);
+  // f32 activations take cp.async; a ring in bf16 (and any ragged width)
+  // plain loads
+  const int mode = p.vec ? kProdAsync : kProdPlain;
+  const int ring_mode = sizeof(WT) == sizeof(float) ? mode : kProdPlain;
 
-  // ---- the tokens, fixed and rounded; the in-projection --------------------
-  product_phase<WT>(tok, p.Din, B, p.Din, Wt(w.w_in), Wt(w.b_in), d, nullptr,
-                    s.x, kActNone, true, p.zero0, sm);
-  if (!p.rnn_carry)
-    // the old ring rows' RNN inputs wait for nothing
-    product_phase<WT, WT, kXinRows>(enc, d, B * W, d, Wt(w.w_ih), Wt(w.b_r),
-                                    H, nullptr, s.xin, kActNone, false, -1,
-                                    sm);
-  grid.sync();
+  // ---- the tokens, fixed; the in-projection; what waits for nothing ------
+  split_product<WT>(tok, p.Din, B, p.Din, Wt(w.w_in), Wt(w.b_in), d, nullptr,
+                    s.x, 0, kActNone, p.vec ? kProdIn : kProdPlain, p.zero0,
+                    sm);
+  if (p.rnn_carry)
+    // the carried hidden's product with W_hh
+    split_product<WT, WT>(h_ring, H, B, H, Wt(w.w_hh), nullptr, H, nullptr,
+                          s.pre, 0, kActNone, ring_mode, -1, sm);
+  else
+    // the old ring rows' RNN inputs
+    product<WT, WT>(enc, d, B * W, d, Wt(w.w_ih), Wt(w.b_r), H, nullptr,
+                    s.xin, kActNone, ring_mode, -1, sm);
+  clock.sync(grid, kPhIn);
 
   for (int l = 0; l < p.layers; ++l) {
     const Layer& L = w.layer[l];
-    product_phase<WT>(s.x, d, B, d, Wt(L.w_qkv), Wt(L.b_qkv), 3 * d, nullptr,
-                      s.qkv, kActNone, true, -1, sm);
-    grid.sync();
+    split_product<WT>(s.x, d, B, d, Wt(L.w_qkv), Wt(L.b_qkv), 3 * d, nullptr,
+                      s.qkv, 0, kActNone, mode, -1, sm);
+    clock.sync(grid, kPhQkv);
     // ---- attention and the ring write: a warp per (stream, head) -----------
     {
       float* mine = sm + warp * (3 * hd + kMaxT);   // q, k, v, then weights
@@ -140,10 +262,10 @@ fused_cached_batch_kernel(const float* __restrict__ tok, Weights w, Dims p,
         const bool own = r.commit[b] != 0;
         const size_t ring0 =
             (static_cast<size_t>(b) * p.layers + l) * W * d + hh * hd;
-        attend_head<WT>(mine, mine + hd, mine + 2 * hd, k_ring + ring0,
-                        v_ring + ring0, d, r.valid + b * W, W, hd, p.slot,
-                        own, true, mine + 3 * hd,
-                        s.att + static_cast<size_t>(b) * d + hh * hd);
+        float* att = s.att + static_cast<size_t>(b) * d + hh * hd;
+        attend_ring_head<WT>(mine, mine + hd, mine + 2 * hd, k_ring + ring0,
+                             v_ring + ring0, d, r.valid + b * W, W, hd,
+                             p.slot, own, mine + 3 * hd, att);
         if (own) {
           const size_t at = ring0 + static_cast<size_t>(p.slot) * d;
           for (int c = lane; c < hd; c += 32) {
@@ -154,20 +276,20 @@ fused_cached_batch_kernel(const float* __restrict__ tok, Weights w, Dims p,
         __syncwarp();
       }
     }
-    grid.sync();
-    product_phase<WT>(s.att, d, B, d, Wt(L.w_o), Wt(L.b_o), d, s.x, s.a,
-                      kActNone, true, -1, sm);
-    grid.sync();
-    layernorm_phase(s.a, B, d, L.ln1_s, L.ln1_b, s.x);
-    grid.sync();
-    product_phase<WT>(s.x, d, B, d, Wt(L.w_f1), Wt(L.b_f1), p.ff, nullptr,
-                      s.f, kActRelu, true, -1, sm);
-    grid.sync();
-    product_phase<WT>(s.f, p.ff, B, p.ff, Wt(L.w_f2), Wt(L.b_f2), d, s.x, s.a,
-                      kActNone, true, -1, sm);
-    grid.sync();
-    layernorm_phase(s.a, B, d, L.ln2_s, L.ln2_b, s.x);
-    grid.sync();
+    clock.sync(grid, kPhAttn);
+    split_product<WT>(s.att, d, B, d, Wt(L.w_o), Wt(L.b_o), d, s.x, s.a, 0,
+                      kActNone, mode, -1, sm);
+    clock.sync(grid, kPhAttnOut);
+    layernorm_regs_phase(s.a, B, d, L.ln1_s, L.ln1_b, s.x);
+    clock.sync(grid, kPhLn1);
+    split_product<WT>(s.x, d, B, d, Wt(L.w_f1), Wt(L.b_f1), p.ff, nullptr,
+                      s.f, 0, kActRelu, mode, -1, sm);
+    clock.sync(grid, kPhFf1);
+    split_product<WT>(s.f, p.ff, B, p.ff, Wt(L.w_f2), Wt(L.b_f2), d, s.x,
+                      s.a, 0, kActNone, mode, -1, sm);
+    clock.sync(grid, kPhFf2);
+    layernorm_regs_phase(s.a, B, d, L.ln2_s, L.ln2_b, s.x);
+    clock.sync(grid, kPhLn2);
   }
 
   // ---- the encoder ring, in both RNN variants: nobody reads it from here --
@@ -182,36 +304,40 @@ fused_cached_batch_kernel(const float* __restrict__ tok, Weights w, Dims p,
   // ---- RNN head: the last hidden states, f32, in h_last ----------------------
   const float* h_last;
   if (p.rnn_carry) {
-    // one step from each stream's carried hidden
-    product_phase<WT>(s.x, d, B, d, Wt(w.w_ih), Wt(w.b_r), H, nullptr, s.pre,
-                      kActNone, true, -1, sm);
-    grid.sync();
-    product_phase<WT>(h_ring, H, B, H, Wt(w.w_hh),
-                      static_cast<const WT*>(nullptr), H, s.pre, s.hs,
-                      kActTanh, false, -1, sm);
-    grid.sync();
-    for (int i = blockIdx.x * kThreads + threadIdx.x; i < B * H;
-         i += gridDim.x * kThreads)
-      if (r.commit[i / H]) h_ring[i] = to_ring<WT>(__ldcg(s.hs + i));
+    // one step from each stream's carried hidden: tanh(x W_ih + b + h W_hh)
+    split_product<WT>(s.x, d, B, d, Wt(w.w_ih), Wt(w.b_r), H, s.pre, s.hs, 0,
+                      kActTanh, mode, -1, sm);
+    clock.sync(grid, kPhRnnIn);
     h_last = s.hs;
   } else {
     // the token's RNN input takes its slot's place among the ring rows'
-    product_phase<WT>(s.x, d, B, d, Wt(w.w_ih), Wt(w.b_r), H, nullptr,
-                      s.xin + static_cast<size_t>(p.slot) * H, kActNone, true,
-                      -1, sm, W * H);
-    grid.sync();
-    rnn_batch_phase<WT>(grid, s.xin, Wt(w.w_hh), B, W, H, p.cpb, s.hs,
-                        sm_raw + p.rnn_off, RingRow{W, p.slot},
-                        RingGate{r.valid, r.commit, W, p.slot});
+    split_product<WT>(s.x, d, B, d, Wt(w.w_ih), Wt(w.b_r), H, nullptr,
+                      s.xin + static_cast<size_t>(p.slot) * H, W * H,
+                      kActNone, mode, -1, sm);
+    clock.sync(grid, kPhRnnIn);
+    const RingRow row{W, p.slot};
+    const RingGate gate{r.valid, r.commit, W, p.slot};
+    if (p.rnn_cp == 2)
+      rnn_groups_phase<WT, 2>(grid, s.xin, Wt(w.w_hh), B, W, H, p.spb, s.hs,
+                              sm, row, gate);
+    else
+      rnn_groups_phase<WT, 1>(grid, s.xin, Wt(w.w_hh), B, W, H, p.spb, s.hs,
+                              sm, row, gate);
+    clock.closed(kPhRnn);
     h_last = s.hs + static_cast<size_t>(W & 1) * B * H;
   }
 
-  // ---- out-projection; the validity bits at the cursor ----------------------
-  product_phase<WT>(h_last, H, B, H, Wt(w.w_out), Wt(w.b_out), p.S, nullptr, y,
-                    kActNone, true, -1, sm);
+  // ---- out-projection; the carried hidden; the validity bits at the cursor
+  split_product<WT>(h_last, H, B, H, Wt(w.w_out), Wt(w.b_out), p.S, nullptr,
+                    y, 0, kActNone, mode, -1, sm);
+  if (p.rnn_carry)   // h_ring was last read in the first phase
+    for (int i = blockIdx.x * kThreads + threadIdx.x; i < B * H;
+         i += gridDim.x * kThreads)
+      if (r.commit[i / H]) h_ring[i] = to_ring<WT>(__ldcg(s.hs + i));
   for (int b = blockIdx.x * kThreads + threadIdx.x; b < B;
        b += gridDim.x * kThreads)
     r.valid[b * W + p.slot] = r.commit[b];
+  if (clock.clk != nullptr) clock.sync(grid, kPhOut);
 }
 
 // scratch floats by part, in the order of Scratch
@@ -222,7 +348,7 @@ inline void scratch_parts(const Dims& p, size_t* n) {
   n[2] = B * p.d;
   n[3] = B * p.d;
   n[4] = B * p.ff;
-  n[5] = B * p.H;
+  n[5] = p.rnn_carry ? B * p.H : 0;
   n[6] = 2 * B * p.H;
   n[7] = p.rnn_carry ? 0 : B * p.W * p.H;
 }
@@ -230,7 +356,7 @@ inline void scratch_parts(const Dims& p, size_t* n) {
 template <typename WT>
 int launch(const float* tok, const Weights& w, Dims p, float* scratch,
            long long scratch_floats, const Rings& r, float* y,
-           cudaStream_t stream) {
+           PhaseClock clock, cudaStream_t stream) {
   int dev = 0, sms = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -238,7 +364,6 @@ int launch(const float* tok, const Weights& w, Dims p, float* scratch,
   cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   const int grid = sms;           // one block per SM, all co-resident
-  p.cpb = (p.H + grid - 1) / grid;
   size_t n[8], total = 0;
   scratch_parts(p, n);
   for (int i = 0; i < 8; ++i) total += n[i];
@@ -250,30 +375,33 @@ int launch(const float* tok, const Weights& w, Dims p, float* scratch,
     *bufs[i] = scratch;
     scratch += n[i];
   }
+  // the replay's RNN: column groups of 16 columns (32 where 16 would give
+  // a block more than one pass of streams a step), the streams split over
+  // the groups the grid holds; LayerNorm holds a row in registers
+  if (p.H > 16 * kRnnKRegs || p.d > 32 * kLnRegs) return kErrShape;
+  if (grid < rnn_groups(p.H, 1)) return kErrShape;
+  auto group_streams = [&](int cp) {
+    const int groups = grid / rnn_groups(p.H, cp);
+    return (p.B + groups - 1) / groups;
+  };
+  p.rnn_cp = group_streams(1) > kRnnPass ? 2 : 1;
+  p.spb = group_streams(p.rnn_cp);
 
-  // shared memory: the phases' staging region (a product unit's rows, or
-  // the warps' attention vectors), then the replay's region
-  int k_max = p.Din;
-  if (p.d > k_max) k_max = p.d;
-  if (p.ff > k_max) k_max = p.ff;
-  if (p.H > k_max) k_max = p.H;
-  size_t stage = static_cast<size_t>(kRows) * k_max;
-  if (!p.rnn_carry && static_cast<size_t>(kXinRows) * p.d > stage)
-    stage = static_cast<size_t>(kXinRows) * p.d;
+  // shared memory, one region the phases take in turn: the products'
+  // stages, the warps' attention vectors, or the RNN's hidden states
+  size_t smem = split_smem<WT>();
+  if (!p.rnn_carry) {
+    smem = max_bytes(smem, product_smem());
+    smem = max_bytes(smem, rnn_groups_smem(p.H, p.rnn_cp));
+  }
   const size_t attn =
-      static_cast<size_t>(kWarps) * (3 * (p.d / p.heads) + kMaxT);
-  if (attn > stage) stage = attn;
-  const size_t stage_bytes = (stage * sizeof(float) + 15) / 16 * 16;
-  size_t rnn_bytes = 0;
-  if (!p.rnn_carry)
-    rnn_bytes = (static_cast<size_t>(p.cpb) * p.H * sizeof(WT) + 15) / 16 * 16 +
-                static_cast<size_t>(kRnnRows) * p.H * sizeof(float);
-  const size_t smem = stage_bytes + rnn_bytes;
+      static_cast<size_t>(kWarps) * (3 * (p.d / p.heads) + kMaxT) *
+      sizeof(float);
+  smem = max_bytes(smem, attn);
   if (smem > static_cast<size_t>(smem_max)) return kErrSmem;
-  p.rnn_off = static_cast<int>(stage_bytes);
   Weights w_arg = w;
   Rings r_arg = r;
-  void* args[] = {&tok, &w_arg, &p, &s, &r_arg, &y};
+  void* args[] = {&tok, &w_arg, &p, &s, &r_arg, &y, &clock};
   return launch_cooperative(fused_cached_batch_kernel<WT>, grid, smem, args,
                             stream);
 }
@@ -304,12 +432,14 @@ extern "C" int fused_cached_batch_scratch_floats(int B, int W, int d, int ff,
 // fused_cached_batch_scratch_floats floats. slot in [0, W). Returns a CUDA
 // error code, or -1 for a shape outside the kernel's limits (or a scratch
 // too small), -2 when the widths need more shared memory than a block has.
+// clock: null, or clock_rows rows of 4 u64 for the per-phase clock
+// (PhaseClock).
 extern "C" int fused_cached_batch_launch(
     const void* tok, const void* const* weights, int n_w, int is_bf16, int B,
     int W, int Din, int d, int heads, int ff, int layers, int H, int S,
     int zero0, int slot, int rnn_carry, const void* commit, void* k, void* v,
     void* enc, void* h, void* valid, void* scratch, long long scratch_floats,
-    void* y, void* stream) {
+    void* y, void* clock, int clock_rows, void* stream) {
   if (B < 1 || W < 1 || W >= kMaxT || layers < 1 || layers > kMaxLayers ||
       n_w != 2 + 12 * layers + 5 || heads < 1 || d < 1 || d % heads != 0 ||
       d / heads > kMaxHeadDim || Din < 1 || ff < 1 || H < 1 || S < 1 ||
@@ -330,8 +460,17 @@ extern "C" int fused_cached_batch_launch(
   p.zero0 = zero0;
   p.slot = slot;
   p.rnn_carry = rnn_carry != 0;
-  p.cpb = 0;
-  p.rnn_off = 0;
+  p.spb = 0;
+  p.rnn_cp = 1;
+  // 16-byte copies along every product's rows: the widths a multiple of 8
+  // (bf16 rows of 16 bytes), every matrix and ring aligned
+  bool vec = d % 8 == 0 && ff % 8 == 0 && H % 8 == 0;
+  for (int i = 0; i < n_w; ++i)
+    vec = vec && (reinterpret_cast<uintptr_t>(weights[i]) & 15) == 0;
+  const void* rings[] = {k, v, enc, h};
+  for (const void* q : rings)
+    vec = vec && (reinterpret_cast<uintptr_t>(q) & 15) == 0;
+  p.vec = vec ? 1 : 0;
   Rings r;
   r.k = k;
   r.v = v;
@@ -343,7 +482,9 @@ extern "C" int fused_cached_batch_launch(
   float* sf = static_cast<float*>(scratch);
   float* yf = static_cast<float*>(y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const PhaseClock ck{static_cast<unsigned long long*>(clock),
+                      clock != nullptr ? clock_rows : 0, 0};
   if (is_bf16)
-    return launch<__nv_bfloat16>(tf, w, p, sf, scratch_floats, r, yf, st);
-  return launch<float>(tf, w, p, sf, scratch_floats, r, yf, st);
+    return launch<__nv_bfloat16>(tf, w, p, sf, scratch_floats, r, yf, ck, st);
+  return launch<float>(tf, w, p, sf, scratch_floats, r, yf, ck, st);
 }

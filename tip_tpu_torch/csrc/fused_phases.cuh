@@ -31,7 +31,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 4;          // rows of a product unit
-constexpr int kRnnRows = 32;      // streams of one pass of rnn_batch_phase
 constexpr int kActNone = 0, kActRelu = 1, kActTanh = 2;
 constexpr int kMaxT = 64;
 constexpr int kMaxLayers = 8;
@@ -426,107 +425,6 @@ __device__ void attend_head(const float* q, const float* k_own,
     out[c] = round_cd<WT>(o);
   }
   __syncwarp();
-}
-
-// The tanh RNN of B streams over T steps, each stream with its own gate:
-//   h[b] <- gate(b, t) ? tanh(xin[row(b, t)] + round(h[b]) W_hh) : h[b],
-// h[b] = 0 before step 0. hs: two (B, H) f32 buffers in the global scratch;
-// step t reads hs[t & 1] and writes hs[(t + 1) & 1], so the last hidden
-// states are in hs + (T & 1) * B * H. Block b owns columns b*cpb ..
-// b*cpb+cpb-1 of W_hh, resident in shared memory, and per step takes the
-// streams kRnnRows at a time: their previous hidden states, rounded, go to
-// shared memory (16-byte loads where H allows), then a warp per stream
-// takes the dot products of its row with the block's columns, four columns
-// at a time, each in rnn_phase's order (lanes stride over k, then a
-// butterfly), so a stream whose gates are open for steps 0..n gets
-// rnn_phase's hidden state bit for bit. Every block reaches every
-// grid.sync(). sm: cpb * H values of WT (16-byte aligned size), then
-// kRnnRows * H floats.
-template <typename WT, typename RowOf, typename Gate>
-__device__ void rnn_batch_phase(cg::grid_group& grid, const float* xin,
-                                const WT* __restrict__ w_hh, int B, int T,
-                                int H, int cpb, float* hs, unsigned char* sm,
-                                RowOf row_of, Gate gate) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c0 = blockIdx.x * cpb;
-  const int ncols = max(0, min(cpb, H - c0));
-  WT* wsl = reinterpret_cast<WT*>(sm);                    // [cpb][H]
-  const size_t w_bytes =
-      (static_cast<size_t>(cpb) * H * sizeof(WT) + 15) / 16 * 16;
-  float* hsm = reinterpret_cast<float*>(sm + w_bytes);    // [kRnnRows][H]
-  for (int idx = threadIdx.x; idx < ncols * H; idx += kThreads) {
-    const int k = idx / ncols, c = idx - k * ncols;
-    wsl[c * H + k] = w_hh[static_cast<size_t>(k) * H + c0 + c];
-  }
-  const size_t BH = static_cast<size_t>(B) * H;
-  // every row of hs starts on 16 bytes
-  const bool vec4 = H % 4 == 0 && (reinterpret_cast<uintptr_t>(hs) & 15) == 0;
-  for (int t = 0; t < T; ++t) {
-    const float* h_prev = hs + (t & 1) * BH;
-    float* h_next = hs + ((t + 1) & 1) * BH;
-    if (ncols > 0) {
-      for (int b0 = 0; b0 < B; b0 += kRnnRows) {
-        const int nb = min(kRnnRows, B - b0);
-        __syncthreads();          // the pass before is done with hsm
-        if (t > 0) {
-          const float* src = h_prev + static_cast<size_t>(b0) * H;
-          if (vec4) {
-            const float4* src4 = reinterpret_cast<const float4*>(src);
-            float4* dst4 = reinterpret_cast<float4*>(hsm);
-#pragma unroll 8
-            for (int idx = threadIdx.x; idx < nb * H / 4; idx += kThreads) {
-              float4 v = __ldcg(src4 + idx);
-              v.x = round_cd<WT>(v.x);
-              v.y = round_cd<WT>(v.y);
-              v.z = round_cd<WT>(v.z);
-              v.w = round_cd<WT>(v.w);
-              dst4[idx] = v;
-            }
-          } else {
-            for (int idx = threadIdx.x; idx < nb * H; idx += kThreads)
-              hsm[idx] = round_cd<WT>(__ldcg(src + idx));
-          }
-        }
-        __syncthreads();
-        for (int r = warp; r < nb; r += kWarps) {
-          const int b = b0 + r;
-          const bool open = gate(b, t);
-          const float* hr = hsm + r * H;
-          for (int cg0 = 0; cg0 < ncols; cg0 += 4) {
-            const int nc = min(4, ncols - cg0);
-            float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-            if (open && t > 0) {
-              const WT* wc = wsl + cg0 * H;
-              for (int k = lane; k < H; k += 32) {
-                const float hv = hr[k];
-                s0 = fmaf(hv, wvalue(wc[k]), s0);
-                if (nc > 1) s1 = fmaf(hv, wvalue(wc[H + k]), s1);
-                if (nc > 2) s2 = fmaf(hv, wvalue(wc[2 * H + k]), s2);
-                if (nc > 3) s3 = fmaf(hv, wvalue(wc[3 * H + k]), s3);
-              }
-            }
-            s0 = warp_sum(s0);
-            s1 = warp_sum(s1);
-            s2 = warp_sum(s2);
-            s3 = warp_sum(s3);
-            if (lane < nc) {      // lane j finishes column cg0 + j
-              const float s = lane == 0 ? s0 : lane == 1 ? s1
-                                        : lane == 2 ? s2 : s3;
-              const size_t at = static_cast<size_t>(b) * H + c0 + cg0 + lane;
-              float v;
-              if (open)
-                v = tanhf(__ldcg(xin + static_cast<size_t>(row_of(b, t)) * H +
-                                 c0 + cg0 + lane) + s);
-              else
-                v = t > 0 ? __ldcg(h_prev + at) : 0.0f;
-              h_next[at] = v;
-            }
-          }
-        }
-      }
-    }
-    grid.sync();
-  }
 }
 
 // the launchers' common end: raise the kernel's dynamic shared memory

@@ -12,131 +12,121 @@
 //
 // What bounds it on the H100: at the training shape (256, 40, 512) the work
 // is 2 * 2 * B * T * H^2 = 10.7 GFLOP against 64 MB of compulsory bytes, so
-// operations (0.16 ms at 67 TFLOP/s f32). What bounds this kernel instead
-// is the sequential walk: 40 dependent steps, each a 512-long dot per hidden
-// unit whose W column comes from L2.
+// operations (0.16 ms at 67 TFLOP/s f32; 0.065 ms at the tensor cores'
+// TF32 rate over the three products of 3xTF32). Half of it is the
+// recurrence, 40 dependent steps whose every output needs the whole row
+// before; the other half, dW, has no order at all.
 //
-// Design, three launches from one entry point: W^T staged once (so thread j
-// reads row i of W^T, consecutive threads on consecutive addresses, as K1
-// reads W); the walk as K1 run backwards, one block per batch row, da in
-// shared memory, double buffered, one barrier a step, dxin written as it
-// goes; then dW as one (H x B*T) (B*T x H) product of the shifted hidden
-// states and dxin (train_gemm.cuh), split over the rows into partial sums
-// added in a fixed order: no float atomics, two calls give the same bits.
+// Design, two launches (three where dW is split):
+//   - the walk: rnn_cluster.cuh's walk, run backwards. W stays in the
+//     shared memory of a cluster of 8 blocks, each block H/8 of W's rows
+//     transposed as they are staged (no transposed copy of W), da goes to
+//     every block of the cluster through distributed shared memory with one
+//     cluster barrier a step, and the step's epilogue adds g_t and
+//     multiplies by 1 - h_t^2 with both loaded a step ahead, writing dxin;
+//   - dW as one (H x B T) (B T x H) product on the tensor cores, 3xTF32
+//     (train_mma.cuh's tile routine, each 8-deep step's sums added in f32),
+//     reading h_{t-1} as hs shifted by one row in its staging (a zero row
+//     where t = 0: no shifted copy of hs). Split over the B T rows into
+//     partial products added in a fixed order (tg::sum_splits_kernel): no
+//     float atomics, two calls give the same bits.
+// The launch plan (the walk's cluster, columns, batch tile, clusters and
+// shared bytes; dW's rows a split and splits) comes from
+// ops/fused_rnn.py::fused_rnn_bwd_plan and is checked here.
 
-#include <cuda_runtime.h>
-
-#include "train_gemm.cuh"
+#include "rnn_cluster.cuh"
+#include "train_mma.cuh"
 
 namespace {
 
-__global__ void transpose_kernel(const float* __restrict__ w,
-                                 float* __restrict__ wt, int H) {
-  __shared__ float tile[32][33];
-  const int x = blockIdx.x * 32 + threadIdx.x;
-  const int y0 = blockIdx.y * 32;
-  for (int dy = threadIdx.y; dy < 32; dy += blockDim.y) {
-    const int y = y0 + dy;
-    if (x < H && y < H) tile[dy][threadIdx.x] = w[static_cast<size_t>(y) * H + x];
-  }
-  __syncthreads();
-  const int tx = y0 + threadIdx.x;
-  for (int dy = threadIdx.y; dy < 32; dy += blockDim.y) {
-    const int ty = blockIdx.x * 32 + dy;
-    if (tx < H && ty < H)
-      wt[static_cast<size_t>(ty) * H + tx] = tile[threadIdx.x][dy];
-  }
-}
-
-// hprev[b, t] = hs[b, t - 1], hprev[b, 0] = 0
-__global__ void shift_kernel(const float* __restrict__ hs,
-                             float* __restrict__ hprev, int T, int H,
-                             size_t n) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int t = static_cast<int>((i / H) % T);
-  hprev[i] = t > 0 ? hs[i - H] : 0.0f;
-}
-
-__global__ void bptt_kernel(const float* __restrict__ hs,
-                            const float* __restrict__ wt,
-                            const float* __restrict__ g,
-                            float* __restrict__ dx, int T, int H) {
-  extern __shared__ float sh[];
-  float* da_next = sh;
-  float* da_cur = sh + H;
-  const size_t row = static_cast<size_t>(blockIdx.x) * T * H;
-
-  for (int j = threadIdx.x; j < H; j += blockDim.x) da_next[j] = 0.0f;
-  __syncthreads();
-
-  for (int t = T - 1; t >= 0; --t) {
-    for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-      const float* wj = wt + j;
-      int i = 0;
-#pragma unroll 4
-      for (; i + 3 < H; i += 4) {
-        a0 = fmaf(da_next[i], __ldg(wj + static_cast<size_t>(i) * H), a0);
-        a1 = fmaf(da_next[i + 1], __ldg(wj + static_cast<size_t>(i + 1) * H), a1);
-        a2 = fmaf(da_next[i + 2], __ldg(wj + static_cast<size_t>(i + 2) * H), a2);
-        a3 = fmaf(da_next[i + 3], __ldg(wj + static_cast<size_t>(i + 3) * H), a3);
+// dW's partial product of split blockIdx.z (rows [z kchunk, (z + 1)
+// kchunk) of B T): part + z H H, or dw itself when there is one split
+template <class L>
+__global__ void __launch_bounds__(L::THREADS, 2)
+dw_kernel(const float* __restrict__ hs, const float* __restrict__ da,
+          float* __restrict__ part, int H, int rows, int T, int kchunk) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = warp % (L::BM / L::TM), wn = warp / (L::BM / L::TM);
+  const int m0 = blockIdx.y * L::BM, n0 = blockIdx.x * L::BN;
+  const int k_begin = blockIdx.z * kchunk;
+  const int k_end = min(rows, k_begin + kchunk);
+  float acc[L::MT][L::NT][4];
+  // A = h_{t-1} stored (B T, H) as hs a row up; B = da (B T, H)
+  tf3::mma_tile<true, false, L, true, true>(hs, da, H, H, H, H, m0, n0,
+                                            k_begin, k_end, sm, acc, T);
+  float* out = part + static_cast<size_t>(blockIdx.z) * H * H;
+#pragma unroll
+  for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < L::NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {   // rows g, g+8; columns 2q, 2q+1
+        const int gm = m0 + wm * L::TM + mt * 16 + g + 8 * (r >> 1);
+        const int gn = n0 + wn * L::TN + nt * 8 + 2 * q + (r & 1);
+        if (gm < H && gn < H) out[static_cast<size_t>(gm) * H + gn] =
+            acc[mt][nt][r];
       }
-      for (; i < H; ++i)
-        a0 = fmaf(da_next[i], __ldg(wj + static_cast<size_t>(i) * H), a0);
-      const size_t at = row + static_cast<size_t>(t) * H + j;
-      const float dh = g[at] + ((a0 + a1) + (a2 + a3));
-      const float h = hs[at];
-      const float da = dh * (1.0f - h * h);
-      dx[at] = da;
-      da_cur[j] = da;
-    }
-    __syncthreads();
-    float* tmp = da_next;
-    da_next = da_cur;
-    da_cur = tmp;
-  }
 }
 
-size_t scratch_floats(int B, int T, int H) {
-  const int rows = B * T;
-  return static_cast<size_t>(H) * H + static_cast<size_t>(rows) * H +
-         tg::wgrad_scratch(H, H, rows);
+template <class L>
+cudaError_t launch_dw(const float* hs, const float* da, float* part, int H,
+                      int rows, int T, int kchunk, int splits,
+                      cudaStream_t st) {
+  constexpr size_t smem = tf3::Stage<true, false, L>::BYTES;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dw_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (attr != cudaSuccess) return attr;
+  dim3 grid((H + L::BN - 1) / L::BN, (H + L::BM - 1) / L::BM, splits);
+  dw_kernel<L><<<grid, L::THREADS, smem, st>>>(hs, da, part, H, rows, T,
+                                               kchunk);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Floats of scratch that fused_rnn_bwd_launch needs.
-extern "C" int fused_rnn_bwd_scratch(int B, int T, int H, long long* floats) {
-  *floats = static_cast<long long>(scratch_floats(B, T, H));
-  return 0;
-}
-
+// hs, g, dx (B, T, H), w_hh and dw (H, H), f32. The walk's plan as
+// fused_rnn_launch's (rnnc::walk_plan_ok); dW's: `dw_rows` rows a split (a
+// multiple of tf3::BK), `dw_splits` splits that cover the B T rows
+// exactly, and `part` dw_splits H H floats of scratch where dw_splits > 1
+// (unused otherwise). Returns a CUDA error code.
 extern "C" int fused_rnn_bwd_launch(const void* hs, const void* w_hh,
                                     const void* g, void* dx, void* dw,
-                                    void* scratch, int B, int T, int H,
+                                    void* part, int B, int T, int H,
+                                    int cluster, int cols, int bt,
+                                    int clusters, long long smem,
+                                    int dw_rows, int dw_splits,
                                     void* stream) {
   if (B <= 0 || T <= 0 || H <= 0) return 0;
+  const long long rows = static_cast<long long>(B) * T;
+  const bool ok =
+      rnnc::walk_plan_ok(B, H, cluster, cols, bt, clusters, smem) &&
+      dw_rows > 0 && dw_rows % tf3::BK == 0 && dw_splits > 0 &&
+      static_cast<long long>(dw_rows) * dw_splits >= rows &&
+      static_cast<long long>(dw_rows) * (dw_splits - 1) < rows &&
+      rows * H <= 0x7fffffffLL && (dw_splits == 1 || part != nullptr);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* wt = static_cast<float*>(scratch);
-  float* hprev = wt + static_cast<size_t>(H) * H;
-  float* part = hprev + static_cast<size_t>(B) * T * H;
   const float* hs_f = static_cast<const float*>(hs);
   float* dx_f = static_cast<float*>(dx);
-
-  transpose_kernel<<<dim3((H + 31) / 32, (H + 31) / 32), dim3(32, 8), 0,
-                     st>>>(static_cast<const float*>(w_hh), wt, H);
-  TG_CHECK();
-  int threads = ((H + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  bptt_kernel<<<B, threads, 2 * static_cast<size_t>(H) * sizeof(float), st>>>(
-      hs_f, wt, static_cast<const float*>(g), dx_f, T, H);
-  TG_CHECK();
-  const size_t n = static_cast<size_t>(B) * T * H;
-  shift_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
-      hs_f, hprev, T, H, n);
-  TG_CHECK();
-  tg::wgrad(hprev, dx_f, static_cast<float*>(dw), H, H, B * T, part, st);
-  TG_CHECK();
-  return 0;
+  float* dw_f = static_cast<float*>(dw);
+  cudaError_t err = rnnc::walk<true>(static_cast<const float*>(g), hs_f,
+                                     static_cast<const float*>(w_hh), dx_f,
+                                     B, T, H, cols, bt, clusters, smem, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* out = dw_splits > 1 ? static_cast<float*>(part) : dw_f;
+  err = H <= 256 ? launch_dw<tf3::NarrowTile>(hs_f, dx_f, out, H,
+                                              static_cast<int>(rows), T,
+                                              dw_rows, dw_splits, st)
+                 : launch_dw<tf3::WideTile>(hs_f, dx_f, out, H,
+                                            static_cast<int>(rows), T,
+                                            dw_rows, dw_splits, st);
+  if (err != cudaSuccess || dw_splits == 1) return static_cast<int>(err);
+  const int n = H * H;
+  tg::sum_splits_kernel<<<(n + 255) / 256, 256, 0, st>>>(out, dw_f, n,
+                                                         dw_splits);
+  return static_cast<int>(cudaGetLastError());
 }

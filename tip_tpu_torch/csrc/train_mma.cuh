@@ -105,13 +105,17 @@ __device__ __forceinline__ void mma(float* c, const uint32_t* a,
 }
 
 // stage the slice k0 .. k0 + BK of A's rows m0.. and B's columns n0..
-template <bool TA, bool TB, class L>
+// kShiftA (A stored (K, M)): row k of A is stored row k - 1, and zero
+// where k is a multiple of a_period (K10's h_{t-1}, windows of a_period
+// rows)
+template <bool TA, bool TB, class L, bool kShiftA = false>
 __device__ __forceinline__ void load_stage(float* As, float* Bs,
                                            const float* __restrict__ A,
                                            const float* __restrict__ B,
                                            int M, int N, int lda, int ldb,
                                            int m0, int n0, int k0, int k_end,
-                                           int tid) {
+                                           int tid, int a_period = 0) {
+  static_assert(TA || !kShiftA, "a shifted A is stored (K, M)");
   using S = Stage<TA, TB, L>;
   constexpr int BM = L::BM, BN = L::BN, kThreads = L::THREADS;
   if (!TA) {   // A (M, K): BK / 4 copies a row
@@ -126,9 +130,10 @@ __device__ __forceinline__ void load_stage(float* As, float* Bs,
     for (int e = tid; e < BK * (BM / 4); e += kThreads) {
       const int kk = e / (BM / 4), q = e % (BM / 4);
       const int gk = k0 + kk, gm = m0 + 4 * q;
-      const bool v = gk < k_end && gm < M;
+      const bool v = gk < k_end && gm < M && (!kShiftA || gk % a_period);
+      const int sk = kShiftA ? gk - 1 : gk;
       cp16(As + kk * S::A_LD + 4 * q,
-           v ? A + static_cast<size_t>(gk) * lda + gm : A, v);
+           v ? A + static_cast<size_t>(sk) * lda + gm : A, v);
     }
   }
   if (!TB) {   // B (K, N): BN / 4 copies a row of K
@@ -227,13 +232,16 @@ __device__ __forceinline__ void mma_slice(const float* As, const float* Bs,
 // syncs the block first. kPromote: as mma_slice's.
 // A logical (M, K): stored (M, K) with row stride lda, or (K, M) if TA.
 // B logical (K, N): stored (K, N) with row stride ldb, or (N, K) if TB.
-template <bool TA, bool TB, class L, bool kPromote = false>
+// kShiftA, a_period: as load_stage's.
+template <bool TA, bool TB, class L, bool kPromote = false,
+          bool kShiftA = false>
 __device__ __forceinline__ void mma_tile(const float* __restrict__ A,
                                          const float* __restrict__ B, int M,
                                          int N, int lda, int ldb, int m0,
                                          int n0, int k_begin, int k_end,
                                          float* sm,
-                                         float (&acc)[L::MT][L::NT][4]) {
+                                         float (&acc)[L::MT][L::NT][4],
+                                         int a_period = 0) {
   using S = Stage<TA, TB, L>;
   using W = L;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -251,9 +259,11 @@ __device__ __forceinline__ void mma_tile(const float* __restrict__ A,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nk)
-      load_stage<TA, TB, L>(sm + s * S::FLOATS,
-                             sm + s * S::FLOATS + S::A_FLOATS, A, B, M, N,
-                             lda, ldb, m0, n0, k_begin + s * BK, k_end, tid);
+      load_stage<TA, TB, L, kShiftA>(sm + s * S::FLOATS,
+                                      sm + s * S::FLOATS + S::A_FLOATS, A, B,
+                                      M, N, lda, ldb, m0, n0,
+                                      k_begin + s * BK, k_end, tid,
+                                      a_period);
     cp_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -262,8 +272,9 @@ __device__ __forceinline__ void mma_tile(const float* __restrict__ A,
     const int nxt = kt + kStages - 1;
     if (nxt < nk) {
       float* st = sm + (nxt % kStages) * S::FLOATS;
-      load_stage<TA, TB, L>(st, st + S::A_FLOATS, A, B, M, N, lda, ldb, m0,
-                             n0, k_begin + nxt * BK, k_end, tid);
+      load_stage<TA, TB, L, kShiftA>(st, st + S::A_FLOATS, A, B, M, N, lda,
+                                      ldb, m0, n0, k_begin + nxt * BK, k_end,
+                                      tid, a_period);
     }
     cp_commit();
     const float* As = sm + (kt % kStages) * S::FLOATS;

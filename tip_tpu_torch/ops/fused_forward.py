@@ -398,8 +398,7 @@ def recompute_batch_phases(packed_ws, x, k_last, cfg: M.ModelConfig):
     ks = _check_k_last_batch(k_last, B, T)
     check_packed(packed_ws, cfg, x.device, "fused_recompute_batch")
     K.check_input(x, "x", (B, T, cfg.input_dim), torch.float32, x.device)
-    clock = torch.zeros((_CLOCK_ROWS, 4), dtype=torch.int64, device=x.device)
-    clock[:, 1] = 2 ** 62
+    clock = new_clock(x.device)
     out = _launch_batch(packed_ws, x, torch.tensor(ks, dtype=torch.int32,
                                                    device=x.device),
                         cfg, clock)
@@ -407,21 +406,30 @@ def recompute_batch_phases(packed_ws, x, k_last, cfg: M.ModelConfig):
     return out, split, n
 
 
-def phase_split(rows):
-    """K9's clock rows (end, first arrival, last arrival, kind), row 0 the
-    start -> ({kind: ms, "barrier", "imbalance", "total"}, phases): see
-    ``recompute_batch_phases``. Rows after the last written one (end 0)
-    are not read."""
-    split = dict.fromkeys(K9_PHASES[1:] + ("barrier", "imbalance"), 0.0)
+def new_clock(dev):
+    """An empty per-phase clock for K8 or K9 (csrc/pool_phases.cuh's
+    PhaseClock): rows of (end, first arrival, last arrival, kind)."""
+    clock = torch.zeros((_CLOCK_ROWS, 4), dtype=torch.int64, device=dev)
+    clock[:, 1] = 2 ** 62
+    return clock
+
+
+def phase_split(rows, names=K9_PHASES):
+    """A pool kernel's clock rows (end, first arrival, last arrival,
+    kind), row 0 the start -> ({kind: ms, "barrier", "imbalance",
+    "total"}, phases), the kinds named by ``names`` (K9's, or
+    ``streaming_cache.K8_PHASES``): see ``recompute_batch_phases``. Rows
+    after the last written one (end 0) are not read."""
+    split = dict.fromkeys(names[1:] + ("barrier", "imbalance"), 0.0)
     n = 0
     for prev, (end, first, last, kind) in zip(rows, rows[1:]):
         if end == 0:
             break
         n += 1
         if last == 0:                      # no arrivals: the RNN
-            split[K9_PHASES[kind]] += (end - prev[0]) / 1e6
+            split[names[kind]] += (end - prev[0]) / 1e6
             continue
-        split[K9_PHASES[kind]] += (last - prev[0]) / 1e6
+        split[names[kind]] += (last - prev[0]) / 1e6
         split["barrier"] += (end - last) / 1e6
         split["imbalance"] += (last - first) / 1e6
     split["total"] = (rows[n][0] - rows[0][0]) / 1e6

@@ -10,8 +10,9 @@ in a thread-block cluster's shared memory (``fused_rnn_plan``);
 ``fused_rnn_plain`` is the same function as a Python loop over T.
 
 For training, ``fused_rnn_train`` is differentiable: its forward is K1, its
-backward the BPTT kernel K10 (``csrc/fused_rnn_bwd.cu``), which reads only
-the saved hidden states (tanh' = 1 - h^2):
+backward the BPTT kernel K10 (``csrc/fused_rnn_bwd.cu``: K1's cluster walk
+run backwards, then dW on the tensor cores; ``fused_rnn_bwd_plan``), which
+reads only the saved hidden states (tanh' = 1 - h^2):
 
     dh_t = g_t + da_{t+1} @ W_hh^T,  da_t = dh_t * (1 - h_t^2) -> dxin_t
     dW_hh = sum over t of h_{t-1}^T @ da_t     (h_{-1} = 0)
@@ -26,11 +27,10 @@ from tip_tpu_torch.ops import _kernels as K
 
 _SIG = {"fused_rnn_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                             + [ctypes.c_longlong, ctypes.c_void_p]}
-_SIG_BWD = {
-    "fused_rnn_bwd_scratch": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                              ctypes.POINTER(ctypes.c_longlong)],
-    "fused_rnn_bwd_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-                            + [ctypes.c_void_p]}
+_SIG_BWD = {"fused_rnn_bwd_launch": [ctypes.c_void_p] * 6
+                                    + [ctypes.c_int] * 7
+                                    + [ctypes.c_longlong, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_void_p]}
 
 
 def fused_rnn_plain(xin, w_hh):
@@ -45,12 +45,13 @@ def fused_rnn_plain(xin, w_hh):
     return torch.stack(hs, dim=1)
 
 
-# K1's launch: a cluster of 8 blocks (the portable cluster size) shares
-# W_hh, each block H/8 columns (32 or 64) in its shared memory and 256
-# threads (8 warps, one per eighth of W_hh's rows); a cluster owns a tile of
-# batch rows. 16 clusters are 128 of the H100's 132 SMs, so the tile grows
-# with B until B fills them, up to 16 rows (the largest tile whose two h
-# buffers and partial sums fit beside a 512-wide slice)
+# The walk of K1 and K10 (csrc/rnn_cluster.cuh): a cluster of 8 blocks (the
+# portable cluster size) shares W_hh, each block 32 or 64 output columns of
+# it in its shared memory and 256 threads (8 warps, one per eighth of the
+# depth); a cluster owns a tile of batch rows. 16 clusters are 128 of the
+# H100's 132 SMs, so the tile grows with B until B fills them, up to 16
+# rows (the largest tile whose two row buffers and partial sums fit beside
+# a 512-wide slice)
 RNN_CLUSTER = 8
 RNN_SPLITS = 8
 RNN_TILES = (1, 2, 4, 8, 16)
@@ -67,23 +68,70 @@ class RNNPlan:
     smem_bytes: int          # shared memory of a block
 
 
+def _walk_plan(B: int, H: int, cols: int, name: str) -> RNNPlan:
+    """The walk's plan for B rows of width H, ``cols`` columns a block:
+    the depth padded to 8 slices of a multiple of 4 (rnn_cluster.cuh's
+    slice_depth); raises where W_hh's slice and the row buffers do not fit
+    in a block's shared memory."""
+    want = -(-B // RNN_FULL_CLUSTERS)
+    bt = next((t for t in RNN_TILES if t >= want), RNN_TILES[-1])
+    slice_depth = -(-H // RNN_SPLITS)
+    depth = RNN_SPLITS * (-(-slice_depth // 4) * 4)
+    smem = 4 * (depth * cols + 2 * bt * depth + RNN_SPLITS * bt * cols)
+    if smem > MAX_SMEM:
+        raise ValueError(f"{name}: H={H} needs {smem} bytes of shared "
+                         f"memory a block, more than {MAX_SMEM}")
+    return RNNPlan(RNN_CLUSTER, cols, bt, -(-B // bt), smem)
+
+
 def fused_rnn_plan(B: int, H: int) -> RNNPlan:
-    """K1's launch plan for B rows of width H; raises where W_hh's slice
-    and the h buffers do not fit in a block's shared memory (there is no
-    other kernel to fall back to)."""
+    """K1's launch plan for B rows of width H: W_hh's columns split evenly
+    over the cluster, H/8 a multiple of 32. Raises where that does not hold
+    or does not fit (there is no other kernel to fall back to)."""
     if B <= 0 or H <= 0:
         raise ValueError(f"fused_rnn: B={B}, H={H}")
     cols = H // RNN_CLUSTER
     if H % RNN_CLUSTER or cols % 32 or H % (4 * RNN_SPLITS):
         raise ValueError(f"fused_rnn: H={H} does not split into "
                          f"{RNN_CLUSTER} blocks of a multiple of 32 columns")
-    want = -(-B // RNN_FULL_CLUSTERS)
-    bt = next((t for t in RNN_TILES if t >= want), RNN_TILES[-1])
-    smem = 4 * (H * cols + 2 * bt * H + RNN_SPLITS * bt * cols)
-    if smem > MAX_SMEM:
-        raise ValueError(f"fused_rnn: H={H} needs {smem} bytes of shared "
-                         f"memory a block, more than {MAX_SMEM}")
-    return RNNPlan(RNN_CLUSTER, cols, bt, -(-B // bt), smem)
+    return _walk_plan(B, H, cols, "fused_rnn")
+
+
+# dW's product (csrc/train_mma.cuh's tiles): 128 rows x 64 columns a block
+# where N <= 256, else 128 x 128; the B T rows split into chunks of a
+# multiple of 32 (at least 256 rows) until the card has about 264 blocks
+# (two an SM), as train_mma.cuh's split_plan cuts a weight gradient
+DW_TILE_M = 128
+DW_SLICE = 32
+DW_TARGET_BLOCKS = 264
+
+
+@dataclasses.dataclass(frozen=True)
+class RNNBwdPlan:
+    walk: RNNPlan            # the walk backwards (K1's, W's rows in a block)
+    dw_rows: int             # rows of B T a split of dW's product takes
+    dw_splits: int           # partial products, added in order (1: none)
+
+
+def fused_rnn_bwd_plan(B: int, T: int, H: int) -> RNNBwdPlan:
+    """K10's launch plan: the walk's (a block keeps 32 columns of W where
+    H <= 256, else 64, so H <= 512 and a multiple of 4) and dW's split.
+    Raises where W's slice and the row buffers do not fit."""
+    if B <= 0 or T <= 0 or H <= 0:
+        raise ValueError(f"fused_rnn_bwd: B={B}, T={T}, H={H}")
+    if H % 4 or H > 2 * 32 * RNN_CLUSTER:
+        raise ValueError(f"fused_rnn_bwd: H={H} is not a multiple of 4 "
+                         f"that {RNN_CLUSTER} blocks of at most 64 columns "
+                         f"cover")
+    walk = _walk_plan(B, H, 32 if H <= 32 * RNN_CLUSTER else 64,
+                      "fused_rnn_bwd")
+    rows = B * T
+    tile_n = 64 if H <= 256 else 128
+    tiles = -(-H // DW_TILE_M) * -(-H // tile_n)
+    splits = max(1, min(-(-DW_TARGET_BLOCKS // tiles), -(-rows // 256)))
+    per_split = -(-rows // splits)
+    chunk = -(-per_split // DW_SLICE) * DW_SLICE
+    return RNNBwdPlan(walk, chunk, -(-rows // chunk))
 
 
 def _launch(xin, w_hh):
@@ -137,17 +185,19 @@ def _launch_bwd(hs, w_hh, g):
     for t, name, shape in ((hs, "hs", (B, T, H)), (w_hh, "w_hh", (H, H)),
                            (g, "g", (B, T, H))):
         K.check_input(t, name, shape, torch.float32, hs.device)
+    plan = fused_rnn_bwd_plan(B, T, H)
+    walk = plan.walk
     so = K.lib("fused_rnn_bwd", _SIG_BWD)
-    n = ctypes.c_longlong()
-    K.check(so.fused_rnn_bwd_scratch(B, T, H, ctypes.byref(n)),
-            "fused_rnn_bwd_scratch")
-    scratch = torch.empty(n.value, dtype=torch.float32, device=hs.device)
     dx = torch.empty_like(hs)
     dw = torch.empty((H, H), dtype=torch.float32, device=hs.device)
+    part = (torch.empty((plan.dw_splits, H, H), dtype=torch.float32,
+                        device=hs.device) if plan.dw_splits > 1 else None)
     stream = torch.cuda.current_stream(hs.device).cuda_stream
-    err = so.fused_rnn_bwd_launch(hs.data_ptr(), w_hh.data_ptr(),
-                                  g.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-                                  scratch.data_ptr(), B, T, H, stream)
+    err = so.fused_rnn_bwd_launch(
+        hs.data_ptr(), w_hh.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        dw.data_ptr(), None if part is None else part.data_ptr(), B, T, H,
+        walk.cluster, walk.cols, walk.batch_tile, walk.clusters,
+        walk.smem_bytes, plan.dw_rows, plan.dw_splits, stream)
     K.check(err, "fused_rnn_bwd")
     K.launch_counts["fused_rnn_bwd"] += 1
     return dx, dw

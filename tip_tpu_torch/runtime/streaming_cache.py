@@ -72,7 +72,7 @@ _SIG = {"fused_cached_launch": [_P, _P] + [_I] * 14 + [_P] * 6 + [_I, _P, _P],
         "fused_cached_scratch_floats": [_I] * 6}
 _SIG_BATCH = {
     "fused_cached_batch_launch": [_P, _P] + [_I] * 14 + [_P] * 7
-    + [ctypes.c_longlong, _P, _P],
+    + [ctypes.c_longlong, _P, _P, _I, _P],
     "fused_cached_batch_scratch_floats": [_I] * 6}
 
 
@@ -642,8 +642,9 @@ def fused_cached_batch_plain(packed_ws, cache: KVCache, x_tokens, slot: int,
 
 
 def _launch_batch(packed_ws, cache: KVCache, x_tokens, slot: int, commit,
-                  cfg: M.ModelConfig, rnn_carry: bool):
-    """One cooperative launch of csrc/fused_cached_batch.cu."""
+                  cfg: M.ModelConfig, rnn_carry: bool, clock=None):
+    """One cooperative launch of csrc/fused_cached_batch.cu; ``clock``:
+    None, or a per-phase clock (``cached_batch_phases``)."""
     name = "fused_cached_batch"
     dev = x_tokens.device
     cd = packed_ws[0].dtype
@@ -668,10 +669,40 @@ def _launch_batch(packed_ws, cache: KVCache, x_tokens, slot: int, commit,
         commit.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
         cache.enc.data_ptr(), cache.h.data_ptr(), cache.valid.data_ptr(),
         scratch.data_ptr(), n_scratch, y.data_ptr(),
+        None if clock is None else clock.data_ptr(),
+        0 if clock is None else clock.shape[0],
         torch.cuda.current_stream(dev).cuda_stream)
     FF.check_launch(err, name, cfg)
     K.launch_counts[name] += 1
     return y
+
+
+# the kinds of K8's phases, as csrc/fused_cached_batch.cu numbers them:
+# "in_proj" holds the old ring rows' RNN inputs (a replay) or the carried
+# hidden state's product with W_hh (a carry), "rnn_in" the token's RNN
+# input (a carry's whole step), "rnn" a replay's walk
+K8_PHASES = ("start", "in_proj", "qkv", "attention", "attn_out", "ln1",
+             "ff1", "ff2", "ln2", "rnn_in", "rnn", "out_proj")
+
+
+def cached_batch_phases(packed_ws, cache: KVCache, x_tokens, slot: int,
+                        commit, cfg: M.ModelConfig, *,
+                        rnn_carry: bool = False):
+    """One launch of K8 (CUDA tensors) with its per-phase clock on, as
+    ``fused_forward.recompute_batch_phases`` runs K9's: updates ``cache``
+    in place as ``fused_cached_batch`` does and returns (y, {kind: ms},
+    phases), the kinds those of ``K8_PHASES``."""
+    dev = x_tokens.device
+    FF.check_packed(packed_ws, cfg, dev, "fused_cached_batch")
+    B, W = _check_cache_batch(cache, packed_ws, cfg, dev)
+    K.check_input(x_tokens, "x_tokens", (B, cfg.input_dim), torch.float32,
+                  dev)
+    K.check_input(commit, "commit", (B,), torch.bool, dev)
+    clock = FF.new_clock(dev)
+    y = _launch_batch(packed_ws, cache, x_tokens, int(slot) % W, commit, cfg,
+                      rnn_carry, clock)
+    split, n = FF.phase_split(clock.cpu().tolist(), K8_PHASES)
+    return y, split, n
 
 
 def fused_cached_batch(packed_ws, cache: KVCache, x_tokens, slot, commit,
