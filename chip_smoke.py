@@ -476,6 +476,18 @@ def fused_recompute_batch_work(cfg, T, k_last, itemsize):
     return nbytes, sum(forward_ops(cfg, k + 1, 1) for k in k_last)
 
 
+def clock_split(what, clocked, unclocked):
+    """A whole-model kernel's device time by phase (its per-phase clock):
+    one clocked launch after a warm one; its output equals an unclocked
+    launch's (TOL_SAME). clocked() returns (out, split, phases)."""
+    clocked()                                            # warm
+    y, split, n = clocked()
+    check(f"{what} phases", {what: (max_err(y, unclocked()), TOL_SAME)})
+    log(f"  {what} by phase ({n} phases): " + json.dumps(
+        {k: round(v, 4) for k, v in split.items()}))
+    return split
+
+
 def check_fused_forward(dev, gen, model):
     """K4 and K5 against their plain versions at the runner's window
     (40, 221) and a short one (7, 221), both packing dtypes, at full width;
@@ -537,6 +549,11 @@ def check_fused_forward(dev, gen, model):
         ws32 = model.packed_weights(torch.float32)
         t16 = timings(lambda: kernel(ws16), lambda: plain(ws16))
         t32 = timings(lambda: kernel(ws32), lambda: plain(ws32))
+        k = T - 1 if rows_out == 1 else None
+        c16, c32 = (clock_split(
+            f"{kname} {name}", lambda: FF.forward_phases(ws, x, k, cfg),
+            lambda: kernel(ws)) for name, ws in (("bfloat16", ws16),
+                                                 ("float32", ws32)))
         b16 = bound(*fused_forward_work(cfg, T, rows_out, 2),
                     PEAK_BF16_FLOP_S)
         b32 = bound(*fused_forward_work(cfg, T, rows_out, 4))
@@ -546,12 +563,12 @@ def check_fused_forward(dev, gen, model):
             source="tip_tpu_torch/csrc/fused_forward.cu", replaces=replaces,
             shape=[T, cfg.input_dim], packing="bfloat16",
             max_abs_err=worst[key], tol=TOL_FF["bfloat16"],
-            bound_ms=b16[0], bound_by=b16[1], **t16,
+            bound_ms=b16[0], bound_by=b16[1], **t16, clock_ms=c16,
             f32_packing=dict(ms=t32["ms"], plain_ms=t32["plain_ms"],
                              call_ms=t32["call_ms"],
                              plain_call_ms=t32["plain_call_ms"],
                              bound_ms=b32[0], bound_by=b32[1],
-                             tol=TOL_FF["float32"])))
+                             tol=TOL_FF["float32"], clock_ms=c32)))
     return out
 
 
@@ -685,16 +702,24 @@ def check_fused_cached(dev, gen, model):
             lambda: SC.fused_cached_forward_step_plain(ws, cp, x, 7, True,
                                                        cfg,
                                                        rnn_carry=rnn_carry))
+        var = f"{'carry' if rnn_carry else 'replay'}_{name}"
+        clock = clock_split(
+            f"fused_cached_forward_step {var}",
+            lambda: SC.cached_step_phases(ws, ck.clone(), x, 7, True, cfg,
+                                          rnn_carry=rnn_carry),
+            lambda: SC.fused_cached_step_slot(ws, ck.clone(), x, 7, True, cfg,
+                                              rnn_carry=rnn_carry,
+                                              impl="fused")[1])
         steps = int(ck.valid.sum().item())           # the ring is full: W
         b_ms, b_by = bound(
             *fused_cached_work(cfg, W, 4 if name == "float32" else 2,
                                rnn_carry, steps),
             PEAK_F32_FLOP_S if name == "float32" else PEAK_BF16_FLOP_S)
-        variants[f"{'carry' if rnn_carry else 'replay'}_{name}"] = dict(
+        variants[var] = dict(
             ms=t["ms"], plain_ms=t["plain_ms"], call_ms=t["call_ms"],
             plain_call_ms=t["plain_call_ms"], bound_ms=b_ms, bound_by=b_by,
             rnn_steps=steps, max_abs_err=worst[(name, rnn_carry)],
-            tol=TOL_FF[name])
+            tol=TOL_FF[name], clock_ms=clock)
     # the entry's own numbers are path D's: replay, f32 rings
     own = variants.pop("replay_float32")
     own.pop("rnn_steps")

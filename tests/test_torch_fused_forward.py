@@ -177,5 +177,80 @@ def test_pack_weights_rejects_other_dtypes_and_counts():
     tws = TFF.pack_weights(sd, TCFG, dtype=torch.float32)
     with pytest.raises(ValueError, match="31"):
         TFF.fused_forward_plain(tws[:-1], torch.zeros(4, 221), TCFG)
+    # x, qkv, att, the pre-norm sum, ff, the RNN input and the walk's
+    # (value, step) pairs, two floats each
     assert TFF.scratch_floats(40, TM.ModelConfig()) == 40 * (6 * 256 + 1024
-                                                             + 2 * 512)
+                                                             + 3 * 512)
+
+
+def test_phase_split_reads_k4s_clock_rows():
+    """K4's and K5's per-phase clock rows split under ``K4_PHASES``: each
+    kind named as csrc/fused_forward.cu numbers it, the walk (no arrivals,
+    no barrier) counted whole, barriers and the first-to-last arrival
+    summed apart, rows after the last end not read."""
+    assert TFF.K4_PHASES == ("start", "in_proj", "qkv", "attention",
+                             "attn_out", "ln1", "ff1", "ff2", "ln2", "w_ih",
+                             "rnn", "out_proj")
+    big = 2 ** 62
+    rows = [[1_000_000, big, 0, 0],
+            [1_010_000, 1_002_000, 1_008_000, 1],     # in_proj
+            [1_020_000, 1_012_000, 1_018_000, 2],     # qkv
+            [1_030_000, 1_022_000, 1_027_000, 3],     # attention
+            [1_040_000, 1_032_000, 1_036_000, 4],     # attn_out
+            [1_050_000, 1_042_000, 1_047_000, 6],     # ff1
+            [1_060_000, 1_051_000, 1_058_000, 7],     # ff2
+            [1_070_000, 1_062_000, 1_068_000, 9],     # w_ih
+            [1_110_000, big, 0, 10],                  # the walk
+            [1_115_000, 1_112_000, 1_114_000, 11],    # out_proj
+            [0, big, 0, 0], [5, 5, 5, 5]]
+    split, n = TFF.phase_split(rows, TFF.K4_PHASES)
+    assert n == 9
+    assert set(split) == set(TFF.K4_PHASES[1:]) | {"barrier", "imbalance",
+                                                   "total"}
+    assert split["in_proj"] == pytest.approx(0.008)
+    assert split["ff2"] == pytest.approx(0.008)
+    assert split["rnn"] == pytest.approx(0.04)
+    assert split["out_proj"] == pytest.approx(0.004)
+    assert split["ln1"] == split["ln2"] == 0.0        # folded into staging
+    assert split["barrier"] == pytest.approx(
+        0.002 + 0.002 + 0.003 + 0.004 + 0.003 + 0.002 + 0.002 + 0.001)
+    assert split["imbalance"] == pytest.approx(
+        0.006 + 0.006 + 0.005 + 0.004 + 0.005 + 0.007 + 0.006 + 0.002)
+    assert split["total"] == pytest.approx(0.115)
+    assert sum(split[k] for k in TFF.K4_PHASES[1:]) + split["barrier"] \
+        == pytest.approx(split["total"])
+
+
+def test_checked_packed_list_still_raises_after_a_good_list_passed():
+    """``check_packed`` checks a list once and then knows it by its tensors
+    (K4's, K5's and K7's wrappers call it every launch): the same list
+    passes again and gives the same pointer array, and a wrong dtype, a
+    wrong count or a replaced tensor is checked again and raises."""
+    _, sd = _params(8)
+    cpu = torch.device("cpu")
+    ws = TFF.pack_weights(sd, TCFG, dtype=torch.float32)
+    first = TFF.check_packed(ws, TCFG, cpu, "fused_forward_last")
+    assert [p for p in first] == [t.data_ptr() for t in ws]
+    assert TFF.check_packed(ws, TCFG, cpu, "fused_forward_last") is first
+    # another dtype in place of one tensor of the same list
+    good = ws[4]
+    ws[4] = good.to(torch.bfloat16)
+    with pytest.raises(TypeError, match="packed_ws\\[4\\]"):
+        TFF.check_packed(ws, TCFG, cpu, "fused_forward_last")
+    # a replaced tensor of the right dtype but another shape
+    ws[4] = torch.zeros(good.numel() + 1)
+    with pytest.raises(ValueError, match="packed_ws\\[4\\]"):
+        TFF.check_packed(ws, TCFG, cpu, "fused_forward_last")
+    ws[4] = good
+    assert [p for p in TFF.check_packed(ws, TCFG, cpu, "x")] == \
+        [t.data_ptr() for t in ws]
+    # a wrong count, and a tensor on another device
+    with pytest.raises(ValueError, match="packed weights"):
+        TFF.check_packed(ws[:-1], TCFG, cpu, "fused_forward_last")
+    meta = list(ws)
+    meta[0] = ws[0].to("meta")
+    with pytest.raises(ValueError, match="packed_ws\\[0\\]"):
+        TFF.check_packed(meta, TCFG, cpu, "fused_forward_last")
+    # the list itself on another device than the one asked for
+    with pytest.raises(ValueError, match="packed_ws\\[0\\]"):
+        TFF.check_packed(ws, TCFG, torch.device("meta"), "fused_forward_last")

@@ -460,3 +460,31 @@ def test_cached_runner_packs_in_the_rings_dtype(dt, want):
     assert carry.cache.k.dtype == want and carry.cache.k.shape == (2, 40, 32)
     windowed = TR.RunnerConfig(model=mcfg)
     assert TR.pack_dtype(windowed) == (want if dt else torch.bfloat16)
+
+
+def test_phase_split_reads_k7s_clock_rows():
+    """K7's per-phase clock rows split under ``K7_PHASES`` (a replay: its
+    walk has no barrier and no arrivals, and is counted whole)."""
+    from tip_tpu_torch.ops import fused_forward as TFF
+    assert TSC.K7_PHASES == ("start", "in_proj", "qkv", "attn_out", "ff1",
+                             "ff2", "rnn_in", "rnn", "out_proj")
+    big = 2 ** 62
+    rows = [[2_000_000, big, 0, 0],
+            [2_004_000, 2_001_000, 2_003_000, 1],     # in_proj
+            [2_008_000, 2_005_000, 2_007_000, 2],     # qkv with attention
+            [2_011_000, 2_009_000, 2_010_000, 3],     # attn_out
+            [2_014_000, 2_012_000, 2_013_000, 4],     # ff1
+            [2_017_000, 2_015_000, 2_016_000, 5],     # ff2
+            [2_020_000, 2_018_000, 2_019_000, 6],     # rnn_in
+            [2_060_000, big, 0, 7],                   # the walk
+            [2_063_000, 2_061_000, 2_062_000, 8],     # out_proj
+            [0, big, 0, 0]]
+    split, n = TFF.phase_split(rows, TSC.K7_PHASES)
+    assert n == 8
+    assert split["qkv"] == pytest.approx(0.003)
+    assert split["rnn"] == pytest.approx(0.04)
+    assert split["out_proj"] == pytest.approx(0.002)
+    assert split["barrier"] == pytest.approx(7 * 0.001)
+    assert split["total"] == pytest.approx(0.063)
+    assert sum(split[k] for k in TSC.K7_PHASES[1:]) + split["barrier"] \
+        == pytest.approx(split["total"])

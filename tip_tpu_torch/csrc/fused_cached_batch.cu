@@ -357,12 +357,9 @@ template <typename WT>
 int launch(const float* tok, const Weights& w, Dims p, float* scratch,
            long long scratch_floats, const Rings& r, float* y,
            PhaseClock clock, cudaStream_t stream) {
-  int dev = 0, sms = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int sms = 0, smem_max = 0;
+  const cudaError_t err = device_limits(&sms, &smem_max);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
   const int grid = sms;           // one block per SM, all co-resident
   size_t n[8], total = 0;
   scratch_parts(p, n);
@@ -402,8 +399,9 @@ int launch(const float* tok, const Weights& w, Dims p, float* scratch,
   Weights w_arg = w;
   Rings r_arg = r;
   void* args[] = {&tok, &w_arg, &p, &s, &r_arg, &y, &clock};
+  static size_t allowed = 0;
   return launch_cooperative(fused_cached_batch_kernel<WT>, grid, smem, args,
-                            stream);
+                            stream, &allowed);
 }
 
 }  // namespace

@@ -276,12 +276,9 @@ template <typename WT>
 int launch(const float* x, const int* k_last, const Weights& w, Dims p,
            float* scratch, float* out, PhaseClock clock,
            cudaStream_t stream) {
-  int dev = 0, sms = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int sms = 0, smem_max = 0;
+  const cudaError_t err = device_limits(&sms, &smem_max);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
   const int grid = sms;           // one block per SM, all co-resident
   p.chunk = chunk_streams(p.B, p.T);
   const size_t rows = static_cast<size_t>(p.chunk) * p.T;
@@ -308,8 +305,9 @@ int launch(const float* x, const int* k_last, const Weights& w, Dims p,
   if (smem > static_cast<size_t>(smem_max)) return kErrSmem;
   Weights w_arg = w;
   void* args[] = {&x, &k_last, &w_arg, &p, &s, &out, &clock};
+  static size_t allowed = 0;
   return launch_cooperative(fused_recompute_batch_kernel<WT>, grid, smem,
-                            args, stream);
+                            args, stream, &allowed);
 }
 
 }  // namespace

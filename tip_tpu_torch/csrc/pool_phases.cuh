@@ -1,9 +1,10 @@
 // Device code shared by the pool kernels K9 (fused_recompute_batch.cu, the
 // windowed recompute of B streams) and K8 (fused_cached_batch.cu, the
-// cached step of B streams): the per-phase clock, LayerNorm with a row in
-// registers, the register-resident RNN over B streams, and the products on
-// the tensor cores. Each is a phase of one cooperative launch of kThreads
-// threads a block, one block an SM, as fused_phases.cuh's are.
+// cached step of B streams): LayerNorm with a row in registers, the
+// register-resident RNN over B streams, and the products on the tensor
+// cores (the per-phase clock is fused_phases.cuh's). Each is a phase of one
+// cooperative launch of kThreads threads a block, one block an SM, as
+// fused_phases.cuh's are.
 //
 // The products (tc_product_phase) take tiles of L rows x columns, one tile
 // a block at a time, their slices 32 deep staged in shared memory by
@@ -30,60 +31,6 @@
 #include "train_mma.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// the per-phase clock
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// The per-phase clock (optional: a null clk costs nothing). Row r of clk,
-// four u64, describes the barrier that closes phase r: block 0's
-// %globaltimer just after it, the first and the last block's arrival at it
-// (atomicMin / atomicMax; the caller fills column 1 with a large value),
-// and the phase's kind (the kernel's own numbering; 0 the start). Row 0 is
-// the launch's start. A phase that runs its own barriers (an RNN walk)
-// records no arrival. Rows past `cap` are not written.
-struct PhaseClock {
-  unsigned long long* clk;
-  int cap;
-  int row;
-
-  __device__ void start() {
-    row = 1;
-    if (clk != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
-      clk[0] = global_ns();
-      clk[3] = 0;
-    }
-  }
-  // every block, after its share of the phase
-  __device__ void arrive() {
-    if (clk == nullptr) return;
-    __syncthreads();
-    if (threadIdx.x == 0 && row < cap) {
-      const unsigned long long t = global_ns();
-      atomicMin(clk + 4 * row + 1, t);
-      atomicMax(clk + 4 * row + 2, t);
-    }
-  }
-  // every block, after the barrier
-  __device__ void closed(int kind) {
-    if (clk != nullptr && blockIdx.x == 0 && threadIdx.x == 0 && row < cap) {
-      clk[4 * row] = global_ns();
-      clk[4 * row + 3] = static_cast<unsigned long long>(kind);
-    }
-    ++row;
-  }
-  __device__ void sync(cg::grid_group& grid, int kind) {
-    arrive();
-    grid.sync();
-    closed(kind);
-  }
-};
 
 // ---------------------------------------------------------------------------
 // LayerNorm and the RNN

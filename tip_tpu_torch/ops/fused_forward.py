@@ -32,6 +32,7 @@ for a CPU tensor).
 Inference only: no dropout, no gradient.
 """
 
+import collections
 import ctypes
 import math
 
@@ -48,7 +49,11 @@ MAX_HEAD_DIM = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"fused_forward_launch": [_P, _P, _I, _I] + [_I] * 10 + [_P, _P, _P]}
+_SIG = {"fused_forward_launch": [_P, _P, _P, _I, _I] + [_I] * 10
+        + [_P, _P, _P, _I, _P],
+        "fused_forward_tiles_bytes": [_I] * 8,
+        "fused_forward_tiles": [_P, _I, _I] + [_I] * 7
+        + [_P, ctypes.c_longlong, _P]}
 _SIG_BATCH = {
     "fused_recompute_batch_launch": [_P, _P, _P] + [_I] * 12
     + [_P, ctypes.c_longlong, _P, _P, _I, _P],
@@ -211,16 +216,56 @@ def fused_forward_last_plain(packed_ws, x, k_last, cfg: M.ModelConfig):
 # ---------------------------------------------------------------------------
 
 def scratch_floats(T: int, cfg: M.ModelConfig) -> int:
-    """Size of the kernels' activation scratch: x, qkv, att, the pre-norm
-    sum, the feed-forward hidden, the RNN input and the hidden states."""
-    d = cfg.tf_in_dim
-    return T * (6 * d + cfg.tf_hid_size + 2 * cfg.rnn_hid_size)
+    """Size of K4's and K5's scratch (csrc/fused_forward.cu's
+    scratch_parts): x, qkv, att, the pre-norm sum, the feed-forward hidden
+    and the RNN input in float32, and the walk's (value, step) pairs, two
+    floats each; each part a multiple of 4 floats."""
+    def r4(n):
+        return -(-n // 4) * 4
+    d, H = cfg.tf_in_dim, cfg.rnn_hid_size
+    return (3 * r4(T * d) + r4(3 * T * d) + r4(T * cfg.tf_hid_size)
+            + 3 * r4(T * H))
+
+
+# check_packed's verdicts and the lists' pointer arrays, by list, for this
+# process: {id(list): (its tensors, their data pointers, (dev, widths),
+# pointer array)}, the most recent _PACKED_KEEP lists
+_packed = collections.OrderedDict()
+_PACKED_KEEP = 8
+
+
+def _widths(cfg: M.ModelConfig):
+    return (cfg.input_dim, cfg.tf_in_dim, cfg.n_heads, cfg.tf_hid_size,
+            cfg.tf_layers, cfg.rnn_hid_size, cfg.size_s)
 
 
 def check_packed(packed_ws, cfg: M.ModelConfig, dev, name: str):
     """Raise unless ``packed_ws`` is ``pack_weights``' list for ``cfg``:
     count, one packing dtype, every shape, contiguous, on ``dev``; and
-    unless the widths are inside the kernels' limits."""
+    unless the widths are inside the kernels' limits. Returns the list's
+    device pointers as a ctypes array.
+
+    A list that passed is not checked again while it holds the same tensor
+    objects at the same data pointers (the entry keeps them alive, so no
+    other tensor can take their place): replacing a tensor of the list,
+    another count, another device or other widths check it again."""
+    key = (dev, _widths(cfg))
+    hit = _packed.get(id(packed_ws))
+    if (hit is not None and hit[2] == key and len(hit[0]) == len(packed_ws)
+            and all(a is b for a, b in zip(hit[0], packed_ws))
+            and hit[1] == tuple(t.data_ptr() for t in packed_ws)):
+        _packed.move_to_end(id(packed_ws))
+        return hit[3]
+    _check_packed(packed_ws, cfg, dev, name)
+    ptrs = tuple(t.data_ptr() for t in packed_ws)
+    _packed[id(packed_ws)] = (tuple(packed_ws), ptrs, key,
+                              (ctypes.c_void_p * len(ptrs))(*ptrs))
+    while len(_packed) > _PACKED_KEEP:
+        _packed.popitem(last=False)
+    return _packed[id(packed_ws)][3]
+
+
+def _check_packed(packed_ws, cfg: M.ModelConfig, dev, name: str):
     cd = packed_ws[0].dtype
     d, ff, H = cfg.tf_in_dim, cfg.tf_hid_size, cfg.rnn_hid_size
     if len(packed_ws) != n_packed(cfg):
@@ -258,8 +303,63 @@ def check_launch(err: int, name: str, cfg: M.ModelConfig):
     K.check(err, name)
 
 
-def _launch(packed_ws, x, k_last: int, cfg: M.ModelConfig, name: str):
-    """One cooperative launch; ``k_last`` -1 asks for every row."""
+# K4's and K5's tile-major copies of packed lists, by list, for this
+# process: {id(list): (its tensors, their versions, device, copy)}
+_tiles = collections.OrderedDict()
+
+
+def tile_major(packed_ws, cfg: M.ModelConfig, dev, ptrs):
+    """The tile-major copy of a checked packed list that K4 and K5 read
+    their weights from (csrc/fused_forward.cu's ``fused_forward_tiles``: a
+    block's weights of a phase lie together), made on the current stream
+    at the list's first launch and again after one of its tensors changed
+    (its version counter)."""
+    versions = tuple(t._version for t in packed_ws)
+    hit = _tiles.get(id(packed_ws))
+    if (hit is not None and hit[2] == dev and len(hit[0]) == len(packed_ws)
+            and all(a is b for a, b in zip(hit[0], packed_ws))
+            and hit[1] == versions):
+        _tiles.move_to_end(id(packed_ws))
+        return hit[3]
+    so = K.lib("fused_forward", _SIG)
+    is_bf16 = int(packed_ws[0].dtype == torch.bfloat16)
+    widths = (cfg.input_dim, cfg.tf_in_dim, cfg.n_heads, cfg.tf_hid_size,
+              cfg.tf_layers, cfg.rnn_hid_size, cfg.size_s)
+    n = so.fused_forward_tiles_bytes(is_bf16, *widths)
+    if n < 0:
+        raise ValueError("fused_forward: the kernel refused the widths")
+    tiles = torch.empty(n, dtype=torch.uint8, device=dev)
+    K.check(so.fused_forward_tiles(
+        ptrs, len(packed_ws), is_bf16, *widths, tiles.data_ptr(), n,
+        torch.cuda.current_stream(dev).cuda_stream), "fused_forward_tiles")
+    _tiles[id(packed_ws)] = (tuple(packed_ws), versions, dev, tiles)
+    while len(_tiles) > _PACKED_KEEP:
+        _tiles.popitem(last=False)
+    return tiles
+
+
+# kernel scratch buffers, by (kernel, device, stream, shape): a launch's
+# scratch is reused by the next launch on the same stream, which runs after
+# it
+_scratch = {}
+
+
+def scratch_buffer(kernel: str, floats, dev, stream, shape):
+    """The cached float32 scratch for ``kernel`` at ``shape`` on ``dev``'s
+    ``stream`` (a handle, as ``cuda_stream`` gives it): ``floats()``
+    floats, asked only when the buffer is made."""
+    key = (kernel, dev, stream, shape)
+    buf = _scratch.get(key)
+    if buf is None:
+        buf = _scratch[key] = torch.empty(floats(), dtype=torch.float32,
+                                          device=dev)
+    return buf
+
+
+def _launch(packed_ws, x, k_last: int, cfg: M.ModelConfig, name: str,
+            clock=None):
+    """One cooperative launch; ``k_last`` -1 asks for every row. ``clock``:
+    None, or a per-phase clock (``forward_phases``)."""
     T = x.shape[0]
     dev = x.device
     cd = packed_ws[0].dtype
@@ -267,20 +367,22 @@ def _launch(packed_ws, x, k_last: int, cfg: M.ModelConfig, name: str):
     if not 1 <= T <= MAX_T:
         raise ValueError(f"{name}: the kernel holds 1..{MAX_T} rows, got "
                          f"T={T}")
-    check_packed(packed_ws, cfg, dev, name)
+    ptrs = check_packed(packed_ws, cfg, dev, name)
     K.check_input(x, "x", (T, cfg.input_dim), torch.float32, dev)
-    f32 = torch.float32
+    tiles = tile_major(packed_ws, cfg, dev, ptrs)
     out = torch.empty((cfg.size_s,) if k_last >= 0 else (T, cfg.size_s),
-                      dtype=f32, device=dev)
-    scratch = torch.empty(scratch_floats(T, cfg), dtype=f32, device=dev)
-    ptrs = (ctypes.c_void_p * len(packed_ws))(
-        *[t.data_ptr() for t in packed_ws])
+                      dtype=torch.float32, device=dev)
     so = K.lib("fused_forward", _SIG)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = scratch_buffer("fused_forward", lambda: scratch_floats(T, cfg),
+                             dev, stream, (T, d, ff, H))
     err = so.fused_forward_launch(
-        x.data_ptr(), ptrs, len(packed_ws), int(cd == torch.bfloat16),
+        x.data_ptr(), ptrs, tiles.data_ptr(), len(packed_ws),
+        int(cd == torch.bfloat16),
         T, cfg.input_dim, d, cfg.n_heads, ff, cfg.tf_layers, H, cfg.size_s,
         _imu_dim(cfg) + 108, k_last, scratch.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        None if clock is None else clock.data_ptr(),
+        0 if clock is None else clock.shape[0], stream)
     check_launch(err, name, cfg)
     K.launch_counts[name] += 1
     return out
@@ -295,6 +397,24 @@ def fused_forward_last(packed_ws, x, k_last, cfg: M.ModelConfig,
         return fused_forward_last_plain(packed_ws, x, k_last, cfg)
     k_last = _check_k_last(k_last, x.shape[0])
     return _launch(packed_ws, x, k_last, cfg, "fused_forward_last")
+
+
+# the kinds of K4's and K5's phases, as csrc/fused_forward.cu numbers them
+K4_PHASES = ("start", "in_proj", "qkv", "attention", "attn_out", "ln1",
+             "ff1", "ff2", "ln2", "w_ih", "rnn", "out_proj")
+
+
+def forward_phases(packed_ws, x, k_last, cfg: M.ModelConfig):
+    """One launch of K4 (``k_last`` a window index) or K5 (``k_last``
+    None) on CUDA tensors with its per-phase clock on, as
+    ``recompute_batch_phases`` runs K9's: returns (out, {kind: ms},
+    phases), the kinds those of ``K4_PHASES``."""
+    k = -1 if k_last is None else _check_k_last(k_last, x.shape[0])
+    clock = new_clock(x.device)
+    out = _launch(packed_ws, x, k, cfg,
+                  "fused_forward" if k < 0 else "fused_forward_last", clock)
+    split, n = phase_split(clock.cpu().tolist(), K4_PHASES)
+    return out, split, n
 
 
 def fused_forward(packed_ws, x, cfg: M.ModelConfig, impl: str = "auto"):
@@ -364,8 +484,7 @@ def _launch_batch(packed_ws, x, k_dev, cfg: M.ModelConfig, clock=None):
     f32 = torch.float32
     out = torch.empty((B, cfg.size_s), dtype=f32, device=dev)
     scratch = torch.empty(n_scratch, dtype=f32, device=dev)
-    ptrs = (ctypes.c_void_p * len(packed_ws))(
-        *[t.data_ptr() for t in packed_ws])
+    ptrs = check_packed(packed_ws, cfg, dev, name)
     err = so.fused_recompute_batch_launch(
         x.data_ptr(), k_dev.data_ptr(), ptrs, len(packed_ws),
         int(cd == torch.bfloat16), B, T, cfg.input_dim, d, cfg.n_heads, ff,
@@ -407,19 +526,21 @@ def recompute_batch_phases(packed_ws, x, k_last, cfg: M.ModelConfig):
 
 
 def new_clock(dev):
-    """An empty per-phase clock for K8 or K9 (csrc/pool_phases.cuh's
-    PhaseClock): rows of (end, first arrival, last arrival, kind)."""
+    """An empty per-phase clock for a whole-model kernel (K4, K5, K7, K8,
+    K9; csrc/fused_phases.cuh's PhaseClock): rows of (end, first arrival,
+    last arrival, kind)."""
     clock = torch.zeros((_CLOCK_ROWS, 4), dtype=torch.int64, device=dev)
     clock[:, 1] = 2 ** 62
     return clock
 
 
 def phase_split(rows, names=K9_PHASES):
-    """A pool kernel's clock rows (end, first arrival, last arrival,
-    kind), row 0 the start -> ({kind: ms, "barrier", "imbalance",
-    "total"}, phases), the kinds named by ``names`` (K9's, or
-    ``streaming_cache.K8_PHASES``): see ``recompute_batch_phases``. Rows
-    after the last written one (end 0) are not read."""
+    """A whole-model kernel's clock rows (end, first arrival, last
+    arrival, kind), row 0 the start -> ({kind: ms, "barrier", "imbalance",
+    "total"}, phases), the kinds named by ``names`` (K9's, ``K4_PHASES``,
+    or ``streaming_cache.K7_PHASES`` / ``K8_PHASES``): see
+    ``recompute_batch_phases``. Rows after the last written one (end 0)
+    are not read."""
     split = dict.fromkeys(names[1:] + ("barrier", "imbalance"), 0.0)
     n = 0
     for prev, (end, first, last, kind) in zip(rows, rows[1:]):

@@ -68,8 +68,9 @@ MAX_WINDOW = 63
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"fused_cached_launch": [_P, _P] + [_I] * 14 + [_P] * 6 + [_I, _P, _P],
-        "fused_cached_scratch_floats": [_I] * 6}
+_SIG = {"fused_cached_launch": [_P, _P] + [_I] * 14 + [_P] * 6
+        + [_I, _P, _P, _I, _P],
+        "fused_cached_scratch_floats": [_I] * 4}
 _SIG_BATCH = {
     "fused_cached_batch_launch": [_P, _P] + [_I] * 14 + [_P] * 7
     + [ctypes.c_longlong, _P, _P, _I, _P],
@@ -374,33 +375,35 @@ def fused_cached_forward_step_plain(packed_ws, cache: KVCache, x_token,
 # ---------------------------------------------------------------------------
 
 def _launch(packed_ws, cache: KVCache, x_token, slot: int, commit: bool,
-            cfg: M.ModelConfig, rnn_carry: bool):
-    """One cooperative launch of csrc/fused_cached.cu."""
+            cfg: M.ModelConfig, rnn_carry: bool, clock=None):
+    """One cooperative launch of csrc/fused_cached.cu; ``clock``: None, or
+    a per-phase clock (``cached_step_phases``)."""
     name = "fused_cached_forward_step"
     dev = x_token.device
     cd = packed_ws[0].dtype
     d, ff, H = cfg.tf_in_dim, cfg.tf_hid_size, cfg.rnn_hid_size
-    FF.check_packed(packed_ws, cfg, dev, name)
+    ptrs = FF.check_packed(packed_ws, cfg, dev, name)
     W = _check_cache(cache, packed_ws, cfg, dev)
     if not 1 <= W <= MAX_WINDOW:
         raise ValueError(f"{name}: the kernel holds 1..{MAX_WINDOW} ring "
                          f"slots, got {W}")
     K.check_input(x_token, "x_token", (cfg.input_dim,), torch.float32, dev)
     so = K.lib("fused_cached", _SIG)
-    n_scratch = so.fused_cached_scratch_floats(
-        torch.cuda.get_device_properties(dev).multi_processor_count, W, d,
-        ff, H, cfg.size_s)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    shape = (W, d, ff, H)
+    scratch = FF.scratch_buffer(
+        "fused_cached", lambda: so.fused_cached_scratch_floats(*shape), dev,
+        stream, shape)
     y = torch.empty(cfg.size_s, dtype=torch.float32, device=dev)
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
-    ptrs = (ctypes.c_void_p * len(packed_ws))(
-        *[t.data_ptr() for t in packed_ws])
     err = so.fused_cached_launch(
         x_token.data_ptr(), ptrs, len(packed_ws), int(cd == torch.bfloat16),
         W, cfg.input_dim, d, cfg.n_heads, ff, cfg.tf_layers, H, cfg.size_s,
         FF._imu_dim(cfg) + 108, slot, int(commit), int(rnn_carry),
         cache.k.data_ptr(), cache.v.data_ptr(), cache.enc.data_ptr(),
         cache.h.data_ptr(), cache.valid.data_ptr(), scratch.data_ptr(),
-        n_scratch, y.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        scratch.numel(), y.data_ptr(),
+        None if clock is None else clock.data_ptr(),
+        0 if clock is None else clock.shape[0], stream)
     FF.check_launch(err, name, cfg)
     K.launch_counts[name] += 1
     return cache, y
@@ -428,6 +431,24 @@ def fused_cached_step_slot(packed_ws, cache: KVCache, x_token, slot,
             packed_ws, cache, x_token, slot, commit, cfg, rnn_carry=rnn_carry)
     return _launch(packed_ws, cache, x_token, slot, bool(commit), cfg,
                    rnn_carry)
+
+
+# the kinds of K7's phases, as csrc/fused_cached.cu numbers them
+K7_PHASES = ("start", "in_proj", "qkv", "attn_out", "ff1", "ff2", "rnn_in",
+             "rnn", "out_proj")
+
+
+def cached_step_phases(packed_ws, cache: KVCache, x_token, slot, commit,
+                       cfg: M.ModelConfig, *, rnn_carry: bool = False):
+    """One launch of K7 (CUDA tensors) with its per-phase clock on, as
+    ``fused_forward.recompute_batch_phases`` runs K9's: updates ``cache``
+    in place as ``fused_cached_step_slot`` does and returns (y, {kind:
+    ms}, phases), the kinds those of ``K7_PHASES``."""
+    clock = FF.new_clock(x_token.device)
+    _, y = _launch(packed_ws, cache, x_token, int(slot) % cache.enc.shape[0],
+                   bool(commit), cfg, rnn_carry, clock)
+    split, n = FF.phase_split(clock.cpu().tolist(), K7_PHASES)
+    return y, split, n
 
 
 def fused_cached_forward_step(packed_ws, cache: KVCache, x_token, k_prev,
@@ -660,8 +681,7 @@ def _launch_batch(packed_ws, cache: KVCache, x_tokens, slot: int, commit,
             f"{(2 ** 31 - 1) // (W * max(H, d))} streams of {W} slots)")
     y = torch.empty((B, cfg.size_s), dtype=torch.float32, device=dev)
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
-    ptrs = (ctypes.c_void_p * len(packed_ws))(
-        *[t.data_ptr() for t in packed_ws])
+    ptrs = FF.check_packed(packed_ws, cfg, dev, name)
     err = so.fused_cached_batch_launch(
         x_tokens.data_ptr(), ptrs, len(packed_ws), int(cd == torch.bfloat16),
         B, W, cfg.input_dim, d, cfg.n_heads, ff, cfg.tf_layers, H,
