@@ -14,7 +14,13 @@ Phases, in order; any failure exits non-zero:
      pool's kernels K8 and K9 also against the single-stream K7 and K4
      stream by stream, and the batched K2, K3, K6 against B unbatched calls;
      K8's and K9's device time split by phase (their per-phase clock) at B
-     64; K10 beside cuDNN's RNN backward and split by kernel;
+     64; K10 beside cuDNN's RNN backward and split by kernel; K2, K3 and K6
+     beside the launch floor (an empty kernel of as many blocks), timed at
+     B 1 and 64 and split by phase (their per-phase clock, in SM cycles),
+     and K2 and K3 each after the op that writes their input, 20 pairs in
+     a CUDA graph (a read before that op finished would show); K3 and K6
+     also on a skeleton that lists children before their parents, with a
+     fixed joint inside a chain;
   4. run the main paths: the full-width model (ModelConfig() defaults,
      random weights from a seeded generator) in the streaming runner over
      the in-tree 720-frame motion, each path with every launch counter
@@ -185,6 +191,21 @@ def time_ms(fn, n=200, warmup=20):
         evs.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in evs)
+
+
+def host_us(fn, n=200, warmup=20):
+    """Median host time of one call without a sync, in us: what a call's
+    wrapper costs the host while the device may idle."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(ts) * 1e6
 
 
 def graph_ms(fn, per_graph=20, replays=50):
@@ -418,9 +439,10 @@ def check_tail_fused(dev, gen, skel):
     times = timings(lambda: FT.tail_fused(skel, s, ct, prev_pq, impl="fused"),
                     lambda: FT.tail_fused_plain(skel, s, ct, prev_pq))
     J, L = skel.n_joints, skel.n_joints + 1
-    # what the kernel reads: s[0:57] (root position + 18 axis-angles), the
-    # 20 SBP floats, the 5 SBP rows of prev_pq, both offset tables and the
-    # three int32 tables (parent, is_fixed, slot); what it writes: TailOut
+    # what the function reads: s[0:57] (root position + 18 axis-angles),
+    # the 20 SBP floats, the 5 SBP rows of prev_pq, and the skeleton: both
+    # offset tables and three int32 tables (parent, is_fixed, slot), which
+    # the kernel reads packed as its FK plan; what it writes: TailOut
     nbytes = (4 * (57 + 20 + 5 * 7 + 3 * J + 3 * L + 3 * J)
               + 4 * (2 * 7 * L + 108 + 3 + 15 + 15 + 5))
     ops = (18 * OPS_AA_TO_Q + J * OPS_TREE_STEP + L * OPS_LINK_FRAME
@@ -597,8 +619,9 @@ def check_fk_bullet_fused(dev, gen, skel):
     times = timings(lambda: kin.fk_bullet_fused(skel, pose, impl="kernel"),
                     lambda: kin.fk_bullet_fused_plain(skel, pose))
     J, L = skel.n_joints, skel.n_joints + 1
-    # the pose, both offset tables and the three int32 tables in; the CoM
-    # and joint frames out
+    # the pose and the skeleton (both offset tables and the three int32
+    # tables, packed as the FK plan in the kernel) in; the CoM and joint
+    # frames out
     nbytes = 4 * (57 + 3 * J + 3 * L + 3 * J) + 4 * 2 * 7 * L
     ops = 18 * OPS_AA_TO_Q + J * OPS_TREE_STEP + L * OPS_LINK_FRAME
     b_ms, b_by = bound(nbytes, ops)
@@ -759,24 +782,10 @@ def check_batched_tail(dev, gen, skel, B=POOL_CAPACITY):
     one stream's."""
     from tip_tpu_torch.ops import fused_tail as FT
     from tip_tpu_torch.ops import kinematics as kin
-    from tip_tpu_torch.ops import rotations as rot
-    coeff = torch.tensor([0.6 ** i for i in range(5, -1, -1)],
-                         dtype=torch.float32, device=dev)
-    y_t = torch.randn(B, 131, generator=gen, device=dev)
-    filt = torch.randn(B, 6, 131, generator=gen, device=dev)
-    local9 = rot.aa_to_matrix(torch.randn(B, 3, generator=gen, device=dev)) \
-        .reshape(B, 9).contiguous()
-    flags = torch.arange(B, device=dev) % 3 != 0     # per-stream filter flags
-    s = torch.randn(B, 114, generator=gen, device=dev) * 0.4
-    s[:, 2] += 0.9
-    ct = torch.randn(B, 5, 4, generator=gen, device=dev)
-    ct[..., 0] = (ct[..., 0] > 0).float()
-    ct[..., 1:] *= 0.05
-    ct = ct.reshape(B, 20)
-    prev = kin.fk_our_state(
-        skel, s + 0.01 * torch.randn(B, 114, generator=gen, device=dev)) \
-        .contiguous()
-    pose = kin.our_pose_to_bullet(s).contiguous()
+    x = tail_inputs(B, dev, gen, skel)
+    coeff, y_t, filt, local9, flags = (x[k] for k in ("coeff", "y_t", "filt",
+                                                      "local9", "flags"))
+    s, ct, prev, pose = (x[k] for k in ("s", "ct", "prev", "pose"))
 
     def nn(a):
         return torch.nan_to_num(a)
@@ -2339,6 +2348,196 @@ def training_paths(dev):
     return launches, summary
 
 
+def tail_inputs(B, dev, gen, skel):
+    """Random inputs of K2, K3 and K6 for B streams (B 1: no stream axis),
+    as check_decode_fused, check_tail_fused and check_fk_bullet_fused make
+    them; the pool's filter flags differ by stream."""
+    from tip_tpu_torch.ops import kinematics as kin
+    from tip_tpu_torch.ops import rotations as rot
+    lead = () if B == 1 else (B,)
+    coeff = torch.tensor([0.6 ** i for i in range(5, -1, -1)],
+                         dtype=torch.float32, device=dev)
+    local9 = rot.aa_to_matrix(torch.randn(lead + (3,), generator=gen,
+                                          device=dev)).reshape(lead + (9,))
+    s = torch.randn(lead + (114,), generator=gen, device=dev) * 0.4
+    s[..., 2] += 0.9
+    ct = torch.randn(lead + (5, 4), generator=gen, device=dev)
+    ct[..., 0] = (ct[..., 0] > 0).float()
+    ct[..., 1:] *= 0.05
+    prev = kin.fk_our_state(
+        skel, s + 0.01 * torch.randn(lead + (114,), generator=gen,
+                                     device=dev)).contiguous()
+    return dict(coeff=coeff, local9=local9.contiguous(),
+                y_t=torch.randn(lead + (131,), generator=gen, device=dev),
+                filt=torch.randn(lead + (6, 131), generator=gen, device=dev),
+                flags=True if B == 1 else torch.arange(B, device=dev) % 3 != 0,
+                s=s, ct=ct.reshape(lead + (20,)), prev=prev,
+                pose=kin.our_pose_to_bullet(s).contiguous())
+
+
+def tail_calls(x, skel):
+    """{name: (kernel(clock=None, **input), plain(), clock phases, the name
+    of the per-frame input a producer op writes)} over tail_inputs x."""
+    from tip_tpu_torch.ops import fused_tail as FT
+    from tip_tpu_torch.ops import kinematics as kin
+    return {
+        "decode_fused": (
+            lambda clock=None, filt=x["filt"]: FT.decode_fused(
+                x["y_t"], filt, x["coeff"], x["flags"], x["local9"],
+                impl="fused", clock=clock),
+            lambda filt=x["filt"]: FT.decode_fused_plain(
+                x["y_t"], filt, x["coeff"], x["flags"], x["local9"]),
+            FT.K2_PHASES, "filt"),
+        "tail_fused": (
+            lambda clock=None, s=x["s"]: FT.tail_fused(
+                skel, s, x["ct"], x["prev"], impl="fused", clock=clock),
+            lambda s=x["s"]: FT.tail_fused_plain(skel, s, x["ct"], x["prev"]),
+            FT.K3_PHASES, "s"),
+        "fk_bullet_fused": (
+            lambda clock=None, pose=x["pose"]: kin.fk_bullet_fused(
+                skel, pose, impl="kernel", clock=clock),
+            lambda pose=x["pose"]: kin.fk_bullet_fused_plain(skel, pose),
+            kin.K6_PHASES, "pose"),
+    }
+
+
+def flat(out):
+    """A kernel's outputs as one vector, NaN (an inactive SBP's residue)
+    as 0."""
+    return torch.nan_to_num(torch.cat([t.reshape(-1) for t in out]))
+
+
+def check_children_first(dev, gen):
+    """K3 and K6 on a skeleton whose children are listed before their
+    parents, with a fixed joint inside a chain: the AMASS tree with the
+    left leg reversed (lankle off the root, lknee off it, lhip off lknee)
+    and the left arm reversed through the fixed lwrist (lwrist off the
+    chest, then lelbow, lshoulder, lclavicle); the pose layout is AMASS's.
+    At B 1 and 64 on tail_inputs, each output against the plain version
+    (check_tail_fused's tolerances). Returns {kernel: max err}."""
+    from tip_tpu_torch.ops import kinematics as kin
+    base = kin.amass_skeleton()
+    p = base.parent
+    parent = (1, 2, -1) + p[3:11] + (12, 13, 14, 8) + p[15:]
+    assert any(q > j for j, q in enumerate(parent)) and base.is_fixed[14]
+    skel = kin.make_skeleton(parent, base.is_fixed, base.joint_offset,
+                             base.com_offset, base.link_mass, device=dev)
+    tols = dict(pq_com=TOL, pq_jf=TOL, hist_sixd=TOL, c_locs=TOL,
+                active=0.0, vel_res=TOL_RES, raw_res=TOL_RES)
+    errs = {"tail_fused": {}, "fk_bullet_fused": {}}
+    for B in (1, POOL_CAPACITY):
+        x = tail_inputs(B, dev, gen, skel)
+        calls = tail_calls(x, skel)
+        for name, e in errs.items():
+            kernel, plain, _, _ = calls[name]
+            out, ref = kernel(), plain()
+            fields = getattr(out, "_fields", ("pq_com", "pq_jf"))
+            for f, a, b in zip(fields, out, ref):
+                e[f] = (max(max_err(a, b), e.get(f, (0.0,))[0]), tols[f])
+    res = {name: check(f"{name} children first", e)
+           for name, e in errs.items()}
+    log(f"  children-first skeleton with a fixed joint inside a chain, B 1 "
+        f"and {POOL_CAPACITY}: max |kernel - plain| {json.dumps(res)}")
+    return res
+
+
+def phase_clock(kernel, phases, dev, cycles_per_ns, n=21, warm=5):
+    """A tail kernel's time by phase (its per-phase clock, cycle stamps of
+    block 0 converted with the SM's cycles per ns): the median ns of each
+    phase over n clocked launches after `warm`; the clocked launch's outputs
+    must equal an unclocked one's (TOL_SAME)."""
+    from tip_tpu_torch.ops import fused_tail as FT
+    rows = torch.zeros((n + warm, 1 + len(phases)), dtype=torch.int64,
+                       device=dev)
+    for i in range(n + warm):
+        out = kernel(clock=rows[i])
+    check("clocked launch", {"out": (max_err(flat(out), flat(kernel())),
+                                     TOL_SAME)})
+    splits = [FT.phase_ns(r, phases, cycles_per_ns)
+              for r in rows.tolist()[warm:]]
+    return {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+
+
+def tail_floor_and_clocks(dev, gen, skel):
+    """The launch floor (an empty kernel of B blocks of 32 threads that
+    writes a float a block, timed as the kernels are) at B 1 and the pool's
+    64, %globaltimer's step and the SM's cycles per ns (the timer probe),
+    and K2's, K3's and K6's device and eager ms at B 64 and per-phase
+    clocks at B 1 and 64. Returns {kernel: fields for its kernels entry}."""
+    from tip_tpu_torch.ops import fused_tail as FT
+    FT.timer_probe(dev)
+    probe = FT.timer_probe(dev)
+    log(f"  timers: {json.dumps(probe)}")
+    res = {}
+    for B in (1, POOL_CAPACITY):
+        out = torch.empty(B, device=dev)
+        floor = dict(floor_ms=graph_ms(lambda: FT.floor_launch(out)),
+                     floor_call_ms=time_ms(lambda: FT.floor_launch(out)),
+                     floor_host_us=host_us(lambda: FT.floor_launch(out)))
+        x = tail_inputs(B, dev, gen, skel)
+        for name, (kernel, _, phases, _) in tail_calls(x, skel).items():
+            r = res.setdefault(name, {}) if B == 1 else \
+                res[name].setdefault("pool", {})
+            r.update(floor)
+            r["phases_ns"] = phase_clock(kernel, phases, dev,
+                                         probe["cycles_per_ns"])
+            r["call_host_us"] = host_us(kernel)
+            if B > 1:
+                r["call_ms"] = time_ms(kernel)
+            split = {k: round(v, 1) for k, v in r["phases_ns"].items()}
+            log(f"  {name} B {B}: floor {floor}, host us a call "
+                f"{r['call_host_us']:.2f}, by phase (ns) {json.dumps(split)}")
+    for r in res.values():
+        r["timers"] = probe
+    return res
+
+
+def race_check(dev, gen, skel, pairs=20, replays=4):
+    """K2 and K3 each right after the op that writes their per-frame input
+    (a copy of a source scaled by 1), `pairs` such pairs in one CUDA graph.
+    Before each replay the sources change; after it every pair's outputs
+    are held against the plain version on that pair's input. A kernel that
+    read its input, or wrote its outputs, before the op before it had
+    finished would show the old values. Returns the largest error."""
+    err = 0.0
+    for name, arg, tol in (("decode_fused", "filt", TOL),
+                           ("tail_fused", "s", TOL_RES)):
+        xs = [tail_inputs(1, dev, gen, skel) for _ in range(pairs)]
+        calls = [tail_calls(x, skel)[name] for x in xs]
+        src = [x[arg].clone() for x in xs]
+        captured = {}
+
+        def run():
+            for i, (kernel, _, _, _) in enumerate(calls):
+                inp = src[i] * 1.0
+                captured[i] = (inp, kernel(**{arg: inp}))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        for _ in range(replays):
+            for s in src:
+                s.copy_(torch.randn(s.shape, generator=gen, device=dev)
+                        * (0.4 if arg == "s" else 1.0))
+                if arg == "s":
+                    s[2] += 0.9
+            g.replay()
+            torch.cuda.synchronize()
+            for i, (_, plain, _, _) in enumerate(calls):
+                inp, out = captured[i]
+                err = max(err, check(f"{name} after a producer op", {
+                    "out": (max_err(flat(out), flat(plain(**{arg: inp}))),
+                            tol)}))
+    log(f"  race check: {pairs} (producer -> K2) and (producer -> K3) pairs "
+        f"in a graph, {replays} replays with new sources: max |kernel - "
+        f"plain| {err:.3g}")
+    return err
+
+
 # the path whose launches a kernel's entry reports
 COUNTED_ON = {"fused_rnn": "A", "decode_fused": "A", "tail_fused": "A",
               "fused_forward_last": "B", "fused_forward": "replay",
@@ -2383,9 +2582,18 @@ def main():
                check_fused_rnn_bwd(dev, gen),
                *check_encoder_train(dev, gen, model)]
     batched = check_batched_tail(dev, gen, skel)
+    children_first = check_children_first(dev, gen)
+    tail = tail_floor_and_clocks(dev, gen, skel)
+    race_err = race_check(dev, gen, skel)
     for k in kernels:
         if k["name"] in batched:
-            k["pool"] = batched[k["name"]]
+            k.update({f: v for f, v in tail[k["name"]].items()
+                      if f != "pool"})
+            k["pool"] = dict(batched[k["name"]], **tail[k["name"]]["pool"])
+        if k["name"] in ("decode_fused", "tail_fused"):
+            k["race_check_max_abs_err"] = race_err
+        if k["name"] in children_first:
+            k["children_first_max_abs_err"] = children_first[k["name"]]
     torch.cuda.synchronize()
     for k in kernels:
         log(f"  {k['name']}: max err {k['max_abs_err']:.3g} (tol "

@@ -1,34 +1,44 @@
 #!/usr/bin/env python3
-"""The single-stream whole-model kernels K4/K5 and K7 of this checkout
-beside those of commit ed6c80d (their versions before their redesign), and
-the kernels that share device code with them (K8, K9, K1, K10) bit for bit,
+"""The per-frame tail kernels K2 (decode_fused), K3 (tail_fused) and K6
+(fk_bullet_fused) of this checkout beside those of another commit (as a
+rule the parent), and every other kernel (K1, K4/K5, K7-K12) bit for bit,
 on one GPU in one process.
 
-    git archive ed6c80d tip_tpu_torch | tar -x -C output/parent
+    git archive <commit> tip_tpu_torch | tar -x -C output/parent
     python3 scripts/torch_compare_parent.py output/parent
 
-The other checkout's `csrc/` sources are built with nvcc into
-`<parent>/build/` and called through their own C entry points: K4's and
-K7's as ed6c80d declares them (without the per-phase clock's arguments;
-K7's scratch query by SM count), K8's, K9's, K1's and K10's as this
-checkout's wrappers call them. ctypes does not check a call's arguments, so
-the script first reads those declarations in the other checkout's sources
-and refuses any checkout whose entry points differ from these. Then:
+The argument is a checkout of the other commit's tip_tpu_torch/. Every
+csrc/*.cu of that checkout is built with nvcc into `<checkout>/build/`. Its
+K2, K3 and K6 run through its own wrappers (its ops/fused_tail.py and
+ops/kinematics.py, loaded beside this checkout's) and its own C entry
+points; the other kernels run through this checkout's wrappers calling the
+other build's library. ctypes does not check a call's arguments, so the
+script first reads the other checkout's declarations and refuses it unless
+its K2, K3 and K6 entry points are declared as its own wrappers' ctypes
+tables (their _SIG) call them and its other entry points as in this
+checkout. Then:
 
-  - K8, K9, K1 and K10: the outputs of both builds on chip_smoke.py's
-    inputs must be equal bit for bit (K8: y and the updated rings; K9: 12
-    cases; K1 at B 1, 3, 8, 17, 64, 256; K10 at (256, 40, 512): dx, dW);
-  - K4 and K5 at (40, 221), row 39, both packings, and K7 (replay and
-    carry, both packings, slot 7 of full 40-slot rings): device ms of each
-    build, CUDA graphs as chip_smoke.py times them, in turns (other, this,
-    this, other), and the largest difference of the outputs.
+  - K1, K4/K5, K7, K8, K9, K10, K11 and K12: the outputs of both builds on
+    chip_smoke.py's inputs must be equal bit for bit (K1 at B 1, 3, 8, 17,
+    64, 256; K4 and K5 at (40, 221) in both packings; K7 replay and carry in
+    both packings, y and the rings; K8 at B 64 and 256; K9 12 cases; K10 at
+    (256, 40, 512); K11 and K12 at (256, 40, 256) p 0.1 and a small case);
+  - K2, K3 and K6 at B 1 and 64: device ms (chip_smoke.graph_ms), eager
+    ms (chip_smoke.time_ms) and the host us of one call without a sync
+    (chip_smoke.host_us) of each build's wrapper and kernel, in turns
+    (other, this, this, other), and the largest difference of the outputs;
+  - paths A, B and E of chip_smoke.py, the runner with the other build's
+    K2 and K3 and with this one's, in turns: device ms and kernels a frame
+    (torch.profiler over 50 steady frames, chip_smoke.profile_frames) and
+    the two kernels' share.
 
 Prints one JSON line with the card's name and power limit. Exits non-zero
-without CUDA, or when an output that must be bit-equal differs.
+without CUDA, and 2 when an output that must be bit-equal differs.
 """
 
 import ctypes
 import dataclasses
+import importlib.util
 import json
 import re
 import subprocess
@@ -42,71 +52,79 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as CS  # noqa: E402
 
-PARENT = "ed6c80d"
-PARENT_KERNELS = ("fused_forward", "fused_cached", "fused_cached_batch",
-                  "fused_recompute_batch", "fused_rnn", "fused_rnn_bwd")
-_P, _I = ctypes.c_void_p, ctypes.c_int
-PARENT_SIG = {
-    "fused_forward_launch": [_P, _P, _I, _I] + [_I] * 10 + [_P, _P, _P],
-    "fused_cached_launch": [_P, _P] + [_I] * 14 + [_P] * 6 + [_I, _P, _P],
-    "fused_cached_scratch_floats": [_I] * 6}
-
-# ed6c80d's declarations of the entry points PARENT_SIG calls, spaces
-# squeezed; the others must equal this checkout's
-PARENT_DECL = {
-    "fused_forward_launch":
-        "const void* x, const void* const* weights, int n_w, int is_bf16, "
-        "int T, int Din, int d, int heads, int ff, int layers, int H, int S, "
-        "int zero0, int k_last, void* scratch, void* out, void* stream",
-    "fused_cached_launch":
-        "const void* tok, const void* const* weights, int n_w, int is_bf16, "
-        "int W, int Din, int d, int heads, int ff, int layers, int H, int S, "
-        "int zero0, int slot, int commit, int rnn_carry, void* k, void* v, "
-        "void* enc, void* h, void* valid, void* scratch, int scratch_floats, "
-        "void* y, void* stream",
-    "fused_cached_scratch_floats": "int sms, int W, int d, int ff, int H, "
-                                   "int S"}
-SAME_ENTRY_POINTS = {
-    "fused_cached_batch": ("fused_cached_batch_launch",
-                           "fused_cached_batch_scratch_floats"),
-    "fused_recompute_batch": ("fused_recompute_batch_launch",
-                              "fused_recompute_batch_scratch_floats"),
-    "fused_rnn": ("fused_rnn_launch",),
-    "fused_rnn_bwd": ("fused_rnn_bwd_launch",)}
+TAIL_SOURCES = ("fused_tail", "fused_fk")
+# sources whose every entry point must be declared as in this checkout
+SAME_SOURCES = ("fused_rnn", "fused_rnn_bwd", "fused_forward", "fused_cached",
+                "fused_cached_batch", "fused_recompute_batch", "encoder_train")
 
 
-def declaration(src: Path, fn: str):
-    """The parameter list of `extern "C" int fn(...)` in src, spaces
-    squeezed, or None."""
-    m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src.read_text())
-    return None if m is None else " ".join(m.group(1).split())
+def declarations(src: Path):
+    """{name: parameter list, spaces squeezed} of the extern "C" functions
+    of src."""
+    text = src.read_text()
+    return {m.group(1): " ".join(m.group(2).split()) for m in re.finditer(
+        r'extern "C" \w+ (\w+)\(([^)]*)\)', text)}
 
 
-def check_abi(parent: Path):
+# a C parameter's type -> its ctypes type (every pointer is c_void_p)
+CTYPE = {"int": ctypes.c_int, "float": ctypes.c_float,
+         "long long": ctypes.c_longlong}
+
+
+def ctypes_of(decl: str):
+    """The ctypes types of a C parameter list (as ``declarations`` gives
+    it), or None where a type is not one of CTYPE's or a pointer."""
+    out = []
+    for param in decl.split(","):
+        typ = param.strip().rsplit(" ", 1)[0].replace("const ", "")
+        if "*" in param:
+            out.append(ctypes.c_void_p)
+        elif typ in CTYPE:
+            out.append(CTYPE[typ])
+        else:
+            return None
+    return out
+
+
+def check_abi(parent: Path, other_sigs):
     """Raise unless the other checkout declares the entry points this
-    script calls as it calls them."""
-    def decl(root, fn):
-        src = re.sub(r"_(launch|scratch\w*)$", "", fn)
-        return declaration(root / "tip_tpu_torch" / "csrc" / f"{src}.cu", fn)
-    wrong = [fn for fn, want in PARENT_DECL.items()
-             if decl(parent, fn) != want]
-    wrong += [fn for fns in SAME_ENTRY_POINTS.values() for fn in fns
-              if decl(parent, fn) is None
-              or decl(parent, fn) != decl(ROOT, fn)]
+    script calls as it calls them: K2's, K3's and K6's as its own wrappers'
+    ctypes tables (other_sigs, by source) say, the rest as in this
+    checkout."""
+    def decl(root, src):
+        return declarations(root / "tip_tpu_torch" / "csrc" / f"{src}.cu")
+    wrong = [fn for src in TAIL_SOURCES
+             for fn, argtypes in other_sigs[src].items()
+             if ctypes_of(decl(parent, src).get(fn, "?")) != list(argtypes)]
+    wrong += [src for src in SAME_SOURCES
+              if decl(parent, src) != decl(ROOT, src)]
     if wrong:
-        raise SystemExit(f"{parent}: entry points {wrong} are not declared "
-                         f"as in {PARENT}; this script compares only with "
-                         "that commit's kernels")
+        raise SystemExit(f"{parent}: {wrong} are not declared as this "
+                         f"script calls them (K2, K3, K6 as the checkout's "
+                         f"own _SIG tables, the rest as in this checkout)")
+
+
+def load_module(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def this_signatures():
     """This checkout's wrappers' ctypes signatures, by source."""
+    from tip_tpu_torch.ops import encoder_train as ET
     from tip_tpu_torch.ops import fused_forward as FF
     from tip_tpu_torch.ops import fused_rnn as FR
+    from tip_tpu_torch.ops import fused_tail as FT
+    from tip_tpu_torch.ops import kinematics as kin
     from tip_tpu_torch.runtime import streaming_cache as SC
-    return {"fused_cached_batch": SC._SIG_BATCH,
+    return {"fused_tail": FT._SIG, "fused_fk": kin._SIG,
+            "fused_forward": FF._SIG, "fused_cached": SC._SIG,
+            "fused_cached_batch": SC._SIG_BATCH,
             "fused_recompute_batch": FF._SIG_BATCH,
-            "fused_rnn": FR._SIG, "fused_rnn_bwd": FR._SIG_BWD}
+            "fused_rnn": FR._SIG, "fused_rnn_bwd": FR._SIG_BWD,
+            "encoder_train": ET._SIG}
 
 
 # the shared headers' named namespaces, renamed in the other build: the
@@ -116,39 +134,43 @@ RENAMED = ("-Drnnc=rnnc_other", "-Dtf3=tf3_other", "-Dtg=tg_other",
            "-Dhm=hm_other", "-Dtipq=tipq_other")
 
 
-def build_parent(parent: Path):
-    """nvcc every compared source of the other checkout, in parallel."""
+def start_parent_builds(parent: Path):
+    """Start one nvcc a source of the other checkout, all together."""
     from tip_tpu_torch.ops import _kernels as K
     out = parent / "build"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in PARENT_KERNELS:
+    for name in TAIL_SOURCES + SAME_SOURCES:
         src = parent / "tip_tpu_torch" / "csrc" / f"{name}.cu"
         cmd = [K._nvcc(), *K.NVCC_FLAGS, *RENAMED, "-o",
                str(out / f"{name}.so"), str(src)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT)
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT),
+                       out / f"{name}.so")
+    return procs
+
+
+def parent_libs(procs, sigs):
+    """The other checkout's libraries, once built, with `sigs` (by source)
+    declared."""
     libs = {}
-    for name, proc in procs.items():
+    for name, (proc, so_path) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the other {name}.cu:\n"
                                + log.decode(errors="replace"))
-        libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
-    sigs = dict(PARENT_SIG)
-    for sig in this_signatures().values():
-        sigs.update(sig)
-    for so in libs.values():
-        for fn, argtypes in sigs.items():
-            if hasattr(so, fn):
-                getattr(so, fn).argtypes = argtypes
-                getattr(so, fn).restype = ctypes.c_int
+        so = ctypes.CDLL(str(so_path))
+        for fn, argtypes in sigs[name].items():
+            getattr(so, fn).argtypes = argtypes
+            getattr(so, fn).restype = ctypes.c_int
+        libs[name] = so
     return libs
 
 
 class Swapped:
-    """This checkout's wrapper of `name` calling the other build's library
-    inside the block (the entry points are declared alike)."""
+    """The other build's library of `name` in place of this one's inside
+    the block: this checkout's wrappers (or the other checkout's, which
+    load it by the same name) then call it."""
 
     def __init__(self, libs, name):
         from tip_tpu_torch.ops import _kernels as K
@@ -171,7 +193,7 @@ def both(libs, name, fn):
 
 def equal(a, b):
     if isinstance(a, (tuple, list)):
-        return all(equal(x, y) for x, y in zip(a, b))
+        return len(a) == len(b) and all(equal(x, y) for x, y in zip(a, b))
     return bool(torch.equal(a, b))
 
 
@@ -216,6 +238,10 @@ def full_rings(SC, cfg, B, gen, dev):
     return c
 
 
+def rings(cache):
+    return [getattr(cache, n) for n in ("k", "v", "enc", "h", "valid")]
+
+
 def k8_bits(libs, model, dev):
     """Both K8 builds at B 64 and 256, both packings and RNN variants, slot
     7, a stream in three not committed: y and every ring equal."""
@@ -237,8 +263,7 @@ def k8_bits(libs, model, dev):
                     _, y = SC.fused_cached_batch(ws, cc, x, 7, commit, cfg,
                                                  rnn_carry=rnn_carry,
                                                  impl="fused")
-                    return [y] + [getattr(cc, n) for n in
-                                  ("k", "v", "enc", "h", "valid")]
+                    return [y] + rings(cc)
                 o, m = both(libs, "fused_cached_batch", run)
                 var = "carry" if rnn_carry else "replay"
                 out[f"{var}_{name}_B{B}"] = equal(o, m)
@@ -270,79 +295,30 @@ def k10_bits(libs, dev):
     return {f"B{B}_T{T}_H{H}": equal(o, m)}
 
 
-def other_k4(so, ws, x, k_last, cfg):
-    """The other checkout's K4 (k_last >= 0) or K5 (-1) through its own
-    entry point."""
-    from tip_tpu_torch.ops import fused_forward as FF
-    T = x.shape[0]
-    d, ff, H = cfg.tf_in_dim, cfg.tf_hid_size, cfg.rnn_hid_size
-    out = torch.empty((cfg.size_s,) if k_last >= 0 else (T, cfg.size_s),
-                      dtype=torch.float32, device=x.device)
-    scratch = torch.empty(T * (6 * d + ff + 2 * H), dtype=torch.float32,
-                          device=x.device)
-    ptrs = (ctypes.c_void_p * len(ws))(*[t.data_ptr() for t in ws])
-    err = so.fused_forward_launch(
-        x.data_ptr(), ptrs, len(ws), int(ws[0].dtype == torch.bfloat16), T,
-        cfg.input_dim, d, cfg.n_heads, ff, cfg.tf_layers, H, cfg.size_s,
-        FF._imu_dim(cfg) + 108, k_last, scratch.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"the other fused_forward: error {err}")
-    return out
-
-
-def other_k7(so, ws, cache, x, slot, commit, cfg, rnn_carry):
-    """The other checkout's K7 through its own entry point."""
-    from tip_tpu_torch.ops import fused_forward as FF
-    W = cache.enc.shape[0]
-    d, ff, H = cfg.tf_in_dim, cfg.tf_hid_size, cfg.rnn_hid_size
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    n = so.fused_cached_scratch_floats(sms, W, d, ff, H, cfg.size_s)
-    y = torch.empty(cfg.size_s, dtype=torch.float32, device=x.device)
-    scratch = torch.empty(n, dtype=torch.float32, device=x.device)
-    ptrs = (ctypes.c_void_p * len(ws))(*[t.data_ptr() for t in ws])
-    err = so.fused_cached_launch(
-        x.data_ptr(), ptrs, len(ws), int(ws[0].dtype == torch.bfloat16), W,
-        cfg.input_dim, d, cfg.n_heads, ff, cfg.tf_layers, H, cfg.size_s,
-        FF._imu_dim(cfg) + 108, slot, int(commit), int(rnn_carry),
-        cache.k.data_ptr(), cache.v.data_ptr(), cache.enc.data_ptr(),
-        cache.h.data_ptr(), cache.valid.data_ptr(), scratch.data_ptr(), n,
-        y.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"the other fused_cached: error {err}")
-    return y
-
-
-def in_turns(other, mine):
-    """Device ms of both, timed other, this, this, other (chip_smoke.py's
-    graphs: 20 calls a graph, 50 replays)."""
-    o1, m1, m2, o2 = (CS.graph_ms(f) for f in (other, mine, mine, other))
-    return dict(other_ms=[o1, o2], this_ms=[m1, m2])
-
-
-def k4_times(libs, model, dev):
+def k4_bits(libs, model, dev):
+    """K4 (rows 39 and 17) and K5 at (40, 221), both packings."""
     from tip_tpu_torch.ops import fused_forward as FF
     gen = torch.Generator(device=dev).manual_seed(5)
     cfg = model.cfg
     x = torch.randn(40, cfg.input_dim, generator=gen, device=dev)
+    x[::3, 100] = float("nan")
     out = {}
     for dt in (torch.bfloat16, torch.float32):
         ws = model.packed_weights(dt)
-        for kname, k in (("K4", 39), ("K5", -1)):
-            def mine():
-                if k < 0:
-                    return FF.fused_forward(ws, x, cfg, impl="fused")
-                return FF.fused_forward_last(ws, x, k, cfg, impl="fused")
-
-            def other():
-                return other_k4(libs["fused_forward"], ws, x, k, cfg)
-            t = in_turns(other, mine)
-            t["max_abs_diff"] = CS.max_err(other(), mine())
-            out[f"{kname}_{str(dt).split('.')[1]}"] = t
+        dn = str(dt).split(".")[1]
+        for k in (39, 17):
+            o, m = both(libs, "fused_forward", lambda: FF.fused_forward_last(
+                ws, x, k, cfg, impl="fused"))
+            out[f"K4_row{k}_{dn}"] = equal(o, m)
+        o, m = both(libs, "fused_forward",
+                    lambda: FF.fused_forward(ws, x, cfg, impl="fused"))
+        out[f"K5_{dn}"] = equal(o, m)
     return out
 
 
-def k7_times(libs, model, dev):
+def k7_bits(libs, model, dev):
+    """K7 replay and carry, both packings, at slot 7 of rings filled by 47
+    steps: y and the rings after the step."""
     from tip_tpu_torch.runtime import streaming_cache as SC
     gen = torch.Generator(device=dev).manual_seed(6)
     out = {}
@@ -356,20 +332,137 @@ def k7_times(libs, model, dev):
                 x = torch.randn(cfg.input_dim, generator=gen, device=dev)
                 SC.fused_cached_step_slot(ws, cache, x, step % 40, True, cfg,
                                           rnn_carry=rnn_carry, impl="fused")
-            co, cm = cache.clone(), cache.clone()
-            y_o = other_k7(libs["fused_cached"], ws, cache.clone(), x, 7, True,
-                           cfg, rnn_carry)
-            _, y_m = SC.fused_cached_step_slot(ws, cache.clone(), x, 7, True,
-                                               cfg, rnn_carry=rnn_carry,
-                                               impl="fused")
-            t = in_turns(
-                lambda: other_k7(libs["fused_cached"], ws, co, x, 7, True,
-                                 cfg, rnn_carry),
-                lambda: SC.fused_cached_step_slot(ws, cm, x, 7, True, cfg,
-                                                  rnn_carry=rnn_carry,
-                                                  impl="fused"))
-            t["max_abs_diff"] = CS.max_err(y_o, y_m)
-            out[f"{'carry' if rnn_carry else 'replay'}_{name}"] = t
+
+            def run():
+                c = cache.clone()
+                _, y = SC.fused_cached_step_slot(ws, c, x, 7, True, cfg,
+                                                 rnn_carry=rnn_carry,
+                                                 impl="fused")
+                return [y] + rings(c)
+            o, m = both(libs, "fused_cached", run)
+            out[f"{'carry' if rnn_carry else 'replay'}_{name}"] = equal(o, m)
+    return out
+
+
+def k11_k12_bits(libs, model, dev):
+    """K11 and K12 at the training path's (256, 40, 256), p 0.1, and a
+    small case (two tiles)."""
+    from tip_tpu_torch.ops import encoder_train as ET
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {}
+    for tag, mdl, B, T in (("full", model, 256, 40),
+                           ("small", CS.small_model(dev), 16, 10)):
+        ws = tuple(w.detach().contiguous() for w in ET.pack_layer_weights(
+            dict(mdl.named_parameters()), "layers.0."))
+        nh, d = mdl.cfg.n_heads, ws[2].shape[0]
+        x = torch.randn(B, T, d, generator=gen, device=dev)
+        dy = torch.randn(B, T, d, generator=gen, device=dev)
+        o, m = both(libs, "encoder_train", lambda: ET.encoder_layer_fwd(
+            x, ws, -123457, nh, 0.1, True, 8, impl="kernel"))
+        out[f"K11_{tag}"] = equal(o, m)
+        o, m = both(libs, "encoder_train", lambda: ET.encoder_layer_bwd(
+            x, ws, -123457, dy, nh, 0.1, True, 8, impl="kernel"))
+        out[f"K12_{tag}"] = equal(list(o[:1]) + list(o[1]),
+                                  list(m[:1]) + list(m[1]))
+    return out
+
+
+def flat(out):
+    return CS.flat(out)
+
+
+def tail_times(libs, pft, pkin, dev):
+    """K2, K3, K6 of both builds, each through its own wrapper (the other
+    one's with its own skeleton), at B 1 and 64: device and eager ms and
+    host us in turns, and the largest output difference."""
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.ops import kinematics as kin
+    skel = kin.amass_skeleton(device=dev)
+    other_skel = pkin.amass_skeleton(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    lib_of = {"decode_fused": "fused_tail", "tail_fused": "fused_tail",
+              "fk_bullet_fused": "fused_fk"}
+    out = {}
+    for B in (1, CS.POOL_CAPACITY):
+        x = CS.tail_inputs(B, dev, gen, skel)
+        other_calls = {
+            "decode_fused": lambda: pft.decode_fused(
+                x["y_t"], x["filt"], x["coeff"], x["flags"], x["local9"],
+                impl="fused"),
+            "tail_fused": lambda: pft.tail_fused(
+                other_skel, x["s"], x["ct"], x["prev"], impl="fused"),
+            "fk_bullet_fused": lambda: pkin.fk_bullet_fused(
+                other_skel, x["pose"], impl="kernel")}
+        for name, (mine, _, _, _) in CS.tail_calls(x, skel).items():
+            lib = lib_of[name]
+            this_lib = K.lib(lib, this_signatures()[lib])
+
+            def other(call=other_calls[name], lib=lib, this_lib=this_lib):
+                K._libs[lib] = libs[lib]
+                try:
+                    return call()
+                finally:
+                    K._libs[lib] = this_lib
+            t = {}
+            for what, timer in (("ms", CS.graph_ms), ("call_ms", CS.time_ms),
+                                ("host_us", CS.host_us)):
+                o1, m1, m2, o2 = (timer(f) for f in (other, mine, mine,
+                                                     other))
+                t[f"other_{what}"], t[f"this_{what}"] = [o1, o2], [m1, m2]
+            t["max_abs_diff"] = CS.max_err(flat(other()), flat(mine()))
+            out[f"{name}_B{B}"] = t
+            print(f"  {name} B {B}: {json.dumps(t)}", flush=True)
+    return out
+
+
+def path_profiles(libs, pft, pkin, dev):
+    """Paths A, B and E of chip_smoke.py (the runner over the in-tree
+    motion, random weights from seed 0) profiled as chip_smoke.py profiles
+    them (50 steady frames), with the other build's K2 and K3 (its
+    ops/fused_tail.py in the runner, its library) and with this one's, in
+    turns: device ms and kernels a frame, and the two kernels' device ms.
+    The other build's runs take the other checkout's skeleton (its K3
+    reads tables this one's skeleton no longer carries)."""
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.ops import kinematics as kin
+    from tip_tpu_torch.runtime import runner as R
+    imu, s_init = CS.load_motion()
+    skels = {False: kin.amass_skeleton(device=dev),
+             True: pkin.amass_skeleton(device=dev)}
+    cfgs = {"A": R.RunnerConfig(model=M.ModelConfig(encoder_impl="plain")),
+            "B": R.RunnerConfig(model=M.ModelConfig(forward_impl="fused")),
+            "E": R.RunnerConfig(model=M.ModelConfig(
+                forward_impl="fused", compute_dtype="bfloat16"),
+                serving_mode="kv_cache_rnn_carry")}
+    base = M.TIPModel(cfgs["A"].model, device=dev,
+                      generator=torch.Generator().manual_seed(0))
+    this_ft, this_lib = R.FT, K.lib("fused_tail", this_signatures()[
+        "fused_tail"])
+
+    def profile(name, model, other):
+        if other:
+            R.FT, K._libs["fused_tail"] = pft, libs["fused_tail"]
+        try:
+            ms, n, rows, _ = CS.profile_frames(model, cfgs[name],
+                                               skels[other], s_init, imu,
+                                               dev)
+        finally:
+            R.FT, K._libs["fused_tail"] = this_ft, this_lib
+        tail = sum(r[1] for r in rows
+                   if "decode_kernel" in r[0] or "tail_kernel" in r[0])
+        return dict(device_ms=ms, kernels=n, k2_k3_ms=tail)
+
+    out = {}
+    for name, cfg in cfgs.items():
+        model = M.TIPModel(cfg.model, device=dev)
+        model.load_state_dict(base.state_dict())
+        runs = [profile(name, model, o) for o in (True, False, False, True)]
+        out[name] = {f"{who}_{f}": [r[f] for r in pair]
+                     for who, pair in (("other", runs[::3]),
+                                       ("this", runs[1:3]))
+                     for f in runs[0]}
+        print(f"  path {name}: {json.dumps(out[name])}", flush=True)
     return out
 
 
@@ -378,22 +471,32 @@ def main():
         print(__doc__, file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from tip_tpu_torch.models import tip_model as M
     from tip_tpu_torch.ops import _kernels as K
     dev = torch.device("cuda")
     card = CS.card_info()
     print(card, flush=True)
     parent = Path(sys.argv[1]).resolve()
-    check_abi(parent)
+    ops = parent / "tip_tpu_torch" / "ops"
+    pft = load_module(ops / "fused_tail.py", "other_fused_tail")
+    pkin = load_module(ops / "kinematics.py", "other_kinematics")
+    check_abi(parent, {"fused_tail": pft._SIG, "fused_fk": pkin._SIG})
+    sigs = this_signatures()
+    sigs.update(fused_tail=pft._SIG, fused_fk=pkin._SIG)
+    procs = start_parent_builds(parent)
     K.build_all()
-    libs = build_parent(parent)
+    libs = parent_libs(procs, sigs)
     model = M.TIPModel(M.ModelConfig(forward_impl="fused"), device=dev,
                        generator=torch.Generator().manual_seed(0))
-    bits = {"k9": k9_bits(libs, model, dev), "k8": k8_bits(libs, model, dev),
-            "k1": k1_bits(libs, dev), "k10": k10_bits(libs, dev)}
-    result = {"card": card, "parent": PARENT, "bit_equal": bits,
-              "k4_k5": k4_times(libs, model, dev),
-              "k7": k7_times(libs, model, dev)}
+    result = {"card": card, "other": sys.argv[1],
+              "tail": tail_times(libs, pft, pkin, dev),
+              "paths": path_profiles(libs, pft, pkin, dev)}
+    bits = {"k1": k1_bits(libs, dev), "k4_k5": k4_bits(libs, model, dev),
+            "k7": k7_bits(libs, model, dev), "k8": k8_bits(libs, model, dev),
+            "k9": k9_bits(libs, model, dev), "k10": k10_bits(libs, dev),
+            "k11_k12": k11_k12_bits(libs, model, dev)}
+    result["bit_equal"] = bits
     print(json.dumps(result), flush=True)
     return 0 if all(v for b in bits.values() for v in b.values()) else 2
 

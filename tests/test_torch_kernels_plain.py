@@ -165,12 +165,13 @@ def test_fk_bullet_fused_f64_matches_tip_tpu():
 
 
 def test_pose_skeleton_check():
-    """K3 and K6 walk joints in index order over the 19-joint pose layout;
-    another skeleton is refused before any launch."""
+    """K3 and K6 walk the 19-joint pose layout along the skeleton's FK
+    plan; a skeleton with a cycle or another layout is refused before any
+    launch (tests/test_torch_fk_plan.py: the plan itself)."""
     skel = tkin.amass_skeleton()
     tkin.check_pose_skeleton(skel, "fk")
     parent = list(skel.parent)
-    parent[1] = 2                               # a child before its parent
+    parent[1] = 2                  # joints 1 and 2 each other's parent
     bad = tkin.make_skeleton(parent, skel.is_fixed, skel.joint_offset,
                              skel.com_offset, skel.link_mass)
     with pytest.raises(ValueError, match="parent"):

@@ -1,5 +1,5 @@
-// K6 fk_bullet_fused: forward kinematics of one pose, f32, one block a
-// pose (B poses with a leading axis are one launch of B blocks).
+// K6 fk_bullet_fused: forward kinematics of one pose, f32, one warp a pose
+// (B poses with a leading axis are one launch of B blocks).
 //
 // Replaces tip_tpu/ops/kinematics.py::fk_bullet_fused (Pallas kernel
 // _fk_kernel): a (57,) bullet-ordered pose (root position, root axis-angle,
@@ -9,12 +9,13 @@
 //
 // What bounds it on the H100: neither bytes nor operations. It reads about
 // 0.9 KB and does about two thousand flops; what is left is the launch and
-// the dependent chain of the 19-joint tree walk in one thread.
+// one round trip of loads before a chain of at most kMaxDepth steps.
 //
-// Design: one block of 32 threads. 18 threads decode axis-angle -> quat,
-// thread 0 walks the tree (parents first), one thread per link builds the
-// CoM and joint frames. The skeleton's tree arrives as int32 tables, so
-// another skeleton of the same pose layout needs no rebuild.
+// Design: one block of 32 threads, no barrier and no shared memory. Lanes
+// 0-17 decode axis-angle -> quat; lane l composes link l's chain from the
+// skeleton's FK plan (a table built once on the host, loaded before the
+// pose) and writes its CoM and joint frames. Another skeleton of the same
+// pose layout needs no rebuild.
 
 #include <cuda_runtime.h>
 
@@ -22,35 +23,49 @@
 
 namespace {
 
-__global__ void fk_kernel(const float* __restrict__ pose,
-                          const float* __restrict__ joff,
-                          const float* __restrict__ coff,
-                          const int* __restrict__ parent,
-                          const int* __restrict__ is_fixed,
-                          const int* __restrict__ slot, int J,
-                          float* __restrict__ pq_com,
-                          float* __restrict__ pq_jf) {
-  __shared__ tipq::FkShared sh;
+using namespace tipq;
+
+// out: (B, L, 7) CoM frames, then (B, L, 7) joint frames
+template <bool kClock>
+__global__ void __launch_bounds__(32)
+fk_kernel(const float* __restrict__ pose, const float4* __restrict__ plan,
+          int J, int B, float* __restrict__ out,
+          unsigned long long* __restrict__ clk) {
+  CycleClock<kClock, 4> clock;
+  clock.stamp(0);
+  const int lane = threadIdx.x;
   const int b = blockIdx.x;       // this block's pose
+  const int L = J + 1;
+  Plan pl;
+  pl.load(plan);
   pose += 57 * b;
-  pq_com += 7 * (J + 1) * b;
-  pq_jf += 7 * (J + 1) * b;
-  tipq::fk_block(pose, joff, coff, parent, is_fixed, slot, J, sh, pq_com,
-                 pq_jf);
+  const V root_p = load_v(pose);
+  const V aa = lane < kPoseQuats ? load_v(pose + 3 + 3 * lane) : V{0, 0, 0};
+  const Q qn = aa_to_q(aa);
+  settle<kClock>(qn.w);
+  clock.stamp(1);
+  const Link f = fk_walk(pl, root_p, qn);
+  settle<kClock>(f.c.x + f.q.w);
+  clock.stamp(2);
+  store_link(f, L, out + 7 * L * b, out + 7 * L * (B + b));
+  settle<kClock>(0.0f);
+  clock.stamp(3);
+  clock.write(clk);
 }
 
 }  // namespace
 
-extern "C" int fk_bullet_fused_launch(const void* pose, const void* joff,
-                                      const void* coff, const void* parent,
-                                      const void* is_fixed, const void* slot,
-                                      int B, int J, void* pq_com,
-                                      void* pq_jf, void* stream) {
-  if (B < 1 || J < 0 || J + 1 > tipq::kMaxLinks) return -1;
-  fk_kernel<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pose), static_cast<const float*>(joff),
-      static_cast<const float*>(coff), static_cast<const int*>(parent),
-      static_cast<const int*>(is_fixed), static_cast<const int*>(slot), J,
-      static_cast<float*>(pq_com), static_cast<float*>(pq_jf));
+// B poses (B, 57) -> out: (B, J+1, 7) CoM frames, then (B, J+1, 7) joint
+// frames; plan: the skeleton's FK plan (tip_quat.cuh) for the bullet pose
+// order. clock: null, or 4 u64 (start, then K6_PHASES of
+// ops/kinematics.py).
+extern "C" int fk_bullet_fused_launch(const void* pose, const void* plan,
+                                      int B, int J, void* out, void* clock,
+                                      void* stream) {
+  if (B < 1 || J < 0 || J + 1 > kMaxLinks) return -1;
+  auto kernel = clock != nullptr ? fk_kernel<true> : fk_kernel<false>;
+  kernel<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pose), static_cast<const float4*>(plan), J, B,
+      static_cast<float*>(out), static_cast<unsigned long long*>(clock));
   return static_cast<int>(cudaGetLastError());
 }

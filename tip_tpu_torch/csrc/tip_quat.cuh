@@ -1,5 +1,6 @@
 // Quaternion (xyzw) and forward-kinematics device functions shared by
-// csrc/fused_tail.cu (K2, K3) and csrc/fused_fk.cu (K6), f32.
+// csrc/fused_tail.cu (K2, K3) and csrc/fused_fk.cu (K6), f32, with their
+// per-phase clock.
 //
 // The arithmetic follows the plain PyTorch versions (ops/rotations.py,
 // ops/kinematics.py): the axis-angle decode clamps the squared norm at
@@ -7,12 +8,57 @@
 // Shepperd matrix -> quat picks the first of equal maxima and signs w == 0
 // as +1; the 6D decode normalises with +1e-6 in the denominator; cos is the
 // plain cosf; a fixed joint inherits its parent's quaternion.
+//
+// Forward kinematics is one warp a pose and walks no tree serially: lane l
+// owns link l and composes the chain of joints from the root down to it
+// from the skeleton's FK plan (ops/kinematics.py::fk_plan_table), at most
+// kMaxDepth steps, with no barrier; each step's joint rotation comes by a
+// shuffle from the lane that decoded it.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace tipq {
+
+constexpr int kMaxLinks = 32;   // links of a skeleton, root included: a warp
+constexpr int kPoseQuats = 18;  // root + 17 spherical joints in a pose
+constexpr int kMaxDepth = 8;    // joints on a link's chain from the root
+constexpr int kPlanRows = kMaxDepth + 1;
+constexpr unsigned kFull = 0xffffffffu;
+
+// The per-phase clock of K2, K3 and K6, compiled in only where kOn (the
+// kernels' clocked instantiation): thread 0 of block 0 reads the SM's cycle
+// counter (clock64, local to the SM and fine for a kernel of one block a
+// stream) at the start and after each phase, once the phase's results are
+// settled, and writes the kRows stamps to clk at the end.
+template <bool kOn, int kRows>
+struct CycleClock {
+  unsigned long long t[kRows];
+  __device__ __forceinline__ void stamp(int i) {
+    if constexpr (kOn) t[i] = clock64();
+  }
+  __device__ __forceinline__ void write(unsigned long long* clk) const {
+    if constexpr (kOn) {
+      if (clk != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) clk[i] = t[i];
+      }
+    }
+  }
+};
+
+// In a clocked launch only: wait until every lane's v is computed (a store
+// needs its value), then let the warp meet, so that the next stamp closes
+// the phase.
+template <bool kOn>
+__device__ __forceinline__ void settle(float v) {
+  if constexpr (kOn) {
+    __shared__ float sink[32];
+    sink[threadIdx.x & 31] = v;
+    __syncwarp();
+  }
+}
 
 struct Q { float x, y, z, w; };
 struct V { float x, y, z; };
@@ -29,6 +75,17 @@ __device__ __forceinline__ float qnorm(Q q) {
 }
 __device__ __forceinline__ Q load_q(const float* p) { return {p[0], p[1], p[2], p[3]}; }
 __device__ __forceinline__ V load_v(const float* p) { return {p[0], p[1], p[2]}; }
+__device__ __forceinline__ V xyz(float4 e) { return {e.x, e.y, e.z}; }
+
+// lane src's q / v, every lane of the warp taking part
+__device__ __forceinline__ Q shfl_q(Q q, int src) {
+  return {__shfl_sync(kFull, q.x, src), __shfl_sync(kFull, q.y, src),
+          __shfl_sync(kFull, q.z, src), __shfl_sync(kFull, q.w, src)};
+}
+__device__ __forceinline__ V shfl_v(V v, int src) {
+  return {__shfl_sync(kFull, v.x, src), __shfl_sync(kFull, v.y, src),
+          __shfl_sync(kFull, v.z, src)};
+}
 
 __device__ __forceinline__ Q qmul(Q a, Q b) {
   V v1{a.x, a.y, a.z}, v2{b.x, b.y, b.z};
@@ -54,7 +111,11 @@ __device__ __forceinline__ Q aa_to_q(V aa) {
   return {aa.x * k, aa.y * k, aa.z * k, cosf(half)};
 }
 
-// m is row-major: m[3 * r + c]
+// m is row-major: m[3 * r + c]. Shepperd's four cases share one square
+// root and three divisions: the case picks the trace term, the three
+// numerators and the place of h, so a warp whose lanes take different
+// cases does not run them one after another. Each case's values are those
+// of its own formula.
 __device__ inline Q matrix_to_q(const float* m) {
   const float m00 = m[0], m01 = m[1], m02 = m[2];
   const float m10 = m[3], m11 = m[4], m12 = m[5];
@@ -66,97 +127,106 @@ __device__ inline Q matrix_to_q(const float* m) {
   const bool is_w = (tw >= tx) && (tw >= ty) && (tw >= tz);
   const bool is_x = !is_w && (tx >= ty) && (tx >= tz);
   const bool is_y = !is_w && !is_x && (ty >= tz);
+  const float a = m21 - m12, b = m02 - m20, c = m10 - m01;
+  const float d = m01 + m10, e = m02 + m20, f = m12 + m21;
+  // w: (a, b, c, h); x: (h, d, e, a); y: (d, h, f, b); z: (e, f, h, c)
+  const float t = is_w ? tw : is_x ? tx : is_y ? ty : tz;
+  const float u0 = is_w ? a : is_x ? d : is_y ? d : e;
+  const float u1 = is_w ? b : is_x ? e : f;
+  const float u2 = is_w ? c : is_x ? a : is_y ? b : c;
+  const float h = sqrtf(fmaxf(t, 1e-12f)) / 2.0f;
+  const float r0 = u0 / (4 * h), r1 = u1 / (4 * h), r2 = u2 / (4 * h);
   Q q;
-  if (is_w) {
-    const float h = sqrtf(fmaxf(tw, 1e-12f)) / 2.0f;
-    q = {(m21 - m12) / (4 * h), (m02 - m20) / (4 * h), (m10 - m01) / (4 * h), h};
-  } else if (is_x) {
-    const float h = sqrtf(fmaxf(tx, 1e-12f)) / 2.0f;
-    q = {h, (m01 + m10) / (4 * h), (m02 + m20) / (4 * h), (m21 - m12) / (4 * h)};
-  } else if (is_y) {
-    const float h = sqrtf(fmaxf(ty, 1e-12f)) / 2.0f;
-    q = {(m01 + m10) / (4 * h), h, (m12 + m21) / (4 * h), (m02 - m20) / (4 * h)};
-  } else {
-    const float h = sqrtf(fmaxf(tz, 1e-12f)) / 2.0f;
-    q = {(m02 + m20) / (4 * h), (m12 + m21) / (4 * h), h, (m10 - m01) / (4 * h)};
-  }
+  if (is_w) q = {r0, r1, r2, h};
+  else if (is_x) q = {h, r0, r1, r2};
+  else if (is_y) q = {r0, h, r1, r2};
+  else q = {r0, r1, h, r2};
   const float n = fmaxf(qnorm(q), 1e-12f);
   q = {q.x / n, q.y / n, q.z / n, q.w / n};
   const float sgn = q.w < 0.0f ? -1.0f : 1.0f;  // w == 0 -> +1
   return {q.x * sgn, q.y * sgn, q.z * sgn, q.w * sgn};
 }
 
-// 6D row [r00, r01, r10, r11, r20, r21] -> quat
-__device__ inline Q sixd_to_q(const float* s) {
+// 6D row [r00, r01, r10, r11, r20, r21] -> row-major rotation matrix m
+__device__ inline void sixd_to_matrix(const float* s, float* m) {
   V a1{s[0], s[2], s[4]}, a2{s[1], s[3], s[5]};
   a1 = vscale(a1, 1.0f / (vnorm(a1) + 1e-6f));
   a2 = vscale(a2, 1.0f / (vnorm(a2) + 1e-6f));
-  V a3 = vcross(a1, a2);
-  const float m[9] = {a1.x, a2.x, a3.x, a1.y, a2.y, a3.y, a1.z, a2.z, a3.z};
-  return matrix_to_q(m);
+  const V a3 = vcross(a1, a2);
+  m[0] = a1.x; m[1] = a2.x; m[2] = a3.x;
+  m[3] = a1.y; m[4] = a2.y; m[5] = a3.y;
+  m[6] = a1.z; m[7] = a2.z; m[8] = a3.z;
 }
 
 // ---------------------------------------------------------------------------
-// forward kinematics of one pose by one block
+// forward kinematics of one pose by one warp
 // ---------------------------------------------------------------------------
 
-constexpr int kMaxLinks = 32;   // links of a skeleton, root included
-constexpr int kPoseQuats = 18;  // root + 17 spherical joints in a pose
-
-struct FkShared {
-  Q qn[kPoseQuats];   // decoded pose[3:57]: root, then 17 joint slots
-  Q qa[kMaxLinks];    // world link quats
-  V pj[kMaxLinks];    // joint-frame positions
-  V pc[kMaxLinks];    // CoM-frame positions
+// The FK plan of a skeleton (ops/kinematics.py::fk_plan_table): float4
+// entries [kPlanRows][kMaxLinks], lane l reading column l. Row 0: link l's
+// CoM offset and, as int bits, its depth (joints on the chain from the
+// root, 0 for the root link). Row k = 1..depth: the k-th joint of the chain
+// from the root, its joint offset and, as int bits, the
+// index of its rotation among the pose's 18 decoded quats (-1: a fixed
+// joint). Entries past a chain, and links past the skeleton's, are zero.
+struct Plan {
+  float4 e[kPlanRows];
+  __device__ __forceinline__ void load(const float4* __restrict__ plan) {
+#pragma unroll
+    for (int k = 0; k < kPlanRows; ++k)
+      e[k] = __ldg(plan + k * kMaxLinks + (threadIdx.x & 31));
+  }
+  __device__ __forceinline__ int depth() const {
+    return __float_as_int(e[0].w);
+  }
 };
 
-// pose: root xyz, root axis-angle, 17 joint axis-angles (57 floats).
-// slot[j]: which of the 17 decoded joint quats is joint j's local rotation
-// (unused where is_fixed[j]). Parents come before their children. Writes
-// the (J+1, 7) CoM and joint frames and leaves the decoded quats, world
-// quats and positions in sh. Every thread of a block of at least
-// max(kPoseQuats, J+1) threads calls it; it ends in a barrier.
-__device__ inline void fk_block(const float* __restrict__ pose,
-                                const float* __restrict__ joff,
-                                const float* __restrict__ coff,
-                                const int* __restrict__ parent,
-                                const int* __restrict__ is_fixed,
-                                const int* __restrict__ slot, int J,
-                                FkShared& sh, float* __restrict__ pq_com,
-                                float* __restrict__ pq_jf) {
-  const int tid = threadIdx.x;
-  if (tid < kPoseQuats) sh.qn[tid] = aa_to_q(load_v(pose + 3 + 3 * tid));
-  __syncthreads();
+struct Link {
+  V p;  // joint-frame position
+  Q q;  // world quat
+  V c;  // CoM-frame position
+};
 
-  // tree walk, parents first
-  if (tid == 0) {
-    sh.qa[0] = sh.qn[0];
-    sh.pj[0] = load_v(pose);
-    for (int j = 0; j < J; ++j) {
-      const int ps = parent[j] + 1;
-      sh.pj[j + 1] = vadd(sh.pj[ps], qrot(sh.qa[ps], load_v(joff + 3 * j)));
-      sh.qa[j + 1] = is_fixed[j] ? sh.qa[ps]
-                                 : qmul(sh.qa[ps], sh.qn[1 + slot[j]]);
+// Every lane of the warp calls it: root_p the pose's root position, qn
+// lane i's decoded pose quat (lanes 0..17: root, then the 17 joint slots).
+// Returns lane l's link frames; lanes past the skeleton's links get the
+// root's.
+__device__ __forceinline__ Link fk_walk(const Plan& plan, V root_p, Q qn) {
+  const int depth = plan.depth();
+  Q q = shfl_q(qn, 0);
+  V p = root_p;
+  // this link's own chain, root first: the serial walk's steps for its
+  // ancestors, in its order
+  Q g[kMaxDepth];
+#pragma unroll
+  for (int k = 1; k <= kMaxDepth; ++k) {
+    const int qi = __float_as_int(plan.e[k].w);
+    g[k - 1] = shfl_q(qn, qi < 0 ? 0 : qi);
+  }
+#pragma unroll
+  for (int k = 1; k <= kMaxDepth; ++k) {
+    if (k <= depth) {
+      p = vadd(p, qrot(q, xyz(plan.e[k])));
+      if (__float_as_int(plan.e[k].w) >= 0) q = qmul(q, g[k - 1]);
     }
   }
-  __syncthreads();
+  return {p, q, vadd(p, qrot(q, xyz(plan.e[0])))};
+}
 
-  // CoM and joint frames per link
-  if (tid < J + 1) {
-    const Q q = sh.qa[tid];
-    const V p = sh.pj[tid];
-    const V c = vadd(p, qrot(q, load_v(coff + 3 * tid)));
-    sh.pc[tid] = c;
-    float* jf = pq_jf + 7 * tid;
-    float* cm = pq_com + 7 * tid;
-    jf[0] = p.x; jf[1] = p.y; jf[2] = p.z;
-    cm[0] = c.x; cm[1] = c.y; cm[2] = c.z;
-    jf[3] = cm[3] = q.x;
-    jf[4] = cm[4] = q.y;
-    jf[5] = cm[5] = q.z;
-    jf[6] = cm[6] = q.w;
-  }
-  __syncthreads();
+// lane l < L writes link l's (7,) CoM and joint frames
+__device__ __forceinline__ void store_link(const Link& f, int L,
+                                           float* __restrict__ pq_com,
+                                           float* __restrict__ pq_jf) {
+  const int l = threadIdx.x & 31;
+  if (l >= L) return;
+  float* jf = pq_jf + 7 * l;
+  float* cm = pq_com + 7 * l;
+  jf[0] = f.p.x; jf[1] = f.p.y; jf[2] = f.p.z;
+  cm[0] = f.c.x; cm[1] = f.c.y; cm[2] = f.c.z;
+  jf[3] = cm[3] = f.q.x;
+  jf[4] = cm[4] = f.q.y;
+  jf[5] = cm[5] = f.q.z;
+  jf[6] = cm[6] = f.q.w;
 }
 
 }  // namespace tipq

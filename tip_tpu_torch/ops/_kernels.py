@@ -9,16 +9,23 @@ when a module is imported: the first call of a kernel wrapper builds, or
 source, all started together.
 
 Every C entry point takes pointers and the stream as ``c_void_p`` and
-returns ``cudaGetLastError()``; ``check`` raises if it is not 0.
+returns ``cudaGetLastError()``; ``check`` raises if it is not 0. The
+per-frame wrappers (K2, K3, K6) check and pack what does not change from
+frame to frame once, with ``launch_args``.
 """
 
 import collections
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
+import weakref
 from pathlib import Path
+from typing import NamedTuple, Tuple
+
+import torch
 
 _ROOT = Path(__file__).resolve().parents[2]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -147,3 +154,67 @@ def check_input(t, name: str, shape, dtype, device):
         raise ValueError(
             f"{name}: requires grad; a kernel's wrapper takes detached "
             f"tensors (train through fused_rnn_train / encoder_layer_train)")
+
+
+def stream_of(device) -> int:
+    """The raw handle of PyTorch's current stream on a CUDA ``device``: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without making
+    a Stream object (the per-frame wrappers ask at every launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def clock_ptr(clock, rows: int, device) -> int:
+    """0 (a kernel's per-phase clock off) or the data pointer of ``clock``,
+    a (rows,) int64 tensor on ``device``."""
+    if clock is None:
+        return 0
+    check_input(clock, "clock", (rows,), torch.int64, device)
+    return clock.data_ptr()
+
+
+class LaunchArgs(NamedTuple):
+    """What a per-frame wrapper checks and computes once (``launch_args``):
+    the per-frame inputs' shapes, the constant table it passes, and its
+    outputs' views of one allocation."""
+    shapes: Tuple[Tuple[int, ...], ...]   # per-frame inputs, in order
+    table: torch.Tensor                   # the FK plan (K3, K6), coeff (K2)
+    B: int
+    n_out: int                            # floats of the one allocation
+    views: Tuple[tuple, ...]              # (size, stride, offset) each
+
+
+def out_views(lead, shapes) -> Tuple[int, Tuple[tuple, ...]]:
+    """Outputs of these per-stream shapes laid one after another in one
+    allocation, each with the leading shape ``lead``: (floats, views)."""
+    B = lead[0] if lead else 1
+    views, off = [], 0
+    for shape in shapes:
+        size = tuple(lead) + tuple(shape)
+        stride, acc = [], 1
+        for d in reversed(size):
+            stride.append(acc)
+            acc *= d
+        views.append((size, tuple(reversed(stride)), off))
+        off += B * math.prod(shape)
+    return off, tuple(views)
+
+
+# id(owner) -> {key: LaunchArgs}; an owner's entry goes when it is freed
+_launch_args = {}
+
+
+def launch_args(owner, key, make) -> LaunchArgs:
+    """``make()`` at the first call for this ``owner`` (a skeleton, K2's
+    filter weights) and ``key``, then the same object while ``owner``
+    lives. The key holds whatever ``make`` read that may change: device,
+    leading shape, the version of a tensor it copied."""
+    mine = _launch_args.get(id(owner))
+    if mine is None:
+        mine = _launch_args[id(owner)] = {}
+        weakref.finalize(owner, _launch_args.pop, id(owner), None)
+    args = mine.get(key)
+    if args is None:
+        if len(mine) >= 16:
+            mine.clear()
+        args = mine[key] = make()
+    return args

@@ -17,7 +17,10 @@ Beside each, a plain PyTorch version with the same outputs
 (``decode_fused_plain``, ``tail_fused_plain``). The wrappers take
 ``impl``: "fused" launches the kernel (CUDA tensors only), "plain" runs the
 plain version, "auto" launches for a CUDA tensor and runs the plain
-version for a CPU tensor.
+version for a CPU tensor. Each checks the skeleton's tables or the filter
+weights once per (skeleton or weights, device, leading shape), and takes
+``clock=`` for its per-phase clock (``phase_ns``); ``floor_launch`` is their
+launch floor, an empty kernel, and ``timer_probe`` the device timers' step.
 """
 
 import ctypes
@@ -27,7 +30,6 @@ import numpy as np
 import torch
 
 from tip_tpu_torch import constants as cst
-from tip_tpu_torch import device_const
 from tip_tpu_torch.chars import amass as _char
 from tip_tpu_torch.ops import _kernels as K
 from tip_tpu_torch.ops import kinematics as kin
@@ -38,10 +40,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {
     "decode_fused_launch": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P,
-                            _P, _P],
-    "tail_fused_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                          ctypes.c_float, _P, _P, _P, _P, _P, _P, _P, _P],
+                            _P],
+    "tail_fused_launch": [_P, _P, _P, _P, _I, _I, ctypes.c_float, _P, _P,
+                          _P],
+    "tail_floor_launch": [_I, _P, _P],
+    "timer_probe_launch": [_I, ctypes.c_longlong, _P, _P],
 }
+# the phases of K2's and K3's per-phase clocks (stamp 0 is the start)
+K2_PHASES = ("filter", "decode")
+K3_PHASES = ("aa_to_q", "walk", "link_frames", "encode_6d", "residues",
+             "feet_mean")
 
 # joint j -> nimble aa slot whose quat is its local rotation (-1: fixed)
 _JOINT_SLOT = np.full(len(_char.JOINT_NAMES), -1, np.int32)
@@ -97,7 +105,7 @@ def decode_fused_plain(y_t, filt_view, coeff, use_filter, local9,
 
 def decode_fused(y_t, filt_view, coeff, use_filter, local9,
                  filter_len: int = 6, n_sbps: int = 5,
-                 impl: str = "auto") -> DecodeOut:
+                 impl: str = "auto", clock=None) -> DecodeOut:
     """Output filter + SBP decode + 18 quat decodes as one op, for one
     stream or for B streams in one launch (a leading axis B on ``y_t``,
     ``filt_view``, ``local9`` and every output).
@@ -109,42 +117,59 @@ def decode_fused(y_t, filt_view, coeff, use_filter, local9,
       use_filter: host bool — n_out >= filter_len — or a (B,) bool tensor,
         one flag a stream.
       local9: (9,) row-major root IMU rotation matrix.
+      filter_len: frames in the ring, 1..16 for the kernel.
+      clock: None, or a (3,) int64 tensor on the kernel's device for the
+        per-phase clock (``phase_ns``).
     """
     if not K.use_kernel(impl, y_t, "tail_impl", "fused"):
         return decode_fused_plain(y_t, filt_view, coeff, use_filter, local9,
                                   n_sbps)
-    lead = tuple(y_t.shape[:-1])
-    if len(lead) > 1:
-        raise ValueError(f"y_t: one stream (D,) or a pool (B, D), got "
-                         f"{tuple(y_t.shape)}")
-    D = y_t.shape[-1]
-    B = lead[0] if lead else 1
-    dev, f32 = y_t.device, torch.float32
-    K.check_input(y_t, "y_t", lead + (D,), f32, dev)
-    K.check_input(filt_view, "filt_view", lead + (filter_len, D), f32, dev)
-    K.check_input(coeff, "coeff", (filter_len,), f32, dev)
-    K.check_input(local9, "local9", lead + (9,), f32, dev)
+    dev = y_t.device
+    a = _decode_args(coeff, dev, tuple(y_t.shape), filter_len, n_sbps)
+    f32 = torch.float32
+    K.check_input(y_t, "y_t", a.shapes[0], f32, dev)
+    K.check_input(filt_view, "filt_view", a.shapes[1], f32, dev)
+    K.check_input(local9, "local9", a.shapes[2], f32, dev)
     flags = 0
     if isinstance(use_filter, torch.Tensor):
-        K.check_input(use_filter, "use_filter", lead, torch.bool, dev)
+        K.check_input(use_filter, "use_filter", a.shapes[0][:-1], torch.bool,
+                      dev)
         flags = use_filter.data_ptr()
-    if D < 108 + 4 * n_sbps:
-        raise ValueError(f"y_t width {D} holds no 18 6D rows + SBPs")
-    if not 0 < n_sbps <= 96:
-        raise ValueError(f"decode_fused's block decodes 1..96 SBPs, got "
-                         f"{n_sbps}")
-    y_f = torch.empty(lead + (D,), dtype=f32, device=dev)
-    c_t = torch.empty(lead + (n_sbps, 4), dtype=f32, device=dev)
-    q = torch.empty(lead + (18, 4), dtype=f32, device=dev)
-    so = K.lib("fused_tail", _SIG)
-    err = so.decode_fused_launch(
+    out = torch.empty(a.n_out, dtype=f32, device=dev)
+    err = K.lib("fused_tail", _SIG).decode_fused_launch(
         y_t.data_ptr(), filt_view.data_ptr(), coeff.data_ptr(), filter_len,
-        local9.data_ptr(), 0 if flags else int(bool(use_filter)), flags, B,
-        D, n_sbps, y_f.data_ptr(), c_t.data_ptr(), q.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        local9.data_ptr(), 0 if flags else int(bool(use_filter)), flags, a.B,
+        a.shapes[0][-1], n_sbps, out.data_ptr(),
+        K.clock_ptr(clock, 1 + len(K2_PHASES), dev), K.stream_of(dev))
     K.check(err, "decode_fused")
     K.launch_counts["decode_fused"] += 1
-    return DecodeOut(y_f=y_f, c_t=c_t, q_rows=q)
+    return DecodeOut(*(out.as_strided(*v) for v in a.views))
+
+
+def _decode_args(coeff, device, y_shape, filter_len: int,
+                 n_sbps: int) -> K.LaunchArgs:
+    """K2's checks of its shapes and filter weights, once per (coeff,
+    device, shape); the kernel reads coeff at every launch."""
+    def make():
+        lead, D = y_shape[:-1], y_shape[-1]
+        if len(lead) > 1:
+            raise ValueError(f"y_t: one stream (D,) or a pool (B, D), got "
+                             f"{y_shape}")
+        if not 108 + 4 * n_sbps <= D <= 114 + 4 * n_sbps:
+            raise ValueError(f"y_t width {D}: decode_fused takes 18 6D rows, "
+                             f"at most 6 columns, then {n_sbps} SBP rows")
+        if not 0 < n_sbps <= 96:
+            raise ValueError(f"decode_fused's block decodes 1..96 SBPs, got "
+                             f"{n_sbps}")
+        if not 0 < filter_len <= 16:
+            raise ValueError(f"decode_fused filters over 1..16 frames, got "
+                             f"{filter_len}")
+        K.check_input(coeff, "coeff", (filter_len,), torch.float32, device)
+        n_out, views = K.out_views(lead, ((D,), (n_sbps, 4), (18, 4)))
+        return K.LaunchArgs(
+            shapes=(y_shape, lead + (filter_len, D), lead + (9,)),
+            table=coeff, B=lead[0] if lead else 1, n_out=n_out, views=views)
+    return K.launch_args(coeff, (device, y_shape, filter_len, n_sbps), make)
 
 
 # ---------------------------------------------------------------------------
@@ -168,7 +193,7 @@ def tail_fused_plain(skel: kin.Skeleton, s_t, c_t, prev_pq,
 
 
 def tail_fused(skel: kin.Skeleton, s_t, c_t, prev_pq, dt: float = cst.DT,
-               impl: str = "auto", n_sbps: int = 5) -> TailOut:
+               impl: str = "auto", n_sbps: int = 5, clock=None) -> TailOut:
     """Stages 6-7 of the runner for one (114,) nimble state and the 5-SBP
     layout, minus the runner's z fix and -vel_res*dt shifts:
 
@@ -177,49 +202,66 @@ def tail_fused(skel: kin.Skeleton, s_t, c_t, prev_pq, dt: float = cst.DT,
         hist_sixd = rotations.aa_to_sixd(s_t[3:57].reshape(18, 3))
 
     or for B streams in one launch: ``s_t`` (B, 114), ``c_t`` (B, 20),
-    ``prev_pq`` (B, 20, 7), every output with the leading B.
+    ``prev_pq`` (B, 20, 7), every output with the leading B. ``clock``:
+    None, or a (7,) int64 tensor for the per-phase clock (``phase_ns``).
     """
     if not K.use_kernel(impl, s_t, "tail_impl", "fused"):
         return tail_fused_plain(skel, s_t, c_t, prev_pq, dt, n_sbps)
     if n_sbps != 5:
         raise ValueError(f"tail_fused's kernel takes the 5-SBP layout only, "
                          f"got n_sbps={n_sbps}")
-    kin.check_pose_skeleton(skel, "tail_fused")
-    J = skel.n_joints
-    n_links = J + 1
     dev, f32 = s_t.device, torch.float32
-    lead = tuple(s_t.shape[:-1])
-    if len(lead) > 1:
-        raise ValueError(f"s_t: one stream (114,) or a pool (B, 114), got "
-                         f"{tuple(s_t.shape)}")
-    B = lead[0] if lead else 1
-    K.check_input(s_t, "s_t", lead + (114,), f32, dev)
-    K.check_input(c_t, "c_t", lead + (20,), f32, dev)
-    K.check_input(prev_pq, "prev_pq", lead + (n_links, 7), f32, dev)
-    K.check_input(skel.joint_offset, "joint_offset", (J, 3), f32, dev)
-    K.check_input(skel.com_offset, "com_offset", (n_links, 3), f32, dev)
-    K.check_input(skel.parent_i32, "parent", (J,), torch.int32, dev)
-    K.check_input(skel.is_fixed_i32, "is_fixed", (J,), torch.int32, dev)
-    slot = device_const(_JOINT_SLOT, torch.int32, dev)
-    # one allocation, one contiguous piece per output (B rows each)
-    sizes = [n_links * 7, n_links * 7, 108, 3, 15, 15, 5]
-    out = torch.empty(B * sum(sizes), dtype=f32, device=dev)
-    pq_com, pq_jf, hist, vres, clocs, rres, act = torch.split(
-        out, [B * n for n in sizes])
-    so = K.lib("fused_tail", _SIG)
-    err = so.tail_fused_launch(
+    a = _tail_args(skel, dev, tuple(s_t.shape[:-1]))
+    K.check_input(s_t, "s_t", a.shapes[0], f32, dev)
+    K.check_input(c_t, "c_t", a.shapes[1], f32, dev)
+    K.check_input(prev_pq, "prev_pq", a.shapes[2], f32, dev)
+    out = torch.empty(a.n_out, dtype=f32, device=dev)
+    err = K.lib("fused_tail", _SIG).tail_fused_launch(
         s_t.data_ptr(), c_t.data_ptr(), prev_pq.data_ptr(),
-        skel.joint_offset.data_ptr(), skel.com_offset.data_ptr(),
-        skel.parent_i32.data_ptr(), skel.is_fixed_i32.data_ptr(),
-        slot.data_ptr(), B, J, float(dt), pq_com.data_ptr(), pq_jf.data_ptr(),
-        hist.data_ptr(), vres.data_ptr(), clocs.data_ptr(), rres.data_ptr(),
-        act.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        a.table.data_ptr(), a.B, skel.n_joints, float(dt), out.data_ptr(),
+        K.clock_ptr(clock, 1 + len(K3_PHASES), dev), K.stream_of(dev))
     K.check(err, "tail_fused")
     K.launch_counts["tail_fused"] += 1
-    return TailOut(pq_com=pq_com.view(lead + (n_links, 7)),
-                   pq_jf=pq_jf.view(lead + (n_links, 7)),
-                   hist_sixd=hist.view(lead + (18, 6)),
-                   vel_res=vres.view(lead + (3,)),
-                   c_locs=clocs.view(lead + (5, 3)),
-                   raw_res=rres.view(lead + (5, 3)),
-                   active=act.view(lead + (5,)))
+    return TailOut(*(out.as_strided(*v) for v in a.views))
+
+
+def _tail_args(skel: kin.Skeleton, device, lead) -> K.LaunchArgs:
+    L = skel.n_joints + 1
+    return kin.skeleton_args(
+        skel, "tail_fused", _JOINT_SLOT, device, lead,
+        ((114,), (20,), (L, 7)),
+        ((L, 7), (L, 7), (18, 6), (3,), (5, 3), (5, 3), (5,)))
+
+
+# ---------------------------------------------------------------------------
+# the per-phase clock, the launch floor and the timer probe
+# ---------------------------------------------------------------------------
+
+def phase_ns(stamps, names, cycles_per_ns: float) -> dict:
+    """A per-phase clock's stamps (cycle counts: the start, then the end of
+    each phase) -> {phase: ns, "total": ns}."""
+    out = {n: (b - a) / cycles_per_ns
+           for n, a, b in zip(names, stamps, stamps[1:])}
+    out["total"] = (stamps[len(names)] - stamps[0]) / cycles_per_ns
+    return out
+
+
+def floor_launch(out):
+    """The launch floor: an empty kernel of B blocks of 32 threads, B =
+    ``out.numel()``, each writing its own float32 of ``out`` (CUDA)."""
+    so = K.lib("fused_tail", _SIG)
+    K.check(so.tail_floor_launch(out.numel(), out.data_ptr(),
+                                 K.stream_of(out.device)), "tail_floor")
+
+
+def timer_probe(dev, reads: int = 100000, spin: int = 10 ** 7) -> dict:
+    """%globaltimer's step (the smallest change over ``reads`` reads in a
+    tight loop, and how many changes), and the SM's cycles per ns of
+    %globaltimer over a spin of ``spin`` cycles; one thread, synchronised."""
+    out = torch.zeros(4, dtype=torch.int64, device=dev)
+    so = K.lib("fused_tail", _SIG)
+    K.check(so.timer_probe_launch(reads, spin, out.data_ptr(),
+                                  K.stream_of(out.device)), "timer_probe")
+    step, changes, ns, cycles = out.tolist()
+    return dict(globaltimer_step_ns=step, globaltimer_changes=changes,
+                reads=reads, cycles_per_ns=cycles / ns)

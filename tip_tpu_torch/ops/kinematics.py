@@ -9,7 +9,9 @@ the inertial origin). Quaternions are xyzw throughout.
 K6, csrc/fused_fk.cu) is the whole pose -> link-frames pipeline of one pose,
 or of a pool's B poses, as one launch; the runner's fused tail
 (ops/fused_tail.py, kernel K3) holds the same walk plus the SBP and history
-chains.
+chains. Both kernels walk the skeleton's FK plan (``fk_plan``,
+``fk_plan_table``): each link's chain of joints from the root, built once
+on the host for each skeleton and device (``skeleton_args``).
 """
 
 import ctypes
@@ -30,17 +32,15 @@ from tip_tpu_torch.ops import rotations as rot
 class Skeleton:
     """Flat skeleton tensors.
 
-    ``parent``/``is_fixed`` are host tuples (the tree is static); the same
-    tables also ride along as small int32 tensors on the skeleton's device
-    for the tail kernel, so a URDF skeleton needs no recompiled kernel.
+    ``parent``/``is_fixed`` are host tuples (the tree is static); the FK
+    kernels take the skeleton as a table made from them at their first call
+    (``skeleton_args``), so a URDF skeleton needs no recompiled kernel.
     """
     parent: Tuple[int, ...]            # (J,) parent joint, -1 = root link
     is_fixed: Tuple[bool, ...]         # (J,)
     joint_offset: torch.Tensor         # (J, 3) scaled
     com_offset: torch.Tensor           # (J+1, 3) scaled
     link_mass: torch.Tensor            # (J+1,)
-    parent_i32: torch.Tensor           # (J,) int32 copy of parent
-    is_fixed_i32: torch.Tensor         # (J,) int32 copy of is_fixed
 
     @property
     def n_joints(self) -> int:
@@ -60,9 +60,6 @@ def make_skeleton(parent, is_fixed, joint_offset, com_offset, link_mass,
         joint_offset=t(joint_offset).contiguous(),
         com_offset=t(com_offset).contiguous(),
         link_mass=t(link_mass),
-        parent_i32=torch.tensor(parent, dtype=torch.int32, device=device),
-        is_fixed_i32=torch.tensor([int(f) for f in is_fixed],
-                                  dtype=torch.int32, device=device),
     )
 
 
@@ -190,12 +187,68 @@ def fk_our_state(skel: Skeleton, s, return_joint_frame=False):
 
 
 # ---------------------------------------------------------------------------
+# The FK plan of kernels K3 and K6
+# ---------------------------------------------------------------------------
+
+# csrc/tip_quat.cuh: kMaxLinks (a warp), kMaxDepth
+K_MAX_LINKS = 32
+K_MAX_DEPTH = 8
+
+
+def fk_plan(parent, max_depth: int = K_MAX_DEPTH) -> Tuple[Tuple[int, ...],
+                                                           ...]:
+    """Each link's chain of joints from the root down to it: link 0 (the
+    root) has none, link j + 1 ends in joint j. The kernels compose a link's
+    frame along its chain, so a parent may be listed after its children.
+    Raises on a cycle or a dangling parent (as ``_levels``) and on a chain
+    of more than ``max_depth`` joints."""
+    _levels(parent)
+    chains = [()]
+    for j in range(len(parent)):
+        chain = [j]
+        while parent[chain[-1]] != -1:
+            chain.append(parent[chain[-1]])
+        if len(chain) > max_depth:
+            raise ValueError(
+                f"joint {j} lies {len(chain)} joints below the root; the FK "
+                f"kernels walk at most {max_depth}")
+        chains.append(tuple(reversed(chain)))
+    return tuple(chains)
+
+
+def fk_plan_table(skel: Skeleton, slot) -> np.ndarray:
+    """The FK plan as the kernels read it (csrc/tip_quat.cuh ``Plan``):
+    float32 (K_MAX_DEPTH + 1, K_MAX_LINKS, 4), column l for link l. Row 0:
+    the link's CoM offset and, as int32 bits, its chain's length. Row k:
+    the k-th joint of the chain, its joint offset and, as int32 bits, the
+    index of its rotation among the pose's 18 decoded quats (1 +
+    ``slot[j]``; -1 for a fixed joint). The rest zero."""
+    chains = fk_plan(skel.parent)
+    if len(chains) > K_MAX_LINKS:
+        raise ValueError(f"the FK kernels take at most {K_MAX_LINKS} links, "
+                         f"got {len(chains)}")
+    joff = skel.joint_offset.detach().cpu().numpy()
+    coff = skel.com_offset.detach().cpu().numpy()
+    tab = np.zeros((K_MAX_DEPTH + 1, K_MAX_LINKS, 4), np.float32)
+    bits = tab.view(np.int32)
+    for link, chain in enumerate(chains):
+        tab[0, link, :3] = coff[link]
+        bits[0, link, 3] = len(chain)
+        for k, j in enumerate(chain, 1):
+            tab[k, link, :3] = joff[j]
+            bits[k, link, 3] = -1 if skel.is_fixed[j] else 1 + slot[j]
+    return tab
+
+
+# ---------------------------------------------------------------------------
 # K6: the whole pose -> link-frames pipeline of one pose as one launch
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
-_SIG = {"fk_bullet_fused_launch": [_P, _P, _P, _P, _P, _P, ctypes.c_int,
-                                   ctypes.c_int, _P, _P, _P]}
+_I = ctypes.c_int
+_SIG = {"fk_bullet_fused_launch": [_P, _P, _I, _I, _P, _P, _P]}
+# the phases of K6's per-phase clock (stamp 0 is the start)
+K6_PHASES = ("aa_to_q", "walk", "link_frames")
 
 # joint j -> its place among the 17 active joints of a bullet pose (-1: fixed)
 _ACTIVE_SLOT = tuple(_ACTIVE.index(j) if j in _ACTIVE else -1
@@ -203,15 +256,45 @@ _ACTIVE_SLOT = tuple(_ACTIVE.index(j) if j in _ACTIVE else -1
 
 
 def check_pose_skeleton(skel: Skeleton, what: str):
-    """Raise unless ``skel`` fits the kernels' tree walk: the 19-joint pose
-    layout (17 spherical joints + 2 fixed), parents before children."""
+    """Raise unless ``skel`` fits the kernels' FK: the 19-joint pose layout
+    (17 spherical joints + 2 fixed) and a plan (no cycle, no chain deeper
+    than K_MAX_DEPTH)."""
     if skel.n_joints != len(_ACTIVE_SLOT) or tuple(
             j for j, f in enumerate(skel.is_fixed) if not f) != _ACTIVE:
         raise ValueError(f"{what} takes the 19-joint AMASS pose layout "
                          f"(17 active joints), got {skel.n_joints} joints")
-    if any(p >= j for j, p in enumerate(skel.parent)):
-        raise ValueError(f"{what} walks joints in order: every parent must "
-                         f"come before its children")
+    fk_plan(skel.parent)
+
+
+def skeleton_args(skel: Skeleton, what: str, slot, device, lead, shapes,
+                  out_shapes) -> K.LaunchArgs:
+    """A K3/K6 wrapper's checks of the skeleton and its FK plan on
+    ``device`` (``fk_plan_table``), made once per (skeleton, device, leading
+    shape) and again when an offset tensor is replaced or written (the plan
+    copies them)."""
+    jo, co = skel.joint_offset, skel.com_offset
+    key = (what, device, lead, id(jo), jo._version, id(co), co._version)
+
+    def make():
+        if len(lead) > 1:
+            raise ValueError(f"{what}: one stream or a pool (B, ...), got "
+                             f"the leading shape {lead}")
+        check_pose_skeleton(skel, what)
+        J, f32 = skel.n_joints, torch.float32
+        K.check_input(jo, "joint_offset", (J, 3), f32, device)
+        K.check_input(co, "com_offset", (J + 1, 3), f32, device)
+        n_out, views = K.out_views(lead, out_shapes)
+        return K.LaunchArgs(
+            shapes=tuple(lead + s for s in shapes),
+            table=torch.from_numpy(fk_plan_table(skel, slot)).to(device),
+            B=lead[0] if lead else 1, n_out=n_out, views=views)
+    return K.launch_args(skel, key, make)
+
+
+def _fk_args(skel: Skeleton, device, lead) -> K.LaunchArgs:
+    L = skel.n_joints + 1
+    return skeleton_args(skel, "fk_bullet_fused", _ACTIVE_SLOT, device, lead,
+                         ((57,),), ((L, 7), (L, 7)))
 
 
 def fk_bullet_fused_plain(skel: Skeleton, state_bullet):
@@ -220,35 +303,25 @@ def fk_bullet_fused_plain(skel: Skeleton, state_bullet):
     return fk_bullet_state(skel, state_bullet, return_joint_frame=True)
 
 
-def fk_bullet_fused(skel: Skeleton, state_bullet, impl: str = "auto"):
+def fk_bullet_fused(skel: Skeleton, state_bullet, impl: str = "auto",
+                    clock=None):
     """(pq_com, pq_jf), both (J+1, 7), for a single (57,) bullet pose, or
     both (B, J+1, 7) for B poses (B, 57), as one op and one launch.
     ``impl``: "kernel" launches K6 (a float32 CUDA tensor), "plain" runs
     ``fk_bullet_fused_plain``, "auto" launches for a CUDA tensor and runs
-    the plain version for a CPU tensor."""
+    the plain version for a CPU tensor. ``clock``: None, or a (4,) int64
+    tensor for the per-phase clock (``fused_tail.phase_ns``)."""
     if not K.use_kernel(impl, state_bullet, "fk_impl", "kernel"):
         return fk_bullet_fused_plain(skel, state_bullet)
-    check_pose_skeleton(skel, "fk_bullet_fused")
-    J = skel.n_joints
-    dev, f32 = state_bullet.device, torch.float32
-    lead = tuple(state_bullet.shape[:-1])
-    if len(lead) > 1:
-        raise ValueError(f"state_bullet: one pose (57,) or (B, 57), got "
-                         f"{tuple(state_bullet.shape)}")
-    K.check_input(state_bullet, "state_bullet", lead + (57,), f32, dev)
-    K.check_input(skel.joint_offset, "joint_offset", (J, 3), f32, dev)
-    K.check_input(skel.com_offset, "com_offset", (J + 1, 3), f32, dev)
-    K.check_input(skel.parent_i32, "parent", (J,), torch.int32, dev)
-    K.check_input(skel.is_fixed_i32, "is_fixed", (J,), torch.int32, dev)
-    slot = device_const(_ACTIVE_SLOT, torch.int32, dev)
-    out = torch.empty((2,) + lead + (J + 1, 7), dtype=f32, device=dev)
-    so = K.lib("fused_fk", _SIG)
-    err = so.fk_bullet_fused_launch(
-        state_bullet.data_ptr(), skel.joint_offset.data_ptr(),
-        skel.com_offset.data_ptr(), skel.parent_i32.data_ptr(),
-        skel.is_fixed_i32.data_ptr(), slot.data_ptr(),
-        lead[0] if lead else 1, J, out[0].data_ptr(),
-        out[1].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    dev = state_bullet.device
+    a = _fk_args(skel, dev, tuple(state_bullet.shape[:-1]))
+    K.check_input(state_bullet, "state_bullet", a.shapes[0], torch.float32,
+                  dev)
+    out = torch.empty(a.n_out, dtype=torch.float32, device=dev)
+    err = K.lib("fused_fk", _SIG).fk_bullet_fused_launch(
+        state_bullet.data_ptr(), a.table.data_ptr(), a.B,
+        skel.n_joints, out.data_ptr(),
+        K.clock_ptr(clock, 1 + len(K6_PHASES), dev), K.stream_of(dev))
     K.check(err, "fk_bullet_fused")
     K.launch_counts["fk_bullet_fused"] += 1
-    return out[0], out[1]
+    return tuple(out.as_strided(*v) for v in a.views)
