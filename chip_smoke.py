@@ -20,7 +20,8 @@ Phases, in order; any failure exits non-zero:
      and K2 and K3 each after the op that writes their input, 20 pairs in
      a CUDA graph (a read before that op finished would show); K3 and K6
      also on a skeleton that lists children before their parents, with a
-     fixed joint inside a chain;
+     fixed joint inside a chain, and on chains deeper than a pass of their
+     walk (11 and 19 joints); K2 also at filter lengths 17 and 20;
   4. run the main paths: the full-width model (ModelConfig() defaults,
      random weights from a seeded generator) in the streaming runner over
      the in-tree 720-frame motion, each path with every launch counter
@@ -45,6 +46,18 @@ Phases, in order; any failure exits non-zero:
      while the window grows and with a float64 CPU run of F's
      configuration, hold every frame of E against K7's plain version on
      E's own tokens; time and profile frames;
+  4b. the full runner (terrain + leg IK, run_offline_full), counters reset
+     before and read after each:
+       N  bench.py's configuration: recompute, K1, K2, K3, multi_sbp,
+          default TerrainConfig, f32, the plain encoder loop;
+       N-gt  ground-truth playback of the motion (nimble_qdq, constrs),
+          multi_sbp, through K3 on every frame;
+       N-E  120 frames in kv_cache_rnn_carry, fused, bf16: K7, K2, K3;
+     compare N with the plain versions on the card (300 frames, terrain at
+     frame 300) and a float64 CPU run (120), N-gt with a float64 CPU
+     playback (contacts, updates, terrain, terrain metrics), hold every
+     frame of N-E against K7's plain version; time and profile N, and
+     count the host syncs of a steady frame of A and N;
   5. run the pool paths: StreamPool at capacity 64 over the 60 in-tree
      motions (four slots join later, one stream is removed and its slot
      re-added), 300 ticks, counters reset before and read after each:
@@ -1131,22 +1144,42 @@ def compare_runs(what, runs_a, runs_b, frames, tol):
                 f"frame out of tolerance {f0}, first SBP flag flip {flip}")
 
 
+def stepper(model, cfg, skel, s_init, dev):
+    """(carry, step) of the minimal runner for a RunnerConfig, of the full
+    runner for a FullRunnerConfig: step(carry, imu_t) -> (carry', out),
+    one frame with the fused weights packed once."""
+    from tip_tpu_torch.runtime import full_runner as FR
+    from tip_tpu_torch.runtime import runner as R
+    if isinstance(cfg, FR.FullRunnerConfig):
+        packed = R.pack_fused_weights(model, cfg.base)
+        return (FR.full_runner_init(cfg, skel, s_init, device=dev),
+                lambda c, x: FR.full_runner_step(model, c, x, cfg, skel,
+                                                 packed_ws=packed))
+    packed = R.pack_fused_weights(model, cfg)
+    return (R.runner_init(cfg, skel, s_init, device=dev),
+            lambda c, x: R.runner_step(model, c, x, cfg, skel, packed))
+
+
+def n_smooth(cfg):
+    base = getattr(cfg, "base", cfg)
+    return base.imu_n_smooth
+
+
 def frame_times_ms(model, cfg, skel, s_init, imu, dev):
-    """Per-frame host time of runner_step with a synchronise after each
+    """Per-frame host time of a runner step (runner_step, or
+    full_runner_step for a FullRunnerConfig) with a synchronise after each
     frame (eager launches), over the frames that run the model among the
     first TIMED_FRAMES (the window has slid long before the last)."""
-    from tip_tpu_torch.runtime import runner as R
-    carry = R.runner_init(cfg, skel, s_init, device=dev)
+    carry, step = stepper(model, cfg, skel, s_init, dev)
     imu = torch.as_tensor(imu[:TIMED_FRAMES + 1], dtype=torch.float32,
                           device=dev)
-    packed = R.pack_fused_weights(model, cfg)
     times = []
     with torch.no_grad():
         for t in range(imu.shape[0] - 1):
             t0 = time.perf_counter()
-            carry, _ = R.runner_step(model, carry, imu[t], cfg, skel, packed)
+            carry, _ = step(carry, imu[t])
             torch.cuda.synchronize()
-            if t >= cfg.imu_n_smooth:
+            if t >= n_smooth(cfg):
                 times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
@@ -1156,22 +1189,18 @@ def profile_frames(model, cfg, skel, s_init, imu, dev, first=100, n=50):
     (torch.profiler), from frame `first` on, and the median host time of
     those same frames (synchronised each frame, profiler on)."""
     from torch.profiler import ProfilerActivity, profile
-
-    from tip_tpu_torch.runtime import runner as R
-    carry = R.runner_init(cfg, skel, s_init, device=dev)
+    carry, step = stepper(model, cfg, skel, s_init, dev)
     imu = torch.as_tensor(imu, dtype=torch.float32, device=dev)
-    packed = R.pack_fused_weights(model, cfg)
     with torch.no_grad():
         for t in range(first):
-            carry, _ = R.runner_step(model, carry, imu[t], cfg, skel, packed)
+            carry, _ = step(carry, imu[t])
         torch.cuda.synchronize()
         times = []
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for t in range(first, first + n):
                 t0 = time.perf_counter()
-                carry, _ = R.runner_step(model, carry, imu[t], cfg, skel,
-                                         packed)
+                carry, _ = step(carry, imu[t])
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
     rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count // n)
@@ -1181,6 +1210,31 @@ def profile_frames(model, cfg, skel, s_init, imu, dev, first=100, n=50):
     rows.sort(key=lambda r: -r[1])
     return (sum(r[1] for r in rows), sum(r[2] for r in rows), rows,
             statistics.median(times))
+
+
+def host_syncs(model, cfg, skel, s_init, imu, dev, first=100, n=50):
+    """Host synchronisations a steady frame: the warnings of
+    torch.cuda.set_sync_debug_mode("warn") counted over n frames from
+    frame `first` on, divided by n."""
+    import warnings
+    carry, step = stepper(model, cfg, skel, s_init, dev)
+    imu = torch.as_tensor(imu, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        for t in range(first):
+            carry, _ = step(carry, imu[t])
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for t in range(first, first + n):
+                    carry, _ = step(carry, imu[t])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    # torch also warns once that the debug mode is a prototype
+    syncs = [w for w in caught
+             if "called a synchronizing" in str(w.message)]
+    return len(syncs) / n, sorted({str(w.message)[:80] for w in syncs})
 
 
 def run_path(name, model, cfg, skel, s_init, imu, dev, on_path):
@@ -1267,11 +1321,12 @@ def replay_path_b(model, cfg, skel, s_init, imu, dev):
 
 
 def replay_path_e(model, cfg, skel, s_init, imu, dev):
-    """Path E teacher-forced: its bf16 free-running trajectory drifts from
-    any other run chaotically, so each frame is held on its own. Step the
-    runner with the cached step's wrapper recording every token, cursor and
-    raw output y_t (K7); then feed the recorded tokens from a fresh cache
-    through K7's plain version and compare frame by frame."""
+    """Path E (or N-E, the full runner's) teacher-forced: its bf16
+    free-running trajectory drifts from any other run chaotically, so each
+    frame is held on its own. Step the runner with the cached step's
+    wrapper recording every token, cursor and raw output y_t (K7); then
+    feed the recorded tokens from a fresh cache through K7's plain version
+    and compare frame by frame."""
     from tip_tpu_torch.runtime import runner as R
     from tip_tpu_torch.runtime import streaming_cache as SC
     records = []
@@ -1282,32 +1337,33 @@ def replay_path_e(model, cfg, skel, s_init, imu, dev):
         records.append((x.clone(), slot, out[1].clone()))
         return out
 
-    carry = R.runner_init(cfg, skel, s_init, device=dev)
+    carry, step = stepper(model, cfg, skel, s_init, dev)
     imu = torch.as_tensor(imu, dtype=torch.float32, device=dev)
-    packed = R.pack_fused_weights(model, cfg)
+    mcfg = getattr(cfg, "base", cfg)
+    packed = R.pack_fused_weights(model, mcfg)
     SC.fused_cached_step_slot = recording
     try:
         with torch.no_grad():
             for t in range(imu.shape[0] - 1):
-                carry, _ = R.runner_step(model, carry, imu[t], cfg, skel,
-                                         packed)
+                carry, _ = step(carry, imu[t])
     finally:
         SC.fused_cached_step_slot = wrapper
-    cache = SC.cache_init(cfg.model, cfg.window, device=dev)
+    cache_now = getattr(carry, "base", carry).cache
+    cache = SC.cache_init(mcfg.model, mcfg.window, device=dev)
     err = 0.0
     with torch.no_grad():
         for x, slot, y_t in records:
             _, ref = SC.fused_cached_forward_step_plain(
-                packed, cache, x, slot, True, cfg.model, rnn_carry=True)
+                packed, cache, x, slot, True, mcfg.model, rnn_carry=True)
             err = max(err, max_err(ref, y_t))
     for n in ("k", "v", "enc", "h"):
-        a, b = getattr(carry.cache, n).float(), getattr(cache, n).float()
+        a, b = getattr(cache_now, n).float(), getattr(cache, n).float()
         check("path E replay", {f"ring_{n}": (
             max_err(a, b),
             TOL_RING_BF16_REL * max(1.0, b.abs().max().item()))})
     check("path E replay", {"plain_vs_recorded_K7":
                             (err, TOL_FF["bfloat16"])})
-    log(f"  path E teacher-forced over {len(records)} frames: max |plain - "
+    log(f"  teacher-forced over {len(records)} frames: max |plain - "
         f"K7| = {err:.3g}")
     return len(records)
 
@@ -1442,6 +1498,226 @@ def main_paths(dev):
             "device_busy_share": dev_ms / prof_frame_ms,
             "top": [[k[:70], ms, c] for k, ms, c in rows[:8]]}}))
     return launches, frame_ms, runs, models["A"].state_dict()
+
+
+# ---------------------------------------------------------------------------
+# 4b. the full runner (terrain + leg IK)
+# ---------------------------------------------------------------------------
+
+# path N-gt on the card against a float64 CPU playback: the played state is
+# returned as given (qdq); the contact track goes through FK and the SBP
+# residues (1/dt of a position difference, clipped, times dt)
+TOL_GT_QDQ = 1e-5
+TOL_GT_VIZ = 1e-4
+# the terrain metrics' height MAE of N-gt, card against CPU, in m
+TOL_GT_MAE = 1e-3
+# path N-E: frames of the full runner in kv_cache_rnn_carry, fused, bf16
+NE_FRAMES = 120
+
+
+def load_gt():
+    with open(MOTION, "rb") as f:     # in-tree motion written by data gen
+        d = pickle.load(f)
+    return d["nimble_qdq"], d["constrs"]
+
+
+def run_full(name, model, cfg, skel, s_init, imu, dev, on_path, gt=None):
+    """One full-runner path through run_offline_full with the launch
+    counters set to 0 just before and read just after; on_path: {kernel:
+    launches}, every other kernel 0; outputs finite of the expected
+    shapes. gt: (s_gt, c_gt) for playback. Returns ((s_traj, c_traj, viz,
+    upd), final carry, launches)."""
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.runtime import full_runner as FR
+    T = imu.shape[0]
+    kw = {} if gt is None else dict(s_gt=gt[0][:T], c_gt=gt[1][:T])
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    *outs, final = FR.run_offline_full(model, cfg, skel, s_init, imu,
+                                       collect_updates=True, device=dev,
+                                       **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: K.launch_counts.get(k, 0) for k in KERNELS}
+    log(f"path {name}: {T - 1} frames in {wall:.3f} s "
+        f"({wall / (T - 1) * 1e3:.3f} ms/frame, no per-frame sync); "
+        f"launches {launches}")
+    for k in KERNELS:
+        if launches[k] != on_path.get(k, 0):
+            raise AssertionError(f"path {name}: {k} launched {launches[k]} "
+                                 f"times, expected {on_path.get(k, 0)}")
+    for a, shape in zip(outs, [(T, 114), (T, 20), (T, 5, 3), (T, 3)]):
+        if tuple(a.shape) != shape or (a.is_floating_point()
+                                       and not torch.isfinite(a).all()):
+            raise AssertionError(f"path {name}: output {tuple(a.shape)} is "
+                                 f"not a finite {shape}")
+    return outs, final, launches
+
+
+def compare_terrain(what, a, b, upd_a, upd_b, tol_h=TOL_PATH):
+    """Two runs' update tracks equal, final region maps equal and region
+    heights within tol_h; a discrete flip (a grid rounding or a threshold)
+    fails with the frame of the first differing update."""
+    upd_a, upd_b = upd_a.cpu(), upd_b.cpu()
+    n = min(len(upd_a), len(upd_b))
+    diff = torch.nonzero((upd_a[:n] != upd_b[:n]).any(dim=1))
+    flip = int(diff[0]) if diff.numel() else None
+    same_map = torch.equal(a.region_map.cpu(), b.region_map.cpu())
+    dh = (a.region_height.double().cpu()
+          - b.region_height.double().cpu()).abs().max().item()
+    log(f"  {what} terrain: {int(upd_a.sum())} updates, "
+        f"{int(a.n_regions)} regions; region maps equal {same_map}, max "
+        f"|height diff| {dh:.3g}, first update flip {flip}")
+    if flip is not None or not same_map or not dh <= tol_h \
+            or int(a.n_regions) != int(b.n_regions):
+        raise AssertionError(f"{what}: terrain differs (first update flip at "
+                             f"frame {flip}, maps equal {same_map}, height "
+                             f"diff {dh:.3g})")
+
+
+def full_runner_paths(dev, state_dict):
+    """Paths N (bench.py's configuration of the full runner), N-gt (ground
+    truth playback) and N-E (the full runner in kv_cache_rnn_carry, fused,
+    bf16), and the host syncs of a steady frame of A and N. Returns
+    (launches by path, summary)."""
+    t0 = time.perf_counter()
+    from tip_tpu_torch import eval_terrain as E
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.ops import kinematics as kin
+    from tip_tpu_torch.runtime import full_runner as FR
+    from tip_tpu_torch.runtime import runner as R
+
+    imu, s_init = load_motion()
+    gt_qdq, gt_c = load_gt()
+    skel = kin.amass_skeleton(device=dev)
+    plain_enc = dict(encoder_impl="plain")
+    cfgs = {
+        # bench.py: recompute, K1, the fused tail, multi_sbp, default
+        # TerrainConfig, f32
+        "N": FR.FullRunnerConfig(
+            base=R.RunnerConfig(model=M.ModelConfig(**plain_enc)),
+            multi_sbp=True),
+        "N-plain": FR.FullRunnerConfig(
+            base=R.RunnerConfig(model=M.ModelConfig(rnn_impl="plain",
+                                                    **plain_enc),
+                                tail_impl="plain"), multi_sbp=True),
+        "N-gt": FR.FullRunnerConfig(
+            base=R.RunnerConfig(model=M.ModelConfig(**plain_enc)),
+            multi_sbp=True, playback_gt=True),
+        "N-E": FR.FullRunnerConfig(
+            base=R.RunnerConfig(model=M.ModelConfig(
+                forward_impl="fused", compute_dtype="bfloat16"),
+                serving_mode="kv_cache_rnn_carry"), multi_sbp=True),
+        "A": R.RunnerConfig(model=M.ModelConfig(**plain_enc)),
+    }
+    models = {}
+    for name, cfg in cfgs.items():
+        models[name] = M.TIPModel(getattr(cfg, "base", cfg).model, device=dev)
+        models[name].load_state_dict(state_dict)
+    n_model = imu.shape[0] - 1 - cfgs["N"].base.imu_n_smooth
+    k7 = "fused_cached_forward_step"
+    three = ("fused_rnn", "decode_fused", "tail_fused")
+    launches, summary = {}, {}
+
+    # N: launches, then against the plain versions on the card, a float64
+    # CPU run and the terrain at frame PATH_FRAMES
+    outs, final, launches["N"] = run_full(
+        "N", models["N"], cfgs["N"], skel, s_init, imu, dev,
+        dict.fromkeys(three, n_model))
+    cut = imu[:PATH_FRAMES + 1]
+    outs_cut, final_cut, _ = run_full(
+        "N (first frames)", models["N"], cfgs["N"], skel, s_init, cut, dev,
+        dict.fromkeys(three, PATH_FRAMES - cfgs["N"].base.imu_n_smooth))
+    plain, final_plain, _ = run_full("N-plain", models["N-plain"],
+                                     cfgs["N-plain"], skel, s_init, cut, dev,
+                                     {})
+    compare_runs("path N vs plain (card)", outs, plain, PATH_FRAMES, TOL_PATH)
+    compare_terrain(f"path N vs plain (card), frame {PATH_FRAMES}",
+                    final_cut.terrain,
+                    final_plain.terrain, outs_cut[3], plain[3])
+    model_c = M.TIPModel(cfgs["N-plain"].base.model, device="cpu",
+                         dtype=torch.float64)
+    model_c.load_state_dict(state_dict)
+    *cpu, final_cpu = FR.run_offline_full(
+        model_c, cfgs["N-plain"], kin.amass_skeleton(dtype=torch.float64),
+        s_init, imu[:CPU_FRAMES + 1], collect_updates=True, device="cpu")
+    compare_runs("path N card f32 vs CPU f64", outs, cpu, CPU_FRAMES,
+                 TOL_PATH)
+    summary["N"] = dict(terrain_updates=int(outs[3].sum()),
+                        regions=int(final.terrain.n_regions))
+
+    # N-gt: the played motion through K3, against a float64 CPU playback.
+    # Under playback the model's output reaches nothing the runner returns
+    # or the terrain, so the CPU reference runs a small model
+    outs_gt, final_gt, launches["N-gt"] = run_full(
+        "N-gt", models["N-gt"], cfgs["N-gt"], skel, s_init, imu, dev,
+        dict(fused_rnn=n_model, decode_fused=n_model,
+             tail_fused=imu.shape[0] - 1), gt=(gt_qdq, gt_c))
+    small = M.ModelConfig(**plain_enc, tf_in_dim=32, tf_hid_size=64,
+                          n_heads=4, tf_layers=2, rnn_hid_size=24)
+    cfg_c = FR.FullRunnerConfig(
+        base=R.RunnerConfig(model=small, tail_impl="plain"), multi_sbp=True,
+        playback_gt=True)
+    skel_c = kin.amass_skeleton(dtype=torch.float64)
+    *cpu_gt, final_cpu_gt = FR.run_offline_full(
+        M.TIPModel(small, device="cpu", dtype=torch.float64), cfg_c, skel_c,
+        s_init, imu, gt_qdq, gt_c, collect_updates=True, device="cpu")
+    errs = {"qdq": ((outs_gt[0].double().cpu() - cpu_gt[0]).abs().max()
+                    .item(), TOL_GT_QDQ),
+            "viz": ((outs_gt[2].double().cpu() - cpu_gt[2]).abs().max()
+                    .item(), TOL_GT_VIZ)}
+    check("path N-gt card f32 vs CPU f64", errs)
+    compare_terrain("path N-gt vs CPU f64 playback", final_gt.terrain,
+                    final_cpu_gt.terrain, outs_gt[3], cpu_gt[3])
+    tcfg = cfgs["N-gt"].terrain
+    m_card = E.motion_terrain_metrics(
+        skel, gt_qdq, gt_c, final_gt.terrain, tcfg,
+        outs_gt[2].cpu().numpy(), outs_gt[3].cpu().numpy())
+    m_cpu = E.motion_terrain_metrics(
+        skel_c, gt_qdq, gt_c, final_cpu_gt.terrain, tcfg,
+        cpu_gt[2].numpy(), cpu_gt[3].numpy())
+    log(json.dumps({"terrain_metrics_N_gt": {"card": m_card,
+                                             "cpu_f64": m_cpu}}))
+    check("path N-gt terrain metrics", {"height_mae_m": (
+        abs(m_card["height_mae_m"] - m_cpu["height_mae_m"]), TOL_GT_MAE)})
+    summary["N-gt"] = dict(terrain_updates=int(outs_gt[3].sum()),
+                           regions=int(final_gt.terrain.n_regions),
+                           metrics=m_card, vs_cpu=errs)
+
+    # N-E: 120 frames in kv_cache_rnn_carry, fused, bf16; held frame by
+    # frame against K7's plain version, as path E
+    ne = imu[:NE_FRAMES + 1]
+    ne_model = NE_FRAMES - cfgs["N-E"].base.imu_n_smooth
+    _, _, launches["N-E"] = run_full(
+        "N-E", models["N-E"], cfgs["N-E"], skel, s_init, ne, dev,
+        {k7: ne_model, "decode_fused": ne_model, "tail_fused": ne_model})
+    n_rec = replay_path_e(models["N-E"], cfgs["N-E"], skel, s_init, ne, dev)
+    if n_rec != ne_model:
+        raise AssertionError(f"path N-E replay recorded {n_rec} frames")
+
+    # per-frame time, device time by kernel, host syncs
+    frame_ms = {n: frame_times_ms(models[n], cfgs[n], skel, s_init, imu, dev)
+                for n in ("N", "N-E")}
+    summary["frame_ms"] = frame_ms
+    dev_ms, n_kernels, rows, prof_ms = profile_frames(
+        models["N"], cfgs["N"], skel, s_init, imu, dev)
+    summary["profile"] = {
+        "device_ms_per_frame": dev_ms, "kernels_per_frame": n_kernels,
+        "frame_ms_profiled": prof_ms, "device_busy_share": dev_ms / prof_ms,
+        "top": [[k[:70], ms, c] for k, ms, c in rows[:8]]}
+    summary["host_syncs_per_frame"] = {}
+    for name in ("A", "N"):
+        per_frame, kinds = host_syncs(models[name], cfgs[name], skel, s_init,
+                                      imu, dev)
+        summary["host_syncs_per_frame"][name] = per_frame
+        log(f"  host syncs a steady frame, path {name}: {per_frame} {kinds}")
+    if summary["host_syncs_per_frame"]["N"] > \
+            summary["host_syncs_per_frame"]["A"]:
+        raise AssertionError(f"path N syncs more than path A: "
+                             f"{summary['host_syncs_per_frame']}")
+    summary["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"full_runner": summary}))
+    return launches, summary
 
 
 # ---------------------------------------------------------------------------
@@ -2407,21 +2683,10 @@ def flat(out):
     return torch.nan_to_num(torch.cat([t.reshape(-1) for t in out]))
 
 
-def check_children_first(dev, gen):
-    """K3 and K6 on a skeleton whose children are listed before their
-    parents, with a fixed joint inside a chain: the AMASS tree with the
-    left leg reversed (lankle off the root, lknee off it, lhip off lknee)
-    and the left arm reversed through the fixed lwrist (lwrist off the
-    chest, then lelbow, lshoulder, lclavicle); the pose layout is AMASS's.
-    At B 1 and 64 on tail_inputs, each output against the plain version
-    (check_tail_fused's tolerances). Returns {kernel: max err}."""
-    from tip_tpu_torch.ops import kinematics as kin
-    base = kin.amass_skeleton()
-    p = base.parent
-    parent = (1, 2, -1) + p[3:11] + (12, 13, 14, 8) + p[15:]
-    assert any(q > j for j, q in enumerate(parent)) and base.is_fixed[14]
-    skel = kin.make_skeleton(parent, base.is_fixed, base.joint_offset,
-                             base.com_offset, base.link_mass, device=dev)
+def hold_on_skeleton(what, skel, dev, gen):
+    """K3 and K6 on another skeleton of the pose layout, at B 1 and 64 on
+    tail_inputs, each output against the plain version (check_tail_fused's
+    tolerances). Returns {kernel: max err}."""
     tols = dict(pq_com=TOL, pq_jf=TOL, hist_sixd=TOL, c_locs=TOL,
                 active=0.0, vel_res=TOL_RES, raw_res=TOL_RES)
     errs = {"tail_fused": {}, "fk_bullet_fused": {}}
@@ -2434,11 +2699,86 @@ def check_children_first(dev, gen):
             fields = getattr(out, "_fields", ("pq_com", "pq_jf"))
             for f, a, b in zip(fields, out, ref):
                 e[f] = (max(max_err(a, b), e.get(f, (0.0,))[0]), tols[f])
-    res = {name: check(f"{name} children first", e)
-           for name, e in errs.items()}
-    log(f"  children-first skeleton with a fixed joint inside a chain, B 1 "
-        f"and {POOL_CAPACITY}: max |kernel - plain| {json.dumps(res)}")
+    res = {name: check(f"{name} {what}", e) for name, e in errs.items()}
+    log(f"  {what}, B 1 and {POOL_CAPACITY}: max |kernel - plain| "
+        f"{json.dumps(res)}")
     return res
+
+
+def check_children_first(dev, gen):
+    """K3 and K6 on a skeleton whose children are listed before their
+    parents, with a fixed joint inside a chain: the AMASS tree with the
+    left leg reversed (lankle off the root, lknee off it, lhip off lknee)
+    and the left arm reversed through the fixed lwrist (lwrist off the
+    chest, then lelbow, lshoulder, lclavicle); the pose layout is AMASS's.
+    Returns {kernel: max err}."""
+    from tip_tpu_torch.ops import kinematics as kin
+    base = kin.amass_skeleton()
+    p = base.parent
+    parent = (1, 2, -1) + p[3:11] + (12, 13, 14, 8) + p[15:]
+    assert any(q > j for j, q in enumerate(parent)) and base.is_fixed[14]
+    skel = kin.make_skeleton(parent, base.is_fixed, base.joint_offset,
+                             base.com_offset, base.link_mass, device=dev)
+    return hold_on_skeleton("children-first skeleton with a fixed joint "
+                            "inside a chain", skel, dev, gen)
+
+
+# skeletons of the pose layout whose chains are deeper than a pass of the
+# FK walk (kinematics.K_MAX_DEPTH): the right arm hung off the left wrist
+# (11 joints deep), and every joint off the one before it (19)
+DEEP_CHAINS = {"deep_11": 11, "line_19": 19}
+
+
+def check_deep_chains(dev, gen):
+    """K3 and K6 on the skeletons of DEEP_CHAINS (their second and third
+    passes). Returns {kernel: max err over both}."""
+    from tip_tpu_torch.ops import kinematics as kin
+    base = kin.amass_skeleton()
+    parents = {"deep_11": base.parent[:15] + (14,) + base.parent[16:],
+               "line_19": (-1,) + tuple(range(18))}
+    res = {}
+    for name, depth in DEEP_CHAINS.items():
+        skel = kin.make_skeleton(parents[name], base.is_fixed,
+                                 base.joint_offset, base.com_offset,
+                                 base.link_mass, device=dev)
+        if max(len(c) for c in kin.fk_plan(skel.parent)) != depth:
+            raise AssertionError(f"{name} is not {depth} joints deep")
+        for k, e in hold_on_skeleton(f"{depth}-deep chain", skel, dev,
+                                     gen).items():
+            res[k] = max(res.get(k, 0.0), e)
+    return res
+
+
+# filter lengths past one chunk of K2's filter sum (16 rows)
+LONG_FILTERS = (17, 20)
+
+
+def check_long_filter(dev, gen, skel):
+    """K2 at the filter lengths of LONG_FILTERS, at B 1 and 64, filtering
+    and not, against decode_fused_plain. Returns the max err."""
+    from tip_tpu_torch.ops import fused_tail as FT
+    errs = {}
+    for nf in LONG_FILTERS:
+        coeff = torch.tensor([0.6 ** i for i in range(nf - 1, -1, -1)],
+                             dtype=torch.float32, device=dev)
+        for B in (1, POOL_CAPACITY):
+            x = tail_inputs(B, dev, gen, skel)
+            lead = () if B == 1 else (B,)
+            filt = torch.randn(lead + (nf, 131), generator=gen, device=dev)
+            for use_filter in (x["flags"], False):
+                out = FT.decode_fused(x["y_t"], filt, coeff, use_filter,
+                                      x["local9"], filter_len=nf,
+                                      impl="fused")
+                ref = FT.decode_fused_plain(x["y_t"], filt, coeff,
+                                            use_filter, x["local9"])
+                for f in out._fields:
+                    key = f"nf{nf}_B{B}_{f}"
+                    e = max_err(getattr(out, f), getattr(ref, f))
+                    errs[key] = (max(e, errs.get(key, (0.0,))[0]), TOL)
+    err = check("decode_fused long filter", errs)
+    log(f"  decode_fused at filter_len {LONG_FILTERS}, B 1 and "
+        f"{POOL_CAPACITY}: max |kernel - plain| {err:.3g}")
+    return err
 
 
 def phase_clock(kernel, phases, dev, cycles_per_ns, n=21, warm=5):
@@ -2583,6 +2923,8 @@ def main():
                *check_encoder_train(dev, gen, model)]
     batched = check_batched_tail(dev, gen, skel)
     children_first = check_children_first(dev, gen)
+    deep_chains = check_deep_chains(dev, gen)
+    long_filter = check_long_filter(dev, gen, skel)
     tail = tail_floor_and_clocks(dev, gen, skel)
     race_err = race_check(dev, gen, skel)
     for k in kernels:
@@ -2594,6 +2936,9 @@ def main():
             k["race_check_max_abs_err"] = race_err
         if k["name"] in children_first:
             k["children_first_max_abs_err"] = children_first[k["name"]]
+            k["deep_chains_max_abs_err"] = deep_chains[k["name"]]
+        if k["name"] == "decode_fused":
+            k["long_filter_max_abs_err"] = long_filter
     torch.cuda.synchronize()
     for k in kernels:
         log(f"  {k['name']}: max err {k['max_abs_err']:.3g} (tol "
@@ -2603,14 +2948,20 @@ def main():
             f"({k['bound_by']}), library {k['library_ms']}")
 
     launches, frame_ms, runs, state_dict = main_paths(dev)
+    full_launches, full_summary = full_runner_paths(dev, state_dict)
+    launches.update(full_launches)
     pool_launches, pool_summary = pool_paths(dev, runs, state_dict)
     launches.update(pool_launches)
     launches["L"], train_summary = training_paths(dev)
     for k in kernels:
         k["launches"] = launches[COUNTED_ON[k["name"]]][k["name"]]
         k["launches_on"] = COUNTED_ON[k["name"]]
+        k["launches_full_runner"] = {
+            p: launches[p][k["name"]] for p in ("N", "N-gt", "N-E")
+            if launches[p][k["name"]]}
         if not k["launches"] > 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
+    frame_ms.update(full_summary["frame_ms"])
     log(json.dumps({"frame_ms": frame_ms, "launches": launches,
                     "pool_tick_ms": {n: v["tick_ms"]
                                      for n, v in pool_summary.items()},

@@ -6,8 +6,9 @@ lane of the kernels composes its link's chain, equals the port's plain FK
 (fk_bullet_fused_plain) and tip_tpu's: float64 to 1e-12 against tip_tpu's
 fk_bullet_state, float32 to 1e-5 against tip_tpu's fused FK kernel (the
 Pallas kernel in interpret mode, as tests/test_torch_kernels_plain.py runs
-it) where that kernel can walk the skeleton, against fk_bullet_state where
-it cannot (children listed before their parents). The float32 walk reads
+it) where that kernel can walk the skeleton (chains of 11 and 19 joints
+included), against fk_bullet_state where it cannot (children listed before
+their parents). The float32 walk reads
 the packed table the kernels read. Then the plan's limits, and the tail
 wrappers' per-skeleton cache of launch arguments (host only).
 """
@@ -38,10 +39,17 @@ CHILDREN_FIRST = (1, 2, -1) + tuple(AMASS.parent[3:])
 # (chip_smoke.py runs them on it)
 CHILDREN_FIRST_FIXED = CHILDREN_FIRST[:11] + (12, 13, 14, 8) \
     + tuple(AMASS.parent[15:])
+# the right arm hung off the left wrist: rclavicle (15) off lwrist (14), a
+# chain of 11 joints, parent first (chip_smoke.py runs K3 and K6 on it)
+DEEP_11 = AMASS.parent[:15] + (14,) + AMASS.parent[16:]
+# every joint off the one before it: a chain of 19
+LINE_19 = (-1,) + tuple(range(18))
 SKELETONS = {"amass": (AMASS.parent, AMASS.is_fixed),
              "fixed_joints": (AMASS.parent, FIXED),
              "children_first": (CHILDREN_FIRST, AMASS.is_fixed),
-             "children_first_fixed": (CHILDREN_FIRST_FIXED, AMASS.is_fixed)}
+             "children_first_fixed": (CHILDREN_FIRST_FIXED, AMASS.is_fixed),
+             "deep_11": (DEEP_11, AMASS.is_fixed),
+             "line_19": (LINE_19, AMASS.is_fixed)}
 
 
 def skeletons(name, dtype):
@@ -133,7 +141,7 @@ def test_plan_table_layout():
     sk = tkin.amass_skeleton()
     tab = tkin.fk_plan_table(sk, TFT._JOINT_SLOT)
     bits = tab.view(np.int32)
-    assert tab.shape == (tkin.K_MAX_DEPTH + 1, tkin.K_MAX_LINKS, 4)
+    assert tab.shape == (tkin.K_PLAN_ROWS, tkin.K_MAX_LINKS, 4)
     depth = bits[0, :, 3]
     assert depth.max() == 7 and depth[0] == 0
     assert list(depth[:20]) == [len(c) for c in tkin.fk_plan(sk.parent)]
@@ -149,7 +157,7 @@ def test_plan_table_layout():
 @pytest.mark.parametrize("parent, match", [
     ((1, 0), "cycle"),                                  # 0 and 1 each other's
     ((-1, 0, 5), "cycle or dangling"),                  # no joint 5
-    ((-1,) + tuple(range(8)), "at most 8"),             # a chain of 9 joints
+    ((-1,) + tuple(range(31)), "at most 32"),           # 33 links
 ])
 def test_plan_raises(parent, match):
     with pytest.raises(ValueError, match=match):
@@ -157,16 +165,34 @@ def test_plan_raises(parent, match):
 
 
 def test_pose_skeleton_deeper_than_the_plan_is_refused():
-    """The right arm hung off the left wrist: a chain of 11 joints."""
-    sk = tkin.amass_skeleton()
-    parent = list(sk.parent)
-    parent[15] = 14
-    deep = tkin.make_skeleton(parent, sk.is_fixed, sk.joint_offset,
-                              sk.com_offset, sk.link_mass)
-    with pytest.raises(ValueError, match="at most 8"):
-        tkin.check_pose_skeleton(deep, "tail_fused")
-    # children listed before their parents are taken, a fixed joint inside
-    # a chain too
+    """Chains deeper than a pass of the kernels' walk (K_MAX_DEPTH joints)
+    were refused once; now they are taken: the right arm hung off the left
+    wrist (a chain of 11 joints) and a line of all 19 joints. The tail's
+    and the FK's plain versions equal tip_tpu's fused FK kernel there (in
+    interpret mode, float32), and the FK plan holds every joint of the
+    deepest chain. Children listed first are taken too, a fixed joint
+    inside a chain as well."""
+    rng = np.random.default_rng(3)
+    for name, depth in (("deep_11", 11), ("line_19", 19)):
+        jskel, tskel = skeletons(name, np.float32)
+        tkin.check_pose_skeleton(tskel, "tail_fused")
+        tab = tkin.fk_plan_table(tskel, TFT._JOINT_SLOT)
+        assert tab.view(np.int32)[0, :, 3].max() == depth
+        for args in (TFT._tail_args, tkin._fk_args):
+            assert args(tskel, torch.device("cpu"), ()).deep
+        s = torch.as_tensor((rng.normal(size=114) * 0.4).astype(np.float32))
+        pose = tkin.our_pose_to_bullet(s)
+        j_com, j_jf = jkin.fk_bullet_fused(jskel, jnp.asarray(pose.numpy()),
+                                           interpret=True)
+        prev = tkin.fk_our_state(tskel, s)
+        tail = TFT.tail_fused_plain(tskel, s, torch.zeros(20), prev)
+        fk = tkin.fk_bullet_fused_plain(tskel, pose)
+        for a, b, what in ((tail.pq_com, j_com, "tail pq_com"),
+                           (tail.pq_jf, j_jf, "tail pq_jf"),
+                           (fk[0], j_com, "fk pq_com"),
+                           (fk[1], j_jf, "fk pq_jf")):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                       atol=1e-5, err_msg=f"{name} {what}")
     for name in ("children_first", "children_first_fixed"):
         _, first = skeletons(name, np.float32)
         tkin.check_pose_skeleton(first, "tail_fused")
@@ -193,7 +219,7 @@ def test_wrapper_cache_rebuilt_when_skeleton_or_batch_changes(args):
     sk = tkin.amass_skeleton()
     coeff = torch.tensor(0.6 ** np.arange(6)[::-1], dtype=torch.float32)
     one = args(sk, (), coeff)
-    assert args(sk, (), coeff) is one
+    assert args(sk, (), coeff) is one and not one.deep
     pool = args(sk, (64,), coeff)
     assert pool is not one and pool.B == 64 and one.B == 1
     assert pool.shapes[0][0] == 64 and pool.n_out == 64 * one.n_out

@@ -97,6 +97,32 @@ def test_run_offline_two_sbps_matches_tip_tpu(stream):
                                    rtol=0)
 
 
+@pytest.mark.parametrize("filter_len", [17, 20])
+def test_run_offline_long_filter_matches_tip_tpu(stream, filter_len):
+    """An output filter longer than one chunk of K2's sum (16 rows), which
+    tip_tpu takes at any length: the port's runner matches it on the CPU
+    (K2's plain version) once the filter is on."""
+    imu, s_init = stream
+    jcfg = JR.RunnerConfig(model=JM.ModelConfig(**TINY),
+                           filter_len=filter_len)
+    params = jax.tree_util.tree_map(
+        lambda p: p.astype(np.float64),
+        JM.init_params(jax.random.PRNGKey(2), jcfg.model))
+    j_out = JR.run_offline(params, jcfg, jkin.amass_skeleton(dtype=np.float64),
+                           s_init, imu[:40])
+    tcfg = TR.RunnerConfig(model=TM.ModelConfig(**TINY),
+                           filter_len=filter_len)
+    model = TM.TIPModel(tcfg.model, device="cpu", dtype=torch.float64)
+    model.load_state_dict(TM.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    t_out = TR.run_offline(model, tcfg,
+                           tkin.amass_skeleton(dtype=torch.float64),
+                           s_init, imu[:40], device="cpu")
+    for j, t in zip(j_out, t_out):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-8,
+                                   rtol=0)
+
+
 def test_run_offline_has_active_sbps(runs):
     """The stream exercises the SBP paths: some flags set, so viz holds
     real positions and the z fix runs."""

@@ -32,3 +32,29 @@ def device_const(values: tuple, dtype: torch.dtype,
     ``device``, made once: the per-frame path then copies nothing from the
     host. Callers must not write to the result."""
     return torch.tensor(values, dtype=dtype, device=device)
+
+
+def __getattr__(name):
+    """Lazy re-exports of the entry points (as tip_tpu's), so that
+    ``import tip_tpu_torch`` stays cheap and free of import cycles."""
+    from importlib import import_module
+
+    table = {
+        "ModelConfig": "tip_tpu_torch.models.tip_model",
+        "TIPModel": "tip_tpu_torch.models.tip_model",
+        "RunnerConfig": "tip_tpu_torch.runtime.runner",
+        "runner_init": "tip_tpu_torch.runtime.runner",
+        "runner_step": "tip_tpu_torch.runtime.runner",
+        "run_offline": "tip_tpu_torch.runtime.runner",
+        "FullRunnerConfig": "tip_tpu_torch.runtime.full_runner",
+        "full_runner_init": "tip_tpu_torch.runtime.full_runner",
+        "full_runner_step": "tip_tpu_torch.runtime.full_runner",
+        "run_offline_full": "tip_tpu_torch.runtime.full_runner",
+        "TerrainConfig": "tip_tpu_torch.runtime.terrain",
+        "StreamPool": "tip_tpu_torch.runtime.serving",
+        "amass_skeleton": "tip_tpu_torch.ops.kinematics",
+        "Skeleton": "tip_tpu_torch.ops.kinematics",
+    }
+    if name in table:
+        return getattr(import_module(table[name]), name)
+    raise AttributeError(f"module 'tip_tpu_torch' has no attribute {name!r}")

@@ -38,3 +38,22 @@ NON_ROOT_ACTIVE_IDX = np.array(
 # for each active joint (bullet order), the nimble-state aa slot
 BULLET_FROM_NIMBLE_GATHER = np.array(
     [NIMBLE_STATE_MAP[int(i)] - 1 for i in NON_ROOT_ACTIVE_IDX], np.int64)
+
+# SBP-constrained links, order defines the n_sbps*4 label layout
+SBP_LINKS = (_JID["lankle"], _JID["rankle"], _JID["lwrist"], _JID["rwrist"],
+             -1)
+
+# IK chains: sbp name -> [parent, a, b, c] bullet links
+IK_CHAIN_BULLET = {
+    "lankle": (-1, 0, 1, 2),
+    "rankle": (-1, 3, 4, 5),
+    "lwrist": (11, 12, 13, 14),
+    "rwrist": (15, 16, 17, 18),
+}
+# limb joints whose angles IK rewrites, nimble-state indices
+IK_CHAIN_NIMBLE = {
+    "lankle": (1, 2, 3),
+    "rankle": (15, 16, 17),
+    "lwrist": (8, 9),
+    "rwrist": (13, 14),
+}

@@ -18,6 +18,11 @@ BIAS_NOISE_ACC = 0.1               # constant per-sequence acc bias noise (train
 
 N_DOFS = 57                        # 3 root xyz + 3 root aa + 17*3 joint aa
 
+# Terrain grid
+MAP_BOUND = 5.0
+GRID_SIZE = 0.1
+GRID_NUM = int(MAP_BOUND / GRID_SIZE) * 2
+
 # Model I/O geometry
 N_IMUS = 6
 IMU_DIM = N_IMUS * (9 + 3)         # 72: 6 sensors x (3x3 rot + 3 acc)

@@ -22,7 +22,10 @@
 // loads all its columns of the filter's rows at once (no load behind a
 // branch), filters them in registers (the filter divides by sum(coeff),
 // summed in registers from weights loaded once) and decodes them; the four
-// cases of Shepperd's method share one square root and three divisions.
+// cases of Shepperd's method share one square root and three divisions. A
+// filter longer than kMaxFilter frames is summed in further chunks of
+// kMaxFilter rows, each chunk's weights in registers and its loads issued
+// together; every sum keeps the row order.
 // K3: one warp a stream; lane l < 18 decodes pose quat l, lane l < J+1
 // composes link l's chain from the FK plan (tip_quat.cuh), lanes 0-4 the
 // SBP residues from the links' frames by shuffles, lane 0 the feet mean
@@ -39,10 +42,50 @@ namespace {
 
 using namespace tipq;
 
-constexpr int kMaxFilter = 16;
+constexpr int kMaxFilter = 16;  // K2: filter rows a chunk
 constexpr int kRowsAtOnce = 8;  // K2: filter rows loaded in one go
 constexpr int kGapLane = 18;    // K2: the columns after the 6D rows
 constexpr int kSbpLane0 = 19;   // K2: SBP row k's thread is kSbpLane0 + k
+
+// the weights of filter rows r0 .. r0 + kMaxFilter - 1 (the last row's
+// where they run past nf) into cw, the real ones added to csum in order
+__device__ __forceinline__ void load_weights(const float* __restrict__ coeff,
+                                             int r0, int nf,
+                                             float (&cw)[kMaxFilter],
+                                             float& csum) {
+#pragma unroll
+  for (int k = 0; k < kMaxFilter; ++k) {
+    cw[k] = __ldg(coeff + min(r0 + k, nf - 1));
+    if (r0 + k < nf) csum += cw[k];
+  }
+}
+
+// acc[i] += cw[k] * row r0 + k of the filter at column col[i], for the rows
+// below nf, in row order; the rows' loads go out kRowsAtOnce at a time
+// (rows clamped to real ones, no load behind a branch)
+__device__ __forceinline__ void filter_rows(const float* __restrict__ filt,
+                                            int r0, int nf, int D,
+                                            const int (&col)[6],
+                                            const float (&cw)[kMaxFilter],
+                                            float (&acc)[6]) {
+#pragma unroll
+  for (int k0 = 0; k0 < kMaxFilter; k0 += kRowsAtOnce) {
+    if (r0 + k0 < nf) {
+      float x[kRowsAtOnce][6];
+#pragma unroll
+      for (int j = 0; j < kRowsAtOnce; ++j)
+#pragma unroll
+        for (int i = 0; i < 6; ++i)
+          x[j][i] = filt[min(r0 + k0 + j, nf - 1) * D + col[i]];
+#pragma unroll
+      for (int j = 0; j < kRowsAtOnce; ++j)
+#pragma unroll
+        for (int i = 0; i < 6; ++i)
+          acc[i] = r0 + k0 + j < nf ? fmaf(cw[k0 + j], x[j][i], acc[i])
+                                    : acc[i];
+    }
+  }
+}
 
 template <bool kClock>
 __global__ void __launch_bounds__(128)
@@ -56,14 +99,10 @@ decode_kernel(const float* __restrict__ y_t, const float* __restrict__ filt,
   clock.stamp(0);
   const int t = threadIdx.x;
   const int b = blockIdx.x;
-  // the weights, summed in order in registers
+  // the first chunk's weights, summed in order in registers
   float cw[kMaxFilter];
   float csum = 0.0f;
-#pragma unroll
-  for (int k = 0; k < kMaxFilter; ++k) {
-    cw[k] = __ldg(coeff + min(k, nf - 1));
-    if (k < nf) csum += cw[k];
-  }
+  load_weights(coeff, 0, nf, cw, csum);
   // this block's stream; use_filter_b holds one flag a stream (a pool's
   // streams switch to the filter at their own frames), else the flag is
   // use_filter for every stream
@@ -103,22 +142,12 @@ decode_kernel(const float* __restrict__ y_t, const float* __restrict__ filt,
   float v[6];
   if (on) {
     float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int k0 = 0; k0 < kMaxFilter; k0 += kRowsAtOnce) {
-      if (k0 < nf) {
-        float x[kRowsAtOnce][6];
-#pragma unroll
-        for (int j = 0; j < kRowsAtOnce; ++j)
-#pragma unroll
-          for (int i = 0; i < 6; ++i)
-            x[j][i] = filt[min(k0 + j, nf - 1) * D + col[i]];
-#pragma unroll
-        for (int j = 0; j < kRowsAtOnce; ++j)
-#pragma unroll
-          for (int i = 0; i < 6; ++i)
-            acc[i] = k0 + j < nf ? fmaf(cw[k0 + j], x[j][i], acc[i])
-                                 : acc[i];
-      }
+    filter_rows(filt, 0, nf, D, col, cw, acc);
+    // a filter longer than a chunk: the next chunks, one after another
+#pragma unroll 1
+    for (int r0 = kMaxFilter; r0 < nf; r0 += kMaxFilter) {
+      load_weights(coeff, r0, nf, cw, csum);
+      filter_rows(filt, r0, nf, D, col, cw, acc);
     }
 #pragma unroll
     for (int i = 0; i < 6; ++i) v[i] = acc[i] / csum;
@@ -165,7 +194,7 @@ __device__ __forceinline__ int sbp_row(int k) {
 
 // K3's outputs, one allocation: (B, L, 7) pq_com, (B, L, 7) pq_jf, (B, 108)
 // hist, (B, 3) vres, (B, 5, 3) clocs, (B, 5, 3) rres, (B, 5) act
-template <bool kClock>
+template <bool kClock, bool kDeep>
 __global__ void __launch_bounds__(32)
 tail_kernel(const float* __restrict__ s, const float* __restrict__ ct,
             const float* __restrict__ prev_pq,
@@ -207,7 +236,7 @@ tail_kernel(const float* __restrict__ s, const float* __restrict__ ct,
   settle<kClock>(qn.w);
   clock.stamp(1);
 
-  const Link f = fk_walk(pl, root_p, qn);
+  const Link f = fk_walk<kDeep>(pl, root_p, qn);
   settle<kClock>(f.c.x + f.q.w);
   clock.stamp(2);
 
@@ -318,7 +347,7 @@ extern "C" int decode_fused_launch(const void* y_t, const void* filt,
                                    const void* use_filter_b, int B, int D,
                                    int n_sbps, void* out, void* clock,
                                    void* stream) {
-  if (B < 1 || nf < 1 || nf > kMaxFilter || n_sbps < 1
+  if (B < 1 || nf < 1 || n_sbps < 1
       || kSbpLane0 + n_sbps > 128 || D < 108 + 4 * n_sbps
       || D > 114 + 4 * n_sbps)
     return -1;
@@ -333,14 +362,18 @@ extern "C" int decode_fused_launch(const void* y_t, const void* filt,
 }
 
 // B streams: s (B, 114), ct (B, 20), prev_pq (B, J+1, 7) -> out (K3's
-// outputs, above); plan: the skeleton's FK plan (tip_quat.cuh). clock:
-// null, or 7 u64 (start, then K3_PHASES of ops/fused_tail.py).
+// outputs, above); plan: the skeleton's FK plan (tip_quat.cuh); deep: it
+// has a chain deeper than kMaxDepth. clock: null, or 7 u64 (start, then
+// K3_PHASES of ops/fused_tail.py).
 extern "C" int tail_fused_launch(const void* s, const void* ct,
                                  const void* prev_pq, const void* plan, int B,
-                                 int J, float dt, void* out, void* clock,
-                                 void* stream) {
+                                 int J, int deep, float dt, void* out,
+                                 void* clock, void* stream) {
   if (B < 1 || J + 1 != 20) return -1;
-  auto kernel = clock != nullptr ? tail_kernel<true> : tail_kernel<false>;
+  auto kernel = clock != nullptr
+                    ? (deep ? tail_kernel<true, true> : tail_kernel<true, false>)
+                    : (deep ? tail_kernel<false, true>
+                            : tail_kernel<false, false>);
   kernel<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(s), static_cast<const float*>(ct),
       static_cast<const float*>(prev_pq), static_cast<const float4*>(plan), J,

@@ -11,9 +11,11 @@
 //
 // Forward kinematics is one warp a pose and walks no tree serially: lane l
 // owns link l and composes the chain of joints from the root down to it
-// from the skeleton's FK plan (ops/kinematics.py::fk_plan_table), at most
-// kMaxDepth steps, with no barrier; each step's joint rotation comes by a
-// shuffle from the lane that decoded it.
+// from the skeleton's FK plan (ops/kinematics.py::fk_plan_table), with no
+// barrier; each step's joint rotation comes by a shuffle from the lane that
+// decoded it. A pass composes kMaxDepth steps from registers loaded at the
+// start; a deeper chain goes on from the frame the pass reached in further
+// passes of kMaxDepth steps, which every lane of the warp takes part in.
 
 #pragma once
 
@@ -23,8 +25,8 @@ namespace tipq {
 
 constexpr int kMaxLinks = 32;   // links of a skeleton, root included: a warp
 constexpr int kPoseQuats = 18;  // root + 17 spherical joints in a pose
-constexpr int kMaxDepth = 8;    // joints on a link's chain from the root
-constexpr int kPlanRows = kMaxDepth + 1;
+constexpr int kMaxDepth = 8;    // chain joints a pass composes
+constexpr int kPlanRows = kMaxLinks;  // row 0 + a chain of kMaxLinks - 1
 constexpr unsigned kFull = 0xffffffffu;
 
 // The per-phase clock of K2, K3 and K6, compiled in only where kOn (the
@@ -169,12 +171,15 @@ __device__ inline void sixd_to_matrix(const float* s, float* m) {
 // from the root, its joint offset and, as int bits, the
 // index of its rotation among the pose's 18 decoded quats (-1: a fixed
 // joint). Entries past a chain, and links past the skeleton's, are zero.
+// Rows 0..kMaxDepth are loaded at the start; a deeper chain's further rows
+// are read by the pass that composes them.
 struct Plan {
-  float4 e[kPlanRows];
+  float4 e[kMaxDepth + 1];
+  const float4* col;  // this lane's column
   __device__ __forceinline__ void load(const float4* __restrict__ plan) {
+    col = plan + (threadIdx.x & 31);
 #pragma unroll
-    for (int k = 0; k < kPlanRows; ++k)
-      e[k] = __ldg(plan + k * kMaxLinks + (threadIdx.x & 31));
+    for (int k = 0; k <= kMaxDepth; ++k) e[k] = __ldg(col + k * kMaxLinks);
   }
   __device__ __forceinline__ int depth() const {
     return __float_as_int(e[0].w);
@@ -190,7 +195,10 @@ struct Link {
 // Every lane of the warp calls it: root_p the pose's root position, qn
 // lane i's decoded pose quat (lanes 0..17: root, then the 17 joint slots).
 // Returns lane l's link frames; lanes past the skeleton's links get the
-// root's.
+// root's. kDeep: the skeleton has a chain deeper than a pass (the kernels
+// are instantiated for both, so that a shallow skeleton's walk carries no
+// code for further passes).
+template <bool kDeep>
 __device__ __forceinline__ Link fk_walk(const Plan& plan, V root_p, Q qn) {
   const int depth = plan.depth();
   Q q = shfl_q(qn, 0);
@@ -208,6 +216,32 @@ __device__ __forceinline__ Link fk_walk(const Plan& plan, V root_p, Q qn) {
     if (k <= depth) {
       p = vadd(p, qrot(q, xyz(plan.e[k])));
       if (__float_as_int(plan.e[k].w) >= 0) q = qmul(q, g[k - 1]);
+    }
+  }
+  if constexpr (kDeep) {
+    // chains deeper than a pass (none of AMASS's, at most 7): further
+    // passes from the frame reached, kMaxDepth rows each, loaded together;
+    // as many passes in every lane (the warp's deepest chain), so each
+    // pass's shuffles are the warp's
+    const int deepest = __reduce_max_sync(kFull, depth);
+#pragma unroll 1
+    for (int k0 = kMaxDepth + 1; k0 <= deepest; k0 += kMaxDepth) {
+      float4 e[kMaxDepth];
+#pragma unroll
+      for (int i = 0; i < kMaxDepth; ++i)
+        e[i] = __ldg(plan.col + min(k0 + i, kPlanRows - 1) * kMaxLinks);
+#pragma unroll
+      for (int i = 0; i < kMaxDepth; ++i) {
+        const int qi = __float_as_int(e[i].w);
+        g[i] = shfl_q(qn, qi < 0 ? 0 : qi);
+      }
+#pragma unroll
+      for (int i = 0; i < kMaxDepth; ++i) {
+        if (k0 + i <= depth) {
+          p = vadd(p, qrot(q, xyz(e[i])));
+          if (__float_as_int(e[i].w) >= 0) q = qmul(q, g[i]);
+        }
+      }
     }
   }
   return {p, q, vadd(p, qrot(q, xyz(plan.e[0])))};

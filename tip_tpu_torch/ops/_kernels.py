@@ -181,6 +181,8 @@ class LaunchArgs(NamedTuple):
     B: int
     n_out: int                            # floats of the one allocation
     views: Tuple[tuple, ...]              # (size, stride, offset) each
+    deep: bool = False                    # K3, K6: a chain deeper than a
+    #                                       pass of the FK walk
 
 
 def out_views(lead, shapes) -> Tuple[int, Tuple[tuple, ...]]:

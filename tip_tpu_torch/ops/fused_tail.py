@@ -41,8 +41,8 @@ _I = ctypes.c_int
 _SIG = {
     "decode_fused_launch": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P,
                             _P],
-    "tail_fused_launch": [_P, _P, _P, _P, _I, _I, ctypes.c_float, _P, _P,
-                          _P],
+    "tail_fused_launch": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P,
+                          _P, _P],
     "tail_floor_launch": [_I, _P, _P],
     "timer_probe_launch": [_I, ctypes.c_longlong, _P, _P],
 }
@@ -117,7 +117,8 @@ def decode_fused(y_t, filt_view, coeff, use_filter, local9,
       use_filter: host bool — n_out >= filter_len — or a (B,) bool tensor,
         one flag a stream.
       local9: (9,) row-major root IMU rotation matrix.
-      filter_len: frames in the ring, 1..16 for the kernel.
+      filter_len: frames in the ring, at least 1 (the kernel sums them in
+        chunks of 16).
       clock: None, or a (3,) int64 tensor on the kernel's device for the
         per-phase clock (``phase_ns``).
     """
@@ -161,9 +162,9 @@ def _decode_args(coeff, device, y_shape, filter_len: int,
         if not 0 < n_sbps <= 96:
             raise ValueError(f"decode_fused's block decodes 1..96 SBPs, got "
                              f"{n_sbps}")
-        if not 0 < filter_len <= 16:
-            raise ValueError(f"decode_fused filters over 1..16 frames, got "
-                             f"{filter_len}")
+        if filter_len < 1:
+            raise ValueError(f"decode_fused filters over at least 1 frame, "
+                             f"got {filter_len}")
         K.check_input(coeff, "coeff", (filter_len,), torch.float32, device)
         n_out, views = K.out_views(lead, ((D,), (n_sbps, 4), (18, 4)))
         return K.LaunchArgs(
@@ -218,7 +219,8 @@ def tail_fused(skel: kin.Skeleton, s_t, c_t, prev_pq, dt: float = cst.DT,
     out = torch.empty(a.n_out, dtype=f32, device=dev)
     err = K.lib("fused_tail", _SIG).tail_fused_launch(
         s_t.data_ptr(), c_t.data_ptr(), prev_pq.data_ptr(),
-        a.table.data_ptr(), a.B, skel.n_joints, float(dt), out.data_ptr(),
+        a.table.data_ptr(), a.B, skel.n_joints, int(a.deep), float(dt),
+        out.data_ptr(),
         K.clock_ptr(clock, 1 + len(K3_PHASES), dev), K.stream_of(dev))
     K.check(err, "tail_fused")
     K.launch_counts["tail_fused"] += 1

@@ -190,46 +190,44 @@ def fk_our_state(skel: Skeleton, s, return_joint_frame=False):
 # The FK plan of kernels K3 and K6
 # ---------------------------------------------------------------------------
 
-# csrc/tip_quat.cuh: kMaxLinks (a warp), kMaxDepth
+# csrc/tip_quat.cuh: kMaxLinks (a warp), kMaxDepth (the chain joints a
+# pass composes from registers), kPlanRows (the plan's rows: row 0 and a
+# chain of up to K_MAX_LINKS - 1 joints)
 K_MAX_LINKS = 32
 K_MAX_DEPTH = 8
+K_PLAN_ROWS = K_MAX_LINKS
 
 
-def fk_plan(parent, max_depth: int = K_MAX_DEPTH) -> Tuple[Tuple[int, ...],
-                                                           ...]:
+def fk_plan(parent) -> Tuple[Tuple[int, ...], ...]:
     """Each link's chain of joints from the root down to it: link 0 (the
     root) has none, link j + 1 ends in joint j. The kernels compose a link's
-    frame along its chain, so a parent may be listed after its children.
-    Raises on a cycle or a dangling parent (as ``_levels``) and on a chain
-    of more than ``max_depth`` joints."""
+    frame along its chain, so a parent may be listed after its children,
+    and a chain may be as deep as the tree. Raises on a cycle or a dangling
+    parent (as ``_levels``) and on more than K_MAX_LINKS links (a warp)."""
     _levels(parent)
+    if len(parent) + 1 > K_MAX_LINKS:
+        raise ValueError(f"the FK kernels take at most {K_MAX_LINKS} links, "
+                         f"got {len(parent) + 1}")
     chains = [()]
     for j in range(len(parent)):
         chain = [j]
         while parent[chain[-1]] != -1:
             chain.append(parent[chain[-1]])
-        if len(chain) > max_depth:
-            raise ValueError(
-                f"joint {j} lies {len(chain)} joints below the root; the FK "
-                f"kernels walk at most {max_depth}")
         chains.append(tuple(reversed(chain)))
     return tuple(chains)
 
 
 def fk_plan_table(skel: Skeleton, slot) -> np.ndarray:
     """The FK plan as the kernels read it (csrc/tip_quat.cuh ``Plan``):
-    float32 (K_MAX_DEPTH + 1, K_MAX_LINKS, 4), column l for link l. Row 0:
-    the link's CoM offset and, as int32 bits, its chain's length. Row k:
-    the k-th joint of the chain, its joint offset and, as int32 bits, the
-    index of its rotation among the pose's 18 decoded quats (1 +
-    ``slot[j]``; -1 for a fixed joint). The rest zero."""
+    float32 (K_PLAN_ROWS, K_MAX_LINKS, 4), column l for link l. Row 0: the
+    link's CoM offset and, as int32 bits, its chain's length. Row k: the
+    k-th joint of the chain, its joint offset and, as int32 bits, the index
+    of its rotation among the pose's 18 decoded quats (1 + ``slot[j]``; -1
+    for a fixed joint). The rest zero."""
     chains = fk_plan(skel.parent)
-    if len(chains) > K_MAX_LINKS:
-        raise ValueError(f"the FK kernels take at most {K_MAX_LINKS} links, "
-                         f"got {len(chains)}")
     joff = skel.joint_offset.detach().cpu().numpy()
     coff = skel.com_offset.detach().cpu().numpy()
-    tab = np.zeros((K_MAX_DEPTH + 1, K_MAX_LINKS, 4), np.float32)
+    tab = np.zeros((K_PLAN_ROWS, K_MAX_LINKS, 4), np.float32)
     bits = tab.view(np.int32)
     for link, chain in enumerate(chains):
         tab[0, link, :3] = coff[link]
@@ -246,7 +244,7 @@ def fk_plan_table(skel: Skeleton, slot) -> np.ndarray:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"fk_bullet_fused_launch": [_P, _P, _I, _I, _P, _P, _P]}
+_SIG = {"fk_bullet_fused_launch": [_P, _P, _I, _I, _I, _P, _P, _P]}
 # the phases of K6's per-phase clock (stamp 0 is the start)
 K6_PHASES = ("aa_to_q", "walk", "link_frames")
 
@@ -257,8 +255,8 @@ _ACTIVE_SLOT = tuple(_ACTIVE.index(j) if j in _ACTIVE else -1
 
 def check_pose_skeleton(skel: Skeleton, what: str):
     """Raise unless ``skel`` fits the kernels' FK: the 19-joint pose layout
-    (17 spherical joints + 2 fixed) and a plan (no cycle, no chain deeper
-    than K_MAX_DEPTH)."""
+    (17 spherical joints + 2 fixed) and a plan (no cycle, no dangling
+    parent; any chain depth, any order of parents and children)."""
     if skel.n_joints != len(_ACTIVE_SLOT) or tuple(
             j for j, f in enumerate(skel.is_fixed) if not f) != _ACTIVE:
         raise ValueError(f"{what} takes the 19-joint AMASS pose layout "
@@ -287,7 +285,8 @@ def skeleton_args(skel: Skeleton, what: str, slot, device, lead, shapes,
         return K.LaunchArgs(
             shapes=tuple(lead + s for s in shapes),
             table=torch.from_numpy(fk_plan_table(skel, slot)).to(device),
-            B=lead[0] if lead else 1, n_out=n_out, views=views)
+            B=lead[0] if lead else 1, n_out=n_out, views=views,
+            deep=max(map(len, fk_plan(skel.parent))) > K_MAX_DEPTH)
     return K.launch_args(skel, key, make)
 
 
@@ -320,7 +319,7 @@ def fk_bullet_fused(skel: Skeleton, state_bullet, impl: str = "auto",
     out = torch.empty(a.n_out, dtype=torch.float32, device=dev)
     err = K.lib("fused_fk", _SIG).fk_bullet_fused_launch(
         state_bullet.data_ptr(), a.table.data_ptr(), a.B,
-        skel.n_joints, out.data_ptr(),
+        skel.n_joints, int(a.deep), out.data_ptr(),
         K.clock_ptr(clock, 1 + len(K6_PHASES), dev), K.stream_of(dev))
     K.check(err, "fk_bullet_fused")
     K.launch_counts["fk_bullet_fused"] += 1
