@@ -5,7 +5,9 @@
 
 Phases, in order; any failure exits non-zero:
 
-  1. require CUDA, turn TF32 off, print the card's name and power limit;
+  1. require CUDA, turn TF32 off and cuBLAS's reduced-precision bf16 sums
+     off (bf16 products sum in f32, as XLA's), print the card's name and
+     power limit;
   2. build the CUDA kernels from tip_tpu_torch/csrc with nvcc;
   3. hold each kernel (K1-K12) against its plain PyTorch version on the card
      at the main paths' shapes, and time both, with one PyTorch call that
@@ -21,7 +23,10 @@ Phases, in order; any failure exits non-zero:
      a CUDA graph (a read before that op finished would show); K3 and K6
      also on a skeleton that lists children before their parents, with a
      fixed joint inside a chain, and on chains deeper than a pass of their
-     walk (11 and 19 joints); K2 also at filter lengths 17 and 20;
+     walk (11 and 19 joints); K2 also at filter lengths 17 and 20; the
+     bf16 variants of K1 (at K1's batch sizes, beside cuDNN's RNN in bf16)
+     and K11 (at B 1, 64 and 256, p 0 and 0.1, beside
+     TransformerEncoderLayer in bf16) against their bf16 plain versions;
   4. run the main paths: the full-width model (ModelConfig() defaults,
      random weights from a seeded generator) in the streaming runner over
      the in-tree 720-frame motion, each path with every launch counter
@@ -30,6 +35,9 @@ Phases, in order; any failure exits non-zero:
           and K1, decode K2, tail K3;
        A-enc  A with the encoder layers through K11 (encoder_impl="kernel",
           which the default "auto" takes on the card), 120 frames;
+       A-bf16  ModelConfig(compute_dtype="bfloat16"), every other setting
+          at its default: four launches of K11's bf16 variant and one of
+          K1's a frame, K2, K3, no f32 K1 or K11; 120 frames;
        C  forward_impl="fused" with f32 packing (K4), plain decode and tail
           with the FK kernel (K6);
        B  forward_impl="fused" with bf16 packing (K4), K2, K3; then a
@@ -41,7 +49,10 @@ Phases, in order; any failure exits non-zero:
           rings: K7 (carried hidden), K2, K3;
        F  serving_mode="kv_cache" with the plain cached step, K2, K3;
      compare A and C with the plain path on the card and with a float64 CPU
-     run of the plain path, A-enc with A, hold B's recorded outputs against
+     run of the plain path, A-enc with A, hold every window of A-bf16
+     through K11/K1 in bf16 against the same window through their plain
+     versions (teacher-forced) and report A-bf16's free-running drift from
+     A-enc, hold B's recorded outputs against
      K5 and the plain version window by window; compare D with F, with C
      while the window grows and with a float64 CPU run of F's
      configuration, hold every frame of E against K7's plain version on
@@ -67,10 +78,15 @@ Phases, in order; any failure exits non-zero:
        J  recompute, fused, f32: K9, K2, K3;
        K  recompute, plain model (plain encoder loop, K1 at (64, 40, 512)),
           plain tail with the batched FK kernel K6, 120 ticks;
+       K-bf16  A-bf16 pooled: four launches of K11's bf16 variant at (64,
+          40, 256) and one of K1's at (64, 40, 512) a tick, K2, K3, 120
+          ticks;
      compare H with I over all streams, four streams of H with the
      single-stream path D and of J with C from each stream's own first
      frame, G teacher-forced with K8's plain version on its own tokens, K
-     with J; time and profile ticks;
+     with J, four streams of K-bf16 teacher-forced against A-bf16's
+     single-stream model from each stream's own first frame; time and
+     profile ticks;
   6. the training paths: pack the 60 in-tree motions with the port's
      data_gen/combine.py into output/, then
        L  one epoch of train_loop at the paper recipe (B 256, T 40, AdamW,
@@ -85,7 +101,8 @@ Phases, in order; any failure exits non-zero:
           held against a float64 step on the CPU and, ten steps, against
        M  the same training with the plain versions on the card;
      (K10, K11, K12 are held against their plain versions in phase 3);
-  7. print one {"kernels": [...]} line, then the {"ok": true, ...} line.
+  7. print one {"kernels": [...]} line (fourteen entries: K1-K12 and the
+     bf16 variants of K1 and K11), then the {"ok": true, ...} line.
 """
 
 import dataclasses
@@ -123,6 +140,36 @@ TOL = 1e-5
 # cuDNN beside it
 RNN_CHECKED_B = (1, 3, 8, 17, 64, 256)
 RNN_TIMED_B = (1, 64, 256)
+# K1 in bf16 against its plain version in bf16: both round three times a
+# step (the f32 sum, the add, the tanh), but they sum the product in
+# another order, so a sum that lies at a bf16 rounding boundary rounds the
+# other way and moves h by one bf16 step (2^-8 for |h| in [0.5, 1)); W_hh
+# (|W| ~ 1/sqrt(H)) carries it on damped, and a later step can flip again.
+# Held within four such steps
+TOL_RNN_BF16 = 4 * 2.0 ** -8
+# A max error cannot show that a bf16 kernel rounds where tip_tpu's does:
+# cuDNN's bf16 RNN and TransformerEncoderLayer in bf16, which round at other
+# places, come as close to the plain versions. A sum that the kernel orders
+# otherwise and that ends near a bf16 rounding boundary moves few entries;
+# a rounding left out or put in moves a large share of them. So each bf16
+# check also counts the share of entries that differ from the plain version
+# at all and holds it within ROUND_SHARE, and the same share of controls
+# that round elsewhere, on the same inputs, must exceed it (else the check
+# is blind and the run fails). K1 is held step by step, each step against
+# the plain version's step from the kernel's own previous state, so that a
+# flip is not carried on through the recurrence; K11 on y. The library's
+# bf16 function (cuDNN's RNN, TransformerEncoderLayer) is read beside the
+# controls, not held: where it rounds is its own. On an H100 80GB HBM3
+# the kernels read 2.4e-5 to 3.8e-5 (K1) and 6.0e-3 to 1.02e-2 (K11), the
+# controls at least 0.150 and 0.295; each limit lies near the geometric
+# middle of the kernel's highest reading and the controls' lowest
+ROUND_SHARE = {"fused_rnn_bf16": 2e-3, "encoder_layer_fwd_bf16": 5e-2}
+ROUND_READ_ONLY = ("cudnn_bf16", "library_bf16")
+# the bf16 yardsticks (cuDNN's RNN, TransformerEncoderLayer) round at other
+# places than tip_tpu's kernels; they are held only to be the same
+# function (a transposed weight or a lost input shows at O(1)), relative to
+# the largest entry
+TOL_LIB_BF16 = 2.0 ** -3
 # residues (and their clipped feet mean) divide a position difference by
 # dt = 1/60: rounding of ~1e-7 m is amplified 60x, hence 1e-4
 TOL_RES = 1e-4
@@ -155,7 +202,8 @@ GROW_ROWS = 46
 KERNELS = ("fused_rnn", "decode_fused", "tail_fused", "fused_forward_last",
            "fused_forward", "fk_bullet_fused", "fused_cached_forward_step",
            "fused_cached_batch", "fused_recompute_batch", "fused_rnn_bwd",
-           "encoder_layer_fwd", "encoder_layer_bwd")
+           "encoder_layer_fwd", "encoder_layer_bwd", "fused_rnn_bf16",
+           "encoder_layer_fwd_bf16")
 
 # the pool paths: capacity, ticks, and who sits where. Slots 0-59 hold the
 # 60 motions from tick 0; slots 60-63 join later with motions reused from
@@ -307,6 +355,43 @@ def check(name, errs):
     return max(err for err, _ in errs.values())
 
 
+class OffShare:
+    """Entries that differ from their plain version at all, summed over
+    calls: add(a, b) counts them; share() is their share of all."""
+
+    def __init__(self):
+        self.off = self.n = 0
+
+    def add(self, a, b):
+        self.off += int((a != b).sum())
+        self.n += a.numel()
+
+    def share(self):
+        return self.off / self.n
+
+
+def check_rounding(name, kernel, controls):
+    """kernel, controls: OffShare of the kernel and of each control
+    ({name: OffShare}) against the plain version on the same inputs. Raise
+    unless the kernel's share is within ROUND_SHARE[name] and every
+    control's but ROUND_READ_ONLY's above it; return the readings."""
+    limit = ROUND_SHARE[name]
+    out = dict(kernel=kernel.share(), limit=limit, entries=kernel.n,
+               controls={k: c.share() for k, c in controls.items()})
+    log(f"  {name} share of entries off the plain version: "
+        f"{json.dumps(out)}")
+    if not out["kernel"] <= limit:
+        raise AssertionError(f"{name}: {out['kernel']:.3g} of the entries "
+                             f"differ from the plain version > {limit:g}: "
+                             f"the kernel rounds at other places")
+    blind = {k: v for k, v in out["controls"].items()
+             if not v > limit and k not in ROUND_READ_ONLY}
+    if blind:
+        raise AssertionError(f"{name}: controls {blind} within {limit:g}: "
+                             f"the check cannot tell another rounding")
+    return out
+
+
 def card_info():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -319,16 +404,18 @@ def card_info():
 # 3. kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def rnn_work(B, T, H):
-    """Compulsory bytes (xin, W_hh in; the hidden states out) and operations
-    (a product and the add and tanh per entry) of K1."""
-    return 4 * (2 * B * T * H + H * H), B * T * H * (2 * H + 2)
+def rnn_work(B, T, H, itemsize=4):
+    """Compulsory bytes (xin, W_hh in; the hidden states out; itemsize
+    bytes an entry) and operations (a product and the add and tanh per
+    entry) of K1."""
+    return itemsize * (2 * B * T * H + H * H), B * T * H * (2 * H + 2)
 
 
 def cudnn_rnn(w, H, dev):
     """Yardstick only, never called by the port: cuDNN's tanh RNN with
-    W_ih = I and zero biases is the same function of xin."""
-    rnn = torch.nn.RNN(H, H, nonlinearity="tanh", batch_first=True).to(dev)
+    W_ih = I and zero biases is the same function of xin, in w's dtype."""
+    rnn = torch.nn.RNN(H, H, nonlinearity="tanh", batch_first=True).to(
+        dev, w.dtype)
     with torch.no_grad():
         rnn.weight_ih_l0.copy_(torch.eye(H, device=dev))
         rnn.weight_hh_l0.copy_(w.T)
@@ -337,48 +424,100 @@ def cudnn_rnn(w, H, dev):
     return rnn
 
 
-def check_fused_rnn(dev, gen):
-    """K1 against its plain version at RNN_CHECKED_B (two calls bit-equal),
-    timed at RNN_TIMED_B beside cuDNN; the entry's own numbers are B 1's,
-    the other Bs are its variants."""
+def rnn_steps_plain(xin, w, hs):
+    """Each step of K1's plain version on its own, from the states hs (B,
+    T, H) in place of its own: tanh(xin_t + hs_{t-1} W_hh) with hs_{-1} =
+    0, in one product (in bf16 the plain version's three roundings a
+    step)."""
+    prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], dim=1)
+    return torch.tanh(xin + prev @ w)
+
+
+def rnn_add_unrounded(xin, w):
+    """Control: K1's bf16 recurrence with the add of xin kept in f32 (its
+    rounding to bf16 left out)."""
+    h, hs = xin.new_zeros((xin.shape[0], xin.shape[2])), []
+    for t in range(xin.shape[1]):
+        h = torch.tanh(xin[:, t].float() + (h @ w).float()).to(xin.dtype)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def rnn_controls(xin, w, rnn):
+    """The controls of K1 bf16's rounding check on xin: {name: their hidden
+    states in bf16}. rnn: cuDNN's bf16 RNN (cudnn_rnn)."""
     from tip_tpu_torch.ops import fused_rnn as FR
+    with torch.no_grad():
+        return {"add_unrounded": rnn_add_unrounded(xin, w),
+                "cudnn_bf16": rnn(xin)[0],
+                "f32_kernel_widened": FR.fused_rnn(
+                    xin.float(), w.float(), impl="kernel").to(xin.dtype)}
+
+
+def check_fused_rnn(dev, gen, dtype=torch.float32):
+    """K1 in dtype (float32, or its bf16 variant) against its plain version
+    in the same dtype at RNN_CHECKED_B (two calls bit-equal; in bf16 also
+    step by step, check_rounding), timed at RNN_TIMED_B beside cuDNN's RNN
+    in that dtype; the entry's own numbers are B 1's, the other Bs are its
+    variants."""
+    from tip_tpu_torch.ops import fused_rnn as FR
+    bf16 = dtype == torch.bfloat16
+    name = "fused_rnn_bf16" if bf16 else "fused_rnn"
+    tol = TOL_RNN_BF16 if bf16 else TOL
+    size = torch.tensor([], dtype=dtype).element_size()
     H, T = 512, 40
     w = ((torch.rand(H, H, generator=gen, device=dev) * 2 - 1)
-         / math.sqrt(H))
-    errs = {}
-    for B in RNN_CHECKED_B:
-        xin = torch.randn(B, T, H, generator=gen, device=dev) * 0.5
-        out = FR.fused_rnn(xin, w, impl="kernel")
-        if not torch.equal(out, FR.fused_rnn(xin, w, impl="kernel")):
-            raise AssertionError(f"fused_rnn B {B}: two calls differ")
-        errs[f"B{B}"] = (max_err(out, FR.fused_rnn_plain(xin, w)), TOL)
-    err = check("fused_rnn", errs)
+         / math.sqrt(H)).to(dtype)
     rnn = cudnn_rnn(w, H, dev)
+    errs, steps = {}, OffShare()
+    controls = {}
+    for B in RNN_CHECKED_B:
+        xin = (torch.randn(B, T, H, generator=gen, device=dev) * 0.5).to(dtype)
+        out = FR.fused_rnn(xin, w, impl="kernel")
+        if out.dtype != dtype or not torch.equal(
+                out, FR.fused_rnn(xin, w, impl="kernel")):
+            raise AssertionError(f"{name} B {B}: two calls differ, or the "
+                                 f"output is {out.dtype}")
+        errs[f"B{B}"] = (max_err(out.float(),
+                                 FR.fused_rnn_plain(xin, w).float()), tol)
+        if bf16:
+            steps.add(out, rnn_steps_plain(xin, w, out))
+            for c, hs in rnn_controls(xin, w, rnn).items():
+                controls.setdefault(c, OffShare()).add(
+                    hs, rnn_steps_plain(xin, w, hs))
+    err = check(name, errs)
+    log(f"  {name} vs plain: {errs}")
+    rounding = check_rounding(name, steps, controls) if bf16 else None
     variants = []
     for B in RNN_TIMED_B:
-        xin = torch.randn(B, T, H, generator=gen, device=dev) * 0.5
+        xin = (torch.randn(B, T, H, generator=gen, device=dev) * 0.5).to(dtype)
         with torch.no_grad():
-            lib_err = max_err(rnn(xin)[0], FR.fused_rnn_plain(xin, w))
-            if not lib_err <= TOL:
+            ref = FR.fused_rnn_plain(xin, w)
+            lib_err = (rel_err(rnn(xin)[0], ref) if bf16
+                       else max_err(rnn(xin)[0], ref))
+            if not lib_err <= (TOL_LIB_BF16 if bf16 else TOL):
                 raise AssertionError(f"cuDNN yardstick disagrees at B {B}: "
                                      f"{lib_err:.3g}")
             times = timings(lambda: FR.fused_rnn(xin, w, impl="kernel"),
                             lambda: FR.fused_rnn_plain(xin, w),
                             lambda: rnn(xin))
-        b_ms, b_by = bound(*rnn_work(B, T, H))
+        b_ms, b_by = bound(*rnn_work(B, T, H, size),
+                           PEAK_BF16_FLOP_S if bf16 else PEAK_F32_FLOP_S)
         variants.append(dict(
-            B=B, bound_ms=b_ms, bound_by=b_by,
-            plan=dataclasses.asdict(FR.fused_rnn_plan(B, H)), **times))
-        log(f"  fused_rnn B {B}: device {times['ms']:.4f} ms, cuDNN "
-            f"{times['library_ms']:.4f}, plain {times['plain_ms']:.4f}, "
-            f"bound {b_ms:.2e} ({b_by})")
+            B=B, bound_ms=b_ms, bound_by=b_by, library_err=lib_err,
+            plan=dataclasses.asdict(FR.fused_rnn_plan(B, H, size)), **times))
+        log(f"  {name} B {B}: device {times['ms']:.4f} ms, cuDNN "
+            f"{times['library_ms']:.4f} (|cuDNN - plain| {lib_err:.3g}), "
+            f"plain {times['plain_ms']:.4f}, bound {b_ms:.2e} ({b_by})")
     own = {k: v for k, v in variants[0].items() if k != "B"}
-    return dict(name="fused_rnn", route="cuda",
+    return dict(name=name, route="cuda",
                 source="tip_tpu_torch/csrc/fused_rnn.cu",
                 replaces="tip_tpu/ops/pallas_kernels.py:67",
-                shape=[1, T, H], max_abs_err=err, tol=TOL,
-                library="cuDNN torch.nn.RNN (tanh)", **own,
-                variants=variants[1:])
+                shape=[1, T, H], dtype=str(dtype).split(".")[1],
+                max_abs_err=err, tol=tol,
+                library=f"cuDNN torch.nn.RNN (tanh), {dtype}", **own,
+                variants=variants[1:],
+                **({"rounding_step_by_step": rounding} if bf16 else {}))
 
 
 def check_decode_fused(dev, gen):
@@ -1273,6 +1412,27 @@ def run_path(name, model, cfg, skel, s_init, imu, dev, on_path):
     return runs, launches
 
 
+def model_windows(model, cfg, skel, s_init, imu, dev, packed=None):
+    """Step the single-stream runner over imu and record every frame that
+    ran the model: its window rebuilt from the carries (x_imu (40, ·), x_s
+    (40, ·)), the window's last valid row k-1 and the output y_t the frame
+    produced."""
+    from tip_tpu_torch.runtime import runner as R
+    carry = R.runner_init(cfg, skel, s_init, device=dev)
+    imu = torch.as_tensor(imu, dtype=torch.float32, device=dev)
+    records = []
+    with torch.no_grad():
+        for t in range(imu.shape[0] - 1):
+            new, _ = R.runner_step(model, carry, imu[t], cfg, skel, packed)
+            if new.n_out > carry.n_out:              # the model ran
+                x_imu, x_s = R.model_window(cfg, new.imu_win, new.accsum_win,
+                                            carry.s_and_c_win)
+                records.append((x_imu, x_s, min(new.k, cfg.window) - 1,
+                                new.out_buf[-1].clone()))
+            carry = new
+    return records
+
+
 def replay_path_b(model, cfg, skel, s_init, imu, dev):
     """Path B teacher-forced: a free-running bf16 trajectory of a random
     model drifts from the f32 one chaotically, so each frame is held on its
@@ -1283,20 +1443,10 @@ def replay_path_b(model, cfg, skel, s_init, imu, dev):
     from tip_tpu_torch.ops import _kernels as K
     from tip_tpu_torch.ops import fused_forward as FF
     from tip_tpu_torch.runtime import runner as R
-    carry = R.runner_init(cfg, skel, s_init, device=dev)
-    imu = torch.as_tensor(imu, dtype=torch.float32, device=dev)
     packed = R.pack_fused_weights(model, cfg)
-    records = []
+    records = [(torch.cat([x_imu, x_s], dim=-1), k, y_t) for x_imu, x_s, k, y_t
+               in model_windows(model, cfg, skel, s_init, imu, dev, packed)]
     with torch.no_grad():
-        for t in range(imu.shape[0] - 1):
-            new, _ = R.runner_step(model, carry, imu[t], cfg, skel, packed)
-            if new.n_out > carry.n_out:              # the model ran
-                x_imu, x_s = R.model_window(cfg, new.imu_win, new.accsum_win,
-                                            carry.s_and_c_win)
-                records.append((torch.cat([x_imu, x_s], dim=-1),
-                                min(new.k, cfg.window) - 1,
-                                new.out_buf[-1].clone()))
-            carry = new
         K.reset_launch_counts()
         e_k5 = e_plain = 0.0
         for x, k, y_t in records:
@@ -1368,6 +1518,135 @@ def replay_path_e(model, cfg, skel, s_init, imu, dev):
     return len(records)
 
 
+class PlainVersions:
+    """Within this context the model's K11 and K1 wrappers run their plain
+    versions on the card's tensors (``impl="plain"``): the twins the
+    teacher-forced checks hold the kernels' outputs against. This is not
+    the plain layer loop of ``encoder_impl="plain"``, which rounds bf16 at
+    other places than tip_tpu's kernels."""
+
+    def __enter__(self):
+        from tip_tpu_torch.models import tip_model as M
+        self.saved = M.encoder_layer_fwd, M.fused_rnn
+        enc, rnn = self.saved
+        M.encoder_layer_fwd = lambda *a, **kw: enc(*a, **dict(kw,
+                                                             impl="plain"))
+        M.fused_rnn = lambda *a, **kw: rnn(*a, **dict(kw, impl="plain"))
+
+    def __exit__(self, *exc):
+        from tip_tpu_torch.models import tip_model as M
+        M.encoder_layer_fwd, M.fused_rnn = self.saved
+
+
+class RecordCalls:
+    """Within this context the model's K11 and K1 wrappers record every
+    bf16 call they make: ``calls[kernel]`` holds (the call's arguments,
+    its output) for "encoder_layer_fwd_bf16" and "fused_rnn_bf16"."""
+
+    def __enter__(self):
+        from tip_tpu_torch.models import tip_model as M
+        self.saved = M.encoder_layer_fwd, M.fused_rnn
+        self.calls = {"encoder_layer_fwd_bf16": [], "fused_rnn_bf16": []}
+
+        def recording(fn, name):
+            def call(*a, **kw):
+                out = fn(*a, **kw)
+                if a[0].dtype == torch.bfloat16:
+                    self.calls[name].append((
+                        (a[0].clone(),) + a[1:], out.clone()))
+                return out
+            return call
+
+        M.encoder_layer_fwd = recording(self.saved[0],
+                                        "encoder_layer_fwd_bf16")
+        M.fused_rnn = recording(self.saved[1], "fused_rnn_bf16")
+        return self
+
+    def __exit__(self, *exc):
+        from tip_tpu_torch.models import tip_model as M
+        M.encoder_layer_fwd, M.fused_rnn = self.saved
+
+
+def hold_calls(what, calls):
+    """Every bf16 K11 and K1 call a path made (RecordCalls.calls), each on
+    its own inputs against its plain version: the max error (K11's
+    relative to the largest entry) within TOL_ENC_BF16 / TOL_RNN_BF16, and
+    the rounding check (check_rounding) with the controls that need no
+    library module beside the path's (K1's cuDNN RNN is made once). Returns
+    {kernel: {calls, max_err, rounding}}."""
+    from tip_tpu_torch.ops import encoder_train as ET
+    from tip_tpu_torch.ops import fused_rnn as FR
+    out = {}
+    with torch.no_grad():
+        share, controls, err = OffShare(), {}, 0.0
+        for (x, ws, seed, nh, p, train, bt), y in calls[
+                "encoder_layer_fwd_bf16"]:
+            if train:
+                raise AssertionError(f"{what}: K11 called with train on")
+            yr = ET.encoder_layer_train_plain(x, ws, seed, nh, p, train, bt)
+            share.add(y, yr)
+            err = max(err, rel_err(y, yr))
+            for c, yc in (
+                    ("attention_unrounded",
+                     encoder_attention_unrounded(x, ws, nh)),
+                    ("f32_widened", ET.encoder_layer_train_plain(
+                        x.float(), tuple(w.float() for w in ws), seed, nh, p,
+                        train, bt).to(x.dtype))):
+                controls.setdefault(c, OffShare()).add(yc, yr)
+        check(f"{what} K11 bf16 calls", {"plain_vs_K11": (err,
+                                                          TOL_ENC_BF16)})
+        out["encoder_layer_fwd_bf16"] = dict(
+            calls=len(calls["encoder_layer_fwd_bf16"]), max_err=err,
+            rounding=check_rounding("encoder_layer_fwd_bf16", share,
+                                    controls))
+        share, controls, err, rnn = OffShare(), {}, 0.0, None
+        for (xin, w), hs in calls["fused_rnn_bf16"]:
+            if rnn is None:
+                rnn = cudnn_rnn(w, w.shape[0], w.device)
+            err = max(err, max_err(hs.float(),
+                                   FR.fused_rnn_plain(xin, w).float()))
+            share.add(hs, rnn_steps_plain(xin, w, hs))
+            for c, hc in rnn_controls(xin, w, rnn).items():
+                controls.setdefault(c, OffShare()).add(
+                    hc, rnn_steps_plain(xin, w, hc))
+        check(f"{what} K1 bf16 calls", {"plain_vs_K1": (err, TOL_RNN_BF16)})
+        out["fused_rnn_bf16"] = dict(
+            calls=len(calls["fused_rnn_bf16"]), max_err=err,
+            rounding=check_rounding("fused_rnn_bf16", share, controls))
+    log(f"  {what}: every K11 and K1 bf16 call on its own inputs: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def replay_path_a_bf16(model, cfg, skel, s_init, imu, dev):
+    """Path A-bf16 teacher-forced: a free-running bf16 trajectory of a
+    random model drifts from any other run chaotically, so each frame is
+    held on its own. Step the runner, rebuild every frame's model window
+    from the carries and read the output y_t it produced (K11 and K1 in
+    bf16), recording every K11 and K1 call (hold_calls holds each against
+    its plain version, rounding included); then push every window through
+    the same model with K11's and K1's plain versions and compare row k-1
+    with y_t. Returns the number of windows and hold_calls' readings."""
+    with RecordCalls() as rec:
+        records = model_windows(model, cfg, skel, s_init, imu, dev)
+    n_calls = {k: len(v) for k, v in rec.calls.items()}
+    want = {"encoder_layer_fwd_bf16": cfg.model.tf_layers * len(records),
+            "fused_rnn_bf16": len(records)}
+    if n_calls != want:
+        raise AssertionError(f"path A-bf16 replay recorded {n_calls} calls "
+                             f"for {len(records)} windows, expected {want}")
+    calls = hold_calls("path A-bf16", rec.calls)
+    err = 0.0
+    with torch.no_grad(), PlainVersions():
+        for x_imu, x_s, k, y_t in records:
+            err = max(err, max_err(model(x_imu[None], x_s[None])[0, k], y_t))
+    check("path A-bf16 replay", {"plain_vs_recorded_K11_K1":
+                                 (err, TOL_FF["bfloat16"])})
+    log(f"  path A-bf16 teacher-forced over {len(records)} windows: max "
+        f"|plain versions - K11, K1 bf16| = {err:.3g}")
+    return len(records), calls
+
+
 def main_paths(dev):
     from tip_tpu_torch.models import tip_model as M
     from tip_tpu_torch.ops import kinematics as kin
@@ -1381,6 +1660,9 @@ def main_paths(dev):
         # rnn_impl / tail_impl "auto"
         "A": R.RunnerConfig(model=M.ModelConfig(**plain_enc)),
         "A-enc": R.RunnerConfig(model=M.ModelConfig(encoder_impl="kernel")),
+        # every setting at its default but the compute dtype
+        "A-bf16": R.RunnerConfig(model=M.ModelConfig(
+            compute_dtype="bfloat16")),
         "B": R.RunnerConfig(model=M.ModelConfig(forward_impl="fused")),
         "C": R.RunnerConfig(model=M.ModelConfig(forward_impl="fused",
                                                 compute_dtype="float32",
@@ -1402,6 +1684,8 @@ def main_paths(dev):
     on_path = {"A": ("fused_rnn", "decode_fused", "tail_fused"),
                "A-enc": {"fused_rnn": 1, "decode_fused": 1, "tail_fused": 1,
                          "encoder_layer_fwd": 4},
+               "A-bf16": {"fused_rnn_bf16": 1, "decode_fused": 1,
+                          "tail_fused": 1, "encoder_layer_fwd_bf16": 4},
                "B": ("fused_forward_last", "decode_fused", "tail_fused"),
                "C": ("fused_forward_last", "fk_bullet_fused"),
                "plain": (),
@@ -1410,20 +1694,34 @@ def main_paths(dev):
                "F": ("decode_fused", "tail_fused")}
     models = {"A": M.TIPModel(cfgs["A"].model, device=dev,
                               generator=torch.Generator().manual_seed(0))}
-    for name in ("A-enc", "B", "C", "plain", "D", "E", "F"):  # same weights
+    for name in ("A-enc", "A-bf16", "B", "C", "plain", "D", "E",
+                 "F"):                                      # same weights
         models[name] = M.TIPModel(cfgs[name].model, device=dev)
         models[name].load_state_dict(models["A"].state_dict())
 
     runs, launches = {}, {}
+    seconds = {}             # A-bf16's phases
     # the plain path is only ever compared over PATH_FRAMES frames, A-enc
-    # over ENC_FRAMES
-    cut = {"plain": PATH_FRAMES + 1, "A-enc": ENC_FRAMES + 1}
-    for name in ("A", "A-enc", "plain", "C", "B", "D", "E", "F"):
+    # and A-bf16 over ENC_FRAMES
+    cut = {"plain": PATH_FRAMES + 1, "A-enc": ENC_FRAMES + 1,
+           "A-bf16": ENC_FRAMES + 1}
+    for name in ("A", "A-enc", "A-bf16", "plain", "C", "B", "D", "E", "F"):
+        t0 = time.perf_counter()
         runs[name], launches[name] = run_path(
             name, models[name], cfgs[name], skel, s_init,
             imu[:cut.get(name, len(imu))], dev, on_path[name])
+        seconds[f"{name} run"] = time.perf_counter() - t0
     launches["replay"] = {"fused_forward": replay_path_b(
         models["B"], cfgs["B"], skel, s_init, imu, dev)}
+    t0 = time.perf_counter()
+    n_abf, abf_calls = replay_path_a_bf16(
+        models["A-bf16"], cfgs["A-bf16"], skel, s_init,
+        imu[:ENC_FRAMES + 1], dev)
+    seconds["A-bf16 replay"] = time.perf_counter() - t0
+    if n_abf != launches["A-bf16"]["fused_rnn_bf16"]:
+        raise AssertionError(f"path A-bf16 replay held {n_abf} windows, the "
+                             f"run launched K1 "
+                             f"{launches['A-bf16']['fused_rnn_bf16']} times")
     n_e = replay_path_e(models["E"], cfgs["E"], skel, s_init, imu, dev)
     if n_e != launches["E"][k7]:
         raise AssertionError(f"path E replay recorded {n_e} frames, the "
@@ -1443,6 +1741,14 @@ def main_paths(dev):
                      runs_cpu, CPU_FRAMES, TOL_PATH)
     compare_runs("path A-enc vs A (card)", runs["A-enc"], runs["A"],
                  ENC_FRAMES, TOL_PATH)
+    # information, no tolerance: bf16 free-running against f32
+    a = runs["A-bf16"][0][:ENC_FRAMES].double().cpu()
+    b = runs["A-enc"][0][:ENC_FRAMES].double().cpu()
+    log(json.dumps({"A-bf16_vs_A-enc_free_running": {
+        "qdq_max_abs_diff": (a - b).abs().max().item(),
+        "first_frame_over_1e-2": first_disagreement(a, b,
+                                                    TOL_FF["bfloat16"]),
+        "frames": ENC_FRAMES}}))
 
     # the cached modes: D against the plain cached step on the card, against
     # the windowed fused forward while the window grows (the cached step is
@@ -1480,14 +1786,19 @@ def main_paths(dev):
         "E_vs_D_after_the_slide": angle("D", "E", after)}}))
 
     # per-frame time, eager, one pass each, in one call on one card
-    frame_ms = {name: frame_times_ms(models[name], cfgs[name], skel, s_init,
-                                     imu, dev)
-                for name in ("A", "A-enc", "B", "C", "plain", "D", "E", "F")}
+    frame_ms = {}
+    for name in ("A", "A-enc", "A-bf16", "B", "C", "plain", "D", "E", "F"):
+        t0 = time.perf_counter()
+        frame_ms[name] = frame_times_ms(models[name], cfgs[name], skel,
+                                        s_init, imu, dev)
+        seconds[f"{name} frame timing"] = time.perf_counter() - t0
     log(f"per-frame median ms (eager, sync per frame): {frame_ms}")
 
-    for name in ("A", "A-enc", "B", "C", "D", "E", "F"):
+    for name in ("A", "A-enc", "A-bf16", "B", "C", "D", "E", "F"):
+        t0 = time.perf_counter()
         dev_ms, n_kernels, rows, prof_frame_ms = profile_frames(
             models[name], cfgs[name], skel, s_init, imu, dev)
+        seconds[f"{name} profile"] = time.perf_counter() - t0
         # busy share of the profiled frames themselves: their device time
         # over their median host time (the profiler's own host cost
         # included)
@@ -1497,7 +1808,16 @@ def main_paths(dev):
             "frame_ms_profiled": prof_frame_ms,
             "device_busy_share": dev_ms / prof_frame_ms,
             "top": [[k[:70], ms, c] for k, ms, c in rows[:8]]}}))
-    return launches, frame_ms, runs, models["A"].state_dict()
+    t0 = time.perf_counter()
+    syncs, kinds = host_syncs(models["A-bf16"], cfgs["A-bf16"], skel, s_init,
+                              imu, dev)
+    seconds["A-bf16 host syncs"] = time.perf_counter() - t0
+    log(f"  host syncs a steady frame, path A-bf16: {syncs} {kinds}")
+    log(json.dumps({"main_path_seconds": seconds}))
+    if syncs:
+        raise AssertionError(f"path A-bf16 syncs the host {syncs} times a "
+                             f"frame: {kinds}")
+    return launches, frame_ms, runs, models["A"].state_dict(), abf_calls
 
 
 # ---------------------------------------------------------------------------
@@ -1760,7 +2080,8 @@ def run_pool_path(name, model, cfg, skel, sched, dev, on_path, n_ticks,
     """Drive one pool path through StreamPool.step with the launch counters
     set to 0 just before and read just after, a synchronise after every
     tick (so that ticks can be timed). Every kernel in on_path must have
-    been launched exactly once per tick and every other kernel not at all.
+    been launched exactly once per tick (or as often as on_path says, a
+    dict) and every other kernel not at all.
     Returns the pool, the stacked outputs by name, the launches, the median
     steady tick in ms and the peak memory."""
     from tip_tpu_torch.ops import _kernels as K
@@ -1796,8 +2117,10 @@ def run_pool_path(name, model, cfg, skel, sched, dev, on_path, n_ticks,
         f"tick {tick_ms:.3f} ms (synced), "
         f"{POOL_CAPACITY / tick_ms * 1e3:.0f} stream-frames/s, peak memory "
         f"{mem / 2 ** 20:.1f} MiB; launches {launches}")
+    per_tick = (on_path if isinstance(on_path, dict)
+                else dict.fromkeys(on_path, 1))
     for k in KERNELS:
-        want = n_ticks if k in on_path else 0
+        want = n_ticks * per_tick.get(k, 0)
         if launches[k] != want:
             raise AssertionError(
                 f"pool path {name}: {k} launched {launches[k]} times, "
@@ -1908,9 +2231,41 @@ def replay_path_g(packed, cfg, records, active, dev):
     return n_ticks
 
 
+# the streams of path K-bf16 held teacher-forced against the single-stream
+# model: (slot, tick it joined), each from its own first frame
+POOL_CHECKED_BF16 = ((0, 0), (60, 7), (61, 50), (62, 100))
+
+
+def replay_pool_bf16(single, cfg, records):
+    """Path K-bf16 teacher-forced: every recorded window of the streams of
+    POOL_CHECKED_BF16 (model input and the pooled forward's output, K11
+    and K1 in bf16 at B 64) through A-bf16's single-stream model (the same
+    kernels at B 1); the row the pool reads, the stream's last valid row
+    (runner.py's counters: min(f - imu_n_smooth + 1, window) - 1 at its
+    frame f), compared from the stream's first model frame on."""
+    err, n = 0.0, 0
+    with torch.no_grad():
+        for t, (x_imu, x_s, y) in enumerate(records):
+            for r, (slot, j) in enumerate(POOL_CHECKED_BF16):
+                f = t - j
+                if f < cfg.imu_n_smooth:
+                    continue
+                k = min(f - cfg.imu_n_smooth + 1, cfg.window) - 1
+                ref = single(x_imu[r:r + 1], x_s[r:r + 1])[0, k]
+                err = max(err, max_err(ref, y[r, k]))
+                n += 1
+    check("path K-bf16 vs the single-stream model", {
+        "single_vs_pooled": (err, TOL_FF["bfloat16"])})
+    log(f"  path K-bf16 teacher-forced: {n} windows of slots "
+        f"{[s for s, _ in POOL_CHECKED_BF16]} through A-bf16's single-stream "
+        f"model, max |diff| = {err:.3g}")
+    return n
+
+
 def pool_paths(dev, single_runs, state_dict):
-    """Drive the pool paths G-K; `single_runs`: the single-stream paths'
-    outputs on motion 0, `state_dict`: their weights."""
+    """Drive the pool paths G-K and K-bf16; `single_runs`: the
+    single-stream paths' outputs on motion 0, `state_dict`: their
+    weights."""
     from tip_tpu_torch.models import tip_model as M
     from tip_tpu_torch.ops import kinematics as kin
     from tip_tpu_torch.runtime import runner as R
@@ -1931,19 +2286,35 @@ def pool_paths(dev, single_runs, state_dict):
         "J": R.RunnerConfig(model=M.ModelConfig(**f32)),
         "K": R.RunnerConfig(model=M.ModelConfig(encoder_impl="plain"),
                             tail_impl="plain", fk_impl="kernel"),
+        # A-bf16 pooled: every setting at its default but the compute dtype
+        "K-bf16": R.RunnerConfig(model=M.ModelConfig(
+            compute_dtype="bfloat16")),
     }
     k8, k9 = "fused_cached_batch", "fused_recompute_batch"
     on_path = {"G": (k8, "decode_fused", "tail_fused"),
                "H": (k8, "decode_fused", "tail_fused"),
                "I": ("decode_fused", "tail_fused"),
                "J": (k9, "decode_fused", "tail_fused"),
-               "K": ("fused_rnn", "fk_bullet_fused")}
-    ticks = {n: POOL_TICKS_K if n == "K" else POOL_TICKS for n in cfgs}
+               "K": ("fused_rnn", "fk_bullet_fused"),
+               "K-bf16": {"encoder_layer_fwd_bf16": 4, "fused_rnn_bf16": 1,
+                          "decode_fused": 1, "tail_fused": 1}}
+    ticks = {n: POOL_TICKS_K if n.startswith("K") else POOL_TICKS
+             for n in cfgs}
     outs, launches, summary = {}, {}, {}
-    records = []
-    for name in ("G", "H", "I", "J", "K"):
+    records, bf16_windows = [], []
+    checked = [slot for slot, _ in POOL_CHECKED_BF16]
+    for name in ("G", "H", "I", "J", "K", "K-bf16"):
+        t0 = time.perf_counter()
         model = M.TIPModel(cfgs[name].model, device=dev)
         model.load_state_dict(state_dict)
+        if name == "K-bf16":
+            def windows(x_imu, x_s, model=model):
+                y = type(model).forward(model, x_imu, x_s)
+                bf16_windows.append((x_imu[checked].clone(),
+                                     x_s[checked].clone(),
+                                     y[checked].clone()))
+                return y
+            model.forward = windows
         wrapper = SC.fused_cached_batch
         if name == "G":
             def recording(ws, cache, x, slot, commit, mcfg, **kw):
@@ -1958,6 +2329,7 @@ def pool_paths(dev, single_runs, state_dict):
                 ticks[name], record=records if name == "G" else None)
         finally:
             SC.fused_cached_batch = wrapper
+            model.__dict__.pop("forward", None)
         dev_ms, n_kernels, rows, prof_tick_ms = profile_pool(
             pool, batch.to(dev), ticks[name], n_prof)
         summary[name] = dict(
@@ -1978,6 +2350,19 @@ def pool_paths(dev, single_runs, state_dict):
                     f"path G replay saw {n_g} ticks, the run launched K8 "
                     f"{launches['G'][k8]} times")
             records.clear()
+        if name == "K-bf16":
+            single = M.TIPModel(cfgs[name].model, device=dev)
+            single.load_state_dict(state_dict)
+            summary[name]["teacher_forced_windows"] = replay_pool_bf16(
+                single, cfgs[name], bf16_windows)
+            bf16_windows.clear()
+            # one more tick, its K11 and K1 calls held on their own inputs
+            with torch.no_grad(), RecordCalls() as rec:
+                pool.step(batch[ticks[name] + n_prof].to(dev))
+            summary[name]["calls"] = hold_calls("path K-bf16, one tick",
+                                                rec.calls)
+        summary[name]["seconds"] = time.perf_counter() - t0
+        log(f"  pool path {name}: {summary[name]['seconds']:.1f} s")
         del pool
 
     on = active.to(dev)
@@ -2135,15 +2520,18 @@ def encoder_layer_ops(B, T, d, ff, nh):
             + 16 * N * d)
 
 
-def encoder_layer_work(B, T, d, ff, nh, backward):
-    """Compulsory bytes and operations of K11 (x, 12 weights in, y out) or
-    K12 (x, dy, 12 weights in, dx and 12 gradients out; the forward it
-    recomputes plus twice the products, the attention backward with 4
-    products per causal entry and 8 more per LayerNorm element)."""
+def encoder_layer_work(B, T, d, ff, nh, backward, itemsize=4):
+    """Compulsory bytes and operations of K11 (x, 12 weights in, y out; x,
+    y and the 8 matmul weights and biases itemsize bytes an entry, the
+    LayerNorm vectors 4) or K12 (x, dy, 12 weights in, dx and 12 gradients
+    out; the forward it recomputes plus twice the products, the attention
+    backward with 4 products per causal entry and 8 more per LayerNorm
+    element)."""
     n_w = 3 * d * d + 3 * d + d * d + d + 2 * d * ff + ff + d + 4 * d
     N = B * T
     if not backward:
-        return 4 * (2 * N * d + n_w), encoder_layer_ops(B, T, d, ff, nh)
+        return (itemsize * (2 * N * d + n_w - 4 * d) + 4 * 4 * d,
+                encoder_layer_ops(B, T, d, ff, nh))
     causal = T * (T + 1) // 2
     ops = (encoder_layer_ops(B, T, d, ff, nh)
            + 4 * N * d * (3 * d + d + 2 * ff) + B * (8 * d + 4 * nh) * causal
@@ -2153,11 +2541,13 @@ def encoder_layer_work(B, T, d, ff, nh, backward):
 
 def library_encoder_layer(ws, n_heads, dev):
     """Yardstick only, never called by the port: torch's post-norm
-    TransformerEncoderLayer with dropout 0 and these weights."""
+    TransformerEncoderLayer with dropout 0 and these weights, in the matmul
+    weights' dtype."""
     w_qkv, b_qkv, w_o, b_o, w_f1, b_f1, w_f2, b_f2, g1, be1, g2, be2 = ws
     d, ff = w_o.shape[0], w_f1.shape[1]
     layer = torch.nn.TransformerEncoderLayer(
-        d, n_heads, dim_feedforward=ff, dropout=0.0, batch_first=True).to(dev)
+        d, n_heads, dim_feedforward=ff, dropout=0.0, batch_first=True).to(
+            dev, w_qkv.dtype)
     with torch.no_grad():
         layer.self_attn.in_proj_weight.copy_(w_qkv.T)
         layer.self_attn.in_proj_bias.copy_(b_qkv)
@@ -2298,6 +2688,141 @@ def check_encoder_train(dev, gen, model):
             library="torch.nn.TransformerEncoderLayer (p = 0 only)"
                     + (", its autograd backward" if backward else "")))
     return entries
+
+
+# K11 in bf16 against its plain version in bf16 (relative to the largest
+# entry): both round every product's operands to bf16 and y to bf16, but
+# sum in another order, so an activation that lies at a bf16 rounding
+# boundary rounds the other way before the next product, and an entry of y
+# moves by a bf16 step (2^-8 to 2^-7 of it); held within 2^-6 of the
+# largest entry
+TOL_ENC_BF16 = 2.0 ** -6
+ENC_BF16_B = (1, 64, 256)       # A-bf16's frame, K-bf16's tick, training's
+
+
+def encoder_attention_unrounded(x, ws, n_heads):
+    """Control: K11's bf16 layer at p 0 with the attention's q, k, p and v
+    kept in f32 (their rounding to bf16 left out); the dense products round
+    both operands to bf16 as the plain version does. y in x's dtype."""
+    from tip_tpu_torch.ops import encoder_train as ET
+    (w_qkv, b_qkv, w_o, b_o, w_f1, b_f1, w_f2, b_f2, g1, be1, g2, be2) = (
+        w.float() for w in ws)
+
+    def r(t):
+        return t.to(torch.bfloat16).float()
+
+    B, T, d = x.shape
+    hd = d // n_heads
+    xf = x.float().reshape(B * T, d)
+    qkv = r(xf) @ w_qkv + b_qkv
+    q, k, v = (qkv[:, i * d:(i + 1) * d].reshape(B, T, n_heads, hd)
+               .transpose(1, 2) for i in range(3))
+    causal = torch.triu(torch.full((T, T), -1e30, device=x.device),
+                        diagonal=1)
+    p = torch.softmax((q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+                      + causal, dim=-1)
+    att = (p @ v).transpose(1, 2).reshape(B * T, d)
+    y1 = ET._ln_fwd(xf + (r(att) @ w_o + b_o), g1, be1)[0]
+    f1 = torch.clamp_min(r(y1) @ w_f1 + b_f1, 0.0)
+    y2 = ET._ln_fwd(y1 + (r(f1) @ w_f2 + b_f2), g2, be2)[0]
+    return y2.reshape(B, T, d).to(x.dtype)
+
+
+def encoder_controls(x, ws, n_heads, layer):
+    """The controls of K11 bf16's rounding check on x at p 0: {name: their
+    y in bf16}. layer: TransformerEncoderLayer in bf16
+    (library_encoder_layer)."""
+    from tip_tpu_torch.ops import encoder_train as ET
+    T = x.shape[1]
+    mask = torch.nn.Transformer.generate_square_subsequent_mask(
+        T, device=x.device, dtype=x.dtype)
+    with torch.no_grad():
+        return {"attention_unrounded": encoder_attention_unrounded(
+                    x, ws, n_heads),
+                "library_bf16": layer(x, src_mask=mask, is_causal=True),
+                "f32_widened": ET.encoder_layer_train_plain(
+                    x.float(), tuple(w.float() for w in ws), 0, n_heads,
+                    0.0, False, 8).to(x.dtype)}
+
+
+def check_encoder_fwd_bf16(dev, gen, model):
+    """K11's bf16 variant against its bf16 plain version at (B, 40, 256)
+    for B in ENC_BF16_B (the model's layer 0 in bf16), p 0 and p 0.1
+    train, twice each bit-equal, and its share of entries off the plain
+    version against the controls' (check_rounding); timed at p 0 beside
+    torch's TransformerEncoderLayer in bf16. The entry's own numbers are
+    B 1's (A-bf16's shape), the other Bs are its variants."""
+    from tip_tpu_torch.ops import encoder_train as ET
+    cfg = model.cfg
+    nh, d, ff, T = cfg.n_heads, cfg.tf_in_dim, cfg.tf_hid_size, 40
+    bf = torch.bfloat16
+    ws = tuple(w.detach().contiguous() for w in ET.pack_layer_weights(
+        {k: v.to(bf) for k, v in model.named_parameters()}, "layers.0.", bf))
+    layer = library_encoder_layer(ws, nh, dev)
+    errs, inputs = {}, {}
+    share, controls = OffShare(), {}
+    for B in ENC_BF16_B:
+        for p in (0.0, 0.1):
+            x = torch.randn(B, T, d, generator=gen, device=dev).to(bf)
+            seed = -123457 if p else 99
+            y = ET.encoder_layer_fwd(x, ws, seed, nh, p, True, 8,
+                                     impl="kernel")
+            if y.dtype != bf or not torch.equal(y, ET.encoder_layer_fwd(
+                    x, ws, seed, nh, p, True, 8, impl="kernel")):
+                raise AssertionError(f"encoder_layer_fwd_bf16 B {B} p {p}: "
+                                     f"two calls differ, or y is {y.dtype}")
+            yr = ET.encoder_layer_train_plain(x, ws, seed, nh, p, True, 8)
+            errs[f"B{B}_p{p}"] = (rel_err(y, yr), TOL_ENC_BF16)
+            share.add(y, yr)
+            if not p:
+                for c, yc in encoder_controls(x, ws, nh, layer).items():
+                    controls.setdefault(c, OffShare()).add(yc, yr)
+            inputs[B] = (x, seed)
+    err = check("encoder_layer_fwd_bf16", errs)
+    log(f"  K11 bf16 vs plain: {errs}")
+    rounding = check_rounding("encoder_layer_fwd_bf16", share, controls)
+    mask = torch.nn.Transformer.generate_square_subsequent_mask(
+        T, device=dev, dtype=bf)
+    variants = []
+    for B in ENC_BF16_B:
+        x = inputs[B][0]
+
+        def lib_f(x=x):
+            with torch.no_grad():
+                return layer(x, src_mask=mask, is_causal=True)
+
+        lib_err = rel_err(lib_f(), ET.encoder_layer_train_plain(
+            x, ws, 0, nh, 0.0, False, 8))
+        if not lib_err <= TOL_LIB_BF16:
+            raise AssertionError(f"TransformerEncoderLayer bf16 yardstick "
+                                 f"disagrees at B {B}: {lib_err:.3g}")
+        t = timings(
+            lambda x=x: ET.encoder_layer_fwd(x, ws, 0, nh, 0.0, False, 8,
+                                             impl="kernel"),
+            lambda x=x: ET.encoder_layer_train_plain(x, ws, 0, nh, 0.0,
+                                                     False, 8),
+            lib_f, light=True)
+        b_ms, b_by = bound(*encoder_layer_work(B, T, d, ff, nh, False, 2),
+                           PEAK_BF16_FLOP_S)
+        t["by_kernel"] = kernel_breakdown(
+            lambda x=x: ET.encoder_layer_fwd(x, ws, 0, nh, 0.0, False, 8,
+                                             impl="kernel"))
+        log(f"  K11 bf16 B {B} by kernel: {json.dumps(t['by_kernel'])}")
+        variants.append(dict(B=B, p=0.0, bound_ms=b_ms, bound_by=b_by,
+                             library_err=lib_err, **t))
+        log(f"  K11 bf16 B {B} p 0: device {t['ms']:.4f} ms (eager "
+            f"{t['call_ms']:.4f}), plain {t['plain_ms']:.4f}, library "
+            f"{t['library_ms']:.4f} (rel err {lib_err:.3g}), bound "
+            f"{b_ms:.2e} ({b_by})")
+    own = {k: v for k, v in variants[0].items() if k != "B"}
+    return dict(name="encoder_layer_fwd_bf16", route="cuda",
+                source="tip_tpu_torch/csrc/encoder_train.cu",
+                replaces="tip_tpu/ops/pallas_encoder.py:290",
+                shape=[ENC_BF16_B[0], T, d], dtype="bfloat16",
+                max_abs_err=err, tol=TOL_ENC_BF16,
+                err_is="relative to the largest entry",
+                library="torch.nn.TransformerEncoderLayer, bf16, p = 0",
+                rounding=rounding, **own, variants=variants[1:])
 
 
 def pack_training_blobs():
@@ -2884,7 +3409,8 @@ COUNTED_ON = {"fused_rnn": "A", "decode_fused": "A", "tail_fused": "A",
               "fk_bullet_fused": "C", "fused_cached_forward_step": "D",
               "fused_cached_batch": "H", "fused_recompute_batch": "J",
               "fused_rnn_bwd": "L", "encoder_layer_fwd": "L",
-              "encoder_layer_bwd": "L"}
+              "encoder_layer_bwd": "L", "fused_rnn_bf16": "A-bf16",
+              "encoder_layer_fwd_bf16": "A-bf16"}
 
 
 def main():
@@ -2894,6 +3420,9 @@ def main():
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuBLAS's bf16 products (the in-projection, W_ih, the out-projection
+    # and the plain versions in bf16) sum in f32, as XLA's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     from tip_tpu_torch.models import tip_model as M
     from tip_tpu_torch.ops import _kernels as K
     from tip_tpu_torch.ops import kinematics as kin
@@ -2921,6 +3450,12 @@ def main():
                check_fused_recompute_batch(dev, gen, model),
                check_fused_rnn_bwd(dev, gen),
                *check_encoder_train(dev, gen, model)]
+    for check_bf16 in (lambda: check_fused_rnn(dev, gen, torch.bfloat16),
+                       lambda: check_encoder_fwd_bf16(dev, gen, model)):
+        t0 = time.perf_counter()
+        kernels.append(check_bf16())
+        log(f"  {kernels[-1]['name']} checked and timed in "
+            f"{time.perf_counter() - t0:.1f} s")
     batched = check_batched_tail(dev, gen, skel)
     children_first = check_children_first(dev, gen)
     deep_chains = check_deep_chains(dev, gen)
@@ -2947,7 +3482,7 @@ def main():
             f"({k['plain_call_ms']:.4f}), bound {k['bound_ms']:.2e} ms "
             f"({k['bound_by']}), library {k['library_ms']}")
 
-    launches, frame_ms, runs, state_dict = main_paths(dev)
+    launches, frame_ms, runs, state_dict, abf_calls = main_paths(dev)
     full_launches, full_summary = full_runner_paths(dev, state_dict)
     launches.update(full_launches)
     pool_launches, pool_summary = pool_paths(dev, runs, state_dict)
@@ -2959,8 +3494,14 @@ def main():
         k["launches_full_runner"] = {
             p: launches[p][k["name"]] for p in ("N", "N-gt", "N-E")
             if launches[p][k["name"]]}
+        k["launches_pool"] = {p: launches[p][k["name"]] for p in (
+            "G", "H", "I", "J", "K", "K-bf16") if launches[p][k["name"]]}
         if not k["launches"] > 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
+        if k["name"] in abf_calls:
+            k["calls_held"] = {
+                "A-bf16": abf_calls[k["name"]],
+                "K-bf16": pool_summary["K-bf16"]["calls"][k["name"]]}
     frame_ms.update(full_summary["frame_ms"])
     log(json.dumps({"frame_ms": frame_ms, "launches": launches,
                     "pool_tick_ms": {n: v["tick_ms"]

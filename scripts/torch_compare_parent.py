@@ -15,8 +15,10 @@ points; the other kernels run through this checkout's wrappers calling the
 other build's library. ctypes does not check a call's arguments, so the
 script first reads the other checkout's declarations and refuses it unless
 its K2, K3 and K6 entry points are declared as its own wrappers' ctypes
-tables (their _SIG) call them and its other entry points as in this
-checkout. Then:
+tables (their _SIG) call them and every other entry point it declares
+with the parameter types this checkout declares it with (names aside;
+entry points that only this checkout has, such as the bf16 variants, are
+not called on the other build). Then:
 
   - K1, K4/K5, K7, K8, K9, K10, K11 and K12: the outputs of both builds on
     chip_smoke.py's inputs must be equal bit for bit (K1 at B 1, 3, 8, 17,
@@ -86,18 +88,27 @@ def ctypes_of(decl: str):
     return out
 
 
+def param_types(decl: str):
+    """The parameter types of a C parameter list, names dropped."""
+    return [p.strip().rsplit(" ", 1)[0].replace(" *", "*")
+            for p in decl.split(",")]
+
+
 def check_abi(parent: Path, other_sigs):
     """Raise unless the other checkout declares the entry points this
     script calls as it calls them: K2's, K3's and K6's as its own wrappers'
-    ctypes tables (other_sigs, by source) say, the rest as in this
-    checkout."""
+    ctypes tables (other_sigs, by source) say; every other entry point it
+    declares with this checkout's parameter types."""
     def decl(root, src):
         return declarations(root / "tip_tpu_torch" / "csrc" / f"{src}.cu")
     wrong = [fn for src in TAIL_SOURCES
              for fn, argtypes in other_sigs[src].items()
              if ctypes_of(decl(parent, src).get(fn, "?")) != list(argtypes)]
-    wrong += [src for src in SAME_SOURCES
-              if decl(parent, src) != decl(ROOT, src)]
+    for src in SAME_SOURCES:
+        mine = decl(ROOT, src)
+        wrong += [fn for fn, params in decl(parent, src).items()
+                  if fn not in mine
+                  or param_types(params) != param_types(mine[fn])]
     if wrong:
         raise SystemExit(f"{parent}: {wrong} are not declared as this "
                          f"script calls them (K2, K3, K6 as the checkout's "
@@ -161,6 +172,8 @@ def parent_libs(procs, sigs):
                                + log.decode(errors="replace"))
         so = ctypes.CDLL(str(so_path))
         for fn, argtypes in sigs[name].items():
+            if not hasattr(so, fn):        # only this checkout has it
+                continue
             getattr(so, fn).argtypes = argtypes
             getattr(so, fn).restype = ctypes.c_int
         libs[name] = so

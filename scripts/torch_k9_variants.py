@@ -54,8 +54,8 @@ VARIANTS = {
                            "tf3::mma_slice<false, false, L, false>")],
     # diagnostics, their outputs wrong: the pipelined products' staging
     # without their mma, and their mma on whatever shared memory holds
-    "staging_only": [(MMA, "    mma_slice<TA, TB, L, kPromote>(",
-                      "    if (false) mma_slice<TA, TB, L, kPromote>("),
+    "staging_only": [(MMA, "    mma_slice<TA, TB, L, kPromote, kBf16>(",
+                      "    if (false) mma_slice<TA, TB, L, kPromote, kBf16>("),
                      (POOL, "    bf16_slice<L>(As, reinterpret_cast",
                       "    if (false) bf16_slice<L>(As, reinterpret_cast")],
     "mma_only": [(MMA, "      load_stage<TA, TB, L, kShiftA>(sm + s",

@@ -10,6 +10,7 @@ a custom mask takes the plain loop in both packages. Inputs are made from
 a seed with numpy; tip_tpu's Pallas layer runs in interpret mode.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -147,17 +148,35 @@ def test_grad_through_the_route_equals_the_plain_loop(monkeypatch):
 
 @pytest.mark.parametrize("impl", ["auto", "kernel"])
 def test_bf16_compute_dtype_on_the_route_raises(impl):
-    """The route's kernel takes float32 (its bf16 variant is ROADMAP B1);
+    """compute_dtype="bfloat16" on the route: "auto" runs K11's bf16 plain
+    version on a CPU tensor and matches tip_tpu's forward with its Pallas
+    layer in bf16 (1e-2: bf16 products outside the layer sum in another
+    order; tests/test_torch_bf16_route.py holds the rest of the bf16
+    route); "kernel" on a CPU tensor raises, as in float32.
     encoder_impl="plain" keeps the bf16 plain loop."""
-    model = TM.TIPModel(TM.ModelConfig(**TINY, compute_dtype="bfloat16",
-                                       encoder_impl=impl), device="cpu")
-    x_imu, x_s = (torch.as_tensor(a, dtype=torch.float32)
-                  for a in _inputs(2))
-    with pytest.raises(NotImplementedError, match="B1"):
-        model(x_imu, x_s)
+    params = _params(7)
+    x_imu, x_s = _inputs(2, seed=7)
+    x_imu, x_s = x_imu.astype(np.float32), x_s.astype(np.float32)
+    model = _port(params, compute_dtype="bfloat16",
+                  encoder_impl=impl).float()
+    x_imu_t, x_s_t = torch.as_tensor(x_imu), torch.as_tensor(x_s)
+    if impl == "kernel":
+        with pytest.raises(ValueError, match="CUDA"):
+            model(x_imu_t, x_s_t)
+    else:
+        with torch.no_grad():
+            t = model(x_imu_t, x_s_t)
+        j = np.asarray(JM.forward(
+            jax.tree_util.tree_map(lambda p: np.asarray(p, np.float32),
+                                   params),
+            jnp.asarray(x_imu), jnp.asarray(x_s),
+            JM.ModelConfig(**TINY, compute_dtype="bfloat16",
+                           encoder_impl="pallas")))
+        assert t.dtype == torch.float32
+        np.testing.assert_allclose(t.numpy(), j, atol=1e-2, rtol=0)
     plain = TM.TIPModel(TM.ModelConfig(**TINY, compute_dtype="bfloat16",
                                        encoder_impl="plain"), device="cpu")
-    assert torch.isfinite(plain(x_imu, x_s)).all()
+    assert torch.isfinite(plain(x_imu_t, x_s_t)).all()
 
 
 def test_kernel_impl_on_a_cpu_tensor_raises():

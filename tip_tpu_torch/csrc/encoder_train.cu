@@ -42,7 +42,20 @@
 // wrapper allocates (encoder_layer_scratch floats: ~190 MB for the
 // forward, ~330 MB with the backward, at the training shape); nothing is
 // kept between K11 and K12. No shared-memory attribute is set per call.
+//
+// K11's bf16 variant (encoder_layer_fwd_bf16_launch: tip_tpu's kernel with
+// bf16 x and matmul weights, f32 LayerNorm vectors) is the same sequence
+// with bf16 products (train_mma.cuh's kBf16: one m16n8k16 bf16 mma with
+// f32 sums, each operand rounded to bf16 as its fragment is formed). x and
+// the eight bf16 weights and biases are first widened to their exact f32
+// images in the scratch (one launch, 16-byte loads: d, ff and the head
+// width multiples of 8); the activations stay f32, the attention rounds q,
+// k, v and the masked probabilities to bf16 before its two products, the
+// biases, LayerNorm, softmax and residuals are f32, and y is written in
+// bf16, where tip_tpu rounds. Its bound is operations at the bf16
+// tensor-core rate.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "hashmask.cuh"
@@ -75,18 +88,31 @@ struct Bwd {
   float *y, *dr2, *df2, *dh1, *dy1, *dr1, *da, *datt, *dqkv, *part;
 };
 
+// a product's operand: in the bf16 variant rounded to bf16 (its f32 image)
+template <bool kBf16>
+__device__ __forceinline__ float operand(float v) {
+  return kBf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// y = LN((pre * mask) + res), one warp per row; xhat and rs kept
+// y = LN((pre * mask) + res), one warp per row; xhat and rs kept. Out: y's
+// storage (f32; bf16 for the bf16 variant's output)
+template <class Out>
 __global__ void ln_fwd_rows(const float* __restrict__ pre,
                             const float* __restrict__ res,
                             const float* __restrict__ g,
                             const float* __restrict__ b, hm::Drop drop, int N,
-                            int d, float* __restrict__ y,
+                            int d, Out* __restrict__ y,
                             float* __restrict__ xhat, float* __restrict__ rs) {
   const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -119,7 +145,7 @@ __global__ void ln_fwd_rows(const float* __restrict__ pre,
     if (c < d) {
       const float xh = (v[i] - mu) * r_s;
       xhat[base + c] = xh;
-      y[base + c] = xh * g[c] + b[c];
+      put(y + base + c, xh * g[c] + b[c]);
     }
   }
   if (lane == 0) rs[row] = r_s;
@@ -170,9 +196,10 @@ inline size_t attn_smem(int T, int hd) {
           3 * static_cast<size_t>(T) * T) * sizeof(float);
 }
 
-// Load q, k, v of (sample b, head h) and compute P = softmax(causal scores)
-// and the keep values M of the head's mask. Rows of P past the diagonal
-// are 0.
+// Load q, k, v of (sample b, head h) (as bf16 operands in the bf16
+// variant) and compute P = softmax(causal scores) and the keep values M of
+// the head's mask. Rows of P past the diagonal are 0.
+template <bool kBf16>
 __device__ void attn_probs(const float* __restrict__ qkv, int b, int h,
                            const Dims& D, float scale, const hm::Drop& drop,
                            float* q, float* k, float* v, float* P, float* M) {
@@ -181,9 +208,9 @@ __device__ void attn_probs(const float* __restrict__ qkv, int b, int h,
   for (int e = threadIdx.x; e < T * hd; e += blockDim.x) {
     const int t = e / hd, c = e % hd;
     const float* src = qkv + (static_cast<size_t>(b) * T + t) * d3 + h * hd + c;
-    q[t * ld + c] = src[0];
-    k[t * ld + c] = src[d];
-    v[t * ld + c] = src[2 * d];
+    q[t * ld + c] = operand<kBf16>(src[0]);
+    k[t * ld + c] = operand<kBf16>(src[d]);
+    v[t * ld + c] = operand<kBf16>(src[2 * d]);
   }
   __syncthreads();
   for (int e = threadIdx.x; e < T * T; e += blockDim.x) {
@@ -229,6 +256,7 @@ __device__ void attn_probs(const float* __restrict__ qkv, int b, int h,
   __syncthreads();
 }
 
+template <bool kBf16>
 __global__ void attn_fwd_kernel(const float* __restrict__ qkv,
                                 float* __restrict__ att, Dims D, float scale,
                                 hm::Drop drop) {
@@ -241,12 +269,13 @@ __global__ void attn_fwd_kernel(const float* __restrict__ qkv,
   float* P = v + 2 * T * ld;   // (the do slot is unused here)
   float* M = P + T * T;
   drop.site = kSiteAttn + h;
-  attn_probs(qkv, b, h, D, scale, drop, q, k, v, P, M);
+  attn_probs<kBf16>(qkv, b, h, D, scale, drop, q, k, v, P, M);
   for (int e = threadIdx.x; e < T * hd; e += blockDim.x) {
     const int i = e / hd, c = e % hd;
     float o = 0.0f;
     for (int j = 0; j <= i; ++j)
-      o = fmaf(P[i * T + j] * M[i * T + j], v[j * ld + c], o);
+      o = fmaf(operand<kBf16>(P[i * T + j] * M[i * T + j]), v[j * ld + c],
+               o);
     att[(static_cast<size_t>(b) * T + i) * D.d + h * hd + c] = o;
   }
 }
@@ -399,10 +428,11 @@ cudaError_t smem_attr(const void* kernel, size_t smem, size_t* allowed) {
   return e;
 }
 
+template <bool kBf16>
 cudaError_t attn_fwd_smem_attr(size_t smem) {
   static size_t allowed = 48 * 1024;
-  return smem_attr(reinterpret_cast<const void*>(attn_fwd_kernel), smem,
-                   &allowed);
+  return smem_attr(reinterpret_cast<const void*>(attn_fwd_kernel<kBf16>),
+                   smem, &allowed);
 }
 
 cudaError_t attn_bwd_smem_attr(size_t smem) {
@@ -430,6 +460,50 @@ size_t part_floats(const Dims& D) {
   upd(tg::colsum_scratch(D.N, 3 * D.d));
   upd(tg::colsum_scratch(D.N, D.ff));
   return p;
+}
+
+// The bf16 variant's inputs widened to f32 (widen_bf16): x, then the eight
+// matmul weights and biases in the order of the weights, each rounded up
+// to 16 bytes
+constexpr int kWiden = 9;
+
+void widen_sizes(const Dims& D, size_t (&n)[kWiden]) {
+  const size_t d = D.d, ff = D.ff;
+  const size_t sizes[kWiden] = {static_cast<size_t>(D.N) * d, d * 3 * d,
+                                3 * d, d * d, d, d * ff, ff, ff * d, d};
+  for (int i = 0; i < kWiden; ++i) n[i] = sizes[i];
+}
+
+size_t widen_floats(const Dims& D) {
+  size_t n[kWiden], t = 0;
+  widen_sizes(D, n);
+  for (size_t v : n) t += up4(v);
+  return t;
+}
+
+struct Widen {
+  const uint4* src[kWiden];   // 8 bf16 values a load
+  float4* dst[kWiden];
+  int n8[kWiden];             // values / 8
+};
+
+// dst[a] = f32(src[a]), exactly; blockIdx.y picks the array
+__global__ void widen_bf16(Widen w) {
+  const int a = blockIdx.y;
+  const uint4* src = w.src[a];
+  float4* dst = w.dst[a];
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < w.n8[a];
+       i += gridDim.x * blockDim.x) {
+    const uint4 u = src[i];
+    dst[2 * i] = make_float4(__uint_as_float(u.x << 16),
+                             __uint_as_float(u.x & 0xffff0000u),
+                             __uint_as_float(u.y << 16),
+                             __uint_as_float(u.y & 0xffff0000u));
+    dst[2 * i + 1] = make_float4(__uint_as_float(u.z << 16),
+                                 __uint_as_float(u.z & 0xffff0000u),
+                                 __uint_as_float(u.w << 16),
+                                 __uint_as_float(u.w & 0xffff0000u));
+  }
 }
 
 size_t bwd_floats(const Dims& D) {
@@ -476,8 +550,11 @@ hm::Drop site(const hm::Drop& base, int s) {
   return d;
 }
 
+// kBf16: bf16 products and attention operands (x and w the f32 images of
+// bf16 values), y in bf16 (Out)
+template <bool kBf16 = false, class Out = float>
 int forward(const float* x, const Weights& w, const Dims& D,
-            const hm::Drop& drop, float* y, const Fwd& f, cudaStream_t st) {
+            const hm::Drop& drop, Out* y, const Fwd& f, cudaStream_t st) {
   using tg::EpiArgs;
   using tg::E_BIAS;
   using tg::E_BIAS_RELU_DROP;
@@ -485,33 +562,33 @@ int forward(const float* x, const Weights& w, const Dims& D,
   const float scale = 1.0f / sqrtf(static_cast<float>(d / D.nh));
   const int rows_per_block = 8;
   const int row_blocks = (N + rows_per_block - 1) / rows_per_block;
-  tf3::gemm<false, false, E_BIAS>(
+  tf3::gemm<false, false, E_BIAS, kBf16>(
       x, w.wqkv, f.qkv, N, 3 * d, d, d, 3 * d,
       EpiArgs{w.bqkv, nullptr, nullptr, drop}, st);
   TG_CHECK();
   const size_t smem = attn_smem(D.T, d / D.nh);
-  const cudaError_t attr = attn_fwd_smem_attr(smem);
+  const cudaError_t attr = attn_fwd_smem_attr<kBf16>(smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  attn_fwd_kernel<<<(N / D.T) * D.nh, 128, smem, st>>>(f.qkv, f.att, D, scale,
-                                                       drop);
+  attn_fwd_kernel<kBf16><<<(N / D.T) * D.nh, 128, smem, st>>>(
+      f.qkv, f.att, D, scale, drop);
   TG_CHECK();
-  tf3::gemm<false, false, E_BIAS>(
+  tf3::gemm<false, false, E_BIAS, kBf16>(
       f.att, w.wo, f.pre, N, d, d, d, d,
       EpiArgs{w.bo, nullptr, nullptr, drop}, st);
   TG_CHECK();
-  ln_fwd_rows<<<row_blocks, 32 * rows_per_block, 0, st>>>(
+  ln_fwd_rows<float><<<row_blocks, 32 * rows_per_block, 0, st>>>(
       f.pre, x, w.g1, w.be1, site(drop, kSitePostAttn), N, d, f.y1, f.xhat1,
       f.rs1);
   TG_CHECK();
-  tf3::gemm<false, false, E_BIAS_RELU_DROP>(
+  tf3::gemm<false, false, E_BIAS_RELU_DROP, kBf16>(
       f.y1, w.wf1, f.f1, N, ff, d, d, ff,
       EpiArgs{w.bf1, nullptr, f.f1d, site(drop, kSiteFfMid)}, st);
   TG_CHECK();
-  tf3::gemm<false, false, E_BIAS>(
+  tf3::gemm<false, false, E_BIAS, kBf16>(
       f.f1d, w.wf2, f.pre2, N, d, ff, ff, d,
       EpiArgs{w.bf2, nullptr, nullptr, drop}, st);
   TG_CHECK();
-  ln_fwd_rows<<<row_blocks, 32 * rows_per_block, 0, st>>>(
+  ln_fwd_rows<Out><<<row_blocks, 32 * rows_per_block, 0, st>>>(
       f.pre2, f.y1, w.g2, w.be2, site(drop, kSitePostFf), N, d, y, f.xhat2,
       f.rs2);
   TG_CHECK();
@@ -532,20 +609,24 @@ bool dims_ok(int B, int T, int d, int ff, int nh, int bt) {
 }
 
 // K11 and K12 read 16 bytes at a time (train_mma.cuh's copies along a
-// row, the attention backward's head rows): d, ff and the head width
-// multiples of 4
-bool mma_dims_ok(int d, int ff, int nh) {
-  return d % 4 == 0 && ff % 4 == 0 && (d / nh) % 4 == 0;
+// row, the attention backward's head rows, widen_bf16's loads): d, ff and
+// the head width multiples of 4 values (f32), 8 (bf16)
+bool mma_dims_ok(int d, int ff, int nh, int per16 = 4) {
+  return d % per16 == 0 && ff % per16 == 0 && (d / nh) % per16 == 0;
 }
 
 }  // namespace
 
-// Floats of scratch that encoder_layer_fwd_launch (bwd = 0) or
-// encoder_layer_bwd_launch (bwd = 1) needs for N = B*T rows.
-extern "C" int encoder_layer_scratch(int N, int d, int ff, int bwd,
+// Floats of scratch that encoder_layer_fwd_launch (kind 0),
+// encoder_layer_bwd_launch (kind 1) or encoder_layer_fwd_bf16_launch (kind
+// 2) needs for N = B*T rows.
+extern "C" int encoder_layer_scratch(int N, int d, int ff, int kind,
                                      long long* floats) {
+  if (kind < 0 || kind > 2) return static_cast<int>(cudaErrorInvalidValue);
   const Dims D{N, 1, d, ff, 1, 1};
-  *floats = static_cast<long long>(fwd_floats(D) + (bwd ? bwd_floats(D) : 0));
+  *floats = static_cast<long long>(
+      fwd_floats(D) + (kind == 1 ? bwd_floats(D) : 0) +
+      (kind == 2 ? widen_floats(D) : 0));
   return 0;
 }
 
@@ -564,6 +645,48 @@ extern "C" int encoder_layer_fwd_launch(const void* x, const void* const* ws,
                  static_cast<float*>(y),
                  carve_fwd(static_cast<float*>(scratch), D),
                  static_cast<cudaStream_t>(stream));
+}
+
+// K11's bf16 variant: x, y and ws[0..7] bf16, ws[8..11] (LayerNorm) f32;
+// scratch: encoder_layer_scratch(kind 2) floats
+extern "C" int encoder_layer_fwd_bf16_launch(const void* x,
+                                             const void* const* ws, void* y,
+                                             void* scratch, int B, int T,
+                                             int d, int ff, int nh, int bt,
+                                             int seed, float p_keep,
+                                             float inv_keep, int use_drop,
+                                             void* stream) {
+  if (!dims_ok(B, T, d, ff, nh, bt) || !mma_dims_ok(d, ff, nh, 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dims D{B * T, T, d, ff, nh, bt * T};
+  const hm::Drop drop{use_drop, seed, 0, bt * T, p_keep, inv_keep};
+  float* s = static_cast<float*>(scratch);
+  const Fwd f = carve_fwd(s, D);
+  size_t n[kWiden];
+  widen_sizes(D, n);
+  Widen wd;
+  float* img[kWiden];
+  float* at = s + fwd_floats(D);
+  size_t most = 0;
+  for (int i = 0; i < kWiden; ++i) {
+    img[i] = at;
+    at += up4(n[i]);
+    wd.src[i] = static_cast<const uint4*>(i == 0 ? x : ws[i - 1]);
+    wd.dst[i] = reinterpret_cast<float4*>(img[i]);
+    wd.n8[i] = static_cast<int>(n[i] / 8);
+    if (n[i] > most) most = n[i];
+  }
+  const int blocks = static_cast<int>(
+      (most / 8 + 255) / 256 < 264 ? (most / 8 + 255) / 256 : 264);
+  widen_bf16<<<dim3(blocks, kWiden), 256, 0, st>>>(wd);
+  TG_CHECK();
+  const float* ln[4];
+  for (int i = 0; i < 4; ++i) ln[i] = static_cast<const float*>(ws[8 + i]);
+  const Weights w{img[1], img[2], img[3], img[4], img[5], img[6],
+                  img[7], img[8], ln[0], ln[1], ln[2], ln[3]};
+  return forward<true>(img[0], w, D, drop, static_cast<__nv_bfloat16*>(y), f,
+                       st);
 }
 
 // grads: the 12 gradients in the order of the weights, f32

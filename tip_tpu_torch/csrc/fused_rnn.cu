@@ -1,4 +1,4 @@
-// K1: fused tanh-RNN over time, f32.
+// K1: fused tanh-RNN over time, f32 or bf16.
 //
 // Replaces tip_tpu/ops/pallas_kernels.py::fused_rnn (Pallas kernel
 // _rnn_kernel): h_t = tanh(xin_t + h_{t-1} W_hh), h_{-1} = 0, for
@@ -21,6 +21,13 @@
 // W_hh from L2 or HBM after the first load. The launch plan (cluster,
 // columns a block, batch tile, clusters, shared bytes) comes from
 // ops/fused_rnn.py::fused_rnn_plan and is checked here.
+//
+// The bf16 variant (tip_tpu's kernel on bf16 inputs and weights) is the
+// same walk on bf16 storage: W's slice is 64 KB a block at H 512, xin is
+// read and h written as bf16, the sums stay f32, and each step rounds the
+// sum, the add of xin and the tanh to bf16 as tip_tpu does
+// (rnn_cluster.cuh's Io<__nv_bfloat16>). Its bound is the same latency:
+// halving W's slice changes no step's chain of dependent operations.
 
 #include "rnn_cluster.cuh"
 
@@ -28,15 +35,35 @@
 // (rnnc::walk_plan_ok): a cluster of 8 blocks of `cols` columns each,
 // `bt` batch rows a cluster, `clusters` clusters that cover the B rows
 // exactly, `smem` bytes of shared memory.
+template <class S>
+static int launch_walk(const void* xin, const void* w_hh, void* out, int B,
+                       int T, int H, int cluster, int cols, int bt,
+                       int clusters, long long smem, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0) return 0;
+  if (!rnnc::walk_plan_ok(B, H, cluster, cols, bt, clusters, smem,
+                          static_cast<int>(sizeof(S))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(rnnc::walk<false, S>(
+      static_cast<const S*>(xin), nullptr, static_cast<const S*>(w_hh),
+      static_cast<S*>(out), B, T, H, cols, bt, clusters, smem,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// xin, w_hh, out f32
 extern "C" int fused_rnn_launch(const void* xin, const void* w_hh, void* out,
                                 int B, int T, int H, int cluster, int cols,
                                 int bt, int clusters, long long smem,
                                 void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0) return 0;
-  if (!rnnc::walk_plan_ok(B, H, cluster, cols, bt, clusters, smem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(rnnc::walk<false>(
-      static_cast<const float*>(xin), nullptr,
-      static_cast<const float*>(w_hh), static_cast<float*>(out), B, T, H,
-      cols, bt, clusters, smem, static_cast<cudaStream_t>(stream)));
+  return launch_walk<float>(xin, w_hh, out, B, T, H, cluster, cols, bt,
+                            clusters, smem, stream);
+}
+
+// xin, w_hh, out bf16; `smem` counts W's slice at 2 bytes an entry
+extern "C" int fused_rnn_bf16_launch(const void* xin, const void* w_hh,
+                                     void* out, int B, int T, int H,
+                                     int cluster, int cols, int bt,
+                                     int clusters, long long smem,
+                                     void* stream) {
+  return launch_walk<__nv_bfloat16>(xin, w_hh, out, B, T, H, cluster, cols,
+                                    bt, clusters, smem, stream);
 }

@@ -28,10 +28,18 @@
 // barrier. The buffers alternate, so one barrier a step is enough. The
 // launch plan (cluster, columns a block, batch tile, clusters, shared
 // bytes) comes from ops/fused_rnn.py and is checked by walk_plan_ok.
+//
+// Storage: the inputs, W and the outputs are f32, or bf16 (K1's bf16
+// variant, forward only). In bf16, W's slice stays bf16 in shared memory
+// (half the bytes), the products are summed in f32 as in f32, and a step
+// rounds where tip_tpu's kernel does: the sum to bf16, the add of xin_t in
+// f32 to bf16, tanh (accurate tanhf) in f32 to bf16. The row buffers hold
+// the exact f32 image of the bf16 h_{t-1}.
 
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace rnnc {
@@ -48,22 +56,81 @@ __host__ __device__ constexpr int slice_depth(int H) {
   return ((H + kSplits - 1) / kSplits + 3) / 4 * 4;
 }
 
-__host__ __device__ constexpr size_t smem_bytes(int H, int cols, int bt) {
-  return sizeof(float) *
-         (static_cast<size_t>(kSplits) * slice_depth(H) * cols +
-          2 * static_cast<size_t>(bt) * kSplits * slice_depth(H) +
-          static_cast<size_t>(kSplits) * bt * cols);
+// W's slice (w_bytes an entry), then the two row buffers and the partial
+// sums (f32)
+__host__ __device__ constexpr size_t smem_bytes(int H, int cols, int bt,
+                                                int w_bytes = 4) {
+  return static_cast<size_t>(w_bytes) * kSplits * slice_depth(H) * cols +
+         sizeof(float) *
+             (2 * static_cast<size_t>(bt) * kSplits * slice_depth(H) +
+              static_cast<size_t>(kSplits) * bt * cols);
 }
 
+// What differs between the two storage types: 4 consecutive values to and
+// from f32, and the end of a forward step, h = tanh(xin + sum)
+template <class S>
+struct Io;
+
+template <>
+struct Io<float> {
+  static __device__ __forceinline__ float to_f(float v) { return v; }
+  static __device__ __forceinline__ float from_f(float v) { return v; }
+  static __device__ __forceinline__ float4 load4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  static __device__ __forceinline__ void store4(float* p, float4 v) {
+    *reinterpret_cast<float4*>(p) = v;
+  }
+  static __device__ __forceinline__ float step(float in, float sum) {
+    return tanhf(in + sum);
+  }
+};
+
+template <>
+struct Io<__nv_bfloat16> {
+  using S = __nv_bfloat16;
+  static __device__ __forceinline__ float to_f(S v) {
+    return __bfloat162float(v);
+  }
+  static __device__ __forceinline__ S from_f(float v) {
+    return __float2bfloat16_rn(v);
+  }
+  static __device__ __forceinline__ float rnd(float v) {   // to bf16, f32
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+  static __device__ __forceinline__ unsigned bits(float v) {
+    return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(v)));
+  }
+  static __device__ __forceinline__ float4 load4(const S* p) {   // 8 bytes
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    return make_float4(__uint_as_float(u.x << 16),
+                       __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16),
+                       __uint_as_float(u.y & 0xffff0000u));
+  }
+  static __device__ __forceinline__ void store4(S* p, float4 v) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(
+        bits(v.x) | (bits(v.y) << 16), bits(v.z) | (bits(v.w) << 16));
+  }
+  // tip_tpu's three roundings: the f32 sum, the add, the tanh
+  static __device__ __forceinline__ float step(float in, float sum) {
+    return rnd(tanhf(rnd(in + rnd(sum))));
+  }
+};
+
 // BT batch rows a cluster; C = cols / 32 columns a thread (lane, lane + 32).
-// kBack: in = g, hs = the hidden states, out = da; else in = xin, out = h
-template <int BT, int C, bool kBack>
+// kBack: in = g, hs = the hidden states, out = da; else in = xin, out = h.
+// S: the storage of in, hs, w and out (f32; bf16 forwards only)
+template <int BT, int C, bool kBack, class S>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
-walk_kernel(const float* __restrict__ in, const float* __restrict__ hs,
-            const float* __restrict__ w, float* __restrict__ out, int B,
-            int T, int H) {
+walk_kernel(const S* __restrict__ in, const S* __restrict__ hs,
+            const S* __restrict__ w, S* __restrict__ out, int B, int T,
+            int H) {
+  static_assert(!kBack || sizeof(S) == 4, "the backward walk is f32");
+  using IO = Io<S>;
   constexpr int cols = 32 * C;
   constexpr int quads = BT * cols / 4;   // float4 outputs of a block a step
+  constexpr int kVec = 16 / static_cast<int>(sizeof(S));   // a copy's values
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int b0 = (blockIdx.x / kCluster) * BT;
@@ -73,17 +140,18 @@ walk_kernel(const float* __restrict__ in, const float* __restrict__ hs,
   const int tid = threadIdx.x, lane = tid % 32, ks = tid / 32;
 
   extern __shared__ float4 sh4[];
-  float* Ws = reinterpret_cast<float*>(sh4);           // (ld, cols)
-  float* hbuf = Ws + static_cast<size_t>(ld) * cols;   // 2 x (BT, ld)
+  S* Ws = reinterpret_cast<S*>(sh4);                   // (ld, cols)
+  float* hbuf = reinterpret_cast<float*>(
+      Ws + static_cast<size_t>(ld) * cols);            // 2 x (BT, ld)
   float* red = hbuf + 2 * BT * ld;                     // (kSplits, BT, cols)
 
-  if (!kBack && H % 4 == 0 && col0 + cols <= H && ld == H) {
+  if (!kBack && H % kVec == 0 && col0 + cols <= H && ld == H) {
     // W's column slice, 16 bytes a copy
-    for (int e = tid; e < H * (cols / 4); e += kThreads) {
-      const int i = e / (cols / 4), q = e % (cols / 4);
-      const float* src = w + static_cast<size_t>(i) * H + col0 + 4 * q;
+    for (int e = tid; e < H * (cols / kVec); e += kThreads) {
+      const int i = e / (cols / kVec), q = e % (cols / kVec);
+      const S* src = w + static_cast<size_t>(i) * H + col0 + kVec * q;
       const unsigned dst = static_cast<unsigned>(
-          __cvta_generic_to_shared(Ws + i * cols + 4 * q));
+          __cvta_generic_to_shared(Ws + i * cols + kVec * q));
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
                    "l"(src));
     }
@@ -95,10 +163,10 @@ walk_kernel(const float* __restrict__ in, const float* __restrict__ hs,
     for (int e = tid; e < ld * cols; e += kThreads) {
       const int c = e % cols, i = e / cols;
       const int j = col0 + c;
-      float v = 0.0f;
+      S v = IO::from_f(0.0f);
       if (i < H && j < H)
-        v = kBack ? __ldg(w + static_cast<size_t>(j) * H + i)
-                  : __ldg(w + static_cast<size_t>(i) * H + j);
+        v = kBack ? w[static_cast<size_t>(j) * H + i]
+                  : w[static_cast<size_t>(i) * H + j];
       Ws[i * cols + c] = v;
     }
   }
@@ -113,9 +181,8 @@ walk_kernel(const float* __restrict__ in, const float* __restrict__ hs,
   const size_t o_at = static_cast<size_t>(orow) * T * H + col0 + oc;
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   auto t_of = [&](int s) { return kBack ? T - 1 - s : s; };
-  auto ld4 = [&](const float* p, int s) {
-    return *reinterpret_cast<const float4*>(p + o_at +
-                                            static_cast<size_t>(t_of(s)) * H);
+  auto ld4 = [&](const S* p, int s) {
+    return IO::load4(p + o_at + static_cast<size_t>(t_of(s)) * H);
   };
   float4 in_next = live ? ld4(in, 0) : zero;
   float4 h_next = kBack && live ? ld4(hs, 0) : zero;
@@ -148,7 +215,7 @@ walk_kernel(const float* __restrict__ in, const float* __restrict__ hs,
       for (int c = 0; c < C; ++c)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          wv[c][j] = Ws[(i + j) * cols + lane + 32 * c];
+          wv[c][j] = IO::to_f(Ws[(i + j) * cols + lane + 32 * c]);
 #pragma unroll
       for (int b = 0; b < BT; ++b) {
         const float4 h = *reinterpret_cast<const float4*>(hc + b * ld + i);
@@ -185,13 +252,11 @@ walk_kernel(const float* __restrict__ in, const float* __restrict__ hs,
                         (iv.z + sm.z) * (1.0f - hv.z * hv.z),
                         (iv.w + sm.w) * (1.0f - hv.w * hv.w));
       } else {
-        o = make_float4(tanhf(iv.x + sm.x), tanhf(iv.y + sm.y),
-                        tanhf(iv.z + sm.z), tanhf(iv.w + sm.w));
+        o = make_float4(IO::step(iv.x, sm.x), IO::step(iv.y, sm.y),
+                        IO::step(iv.z, sm.z), IO::step(iv.w, sm.w));
       }
       if (!live) o = zero;   // the padding past H stays 0
-      if (live)
-        *reinterpret_cast<float4*>(out + o_at +
-                                   static_cast<size_t>(t) * H) = o;
+      if (live) IO::store4(out + o_at + static_cast<size_t>(t) * H, o);
       float4* dst = reinterpret_cast<float4*>(hn + ob * ld + col0 + oc);
       if (col0 + oc < ld) {
 #pragma unroll
@@ -204,35 +269,34 @@ walk_kernel(const float* __restrict__ in, const float* __restrict__ hs,
   }
 }
 
-template <int BT, int C, bool kBack>
-cudaError_t launch(const float* in, const float* hs, const float* w,
-                   float* out, int B, int T, int H, int clusters, size_t smem,
-                   cudaStream_t st) {
+template <int BT, int C, bool kBack, class S>
+cudaError_t launch(const S* in, const S* hs, const S* w, S* out, int B,
+                   int T, int H, int clusters, size_t smem, cudaStream_t st) {
   // the attribute once per process and kernel: kMaxSmem covers every plan
   static const cudaError_t attr = cudaFuncSetAttribute(
-      walk_kernel<BT, C, kBack>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxSmem);
+      walk_kernel<BT, C, kBack, S>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return attr;
-  walk_kernel<BT, C, kBack><<<clusters * kCluster, kThreads, smem, st>>>(
+  walk_kernel<BT, C, kBack, S><<<clusters * kCluster, kThreads, smem, st>>>(
       in, hs, w, out, B, T, H);
   return cudaGetLastError();
 }
 
-template <int C, bool kBack>
-cudaError_t launch_tile(int bt, const float* in, const float* hs,
-                        const float* w, float* out, int B, int T, int H,
-                        int clusters, size_t smem, cudaStream_t st) {
+template <int C, bool kBack, class S>
+cudaError_t launch_tile(int bt, const S* in, const S* hs, const S* w,
+                        S* out, int B, int T, int H, int clusters,
+                        size_t smem, cudaStream_t st) {
   switch (bt) {
-    case 1: return launch<1, C, kBack>(in, hs, w, out, B, T, H, clusters,
-                                       smem, st);
-    case 2: return launch<2, C, kBack>(in, hs, w, out, B, T, H, clusters,
-                                       smem, st);
-    case 4: return launch<4, C, kBack>(in, hs, w, out, B, T, H, clusters,
-                                       smem, st);
-    case 8: return launch<8, C, kBack>(in, hs, w, out, B, T, H, clusters,
-                                       smem, st);
-    case 16: return launch<16, C, kBack>(in, hs, w, out, B, T, H, clusters,
-                                         smem, st);
+    case 1: return launch<1, C, kBack, S>(in, hs, w, out, B, T, H, clusters,
+                                          smem, st);
+    case 2: return launch<2, C, kBack, S>(in, hs, w, out, B, T, H, clusters,
+                                          smem, st);
+    case 4: return launch<4, C, kBack, S>(in, hs, w, out, B, T, H, clusters,
+                                          smem, st);
+    case 8: return launch<8, C, kBack, S>(in, hs, w, out, B, T, H, clusters,
+                                          smem, st);
+    case 16: return launch<16, C, kBack, S>(in, hs, w, out, B, T, H,
+                                            clusters, smem, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -240,30 +304,31 @@ cudaError_t launch_tile(int bt, const float* in, const float* hs,
 // A plan of ops/fused_rnn.py, checked: a cluster of 8 blocks of `cols`
 // columns each (32 or 64, the 8 blocks covering H, a multiple of 4), `bt`
 // batch rows a cluster (1, 2, 4, 8 or 16), `clusters` clusters that cover
-// the B rows exactly, `smem` bytes of shared memory.
+// the B rows exactly, `smem` bytes of shared memory for W stored `w_bytes`
+// bytes an entry.
 inline bool walk_plan_ok(int B, int H, int cluster, int cols, int bt,
-                         int clusters, long long smem) {
+                         int clusters, long long smem, int w_bytes = 4) {
   return cluster == kCluster && (cols == 32 || cols == 64) &&
          cols * kCluster >= H && (cols == 32 || cols * kCluster / 2 < H) &&
          H % 4 == 0 && (bt == 1 || bt == 2 || bt == 4 || bt == 8 ||
                         bt == 16) &&
          clusters > 0 && static_cast<long long>(clusters) * bt >= B &&
          static_cast<long long>(clusters - 1) * bt < B &&
-         smem == static_cast<long long>(smem_bytes(H, cols, bt)) &&
+         smem == static_cast<long long>(smem_bytes(H, cols, bt, w_bytes)) &&
          smem <= kMaxSmem;
 }
 
 // one walk by a checked plan
-template <bool kBack>
-cudaError_t walk(const float* in, const float* hs, const float* w,
-                 float* out, int B, int T, int H, int cols, int bt,
-                 int clusters, long long smem, cudaStream_t st) {
+template <bool kBack, class S = float>
+cudaError_t walk(const S* in, const S* hs, const S* w, S* out, int B, int T,
+                 int H, int cols, int bt, int clusters, long long smem,
+                 cudaStream_t st) {
   const size_t sm = static_cast<size_t>(smem);
   return cols == 64
-             ? launch_tile<2, kBack>(bt, in, hs, w, out, B, T, H, clusters,
-                                     sm, st)
-             : launch_tile<1, kBack>(bt, in, hs, w, out, B, T, H, clusters,
-                                     sm, st);
+             ? launch_tile<2, kBack, S>(bt, in, hs, w, out, B, T, H,
+                                        clusters, sm, st)
+             : launch_tile<1, kBack, S>(bt, in, hs, w, out, B, T, H,
+                                        clusters, sm, st);
 }
 
 }  // namespace rnnc

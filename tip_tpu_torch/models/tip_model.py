@@ -384,8 +384,11 @@ class TIPModel(nn.Module):
         layers go through K11 (``_encoder_layers``) unless
         ``cfg.encoder_impl`` is "plain" or a custom mask is given. With
         ``cfg.compute_dtype`` set, the parameters and both inputs are cast
-        to it, the forward runs there and the result comes back in the
-        inputs' dtype; else it runs in the parameters' dtype.
+        to it, the forward runs there (in bf16: K11's and K1's bf16
+        variants) and the result comes back in the inputs' dtype; else it
+        runs in the parameters' dtype. A bf16 forward with grad on and
+        parameters that require it raises: the bf16 backward is not
+        ported.
 
         Args:
           x_imu: (B, T, 72 or 90) IMU features (acc-sum appended if enabled).
@@ -407,6 +410,12 @@ class TIPModel(nn.Module):
         if self.cfg.compute_dtype is not None:
             cd = getattr(torch, self.cfg.compute_dtype)
             x_imu, x_s = x_imu.to(cd), x_s.to(cd)
+        if p["out.w"].dtype == torch.bfloat16 and torch.is_grad_enabled() \
+                and any(q.requires_grad for q in self.parameters()):
+            raise NotImplementedError(
+                "the bf16 forward with grad on: the bf16 backward of the RNN "
+                "head (K10) and of the encoder layer (K12) is not ported "
+                "(ROADMAP B1 (b)/(d)); run it under torch.no_grad()")
         x_s = torch.nan_to_num(x_s, nan=0.0)
         x_s = torch.cat([x_s[..., :108], torch.zeros_like(x_s[..., 108:111]),
                          x_s[..., 111:]], dim=-1)
@@ -442,15 +451,12 @@ class TIPModel(nn.Module):
         """The encoder as tip_tpu's inference forward runs it with
         ``encoder_impl="pallas"``: each layer through K11
         (``ops/encoder_train.py``) with dropout off and seed 0, batch tiles
-        of 8. With grad on and weights (or x) that require it, the
-        differentiable layer (K11 forward, K12 backward), as tip_tpu's
-        ``custom_vjp``; else K11 on detached weights packed once."""
+        of 8, in x's dtype (bf16 under ``compute_dtype="bfloat16"``, with
+        f32 LayerNorm vectors). With grad on and weights (or x) that
+        require it, the differentiable layer (K11 forward, K12 backward,
+        float32 only), as tip_tpu's ``custom_vjp``; else K11 on detached
+        weights packed once per dtype."""
         cfg = self.cfg
-        if x.dtype not in (torch.float32, torch.float64):
-            raise NotImplementedError(
-                f"the encoder layer kernel K11 takes float32 (its plain "
-                f"version float64 too); compute_dtype={cfg.compute_dtype!r} "
-                f"is not ported (ROADMAP B1): use encoder_impl='plain'")
         grad = torch.is_grad_enabled() and (
             x.requires_grad or any(w.requires_grad for w in p.values()))
         if grad:

@@ -10,7 +10,11 @@ forward, K12 (``encoder_layer_bwd``) the backward, both with 3xTF32
 products on the tensor cores (about f32's accuracy): K12 recomputes the
 forward from x (K11's launches), as tip_tpu's kernel does, and
 regenerates the four dropout sites' masks from the seed, so nothing but x
-is saved between them.
+is saved between them. K11 also takes bf16 x and matmul weights (f32
+LayerNorm vectors), as tip_tpu's kernel does: every product rounds both
+operands to bf16 (q k^T and p v too) and sums in f32, biases, LayerNorm,
+softmax and residuals stay f32 and y is written in bf16; the plain
+version rounds at the same places. The backward is float32 only.
 ``encoder_layer_train`` is the differentiable layer (a
 ``torch.autograd.Function``): K11 and K12 on CUDA tensors, the plain
 versions on CPU tensors.
@@ -42,13 +46,15 @@ TILE_SEED_STRIDE = 104729
 WEIGHT_NAMES = ("w_qkv", "b_qkv", "w_o", "b_o", "w_f1", "b_f1", "w_f2",
                 "b_f2", "ln1_s", "ln1_b", "ln2_s", "ln2_b")
 
+_FWD_ARGS = ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+              ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                ctypes.c_void_p])
 _SIG = {
     "encoder_layer_scratch": [ctypes.c_int] * 4
                              + [ctypes.POINTER(ctypes.c_longlong)],
-    "encoder_layer_fwd_launch": [ctypes.c_void_p, ctypes.POINTER(
-        ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p]
-        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float,
-                                ctypes.c_int, ctypes.c_void_p],
+    "encoder_layer_fwd_launch": _FWD_ARGS,
+    "encoder_layer_fwd_bf16_launch": _FWD_ARGS,
     "encoder_layer_bwd_launch": [ctypes.c_void_p, ctypes.c_void_p,
                                  ctypes.POINTER(ctypes.c_void_p),
                                  ctypes.c_void_p,
@@ -81,6 +87,15 @@ def _int32(v: int) -> int:
 
 def _compute_dtype(ws):
     return torch.float64 if ws[0].dtype == torch.float64 else torch.float32
+
+
+def _operand(ws):
+    """How a product's operands are read: with bf16 matmul weights both are
+    rounded to bf16 (their f32 image) and the product sums in f32, as
+    tip_tpu's ``dot`` casts them; else as they are."""
+    if ws[0].dtype == torch.bfloat16:
+        return lambda t: t.to(torch.bfloat16).float()
+    return lambda t: t
 
 
 class _Masks:
@@ -139,13 +154,15 @@ def _ln_bwd(dy, xhat, rs, s):
 def _fwd_math(x, ws, masks, n_heads):
     """The forward over x (B, T, d) in the compute dtype; returns y (B*T,
     d) and what the backward reuses."""
-    (w_qkv, b_qkv, w_o, b_o, w_f1, b_f1, w_f2, b_f2, g1, be1, g2, be2) = ws
+    op = _operand(ws)
+    f = x.dtype
+    (w_qkv, b_qkv, w_o, b_o, w_f1, b_f1, w_f2, b_f2, g1, be1, g2, be2) = (
+        w.to(f) for w in ws)
     B, T, d = x.shape
     hd = d // n_heads
-    f = x.dtype
     scale = 1.0 / math.sqrt(hd)          # rounded to x's dtype where used
     xf = x.reshape(B * T, d)
-    qkv = xf @ w_qkv + b_qkv
+    qkv = op(xf) @ w_qkv + b_qkv
 
     def heads(t):
         return t.reshape(B, T, n_heads, hd).transpose(1, 2)   # (B, h, T, hd)
@@ -153,19 +170,20 @@ def _fwd_math(x, ws, masks, n_heads):
     q, k, v = heads(qkv[:, :d]), heads(qkv[:, d:2 * d]), heads(qkv[:, 2 * d:])
     causal = torch.triu(torch.full((T, T), -1e30, dtype=f, device=x.device),
                         diagonal=1)
-    p_h = torch.softmax((q @ k.transpose(-1, -2)) * scale + causal, dim=-1)
+    p_h = torch.softmax((op(q) @ op(k).transpose(-1, -2)) * scale + causal,
+                        dim=-1)
     m_att = masks.attention(n_heads)
     pd = p_h * m_att if masks.on else p_h
-    att = (pd @ v).transpose(1, 2).reshape(B * T, d)
-    a = att @ w_o + b_o
+    att = (op(pd) @ op(v)).transpose(1, 2).reshape(B * T, d)
+    a = op(att) @ w_o + b_o
     if masks.on:
         a = a * masks.rows(SITE_POST_ATTN, d).reshape(B * T, d)
     y1, xhat1, rs1 = _ln_fwd(xf + a, g1, be1)
-    f1 = torch.clamp_min(y1 @ w_f1 + b_f1, 0.0)
+    f1 = torch.clamp_min(op(y1) @ w_f1 + b_f1, 0.0)
     f1d = f1
     if masks.on:
         f1d = f1 * masks.rows(SITE_FF_MID, w_f1.shape[1]).reshape(B * T, -1)
-    f2 = f1d @ w_f2 + b_f2
+    f2 = op(f1d) @ w_f2 + b_f2
     if masks.on:
         f2 = f2 * masks.rows(SITE_POST_FF, d).reshape(B * T, d)
     y2, xhat2, rs2 = _ln_fwd(y1 + f2, g2, be2)
@@ -250,26 +268,51 @@ def encoder_layer_bwd_plain(x, ws, seed, dy, n_heads: int, p: float,
             tuple(g.to(w.dtype) for g, w in zip(grads, ws)))
 
 
+def _check_dtypes(x, ws):
+    """x and the eight matmul weights and biases in one dtype, the four
+    LayerNorm vectors in float32 (float64 with a float64 x), as
+    ``pack_layer_weights`` packs them: a mixed call raises on either
+    route."""
+    ln = torch.float64 if x.dtype == torch.float64 else torch.float32
+    for i, (w, name) in enumerate(zip(ws, WEIGHT_NAMES)):
+        want = x.dtype if i < 8 else ln
+        if w.dtype != want:
+            raise TypeError(f"encoder_layer: {name} is {w.dtype} where x is "
+                            f"{x.dtype}; expected {want}")
+
+
+def _refuse_bf16(x):
+    if x.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "the encoder layer's backward (K12) in bf16 is not ported "
+            "(ROADMAP B1 (d)); train in float32")
+
+
 def _check(x, ws, n_heads, bt, extra=()):
-    """Check the layer's inputs. K11's and K12's tensor-core products and
-    K12's attention backward read 16 bytes at a time: d, ff and the head
-    width multiples of 4, aligned data."""
+    """Check the layer's inputs: x and the matmul weights float32 or (K11)
+    bfloat16, the LayerNorm vectors float32. K11's and K12's tensor-core
+    products and K12's attention backward read 16 bytes at a time: d, ff
+    and the head width multiples of 4 (8 in bf16), aligned data."""
     B, T, d = x.shape
     ff = ws[4].shape[1]
     shapes = ((d, 3 * d), (3 * d,), (d, d), (d,), (d, ff), (ff,), (ff, d),
               (d,), (d,), (d,), (d,), (d,))
-    K.check_input(x, "x", (B, T, d), torch.float32, x.device)
-    for w, name, shape in zip(ws, WEIGHT_NAMES, shapes):
-        K.check_input(w, name, shape, torch.float32, x.device)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x: dtype {x.dtype}, expected float32 or bfloat16")
+    K.check_input(x, "x", (B, T, d), x.dtype, x.device)
+    for i, (w, name, shape) in enumerate(zip(ws, WEIGHT_NAMES, shapes)):
+        K.check_input(w, name, shape, x.dtype if i < 8 else torch.float32,
+                      x.device)
     if d % n_heads or d > 1024:
         raise ValueError(f"encoder_layer: d={d} must be a multiple of "
                          f"n_heads={n_heads} and at most 1024")
-    if (d % 4 or ff % 4 or (d // n_heads) % 4 or any(
+    m = 16 // x.element_size()
+    if (d % m or ff % m or (d // n_heads) % m or any(
             t.data_ptr() % 16 for t in (x, *ws, *extra))):
         raise ValueError(f"encoder_layer: the tensor-core kernels take d, "
-                         f"ff and d / n_heads multiples of 4 (d={d}, "
-                         f"ff={ff}, n_heads={n_heads}) and 16-byte aligned "
-                         f"tensors")
+                         f"ff and d / n_heads multiples of {m} in "
+                         f"{x.dtype} (d={d}, ff={ff}, n_heads={n_heads}) "
+                         f"and 16-byte aligned tensors")
     return B, T, d, ff, pick_tile(B, bt, "encoder_layer_train")
 
 
@@ -280,14 +323,16 @@ def _drop_args(p, train):
             ctypes.c_float(np.float32(1.0 / pk)), int(on))
 
 
-_scratch_floats = {}          # (N, d, ff, bwd) -> floats, asked once
+# the scratch of each entry point (encoder_layer_scratch's kind)
+SCRATCH_FWD, SCRATCH_BWD, SCRATCH_FWD_BF16 = 0, 1, 2
+_scratch_floats = {}          # (N, d, ff, kind) -> floats, asked once
 
 
-def _scratch(so, N, d, ff, bwd, device):
-    key = (N, d, ff, bwd)
+def _scratch(so, N, d, ff, kind, device):
+    key = (N, d, ff, kind)
     if key not in _scratch_floats:
         n = ctypes.c_longlong()
-        K.check(so.encoder_layer_scratch(N, d, ff, bwd, ctypes.byref(n)),
+        K.check(so.encoder_layer_scratch(N, d, ff, kind, ctypes.byref(n)),
                 "encoder_layer_scratch")
         _scratch_floats[key] = n.value
     return torch.empty(_scratch_floats[key], dtype=torch.float32,
@@ -300,15 +345,18 @@ def _ptrs(ts):
 
 def _launch_fwd(x, ws, seed, n_heads, p, train, bt):
     B, T, d, ff, bt = _check(x, ws, n_heads, bt)
+    bf16 = x.dtype == torch.bfloat16
+    name = "encoder_layer_fwd_bf16" if bf16 else "encoder_layer_fwd"
     so = K.lib("encoder_train", _SIG)
-    scratch = _scratch(so, B * T, d, ff, 0, x.device)
+    scratch = _scratch(so, B * T, d, ff,
+                       SCRATCH_FWD_BF16 if bf16 else SCRATCH_FWD, x.device)
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = so.encoder_layer_fwd_launch(
+    err = getattr(so, f"{name}_launch")(
         x.data_ptr(), _ptrs(ws), y.data_ptr(), scratch.data_ptr(), B, T, d,
         ff, n_heads, bt, _int32(seed), *_drop_args(p, train), stream)
-    K.check(err, "encoder_layer_fwd")
-    K.launch_counts["encoder_layer_fwd"] += 1
+    K.check(err, name)
+    K.launch_counts[name] += 1
     return y
 
 
@@ -316,7 +364,7 @@ def _launch_bwd(x, ws, seed, dy, n_heads, p, train, bt):
     B, T, d, ff, bt = _check(x, ws, n_heads, bt, extra=(dy,))
     K.check_input(dy, "dy", (B, T, d), torch.float32, x.device)
     so = K.lib("encoder_train", _SIG)
-    scratch = _scratch(so, B * T, d, ff, 1, x.device)
+    scratch = _scratch(so, B * T, d, ff, SCRATCH_BWD, x.device)
     dx = torch.empty_like(x)
     grads = [torch.empty_like(w) for w in ws]
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -332,7 +380,10 @@ def _launch_bwd(x, ws, seed, dy, n_heads, p, train, bt):
 def encoder_layer_fwd(x, ws, seed, n_heads, p, train, bt=8, impl="auto"):
     """The layer's forward by ``impl``: "kernel" launches K11 (CUDA tensors
     only), "plain" runs ``encoder_layer_train_plain``, "auto" K11 for a CUDA
-    tensor and the plain version for a CPU one."""
+    tensor and the plain version for a CPU one. K11 takes x and the matmul
+    weights in float32 or bfloat16 (counted as ``encoder_layer_fwd`` and
+    ``encoder_layer_fwd_bf16``)."""
+    _check_dtypes(x, ws)
     if K.use_kernel(impl, x, "encoder_impl", "kernel"):
         return _launch_fwd(x, ws, seed, n_heads, p, train, bt)
     return encoder_layer_train_plain(x, ws, seed, n_heads, p, train, bt)
@@ -341,7 +392,10 @@ def encoder_layer_fwd(x, ws, seed, n_heads, p, train, bt=8, impl="auto"):
 def encoder_layer_bwd(x, ws, seed, dy, n_heads, p, train, bt=8,
                       impl="auto"):
     """The layer's backward by ``impl`` (K12 or ``encoder_layer_bwd_plain``,
-    chosen as ``encoder_layer_fwd`` chooses)."""
+    chosen as ``encoder_layer_fwd`` chooses). float32 (float64 plain)
+    only: bf16 raises."""
+    _refuse_bf16(x)
+    _check_dtypes(x, ws)
     if K.use_kernel(impl, x, "encoder_impl", "kernel"):
         return _launch_bwd(x, ws, seed, dy, n_heads, p, train, bt)
     return encoder_layer_bwd_plain(x, ws, seed, dy, n_heads, p, train, bt)
@@ -371,6 +425,8 @@ def encoder_layer_train(x, ws, seed, n_heads: int, p: float, train: bool,
     ``encoder_layer_train``): x (B, T, d), ws the 12-tuple of
     ``pack_layer_weights``, seed the int32 dropout seed of this layer call
     (ignored when ``train`` is False or p is 0). The seed gets no
-    gradient."""
+    gradient. float32 (float64 plain) only: bf16 raises, as its backward
+    would."""
+    _refuse_bf16(x)
     return _EncoderLayerTrain.apply(x, seed, n_heads, p, train, bt, impl,
                                     *ws)

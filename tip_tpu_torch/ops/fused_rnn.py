@@ -7,7 +7,9 @@ The RNN head is the one inherently sequential op of the model: each frame
 pays T=40 dependent (B, H) x (H, H) steps. Kernel K1
 (``csrc/fused_rnn.cu``) walks all T steps in one launch with W_hh resident
 in a thread-block cluster's shared memory (``fused_rnn_plan``);
-``fused_rnn_plain`` is the same function as a Python loop over T.
+``fused_rnn_plain`` is the same function as a Python loop over T. Both
+also run in bf16 (xin and W_hh bf16, f32 sums, each step rounded where
+tip_tpu's kernel rounds); the backward is float32 only.
 
 For training, ``fused_rnn_train`` is differentiable: its forward is K1, its
 backward the BPTT kernel K10 (``csrc/fused_rnn_bwd.cu``: K1's cluster walk
@@ -25,8 +27,11 @@ import torch
 
 from tip_tpu_torch.ops import _kernels as K
 
-_SIG = {"fused_rnn_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
-                            + [ctypes.c_longlong, ctypes.c_void_p]}
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_longlong,
+                                                      ctypes.c_void_p]
+_SIG = {"fused_rnn_launch": _ARGS, "fused_rnn_bf16_launch": _ARGS}
+# the entry point and the launch counter of each storage dtype
+_VARIANT = {torch.float32: "fused_rnn", torch.bfloat16: "fused_rnn_bf16"}
 _SIG_BWD = {"fused_rnn_bwd_launch": [ctypes.c_void_p] * 6
                                     + [ctypes.c_int] * 7
                                     + [ctypes.c_longlong, ctypes.c_int,
@@ -35,7 +40,12 @@ _SIG_BWD = {"fused_rnn_bwd_launch": [ctypes.c_void_p] * 6
 
 def fused_rnn_plain(xin, w_hh):
     """Plain PyTorch version: xin (B, T, H) with both biases folded in,
-    w_hh (H, H) stored (in, out). Returns the (B, T, H) hidden states."""
+    w_hh (H, H) stored (in, out). Returns the (B, T, H) hidden states.
+
+    In bf16 it rounds where tip_tpu's kernel does, three times a step:
+    the product h_{t-1} W_hh is summed in f32 and rounded to bf16, the add
+    of xin_t runs in f32 and is rounded to bf16, and tanh runs in f32 and
+    is rounded to bf16 (torch's bf16 matmul, add and tanh each do that)."""
     B, T, H = xin.shape
     h = xin.new_zeros((B, H))
     hs = []
@@ -68,33 +78,38 @@ class RNNPlan:
     smem_bytes: int          # shared memory of a block
 
 
-def _walk_plan(B: int, H: int, cols: int, name: str) -> RNNPlan:
-    """The walk's plan for B rows of width H, ``cols`` columns a block:
-    the depth padded to 8 slices of a multiple of 4 (rnn_cluster.cuh's
-    slice_depth); raises where W_hh's slice and the row buffers do not fit
-    in a block's shared memory."""
+def _walk_plan(B: int, H: int, cols: int, name: str,
+               w_bytes: int = 4) -> RNNPlan:
+    """The walk's plan for B rows of width H, ``cols`` columns a block of
+    W_hh stored ``w_bytes`` bytes an entry: the depth padded to 8 slices of
+    a multiple of 4 (rnn_cluster.cuh's slice_depth); raises where W_hh's
+    slice and the row buffers (f32) do not fit in a block's shared
+    memory."""
     want = -(-B // RNN_FULL_CLUSTERS)
     bt = next((t for t in RNN_TILES if t >= want), RNN_TILES[-1])
     slice_depth = -(-H // RNN_SPLITS)
     depth = RNN_SPLITS * (-(-slice_depth // 4) * 4)
-    smem = 4 * (depth * cols + 2 * bt * depth + RNN_SPLITS * bt * cols)
+    smem = (w_bytes * depth * cols
+            + 4 * (2 * bt * depth + RNN_SPLITS * bt * cols))
     if smem > MAX_SMEM:
         raise ValueError(f"{name}: H={H} needs {smem} bytes of shared "
                          f"memory a block, more than {MAX_SMEM}")
     return RNNPlan(RNN_CLUSTER, cols, bt, -(-B // bt), smem)
 
 
-def fused_rnn_plan(B: int, H: int) -> RNNPlan:
-    """K1's launch plan for B rows of width H: W_hh's columns split evenly
-    over the cluster, H/8 a multiple of 32. Raises where that does not hold
-    or does not fit (there is no other kernel to fall back to)."""
+def fused_rnn_plan(B: int, H: int, w_bytes: int = 4) -> RNNPlan:
+    """K1's launch plan for B rows of width H, W_hh stored ``w_bytes``
+    bytes an entry (4 f32, 2 bf16: the slice a block keeps is half as
+    large): W_hh's columns split evenly over the cluster, H/8 a multiple
+    of 32. Raises where that does not hold or does not fit (there is no
+    other kernel to fall back to)."""
     if B <= 0 or H <= 0:
         raise ValueError(f"fused_rnn: B={B}, H={H}")
     cols = H // RNN_CLUSTER
     if H % RNN_CLUSTER or cols % 32 or H % (4 * RNN_SPLITS):
         raise ValueError(f"fused_rnn: H={H} does not split into "
                          f"{RNN_CLUSTER} blocks of a multiple of 32 columns")
-    return _walk_plan(B, H, cols, "fused_rnn")
+    return _walk_plan(B, H, cols, "fused_rnn", w_bytes)
 
 
 # dW's product (csrc/train_mma.cuh's tiles): 128 rows x 64 columns a block
@@ -135,26 +150,36 @@ def fused_rnn_bwd_plan(B: int, T: int, H: int) -> RNNBwdPlan:
 
 
 def _launch(xin, w_hh):
+    """K1 in xin's dtype, float32 or bfloat16 (W_hh in the same)."""
     B, T, H = xin.shape
-    K.check_input(xin, "xin", (B, T, H), torch.float32, xin.device)
-    K.check_input(w_hh, "w_hh", (H, H), torch.float32, xin.device)
-    plan = fused_rnn_plan(B, H)
+    name = _VARIANT.get(xin.dtype)
+    if name is None:
+        raise TypeError(f"xin: dtype {xin.dtype}, expected float32 or "
+                        f"bfloat16")
+    K.check_input(xin, "xin", (B, T, H), xin.dtype, xin.device)
+    K.check_input(w_hh, "w_hh", (H, H), xin.dtype, xin.device)
+    plan = fused_rnn_plan(B, H, xin.element_size())
     out = torch.empty_like(xin)
     so = K.lib("fused_rnn", _SIG)
     stream = torch.cuda.current_stream(xin.device).cuda_stream
-    err = so.fused_rnn_launch(xin.data_ptr(), w_hh.data_ptr(), out.data_ptr(),
-                              B, T, H, plan.cluster, plan.cols,
-                              plan.batch_tile, plan.clusters,
-                              plan.smem_bytes, stream)
-    K.check(err, "fused_rnn")
-    K.launch_counts["fused_rnn"] += 1
+    err = getattr(so, f"{name}_launch")(
+        xin.data_ptr(), w_hh.data_ptr(), out.data_ptr(), B, T, H,
+        plan.cluster, plan.cols, plan.batch_tile, plan.clusters,
+        plan.smem_bytes, stream)
+    K.check(err, name)
+    K.launch_counts[name] += 1
     return out
 
 
 def fused_rnn(xin, w_hh, impl: str = "auto"):
     """The RNN head by ``impl``: "kernel" launches K1 (CUDA tensors only),
     "plain" runs ``fused_rnn_plain``, "auto" launches K1 for a CUDA tensor
-    and runs the plain version for a CPU tensor."""
+    and runs the plain version for a CPU tensor. K1 takes float32 or
+    bfloat16 (xin and W_hh alike; counted as ``fused_rnn`` and
+    ``fused_rnn_bf16``)."""
+    if xin.dtype != w_hh.dtype:
+        raise TypeError(f"fused_rnn: xin is {xin.dtype}, w_hh {w_hh.dtype}; "
+                        f"both float32 or both bfloat16")
     if K.use_kernel(impl, xin, "rnn_impl", "kernel"):
         return _launch(xin, w_hh)
     return fused_rnn_plain(xin, w_hh)
@@ -203,10 +228,19 @@ def _launch_bwd(hs, w_hh, g):
     return dx, dw
 
 
+def _refuse_bf16(*ts):
+    if any(t.dtype == torch.bfloat16 for t in ts):
+        raise NotImplementedError(
+            "the RNN head's backward (K10) in bf16 is not ported (ROADMAP "
+            "B1 (b)); train in float32")
+
+
 def fused_rnn_bwd(hs, w_hh, g, impl: str = "auto"):
     """The RNN head's backward by ``impl``, as ``fused_rnn``: "kernel"
     launches K10 (CUDA tensors only), "plain" runs ``fused_rnn_bwd_plain``,
-    "auto" K10 for a CUDA tensor and the plain version for a CPU one."""
+    "auto" K10 for a CUDA tensor and the plain version for a CPU one.
+    float32 (float64 plain) only: bf16 raises."""
+    _refuse_bf16(hs, w_hh, g)
     if K.use_kernel(impl, hs, "rnn_impl", "kernel"):
         return _launch_bwd(hs, w_hh, g)
     return fused_rnn_bwd_plain(hs, w_hh, g)
@@ -232,5 +266,7 @@ class _FusedRNNTrain(torch.autograd.Function):
 def fused_rnn_train(xin, w_hh, impl: str = "auto"):
     """Differentiable fused tanh-RNN (twin of tip_tpu's ``fused_rnn_train``):
     forward K1, backward K10 on CUDA tensors, the plain versions on CPU
-    tensors (``impl`` as ``fused_rnn``). Saves only the hidden states."""
+    tensors (``impl`` as ``fused_rnn``). Saves only the hidden states.
+    float32 (float64 plain) only: bf16 raises, as its backward would."""
+    _refuse_bf16(xin, w_hh)
     return _FusedRNNTrain.apply(xin, w_hh, impl)
