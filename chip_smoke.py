@@ -24,9 +24,14 @@ Phases, in order; any failure exits non-zero:
      also on a skeleton that lists children before their parents, with a
      fixed joint inside a chain, and on chains deeper than a pass of their
      walk (11 and 19 joints); K2 also at filter lengths 17 and 20; the
-     bf16 variants of K1 (at K1's batch sizes, beside cuDNN's RNN in bf16)
-     and K11 (at B 1, 64 and 256, p 0 and 0.1, beside
-     TransformerEncoderLayer in bf16) against their bf16 plain versions;
+     bf16 variants of K1 (at K1's batch sizes, beside cuDNN's RNN in bf16),
+     K11 (at B 1, 64 and 256, p 0 and 0.1, beside TransformerEncoderLayer
+     in bf16), K10 (at B 1, 3, 64 and 256, beside cuDNN's bf16 RNN
+     backward) and K12 (at B 1, 64 and 256, p 0 and 0.1, beside
+     TransformerEncoderLayer bf16's autograd) against their bf16 plain
+     versions, each also by its share of entries off the plain version
+     against controls that round elsewhere (K1 and K10 step by step, K12
+     stage by stage);
   4. run the main paths: the full-width model (ModelConfig() defaults,
      random weights from a seeded generator) in the streaming runner over
      the in-tree 720-frame motion, each path with every launch counter
@@ -100,9 +105,18 @@ Phases, in order; any failure exits non-zero:
           and profiled;
           held against a float64 step on the CPU and, ten steps, against
        M  the same training with the plain versions on the card;
+       L-bf16  L with compute_dtype="bfloat16" (cli/train --bf16): one
+          launch of K1 bf16 and K10 bf16 and four of K11 bf16 and K12 bf16
+          a step, no f32 K1, K10, K11 or K12; the parameters, moments and
+          checkpoint float32; the restored model's forward with grad on
+          equal to no_grad's, and its backward; the step timed and
+          profiled; held against the plain versions' bf16 step on the CPU
+          and, ten steps, against
+       M-bf16  the same bf16 training with the plain versions on the card;
      (K10, K11, K12 are held against their plain versions in phase 3);
-  7. print one {"kernels": [...]} line (fourteen entries: K1-K12 and the
-     bf16 variants of K1 and K11), then the {"ok": true, ...} line.
+  7. print one {"kernels": [...]} line (sixteen entries: K1-K12 and the
+     bf16 variants of K1, K10, K11 and K12), then the {"ok": true, ...}
+     line.
 """
 
 import dataclasses
@@ -162,8 +176,18 @@ TOL_RNN_BF16 = 4 * 2.0 ** -8
 # controls, not held: where it rounds is its own. On an H100 80GB HBM3
 # the kernels read 2.4e-5 to 3.8e-5 (K1) and 6.0e-3 to 1.02e-2 (K11), the
 # controls at least 0.150 and 0.295; each limit lies near the geometric
-# middle of the kernel's highest reading and the controls' lowest
-ROUND_SHARE = {"fused_rnn_bf16": 2e-3, "encoder_layer_fwd_bf16": 5e-2}
+# middle of the kernel's highest reading and the controls' lowest. The bf16
+# backwards are held the same way, each step or stage against the plain
+# version's from the kernel's own inputs to it: K10 step by step (dx_t from
+# its own dx_{t+1}, dW from its own dx: rnn_bwd_steps_plain), K12 stage by
+# stage (each product from its own activations in its scratch:
+# k12_stages_plain); end to end a flip is carried on through the later
+# roundings (K12: 0.128 of dx's and the gradients' entries). On an H100
+# 80GB HBM3 K10 bf16 read 8.7e-5 and its controls at least 0.031 (dW
+# rounded per split), K12 bf16 1.3e-4 and its controls at least 0.153
+# (the attention backward's operands unrounded)
+ROUND_SHARE = {"fused_rnn_bf16": 2e-3, "encoder_layer_fwd_bf16": 5e-2,
+               "fused_rnn_bwd_bf16": 2e-3, "encoder_layer_bwd_bf16": 5e-3}
 ROUND_READ_ONLY = ("cudnn_bf16", "library_bf16")
 # the bf16 yardsticks (cuDNN's RNN, TransformerEncoderLayer) round at other
 # places than tip_tpu's kernels; they are held only to be the same
@@ -203,7 +227,8 @@ KERNELS = ("fused_rnn", "decode_fused", "tail_fused", "fused_forward_last",
            "fused_forward", "fk_bullet_fused", "fused_cached_forward_step",
            "fused_cached_batch", "fused_recompute_batch", "fused_rnn_bwd",
            "encoder_layer_fwd", "encoder_layer_bwd", "fused_rnn_bf16",
-           "encoder_layer_fwd_bf16")
+           "encoder_layer_fwd_bf16", "fused_rnn_bwd_bf16",
+           "encoder_layer_bwd_bf16")
 
 # the pool paths: capacity, ticks, and who sits where. Slots 0-59 hold the
 # 60 motions from tick 0; slots 60-63 join later with motions reused from
@@ -2403,6 +2428,21 @@ TOL_F64_GRAD_FRO = 1e-2
 # path L against path M (plain versions on the card) step by step
 LM_STEPS = 10
 TOL_LM_LOSS = 1e-3
+# path L-bf16 against the plain versions' bf16 step on the CPU (B 16,
+# TRAIN_BF16_DRAWS draws): the two runs round the same operands to bf16 but
+# sum in another order, and a value at a bf16 rounding boundary moves by a
+# bf16 step (2^-8 of it) and is carried on through the layers
+# (tests/test_torch_bf16_train.py against tip_tpu on the CPU: gradients
+# 2.5e-2 of their largest entry). On an H100 80GB HBM3: loss 5.6e-5
+# relative, gradients 2.4e-2 to 4.1e-2 of their largest entry and 2.4e-2
+# to 2.7e-2 of their norm, b_k 8e-7 of the largest entry of all. Against
+# path M-bf16 over LM_STEPS steps the loss is held to TOL_LM_LOSS (4.2e-5
+# measured)
+TRAIN_BF16_DRAWS = 3
+TOL_CPU_BF16_LOSS = 1e-2
+TOL_CPU_BF16_GRAD = 5e-2
+TOL_CPU_BF16_GRAD_FRO = 5e-2
+TOL_CPU_BF16_B_K = 1e-3
 # the ReLU of the encoder's feed-forward: where a pre-activation lies
 # within f32 rounding (~1e-7) of 0, two f32 runs that sum in another order
 # can take the two sides of the kink, and its derivative flips from 0 to 1
@@ -2420,11 +2460,12 @@ def rel_err(a, b):
             / b.double().abs().max().clamp_min(1e-30)).item()
 
 
-def rnn_bwd_work(B, T, H):
-    """Compulsory bytes (hs, g, W in; dxin, dW out) and operations of K10:
-    the recurrence da_{t+1} W^T for t < T-1 and the tanh' update per
-    entry, and dW over the steps t >= 1 (h_{-1} = 0)."""
-    nbytes = 4 * (3 * B * T * H + 2 * H * H)
+def rnn_bwd_work(B, T, H, itemsize=4):
+    """Compulsory bytes (hs, g, W in; dxin, dW out; itemsize bytes an
+    entry) and operations of K10: the recurrence da_{t+1} W^T for t < T-1
+    and the tanh' update per entry, and dW over the steps t >= 1 (h_{-1} =
+    0)."""
+    nbytes = itemsize * (3 * B * T * H + 2 * H * H)
     ops = 2 * B * (T - 1) * H * H + 4 * B * T * H + 2 * B * (T - 1) * H * H
     return nbytes, ops
 
@@ -2449,7 +2490,7 @@ def library_rnn_bwd(w, x, g, dev):
     return fwd_bwd, fwd, (dx, dw_t.T)
 
 
-def check_fused_rnn_bwd(dev, gen):
+def check_fused_rnn_bwd_f32(dev, gen):
     """K10 against its plain version at (3, 7, 40) and at path L's (256,
     40, 512), two calls bit-equal; timed at path L's shape, split by
     kernel, beside cuDNN's RNN backward (library_rnn_bwd) on hidden states
@@ -2524,9 +2565,10 @@ def encoder_layer_work(B, T, d, ff, nh, backward, itemsize=4):
     """Compulsory bytes and operations of K11 (x, 12 weights in, y out; x,
     y and the 8 matmul weights and biases itemsize bytes an entry, the
     LayerNorm vectors 4) or K12 (x, dy, 12 weights in, dx and 12 gradients
-    out; the forward it recomputes plus twice the products, the attention
-    backward with 4 products per causal entry and 8 more per LayerNorm
-    element)."""
+    out, itemsize bytes an entry but the LayerNorm vectors' and their
+    gradients' 4; the forward it recomputes plus twice the products, the
+    attention backward with 4 products per causal entry and 8 more per
+    LayerNorm element)."""
     n_w = 3 * d * d + 3 * d + d * d + d + 2 * d * ff + ff + d + 4 * d
     N = B * T
     if not backward:
@@ -2536,7 +2578,7 @@ def encoder_layer_work(B, T, d, ff, nh, backward, itemsize=4):
     ops = (encoder_layer_ops(B, T, d, ff, nh)
            + 4 * N * d * (3 * d + d + 2 * ff) + B * (8 * d + 4 * nh) * causal
            + 16 * N * d)
-    return 4 * (3 * N * d + 2 * n_w), ops
+    return itemsize * (3 * N * d + 2 * (n_w - 4 * d)) + 4 * 2 * 4 * d, ops
 
 
 def library_encoder_layer(ws, n_heads, dev):
@@ -2825,6 +2867,450 @@ def check_encoder_fwd_bf16(dev, gen, model):
                 rounding=rounding, **own, variants=variants[1:])
 
 
+# ---------------------------------------------------------------------------
+# bf16 training: the bf16 variants of K10 and K12, paths L-bf16 and M-bf16
+# ---------------------------------------------------------------------------
+
+# K10 and K12 in bf16 against their plain versions in bf16, relative to
+# each output's largest entry: both round the same operands to bf16 and sum
+# in f32, but in another order, so a value that ends at a bf16 rounding
+# boundary rounds the other way and moves by a bf16 step (2^-8 of it); the
+# recurrence (K10) and the chain of products (K12) carry such a step on
+# into later roundings. Held within 2^-6 of the largest entry
+TOL_RNN_BWD_BF16 = 2.0 ** -6
+TOL_ENC_BWD_BF16 = 2.0 ** -6
+RNN_BWD_BF16_B = (1, 3, 64, 256)     # one stream, a partial tile, 64, L's
+ENC_BWD_BF16_B = (1, 64, 256)
+
+
+def rnn_bwd_steps_plain(hs, w, g, dx):
+    """K10 bf16's plain version step by step from the kernel's own output:
+    each dx_t from dx_{t+1} in place of the plain version's own (dx_t =
+    bf16((g_t + dx_{t+1} W^T)(1 - h_t^2)) in f32, dx_T = 0), and dW =
+    bf16(sum over t of h_{t-1}^T dx_t) summed in f32 from that dx: what
+    K10 rounds, without the flips the recurrence would carry on."""
+    f = torch.float32
+    B, T, H = hs.shape
+    h = hs.to(f)
+    nxt = torch.cat([dx[:, 1:], torch.zeros_like(dx[:, :1])], dim=1).to(f)
+    steps = ((g.to(f) + nxt @ w.to(f).T) * (1.0 - h * h)).to(dx.dtype)
+    prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    dw = prev.reshape(-1, H).T @ dx.to(f).reshape(-1, H)
+    return steps, dw.to(w.dtype)
+
+
+def rnn_bwd_da_unrounded(hs, w, g):
+    """Control: K10 bf16's recurrence with da carried into the next step's
+    product and into dW in f32 (its rounding to bf16 left out; dx is still
+    written in bf16)."""
+    f = torch.float32
+    B, T, H = hs.shape
+    wt = w.to(f).T
+    da = hs.new_zeros((B, H), dtype=f)
+    dw = hs.new_zeros((H, H), dtype=f)
+    dx = torch.empty_like(hs)
+    for t in range(T - 1, -1, -1):
+        h_t = hs[:, t].to(f)
+        da = (g[:, t].to(f) + da @ wt) * (1.0 - h_t * h_t)
+        dx[:, t] = da
+        if t > 0:
+            dw = dw + hs[:, t - 1].to(f).T @ da
+    return dx, dw.to(w.dtype)
+
+
+def rnn_bwd_dw_split_rounded(hs, dx, plan):
+    """Control: dW from dx with each of the plan's split partial products
+    rounded to bf16 before they are added."""
+    f = torch.float32
+    H = hs.shape[2]
+    h = hs.to(f)
+    prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]],
+                     dim=1).reshape(-1, H)
+    d = dx.to(f).reshape(-1, H)
+    dw = torch.zeros((H, H), dtype=f, device=hs.device)
+    for s in range(plan.dw_splits):
+        r = slice(s * plan.dw_rows, (s + 1) * plan.dw_rows)
+        dw = dw + (prev[r].T @ d[r]).to(torch.bfloat16).to(f)
+    return dw.to(torch.bfloat16)
+
+
+def hold_rnn_bwd_steps(share, hs, w, g, dx, dw):
+    """Add K10 bf16's (or a control's) dx and dW to share against the plain
+    version's steps from its own dx (rnn_bwd_steps_plain)."""
+    steps, dw_plain = rnn_bwd_steps_plain(hs, w, g, dx)
+    share.add(dx, steps)
+    share.add(dw, dw_plain)
+
+
+def check_fused_rnn_bwd(dev, gen, dtype=torch.float32):
+    """K10 in dtype: float32 (check_fused_rnn_bwd_f32) or its bf16 variant
+    (check_fused_rnn_bwd_bf16)."""
+    if dtype == torch.bfloat16:
+        return check_fused_rnn_bwd_bf16(dev, gen)
+    return check_fused_rnn_bwd_f32(dev, gen)
+
+
+def check_fused_rnn_bwd_bf16(dev, gen):
+    """K10's bf16 variant against its bf16 plain version at (B, 40, 512)
+    for B in RNN_BWD_BF16_B on hidden states that K1 bf16 gives, two calls
+    bit-equal; its share of dx and dW entries off the plain version step by
+    step (rnn_bwd_steps_plain) against controls that round elsewhere
+    (check_rounding) and cuDNN's bf16 RNN backward (read only); timed at
+    RNN_TIMED_B beside cuDNN's bf16 backward (forward + backward less
+    forward), by kernel at B 256. The entry's own numbers are B 256's (path
+    L-bf16's shape), the other Bs are its variants."""
+    from tip_tpu_torch.ops import fused_rnn as FR
+    bf = torch.bfloat16
+    name = "fused_rnn_bwd_bf16"
+    H, T = 512, 40
+    w = ((torch.rand(H, H, generator=gen, device=dev) * 2 - 1)
+         / math.sqrt(H)).to(bf)
+    errs, share, controls, inputs = {}, OffShare(), {}, {}
+    for B in RNN_BWD_BF16_B:
+        xin = (torch.randn(B, T, H, generator=gen, device=dev) * 0.5).to(bf)
+        hs = FR.fused_rnn(xin, w, impl="kernel")
+        g = torch.randn(B, T, H, generator=gen, device=dev).to(bf)
+        dx, dw = FR.fused_rnn_bwd(hs, w, g, impl="kernel")
+        dx2, dw2 = FR.fused_rnn_bwd(hs, w, g, impl="kernel")
+        if (dx.dtype, dw.dtype) != (bf, bf) or not (
+                torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+            raise AssertionError(f"{name} B {B}: two calls differ, or the "
+                                 f"outputs are {dx.dtype}, {dw.dtype}")
+        rx, rw = FR.fused_rnn_bwd_plain(hs, w, g)
+        errs[f"dx_B{B}"] = (rel_err(dx, rx), TOL_RNN_BWD_BF16)
+        errs[f"dw_B{B}"] = (rel_err(dw, rw), TOL_RNN_BWD_BF16)
+        hold_rnn_bwd_steps(share, hs, w, g, dx, dw)
+        fx, fw = FR.fused_rnn_bwd(hs.float(), w.float(), g.float(),
+                                  impl="kernel")
+        ctl = {"da_unrounded": rnn_bwd_da_unrounded(hs, w, g),
+               "f32_kernel_widened": (fx.to(bf), fw.to(bf))}
+        plan = FR.fused_rnn_bwd_plan(B, T, H, 2)
+        if plan.dw_splits > 1:
+            ctl["dw_split_rounded"] = (dx, rnn_bwd_dw_split_rounded(
+                hs, dx, plan))
+        x_lib = (torch.randn(B, T, H, generator=gen, device=dev) * 0.5).to(bf)
+        _, lib_f, (lx, lw) = library_rnn_bwd(w, x_lib, g, dev)
+        with torch.no_grad():
+            hs_lib = lib_f()
+        hold_rnn_bwd_steps(controls.setdefault("cudnn_bf16", OffShare()),
+                           hs_lib, w, g, lx, lw)
+        for c, (cx, cw) in ctl.items():
+            hold_rnn_bwd_steps(controls.setdefault(c, OffShare()), hs, w, g,
+                               cx, cw)
+        inputs[B] = (hs, g, x_lib)
+    err = check(name, errs)
+    log(f"  {name} vs plain: {errs}")
+    rounding = check_rounding(name, share, controls)
+    variants = []
+    for B in RNN_TIMED_B:
+        hs, g, x_lib = inputs[B]
+        lib_fb, lib_f, lib_out = library_rnn_bwd(w, x_lib, g, dev)
+        with torch.no_grad():
+            hs_lib = lib_f()
+        lib_err = max(rel_err(a, b) for a, b in zip(
+            lib_out, FR.fused_rnn_bwd_plain(hs_lib, w, g)))
+        if not lib_err <= TOL_LIB_BF16:
+            raise AssertionError(f"cuDNN's bf16 RNN backward yardstick "
+                                 f"disagrees at B {B}: {lib_err:.3g}")
+        t = timings(lambda hs=hs, g=g: FR.fused_rnn_bwd(hs, w, g,
+                                                        impl="kernel"),
+                    lambda hs=hs, g=g: FR.fused_rnn_bwd_plain(hs, w, g),
+                    light=True)
+        fb = timings(lib_fb, lib_f, light=True)
+        t.update(library_ms=fb["ms"] - fb["plain_ms"],
+                 library_call_ms=fb["call_ms"] - fb["plain_call_ms"],
+                 library_fwd_bwd_ms=fb["ms"], library_fwd_ms=fb["plain_ms"])
+        if B == RNN_BWD_BF16_B[-1]:
+            t["by_kernel"] = kernel_breakdown(
+                lambda: FR.fused_rnn_bwd(hs, w, g, impl="kernel"))
+            log(f"  K10 bf16 B {B} by kernel: {json.dumps(t['by_kernel'])}")
+        b_ms, b_by = bound(*rnn_bwd_work(B, T, H, 2), PEAK_BF16_FLOP_S)
+        variants.append(dict(
+            B=B, bound_ms=b_ms, bound_by=b_by, library_err=lib_err,
+            plan=dataclasses.asdict(FR.fused_rnn_bwd_plan(B, T, H, 2)), **t))
+        log(f"  {name} B {B}: device {t['ms']:.4f} ms (eager "
+            f"{t['call_ms']:.4f}), cuDNN backward {t['library_ms']:.4f} "
+            f"(rel err {lib_err:.3g}), plain {t['plain_ms']:.4f}, bound "
+            f"{b_ms:.2e} ({b_by})")
+    own = {k: v for k, v in variants[-1].items() if k != "B"}
+    return dict(name=name, route="cuda",
+                source="tip_tpu_torch/csrc/fused_rnn_bwd.cu",
+                replaces="tip_tpu/ops/pallas_kernels.py:148",
+                shape=[RNN_TIMED_B[-1], T, H], dtype="bfloat16",
+                max_abs_err=err, tol=TOL_RNN_BWD_BF16,
+                err_is="relative to the largest entry",
+                library="cuDNN nn.RNN backward in bf16 (to x and W_hh; it "
+                        "also forms dW_ih), forward + backward less forward",
+                rounding_step_by_step=rounding, **own,
+                variants=variants[:-1])
+
+
+def k12_scratch_views(buf, B, T, d, ff, bf16):
+    """K12's activations and gradients in the scratch it ran in, as views:
+    csrc/encoder_train.cu's carve_fwd and carve_bwd (N = B T rows each)
+    and, for the bf16 variant, at the scratch's end the widened inputs and
+    the f32 dx and matmul-weight and bias gradients before their rounding
+    (img_*, dx, g_*)."""
+    N = B * T
+
+    def up4(n):
+        return -(-n // 4) * 4
+
+    views, at = {}, 0
+
+    def take(name, shape, pad=False):
+        nonlocal at
+        n = math.prod(shape)
+        views[name] = buf[at:at + n].view(shape)
+        at += up4(n) if pad else n
+
+    for name, cols in (("qkv", 3 * d), ("att", d), ("pre", d), ("y1", d),
+                       ("xhat1", d), ("f1", ff), ("f1d", ff), ("pre2", d),
+                       ("xhat2", d)):
+        take(name, (N, cols))
+    take("rs1", (N, 1), pad=True)
+    take("rs2", (N, 1), pad=True)
+    for name, cols in (("y", d), ("dr2", d), ("df2", d), ("dh1", ff),
+                       ("dy1", d), ("dr1", d), ("da", d), ("datt", d),
+                       ("dqkv", 3 * d)):
+        take(name, (N, cols))
+    if not bf16:
+        return views
+    shapes = ((N, d), (d, 3 * d), (3 * d,), (d, d), (d,), (d, ff), (ff,),
+              (ff, d), (d,))
+    names = ("x", "w_qkv", "b_qkv", "w_o", "b_o", "w_f1", "b_f1", "w_f2",
+             "b_f2")
+    at = buf.numel() - 2 * sum(up4(math.prod(s)) for s in shapes) - up4(N * d)
+    for name, shape in zip(names, shapes):
+        take("img_" + name, shape, pad=True)
+    take("img_dy", (N, d), pad=True)
+    take("dx", (N, d), pad=True)
+    for name, shape in zip(names[1:], shapes[1:]):
+        take("g_" + name, shape, pad=True)
+    return views
+
+
+def attention_bwd_plain(qkv, datt, masks, n_heads, B, T, rnd, rnd_ops):
+    """The attention backward of K12's plain version from qkv and datt (N,
+    ·): the probabilities from rnd(q) rnd(k)^T as the forward forms them,
+    the four products' operands through rnd_ops. dqkv (N, 3 d)."""
+    from tip_tpu_torch.ops import encoder_train as ET
+    d = datt.shape[1]
+    hd = d // n_heads
+
+    def heads(t):
+        return t.reshape(B, T, n_heads, hd).transpose(1, 2)
+
+    def flat(t):
+        return t.transpose(1, 2).reshape(B * T, d)
+
+    q, k, v = heads(qkv[:, :d]), heads(qkv[:, d:2 * d]), heads(qkv[:, 2 * d:])
+    scale = 1.0 / math.sqrt(hd)
+    causal = torch.triu(torch.full((T, T), -1e30, device=qkv.device),
+                        diagonal=1)
+    p = torch.softmax((rnd(q) @ rnd(k).transpose(-1, -2)) * scale + causal,
+                      dim=-1)
+    dq, dk, dv = ET.attention_bwd(
+        p, masks.attention(n_heads) if masks.on else None, q, k, v,
+        heads(datt), scale, rnd_ops)
+    return torch.cat([flat(dq), flat(dk), flat(dv)], dim=1)
+
+
+def k12_stages_plain(v, x, ws, seed, n_heads, p, B, T, rnd, rnd_attn=None):
+    """K12's backward stage by stage, each stage (a product with its
+    epilogue, or a bias gradient's column sum) computed plainly from the
+    kernel's own f32 inputs to it (v: k12_scratch_views), the products'
+    operands through rnd (bf16 rounding, or none), the attention's four
+    through rnd_attn (default rnd): {stage: f32}. What K12 rounds, without
+    the flips that later stages would carry on."""
+    from tip_tpu_torch.ops import encoder_train as ET
+    rnd_attn = rnd if rnd_attn is None else rnd_attn
+    N, d, ff = B * T, ws[2].shape[0], ws[4].shape[1]
+    xf, masks = ET._prepare(x, ws, seed, p, True, 8)
+    w_qkv, _, w_o, _, w_f1, _, w_f2, _ = (w.float() for w in ws[:8])
+
+    def mask(site, n):
+        return masks.rows(site, n).reshape(N, n) if masks.on else 1.0
+
+    df2, dh1, da, dqkv = v["df2"], v["dh1"], v["da"], v["dqkv"]
+    return {
+        "w_f2": rnd(v["f1d"]).T @ rnd(df2), "b_f2": df2.sum(0),
+        "dh1": (rnd(df2) @ w_f2.T) * mask(ET.SITE_FF_MID, ff)
+        * (v["f1"] > 0).float(),
+        "w_f1": rnd(v["y1"]).T @ rnd(dh1), "b_f1": dh1.sum(0),
+        "dy1": v["dr2"] + rnd(dh1) @ w_f1.T,
+        "w_o": rnd(v["att"]).T @ rnd(da), "b_o": da.sum(0),
+        "datt": rnd(da) @ w_o.T,
+        "dqkv": attention_bwd_plain(v["qkv"], v["datt"], masks, n_heads, B,
+                                    T, rnd, rnd_attn),
+        "w_qkv": rnd(xf.reshape(N, d)).T @ rnd(dqkv), "b_qkv": dqkv.sum(0),
+        "dx": v["dr1"] + rnd(dqkv) @ w_qkv.T}
+
+
+def k12_stages_kernel(v, dx, grads):
+    """The same stages as K12 left them: the activation gradients in its
+    scratch, dx and the matmul-weight and bias gradients (the bf16
+    variant's f32 values before their rounding, in its scratch)."""
+    from tip_tpu_torch.ops import encoder_train as ET
+    out = {k: v[k] for k in ("dh1", "dy1", "datt", "dqkv")}
+    bf16 = "dx" in v
+    out["dx"] = v["dx"] if bf16 else dx.reshape(v["dr1"].shape)
+    for name, g in zip(ET.WEIGHT_NAMES[:8], grads):
+        out[name] = v["g_" + name] if bf16 else g
+    return out
+
+
+def hold_k12_stages(share, got, want):
+    """Add each stage of got to share against want's, both rounded to
+    bf16 (the roundings that the kernel should share with the plain
+    version)."""
+    for k, a in got.items():
+        share.add(a.to(torch.bfloat16), want[k].to(torch.bfloat16))
+
+
+def library_encoder_grads(layer, x, dy):
+    """TransformerEncoderLayer's autograd backward (p 0, causal) of y = layer
+    (x) for the output gradient dy: dx and the eight matmul-weight and bias
+    gradients in the port's layout (the read-only control of K12 bf16)."""
+    mask = torch.nn.Transformer.generate_square_subsequent_mask(
+        x.shape[1], device=x.device, dtype=x.dtype)
+    xr = x.clone().requires_grad_(True)
+    a = layer.self_attn
+    params = [a.in_proj_weight, a.in_proj_bias, a.out_proj.weight,
+              a.out_proj.bias, layer.linear1.weight, layer.linear1.bias,
+              layer.linear2.weight, layer.linear2.bias]
+    out = torch.autograd.grad(layer(xr, src_mask=mask, is_causal=True),
+                              [xr] + params, dy)
+    return out[0], [g.T if g.dim() == 2 else g for g in out[1:]]
+
+
+def check_encoder_bwd_bf16(dev, gen, model):
+    """K12's bf16 variant against its bf16 plain version at (B, 40, 256)
+    for B in ENC_BWD_BF16_B (the model's layer 0 in bf16, ff1 shifted by
+    K12_FF1_SHIFT), p 0 and p 0.1 train, twice each bit-equal; stage by
+    stage (k12_stages_plain, from the kernel's own scratch) its share of
+    entries off the plain version against controls that round elsewhere
+    (the attention backward's operands unrounded, f32 K12 on widened
+    inputs; TransformerEncoderLayer bf16's autograd, read only, on its
+    outputs); timed at p 0 beside TransformerEncoderLayer bf16's autograd
+    forward + backward, by kernel at B 256. The entry's own numbers are
+    B 256's (path L-bf16's shape), the other Bs are its variants."""
+    from tip_tpu_torch.ops import encoder_train as ET
+    name = "encoder_layer_bwd_bf16"
+    cfg = model.cfg
+    nh, d, ff, T = cfg.n_heads, cfg.tf_in_dim, cfg.tf_hid_size, 40
+    bf = torch.bfloat16
+    ws = list(ET.pack_layer_weights(
+        {k: v.detach().to(bf) for k, v in model.named_parameters()},
+        "layers.0.", bf))
+    ws[5] = ws[5] + K12_FF1_SHIFT
+    ws = tuple(w.contiguous() for w in ws)
+    ws32 = tuple(w.float() for w in ws)
+    layer = library_encoder_layer(ws, nh, dev)
+
+    def r16(t):
+        return t.to(bf).float()
+
+    errs, share, controls, out_share, inputs = {}, OffShare(), {}, \
+        OffShare(), {}
+    for B in ENC_BWD_BF16_B:
+        scratch = {k: torch.empty(ET.scratch_floats(B * T, d, ff, k),
+                                  device=dev)
+                   for k in (ET.SCRATCH_BWD_BF16, ET.SCRATCH_BWD)}
+        for p in (0.0, 0.1):
+            x = torch.randn(B, T, d, generator=gen, device=dev).to(bf)
+            dy = torch.randn(B, T, d, generator=gen, device=dev).to(bf)
+            seed = -123457 if p else 99
+            dx, dws = ET._launch_bwd(x, ws, seed, dy, nh, p, True, 8,
+                                     scratch=scratch[ET.SCRATCH_BWD_BF16])
+            dx2, dws2 = ET.encoder_layer_bwd(x, ws, seed, dy, nh, p, True, 8,
+                                             impl="kernel")
+            if dx.dtype != bf or [g.dtype for g in dws] != [
+                    w.dtype for w in ws] or not (torch.equal(dx, dx2) and all(
+                        torch.equal(a, b) for a, b in zip(dws, dws2))):
+                raise AssertionError(f"{name} B {B} p {p}: two calls differ, "
+                                     f"or the dtypes are not the weights'")
+            rdx, rdws = ET.encoder_layer_bwd_plain(x, ws, seed, dy, nh, p,
+                                                   True, 8)
+            errs[f"B{B}_p{p}.dx"] = (rel_err(dx, rdx), TOL_ENC_BWD_BF16)
+            for wn, a, b in zip(ET.WEIGHT_NAMES, dws, rdws):
+                errs[f"B{B}_p{p}.{wn}"] = (rel_err(a, b), TOL_ENC_BWD_BF16)
+            for a, b in zip((dx, *dws[:8]), (rdx, *rdws[:8])):
+                out_share.add(a, b)
+            v = k12_scratch_views(scratch[ET.SCRATCH_BWD_BF16], B, T, d, ff,
+                                  True)
+            want = k12_stages_plain(v, x, ws, seed, nh, p, B, T, r16)
+            hold_k12_stages(share, k12_stages_kernel(v, dx, dws), want)
+            hold_k12_stages(controls.setdefault("attention_unrounded",
+                                                OffShare()),
+                            k12_stages_plain(v, x, ws, seed, nh, p, B, T,
+                                             r16, lambda t: t), want)
+            fdx, fdws = ET._launch_bwd(x.float(), ws32, seed, dy.float(), nh,
+                                       p, True, 8,
+                                       scratch=scratch[ET.SCRATCH_BWD])
+            fv = k12_scratch_views(scratch[ET.SCRATCH_BWD], B, T, d, ff,
+                                   False)
+            hold_k12_stages(controls.setdefault("f32_widened", OffShare()),
+                            k12_stages_kernel(fv, fdx, fdws),
+                            k12_stages_plain(fv, x, ws, seed, nh, p, B, T,
+                                             r16))
+            if not p:
+                ldx, lgs = library_encoder_grads(layer, x, dy)
+                lib = controls.setdefault("library_bf16", OffShare())
+                for a, b in zip((ldx, *lgs), (rdx, *rdws[:8])):
+                    lib.add(a, b)
+                inputs[B] = (x, dy, seed)
+        del scratch
+    err = check(name, errs)
+    log(f"  K12 bf16 vs plain: worst "
+        f"{max(errs.items(), key=lambda kv: kv[1][0])}")
+    rounding = check_rounding(name, share, controls)
+    rounding["outputs_share"] = out_share.share()
+    log(f"  K12 bf16 share of dx and the bf16 gradients off the plain "
+        f"version end to end (read only): {out_share.share():.4g}")
+    variants = []
+    for B in ENC_BWD_BF16_B:
+        x, dy, _ = inputs[B]
+        xr = x.clone().requires_grad_(True)
+        mask = torch.nn.Transformer.generate_square_subsequent_mask(
+            T, device=dev, dtype=bf)
+        params = [xr] + list(layer.parameters())
+
+        def lib_b(xr=xr, params=params, dy=dy):
+            torch.autograd.grad(layer(xr, src_mask=mask, is_causal=True),
+                                params, dy)
+
+        t = timings(
+            lambda x=x, dy=dy: ET.encoder_layer_bwd(x, ws, 0, dy, nh, 0.0,
+                                                    False, 8, impl="kernel"),
+            lambda x=x, dy=dy: ET.encoder_layer_bwd_plain(x, ws, 0, dy, nh,
+                                                          0.0, False, 8),
+            lib_b, light=True)
+        if B == ENC_BWD_BF16_B[-1]:
+            t["by_kernel"] = kernel_breakdown(
+                lambda: ET.encoder_layer_bwd(x, ws, 0, dy, nh, 0.0, False, 8,
+                                             impl="kernel"))
+            log(f"  K12 bf16 B {B} by kernel: {json.dumps(t['by_kernel'])}")
+        b_ms, b_by = bound(*encoder_layer_work(B, T, d, ff, nh, True, 2),
+                           PEAK_BF16_FLOP_S)
+        variants.append(dict(B=B, p=0.0, bound_ms=b_ms, bound_by=b_by, **t))
+        log(f"  K12 bf16 B {B} p 0: device {t['ms']:.4f} ms (eager "
+            f"{t['call_ms']:.4f}), plain {t['plain_ms']:.4f}, library "
+            f"forward + backward {t['library_ms']:.4f}, bound {b_ms:.2e} "
+            f"({b_by})")
+    own = {k: v for k, v in variants[-1].items() if k != "B"}
+    return dict(name=name, route="cuda",
+                source="tip_tpu_torch/csrc/encoder_train.cu",
+                replaces="tip_tpu/ops/pallas_encoder.py:327",
+                shape=[ENC_BWD_BF16_B[-1], T, d], dtype="bfloat16",
+                max_abs_err=err, tol=TOL_ENC_BWD_BF16,
+                err_is="relative to the largest entry",
+                library="torch.nn.TransformerEncoderLayer, bf16, p = 0, its "
+                        "autograd forward + backward",
+                rounding_stage_by_stage=rounding, **own,
+                variants=variants[:-1])
+
+
 def pack_training_blobs():
     """The 60 in-tree motions packed by the port's combine into output/."""
     from tip_tpu_torch.data_gen import combine as TC
@@ -3053,17 +3539,17 @@ def check_trained_model_serves(model, dev):
     return out
 
 
-def training_paths(dev):
-    """Path L: one epoch of train_loop at the paper recipe, full width, on
-    the packed in-tree motions, with the kernels K1, K10, K11, K12; a
-    checkpoint written and restored; step timing and a profile; held
-    against a float64 CPU step and, ten steps, against path M (the same
-    training with the plain versions on the card)."""
+def train_epoch_path(name, cfg, ds, dev, per_step):
+    """One epoch of train_loop on ds under cfg with the launch counters set
+    to 0 just before and read just after: per_step {kernel: launches a
+    step}, every other kernel none; the loss finite and falling over the
+    epoch; a checkpoint (under output/chip_smoke_ckpt_<name>/) restored
+    bit-equal, with float32 parameters and moments and cfg's compute
+    dtype, and stepping as the live state does. Returns (the state, the
+    restored state, launches, a summary)."""
     from tip_tpu_torch.ops import _kernels as K
     from tip_tpu_torch.train import train as TT
-    ds = pack_training_blobs()
-    cfg = train_config()
-    ckpt = ROOT / "output" / "chip_smoke_ckpt"
+    ckpt = ROOT / "output" / f"chip_smoke_ckpt_{name}"
     if ckpt.exists():
         for f in ckpt.iterdir():
             f.unlink()
@@ -3077,75 +3563,239 @@ def training_paths(dev):
     launches = {k: K.launch_counts.get(k, 0) for k in KERNELS}
     losses = [r["loss"] for r in records if "loss" in r]
     steps = len(losses)
-    log(f"path L: one epoch, {steps} steps of {cfg.batch_size} in "
+    log(f"path {name}: one epoch, {steps} steps of {cfg.batch_size} in "
         f"{wall:.2f} s; launches {launches}")
-    want = {"fused_rnn": steps, "fused_rnn_bwd": steps,
-            "encoder_layer_fwd": 4 * steps, "encoder_layer_bwd": 4 * steps}
     for k in KERNELS:
-        if launches[k] != want.get(k, 0):
-            raise AssertionError(f"path L: {k} launched {launches[k]} times, "
-                                 f"expected {want.get(k, 0)} ({steps} "
+        if launches[k] != steps * per_step.get(k, 0):
+            raise AssertionError(f"path {name}: {k} launched {launches[k]} "
+                                 f"times, expected "
+                                 f"{steps * per_step.get(k, 0)} ({steps} "
                                  f"steps)")
     if not 30 <= steps <= 60:
-        raise AssertionError(f"path L: {steps} steps in the epoch")
+        raise AssertionError(f"path {name}: {steps} steps in the epoch")
     if any(r.get("event") for r in records) or not all(
             math.isfinite(v) for v in losses):
-        raise AssertionError(f"path L: a non-finite loss: {records[:3]}")
+        raise AssertionError(f"path {name}: a non-finite loss: "
+                             f"{records[:3]}")
     first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
-    log(f"  path L losses: first 10 {first:.4f}, last 10 {last:.4f}; "
+    log(f"  path {name} losses: first 10 {first:.4f}, last 10 {last:.4f}; "
         f"{losses}")
     if not last < first:
-        raise AssertionError("path L: the loss did not fall over the epoch")
+        raise AssertionError(f"path {name}: the loss did not fall over the "
+                             f"epoch")
     # the checkpoint round trip: the restored state is the live one, and it
     # steps as the live one does
     back = TT.restore_checkpoint(str(ckpt), cfg, device=dev)
     if back.step != state.step:
-        raise AssertionError("checkpoint: step differs")
+        raise AssertionError(f"path {name} checkpoint: step differs")
     for k, p in state.model.state_dict().items():
         if not (torch.equal(back.model.state_dict()[k], p)
                 and torch.equal(back.mu[k], state.mu[k])
-                and torch.equal(back.nu[k], state.nu[k])):
-            raise AssertionError(f"checkpoint: {k} differs")
+                and torch.equal(back.nu[k], state.nu[k])
+                and p.dtype == back.mu[k].dtype == back.nu[k].dtype
+                == torch.float32):
+            raise AssertionError(f"path {name} checkpoint: {k} differs or "
+                                 f"is not float32")
+    if back.model.cfg.compute_dtype != cfg.model.compute_dtype:
+        raise AssertionError(f"path {name} checkpoint: compute dtype")
     batches = step_batches(ds, 4, cfg.batch_size, dev, 5)
     a = TT.train_step(state, batches[0], cfg)
     b = TT.train_step(back, batches[0], cfg)
     if a != b:
-        raise AssertionError(f"checkpoint: the restored state steps "
-                             f"otherwise: {a} vs {b}")
-    log(f"  path L checkpoint: written and restored bit-equal, the next "
-        f"step equal ({a['loss']:.6f})")
-    c1 = check_trained_model_serves(back.model, dev)
-    del back
+        raise AssertionError(f"path {name} checkpoint: the restored state "
+                             f"steps otherwise: {a} vs {b}")
+    log(f"  path {name} checkpoint: written and restored bit-equal, the "
+        f"next step equal ({a['loss']:.6f})")
+    return state, back, launches, dict(
+        path=name, steps_in_epoch=steps, epoch_s=wall, loss_first10=first,
+        loss_last10=last, batches=batches)
+
+
+def timed_train_steps(name, state, cfg, batches):
+    """time_train_steps, with the launches a step of those steps."""
+    from tip_tpu_torch.ops import _kernels as K
     K.reset_launch_counts()
     summary = time_train_steps(state, cfg, batches)
     summary["launches_per_step"] = {
         k: v / (TRAIN_WARMUP + TRAIN_TIMED + TRAIN_PROFILED)
         for k, v in K.launch_counts.items() if v}
-    summary.update(path="L", steps_in_epoch=steps, epoch_s=wall,
-                   loss_first10=first, loss_last10=last, c1=c1)
-    log(json.dumps({"train": summary}))
-    summary["f64"] = check_l_against_f64(state, cfg, ds, dev)
-    del state
+    summary["path"] = name
+    return summary
 
-    # path L against path M, ten steps from the same initial state
+
+def against_plain_on_card(name, plain_name, model_kw, ds, dev, tol):
+    """LM_STEPS steps of the path (model_kw: its ModelConfig settings) and
+    of the same training with the plain versions on the card, from the same
+    initial state and batches: the loss within tol relative at every step,
+    and no kernel launched by the plain one. Returns the largest relative
+    difference."""
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.train import train as TT
     lm = {}
-    lm_batches = step_batches(ds, LM_STEPS, cfg.batch_size, dev, 6)
-    for name, kw in (("L", {}), ("M", dict(rnn_impl="plain",
-                                           encoder_impl="plain"))):
+    lm_batches = step_batches(ds, LM_STEPS, 256, dev, 6)
+    for run, kw in ((name, model_kw),
+                    (plain_name, dict(model_kw, rnn_impl="plain",
+                                      encoder_impl="plain"))):
         c = train_config(**kw)
         st = TT.init_state(c, dev)
         K.reset_launch_counts()
-        lm[name] = [TT.train_step(st, bt, c)["loss"] for bt in lm_batches]
-        lm[name + "_launches"] = dict(K.launch_counts)
+        lm[run] = [TT.train_step(st, bt, c)["loss"] for bt in lm_batches]
+        lm[run + "_launches"] = dict(K.launch_counts)
         del st
-    if lm["M_launches"]:
-        raise AssertionError(f"path M launched kernels: {lm['M_launches']}")
-    errs = [abs(a - b) / abs(b) for a, b in zip(lm["L"], lm["M"])]
-    log(f"  path L vs path M over {LM_STEPS} steps: loss rel diff "
-        f"{max(errs):.3g}; L {lm['L']}; M {lm['M']}")
-    if not max(errs) <= TOL_LM_LOSS:
-        raise AssertionError(f"path L vs M: {errs}")
-    summary["vs_M_max_rel"] = max(errs)
+    if lm[plain_name + "_launches"]:
+        raise AssertionError(f"path {plain_name} launched kernels: "
+                             f"{lm[plain_name + '_launches']}")
+    errs = [abs(a - b) / abs(b) for a, b in zip(lm[name], lm[plain_name])]
+    log(f"  path {name} vs path {plain_name} over {LM_STEPS} steps: loss "
+        f"rel diff {max(errs):.3g}; {name} {lm[name]}; {plain_name} "
+        f"{lm[plain_name]}")
+    if not max(errs) <= tol:
+        raise AssertionError(f"path {name} vs {plain_name}: {errs}")
+    return max(errs)
+
+
+def training_paths(dev):
+    """Path L: one epoch of train_loop at the paper recipe, full width, on
+    the packed in-tree motions, with the kernels K1, K10, K11, K12; a
+    checkpoint written and restored; step timing and a profile; held
+    against a float64 CPU step and, ten steps, against path M (the same
+    training with the plain versions on the card). Then path L-bf16 (and
+    M-bf16): the same in bf16 compute (training_paths_bf16)."""
+    ds = pack_training_blobs()
+    cfg = train_config()
+    state, back, launches, summary = train_epoch_path(
+        "L", cfg, ds, dev, {"fused_rnn": 1, "fused_rnn_bwd": 1,
+                            "encoder_layer_fwd": 4, "encoder_layer_bwd": 4})
+    batches = summary.pop("batches")
+    c1 = check_trained_model_serves(back.model, dev)
+    del back
+    summary.update(timed_train_steps("L", state, cfg, batches), c1=c1)
+    log(json.dumps({"train": summary}))
+    summary["f64"] = check_l_against_f64(state, cfg, ds, dev)
+    del state
+    summary["vs_M_max_rel"] = against_plain_on_card("L", "M", {}, ds, dev,
+                                                    TOL_LM_LOSS)
+    t0 = time.perf_counter()
+    launches_bf16, summary_bf16 = training_paths_bf16(dev, ds)
+    log(f"  paths L-bf16 and M-bf16 in {time.perf_counter() - t0:.1f} s")
+    return {"L": launches, "L-bf16": launches_bf16}, {
+        "L": summary, "L-bf16": summary_bf16}
+
+
+def check_l_bf16_against_cpu(state, cfg, ds, dev):
+    """Path L-bf16's step (the bf16 kernels on the card) against the same
+    bf16 step of the plain versions on the CPU, from the same float32
+    parameters, batch, noise and seeds, in TRAIN_BF16_DRAWS draws: the loss
+    within TOL_CPU_BF16_LOSS relative and every gradient within
+    TOL_CPU_BF16_GRAD_FRO of its norm in every draw; every gradient within
+    TOL_CPU_BF16_GRAD of its largest entry in at least one draw (a draw
+    whose two runs fall on two sides of a ReLU kink moves a few entries by
+    a whole term, K12_FF1_SHIFT). b_k's gradient is 0 in exact arithmetic:
+    it is held within TOL_CPU_BF16_B_K of the largest gradient entry."""
+    import copy
+    from tip_tpu_torch.models import tip_model as M
+    ref = M.TIPModel(dataclasses.replace(cfg.model, rnn_impl="plain",
+                                         encoder_impl="plain"),
+                     device="cpu")
+    ref.load_state_dict({k: v.detach().cpu()
+                         for k, v in state.model.state_dict().items()})
+    ref.requires_grad_(True)
+    card = copy.deepcopy(state.model)
+    gen = torch.Generator().manual_seed(78)
+    batches = step_batches(ds, TRAIN_BF16_DRAWS, F64_BATCH, dev, 12)
+    clean, rows = 0, []
+    for i, batch in enumerate(batches):
+        noise = (torch.rand(batch[1].shape, generator=gen) - 0.5) * 0.3
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (1 + cfg.model.tf_layers,),
+                              generator=gen).tolist()
+        seeds = (seeds[0], seeds[1:])
+        a_c, g_c, n_c = grads_of(card, batch, noise.to(dev), seeds, cfg)
+        a_r, g_r, n_r = grads_of(ref, tuple(t.cpu() for t in batch), noise,
+                                 seeds, cfg)
+        top = max(g.abs().max().item() for g in g_r.values())
+        worst, worst_fro, b_k = 0.0, 0.0, 0.0
+        for k in g_r:
+            a, b = g_c[k].double().cpu(), g_r[k].double()
+            if g_c[k].dtype != torch.float32:
+                raise AssertionError(f"path L-bf16: {k}'s gradient is "
+                                     f"{g_c[k].dtype}")
+            if k.endswith("b_k"):
+                b_k = max(b_k, (a - b).abs().max().item() / top)
+                continue
+            worst = max(worst, rel_err(a, b))
+            worst_fro = max(worst_fro, ((a - b).norm() / b.norm()).item())
+        e_loss = abs(a_c["loss"] - a_r["loss"]) / abs(a_r["loss"])
+        e_norm = abs(n_c - n_r) / n_r
+        rows.append(dict(draw=i, loss=e_loss, grad_norm=e_norm,
+                         grad_max=worst, grad_fro=worst_fro, b_k=b_k))
+        if not (e_loss <= TOL_CPU_BF16_LOSS and b_k <= TOL_CPU_BF16_B_K
+                and worst_fro <= TOL_CPU_BF16_GRAD_FRO):
+            raise AssertionError(f"path L-bf16 vs the CPU, draw {i}: "
+                                 f"{rows[-1]}")
+        clean += worst <= TOL_CPU_BF16_GRAD
+    log(f"  path L-bf16 vs the plain versions' bf16 step on the CPU (B "
+        f"{F64_BATCH}): {rows}")
+    if clean == 0:
+        raise AssertionError(f"path L-bf16 vs the CPU: no draw within "
+                             f"{TOL_CPU_BF16_GRAD:g} of the largest entries")
+    return dict(draws=rows, clean=clean)
+
+
+def check_bf16_model_serves_with_grad(model, dev):
+    """Path L-bf16's restored model, whose parameters require grad, runs a
+    window's forward with grad on through four K11 bf16 and K1 bf16, giving
+    the bits of the same forward under torch.no_grad(), and its backward
+    through four K12 bf16 and K10 bf16 (float32 gradients)."""
+    from tip_tpu_torch.ops import _kernels as K
+    cfg = model.cfg
+    if not (cfg.compute_dtype == "bfloat16" and all(
+            p.requires_grad for p in model.parameters())):
+        raise AssertionError("the restored bf16 model should require grad")
+    x_imu = torch.randn(2, 40, cfg.input_dim - cfg.size_s, device=dev)
+    x_s = torch.randn(2, 40, cfg.size_s, device=dev)
+    K.reset_launch_counts()
+    out = model(x_imu, x_s)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in K.launch_counts.items() if v}
+    with torch.no_grad():
+        ref = model(x_imu, x_s)
+    want = {"fused_rnn_bf16": 1, "fused_rnn_bwd_bf16": 1,
+            "encoder_layer_fwd_bf16": 4, "encoder_layer_bwd_bf16": 4}
+    if launches != want or not torch.equal(out.detach(), ref) or not all(
+            p.grad is not None and p.grad.dtype == torch.float32
+            and torch.isfinite(p.grad).all() for p in model.parameters()):
+        raise AssertionError(f"bf16 with grad on: launches {launches}, "
+                             f"expected {want}; or the forward differs from "
+                             f"no_grad's, or a gradient is not a finite f32")
+    model.zero_grad(set_to_none=True)
+    log(f"  path L-bf16's restored model with grad on: the forward equals "
+        f"no_grad's bit for bit, launches {launches}")
+    return dict(launches=launches, equal_to_no_grad=True)
+
+
+def training_paths_bf16(dev, ds):
+    """Path L-bf16: path L's epoch with compute_dtype="bfloat16" (one
+    launch of K1 bf16 and K10 bf16 and four of K11 bf16 and K12 bf16 a
+    step, no f32 K1, K10, K11 or K12); its checkpoint; its restored model
+    with grad on; step timing; held against the plain versions' bf16 step
+    on the CPU and, ten steps, against path M-bf16 (the plain versions in
+    bf16 on the card)."""
+    cfg = train_config(compute_dtype="bfloat16")
+    state, back, launches, summary = train_epoch_path(
+        "L-bf16", cfg, ds, dev,
+        {"fused_rnn_bf16": 1, "fused_rnn_bwd_bf16": 1,
+         "encoder_layer_fwd_bf16": 4, "encoder_layer_bwd_bf16": 4})
+    batches = summary.pop("batches")
+    summary["grad_on"] = check_bf16_model_serves_with_grad(back.model, dev)
+    del back
+    summary.update(timed_train_steps("L-bf16", state, cfg, batches))
+    log(json.dumps({"train": summary}))
+    summary["cpu_bf16"] = check_l_bf16_against_cpu(state, cfg, ds, dev)
+    del state
+    summary["vs_M_bf16_max_rel"] = against_plain_on_card(
+        "L-bf16", "M-bf16", dict(compute_dtype="bfloat16"), ds, dev,
+        TOL_LM_LOSS)
     return launches, summary
 
 
@@ -3410,7 +4060,9 @@ COUNTED_ON = {"fused_rnn": "A", "decode_fused": "A", "tail_fused": "A",
               "fused_cached_batch": "H", "fused_recompute_batch": "J",
               "fused_rnn_bwd": "L", "encoder_layer_fwd": "L",
               "encoder_layer_bwd": "L", "fused_rnn_bf16": "A-bf16",
-              "encoder_layer_fwd_bf16": "A-bf16"}
+              "encoder_layer_fwd_bf16": "A-bf16",
+              "fused_rnn_bwd_bf16": "L-bf16",
+              "encoder_layer_bwd_bf16": "L-bf16"}
 
 
 def main():
@@ -3451,7 +4103,9 @@ def main():
                check_fused_rnn_bwd(dev, gen),
                *check_encoder_train(dev, gen, model)]
     for check_bf16 in (lambda: check_fused_rnn(dev, gen, torch.bfloat16),
-                       lambda: check_encoder_fwd_bf16(dev, gen, model)):
+                       lambda: check_encoder_fwd_bf16(dev, gen, model),
+                       lambda: check_fused_rnn_bwd(dev, gen, torch.bfloat16),
+                       lambda: check_encoder_bwd_bf16(dev, gen, model)):
         t0 = time.perf_counter()
         kernels.append(check_bf16())
         log(f"  {kernels[-1]['name']} checked and timed in "
@@ -3487,7 +4141,8 @@ def main():
     launches.update(full_launches)
     pool_launches, pool_summary = pool_paths(dev, runs, state_dict)
     launches.update(pool_launches)
-    launches["L"], train_summary = training_paths(dev)
+    train_launches, train_summary = training_paths(dev)
+    launches.update(train_launches)
     for k in kernels:
         k["launches"] = launches[COUNTED_ON[k["name"]]][k["name"]]
         k["launches_on"] = COUNTED_ON[k["name"]]
@@ -3506,7 +4161,8 @@ def main():
     log(json.dumps({"frame_ms": frame_ms, "launches": launches,
                     "pool_tick_ms": {n: v["tick_ms"]
                                      for n, v in pool_summary.items()},
-                    "train_step_ms": train_summary["step_ms"],
+                    "train_step_ms": {n: v["step_ms"]
+                                      for n, v in train_summary.items()},
                     "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

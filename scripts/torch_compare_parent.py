@@ -5,7 +5,7 @@ rule the parent), and every other kernel (K1, K4/K5, K7-K12) bit for bit,
 on one GPU in one process.
 
     git archive <commit> tip_tpu_torch | tar -x -C output/parent
-    python3 scripts/torch_compare_parent.py output/parent
+    python3 scripts/torch_compare_parent.py output/parent [--bits_only]
 
 The argument is a checkout of the other commit's tip_tpu_torch/. Every
 csrc/*.cu of that checkout is built with nvcc into `<checkout>/build/`. Its
@@ -22,10 +22,12 @@ not called on the other build). Then:
 
   - K1, K4/K5, K7, K8, K9, K10, K11 and K12: the outputs of both builds on
     chip_smoke.py's inputs must be equal bit for bit (K1 at B 1, 3, 8, 17,
-    64, 256; K4 and K5 at (40, 221) in both packings; K7 replay and carry in
-    both packings, y and the rings; K8 at B 64 and 256; K9 12 cases; K10 at
-    (256, 40, 512); K11 and K12 at (256, 40, 256) p 0.1 and a small case);
-  - K2, K3 and K6 at B 1 and 64: device ms (chip_smoke.graph_ms), eager
+    64, 256, f32 and bf16; K4 and K5 at (40, 221) in both packings; K7
+    replay and carry in both packings, y and the rings; K8 at B 64 and 256;
+    K9 12 cases; K10 at (256, 40, 512); K11 and K12 at (256, 40, 256) p 0.1
+    and a small case, K11 also in bf16);
+  - unless --bits_only, K2, K3 and K6 at B 1 and 64: device ms
+    (chip_smoke.graph_ms), eager
     ms (chip_smoke.time_ms) and the host us of one call without a sync
     (chip_smoke.host_us) of each build's wrapper and kernel, in turns
     (other, this, this, other), and the largest difference of the outputs;
@@ -284,15 +286,17 @@ def k8_bits(libs, model, dev):
 
 
 def k1_bits(libs, dev):
+    """K1 at chip_smoke.py's batch sizes, f32 and bf16."""
     from tip_tpu_torch.ops import fused_rnn as FR
     gen = torch.Generator(device=dev).manual_seed(4)
     w = torch.randn(512, 512, generator=gen, device=dev) / 512 ** 0.5
     out = {}
-    for B in CS.RNN_CHECKED_B:
-        xin = torch.randn(B, 40, 512, generator=gen, device=dev)
-        o, m = both(libs, "fused_rnn",
-                    lambda: FR.fused_rnn(xin, w, impl="kernel"))
-        out[f"B{B}"] = equal(o, m)
+    for dt in (torch.float32, torch.bfloat16):
+        for B in CS.RNN_CHECKED_B:
+            xin = torch.randn(B, 40, 512, generator=gen, device=dev).to(dt)
+            o, m = both(libs, "fused_rnn",
+                        lambda: FR.fused_rnn(xin, w.to(dt), impl="kernel"))
+            out[f"B{B}_{str(dt).split('.')[1]}"] = equal(o, m)
     return out
 
 
@@ -377,6 +381,11 @@ def k11_k12_bits(libs, model, dev):
             x, ws, -123457, dy, nh, 0.1, True, 8, impl="kernel"))
         out[f"K12_{tag}"] = equal(list(o[:1]) + list(o[1]),
                                   list(m[:1]) + list(m[1]))
+        ws16 = tuple(w.detach().contiguous() for w in ET.pack_layer_weights(
+            dict(mdl.named_parameters()), "layers.0.", torch.bfloat16))
+        o, m = both(libs, "encoder_train", lambda: ET.encoder_layer_fwd(
+            x.bfloat16(), ws16, -123457, nh, 0.1, True, 8, impl="kernel"))
+        out[f"K11_bf16_{tag}"] = equal(o, m)
     return out
 
 
@@ -480,7 +489,9 @@ def path_profiles(libs, pft, pkin, dev):
 
 
 def main():
-    if not torch.cuda.is_available() or len(sys.argv) != 2:
+    args = [a for a in sys.argv[1:] if a != "--bits_only"]
+    bits_only = len(args) < len(sys.argv) - 1
+    if not torch.cuda.is_available() or len(args) != 1:
         print(__doc__, file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -490,7 +501,7 @@ def main():
     dev = torch.device("cuda")
     card = CS.card_info()
     print(card, flush=True)
-    parent = Path(sys.argv[1]).resolve()
+    parent = Path(args[0]).resolve()
     ops = parent / "tip_tpu_torch" / "ops"
     pft = load_module(ops / "fused_tail.py", "other_fused_tail")
     pkin = load_module(ops / "kinematics.py", "other_kinematics")
@@ -502,9 +513,10 @@ def main():
     libs = parent_libs(procs, sigs)
     model = M.TIPModel(M.ModelConfig(forward_impl="fused"), device=dev,
                        generator=torch.Generator().manual_seed(0))
-    result = {"card": card, "other": sys.argv[1],
-              "tail": tail_times(libs, pft, pkin, dev),
-              "paths": path_profiles(libs, pft, pkin, dev)}
+    result = {"card": card, "other": args[0]}
+    if not bits_only:
+        result.update(tail=tail_times(libs, pft, pkin, dev),
+                      paths=path_profiles(libs, pft, pkin, dev))
     bits = {"k1": k1_bits(libs, dev), "k4_k5": k4_bits(libs, model, dev),
             "k7": k7_bits(libs, model, dev), "k8": k8_bits(libs, model, dev),
             "k9": k9_bits(libs, model, dev), "k10": k10_bits(libs, dev),

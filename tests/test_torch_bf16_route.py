@@ -268,28 +268,50 @@ def test_bf16_head_width_not_a_multiple_of_8_raises():
 
 
 def test_bf16_backward_and_training_raise():
+    """The bf16 backward (K10, K12) and the bf16 training forward run on a
+    CPU tensor through the plain versions, in bf16 (gradients in the
+    inputs' dtypes); impl="kernel" on a CPU tensor still raises. A bf16
+    model with grad-enabled parameters runs its forward with grad on and
+    its backward (float32 gradients), and gives the bits of the same
+    forward under no_grad."""
     bf = torch.bfloat16
-    hs = torch.zeros(2, 5, 8, dtype=bf)
-    w = torch.zeros(8, 8, dtype=bf)
-    with pytest.raises(NotImplementedError, match=r"B1 \(b\)"):
-        FR.fused_rnn_bwd(hs, w, hs)
-    with pytest.raises(NotImplementedError, match=r"B1 \(b\)"):
-        FR.fused_rnn_train(hs, w)
+    rng = np.random.default_rng(3)
+    hs = torch.tanh(torch.as_tensor(rng.normal(size=(2, 5, 8)),
+                                    dtype=torch.float32)).to(bf)
+    w = torch.as_tensor(rng.normal(size=(8, 8)) / 3,
+                        dtype=torch.float32).to(bf)
+    dx, dw = FR.fused_rnn_bwd(hs, w, hs)
+    assert (dx.dtype, dw.dtype) == (bf, bf) and torch.isfinite(dw).all()
+    with pytest.raises(ValueError, match="CUDA"):
+        FR.fused_rnn_bwd(hs, w, hs, impl="kernel")
+    x = hs.clone().requires_grad_(True)
+    FR.fused_rnn_train(x, w).float().sum().backward()
+    assert x.grad.dtype == bf and torch.isfinite(x.grad.float()).all()
     model = TM.TIPModel(TM.ModelConfig(**TINY), device="cpu")
     ws = ET.pack_layer_weights(dict(model.named_parameters()), "layers.0.",
                                bf)
-    x = torch.zeros(2, 10, 32, dtype=bf)
-    with pytest.raises(NotImplementedError, match=r"B1 \(d\)"):
-        ET.encoder_layer_bwd(x, ws, 0, x, 4, 0.0, False)
-    with pytest.raises(NotImplementedError, match=r"B1 \(d\)"):
-        ET.encoder_layer_train(x, ws, 0, 4, 0.0, False)
+    x = torch.as_tensor(rng.normal(size=(2, 10, 32)),
+                        dtype=torch.float32).to(bf)
+    dx, dws = ET.encoder_layer_bwd(x, ws, 0, x, 4, 0.0, False)
+    assert dx.dtype == bf and [g.dtype for g in dws] == [w.dtype for w in ws]
+    with pytest.raises(ValueError, match="CUDA"):
+        ET.encoder_layer_bwd(x, ws, 0, x, 4, 0.0, False, impl="kernel")
+    y = ET.encoder_layer_train(x.clone().requires_grad_(True), ws, 0, 4, 0.0,
+                               False)
+    assert y.dtype == bf
     bf16_model = TM.TIPModel(TM.ModelConfig(**TINY, **BF16),
                              device="cpu").requires_grad_(True)
-    x_imu, x_s = torch.zeros(1, 10, 90), torch.zeros(1, 10, 131)
-    with pytest.raises(NotImplementedError, match=r"B1 \(b\)/\(d\)"):
-        bf16_model(x_imu, x_s)
-    with torch.no_grad():                      # the runners' way: it serves
-        assert torch.isfinite(bf16_model(x_imu, x_s)).all()
+    x_imu = torch.as_tensor(rng.normal(size=(1, 10, 90)), dtype=torch.float32)
+    x_s = torch.as_tensor(rng.normal(size=(1, 10, 131)), dtype=torch.float32)
+    out = bf16_model(x_imu, x_s)
+    with torch.no_grad():                      # the runners' way
+        assert torch.equal(out.detach(), bf16_model(x_imu, x_s))
+    out.square().sum().backward()
+    assert all(p.grad is not None and p.grad.dtype == torch.float32
+               and torch.isfinite(p.grad).all()
+               for p in bf16_model.parameters())
+    out = bf16_model(x_imu, x_s, train=True, seeds=(5, [6, 7]))
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
 
 
 # (f) chip_smoke.py's rounding check of the bf16 kernels ---------------------
@@ -311,6 +333,35 @@ def test_rounding_check_steps_k1_from_its_own_states():
     ctrl.add(hc, CS.rnn_steps_plain(xin, w, hc))
     out = CS.check_rounding("fused_rnn_bf16", plain, {"add_unrounded": ctrl})
     assert out["kernel"] == 0.0
+
+
+def test_rounding_check_steps_k10_from_its_own_output():
+    """K10 bf16's plain version step by step from its own dx gives dx back
+    bit for bit and dW within a flip of its entries (the plain version sums
+    dW step by step, the check in one product); carrying da unrounded and
+    rounding dW per split move more than the limit, as on the card."""
+    bf = torch.bfloat16
+    rng = np.random.default_rng(8)
+    hs = torch.tanh(torch.as_tensor(rng.normal(size=(4, 40, 64)),
+                                    dtype=torch.float32)).to(bf)
+    w = torch.as_tensor(rng.uniform(-1, 1, size=(64, 64)) / 8,
+                        dtype=torch.float32).to(bf)
+    g = torch.as_tensor(rng.normal(size=(4, 40, 64)),
+                        dtype=torch.float32).to(bf)
+    dx, dw = FR.fused_rnn_bwd_plain(hs, w, g)
+    steps, dw_steps = CS.rnn_bwd_steps_plain(hs, w, g, dx)
+    assert torch.equal(steps, dx)
+    plain, controls = CS.OffShare(), {}
+    CS.hold_rnn_bwd_steps(plain, hs, w, g, dx, dw)
+    plan = FR.RNNBwdPlan(FR.fused_rnn_bwd_plan(4, 40, 64).walk, 32, 5)
+    for name, (cx, cw) in (
+            ("da_unrounded", CS.rnn_bwd_da_unrounded(hs, w, g)),
+            ("dw_split_rounded", (dx, CS.rnn_bwd_dw_split_rounded(
+                hs, dx, plan)))):
+        controls[name] = CS.OffShare()
+        CS.hold_rnn_bwd_steps(controls[name], hs, w, g, cx, cw)
+    out = CS.check_rounding("fused_rnn_bwd_bf16", plain, controls)
+    assert out["kernel"] <= 1e-3
 
 
 def test_rounding_check_tells_k11_controls_from_the_plain_version(

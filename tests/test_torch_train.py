@@ -383,7 +383,7 @@ def test_cli_train_on_cpu(tmp_path):
     assert [r["epoch"] for r in lines if "mean_loss" in r] == [1, 2]
 
 
-@pytest.mark.parametrize("flag", [["--n_model_shards", "2"], ["--bf16"],
+@pytest.mark.parametrize("flag", [["--n_model_shards", "2"],
                                   ["--dropout_rng", "rbg"],
                                   ["--dropout_impl", "rng"],
                                   ["--encoder_impl", "xla"]])

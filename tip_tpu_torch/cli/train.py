@@ -8,10 +8,12 @@ Paper run, on the card (pack the blobs first, cli/combine_data.py):
 
 The port trains tip_tpu's kernel configuration (``--dropout_impl hash
 --rnn_impl pallas --encoder_impl pallas``, here the defaults) in float32,
+or with ``--bf16`` in bfloat16 compute (K1, K10, K11, K12 in bf16 on the
+card; the parameters, Adam's moments and the checkpoints stay float32),
 on ``cuda`` unless ``--device cpu`` is given; the windows are always
 gathered on the device, so ``--device_data`` is accepted and changes
 nothing. What it does not port raises: more than one model
-shard, ``--bf16``, ``--dropout_rng rbg``, ``--dropout_impl rng``,
+shard, ``--dropout_rng rbg``, ``--dropout_impl rng``,
 ``--encoder_impl xla`` (ROADMAP.md, queue A, training).
 """
 
@@ -20,7 +22,6 @@ import argparse
 # what the port does not train yet, by flag value -> the ROADMAP item
 UNPORTED = {
     "n_model_shards": "a model-sharded mesh (ROADMAP A, training: the mesh)",
-    "bf16": "bf16 training (ROADMAP A, training: bf16)",
     "dropout_rng": "tip_tpu's rbg dropout generator (ROADMAP A, training: "
                    "the rng dropout path)",
     "dropout_impl": "tip_tpu's rng dropout path (ROADMAP A, training: the "
@@ -64,7 +65,9 @@ def main(argv=None):
     ap.add_argument("--metrics", default=None,
                     help="structured jsonl training log (default: "
                          "<save_path>/metrics.jsonl)")
-    ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bfloat16 compute; parameters, optimizer state "
+                         "and checkpoints stay float32")
     ap.add_argument("--dropout_rng", default="threefry",
                     choices=["threefry", "rbg"],
                     help="only the hash masks are ported; rbg raises")
@@ -81,7 +84,7 @@ def main(argv=None):
                          "versions)")
     args = ap.parse_args(argv)
 
-    given = {"n_model_shards": args.n_model_shards > 1, "bf16": args.bf16,
+    given = {"n_model_shards": args.n_model_shards > 1,
              "dropout_rng": args.dropout_rng == "rbg",
              "dropout_impl": args.dropout_impl == "rng",
              "encoder_impl": args.encoder_impl == "xla"}
@@ -102,6 +105,7 @@ def main(argv=None):
         n_heads=args.n_heads, tf_layers=args.tf_layers,
         rnn_hid_size=args.rnn_nhid, in_dropout=args.in_dropout,
         past_dropout=args.past_dropout,
+        compute_dtype="bfloat16" if args.bf16 else None,
         rnn_impl="auto" if args.rnn_impl == "pallas" else "plain")
     cfg = train_lib.TrainConfig(
         model=model_cfg, n_sbps=args.n_sbps, batch_size=args.batch_size,

@@ -1,5 +1,5 @@
 // K11 and K12: one post-norm transformer encoder layer for training, its
-// forward with the four hash-dropout sites and its backward, f32.
+// forward with the four hash-dropout sites and its backward, f32 or bf16.
 //
 // Replaces tip_tpu/ops/pallas_encoder.py::encoder_layer_train: K11 its
 // forward kernel (_fwd_kernel via _encoder_layer_fwd_call), K12 its
@@ -54,6 +54,21 @@
 // biases, LayerNorm, softmax and residuals are f32, and y is written in
 // bf16, where tip_tpu rounds. Its bound is operations at the bf16
 // tensor-core rate.
+//
+// K12's bf16 variant (encoder_layer_bwd_bf16_launch: tip_tpu's backward
+// kernel with bf16 x, dy and matmul weights) widens x, the eight weights
+// and biases and dy to f32 in the scratch (one launch), recomputes the
+// forward exactly as K11's bf16 variant runs it (forward<true>: the same
+// activations, bit for bit), and runs every backward product on the bf16
+// tiles: the activation gradients (tf3::gemm<..., kBf16>), the weight
+// gradients (tf3::wgrad<kBf16>, the splits added in f32 in the same order)
+// and the attention backward's four products (attn_bwd_kernel<true>: P M
+// and dO for dv, dO and v for dP, dS and k for dq, dS and q for dk rounded
+// to bf16, the sums f32). LayerNorm backward, dReLU, masks and the column
+// sums stay f32. dx and the eight matmul-weight and bias gradients are
+// formed in f32 in the scratch and rounded to bf16 once (narrow_bf16); the
+// four LayerNorm gradients are written in f32. Its bound is operations at
+// the bf16 tensor-core rate (0.050 ms at the training shape).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -308,7 +323,11 @@ __device__ __forceinline__ void axpy4(float w, const float4 x, float4& a) {
 // per column j: no block barrier falls between the phases of a row. Then a
 // thread per 4 columns of one row of dq, dk or dv sums over the other
 // axis with float4 reads (4 multiply-adds a scalar read, where a thread
-// per column had 1 per 2).
+// per column had 1 per 2). kBf16: q, k, v and dO are rounded to bf16 as
+// they are staged (the scores then are the bf16 forward's), P M and dS as
+// they are stored, so that each of the four products reads bf16 operands;
+// P, dP and the row sums stay f32.
+template <bool kBf16>
 __global__ void attn_bwd_kernel(const float* __restrict__ qkv,
                                 const float* __restrict__ datt,
                                 float* __restrict__ dqkv, Dims D, float scale,
@@ -329,8 +348,10 @@ __global__ void attn_bwd_kernel(const float* __restrict__ qkv,
     const size_t row = static_cast<size_t>(b) * T + t;
     const float* src = which < 3 ? qkv + row * d3 + which * d + h * hd + c
                                  : datt + row * d + h * hd + c;
-    *reinterpret_cast<float4*>(sq + (which * T + t) * ld + c) =
-        *reinterpret_cast<const float4*>(src);
+    float4 v4 = *reinterpret_cast<const float4*>(src);
+    v4 = make_float4(operand<kBf16>(v4.x), operand<kBf16>(v4.y),
+                     operand<kBf16>(v4.z), operand<kBf16>(v4.w));
+    *reinterpret_cast<float4*>(sq + (which * T + t) * ld + c) = v4;
   }
   __syncthreads();
   const float4* q = reinterpret_cast<const float4*>(sq);
@@ -382,13 +403,13 @@ __global__ void attn_bwd_kernel(const float* __restrict__ qkv,
       for (int c = 0; c < q4; ++c) dp = dot4(oi[c], v[j * ld4 + c], dp);
       dp = dp * m;
       Pi[j] = p;
-      PMi[j] = p * m;
+      PMi[j] = operand<kBf16>(p * m);
       dSi[j] = dp;
       rs += dp * p;
     }
     rs = warp_sum(rs);
     for (int j = lane; j < T; j += 32) {   // each lane its own columns
-      dSi[j] = j <= i ? Pi[j] * (dSi[j] - rs) : 0.0f;
+      dSi[j] = j <= i ? operand<kBf16>(Pi[j] * (dSi[j] - rs)) : 0.0f;
       if (j > i) PMi[j] = 0.0f;
     }
   }
@@ -435,10 +456,11 @@ cudaError_t attn_fwd_smem_attr(size_t smem) {
                    smem, &allowed);
 }
 
+template <bool kBf16>
 cudaError_t attn_bwd_smem_attr(size_t smem) {
   static size_t allowed = 48 * 1024;
-  return smem_attr(reinterpret_cast<const void*>(attn_bwd_kernel), smem,
-                   &allowed);
+  return smem_attr(reinterpret_cast<const void*>(attn_bwd_kernel<kBf16>),
+                   smem, &allowed);
 }
 
 // n floats rounded up to 16 bytes: every carved array starts aligned, as
@@ -462,10 +484,11 @@ size_t part_floats(const Dims& D) {
   return p;
 }
 
-// The bf16 variant's inputs widened to f32 (widen_bf16): x, then the eight
+// The bf16 variants' inputs widened to f32 (widen_bf16): x, then the eight
 // matmul weights and biases in the order of the weights, each rounded up
-// to 16 bytes
+// to 16 bytes; K12's then dy, of x's size
 constexpr int kWiden = 9;
+constexpr int kWidenBwd = kWiden + 1;
 
 void widen_sizes(const Dims& D, size_t (&n)[kWiden]) {
   const size_t d = D.d, ff = D.ff;
@@ -482,9 +505,9 @@ size_t widen_floats(const Dims& D) {
 }
 
 struct Widen {
-  const uint4* src[kWiden];   // 8 bf16 values a load
-  float4* dst[kWiden];
-  int n8[kWiden];             // values / 8
+  const uint4* src[kWidenBwd];   // 8 bf16 values a load
+  float4* dst[kWidenBwd];
+  int n8[kWidenBwd];             // values / 8
 };
 
 // dst[a] = f32(src[a]), exactly; blockIdx.y picks the array
@@ -504,6 +527,40 @@ __global__ void widen_bf16(Widen w) {
                                  __uint_as_float(u.w << 16),
                                  __uint_as_float(u.w & 0xffff0000u));
   }
+}
+
+// src[a] (f32) rounded to bf16 into dst[a], 8 values a store; blockIdx.y
+// picks the array (K12's bf16 variant: dx, then the eight matmul-weight and
+// bias gradients)
+struct Narrow {
+  const float4* src[kWiden];
+  uint4* dst[kWiden];
+  int n8[kWiden];
+};
+
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<unsigned>(
+              __bfloat16_as_ushort(__float2bfloat16_rn(hi)))
+          << 16);
+}
+
+__global__ void narrow_bf16(Narrow w) {
+  const int a = blockIdx.y;
+  const float4* src = w.src[a];
+  uint4* dst = w.dst[a];
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < w.n8[a];
+       i += gridDim.x * blockDim.x) {
+    const float4 u = src[2 * i], v = src[2 * i + 1];
+    dst[i] = make_uint4(bf16x2(u.x, u.y), bf16x2(u.z, u.w), bf16x2(v.x, v.y),
+                        bf16x2(v.z, v.w));
+  }
+}
+
+// blocks of 256 threads for n8 loads of the largest array, at most 264
+int conv_blocks(size_t most) {
+  const size_t b = (most / 8 + 255) / 256;
+  return static_cast<int>(b < 264 ? (b < 1 ? 1 : b) : 264);
 }
 
 size_t bwd_floats(const Dims& D) {
@@ -615,18 +672,105 @@ bool mma_dims_ok(int d, int ff, int nh, int per16 = 4) {
   return d % per16 == 0 && ff % per16 == 0 && (d / nh) % per16 == 0;
 }
 
+// The backward after the recomputed forward f (x and w as the forward
+// read them, dy the f32 image of the output gradient): dx and the twelve
+// gradients in f32, in the order of the weights. kBf16: bf16 products
+// (the attention backward's too)
+template <bool kBf16>
+int backward(const float* xf, const float* dy, const Weights& w,
+             const Dims& D, const hm::Drop& drop, float* dx,
+             float* const* gr, const Fwd& f, const Bwd& g, cudaStream_t st) {
+  using tg::colsum;
+  using tg::EpiArgs;
+  using tg::E_ADD;
+  using tg::E_DRELU_DROP;
+  using tg::E_STORE;
+  using tf3::wgrad;
+  const int N = D.N, d = D.d, ff = D.ff, T = D.T, nh = D.nh;
+  float *dwqkv = gr[0], *dbqkv = gr[1], *dwo = gr[2], *dbo = gr[3],
+        *dwf1 = gr[4], *dbf1 = gr[5], *dwf2 = gr[6], *dbf2 = gr[7],
+        *dg1 = gr[8], *dbe1 = gr[9], *dg2 = gr[10], *dbe2 = gr[11];
+  const float scale = 1.0f / sqrtf(static_cast<float>(d / nh));
+  const int rows_per_block = 8;
+  const int row_blocks = (N + rows_per_block - 1) / rows_per_block;
+
+  // LN2, then the post-FF mask
+  ln_bwd_rows<<<row_blocks, 32 * rows_per_block, 0, st>>>(
+      dy, f.xhat2, f.rs2, w.g2, site(drop, kSitePostFf), N, d, g.dr2, g.df2);
+  TG_CHECK();
+  colsum(dy, f.xhat2, dg2, N, d, g.part, st);
+  colsum(dy, nullptr, dbe2, N, d, g.part, st);
+  TG_CHECK();
+  // W2
+  wgrad<kBf16>(f.f1d, g.df2, dwf2, ff, d, N, g.part, st);
+  colsum(g.df2, nullptr, dbf2, N, d, g.part, st);
+  TG_CHECK();
+  // dh1 = (df2 W2^T) * mask_101 * (f1 > 0)
+  tf3::gemm<false, true, E_DRELU_DROP, kBf16>(
+      g.df2, w.wf2, g.dh1, N, ff, d, d, d,
+      EpiArgs{nullptr, f.f1, nullptr, site(drop, kSiteFfMid)}, st);
+  TG_CHECK();
+  wgrad<kBf16>(f.y1, g.dh1, dwf1, d, ff, N, g.part, st);
+  colsum(g.dh1, nullptr, dbf1, N, ff, g.part, st);
+  TG_CHECK();
+  // dy1 = dr2 + dh1 W1^T; LN1; the post-attention mask
+  tf3::gemm<false, true, E_ADD, kBf16>(
+      g.dh1, w.wf1, g.dy1, N, d, ff, ff, ff,
+      EpiArgs{nullptr, g.dr2, nullptr, drop}, st);
+  TG_CHECK();
+  ln_bwd_rows<<<row_blocks, 32 * rows_per_block, 0, st>>>(
+      g.dy1, f.xhat1, f.rs1, w.g1, site(drop, kSitePostAttn), N, d, g.dr1,
+      g.da);
+  TG_CHECK();
+  colsum(g.dy1, f.xhat1, dg1, N, d, g.part, st);
+  colsum(g.dy1, nullptr, dbe1, N, d, g.part, st);
+  TG_CHECK();
+  // out projection
+  wgrad<kBf16>(f.att, g.da, dwo, d, d, N, g.part, st);
+  colsum(g.da, nullptr, dbo, N, d, g.part, st);
+  tf3::gemm<false, true, E_STORE, kBf16>(g.da, w.wo, g.datt, N, d, d, d, d,
+                                         EpiArgs{}, st);
+  TG_CHECK();
+  // attention
+  const size_t attn_smem_b = attn_bwd_smem(T, d / nh);
+  const cudaError_t attr = attn_bwd_smem_attr<kBf16>(attn_smem_b);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  attn_bwd_kernel<kBf16><<<(N / T) * nh, 128, attn_smem_b, st>>>(
+      f.qkv, g.datt, g.dqkv, D, scale, drop);
+  TG_CHECK();
+  // qkv projection; dx = dr1 + dqkv Wqkv^T
+  wgrad<kBf16>(xf, g.dqkv, dwqkv, d, 3 * d, N, g.part, st);
+  colsum(g.dqkv, nullptr, dbqkv, N, 3 * d, g.part, st);
+  tf3::gemm<false, true, E_ADD, kBf16>(
+      g.dqkv, w.wqkv, dx, N, d, 3 * d, 3 * d, 3 * d,
+      EpiArgs{nullptr, g.dr1, nullptr, drop}, st);
+  TG_CHECK();
+  return 0;
+}
+
 }  // namespace
 
+// the scratch of each entry point (encoder_layer_scratch's kind)
+enum { kScratchFwd = 0, kScratchBwd = 1, kScratchFwdBf16 = 2,
+       kScratchBwdBf16 = 3 };
+
 // Floats of scratch that encoder_layer_fwd_launch (kind 0),
-// encoder_layer_bwd_launch (kind 1) or encoder_layer_fwd_bf16_launch (kind
-// 2) needs for N = B*T rows.
+// encoder_layer_bwd_launch (kind 1), encoder_layer_fwd_bf16_launch (kind
+// 2) or encoder_layer_bwd_bf16_launch (kind 3) needs for N = B*T rows.
+// Kind 3: kind 1's, then the widened inputs (x, the eight weights and
+// biases, dy), then dx and the eight matmul-weight and bias gradients in
+// f32 (the sizes of x and the eight)
 extern "C" int encoder_layer_scratch(int N, int d, int ff, int kind,
                                      long long* floats) {
-  if (kind < 0 || kind > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (kind < kScratchFwd || kind > kScratchBwdBf16)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Dims D{N, 1, d, ff, 1, 1};
-  *floats = static_cast<long long>(
-      fwd_floats(D) + (kind == 1 ? bwd_floats(D) : 0) +
-      (kind == 2 ? widen_floats(D) : 0));
+  size_t n = fwd_floats(D);
+  if (kind == kScratchBwd || kind == kScratchBwdBf16) n += bwd_floats(D);
+  if (kind == kScratchFwdBf16) n += widen_floats(D);
+  if (kind == kScratchBwdBf16)
+    n += 2 * widen_floats(D) + up4(static_cast<size_t>(N) * d);
+  *floats = static_cast<long long>(n);
   return 0;
 }
 
@@ -697,18 +841,11 @@ extern "C" int encoder_layer_bwd_launch(const void* x, const void* dy_v,
                                         int bt, int seed, float p_keep,
                                         float inv_keep, int use_drop,
                                         void* stream) {
-  using tg::colsum;
-  using tg::EpiArgs;
-  using tg::E_ADD;
-  using tg::E_DRELU_DROP;
-  using tg::E_STORE;
-  using tf3::wgrad;
   if (!dims_ok(B, T, d, ff, nh, bt) || !mma_dims_ok(d, ff, nh) ||
       attn_bwd_smem(T, d / nh) > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims D{B * T, T, d, ff, nh, bt * T};
-  const int N = D.N;
   const hm::Drop drop{use_drop, seed, 0, bt * T, p_keep, inv_keep};
   const Weights w = weights_of(ws);
   float* s = static_cast<float*>(scratch);
@@ -716,68 +853,80 @@ extern "C" int encoder_layer_bwd_launch(const void* x, const void* dy_v,
   const Bwd g = carve_bwd(s + fwd_floats(D), D);
   float* gr[12];
   for (int i = 0; i < 12; ++i) gr[i] = static_cast<float*>(grads[i]);
-  float *dwqkv = gr[0], *dbqkv = gr[1], *dwo = gr[2], *dbo = gr[3],
-        *dwf1 = gr[4], *dbf1 = gr[5], *dwf2 = gr[6], *dbf2 = gr[7],
-        *dg1 = gr[8], *dbe1 = gr[9], *dg2 = gr[10], *dbe2 = gr[11];
   const float* xf = static_cast<const float*>(x);
-  const float* dy = static_cast<const float*>(dy_v);
-  float* dx = static_cast<float*>(dx_v);
-  const float scale = 1.0f / sqrtf(static_cast<float>(d / nh));
-  const int rows_per_block = 8;
-  const int row_blocks = (N + rows_per_block - 1) / rows_per_block;
-
   const int err = forward(xf, w, D, drop, g.y, f, st);
   if (err) return err;
+  return backward<false>(xf, static_cast<const float*>(dy_v), w, D, drop,
+                         static_cast<float*>(dx_v), gr, f, g, st);
+}
 
-  // LN2, then the post-FF mask
-  ln_bwd_rows<<<row_blocks, 32 * rows_per_block, 0, st>>>(
-      dy, f.xhat2, f.rs2, w.g2, site(drop, kSitePostFf), N, d, g.dr2, g.df2);
+// K12's bf16 variant: x, dy, dx, ws[0..7] and grads[0..7] bf16, ws[8..11]
+// and grads[8..11] (LayerNorm) f32; scratch: encoder_layer_scratch(kind 3)
+// floats
+extern "C" int encoder_layer_bwd_bf16_launch(const void* x, const void* dy_v,
+                                             const void* const* ws,
+                                             void* dx_v, void* const* grads,
+                                             void* scratch, int B, int T,
+                                             int d, int ff, int nh, int bt,
+                                             int seed, float p_keep,
+                                             float inv_keep, int use_drop,
+                                             void* stream) {
+  if (!dims_ok(B, T, d, ff, nh, bt) || !mma_dims_ok(d, ff, nh, 8) ||
+      attn_bwd_smem(T, d / nh) > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dims D{B * T, T, d, ff, nh, bt * T};
+  const hm::Drop drop{use_drop, seed, 0, bt * T, p_keep, inv_keep};
+  float* s = static_cast<float*>(scratch);
+  const Fwd f = carve_fwd(s, D);
+  const Bwd g = carve_bwd(s + fwd_floats(D), D);
+  // x, the eight weights and biases, dy: their f32 images
+  size_t n[kWiden];
+  widen_sizes(D, n);
+  Widen wd;
+  float* img[kWidenBwd];
+  float* at = s + fwd_floats(D) + bwd_floats(D);
+  size_t most = 0;
+  for (int i = 0; i < kWidenBwd; ++i) {
+    const size_t ni = n[i < kWiden ? i : 0];
+    if (ni > most) most = ni;
+    img[i] = at;
+    at += up4(ni);
+    wd.src[i] = static_cast<const uint4*>(i == 0   ? x
+                                          : i < kWiden ? ws[i - 1]
+                                                       : dy_v);
+    wd.dst[i] = reinterpret_cast<float4*>(img[i]);
+    wd.n8[i] = static_cast<int>(ni / 8);
+  }
+  widen_bf16<<<dim3(conv_blocks(most), kWidenBwd), 256, 0, st>>>(wd);
   TG_CHECK();
-  colsum(dy, f.xhat2, dg2, N, d, g.part, st);
-  colsum(dy, nullptr, dbe2, N, d, g.part, st);
-  TG_CHECK();
-  // W2
-  wgrad(f.f1d, g.df2, dwf2, ff, d, N, g.part, st);
-  colsum(g.df2, nullptr, dbf2, N, d, g.part, st);
-  TG_CHECK();
-  // dh1 = (df2 W2^T) * mask_101 * (f1 > 0)
-  tf3::gemm<false, true, E_DRELU_DROP>(
-      g.df2, w.wf2, g.dh1, N, ff, d, d, d,
-      EpiArgs{nullptr, f.f1, nullptr, site(drop, kSiteFfMid)}, st);
-  TG_CHECK();
-  wgrad(f.y1, g.dh1, dwf1, d, ff, N, g.part, st);
-  colsum(g.dh1, nullptr, dbf1, N, ff, g.part, st);
-  TG_CHECK();
-  // dy1 = dr2 + dh1 W1^T; LN1; the post-attention mask
-  tf3::gemm<false, true, E_ADD>(g.dh1, w.wf1, g.dy1, N, d, ff, ff, ff,
-                                EpiArgs{nullptr, g.dr2, nullptr, drop}, st);
-  TG_CHECK();
-  ln_bwd_rows<<<row_blocks, 32 * rows_per_block, 0, st>>>(
-      g.dy1, f.xhat1, f.rs1, w.g1, site(drop, kSitePostAttn), N, d, g.dr1,
-      g.da);
-  TG_CHECK();
-  colsum(g.dy1, f.xhat1, dg1, N, d, g.part, st);
-  colsum(g.dy1, nullptr, dbe1, N, d, g.part, st);
-  TG_CHECK();
-  // out projection
-  wgrad(f.att, g.da, dwo, d, d, N, g.part, st);
-  colsum(g.da, nullptr, dbo, N, d, g.part, st);
-  tf3::gemm<false, true, E_STORE>(g.da, w.wo, g.datt, N, d, d, d, d,
-                                  EpiArgs{}, st);
-  TG_CHECK();
-  // attention
-  const size_t attn_smem_b = attn_bwd_smem(T, d / nh);
-  const cudaError_t attr = attn_bwd_smem_attr(attn_smem_b);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  attn_bwd_kernel<<<B * nh, 128, attn_smem_b, st>>>(f.qkv, g.datt, g.dqkv, D,
-                                                    scale, drop);
-  TG_CHECK();
-  // qkv projection; dx = dr1 + dqkv Wqkv^T
-  wgrad(xf, g.dqkv, dwqkv, d, 3 * d, N, g.part, st);
-  colsum(g.dqkv, nullptr, dbqkv, N, 3 * d, g.part, st);
-  tf3::gemm<false, true, E_ADD>(g.dqkv, w.wqkv, dx, N, d, 3 * d, 3 * d,
-                                3 * d, EpiArgs{nullptr, g.dr1, nullptr, drop},
-                                st);
+  const float* ln[4];
+  for (int i = 0; i < 4; ++i) ln[i] = static_cast<const float*>(ws[8 + i]);
+  const Weights w{img[1], img[2], img[3], img[4], img[5], img[6],
+                  img[7], img[8], ln[0], ln[1], ln[2], ln[3]};
+  const int err = forward<true>(img[0], w, D, drop, g.y, f, st);
+  if (err) return err;
+  // dx and the eight matmul-weight and bias gradients in f32, then rounded
+  // once; the LayerNorm gradients straight into their f32 outputs
+  float* dx32 = at;
+  at += up4(n[0]);
+  float* gr[12];
+  Narrow nw;
+  for (int i = 0; i < kWiden; ++i) {
+    float* v = i == 0 ? dx32 : at;
+    if (i > 0) {
+      gr[i - 1] = v;
+      at += up4(n[i]);
+    }
+    nw.src[i] = reinterpret_cast<const float4*>(v);
+    nw.dst[i] = static_cast<uint4*>(i == 0 ? dx_v : grads[i - 1]);
+    nw.n8[i] = static_cast<int>(n[i] / 8);
+  }
+  for (int i = 8; i < 12; ++i) gr[i] = static_cast<float*>(grads[i]);
+  const int e2 = backward<true>(img[0], img[kWiden], w, D, drop, dx32, gr, f,
+                                g, st);
+  if (e2) return e2;
+  narrow_bf16<<<dim3(conv_blocks(most), kWiden), 256, 0, st>>>(nw);
   TG_CHECK();
   return 0;
 }

@@ -1,4 +1,4 @@
-// K10: the backward of the fused tanh-RNN (BPTT), f32.
+// K10: the backward of the fused tanh-RNN (BPTT), f32 or bf16.
 //
 // Replaces tip_tpu/ops/pallas_kernels.py::_rnn_bwd (Pallas kernel
 // _rnn_bwd_kernel, the backward of fused_rnn_train). For the hidden states
@@ -33,6 +33,19 @@
 // The launch plan (the walk's cluster, columns, batch tile, clusters and
 // shared bytes; dW's rows a split and splits) comes from
 // ops/fused_rnn.py::fused_rnn_bwd_plan and is checked here.
+//
+// The bf16 variant (fused_rnn_bwd_bf16_launch: tip_tpu's kernel on bf16 hs,
+// g and W) is the same walk on bf16 storage (rnn_cluster.cuh: W's slice
+// bf16 in shared memory, g and hs widened as loaded, da formed in f32 and
+// rounded to bf16 once, that value written as dxin and passed on). dW's
+// operands, h_{t-1} and bf16(da) = dxin, are exactly bf16: hs and dxin are
+// widened to their f32 images in a scratch (one launch) and the product
+// runs on train_mma.cuh's bf16 tiles (one m16n8k16 bf16 mma a 16-deep
+// step, f32 sums); the splits are added in the same fixed order and the
+// sum is rounded to bf16 once (round_splits_kernel), never a split alone.
+// Its bound is operations at the bf16 tensor-core rate (0.011 ms at the
+// training shape, bytes 0.009): the recurrence's 40 dependent steps, not
+// the rate, are what holds it there.
 
 #include "rnn_cluster.cuh"
 #include "train_mma.cuh"
@@ -40,8 +53,9 @@
 namespace {
 
 // dW's partial product of split blockIdx.z (rows [z kchunk, (z + 1)
-// kchunk) of B T): part + z H H, or dw itself when there is one split
-template <class L>
+// kchunk) of B T): part + z H H, or dw itself when there is one split.
+// kBf16: hs and da the f32 images of bf16 values, bf16 products
+template <class L, bool kBf16>
 __global__ void __launch_bounds__(L::THREADS, 2)
 dw_kernel(const float* __restrict__ hs, const float* __restrict__ da,
           float* __restrict__ part, int H, int rows, int T, int kchunk) {
@@ -55,8 +69,8 @@ dw_kernel(const float* __restrict__ hs, const float* __restrict__ da,
   const int k_end = min(rows, k_begin + kchunk);
   float acc[L::MT][L::NT][4];
   // A = h_{t-1} stored (B T, H) as hs a row up; B = da (B T, H)
-  tf3::mma_tile<true, false, L, true, true>(hs, da, H, H, H, H, m0, n0,
-                                            k_begin, k_end, sm, acc, T);
+  tf3::mma_tile<true, false, L, true, true, kBf16>(
+      hs, da, H, H, H, H, m0, n0, k_begin, k_end, sm, acc, T);
   float* out = part + static_cast<size_t>(blockIdx.z) * H * H;
 #pragma unroll
   for (int mt = 0; mt < L::MT; ++mt)
@@ -71,19 +85,77 @@ dw_kernel(const float* __restrict__ hs, const float* __restrict__ da,
       }
 }
 
-template <class L>
+template <class L, bool kBf16 = false>
 cudaError_t launch_dw(const float* hs, const float* da, float* part, int H,
                       int rows, int T, int kchunk, int splits,
                       cudaStream_t st) {
   constexpr size_t smem = tf3::Stage<true, false, L>::BYTES;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      dw_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dw_kernel<L, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   dim3 grid((H + L::BN - 1) / L::BN, (H + L::BM - 1) / L::BM, splits);
-  dw_kernel<L><<<grid, L::THREADS, smem, st>>>(hs, da, part, H, rows, T,
-                                               kchunk);
+  dw_kernel<L, kBf16><<<grid, L::THREADS, smem, st>>>(hs, da, part, H, rows,
+                                                      T, kchunk);
   return cudaGetLastError();
+}
+
+template <bool kBf16 = false>
+cudaError_t dw_product(const float* hs, const float* da, float* out, int H,
+                       int rows, int T, int kchunk, int splits,
+                       cudaStream_t st) {
+  return H <= 256 ? launch_dw<tf3::NarrowTile, kBf16>(hs, da, out, H, rows, T,
+                                                      kchunk, splits, st)
+                  : launch_dw<tf3::WideTile, kBf16>(hs, da, out, H, rows, T,
+                                                    kchunk, splits, st);
+}
+
+// dst[a] = f32(src[a]) exactly, 4 bf16 values a load, n4 loads, for the
+// array a = blockIdx.y (hs and dxin, the bf16 variant's dW operands)
+struct Widen2 {
+  const uint2* src[2];
+  float4* dst[2];
+  long long n4;
+};
+
+__global__ void widen2_kernel(Widen2 w) {
+  const uint2* src = w.src[blockIdx.y];
+  float4* dst = w.dst[blockIdx.y];
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < w.n4; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const uint2 u = src[i];
+    dst[i] = make_float4(__uint_as_float(u.x << 16),
+                         __uint_as_float(u.x & 0xffff0000u),
+                         __uint_as_float(u.y << 16),
+                         __uint_as_float(u.y & 0xffff0000u));
+  }
+}
+
+// out[i] = bf16(sum over s of part[s * n + i]), s in order (the order of
+// tg::sum_splits_kernel), rounded once after the sum
+__global__ void round_splits_kernel(const float* __restrict__ part,
+                                    __nv_bfloat16* __restrict__ out, int n,
+                                    int splits) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float v = 0.0f;
+  for (int s = 0; s < splits; ++s) v += part[static_cast<size_t>(s) * n + i];
+  out[i] = __float2bfloat16_rn(v);
+}
+
+// The checked launch plan of both entry points: the walk's
+// (rnnc::walk_plan_ok, W stored w_bytes an entry) and dW's split
+bool bwd_plan_ok(int B, int T, int H, int cluster, int cols, int bt,
+                 int clusters, long long smem, int dw_rows, int dw_splits,
+                 int w_bytes) {
+  const long long rows = static_cast<long long>(B) * T;
+  return rnnc::walk_plan_ok(B, H, cluster, cols, bt, clusters, smem,
+                            w_bytes) &&
+         dw_rows > 0 && dw_rows % tf3::BK == 0 && dw_splits > 0 &&
+         static_cast<long long>(dw_rows) * dw_splits >= rows &&
+         static_cast<long long>(dw_rows) * (dw_splits - 1) < rows &&
+         rows * H <= 0x7fffffffLL;
 }
 
 }  // namespace
@@ -101,14 +173,11 @@ extern "C" int fused_rnn_bwd_launch(const void* hs, const void* w_hh,
                                     int dw_rows, int dw_splits,
                                     void* stream) {
   if (B <= 0 || T <= 0 || H <= 0) return 0;
-  const long long rows = static_cast<long long>(B) * T;
-  const bool ok =
-      rnnc::walk_plan_ok(B, H, cluster, cols, bt, clusters, smem) &&
-      dw_rows > 0 && dw_rows % tf3::BK == 0 && dw_splits > 0 &&
-      static_cast<long long>(dw_rows) * dw_splits >= rows &&
-      static_cast<long long>(dw_rows) * (dw_splits - 1) < rows &&
-      rows * H <= 0x7fffffffLL && (dw_splits == 1 || part != nullptr);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (!bwd_plan_ok(B, T, H, cluster, cols, bt, clusters, smem, dw_rows,
+                   dw_splits, 4) ||
+      (dw_splits > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = B * T;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* hs_f = static_cast<const float*>(hs);
   float* dx_f = static_cast<float*>(dx);
@@ -118,15 +187,56 @@ extern "C" int fused_rnn_bwd_launch(const void* hs, const void* w_hh,
                                      B, T, H, cols, bt, clusters, smem, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   float* out = dw_splits > 1 ? static_cast<float*>(part) : dw_f;
-  err = H <= 256 ? launch_dw<tf3::NarrowTile>(hs_f, dx_f, out, H,
-                                              static_cast<int>(rows), T,
-                                              dw_rows, dw_splits, st)
-                 : launch_dw<tf3::WideTile>(hs_f, dx_f, out, H,
-                                            static_cast<int>(rows), T,
-                                            dw_rows, dw_splits, st);
+  err = dw_product(hs_f, dx_f, out, H, rows, T, dw_rows, dw_splits, st);
   if (err != cudaSuccess || dw_splits == 1) return static_cast<int>(err);
   const int n = H * H;
   tg::sum_splits_kernel<<<(n + 255) / 256, 256, 0, st>>>(out, dw_f, n,
                                                          dw_splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 variant: hs, w_hh, g, dx and dw bf16; the plan as
+// fused_rnn_bwd_launch's with `smem` counting W's slice at 2 bytes an
+// entry; `scratch`: 2 B T H + dw_splits H H floats (hs and dx widened,
+// then the partial products, one where dW is not split).
+extern "C" int fused_rnn_bwd_bf16_launch(const void* hs, const void* w_hh,
+                                         const void* g, void* dx, void* dw,
+                                         void* scratch, int B, int T, int H,
+                                         int cluster, int cols, int bt,
+                                         int clusters, long long smem,
+                                         int dw_rows, int dw_splits,
+                                         void* stream) {
+  using S = __nv_bfloat16;
+  if (B <= 0 || T <= 0 || H <= 0) return 0;
+  if (!bwd_plan_ok(B, T, H, cluster, cols, bt, clusters, smem, dw_rows,
+                   dw_splits, 2) ||
+      scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = B * T;
+  const size_t n_rows = static_cast<size_t>(rows) * H;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = rnnc::walk<true, S>(
+      static_cast<const S*>(g), static_cast<const S*>(hs),
+      static_cast<const S*>(w_hh), static_cast<S*>(dx), B, T, H, cols, bt,
+      clusters, smem, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* hs_img = static_cast<float*>(scratch);
+  float* dx_img = hs_img + n_rows;
+  float* part = dx_img + n_rows;
+  Widen2 w{{static_cast<const uint2*>(hs), static_cast<const uint2*>(dx)},
+           {reinterpret_cast<float4*>(hs_img),
+            reinterpret_cast<float4*>(dx_img)},
+           static_cast<long long>(n_rows / 4)};
+  const long long blocks = (w.n4 + 255) / 256;
+  widen2_kernel<<<dim3(blocks < 264 ? static_cast<int>(blocks) : 264, 2),
+                  256, 0, st>>>(w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = dw_product<true>(hs_img, dx_img, part, H, rows, T, dw_rows,
+                         dw_splits, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n = H * H;
+  round_splits_kernel<<<(n + 255) / 256, 256, 0, st>>>(
+      part, static_cast<S*>(dw), n, dw_splits);
   return static_cast<int>(cudaGetLastError());
 }

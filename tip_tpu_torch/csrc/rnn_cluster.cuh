@@ -29,12 +29,15 @@
 // launch plan (cluster, columns a block, batch tile, clusters, shared
 // bytes) comes from ops/fused_rnn.py and is checked by walk_plan_ok.
 //
-// Storage: the inputs, W and the outputs are f32, or bf16 (K1's bf16
-// variant, forward only). In bf16, W's slice stays bf16 in shared memory
-// (half the bytes), the products are summed in f32 as in f32, and a step
-// rounds where tip_tpu's kernel does: the sum to bf16, the add of xin_t in
-// f32 to bf16, tanh (accurate tanhf) in f32 to bf16. The row buffers hold
-// the exact f32 image of the bf16 h_{t-1}.
+// Storage: the inputs, W and the outputs are f32, or bf16 (the bf16
+// variants of K1 and K10). In bf16, W's slice stays bf16 in shared memory
+// (half the bytes), the inputs are widened exactly as they are loaded, the
+// products are summed in f32 as in f32, and a step rounds where tip_tpu's
+// kernel does. Forwards: the sum to bf16, the add of xin_t in f32 to bf16,
+// tanh (accurate tanhf) in f32 to bf16. Backwards: da = (g + sum)(1 - h^2)
+// in f32, rounded to bf16 once; that value is written as dxin and is the
+// next step's row. The row buffers hold the exact f32 image of the bf16
+// row (h_{t-1} or da_{t+1}).
 
 #pragma once
 
@@ -67,7 +70,8 @@ __host__ __device__ constexpr size_t smem_bytes(int H, int cols, int bt,
 }
 
 // What differs between the two storage types: 4 consecutive values to and
-// from f32, and the end of a forward step, h = tanh(xin + sum)
+// from f32, the end of a forward step, h = tanh(xin + sum), and the value
+// a backward step passes on (keep: as stored)
 template <class S>
 struct Io;
 
@@ -84,6 +88,7 @@ struct Io<float> {
   static __device__ __forceinline__ float step(float in, float sum) {
     return tanhf(in + sum);
   }
+  static __device__ __forceinline__ float keep(float v) { return v; }
 };
 
 template <>
@@ -116,17 +121,17 @@ struct Io<__nv_bfloat16> {
   static __device__ __forceinline__ float step(float in, float sum) {
     return rnd(tanhf(rnd(in + rnd(sum))));
   }
+  static __device__ __forceinline__ float keep(float v) { return rnd(v); }
 };
 
 // BT batch rows a cluster; C = cols / 32 columns a thread (lane, lane + 32).
 // kBack: in = g, hs = the hidden states, out = da; else in = xin, out = h.
-// S: the storage of in, hs, w and out (f32; bf16 forwards only)
+// S: the storage of in, hs, w and out (f32 or bf16)
 template <int BT, int C, bool kBack, class S>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 walk_kernel(const S* __restrict__ in, const S* __restrict__ hs,
             const S* __restrict__ w, S* __restrict__ out, int B, int T,
             int H) {
-  static_assert(!kBack || sizeof(S) == 4, "the backward walk is f32");
   using IO = Io<S>;
   constexpr int cols = 32 * C;
   constexpr int quads = BT * cols / 4;   // float4 outputs of a block a step
@@ -246,11 +251,11 @@ walk_kernel(const S* __restrict__ in, const S* __restrict__ hs,
         sm.w += r.w;
       }
       float4 o;
-      if (kBack) {   // da = (g + da_{t+1} W^T) (1 - h^2)
-        o = make_float4((iv.x + sm.x) * (1.0f - hv.x * hv.x),
-                        (iv.y + sm.y) * (1.0f - hv.y * hv.y),
-                        (iv.z + sm.z) * (1.0f - hv.z * hv.z),
-                        (iv.w + sm.w) * (1.0f - hv.w * hv.w));
+      if (kBack) {   // da = (g + da_{t+1} W^T) (1 - h^2), as stored
+        o = make_float4(IO::keep((iv.x + sm.x) * (1.0f - hv.x * hv.x)),
+                        IO::keep((iv.y + sm.y) * (1.0f - hv.y * hv.y)),
+                        IO::keep((iv.z + sm.z) * (1.0f - hv.z * hv.z)),
+                        IO::keep((iv.w + sm.w) * (1.0f - hv.w * hv.w)));
       } else {
         o = make_float4(IO::step(iv.x, sm.x), IO::step(iv.y, sm.y),
                         IO::step(iv.z, sm.z), IO::step(iv.w, sm.w));

@@ -37,8 +37,8 @@
 // rows whose partial products a second pass adds in a fixed order
 // (tg::sum_splits_kernel). No atomics: two calls give the same bits.
 //
-// bf16 products (kBf16: K11's bf16 variant, tip_tpu's kernel on bf16
-// weights): the same tiles and staging, and one
+// bf16 products (kBf16: the bf16 variants of K11, K12 and K10's dW,
+// tip_tpu's kernels on bf16 weights): the same tiles and staging, and one
 // mma.sync.aligned.m16n8k16 in bf16 with f32 sums a 16-deep step where
 // 3xTF32 takes six m16n8k8. Each operand is rounded to bf16 (cvt.rn) as
 // its fragment is formed from the staged f32 values, as tip_tpu's dot
@@ -434,17 +434,20 @@ inline size_t wgrad_scratch(int M, int N, int K) {
 }
 
 // out (M, N) = A^T B over the K rows of A (K, M) and B (K, N): a weight
-// gradient. `part`: wgrad_scratch(M, N, K) floats.
+// gradient. `part`: wgrad_scratch(M, N, K) floats. kBf16: bf16 products
+// (mma_slice's), the partial sums added in f32 in the same order.
+template <bool kBf16 = false>
 inline void wgrad(const float* A, const float* B, float* out, int M, int N,
                   int K, float* part, cudaStream_t st) {
   const tg::Split p = split_plan(M, N, K);
   if (p.splits == 1) {
-    tf3::gemm<true, false, tg::E_STORE>(A, B, out, M, N, K, M, N,
-                                        tg::EpiArgs{}, st);
+    tf3::gemm<true, false, tg::E_STORE, kBf16>(A, B, out, M, N, K, M, N,
+                                               tg::EpiArgs{}, st);
     return;
   }
-  tf3::gemm<true, false, tg::E_STORE>(A, B, part, M, N, K, M, N,
-                                      tg::EpiArgs{}, st, p.kchunk, p.splits);
+  tf3::gemm<true, false, tg::E_STORE, kBf16>(A, B, part, M, N, K, M, N,
+                                             tg::EpiArgs{}, st, p.kchunk,
+                                             p.splits);
   const int n = M * N;
   tg::sum_splits_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, out, n,
                                                           p.splits);

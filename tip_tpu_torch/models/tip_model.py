@@ -367,7 +367,8 @@ class TIPModel(nn.Module):
     def params_as(self, dtype=None):
         """The parameters by state-dict name, cast to ``dtype`` (None: to
         ``cfg.compute_dtype``, and as they are when that is None too). The
-        cast copy is made once per dtype (``_derive``)."""
+        cast copy is detached and made once per dtype (``_derive``): for
+        the forwards that record no gradient (``_params``)."""
         if dtype is None and self.cfg.compute_dtype is not None:
             dtype = getattr(torch, self.cfg.compute_dtype)
         own = dict(self.named_parameters())
@@ -375,6 +376,22 @@ class TIPModel(nn.Module):
             return own
         return self._derive(("cast", dtype), lambda: {
             k: p.detach().to(dtype) for k, p in own.items()})
+
+    def _params(self):
+        """The parameters the forwards compute with, by state-dict name, in
+        ``cfg.compute_dtype`` (their own dtype when it is None). With grad
+        on and parameters that require it, each is cast anew on every call
+        with a differentiable cast, so that the gradients reach the
+        parameters (rounded to the compute dtype on the way, as JAX's
+        ``astype`` transposes); else ``params_as``'s cached copy."""
+        own = dict(self.named_parameters())
+        if not (torch.is_grad_enabled()
+                and any(p.requires_grad for p in own.values())):
+            return self.params_as()
+        cd = self.cfg.compute_dtype
+        if cd is None:
+            return own
+        return {k: p.to(getattr(torch, cd)) for k, p in own.items()}
 
     def forward(self, x_imu, x_s, mask=None, train: bool = False,
                 seeds=None):
@@ -385,10 +402,9 @@ class TIPModel(nn.Module):
         ``cfg.encoder_impl`` is "plain" or a custom mask is given. With
         ``cfg.compute_dtype`` set, the parameters and both inputs are cast
         to it, the forward runs there (in bf16: K11's and K1's bf16
-        variants) and the result comes back in the inputs' dtype; else it
-        runs in the parameters' dtype. A bf16 forward with grad on and
-        parameters that require it raises: the bf16 backward is not
-        ported.
+        variants, and with grad on K12's and K10's in the backward) and the
+        result comes back in the inputs' dtype; else it runs in the
+        parameters' dtype.
 
         Args:
           x_imu: (B, T, 72 or 90) IMU features (acc-sum appended if enabled).
@@ -406,16 +422,10 @@ class TIPModel(nn.Module):
             return self.train_forward(x_imu, x_s, seeds)
         B, T, _ = x_imu.shape
         out_dtype = x_imu.dtype
-        p = self.params_as()
+        p = self._params()
         if self.cfg.compute_dtype is not None:
             cd = getattr(torch, self.cfg.compute_dtype)
             x_imu, x_s = x_imu.to(cd), x_s.to(cd)
-        if p["out.w"].dtype == torch.bfloat16 and torch.is_grad_enabled() \
-                and any(q.requires_grad for q in self.parameters()):
-            raise NotImplementedError(
-                "the bf16 forward with grad on: the bf16 backward of the RNN "
-                "head (K10) and of the encoder layer (K12) is not ported "
-                "(ROADMAP B1 (b)/(d)); run it under torch.no_grad()")
         x_s = torch.nan_to_num(x_s, nan=0.0)
         x_s = torch.cat([x_s[..., :108], torch.zeros_like(x_s[..., 108:111]),
                          x_s[..., 111:]], dim=-1)
@@ -453,8 +463,8 @@ class TIPModel(nn.Module):
         (``ops/encoder_train.py``) with dropout off and seed 0, batch tiles
         of 8, in x's dtype (bf16 under ``compute_dtype="bfloat16"``, with
         f32 LayerNorm vectors). With grad on and weights (or x) that
-        require it, the differentiable layer (K11 forward, K12 backward,
-        float32 only), as tip_tpu's ``custom_vjp``; else K11 on detached
+        require it, the differentiable layer (K11 forward, K12 backward, in
+        x's dtype), as tip_tpu's ``custom_vjp``; else K11 on detached
         weights packed once per dtype."""
         cfg = self.cfg
         grad = torch.is_grad_enabled() and (
@@ -481,8 +491,14 @@ class TIPModel(nn.Module):
     def train_forward(self, x_imu, x_s, seeds=None):
         """The differentiable training forward, tip_tpu's ``forward(...,
         train=True, rng)`` with ``encoder_impl="pallas"``,
-        ``rnn_impl="pallas"`` and ``dropout_impl="hash"``, in the
-        parameters' dtype.
+        ``rnn_impl="pallas"`` and ``dropout_impl="hash"``, in
+        ``cfg.compute_dtype`` (the parameters' dtype when it is None). In
+        bf16 the parameters stay float32: each is cast to bf16 on every
+        call with a differentiable cast (``_params``; the LayerNorm vectors
+        too, which ``pack_layer_weights`` widens back to f32, as tip_tpu
+        casts its whole tree), both inputs are cast to bf16, the layers and
+        the RNN run K11/K12 and K1/K10 in bf16, and the output comes back
+        in the inputs' dtype.
 
         seeds: (seed0, layer_seeds), int32 values: seed0 seeds the IMU
         (site 200) and past-state (site 201) masks, ``layer_seeds[li]`` the
@@ -491,13 +507,11 @@ class TIPModel(nn.Module):
         dropout off, as tip_tpu without an rng.
         """
         cfg = self.cfg
-        p = dict(self.named_parameters())
-        dtype = p["out.w"].dtype
-        if cfg.compute_dtype not in (None, str(dtype).split(".")[1]):
-            raise NotImplementedError(
-                f"training in compute_dtype={cfg.compute_dtype!r} is not "
-                f"ported; the port trains in the parameters' dtype (ROADMAP "
-                f"A, training: bf16)")
+        out_dtype = x_imu.dtype
+        p = self._params()
+        if cfg.compute_dtype is not None:
+            cd = getattr(torch, cfg.compute_dtype)
+            x_imu, x_s = x_imu.to(cd), x_s.to(cd)
         drop = seeds is not None
         if drop:
             seed0, layer_seeds = seeds
@@ -528,4 +542,4 @@ class TIPModel(nn.Module):
             xin = x @ p["rnn.w_ih"] + p["rnn.b_ih"] + p["rnn.b_hh"]
             x = fused_rnn_train(xin.contiguous(), p["rnn.w_hh"],
                                 impl=cfg.rnn_impl)
-        return x @ p["out.w"] + p["out.b"]
+        return (x @ p["out.w"] + p["out.b"]).to(out_dtype)

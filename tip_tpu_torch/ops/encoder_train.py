@@ -10,11 +10,13 @@ forward, K12 (``encoder_layer_bwd``) the backward, both with 3xTF32
 products on the tensor cores (about f32's accuracy): K12 recomputes the
 forward from x (K11's launches), as tip_tpu's kernel does, and
 regenerates the four dropout sites' masks from the seed, so nothing but x
-is saved between them. K11 also takes bf16 x and matmul weights (f32
-LayerNorm vectors), as tip_tpu's kernel does: every product rounds both
-operands to bf16 (q k^T and p v too) and sums in f32, biases, LayerNorm,
-softmax and residuals stay f32 and y is written in bf16; the plain
-version rounds at the same places. The backward is float32 only.
+is saved between them. Both also take bf16 x (and dy) and matmul weights
+(f32 LayerNorm vectors), as tip_tpu's kernels do: every product rounds
+both operands to bf16 (q k^T and p v, and the attention backward's four,
+too) and sums in f32; biases, LayerNorm and its backward, softmax, dReLU,
+masks, residuals and column sums stay f32; y and dx are written in bf16,
+the matmul-weight and bias gradients rounded to bf16 once from f32, the
+LayerNorm gradients in f32. The plain versions round at the same places.
 ``encoder_layer_train`` is the differentiable layer (a
 ``torch.autograd.Function``): K11 and K12 on CUDA tensors, the plain
 versions on CPU tensors.
@@ -50,18 +52,18 @@ _FWD_ARGS = ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
               ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                 ctypes.c_void_p])
+_BWD_ARGS = ([ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+              ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+             + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float,
+                                     ctypes.c_int, ctypes.c_void_p])
 _SIG = {
     "encoder_layer_scratch": [ctypes.c_int] * 4
                              + [ctypes.POINTER(ctypes.c_longlong)],
     "encoder_layer_fwd_launch": _FWD_ARGS,
     "encoder_layer_fwd_bf16_launch": _FWD_ARGS,
-    "encoder_layer_bwd_launch": [ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.POINTER(ctypes.c_void_p),
-                                 ctypes.c_void_p,
-                                 ctypes.POINTER(ctypes.c_void_p),
-                                 ctypes.c_void_p]
-        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float,
-                                ctypes.c_int, ctypes.c_void_p],
+    "encoder_layer_bwd_launch": _BWD_ARGS,
+    "encoder_layer_bwd_bf16_launch": _BWD_ARGS,
 }
 
 
@@ -193,6 +195,21 @@ def _fwd_math(x, ws, masks, n_heads):
     return y2, stash
 
 
+def attention_bwd(p_h, m_att, q, k, v, do, scale, op):
+    """The attention backward of each (sample, head), (B, h, T, ·): the
+    probabilities p_h, the keep values m_att (None: no dropout), q, k, v
+    and the output gradient do. Each of the four products' operands go
+    through op (``_operand``). Returns (dq, dk, dv)."""
+    pd = p_h if m_att is None else p_h * m_att
+    dv = op(pd).transpose(-1, -2) @ op(do)
+    dpd = op(do) @ op(v).transpose(-1, -2)
+    dp = dpd if m_att is None else dpd * m_att
+    ds = p_h * (dp - torch.sum(dp * p_h, dim=-1, keepdim=True))
+    dq = (op(ds) @ op(k)) * scale
+    dk = (op(ds).transpose(-1, -2) @ op(q)) * scale
+    return dq, dk, dv
+
+
 def _prepare(x, ws, seed, p, train, bt):
     B, T, d = x.shape
     bt = pick_tile(B, bt, "encoder_layer_train")
@@ -214,54 +231,52 @@ def encoder_layer_train_plain(x, ws, seed, n_heads: int, p: float,
 def encoder_layer_bwd_plain(x, ws, seed, dy, n_heads: int, p: float,
                             train: bool, bt: int = 8):
     """Plain PyTorch version of K12 (tip_tpu's ``_bwd_kernel``): recompute
-    the forward, then walk it backwards with the same masks. Returns (dx,
-    the 12 weight gradients)."""
+    the forward, then walk it backwards with the same masks. Returns (dx in
+    x's dtype, the 12 weight gradients in the weights' dtypes). With bf16
+    weights both operands of each of the 12 backward products are rounded
+    to bf16 and the sums are f32, as tip_tpu's ``dot`` casts them."""
     B, T, d = x.shape
     xf, masks = _prepare(x, ws, seed, p, train, bt)
     f = xf.dtype
-    (w_qkv, b_qkv, w_o, b_o, w_f1, b_f1, w_f2, b_f2, g1, be1, g2, be2) = ws
+    op = _operand(ws)
+    (w_qkv, b_qkv, w_o, b_o, w_f1, b_f1, w_f2, b_f2, g1, be1, g2, be2) = (
+        w.to(f) for w in ws)
     _, st = _fwd_math(xf, ws, masks, n_heads)
     dy = dy.to(f).reshape(B * T, d)
     dr2, dg2, dbe2 = _ln_bwd(dy, st["xhat2"], st["rs2"], g2)
     df2 = dr2
     if masks.on:
         df2 = df2 * masks.rows(SITE_POST_FF, d).reshape(B * T, d)
-    dwf2 = st["f1d"].T @ df2
+    dwf2 = op(st["f1d"]).T @ op(df2)
     dbf2 = torch.sum(df2, dim=0)
-    df1d = df2 @ w_f2.T
+    df1d = op(df2) @ w_f2.T
     if masks.on:
         df1d = df1d * masks.rows(SITE_FF_MID, w_f1.shape[1]).reshape(
             B * T, -1)
     dh1 = df1d * (st["f1"] > 0).to(f)
-    dwf1 = st["y1"].T @ dh1
+    dwf1 = op(st["y1"]).T @ op(dh1)
     dbf1 = torch.sum(dh1, dim=0)
-    dy1 = dr2 + dh1 @ w_f1.T
+    dy1 = dr2 + op(dh1) @ w_f1.T
     dr1, dg1, dbe1 = _ln_bwd(dy1, st["xhat1"], st["rs1"], g1)
     da = dr1
     if masks.on:
         da = da * masks.rows(SITE_POST_ATTN, d).reshape(B * T, d)
-    dwo = st["att"].T @ da
+    dwo = op(st["att"]).T @ op(da)
     dbo = torch.sum(da, dim=0)
-    datt = da @ w_o.T
+    datt = op(da) @ w_o.T
     hd = d // n_heads
     do = datt.reshape(B, T, n_heads, hd).transpose(1, 2)         # (B,h,T,hd)
-    p_h, q, k, v, scale = st["p"], st["q"], st["k"], st["v"], st["scale"]
-    pd = p_h * st["m_att"] if masks.on else p_h
-    dv = pd.transpose(-1, -2) @ do
-    dpd = do @ v.transpose(-1, -2)
-    dp = dpd * st["m_att"] if masks.on else dpd
-    ds = p_h * (dp - torch.sum(dp * p_h, dim=-1, keepdim=True))
-    dq = (ds @ k) * scale
-    dk = (ds.transpose(-1, -2) @ q) * scale
+    dq, dk, dv = attention_bwd(st["p"], st["m_att"], st["q"], st["k"],
+                               st["v"], do, st["scale"], op)
 
     def flat(t):
         return t.transpose(1, 2).reshape(B * T, d)
 
     dqkv = torch.cat([flat(dq), flat(dk), flat(dv)], dim=1)
     xr = xf.reshape(B * T, d)
-    dwqkv = xr.T @ dqkv
+    dwqkv = op(xr).T @ op(dqkv)
     dbqkv = torch.sum(dqkv, dim=0)
-    dx = dr1 + dqkv @ w_qkv.T
+    dx = dr1 + op(dqkv) @ w_qkv.T
     grads = (dwqkv, dbqkv, dwo, dbo, dwf1, dbf1, dwf2, dbf2, dg1, dbe1, dg2,
              dbe2)
     return (dx.reshape(B, T, d).to(x.dtype),
@@ -281,15 +296,8 @@ def _check_dtypes(x, ws):
                             f"{x.dtype}; expected {want}")
 
 
-def _refuse_bf16(x):
-    if x.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "the encoder layer's backward (K12) in bf16 is not ported "
-            "(ROADMAP B1 (d)); train in float32")
-
-
 def _check(x, ws, n_heads, bt, extra=()):
-    """Check the layer's inputs: x and the matmul weights float32 or (K11)
+    """Check the layer's inputs: x and the matmul weights float32 or
     bfloat16, the LayerNorm vectors float32. K11's and K12's tensor-core
     products and K12's attention backward read 16 bytes at a time: d, ff
     and the head width multiples of 4 (8 in bf16), aligned data."""
@@ -324,19 +332,21 @@ def _drop_args(p, train):
 
 
 # the scratch of each entry point (encoder_layer_scratch's kind)
-SCRATCH_FWD, SCRATCH_BWD, SCRATCH_FWD_BF16 = 0, 1, 2
+SCRATCH_FWD, SCRATCH_BWD, SCRATCH_FWD_BF16, SCRATCH_BWD_BF16 = 0, 1, 2, 3
 _scratch_floats = {}          # (N, d, ff, kind) -> floats, asked once
 
 
-def _scratch(so, N, d, ff, kind, device):
+def scratch_floats(N, d, ff, kind):
+    """Floats of the scratch that the entry point of ``kind`` (SCRATCH_*)
+    takes for N = B*T rows (asked of the library once)."""
     key = (N, d, ff, kind)
     if key not in _scratch_floats:
         n = ctypes.c_longlong()
+        so = K.lib("encoder_train", _SIG)
         K.check(so.encoder_layer_scratch(N, d, ff, kind, ctypes.byref(n)),
                 "encoder_layer_scratch")
         _scratch_floats[key] = n.value
-    return torch.empty(_scratch_floats[key], dtype=torch.float32,
-                       device=device)
+    return _scratch_floats[key]
 
 
 def _ptrs(ts):
@@ -348,8 +358,9 @@ def _launch_fwd(x, ws, seed, n_heads, p, train, bt):
     bf16 = x.dtype == torch.bfloat16
     name = "encoder_layer_fwd_bf16" if bf16 else "encoder_layer_fwd"
     so = K.lib("encoder_train", _SIG)
-    scratch = _scratch(so, B * T, d, ff,
-                       SCRATCH_FWD_BF16 if bf16 else SCRATCH_FWD, x.device)
+    scratch = torch.empty(scratch_floats(
+        B * T, d, ff, SCRATCH_FWD_BF16 if bf16 else SCRATCH_FWD),
+        dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = getattr(so, f"{name}_launch")(
@@ -360,20 +371,30 @@ def _launch_fwd(x, ws, seed, n_heads, p, train, bt):
     return y
 
 
-def _launch_bwd(x, ws, seed, dy, n_heads, p, train, bt):
+def _launch_bwd(x, ws, seed, dy, n_heads, p, train, bt, scratch=None):
+    """K12 in x's dtype. ``scratch``: a float32 tensor of
+    ``scratch_floats`` floats to run in, so that a check can read the
+    layer's activations and gradients there afterwards (None: a new
+    one)."""
     B, T, d, ff, bt = _check(x, ws, n_heads, bt, extra=(dy,))
-    K.check_input(dy, "dy", (B, T, d), torch.float32, x.device)
+    K.check_input(dy, "dy", (B, T, d), x.dtype, x.device)
+    bf16 = x.dtype == torch.bfloat16
+    name = "encoder_layer_bwd_bf16" if bf16 else "encoder_layer_bwd"
+    kind = SCRATCH_BWD_BF16 if bf16 else SCRATCH_BWD
     so = K.lib("encoder_train", _SIG)
-    scratch = _scratch(so, B * T, d, ff, SCRATCH_BWD, x.device)
+    n = scratch_floats(B * T, d, ff, kind)
+    if scratch is None:
+        scratch = torch.empty(n, dtype=torch.float32, device=x.device)
+    K.check_input(scratch, "scratch", (n,), torch.float32, x.device)
     dx = torch.empty_like(x)
     grads = [torch.empty_like(w) for w in ws]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = so.encoder_layer_bwd_launch(
+    err = getattr(so, f"{name}_launch")(
         x.data_ptr(), dy.data_ptr(), _ptrs(ws), dx.data_ptr(), _ptrs(grads),
         scratch.data_ptr(), B, T, d, ff, n_heads, bt, _int32(seed),
         *_drop_args(p, train), stream)
-    K.check(err, "encoder_layer_bwd")
-    K.launch_counts["encoder_layer_bwd"] += 1
+    K.check(err, name)
+    K.launch_counts[name] += 1
     return dx, tuple(grads)
 
 
@@ -392,9 +413,9 @@ def encoder_layer_fwd(x, ws, seed, n_heads, p, train, bt=8, impl="auto"):
 def encoder_layer_bwd(x, ws, seed, dy, n_heads, p, train, bt=8,
                       impl="auto"):
     """The layer's backward by ``impl`` (K12 or ``encoder_layer_bwd_plain``,
-    chosen as ``encoder_layer_fwd`` chooses). float32 (float64 plain)
-    only: bf16 raises."""
-    _refuse_bf16(x)
+    chosen as ``encoder_layer_fwd`` chooses). K12 takes x, dy and the
+    matmul weights in float32 or bfloat16 (counted as ``encoder_layer_bwd``
+    and ``encoder_layer_bwd_bf16``)."""
     _check_dtypes(x, ws)
     if K.use_kernel(impl, x, "encoder_impl", "kernel"):
         return _launch_bwd(x, ws, seed, dy, n_heads, p, train, bt)
@@ -425,8 +446,7 @@ def encoder_layer_train(x, ws, seed, n_heads: int, p: float, train: bool,
     ``encoder_layer_train``): x (B, T, d), ws the 12-tuple of
     ``pack_layer_weights``, seed the int32 dropout seed of this layer call
     (ignored when ``train`` is False or p is 0). The seed gets no
-    gradient. float32 (float64 plain) only: bf16 raises, as its backward
-    would."""
-    _refuse_bf16(x)
+    gradient. float32 or bfloat16 (float64 plain), as ``encoder_layer_fwd``;
+    the gradients come back in the dtypes of x and the weights."""
     return _EncoderLayerTrain.apply(x, seed, n_heads, p, train, bt, impl,
                                     *ws)

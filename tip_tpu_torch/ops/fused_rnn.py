@@ -9,7 +9,7 @@ pays T=40 dependent (B, H) x (H, H) steps. Kernel K1
 in a thread-block cluster's shared memory (``fused_rnn_plan``);
 ``fused_rnn_plain`` is the same function as a Python loop over T. Both
 also run in bf16 (xin and W_hh bf16, f32 sums, each step rounded where
-tip_tpu's kernel rounds); the backward is float32 only.
+tip_tpu's kernel rounds).
 
 For training, ``fused_rnn_train`` is differentiable: its forward is K1, its
 backward the BPTT kernel K10 (``csrc/fused_rnn_bwd.cu``: K1's cluster walk
@@ -18,6 +18,11 @@ reads only the saved hidden states (tanh' = 1 - h^2):
 
     dh_t = g_t + da_{t+1} @ W_hh^T,  da_t = dh_t * (1 - h_t^2) -> dxin_t
     dW_hh = sum over t of h_{t-1}^T @ da_t     (h_{-1} = 0)
+
+In bf16 (hs, g and W_hh bf16) both K10 and its plain version compute in
+f32 on bf16 operands where tip_tpu's kernel rounds: da_t is rounded to
+bf16 once, and that value is dxin_t, the next step's operand and dW's;
+dW is summed in f32 and rounded to bf16 at the end.
 """
 
 import ctypes
@@ -32,10 +37,13 @@ _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_longlong,
 _SIG = {"fused_rnn_launch": _ARGS, "fused_rnn_bf16_launch": _ARGS}
 # the entry point and the launch counter of each storage dtype
 _VARIANT = {torch.float32: "fused_rnn", torch.bfloat16: "fused_rnn_bf16"}
-_SIG_BWD = {"fused_rnn_bwd_launch": [ctypes.c_void_p] * 6
-                                    + [ctypes.c_int] * 7
-                                    + [ctypes.c_longlong, ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_void_p]}
+_ARGS_BWD = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p])
+_SIG_BWD = {"fused_rnn_bwd_launch": _ARGS_BWD,
+            "fused_rnn_bwd_bf16_launch": _ARGS_BWD}
+_VARIANT_BWD = {torch.float32: "fused_rnn_bwd",
+                torch.bfloat16: "fused_rnn_bwd_bf16"}
 
 
 def fused_rnn_plain(xin, w_hh):
@@ -128,9 +136,11 @@ class RNNBwdPlan:
     dw_splits: int           # partial products, added in order (1: none)
 
 
-def fused_rnn_bwd_plan(B: int, T: int, H: int) -> RNNBwdPlan:
+def fused_rnn_bwd_plan(B: int, T: int, H: int,
+                      w_bytes: int = 4) -> RNNBwdPlan:
     """K10's launch plan: the walk's (a block keeps 32 columns of W where
-    H <= 256, else 64, so H <= 512 and a multiple of 4) and dW's split.
+    H <= 256, else 64, so H <= 512 and a multiple of 4; W stored
+    ``w_bytes`` bytes an entry, as ``fused_rnn_plan``) and dW's split.
     Raises where W's slice and the row buffers do not fit."""
     if B <= 0 or T <= 0 or H <= 0:
         raise ValueError(f"fused_rnn_bwd: B={B}, T={T}, H={H}")
@@ -139,7 +149,7 @@ def fused_rnn_bwd_plan(B: int, T: int, H: int) -> RNNBwdPlan:
                          f"that {RNN_CLUSTER} blocks of at most 64 columns "
                          f"cover")
     walk = _walk_plan(B, H, 32 if H <= 32 * RNN_CLUSTER else 64,
-                      "fused_rnn_bwd")
+                      "fused_rnn_bwd", w_bytes)
     rows = B * T
     tile_n = 64 if H <= 256 else 128
     tiles = -(-H // DW_TILE_M) * -(-H // tile_n)
@@ -188,59 +198,78 @@ def fused_rnn(xin, w_hh, impl: str = "auto"):
 def fused_rnn_bwd_plain(hs, w_hh, g):
     """Plain PyTorch version of K10: hs (B, T, H) the hidden states, w_hh
     (H, H), g (B, T, H) the gradient of the hidden states. Returns (dxin
-    (B, T, H), dw (H, H)) in the order of tip_tpu's ``_rnn_bwd``: dW summed
-    from t = T-1 down to 0."""
+    (B, T, H) in hs's dtype, dw (H, H) in W's) in the order of tip_tpu's
+    ``_rnn_bwd``: dW summed from t = T-1 down to 0.
+
+    In bf16 it is f32 arithmetic on bf16 operands, as tip_tpu's kernel: dh
+    = g_t + bf16(da_{t+1}) W^T and da = dh (1 - h_t^2) in f32, dxin_t =
+    bf16(da), dW += bf16(h_{t-1})^T bf16(da) in f32, rounded to bf16 at
+    the end (torch's bf16 ``@`` would round each product's output)."""
     B, T, H = hs.shape
-    wt = w_hh.T
-    da = hs.new_zeros((B, H))
-    dw = hs.new_zeros((H, H))
+    f = torch.float64 if hs.dtype == torch.float64 else torch.float32
+    if hs.dtype == torch.bfloat16:
+        def rnd(t):                    # the bf16 operand, as its f32 image
+            return t.to(torch.bfloat16).to(f)
+    else:
+        def rnd(t):
+            return t
+    wt = w_hh.to(f).T
+    da = hs.new_zeros((B, H), dtype=f)
+    dw = hs.new_zeros((H, H), dtype=f)
     dx = torch.empty_like(hs)
     for t in range(T - 1, -1, -1):
-        h_t = hs[:, t]
-        dh = g[:, t] + da @ wt
-        da = dh * (1.0 - h_t * h_t)
+        h_t = hs[:, t].to(f)
+        dh = g[:, t].to(f) + da @ wt
+        da = rnd(dh * (1.0 - h_t * h_t))
         dx[:, t] = da
-        h_prev = hs[:, t - 1] if t > 0 else torch.zeros_like(h_t)
+        h_prev = hs[:, t - 1].to(f) if t > 0 else torch.zeros_like(h_t)
         dw = dw + h_prev.T @ da
-    return dx, dw
+    return dx, dw.to(w_hh.dtype)
 
 
 def _launch_bwd(hs, w_hh, g):
+    """K10 in hs's dtype, float32 or bfloat16 (W and g in the same)."""
     B, T, H = hs.shape
-    for t, name, shape in ((hs, "hs", (B, T, H)), (w_hh, "w_hh", (H, H)),
-                           (g, "g", (B, T, H))):
-        K.check_input(t, name, shape, torch.float32, hs.device)
-    plan = fused_rnn_bwd_plan(B, T, H)
+    name = _VARIANT_BWD.get(hs.dtype)
+    if name is None:
+        raise TypeError(f"hs: dtype {hs.dtype}, expected float32 or "
+                        f"bfloat16")
+    for t, tn, shape in ((hs, "hs", (B, T, H)), (w_hh, "w_hh", (H, H)),
+                         (g, "g", (B, T, H))):
+        K.check_input(t, tn, shape, hs.dtype, hs.device)
+    bf16 = hs.dtype == torch.bfloat16
+    plan = fused_rnn_bwd_plan(B, T, H, hs.element_size())
     walk = plan.walk
     so = K.lib("fused_rnn_bwd", _SIG_BWD)
     dx = torch.empty_like(hs)
-    dw = torch.empty((H, H), dtype=torch.float32, device=hs.device)
-    part = (torch.empty((plan.dw_splits, H, H), dtype=torch.float32,
-                        device=hs.device) if plan.dw_splits > 1 else None)
+    dw = torch.empty((H, H), dtype=hs.dtype, device=hs.device)
+    # f32: dW's partial products where it is split; bf16: hs and dx widened
+    # to f32, then the partial products (one where it is not split)
+    n_part = (2 * B * T * H + plan.dw_splits * H * H if bf16
+              else plan.dw_splits * H * H if plan.dw_splits > 1 else 0)
+    part = (torch.empty(n_part, dtype=torch.float32, device=hs.device)
+            if n_part else None)
     stream = torch.cuda.current_stream(hs.device).cuda_stream
-    err = so.fused_rnn_bwd_launch(
+    err = getattr(so, f"{name}_launch")(
         hs.data_ptr(), w_hh.data_ptr(), g.data_ptr(), dx.data_ptr(),
         dw.data_ptr(), None if part is None else part.data_ptr(), B, T, H,
         walk.cluster, walk.cols, walk.batch_tile, walk.clusters,
         walk.smem_bytes, plan.dw_rows, plan.dw_splits, stream)
-    K.check(err, "fused_rnn_bwd")
-    K.launch_counts["fused_rnn_bwd"] += 1
+    K.check(err, name)
+    K.launch_counts[name] += 1
     return dx, dw
-
-
-def _refuse_bf16(*ts):
-    if any(t.dtype == torch.bfloat16 for t in ts):
-        raise NotImplementedError(
-            "the RNN head's backward (K10) in bf16 is not ported (ROADMAP "
-            "B1 (b)); train in float32")
 
 
 def fused_rnn_bwd(hs, w_hh, g, impl: str = "auto"):
     """The RNN head's backward by ``impl``, as ``fused_rnn``: "kernel"
     launches K10 (CUDA tensors only), "plain" runs ``fused_rnn_bwd_plain``,
-    "auto" K10 for a CUDA tensor and the plain version for a CPU one.
-    float32 (float64 plain) only: bf16 raises."""
-    _refuse_bf16(hs, w_hh, g)
+    "auto" K10 for a CUDA tensor and the plain version for a CPU one. K10
+    takes float32 or bfloat16 (hs, W and g alike; counted as
+    ``fused_rnn_bwd`` and ``fused_rnn_bwd_bf16``)."""
+    if not hs.dtype == w_hh.dtype == g.dtype:
+        raise TypeError(f"fused_rnn_bwd: hs is {hs.dtype}, w_hh "
+                        f"{w_hh.dtype}, g {g.dtype}; all float32 or all "
+                        f"bfloat16")
     if K.use_kernel(impl, hs, "rnn_impl", "kernel"):
         return _launch_bwd(hs, w_hh, g)
     return fused_rnn_bwd_plain(hs, w_hh, g)
@@ -267,6 +296,6 @@ def fused_rnn_train(xin, w_hh, impl: str = "auto"):
     """Differentiable fused tanh-RNN (twin of tip_tpu's ``fused_rnn_train``):
     forward K1, backward K10 on CUDA tensors, the plain versions on CPU
     tensors (``impl`` as ``fused_rnn``). Saves only the hidden states.
-    float32 (float64 plain) only: bf16 raises, as its backward would."""
-    _refuse_bf16(xin, w_hh)
+    float32 or bfloat16 (float64 plain); the gradients come back in the
+    dtypes of xin and W_hh."""
     return _FusedRNNTrain.apply(xin, w_hh, impl)

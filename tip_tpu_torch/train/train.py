@@ -19,6 +19,12 @@ Random numbers come from two explicit generators of the train state: a
 CPU one for the dropout seeds (host ints, no device sync) and one on the
 device for the history noise. ``train_step`` also takes the noise and the
 seeds as arguments, so that a test can hand it tip_tpu's.
+
+``cfg.model.compute_dtype="bfloat16"`` (the CLI's ``--bf16``) trains as
+tip_tpu does: the forward and backward compute in bf16 (K1, K10, K11, K12
+in bf16 on the card), while the parameters, Adam's moments, the gradients,
+the clip and the checkpoints stay float32. A checkpoint records the
+compute dtype it was trained in.
 """
 
 import dataclasses
@@ -248,7 +254,8 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, step: int,
                            state.model.state_dict().items()},
                 "mu": state.mu, "nu": state.nu, "step": state.step,
                 "gen": state.gen.get_state(),
-                "noise_gen": state.noise_gen.get_state()}, tmp)
+                "noise_gen": state.noise_gen.get_state(),
+                "compute_dtype": state.model.cfg.compute_dtype}, tmp)
     os.replace(tmp, path)
     for old in _ckpt_steps(ckpt_dir)[:-max_to_keep]:
         os.remove(os.path.join(ckpt_dir, f"ckpt_{old}.pt"))
@@ -258,9 +265,10 @@ def restore_checkpoint(ckpt_dir: str, cfg: TrainConfig,
                        step: Optional[int] = None, params_only: bool = False,
                        device=None) -> TrainState:
     """The state saved at ``step`` (None: the newest). The parameters must
-    match the model config (names and shapes), else ValueError.
-    ``params_only``: the parameters, step and generators with fresh
-    moments (a warm start)."""
+    match the model config (names and shapes), and, unless
+    ``params_only``, the compute dtype it was trained in must be
+    ``cfg.model.compute_dtype``; else ValueError. ``params_only``: the
+    parameters, step and generators with fresh moments (a warm start)."""
     device = resolve_device(device)
     steps = _ckpt_steps(ckpt_dir)
     if not steps:
@@ -276,6 +284,11 @@ def restore_checkpoint(ckpt_dir: str, cfg: TrainConfig,
         raise ValueError(f"checkpoint at {ckpt_dir} does not match the "
                          f"model config (check size_s / with_acc_sum / "
                          f"widths): {bad}")
+    saved = ck.get("compute_dtype")
+    if not params_only and saved != cfg.model.compute_dtype:
+        raise ValueError(f"checkpoint at {ckpt_dir} was trained in "
+                         f"compute_dtype={saved!r}, the model config says "
+                         f"{cfg.model.compute_dtype!r}")
     with torch.no_grad():
         for k, p in state.model.named_parameters():
             p.copy_(ck["params"][k])
