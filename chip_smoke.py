@@ -184,8 +184,9 @@ TOL_RNN_BF16 = 4 * 2.0 ** -8
 # k12_stages_plain); end to end a flip is carried on through the later
 # roundings (K12: 0.128 of dx's and the gradients' entries). On an H100
 # 80GB HBM3 K10 bf16 read 8.7e-5 and its controls at least 0.031 (dW
-# rounded per split), K12 bf16 1.3e-4 and its controls at least 0.153
-# (the attention backward's operands unrounded)
+# rounded per split), K12 bf16 1.3e-4 to 1.9e-4 (the latter on wgmma
+# products) and its controls at least 0.108 (the attention backward's
+# operands unrounded)
 ROUND_SHARE = {"fused_rnn_bf16": 2e-3, "encoder_layer_fwd_bf16": 5e-2,
                "fused_rnn_bwd_bf16": 2e-3, "encoder_layer_bwd_bf16": 5e-3}
 ROUND_READ_ONLY = ("cudnn_bf16", "library_bf16")
@@ -338,6 +339,12 @@ def timings(kernel, plain, library=None, graph=None, light=False):
     return out
 
 
+# the bf16 encoder layer's widening and rounding passes, gone since K11
+# bf16 and K12 bf16 read and write bf16 as it is: no by-kernel list may
+# show them
+GONE_KERNELS = ("widen_bf16", "narrow_bf16")
+
+
 def kernel_breakdown(fn, n=5):
     """Device ms a call by kernel of fn (torch.profiler over n calls after
     one warm-up call), largest first: [[name, ms, launches], ...]."""
@@ -350,6 +357,9 @@ def kernel_breakdown(fn, n=5):
         torch.cuda.synchronize()
     rows = [[e.key[:80], e.self_device_time_total / 1e3 / n, e.count / n]
             for e in prof.key_averages() if e.self_device_time_total > 0]
+    gone = [r[0] for r in rows if any(k in r[0] for k in GONE_KERNELS)]
+    if gone:
+        raise AssertionError(f"kernels that no longer exist ran: {gone}")
     return sorted(rows, key=lambda r: -r[1])
 
 
@@ -2770,6 +2780,74 @@ def encoder_attention_unrounded(x, ws, n_heads):
     return y2.reshape(B, T, d).to(x.dtype)
 
 
+def small_bf16_cases(dev, gen):
+    """The bf16 encoder layer at the CPU tests' small widths (8-wide heads,
+    d 32, ff 64) and T 10, which no tile divides: [(tag, x, ws, n_heads,
+    bt, p)], two batch tiles of 8 and three of 2."""
+    from tip_tpu_torch.ops import encoder_train as ET
+    bf = torch.bfloat16
+    small = small_model(dev)
+    ws = tuple(w.detach().contiguous() for w in ET.pack_layer_weights(
+        {k: v.to(bf) for k, v in small.named_parameters()}, "layers.0.", bf))
+    d, nh = small.cfg.tf_in_dim, small.cfg.n_heads
+    return [(tag, torch.randn(B, 10, d, generator=gen, device=dev).to(bf),
+             ws, nh, bt, p)
+            for tag, B, bt, p in (("small_2tiles", 16, 8, 0.1),
+                                  ("small_bt2", 6, 2, 0.3))]
+
+
+def random_layer_weights(d, ff, gen, dev):
+    """A layer's 12 weights at (d, ff): the eight matmul weights and
+    biases in bf16 (fan-in scaled), the LayerNorm vectors in f32."""
+    bf = torch.bfloat16
+    ws = []
+    for shape in ((d, 3 * d), (3 * d,), (d, d), (d,), (d, ff), (ff,),
+                  (ff, d), (d,)):
+        fan = shape[0] if len(shape) == 2 else 16
+        ws.append((torch.randn(*shape, generator=gen, device=dev)
+                   / math.sqrt(fan)).to(bf))
+    for base in (1.0, 0.0, 1.0, 0.0):
+        ws.append(base + 0.1 * torch.randn(d, generator=gen, device=dev))
+    return tuple(w.contiguous() for w in ws)
+
+
+# Shapes past the full-width layer's that the bf16 attention takes in
+# passes of 64 keys and 64 head columns: windows of 65-133 (up to 9 row
+# tiles, one head a block), heads 128 and 832 wide (d 832, one head), and
+# T 1: (tag, B, T, d, n_heads, ff, bt, p)
+LONG_BF16 = (("T100", 4, 100, 256, 16, 1024, 2, 0.1),
+             ("T100_hd64", 2, 100, 256, 4, 256, 2, 0.0),
+             ("T133", 2, 133, 256, 16, 256, 1, 0.1),
+             ("T65_hd64", 2, 65, 256, 4, 256, 2, 0.1),
+             ("T40_hd128", 4, 40, 256, 2, 512, 2, 0.1),
+             ("T17_d832", 2, 17, 832, 1, 64, 1, 0.0),
+             ("T1", 3, 1, 32, 4, 64, 3, 0.0))
+
+
+def long_bf16_cases(dev, gen):
+    """LONG_BF16 as small_bf16_cases gives its cases, random weights."""
+    bf = torch.bfloat16
+    return [(tag, torch.randn(B, T, d, generator=gen, device=dev).to(bf),
+             random_layer_weights(d, ff, gen, dev), nh, bt, p)
+            for tag, B, T, d, nh, ff, bt, p in LONG_BF16]
+
+
+def encoder_bf16_plans(B, T, d, ff):
+    """The launch plan of K11 bf16's and K12 bf16's twelve products at B
+    (ops/encoder_train.py's encoder_bf16_plan), logged once a B: {name,
+    tiles of 64 x bn, splits, blocks}, and the reason for fewer than 132
+    blocks where the shapes give fewer."""
+    from tip_tpu_torch.ops import encoder_train as ET
+    out = [dict(name=p.name, layout=p.layout, mnk=[p.M, p.N, p.K],
+                tile=[p.bm, p.bn], tiles=p.tiles, splits=p.splits,
+                ctas=p.ctas, **({"why": p.reason} if p.reason else {}))
+           for p in ET.encoder_bf16_plan(B, T, d, ff)]
+    log(f"  bf16 encoder layer plan B {B}: " + "; ".join(
+        f"{q['name']} {q['tiles']} tiles of {q['tile'][0]}x{q['tile'][1]} x "
+        f"{q['splits']} splits = {q['ctas']} CTAs" for q in out))
+    return out
+
+
 def encoder_controls(x, ws, n_heads, layer):
     """The controls of K11 bf16's rounding check on x at p 0: {name: their
     y in bf16}. layer: TransformerEncoderLayer in bf16
@@ -2791,7 +2869,8 @@ def check_encoder_fwd_bf16(dev, gen, model):
     """K11's bf16 variant against its bf16 plain version at (B, 40, 256)
     for B in ENC_BF16_B (the model's layer 0 in bf16), p 0 and p 0.1
     train, twice each bit-equal, and its share of entries off the plain
-    version against the controls' (check_rounding); timed at p 0 beside
+    version against the controls' (check_rounding); at the small widths
+    and LONG_BF16's shapes, twice bit-equal; timed at p 0 beside
     torch's TransformerEncoderLayer in bf16. The entry's own numbers are
     B 1's (A-bf16's shape), the other Bs are its variants."""
     from tip_tpu_torch.ops import encoder_train as ET
@@ -2801,6 +2880,7 @@ def check_encoder_fwd_bf16(dev, gen, model):
     ws = tuple(w.detach().contiguous() for w in ET.pack_layer_weights(
         {k: v.to(bf) for k, v in model.named_parameters()}, "layers.0.", bf))
     layer = library_encoder_layer(ws, nh, dev)
+    plans = {B: encoder_bf16_plans(B, T, d, ff) for B in ENC_BF16_B}
     errs, inputs = {}, {}
     share, controls = OffShare(), {}
     for B in ENC_BF16_B:
@@ -2820,6 +2900,16 @@ def check_encoder_fwd_bf16(dev, gen, model):
                 for c, yc in encoder_controls(x, ws, nh, layer).items():
                     controls.setdefault(c, OffShare()).add(yc, yr)
             inputs[B] = (x, seed)
+    for tag, x, ws_s, nh_s, bt, p in (small_bf16_cases(dev, gen)
+                                      + long_bf16_cases(dev, gen)):
+        y = ET.encoder_layer_fwd(x, ws_s, 7, nh_s, p, True, bt,
+                                 impl="kernel")
+        if not torch.equal(y, ET.encoder_layer_fwd(x, ws_s, 7, nh_s, p, True,
+                                                   bt, impl="kernel")):
+            raise AssertionError(f"encoder_layer_fwd_bf16 {tag}: two calls "
+                                 f"differ")
+        errs[tag] = (rel_err(y, ET.encoder_layer_train_plain(
+            x, ws_s, 7, nh_s, p, True, bt)), TOL_ENC_BF16)
     err = check("encoder_layer_fwd_bf16", errs)
     log(f"  K11 bf16 vs plain: {errs}")
     rounding = check_rounding("encoder_layer_fwd_bf16", share, controls)
@@ -2851,7 +2941,7 @@ def check_encoder_fwd_bf16(dev, gen, model):
                                              impl="kernel"))
         log(f"  K11 bf16 B {B} by kernel: {json.dumps(t['by_kernel'])}")
         variants.append(dict(B=B, p=0.0, bound_ms=b_ms, bound_by=b_by,
-                             library_err=lib_err, **t))
+                             library_err=lib_err, plan=plans[B][:4], **t))
         log(f"  K11 bf16 B {B} p 0: device {t['ms']:.4f} ms (eager "
             f"{t['call_ms']:.4f}), plain {t['plain_ms']:.4f}, library "
             f"{t['library_ms']:.4f} (rel err {lib_err:.3g}), bound "
@@ -3045,56 +3135,12 @@ def check_fused_rnn_bwd_bf16(dev, gen):
                 variants=variants[:-1])
 
 
-def k12_scratch_views(buf, B, T, d, ff, bf16):
-    """K12's activations and gradients in the scratch it ran in, as views:
-    csrc/encoder_train.cu's carve_fwd and carve_bwd (N = B T rows each)
-    and, for the bf16 variant, at the scratch's end the widened inputs and
-    the f32 dx and matmul-weight and bias gradients before their rounding
-    (img_*, dx, g_*)."""
-    N = B * T
-
-    def up4(n):
-        return -(-n // 4) * 4
-
-    views, at = {}, 0
-
-    def take(name, shape, pad=False):
-        nonlocal at
-        n = math.prod(shape)
-        views[name] = buf[at:at + n].view(shape)
-        at += up4(n) if pad else n
-
-    for name, cols in (("qkv", 3 * d), ("att", d), ("pre", d), ("y1", d),
-                       ("xhat1", d), ("f1", ff), ("f1d", ff), ("pre2", d),
-                       ("xhat2", d)):
-        take(name, (N, cols))
-    take("rs1", (N, 1), pad=True)
-    take("rs2", (N, 1), pad=True)
-    for name, cols in (("y", d), ("dr2", d), ("df2", d), ("dh1", ff),
-                       ("dy1", d), ("dr1", d), ("da", d), ("datt", d),
-                       ("dqkv", 3 * d)):
-        take(name, (N, cols))
-    if not bf16:
-        return views
-    shapes = ((N, d), (d, 3 * d), (3 * d,), (d, d), (d,), (d, ff), (ff,),
-              (ff, d), (d,))
-    names = ("x", "w_qkv", "b_qkv", "w_o", "b_o", "w_f1", "b_f1", "w_f2",
-             "b_f2")
-    at = buf.numel() - 2 * sum(up4(math.prod(s)) for s in shapes) - up4(N * d)
-    for name, shape in zip(names, shapes):
-        take("img_" + name, shape, pad=True)
-    take("img_dy", (N, d), pad=True)
-    take("dx", (N, d), pad=True)
-    for name, shape in zip(names[1:], shapes[1:]):
-        take("g_" + name, shape, pad=True)
-    return views
-
-
 def attention_bwd_plain(qkv, datt, masks, n_heads, B, T, rnd, rnd_ops):
     """The attention backward of K12's plain version from qkv and datt (N,
     ·): the probabilities from rnd(q) rnd(k)^T as the forward forms them,
     the four products' operands through rnd_ops. dqkv (N, 3 d)."""
     from tip_tpu_torch.ops import encoder_train as ET
+    qkv, datt = qkv.float(), datt.float()
     d = datt.shape[1]
     hd = d // n_heads
 
@@ -3116,47 +3162,54 @@ def attention_bwd_plain(qkv, datt, masks, n_heads, B, T, rnd, rnd_ops):
     return torch.cat([flat(dq), flat(dk), flat(dv)], dim=1)
 
 
-def k12_stages_plain(v, x, ws, seed, n_heads, p, B, T, rnd, rnd_attn=None):
+def k12_stages_plain(v, x, ws, seed, n_heads, p, B, T, rnd, rnd_attn=None,
+                     bt=8):
     """K12's backward stage by stage, each stage (a product with its
     epilogue, or a bias gradient's column sum) computed plainly from the
-    kernel's own f32 inputs to it (v: k12_scratch_views), the products'
-    operands through rnd (bf16 rounding, or none), the attention's four
-    through rnd_attn (default rnd): {stage: f32}. What K12 rounds, without
-    the flips that later stages would carry on."""
+    kernel's own inputs to it (v: the views of the scratch it ran in,
+    ``ET.k12_scratch``), the products' operands through rnd (bf16
+    rounding, or none), the attention's four through rnd_attn (default
+    rnd): {stage: f32}. What K12 rounds, without the flips that later
+    stages would carry on. A bias gradient sums the f32 values of its
+    stage: df2 and da from the kernel's dr2 and dr1, dh1 and dqkv as this
+    function forms them (the bf16 variant keeps them in bf16 only)."""
     from tip_tpu_torch.ops import encoder_train as ET
     rnd_attn = rnd if rnd_attn is None else rnd_attn
     N, d, ff = B * T, ws[2].shape[0], ws[4].shape[1]
-    xf, masks = ET._prepare(x, ws, seed, p, True, 8)
+    xf, masks = ET._prepare(x, ws, seed, p, True, bt)
     w_qkv, _, w_o, _, w_f1, _, w_f2, _ = (w.float() for w in ws[:8])
 
     def mask(site, n):
         return masks.rows(site, n).reshape(N, n) if masks.on else 1.0
 
-    df2, dh1, da, dqkv = v["df2"], v["dh1"], v["da"], v["dqkv"]
-    return {
-        "w_f2": rnd(v["f1d"]).T @ rnd(df2), "b_f2": df2.sum(0),
-        "dh1": (rnd(df2) @ w_f2.T) * mask(ET.SITE_FF_MID, ff)
-        * (v["f1"] > 0).float(),
-        "w_f1": rnd(v["y1"]).T @ rnd(dh1), "b_f1": dh1.sum(0),
+    df2, dh1, da, dqkv = (v[k].float() for k in ("df2", "dh1", "da", "dqkv"))
+    pos = v["pos"].bool() if "pos" in v else v["f1"] > 0
+    out = {
+        "w_f2": rnd(v["f1d"].float()).T @ rnd(df2),
+        "b_f2": (v["dr2"] * mask(ET.SITE_POST_FF, d)).sum(0),
+        "dh1": (rnd(df2) @ w_f2.T) * mask(ET.SITE_FF_MID, ff) * pos.float(),
+        "w_f1": rnd(v["y1"]).T @ rnd(dh1),
         "dy1": v["dr2"] + rnd(dh1) @ w_f1.T,
-        "w_o": rnd(v["att"]).T @ rnd(da), "b_o": da.sum(0),
+        "w_o": rnd(v["att"].float()).T @ rnd(da),
+        "b_o": (v["dr1"] * mask(ET.SITE_POST_ATTN, d)).sum(0),
         "datt": rnd(da) @ w_o.T,
         "dqkv": attention_bwd_plain(v["qkv"], v["datt"], masks, n_heads, B,
                                     T, rnd, rnd_attn),
-        "w_qkv": rnd(xf.reshape(N, d)).T @ rnd(dqkv), "b_qkv": dqkv.sum(0),
+        "w_qkv": rnd(xf.reshape(N, d)).T @ rnd(dqkv),
         "dx": v["dr1"] + rnd(dqkv) @ w_qkv.T}
+    out["b_f1"] = out["dh1"].sum(0)
+    out["b_qkv"] = out["dqkv"].sum(0)
+    return out
 
 
 def k12_stages_kernel(v, dx, grads):
     """The same stages as K12 left them: the activation gradients in its
-    scratch, dx and the matmul-weight and bias gradients (the bf16
-    variant's f32 values before their rounding, in its scratch)."""
+    scratch (v), dx and the eight matmul-weight and bias gradients."""
     from tip_tpu_torch.ops import encoder_train as ET
     out = {k: v[k] for k in ("dh1", "dy1", "datt", "dqkv")}
-    bf16 = "dx" in v
-    out["dx"] = v["dx"] if bf16 else dx.reshape(v["dr1"].shape)
+    out["dx"] = dx.reshape(v["dr1"].shape)
     for name, g in zip(ET.WEIGHT_NAMES[:8], grads):
-        out[name] = v["g_" + name] if bf16 else g
+        out[name] = g
     return out
 
 
@@ -3187,12 +3240,16 @@ def library_encoder_grads(layer, x, dy):
 def check_encoder_bwd_bf16(dev, gen, model):
     """K12's bf16 variant against its bf16 plain version at (B, 40, 256)
     for B in ENC_BWD_BF16_B (the model's layer 0 in bf16, ff1 shifted by
-    K12_FF1_SHIFT), p 0 and p 0.1 train, twice each bit-equal; stage by
+    K12_FF1_SHIFT), p 0 and p 0.1 train, twice each bit-equal, the
+    forward it recomputes (its scratch's y) bit-equal to K11 bf16's y on
+    the same inputs; stage by
     stage (k12_stages_plain, from the kernel's own scratch) its share of
     entries off the plain version against controls that round elsewhere
     (the attention backward's operands unrounded, f32 K12 on widened
     inputs; TransformerEncoderLayer bf16's autograd, read only, on its
-    outputs); timed at p 0 beside TransformerEncoderLayer bf16's autograd
+    outputs); at the small widths and LONG_BF16's shapes end to end (dx
+    and the 12 gradients) and stage by stage, twice bit-equal, its y K11
+    bf16's; timed at p 0 beside TransformerEncoderLayer bf16's autograd
     forward + backward, by kernel at B 256. The entry's own numbers are
     B 256's (path L-bf16's shape), the other Bs are its variants."""
     from tip_tpu_torch.ops import encoder_train as ET
@@ -3213,16 +3270,17 @@ def check_encoder_bwd_bf16(dev, gen, model):
 
     errs, share, controls, out_share, inputs = {}, OffShare(), {}, \
         OffShare(), {}
+    recompute_equal = {}
     for B in ENC_BWD_BF16_B:
-        scratch = {k: torch.empty(ET.scratch_floats(B * T, d, ff, k),
-                                  device=dev)
-                   for k in (ET.SCRATCH_BWD_BF16, ET.SCRATCH_BWD)}
+        x0 = torch.empty(B, T, d, device=dev)
+        lay16, buf16 = ET.k12_scratch(x0.to(bf), ws, nh)
+        lay32, buf32 = ET.k12_scratch(x0, ws32, nh)
         for p in (0.0, 0.1):
             x = torch.randn(B, T, d, generator=gen, device=dev).to(bf)
             dy = torch.randn(B, T, d, generator=gen, device=dev).to(bf)
             seed = -123457 if p else 99
             dx, dws = ET._launch_bwd(x, ws, seed, dy, nh, p, True, 8,
-                                     scratch=scratch[ET.SCRATCH_BWD_BF16])
+                                     scratch=buf16)
             dx2, dws2 = ET.encoder_layer_bwd(x, ws, seed, dy, nh, p, True, 8,
                                              impl="kernel")
             if dx.dtype != bf or [g.dtype for g in dws] != [
@@ -3237,19 +3295,24 @@ def check_encoder_bwd_bf16(dev, gen, model):
                 errs[f"B{B}_p{p}.{wn}"] = (rel_err(a, b), TOL_ENC_BWD_BF16)
             for a, b in zip((dx, *dws[:8]), (rdx, *rdws[:8])):
                 out_share.add(a, b)
-            v = k12_scratch_views(scratch[ET.SCRATCH_BWD_BF16], B, T, d, ff,
-                                  True)
+            v = lay16.views(buf16)
+            y11 = ET.encoder_layer_fwd(x, ws, seed, nh, p, True, 8,
+                                       impl="kernel")
+            if not torch.equal(v["y"], y11.reshape(B * T, d)):
+                raise AssertionError(f"{name} B {B} p {p}: the forward K12 "
+                                     f"recomputes differs from K11 bf16's y")
+            recompute_equal[f"B{B}_p{p}"] = True
             want = k12_stages_plain(v, x, ws, seed, nh, p, B, T, r16)
-            hold_k12_stages(share, k12_stages_kernel(v, dx, dws), want)
+            got = k12_stages_kernel(v, dx, dws)
+            hold_k12_stages(share, got, want)
+            stage_errs = {k: rel_err(got[k], want[k]) for k in got}
             hold_k12_stages(controls.setdefault("attention_unrounded",
                                                 OffShare()),
                             k12_stages_plain(v, x, ws, seed, nh, p, B, T,
                                              r16, lambda t: t), want)
             fdx, fdws = ET._launch_bwd(x.float(), ws32, seed, dy.float(), nh,
-                                       p, True, 8,
-                                       scratch=scratch[ET.SCRATCH_BWD])
-            fv = k12_scratch_views(scratch[ET.SCRATCH_BWD], B, T, d, ff,
-                                   False)
+                                       p, True, 8, scratch=buf32)
+            fv = lay32.views(buf32)
             hold_k12_stages(controls.setdefault("f32_widened", OffShare()),
                             k12_stages_kernel(fv, fdx, fdws),
                             k12_stages_plain(fv, x, ws, seed, nh, p, B, T,
@@ -3260,10 +3323,52 @@ def check_encoder_bwd_bf16(dev, gen, model):
                 for a, b in zip((ldx, *lgs), (rdx, *rdws[:8])):
                     lib.add(a, b)
                 inputs[B] = (x, dy, seed)
-        del scratch
+        del buf16, buf32
+    log(f"  K12 bf16's recomputed y bit-equal to K11 bf16's: "
+        f"{recompute_equal}")
+    for tag, x, ws_s, nh_s, bt, p in (small_bf16_cases(dev, gen)
+                                      + long_bf16_cases(dev, gen)):
+        # ff1 shifted as at full width: no ReLU input within a rounding
+        # of 0. End to end (dx and the 12 gradients), and stage by stage,
+        # each stage from the kernel's own inputs
+        ws_s = list(ws_s)
+        ws_s[5] = (ws_s[5] + K12_FF1_SHIFT).contiguous()
+        ws_s = tuple(ws_s)
+        B_s, T_s, d_s = x.shape
+        dy = torch.randn(x.shape, generator=gen, device=dev).to(bf)
+        lay, buf = ET.k12_scratch(x, ws_s, nh_s)
+        dx, dws = ET._launch_bwd(x, ws_s, 7, dy, nh_s, p, True, bt,
+                                 scratch=buf)
+        dx2, dws2 = ET._launch_bwd(x, ws_s, 7, dy, nh_s, p, True, bt)
+        if not (torch.equal(dx, dx2)
+                and all(torch.equal(a, b) for a, b in zip(dws, dws2))):
+            raise AssertionError(f"{name} {tag}: two calls differ")
+        v = lay.views(buf)
+        if not torch.equal(v["y"], ET.encoder_layer_fwd(
+                x, ws_s, 7, nh_s, p, True, bt,
+                impl="kernel").reshape(B_s * T_s, d_s)):
+            raise AssertionError(f"{name} {tag}: the forward K12 recomputes "
+                                 f"differs from K11 bf16's y")
+        recompute_equal[tag] = True
+        rdx, rdws = ET.encoder_layer_bwd_plain(x, ws_s, 7, dy, nh_s, p, True,
+                                               bt)
+        errs[f"{tag}.dx"] = (rel_err(dx, rdx), TOL_ENC_BWD_BF16)
+        for wn, a, b in zip(ET.WEIGHT_NAMES, dws, rdws):
+            errs[f"{tag}.{wn}"] = (rel_err(a, b), TOL_ENC_BWD_BF16)
+        got = k12_stages_kernel(v, dx, dws)
+        want = k12_stages_plain(v, x, ws_s, 7, nh_s, p, B_s, T_s, r16, bt=bt)
+        errs[f"{tag}.stages"] = (max(rel_err(got[k], want[k]) for k in got),
+                                 TOL_ENC_BWD_BF16)
     err = check(name, errs)
     log(f"  K12 bf16 vs plain: worst "
         f"{max(errs.items(), key=lambda kv: kv[1][0])}")
+    for B in ENC_BWD_BF16_B:
+        log(f"  K12 bf16 B {B} end to end by output: " + ", ".join(
+            f"{k[len(f'B{B}_p0.0.'):]} {v[0]:.3g}" for k, v in errs.items()
+            if k.startswith(f"B{B}_p0.0.")))
+    log(f"  K12 bf16 B {ENC_BWD_BF16_B[-1]} p 0.1 stage by stage from its "
+        f"own inputs: " + ", ".join(f"{k} {v:.3g}"
+                                    for k, v in stage_errs.items()))
     rounding = check_rounding(name, share, controls)
     rounding["outputs_share"] = out_share.share()
     log(f"  K12 bf16 share of dx and the bf16 gradients off the plain "
@@ -3293,7 +3398,12 @@ def check_encoder_bwd_bf16(dev, gen, model):
             log(f"  K12 bf16 B {B} by kernel: {json.dumps(t['by_kernel'])}")
         b_ms, b_by = bound(*encoder_layer_work(B, T, d, ff, nh, True, 2),
                            PEAK_BF16_FLOP_S)
-        variants.append(dict(B=B, p=0.0, bound_ms=b_ms, bound_by=b_by, **t))
+        variants.append(dict(B=B, p=0.0, bound_ms=b_ms, bound_by=b_by,
+                             plan=[dict(name=q.name, bm=q.bm, bn=q.bn,
+                                        splits=q.splits, ctas=q.ctas)
+                                   for q in ET.encoder_bf16_plan(B, T, d,
+                                                                 ff)],
+                             **t))
         log(f"  K12 bf16 B {B} p 0: device {t['ms']:.4f} ms (eager "
             f"{t['call_ms']:.4f}), plain {t['plain_ms']:.4f}, library "
             f"forward + backward {t['library_ms']:.4f}, bound {b_ms:.2e} "
@@ -3307,7 +3417,8 @@ def check_encoder_bwd_bf16(dev, gen, model):
                 err_is="relative to the largest entry",
                 library="torch.nn.TransformerEncoderLayer, bf16, p = 0, its "
                         "autograd forward + backward",
-                rounding_stage_by_stage=rounding, **own,
+                rounding_stage_by_stage=rounding,
+                recompute_bit_equal=recompute_equal, **own,
                 variants=variants[:-1])
 
 

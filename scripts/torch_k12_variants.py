@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Variants of K12's tensor-core GEMM (tip_tpu_torch/csrc/train_mma.cuh)
-built side by side and timed as K12 on one GPU.
+"""Variants of the f32 K12's tensor-core GEMM
+(tip_tpu_torch/csrc/train_mma.cuh) built side by side and timed as K12 on
+one GPU (the bf16 variants' products are csrc/bf16_gemm.cuh's).
 
     python3 scripts/torch_k12_variants.py
 
@@ -83,7 +84,7 @@ def start_build(i, name):
                 if old not in text:
                     raise RuntimeError(f"{name}: the patch does not apply")
                 text = text.replace(old, new)
-        for ns in ("tf3", "tg"):
+        for ns in ("tf3", "tg", "bg"):
             text = text.replace(f"namespace {ns} {{", f"namespace {ns}_v{i} {{")
             text = text.replace(f"{ns}::", f"{ns}_v{i}::")
         (d / f.name).write_text(text)
@@ -135,7 +136,7 @@ def main():
         for name, lib in libs.items():
             K._libs["encoder_train"] = lib
             # a variant's tiles set its reductions' splits, so its scratch
-            ET._scratch_floats.clear()
+            ET._part_floats.clear()
 
             def k12():
                 return ET.encoder_layer_bwd(x, ws, seed, dy, nh, p, True, 8,

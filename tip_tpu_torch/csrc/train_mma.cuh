@@ -37,13 +37,15 @@
 // rows whose partial products a second pass adds in a fixed order
 // (tg::sum_splits_kernel). No atomics: two calls give the same bits.
 //
-// bf16 products (kBf16: the bf16 variants of K11, K12 and K10's dW,
-// tip_tpu's kernels on bf16 weights): the same tiles and staging, and one
+// bf16 products (kBf16: K10 bf16's dW, fused_rnn_bwd.cu, on hs and dxin
+// widened to f32): the same tiles and staging, and one
 // mma.sync.aligned.m16n8k16 in bf16 with f32 sums a 16-deep step where
 // 3xTF32 takes six m16n8k8. Each operand is rounded to bf16 (cvt.rn) as
 // its fragment is formed from the staged f32 values, as tip_tpu's dot
-// casts both operands; staged values that are bf16 already (weights) pass
-// unchanged.
+// casts both operands; staged values that are bf16 already pass
+// unchanged. The bf16 encoder layer (K11 bf16, K12 bf16) has its own
+// products on wgmma from bf16 tiles, bf16_gemm.cuh; its bound is
+// operations at the bf16 tensor-core rate at B 256.
 
 #pragma once
 

@@ -17,6 +17,10 @@ too) and sums in f32; biases, LayerNorm and its backward, softmax, dReLU,
 masks, residuals and column sums stay f32; y and dx are written in bf16,
 the matmul-weight and bias gradients rounded to bf16 once from f32, the
 LayerNorm gradients in f32. The plain versions round at the same places.
+The bf16 variants run their products on csrc/bf16_gemm.cuh (wgmma on bf16
+tiles that TMA stages) by a launch plan that is a pure function of the
+shapes (``encoder_bf16_plan``), in a scratch whose layout is computed here
+(``bf16_scratch_layout``) and passed to the launch.
 ``encoder_layer_train`` is the differentiable layer (a
 ``torch.autograd.Function``): K11 and K12 on CUDA tensors, the plain
 versions on CPU tensors.
@@ -31,6 +35,8 @@ tile gives the same values, since its off-sample entries are exactly 0.
 """
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -48,22 +54,26 @@ TILE_SEED_STRIDE = 104729
 WEIGHT_NAMES = ("w_qkv", "b_qkv", "w_o", "b_o", "w_f1", "b_f1", "w_f2",
                 "b_f2", "ln1_s", "ln1_b", "ln2_s", "ln2_b")
 
-_FWD_ARGS = ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
-              ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7
-             + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                ctypes.c_void_p])
-_BWD_ARGS = ([ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
-              ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
-             + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float,
-                                     ctypes.c_int, ctypes.c_void_p])
+_TAIL_ARGS = ([ctypes.c_int] * 7
+              + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                 ctypes.c_void_p])
+_FWD_ARGS = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+             ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)] + _TAIL_ARGS
+_FWD_BF16_ARGS = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                  ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                  ctypes.POINTER(ctypes.c_int)] + _TAIL_ARGS
+_BWD_HEAD = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+             ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
+_BWD_ARGS = _BWD_HEAD + [ctypes.POINTER(ctypes.c_void_p)] + _TAIL_ARGS
+_BWD_BF16_ARGS = _BWD_HEAD + [ctypes.POINTER(ctypes.c_void_p),
+                              ctypes.POINTER(ctypes.c_int)] + _TAIL_ARGS
 _SIG = {
-    "encoder_layer_scratch": [ctypes.c_int] * 4
-                             + [ctypes.POINTER(ctypes.c_longlong)],
+    "encoder_layer_part_floats": [ctypes.c_int] * 3
+                                 + [ctypes.POINTER(ctypes.c_longlong)],
     "encoder_layer_fwd_launch": _FWD_ARGS,
-    "encoder_layer_fwd_bf16_launch": _FWD_ARGS,
+    "encoder_layer_fwd_bf16_launch": _FWD_BF16_ARGS,
     "encoder_layer_bwd_launch": _BWD_ARGS,
-    "encoder_layer_bwd_bf16_launch": _BWD_ARGS,
+    "encoder_layer_bwd_bf16_launch": _BWD_BF16_ARGS,
 }
 
 
@@ -331,22 +341,279 @@ def _drop_args(p, train):
             ctypes.c_float(np.float32(1.0 / pk)), int(on))
 
 
-# the scratch of each entry point (encoder_layer_scratch's kind)
-SCRATCH_FWD, SCRATCH_BWD, SCRATCH_FWD_BF16, SCRATCH_BWD_BF16 = 0, 1, 2, 3
-_scratch_floats = {}          # (N, d, ff, kind) -> floats, asked once
+_part_floats = {}             # (N, d, ff) -> floats, asked once
 
 
-def scratch_floats(N, d, ff, kind):
-    """Floats of the scratch that the entry point of ``kind`` (SCRATCH_*)
-    takes for N = B*T rows (asked of the library once)."""
-    key = (N, d, ff, kind)
-    if key not in _scratch_floats:
+def part_floats(N, d, ff):
+    """Floats of the weight and bias gradients' partial sums that the f32
+    K12 takes for N = B*T rows (its scratch's last array; asked of the
+    library once: they follow csrc/train_mma.cuh's split of each sum)."""
+    key = (N, d, ff)
+    if key not in _part_floats:
         n = ctypes.c_longlong()
         so = K.lib("encoder_train", _SIG)
-        K.check(so.encoder_layer_scratch(N, d, ff, kind, ctypes.byref(n)),
-                "encoder_layer_scratch")
-        _scratch_floats[key] = n.value
-    return _scratch_floats[key]
+        K.check(so.encoder_layer_part_floats(N, d, ff, ctypes.byref(n)),
+                "encoder_layer_part_floats")
+        _part_floats[key] = n.value
+    return _part_floats[key]
+
+
+# ---------------------------------------------------------------------------
+# The bf16 variants' launch plan and scratch layout (pure functions of the
+# shapes; csrc/encoder_train.cu takes both as the wrapper passes them)
+# ---------------------------------------------------------------------------
+
+SM_COUNT = 132               # an H100's SMs: the blocks a launch should fill
+GEMM_BM = 64                 # csrc/bf16_gemm.cuh's rows of a warpgroup;
+#                              a bias gradient's partial sums come by them
+GEMM_BK = 64                 # and its depth of a staged slice
+MAX_SPLITS = 16              # a tile's splits are one cluster of blocks
+LN_ROWS = 16                 # rows of a LayerNorm backward block
+# The layer's products in csrc/encoder_train.cu's order (kPQkv ..): name,
+# layout (NN: A (M, K) B (K, N); NT: B stored (N, K); TN: A stored (K, M))
+# and (M, N, K) from (rows R = B*T, d, ff)
+PRODUCTS = (
+    ("qkv", "NN", lambda R, d, ff: (R, 3 * d, d)),
+    ("out", "NN", lambda R, d, ff: (R, d, d)),
+    ("ff1", "NN", lambda R, d, ff: (R, ff, d)),
+    ("ff2", "NN", lambda R, d, ff: (R, d, ff)),
+    ("dh1", "NT", lambda R, d, ff: (R, ff, d)),
+    ("dw_f2", "TN", lambda R, d, ff: (ff, d, R)),
+    ("dy1", "NT", lambda R, d, ff: (R, d, ff)),
+    ("dw_f1", "TN", lambda R, d, ff: (d, ff, R)),
+    ("datt", "NT", lambda R, d, ff: (R, d, d)),
+    ("dw_o", "TN", lambda R, d, ff: (d, d, R)),
+    ("dx", "NT", lambda R, d, ff: (R, d, 3 * d)),
+    ("dw_qkv", "TN", lambda R, d, ff: (d, 3 * d, R)),
+)
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductPlan:
+    """One product's launch (csrc/bf16_gemm.cuh): tiles of ``bm`` x ``bn``
+    outputs, K cut into ``splits`` chunks of ``kchunk`` rows (whole 64-deep
+    slices); a tile's splits are one cluster whose blocks add their f32
+    sums in rank order s = 0, 1, ... ``reason`` says why it launches fewer
+    than SM_COUNT blocks, where it does."""
+    name: str
+    layout: str
+    M: int
+    N: int
+    K: int
+    bm: int
+    bn: int
+    kchunk: int
+    splits: int
+    reason: str
+
+    @property
+    def tiles(self):
+        return _cdiv(self.M, self.bm) * _cdiv(self.N, self.bn)
+
+    @property
+    def ctas(self):
+        return self.tiles * self.splits
+
+
+def product_plan(name, layout, M, N, K) -> ProductPlan:
+    """The launch of an (M, N, K) product: the first of these that gives
+    SM_COUNT blocks: 128 x 128 tiles (where they give two blocks an SM:
+    half the bytes from L2 of 64-row tiles), 64 x 128, 64 x 64, then 64 x
+    128 and 64 x 64 with K split into the fewest chunks that reach
+    SM_COUNT blocks (at most MAX_SPLITS, at least one slice each); else 64
+    x 64 tiles split into as many chunks as K allows."""
+    kb = _cdiv(K, GEMM_BK)                     # 64-deep slices
+    most = min(kb, MAX_SPLITS)
+
+    def tiles(bm, bn):
+        return _cdiv(M, bm) * _cdiv(N, bn)
+
+    if tiles(128, 128) >= 2 * SM_COUNT:
+        choice = (128, 128, 1)
+    elif tiles(64, 128) >= SM_COUNT:
+        choice = (64, 128, 1)
+    elif tiles(64, 64) >= SM_COUNT:
+        choice = (64, 64, 1)
+    else:
+        choice = None
+        for bn in (128, 64):
+            need = _cdiv(SM_COUNT, tiles(64, bn))
+            if need <= most:
+                choice = (64, bn, need)
+                break
+        if choice is None:
+            choice = (64, 64, most)
+    bm, bn, want = choice
+    per = _cdiv(kb, want)                      # slices a split
+    splits = _cdiv(kb, per)
+    if tiles(bm, bn) * splits < SM_COUNT and want > splits:
+        # even chunks fell short of the blocks: one slice fewer a split
+        fewer = max(1, kb // want)
+        if _cdiv(kb, fewer) <= most:
+            per, splits = fewer, _cdiv(kb, fewer)
+    reason = ""
+    if tiles(bm, bn) * splits < SM_COUNT:
+        reason = (f"{M} x {N} outputs make {tiles(bm, bn)} tiles of {bm} x "
+                  f"{bn} and K {K} {kb} slices of {GEMM_BK}, at most "
+                  f"{splits} splits: {tiles(bm, bn) * splits} blocks")
+    return ProductPlan(name, layout, M, N, K, bm, bn, per * GEMM_BK, splits,
+                       reason)
+
+
+@functools.lru_cache(maxsize=64)
+def encoder_bf16_plan(B, T, d, ff):
+    """The launches of the bf16 variants' twelve products (PRODUCTS) for
+    x (B, T, d): K11 bf16 runs the first four, K12 bf16 all."""
+    R = B * T
+    return tuple(product_plan(name, lay, *mnk(R, d, ff))
+                 for name, lay, mnk in PRODUCTS)
+
+
+def plan_ints(plans):
+    """The plan as the C entry points read it: (bm, bn, kchunk, splits) of
+    each product."""
+    return [v for p in plans for v in (p.bm, p.bn, p.kchunk, p.splits)]
+
+
+ALIGN = 256                  # every scratch array starts at a multiple
+# The bf16 variants' scratch arrays in csrc/encoder_train.cu's order (kQkv
+# ..): name, dtype and shape from (N = B*T rows, d, ff, B, nl = the
+# LayerNorm backward's blocks of LN_ROWS rows, nm = the products' 64-row
+# tiles). K11 bf16 takes the first seven. bf16 where a product reads the
+# values, f32 where f32 is read (residuals, LayerNorm inputs and
+# statistics, the bias gradients' partial sums), the ReLU's signs a byte
+# each
+BF16_ARRAYS = (
+    ("qkv", torch.bfloat16, lambda N, d, ff, B, nl, nm: (N, 3 * d)),
+    ("att", torch.bfloat16, lambda N, d, ff, B, nl, nm: (N, d)),
+    ("pre", torch.float32, lambda N, d, ff, B, nl, nm: (N, d)),
+    ("y1", torch.float32, lambda N, d, ff, B, nl, nm: (N, d)),
+    ("y1b", torch.bfloat16, lambda N, d, ff, B, nl, nm: (N, d)),
+    ("f1d", torch.bfloat16, lambda N, d, ff, B, nl, nm: (N, ff)),
+    ("pre2", torch.float32, lambda N, d, ff, B, nl, nm: (N, d)),
+    ("y", torch.bfloat16, lambda N, d, ff, B, nl, nm: (N, d)),
+    ("xhat1", torch.float32, lambda N, d, ff, B, nl, nm: (N, d)),
+    ("rs1", torch.float32, lambda N, d, ff, B, nl, nm: (N,)),
+    ("xhat2", torch.float32, lambda N, d, ff, B, nl, nm: (N, d)),
+    ("rs2", torch.float32, lambda N, d, ff, B, nl, nm: (N,)),
+    ("pos", torch.uint8, lambda N, d, ff, B, nl, nm: (N, ff)),
+    ("dr2", torch.float32, lambda N, d, ff, B, nl, nm: (N, d)),
+    ("df2", torch.bfloat16, lambda N, d, ff, B, nl, nm: (N, d)),
+    ("dh1", torch.bfloat16, lambda N, d, ff, B, nl, nm: (N, ff)),
+    ("dy1", torch.float32, lambda N, d, ff, B, nl, nm: (N, d)),
+    ("dr1", torch.float32, lambda N, d, ff, B, nl, nm: (N, d)),
+    ("da", torch.bfloat16, lambda N, d, ff, B, nl, nm: (N, d)),
+    ("datt", torch.bfloat16, lambda N, d, ff, B, nl, nm: (N, d)),
+    ("dqkv", torch.bfloat16, lambda N, d, ff, B, nl, nm: (N, 3 * d)),
+    ("cp_ln2", torch.float32, lambda N, d, ff, B, nl, nm: (3, nl, d)),
+    ("cp_dh1", torch.float32, lambda N, d, ff, B, nl, nm: (nm, ff)),
+    ("cp_ln1", torch.float32, lambda N, d, ff, B, nl, nm: (3, nl, d)),
+    ("cp_dqkv", torch.float32, lambda N, d, ff, B, nl, nm: (B, 3 * d)),
+)
+BF16_FWD_ARRAYS = 7
+
+
+_ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2, torch.uint8: 1}
+
+
+class ScratchLayout:
+    """Arrays (name -> (byte offset, dtype, shape)) laid one after another
+    in one buffer of ``end`` bytes."""
+
+    def __init__(self, specs, align):
+        self.arrays, at = {}, 0
+        for name, dtype, shape in specs:
+            at = _cdiv(at, align) * align
+            self.arrays[name] = (at, dtype, tuple(shape))
+            at += math.prod(shape) * _ITEMSIZE[dtype]
+        self.end = at
+        self._offsets = [off for off, _, _ in self.arrays.values()]
+
+    def views(self, buf):
+        """The arrays as views of ``buf`` (any contiguous tensor of at least
+        ``end`` bytes)."""
+        raw = buf.view(torch.uint8)
+        out = {}
+        for name, (off, dtype, shape) in self.arrays.items():
+            n = math.prod(shape) * _ITEMSIZE[dtype]
+            out[name] = raw[off:off + n].view(dtype).view(shape)
+        return out
+
+    def pointers(self, buf):
+        base = buf.data_ptr()
+        return (ctypes.c_void_p * len(self._offsets))(
+            *[base + off for off in self._offsets])
+
+
+@functools.lru_cache(maxsize=64)
+def bf16_scratch_layout(B, T, d, ff, backward):
+    """The scratch of K11 bf16 (``backward`` False) or K12 bf16 for x (B, T,
+    d): BF16_ARRAYS, in the order the C entry points read their
+    addresses."""
+    N = B * T
+    nl, nm = _cdiv(N, LN_ROWS), _cdiv(N, GEMM_BM)
+    specs = BF16_ARRAYS if backward else BF16_ARRAYS[:BF16_FWD_ARRAYS]
+    return ScratchLayout([(name, dt, shape(N, d, ff, B, nl, nm))
+                          for name, dt, shape in specs], ALIGN)
+
+
+# The f32 entry points' scratch arrays in csrc/encoder_train.cu's order
+# (kFQkv ..): name and shape from (N = B*T rows, d, ff); K11 takes the
+# first F32_FWD_ARRAYS, K12 all and then "part", the weight and bias
+# gradients' partial sums (part_floats)
+F32_ARRAYS = (
+    ("qkv", lambda N, d, ff: (N, 3 * d)),
+    ("att", lambda N, d, ff: (N, d)),
+    ("pre", lambda N, d, ff: (N, d)),
+    ("y1", lambda N, d, ff: (N, d)),
+    ("xhat1", lambda N, d, ff: (N, d)),
+    ("f1", lambda N, d, ff: (N, ff)),
+    ("f1d", lambda N, d, ff: (N, ff)),
+    ("pre2", lambda N, d, ff: (N, d)),
+    ("xhat2", lambda N, d, ff: (N, d)),
+    ("rs1", lambda N, d, ff: (N,)),
+    ("rs2", lambda N, d, ff: (N,)),
+    ("y", lambda N, d, ff: (N, d)),
+    ("dr2", lambda N, d, ff: (N, d)),
+    ("df2", lambda N, d, ff: (N, d)),
+    ("dh1", lambda N, d, ff: (N, ff)),
+    ("dy1", lambda N, d, ff: (N, d)),
+    ("dr1", lambda N, d, ff: (N, d)),
+    ("da", lambda N, d, ff: (N, d)),
+    ("datt", lambda N, d, ff: (N, d)),
+    ("dqkv", lambda N, d, ff: (N, 3 * d)),
+)
+F32_FWD_ARRAYS = 11
+F32_ALIGN = 16               # csrc/train_mma.cuh copies 16 bytes at a time
+
+
+@functools.lru_cache(maxsize=64)
+def f32_scratch_layout(B, T, d, ff, part=None):
+    """The scratch of the f32 K11 (``part`` None) or K12 (``part``: its
+    part_floats) for x (B, T, d): F32_ARRAYS, in the order the C entry
+    points read their addresses."""
+    N = B * T
+    specs = F32_ARRAYS if part is not None else F32_ARRAYS[:F32_FWD_ARRAYS]
+    specs = [(name, torch.float32, shape(N, d, ff)) for name, shape in specs]
+    if part is not None:
+        specs.append(("part", torch.float32, (part,)))
+    return ScratchLayout(specs, F32_ALIGN)
+
+
+def alloc_scratch(layout, device):
+    """The buffer a bf16 entry point runs in: ``layout.end`` bytes."""
+    return torch.empty(layout.end, dtype=torch.uint8, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_arg(B, T, d, ff):
+    """The plan's ints as the ctypes array the entry points take."""
+    ints = plan_ints(encoder_bf16_plan(B, T, d, ff))
+    return (ctypes.c_int * len(ints))(*ints)
 
 
 def _ptrs(ts):
@@ -358,41 +625,70 @@ def _launch_fwd(x, ws, seed, n_heads, p, train, bt):
     bf16 = x.dtype == torch.bfloat16
     name = "encoder_layer_fwd_bf16" if bf16 else "encoder_layer_fwd"
     so = K.lib("encoder_train", _SIG)
-    scratch = torch.empty(scratch_floats(
-        B * T, d, ff, SCRATCH_FWD_BF16 if bf16 else SCRATCH_FWD),
-        dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = getattr(so, f"{name}_launch")(
-        x.data_ptr(), _ptrs(ws), y.data_ptr(), scratch.data_ptr(), B, T, d,
-        ff, n_heads, bt, _int32(seed), *_drop_args(p, train), stream)
+    args = (B, T, d, ff, n_heads, bt, _int32(seed), *_drop_args(p, train),
+            stream)
+    if bf16:
+        layout = bf16_scratch_layout(B, T, d, ff, backward=False)
+        scratch = alloc_scratch(layout, x.device)
+        err = so.encoder_layer_fwd_bf16_launch(
+            x.data_ptr(), _ptrs(ws), y.data_ptr(), layout.pointers(scratch),
+            _plan_arg(B, T, d, ff), *args)
+    else:
+        layout = f32_scratch_layout(B, T, d, ff)
+        scratch = alloc_scratch(layout, x.device)
+        err = so.encoder_layer_fwd_launch(x.data_ptr(), _ptrs(ws),
+                                          y.data_ptr(),
+                                          layout.pointers(scratch), *args)
     K.check(err, name)
     K.launch_counts[name] += 1
     return y
 
 
+def _k12_layout(dtype, B, T, d, ff):
+    if dtype == torch.bfloat16:
+        return bf16_scratch_layout(B, T, d, ff, backward=True)
+    return f32_scratch_layout(B, T, d, ff, part_floats(B * T, d, ff))
+
+
+def k12_scratch(x, ws, n_heads):
+    """(layout, buffer) of K12 in x's dtype for these inputs: the bf16
+    variant's bf16_scratch_layout or the f32 one's f32_scratch_layout;
+    ``_launch_bwd(..., scratch=buffer)`` runs in it, and
+    ``layout.views(buffer)`` reads its activations and gradients after."""
+    B, T, d = x.shape
+    layout = _k12_layout(x.dtype, B, T, d, ws[4].shape[1])
+    return layout, alloc_scratch(layout, x.device)
+
+
 def _launch_bwd(x, ws, seed, dy, n_heads, p, train, bt, scratch=None):
-    """K12 in x's dtype. ``scratch``: a float32 tensor of
-    ``scratch_floats`` floats to run in, so that a check can read the
-    layer's activations and gradients there afterwards (None: a new
-    one)."""
+    """K12 in x's dtype. ``scratch``: a buffer of ``k12_scratch`` to run in,
+    so that a check can read the layer's activations and gradients there
+    afterwards (None: a new one)."""
     B, T, d, ff, bt = _check(x, ws, n_heads, bt, extra=(dy,))
     K.check_input(dy, "dy", (B, T, d), x.dtype, x.device)
     bf16 = x.dtype == torch.bfloat16
     name = "encoder_layer_bwd_bf16" if bf16 else "encoder_layer_bwd"
-    kind = SCRATCH_BWD_BF16 if bf16 else SCRATCH_BWD
     so = K.lib("encoder_train", _SIG)
-    n = scratch_floats(B * T, d, ff, kind)
+    layout = _k12_layout(x.dtype, B, T, d, ff)
     if scratch is None:
-        scratch = torch.empty(n, dtype=torch.float32, device=x.device)
-    K.check_input(scratch, "scratch", (n,), torch.float32, x.device)
+        scratch = alloc_scratch(layout, x.device)
+    K.check_input(scratch, "scratch", (layout.end,), torch.uint8, x.device)
     dx = torch.empty_like(x)
     grads = [torch.empty_like(w) for w in ws]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = getattr(so, f"{name}_launch")(
-        x.data_ptr(), dy.data_ptr(), _ptrs(ws), dx.data_ptr(), _ptrs(grads),
-        scratch.data_ptr(), B, T, d, ff, n_heads, bt, _int32(seed),
-        *_drop_args(p, train), stream)
+    args = (B, T, d, ff, n_heads, bt, _int32(seed), *_drop_args(p, train),
+            stream)
+    if bf16:
+        err = so.encoder_layer_bwd_bf16_launch(
+            x.data_ptr(), dy.data_ptr(), _ptrs(ws), dx.data_ptr(),
+            _ptrs(grads), layout.pointers(scratch), _plan_arg(B, T, d, ff),
+            *args)
+    else:
+        err = so.encoder_layer_bwd_launch(
+            x.data_ptr(), dy.data_ptr(), _ptrs(ws), dx.data_ptr(),
+            _ptrs(grads), layout.pointers(scratch), *args)
     K.check(err, name)
     K.launch_counts[name] += 1
     return dx, tuple(grads)
