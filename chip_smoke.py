@@ -183,7 +183,8 @@ TOL_RNN_BF16 = 4 * 2.0 ** -8
 # stage (each product from its own activations in its scratch:
 # k12_stages_plain); end to end a flip is carried on through the later
 # roundings (K12: 0.128 of dx's and the gradients' entries). On an H100
-# 80GB HBM3 K10 bf16 read 8.7e-5 and its controls at least 0.031 (dW
+# 80GB HBM3 K10 bf16 read 8.7e-5 (the walk on the CUDA cores) and 1.25e-4
+# (on the tensor cores, dW on wgmma), its controls at least 0.031 (dW
 # rounded per split), K12 bf16 1.3e-4 to 1.9e-4 (the latter on wgmma
 # products) and its controls at least 0.108 (the attention backward's
 # operands unrounded)
@@ -340,9 +341,11 @@ def timings(kernel, plain, library=None, graph=None, light=False):
 
 
 # the bf16 encoder layer's widening and rounding passes, gone since K11
-# bf16 and K12 bf16 read and write bf16 as it is: no by-kernel list may
-# show them
-GONE_KERNELS = ("widen_bf16", "narrow_bf16")
+# bf16 and K12 bf16 read and write bf16 as it is, and K10 bf16's, gone
+# since its dW reads bf16 operands on wgmma: no by-kernel list may show
+# them
+GONE_KERNELS = ("widen_bf16", "narrow_bf16", "widen2_kernel",
+                "round_splits_kernel")
 
 
 def kernel_breakdown(fn, n=5):
@@ -435,6 +438,14 @@ def card_info():
     return out.strip()
 
 
+def sm_cycles_per_ns(dev):
+    """The SM's cycles per ns of %globaltimer (fused_tail.timer_probe, the
+    second of two probes): what turns a kernel's clock into ns."""
+    from tip_tpu_torch.ops import fused_tail as FT
+    FT.timer_probe(dev)
+    return FT.timer_probe(dev)["cycles_per_ns"]
+
+
 # ---------------------------------------------------------------------------
 # 3. kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -489,6 +500,30 @@ def rnn_controls(xin, w, rnn):
                     xin.float(), w.float(), impl="kernel").to(xin.dtype)}
 
 
+def same_outputs(a, b):
+    if isinstance(a, (tuple, list)):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def rnn_step_clock(run, dev, T, cycles_per_ns, n=11, warm=3):
+    """The bf16 walk's per-step clock (run(clock) launches K1 bf16 or K10
+    bf16 with it, run(None) without): the median over n clocked launches
+    after `warm` of ns a step by phase (fused_rnn.K1_PHASES, step_ns), and
+    the prologue's ns; a clocked launch's outputs must equal an unclocked
+    one's bit for bit."""
+    from tip_tpu_torch.ops import fused_rnn as FR
+    rows = torch.zeros((n + warm, FR.CLOCK_ROWS), dtype=torch.int64,
+                       device=dev)
+    for i in range(n + warm):
+        out = run(rows[i])
+    if not same_outputs(out, run(None)):
+        raise AssertionError("the clocked bf16 walk's outputs differ from "
+                             "the unclocked one's")
+    steps = [FR.step_ns(r, T, cycles_per_ns) for r in rows.tolist()[warm:]]
+    return {k: statistics.median(s[k] for s in steps) for k in steps[0]}
+
+
 def check_fused_rnn(dev, gen, dtype=torch.float32):
     """K1 in dtype (float32, or its bf16 variant) against its plain version
     in the same dtype at RNN_CHECKED_B (two calls bit-equal; in bf16 also
@@ -523,9 +558,17 @@ def check_fused_rnn(dev, gen, dtype=torch.float32):
     err = check(name, errs)
     log(f"  {name} vs plain: {errs}")
     rounding = check_rounding(name, steps, controls) if bf16 else None
+    cpn = sm_cycles_per_ns(dev) if bf16 else None
     variants = []
     for B in RNN_TIMED_B:
         xin = (torch.randn(B, T, H, generator=gen, device=dev) * 0.5).to(dtype)
+        plan = FR.fused_rnn_plan(B, H, size)
+        log(f"  {name} B {B} plan: {plan}")
+        clock = (rnn_step_clock(lambda c, xin=xin: FR.fused_rnn(
+            xin, w, impl="kernel", clock=c), dev, T, cpn) if bf16 else None)
+        if clock is not None:
+            log(f"  {name} B {B} step by phase (ns): "
+                f"{json.dumps({k: round(v, 1) for k, v in clock.items()})}")
         with torch.no_grad():
             ref = FR.fused_rnn_plain(xin, w)
             lib_err = (rel_err(rnn(xin)[0], ref) if bf16
@@ -540,7 +583,8 @@ def check_fused_rnn(dev, gen, dtype=torch.float32):
                            PEAK_BF16_FLOP_S if bf16 else PEAK_F32_FLOP_S)
         variants.append(dict(
             B=B, bound_ms=b_ms, bound_by=b_by, library_err=lib_err,
-            plan=dataclasses.asdict(FR.fused_rnn_plan(B, H, size)), **times))
+            plan=dataclasses.asdict(plan), **times,
+            **({"step_ns": clock} if bf16 else {})))
         log(f"  {name} B {B}: device {times['ms']:.4f} ms, cuDNN "
             f"{times['library_ms']:.4f} (|cuDNN - plain| {lib_err:.3g}), "
             f"plain {times['plain_ms']:.4f}, bound {b_ms:.2e} ({b_by})")
@@ -3009,18 +3053,18 @@ def rnn_bwd_da_unrounded(hs, w, g):
 
 
 def rnn_bwd_dw_split_rounded(hs, dx, plan):
-    """Control: dW from dx with each of the plan's split partial products
+    """Control: dW = hs^T shifted (fused_rnn.shifted_rows of dx, K10 bf16's
+    product) with each of the plan's split partial products over its rows
     rounded to bf16 before they are added."""
+    from tip_tpu_torch.ops import fused_rnn as FR
     f = torch.float32
     H = hs.shape[2]
-    h = hs.to(f)
-    prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]],
-                     dim=1).reshape(-1, H)
-    d = dx.to(f).reshape(-1, H)
+    a = hs.to(f).reshape(-1, H)
+    d = FR.shifted_rows(dx).to(f).reshape(-1, H)
     dw = torch.zeros((H, H), dtype=f, device=hs.device)
     for s in range(plan.dw_splits):
         r = slice(s * plan.dw_rows, (s + 1) * plan.dw_rows)
-        dw = dw + (prev[r].T @ d[r]).to(torch.bfloat16).to(f)
+        dw = dw + (a[r].T @ d[r]).to(torch.bfloat16).to(f)
     return dw.to(torch.bfloat16)
 
 
@@ -3091,9 +3135,16 @@ def check_fused_rnn_bwd_bf16(dev, gen):
     err = check(name, errs)
     log(f"  {name} vs plain: {errs}")
     rounding = check_rounding(name, share, controls)
+    cpn = sm_cycles_per_ns(dev)
     variants = []
     for B in RNN_TIMED_B:
         hs, g, x_lib = inputs[B]
+        plan = FR.fused_rnn_bwd_plan(B, T, H, 2)
+        log(f"  {name} B {B} plan: {plan}")
+        clock = rnn_step_clock(lambda c, hs=hs, g=g: FR.fused_rnn_bwd(
+            hs, w, g, impl="kernel", clock=c), dev, T, cpn)
+        log(f"  {name} B {B} step by phase (ns): "
+            f"{json.dumps({k: round(v, 1) for k, v in clock.items()})}")
         lib_fb, lib_f, lib_out = library_rnn_bwd(w, x_lib, g, dev)
         with torch.no_grad():
             hs_lib = lib_f()
@@ -3114,10 +3165,18 @@ def check_fused_rnn_bwd_bf16(dev, gen):
             t["by_kernel"] = kernel_breakdown(
                 lambda: FR.fused_rnn_bwd(hs, w, g, impl="kernel"))
             log(f"  K10 bf16 B {B} by kernel: {json.dumps(t['by_kernel'])}")
+            # the walk on the tensor cores and dW on wgmma, at most one
+            # launch each a call (the profiler can miss one of its window's)
+            kinds = sorted(("tc_walk_kernel" in r[0], "gemm_kernel" in r[0])
+                           for r in t["by_kernel"])
+            if kinds != [(False, True), (True, False)] or any(
+                    r[2] > 1 for r in t["by_kernel"]):
+                raise AssertionError(f"{name}: expected the walk and dW, one "
+                                     f"launch each, got {t['by_kernel']}")
         b_ms, b_by = bound(*rnn_bwd_work(B, T, H, 2), PEAK_BF16_FLOP_S)
         variants.append(dict(
             B=B, bound_ms=b_ms, bound_by=b_by, library_err=lib_err,
-            plan=dataclasses.asdict(FR.fused_rnn_bwd_plan(B, T, H, 2)), **t))
+            plan=dataclasses.asdict(plan), step_ns=clock, **t))
         log(f"  {name} B {B}: device {t['ms']:.4f} ms (eager "
             f"{t['call_ms']:.4f}), cuDNN backward {t['library_ms']:.4f} "
             f"(rel err {lib_err:.3g}), plain {t['plain_ms']:.4f}, bound "

@@ -1,39 +1,40 @@
 #!/usr/bin/env python3
-"""The bf16 encoder layer (K11 bf16, K12 bf16) and the per-frame tail
-kernels K2 (decode_fused), K3 (tail_fused) and K6 (fk_bullet_fused) of this
-checkout beside those of another commit (as a rule the parent), and every
-other kernel (K1, K4/K5, K7-K12 f32, K1 bf16, K10 bf16) bit for bit, on one
-GPU in one process.
+"""The bf16 RNN head (K1 bf16, K10 bf16) and the per-frame tail kernels K2
+(decode_fused), K3 (tail_fused) and K6 (fk_bullet_fused) of this checkout
+beside those of another commit (as a rule the parent), and every other
+kernel (K1, K4/K5, K7-K12 f32, K11 bf16, K12 bf16) bit for bit, on one GPU
+in one process.
 
     git archive <commit> tip_tpu_torch | tar -x -C output/parent
     python3 scripts/torch_compare_parent.py output/parent [--bits_only]
 
 The argument is a checkout of the other commit's tip_tpu_torch/. Every
 csrc/*.cu of that checkout is built with nvcc into `<checkout>/build/`. Its
-K2, K3 and K6 and its K11 bf16 and K12 bf16 run through its own wrappers
-(its ops/fused_tail.py, ops/kinematics.py and ops/encoder_train.py, loaded
-beside this checkout's) and its own C entry points, and so do its f32 K11
-and K12 (the wrapper lays out their scratch); the other kernels run
+K2, K3 and K6, its K1 and K10 (f32 and bf16) and its K11 and K12 (f32 and
+bf16) run through its own wrappers (its ops/fused_tail.py,
+ops/kinematics.py, ops/fused_rnn.py and ops/encoder_train.py, loaded
+beside this checkout's) and its own C entry points; the other kernels run
 through this checkout's wrappers calling the other build's library. ctypes
 does not check a call's arguments, so the script first reads the other
 checkout's declarations and refuses it unless its K2, K3 and K6 entry
 points are declared as its own wrappers' ctypes tables (their _SIG) call
-them, its encoder entry points with as many parameters as its own wrapper
-passes, and every other entry point it declares with the
-parameter types this checkout declares it with (names aside; entry points
-that only this checkout has are not called on the other build). Then:
+them, its RNN and encoder entry points with as many parameters as its own
+wrappers pass, and every other entry point it declares with the parameter
+types this checkout declares it with (names aside; entry points that only
+this checkout has are not called on the other build). Then:
 
+  - K1 bf16 and K10 bf16 at B 1, 64 and 256 (T 40, H 512, chip_smoke.py's
+    inputs: K10's hidden states from the plain forward): device ms
+    (chip_smoke.graph_ms) and eager ms (chip_smoke.time_ms) of each build
+    in turns (other, this, this, other), and the share of entries of h
+    (K1) and of dx and dW (K10) off the other build's;
   - K1, K4/K5, K7, K8, K9, K10, K11 and K12: the outputs of both builds on
     chip_smoke.py's inputs must be equal bit for bit (K1 at B 1, 3, 8, 17,
-    64, 256, f32 and bf16; K4 and K5 at (40, 221) in both packings; K7
-    replay and carry in both packings, y and the rings; K8 at B 64 and 256;
-    K9 12 cases; K10 at (256, 40, 512), f32 and bf16; K11 and K12 in f32 at
-    (256, 40, 256) p 0.1 and a small case);
-  - K11 bf16 and K12 bf16 at B 1, 64 and 256 (T 40, the full-width model's
-    layer 0 in bf16 with chip_smoke.py's ff1 shift, p 0): device ms
-    (chip_smoke.graph_ms) and eager ms (chip_smoke.time_ms) of each build
-    in turns (other, this, this, other), and the share of entries of y (K11)
-    and of dx and the twelve gradients (K12) off the other build's;
+    64, 256 and K10 at (256, 40, 512), f32; K4 and K5 at (40, 221) in both
+    packings; K7 replay and carry in both packings, y and the rings; K8 at
+    B 64 and 256; K9 12 cases; K11 and K12 in f32 at (256, 40, 256) p 0.1
+    and a small case, and in bf16 at B 1, 64 and 256, T 40, the full-width
+    model's layer 0 with chip_smoke.py's ff1 shift, p 0);
   - unless --bits_only, K2, K3 and K6 at B 1 and 64: device ms
     (chip_smoke.graph_ms), eager
     ms (chip_smoke.time_ms) and the host us of one call without a sync
@@ -66,8 +67,11 @@ import chip_smoke as CS  # noqa: E402
 
 TAIL_SOURCES = ("fused_tail", "fused_fk")
 # sources whose every entry point must be declared as in this checkout
-SAME_SOURCES = ("fused_rnn", "fused_rnn_bwd", "fused_forward", "fused_cached",
-                "fused_cached_batch", "fused_recompute_batch")
+SAME_SOURCES = ("fused_forward", "fused_cached", "fused_cached_batch",
+                "fused_recompute_batch")
+# the RNN head: every entry point through the other checkout's own wrapper
+# (ops/fused_rnn.py), f32 and bf16
+RNN_SOURCES = ("fused_rnn", "fused_rnn_bwd")
 # encoder_train: every entry point through the other checkout's own
 # wrapper (ops/encoder_train.py), f32 and bf16
 ENCODER = "encoder_train"
@@ -110,17 +114,19 @@ def param_types(decl: str):
 def check_abi(parent: Path, other_sigs):
     """Raise unless the other checkout declares the entry points this
     script calls as it calls them: K2's, K3's and K6's as its own wrappers'
-    ctypes tables (other_sigs, by source) say; the encoder layer's with as
-    many parameters as its own wrapper's table; every other entry point it
-    declares with this checkout's parameter types."""
+    ctypes tables (other_sigs, by source) say; the RNN head's and the
+    encoder layer's with as many parameters as its own wrappers' tables;
+    every other entry point it declares with this checkout's parameter
+    types."""
     def decl(root, src):
         return declarations(root / "tip_tpu_torch" / "csrc" / f"{src}.cu")
     wrong = [fn for src in TAIL_SOURCES
              for fn, argtypes in other_sigs[src].items()
              if ctypes_of(decl(parent, src).get(fn, "?")) != list(argtypes)]
-    other_enc = decl(parent, ENCODER)
-    wrong += [fn for fn, argtypes in other_sigs[ENCODER].items()
-              if len(param_types(other_enc.get(fn, "?"))) != len(argtypes)]
+    for src in RNN_SOURCES + (ENCODER,):
+        other = decl(parent, src)
+        wrong += [fn for fn, argtypes in other_sigs[src].items()
+                  if len(param_types(other.get(fn, "?"))) != len(argtypes)]
     for src in SAME_SOURCES:
         mine = decl(ROOT, src)
         wrong += [fn for fn, params in decl(parent, src).items()
@@ -128,9 +134,9 @@ def check_abi(parent: Path, other_sigs):
                   or param_types(params) != param_types(mine[fn])]
     if wrong:
         raise SystemExit(f"{parent}: {wrong} are not declared as this "
-                         f"script calls them (K2, K3, K6 and K11/K12 as the "
-                         f"checkout's own _SIG tables, the rest as in this "
-                         f"checkout)")
+                         f"script calls them (K1/K10, K2, K3, K6 and K11/K12 "
+                         f"as the checkout's own _SIG tables, the rest as in "
+                         f"this checkout)")
 
 
 def load_module(path: Path, name: str):
@@ -169,7 +175,7 @@ def start_parent_builds(parent: Path):
     out = parent / "build"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in TAIL_SOURCES + SAME_SOURCES + (ENCODER,):
+    for name in TAIL_SOURCES + SAME_SOURCES + RNN_SOURCES + (ENCODER,):
         src = parent / "tip_tpu_torch" / "csrc" / f"{name}.cu"
         cmd = [K._nvcc(), *K.NVCC_FLAGS, *RENAMED, "-o",
                str(out / f"{name}.so"), str(src)]
@@ -301,34 +307,80 @@ def k8_bits(libs, model, dev):
     return out
 
 
-def k1_bits(libs, dev):
-    """K1 at chip_smoke.py's batch sizes, f32 and bf16."""
+def k1_bits(libs, pfr, dev):
+    """The f32 K1 at chip_smoke.py's batch sizes, each build through its
+    own wrapper (pfr: the other checkout's ops/fused_rnn.py)."""
     from tip_tpu_torch.ops import fused_rnn as FR
     gen = torch.Generator(device=dev).manual_seed(4)
     w = torch.randn(512, 512, generator=gen, device=dev) / 512 ** 0.5
     out = {}
-    for dt in (torch.float32, torch.bfloat16):
-        for B in CS.RNN_CHECKED_B:
-            xin = torch.randn(B, 40, 512, generator=gen, device=dev).to(dt)
-            o, m = both(libs, "fused_rnn",
-                        lambda: FR.fused_rnn(xin, w.to(dt), impl="kernel"))
-            out[f"B{B}_{str(dt).split('.')[1]}"] = equal(o, m)
+    for B in CS.RNN_CHECKED_B:
+        xin = torch.randn(B, 40, 512, generator=gen, device=dev)
+        with Swapped(libs, "fused_rnn"):
+            o = pfr.fused_rnn(xin, w, impl="kernel")
+        out[f"B{B}_float32"] = equal(o, FR.fused_rnn(xin, w, impl="kernel"))
     return out
 
 
-def k10_bits(libs, dev):
-    """K10 at (256, 40, 512), f32 and bf16."""
+def k10_bits(libs, pfr, dev):
+    """The f32 K10 at (256, 40, 512), each build through its own
+    wrapper."""
     from tip_tpu_torch.ops import fused_rnn as FR
     gen = torch.Generator(device=dev).manual_seed(4)
     B, T, H = 256, 40, 512
     hs = torch.tanh(torch.randn(B, T, H, generator=gen, device=dev))
     w = torch.randn(H, H, generator=gen, device=dev) / H ** 0.5
     g = torch.randn(B, T, H, generator=gen, device=dev)
+    with Swapped(libs, "fused_rnn_bwd"):
+        o = pfr.fused_rnn_bwd(hs, w, g, impl="kernel")
+    return {f"B{B}_T{T}_H{H}_float32": equal(
+        o, FR.fused_rnn_bwd(hs, w, g, impl="kernel"))}
+
+
+def rnn_bf16_turns(libs, pfr, dev):
+    """K1 bf16 and K10 bf16 of both builds, each through its own wrapper
+    (pfr: the other checkout's ops/fused_rnn.py), at B 1, 64 and 256 on
+    chip_smoke.py's inputs (W uniform in +-1/sqrt(H), xin and g normal,
+    K10's hidden states the plain forward's): device and eager ms in turns
+    (other, this, this, other), and the share of this build's output
+    entries off the other's."""
+    from tip_tpu_torch.ops import fused_rnn as FR
+    gen = torch.Generator(device=dev).manual_seed(10)
+    bf, H, T = torch.bfloat16, 512, 40
+    w = ((torch.rand(H, H, generator=gen, device=dev) * 2 - 1)
+         / H ** 0.5).to(bf)
     out = {}
-    for dt in (torch.float32, torch.bfloat16):
-        o, m = both(libs, "fused_rnn_bwd", lambda: FR.fused_rnn_bwd(
-            hs.to(dt), w.to(dt), g.to(dt), impl="kernel"))
-        out[f"B{B}_T{T}_H{H}_{str(dt).split('.')[1]}"] = equal(o, m)
+    for B in CS.RNN_TIMED_B:
+        xin = (torch.randn(B, T, H, generator=gen, device=dev) * 0.5).to(bf)
+        hs = FR.fused_rnn_plain(xin, w)
+        g = torch.randn(B, T, H, generator=gen, device=dev).to(bf)
+        calls = {
+            "K1_bf16": ("fused_rnn",
+                        lambda: pfr.fused_rnn(xin, w, impl="kernel"),
+                        lambda: FR.fused_rnn(xin, w, impl="kernel")),
+            "K10_bf16": ("fused_rnn_bwd",
+                         lambda: pfr.fused_rnn_bwd(hs, w, g, impl="kernel"),
+                         lambda: FR.fused_rnn_bwd(hs, w, g, impl="kernel"))}
+        for name, (lib, other, mine) in calls.items():
+            t = {}
+            for what, timer in (("ms", CS.graph_ms), ("call_ms", CS.time_ms)):
+                with Swapped(libs, lib):
+                    o1 = timer(other)
+                m1, m2 = timer(mine), timer(mine)
+                with Swapped(libs, lib):
+                    o2 = timer(other)
+                t[f"other_{what}"], t[f"this_{what}"] = [o1, o2], [m1, m2]
+            with Swapped(libs, lib):
+                o = other()
+            m = mine()
+            share = CS.OffShare()
+            for a, b in zip(*(x if isinstance(x, tuple) else (x,)
+                              for x in (m, o))):
+                share.add(a, b)
+            t["off_other_share"] = share.share()
+            t["this_vs_other"] = min(t["this_ms"]) / min(t["other_ms"])
+            out[f"{name}_B{B}"] = t
+            print(f"  {name} B {B}: {json.dumps(t)}", flush=True)
     return out
 
 
@@ -411,12 +463,10 @@ def tensors(out):
     return [out] if torch.is_tensor(out) else [out[0], *out[1]]
 
 
-def encoder_bf16_turns(libs, pet, model, dev):
+def encoder_bf16_bits(libs, pet, model, dev):
     """K11 bf16 and K12 bf16 of both builds, each through its own wrapper
     (pet: the other checkout's ops/encoder_train.py), at B 1, 64 and 256 on
-    chip_smoke.py's K12 bf16 inputs: device and eager ms in turns (other,
-    this, this, other), and the share of this build's output entries off
-    the other's."""
+    chip_smoke.py's K12 bf16 inputs: {case: equal}."""
     from tip_tpu_torch.ops import encoder_train as ET
     gen = torch.Generator(device=dev).manual_seed(9)
     bf = torch.bfloat16
@@ -430,36 +480,14 @@ def encoder_bf16_turns(libs, pet, model, dev):
     for B in CS.ENC_BWD_BF16_B:
         x = torch.randn(B, 40, d, generator=gen, device=dev).to(bf)
         dy = torch.randn(B, 40, d, generator=gen, device=dev).to(bf)
-        calls = {
-            "K11_bf16": (
-                lambda: pet.encoder_layer_fwd(x, ws, 0, nh, 0.0, False, 8,
-                                              impl="kernel"),
-                lambda: ET.encoder_layer_fwd(x, ws, 0, nh, 0.0, False, 8,
-                                             impl="kernel")),
-            "K12_bf16": (
-                lambda: pet.encoder_layer_bwd(x, ws, 0, dy, nh, 0.0, False,
-                                              8, impl="kernel"),
-                lambda: ET.encoder_layer_bwd(x, ws, 0, dy, nh, 0.0, False, 8,
-                                             impl="kernel"))}
-        for name, (other, mine) in calls.items():
-            t = {}
-            for what, timer in (("ms", CS.graph_ms), ("call_ms", CS.time_ms)):
-                with Swapped(libs, ENCODER):
-                    o1 = timer(other)
-                m1, m2 = timer(mine), timer(mine)
-                with Swapped(libs, ENCODER):
-                    o2 = timer(other)
-                t[f"other_{what}"], t[f"this_{what}"] = [o1, o2], [m1, m2]
+        for k, call in (("K11_bf16", lambda et: et.encoder_layer_fwd(
+                x, ws, 0, nh, 0.0, False, 8, impl="kernel")),
+                        ("K12_bf16", lambda et: et.encoder_layer_bwd(
+                            x, ws, 0, dy, nh, 0.0, False, 8,
+                            impl="kernel"))):
             with Swapped(libs, ENCODER):
-                o = tensors(other())
-            m = tensors(mine())
-            share = CS.OffShare()
-            for a, b in zip(m, o):
-                share.add(a, b)
-            t["off_other_share"] = share.share()
-            t["this_vs_other"] = min(m1, m2) / min(o1, o2)
-            out[f"{name}_B{B}"] = t
-            print(f"  {name} B {B}: {json.dumps(t)}", flush=True)
+                o = tensors(call(pet))
+            out[f"{k}_B{B}"] = equal(o, tensors(call(ET)))
     return out
 
 
@@ -580,25 +608,29 @@ def main():
     pft = load_module(ops / "fused_tail.py", "other_fused_tail")
     pkin = load_module(ops / "kinematics.py", "other_kinematics")
     pet = load_module(ops / "encoder_train.py", "other_encoder_train")
-    check_abi(parent, {"fused_tail": pft._SIG, "fused_fk": pkin._SIG,
-                       ENCODER: pet._SIG})
+    pfr = load_module(ops / "fused_rnn.py", "other_fused_rnn")
+    other_sigs = {"fused_tail": pft._SIG, "fused_fk": pkin._SIG,
+                  "fused_rnn": pfr._SIG, "fused_rnn_bwd": pfr._SIG_BWD,
+                  ENCODER: pet._SIG}
+    check_abi(parent, other_sigs)
     sigs = this_signatures()
-    sigs.update(fused_tail=pft._SIG, fused_fk=pkin._SIG)
-    sigs[ENCODER] = pet._SIG
+    sigs.update(other_sigs)
     procs = start_parent_builds(parent)
     K.build_all()
     libs = parent_libs(procs, sigs)
     model = M.TIPModel(M.ModelConfig(forward_impl="fused"), device=dev,
                        generator=torch.Generator().manual_seed(0))
     result = {"card": card, "other": args[0],
-              "encoder_bf16": encoder_bf16_turns(libs, pet, model, dev)}
+              "rnn_bf16": rnn_bf16_turns(libs, pfr, dev)}
     if not bits_only:
         result.update(tail=tail_times(libs, pft, pkin, dev),
                       paths=path_profiles(libs, pft, pkin, dev))
-    bits = {"k1": k1_bits(libs, dev), "k4_k5": k4_bits(libs, model, dev),
+    bits = {"k1": k1_bits(libs, pfr, dev),
+            "k4_k5": k4_bits(libs, model, dev),
             "k7": k7_bits(libs, model, dev), "k8": k8_bits(libs, model, dev),
-            "k9": k9_bits(libs, model, dev), "k10": k10_bits(libs, dev),
-            "k11_k12": k11_k12_bits(libs, pet, model, dev)}
+            "k9": k9_bits(libs, model, dev), "k10": k10_bits(libs, pfr, dev),
+            "k11_k12": k11_k12_bits(libs, pet, model, dev),
+            "k11_k12_bf16": encoder_bf16_bits(libs, pet, model, dev)}
     result["bit_equal"] = bits
     print(json.dumps(result), flush=True)
     return 0 if all(v for b in bits.values() for v in b.values()) else 2

@@ -87,10 +87,20 @@ def test_fused_rnn_plain_bf16_equals_pallas_kernel(B):
 
 
 def test_fused_rnn_plan_keeps_a_bf16_slice_in_half_the_bytes():
+    """The bf16 walk splits W_hh's columns as the f32 one does, holds B in
+    at most TC_CLUSTERS clusters of the fewest rows, and keeps its slice in
+    registers (the mma's A fragments): half the bytes of the f32 slice in
+    shared memory, which holds only the staging, the bf16 row buffers and
+    the partial sums."""
     f32, bf16 = FR.fused_rnn_plan(64, 512), FR.fused_rnn_plan(64, 512, 2)
-    assert (f32.cols, f32.batch_tile, f32.clusters) == \
-        (bf16.cols, bf16.batch_tile, bf16.clusters)
-    assert f32.smem_bytes - bf16.smem_bytes == 2 * 512 * 64
+    assert f32.cols == bf16.cols
+    assert (bf16.batch_tile, bf16.clusters) == (5, 13)
+    assert bf16.clusters <= FR.TC_CLUSTERS < -(-64 // (bf16.batch_tile - 1))
+    slice_f32 = 4 * 512 * 64
+    w_registers = (bf16.cols // 16) * (64 // 16) * 4   # tc_walk_kernel's wa
+    assert FR.RNN_THREADS * 4 * w_registers == slice_f32 // 2
+    assert bf16.smem_bytes == FR.tc_smem_bytes(bf16.cols, bf16.batch_tile,
+                                               back=False)
 
 
 # (b) K11 --------------------------------------------------------------------

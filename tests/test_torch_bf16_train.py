@@ -154,21 +154,29 @@ def test_fused_rnn_train_bf16_gradients_match_jax_grad():
 @pytest.mark.parametrize("B,T,H", [(256, 40, 512), (1, 40, 512), (3, 7, 40),
                                    (17, 40, 512), (1000, 40, 512)])
 def test_fused_rnn_bwd_plan_bf16_fits_and_covers_every_row(B, T, H):
-    """W's slice at 2 bytes an entry: the same walk and split as f32, half
-    the slice's bytes, within a block's shared memory."""
+    """The bf16 walk (on the tensor cores) splits W's columns as the f32
+    one does and holds B in at most TC_CLUSTERS clusters of the fewest rows
+    (up to TC_MAX_TILE), within a block's shared memory; dW is one product
+    of csrc/bf16_gemm.cuh over the B T rows, its splits whole 64-deep
+    slices that cover them, one cluster of at most 16 (64-row tiles
+    only)."""
     f32, bf16 = FR.fused_rnn_bwd_plan(B, T, H), \
         FR.fused_rnn_bwd_plan(B, T, H, 2)
     walk = bf16.walk
     assert walk.smem_bytes <= FR.MAX_SMEM
-    slice_depth = -(-H // FR.RNN_SPLITS)
-    depth = FR.RNN_SPLITS * (-(-slice_depth // 4) * 4)
-    assert f32.walk.smem_bytes - walk.smem_bytes == 2 * depth * walk.cols
-    assert (walk.cols, walk.batch_tile, walk.clusters) == \
-        (f32.walk.cols, f32.walk.batch_tile, f32.walk.clusters)
+    assert walk.smem_bytes == FR.tc_smem_bytes(walk.cols, walk.batch_tile,
+                                               back=True)
+    assert walk.cols == f32.walk.cols
+    assert walk.batch_tile == min(-(-B // FR.TC_CLUSTERS), FR.TC_MAX_TILE)
+    assert walk.clusters <= FR.TC_CLUSTERS or \
+        walk.batch_tile == FR.TC_MAX_TILE
     assert walk.clusters * walk.batch_tile >= B > \
         (walk.clusters - 1) * walk.batch_tile
     assert walk.cols * walk.cluster >= H
-    assert (bf16.dw_rows, bf16.dw_splits) == (f32.dw_rows, f32.dw_splits)
+    bm, bn = bf16.dw_tile
+    assert (bm, bn) in ((64, 64), (64, 128), (128, 128))
+    assert bf16.dw_rows % 64 == 0 and 1 <= bf16.dw_splits <= 16
+    assert bm == 64 or bf16.dw_splits == 1
     assert bf16.dw_rows * bf16.dw_splits >= B * T > \
         bf16.dw_rows * (bf16.dw_splits - 1)
 

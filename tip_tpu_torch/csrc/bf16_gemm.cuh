@@ -582,6 +582,13 @@ inline bool plan_ok(const Plan& p, int M, int N, int K) {
          p.splits == (K + p.kchunk - 1) / p.kchunk && M > 0 && N > 0;
 }
 
+// Internal to each library that includes this header (K11/K12 bf16's and
+// K10 bf16's launch the same instantiations): a function-local static of
+// an inline function is one object across the libraries of a process, and
+// the attribute set on one library's kernel would be missing on the
+// other's.
+namespace {
+
 template <bool TA, bool TB, int BM, int BN>
 inline cudaError_t launch(dim3 grid, const CUtensorMap& ma,
                           const CUtensorMap& mb, int M, int N, int K,
@@ -611,6 +618,8 @@ inline cudaError_t launch(dim3 grid, const CUtensorMap& ma,
   cfg.numAttrs = grid.z > 1 ? 1 : 0;
   return cudaLaunchKernelEx(&cfg, kernel, ma, mb, M, N, K, kchunk, ep);
 }
+
+}  // namespace
 
 // C (M, N) = op(A) op(B) through ep by plan p (plan_ok): A (M, K), or
 // stored (K, M) if TA; B (K, N), or stored (N, K) if TB; bf16, rows 16-byte

@@ -35,27 +35,33 @@
 // ops/fused_rnn.py::fused_rnn_bwd_plan and is checked here.
 //
 // The bf16 variant (fused_rnn_bwd_bf16_launch: tip_tpu's kernel on bf16 hs,
-// g and W) is the same walk on bf16 storage (rnn_cluster.cuh: W's slice
-// bf16 in shared memory, g and hs widened as loaded, da formed in f32 and
-// rounded to bf16 once, that value written as dxin and passed on). dW's
-// operands, h_{t-1} and bf16(da) = dxin, are exactly bf16: hs and dxin are
-// widened to their f32 images in a scratch (one launch) and the product
-// runs on train_mma.cuh's bf16 tiles (one m16n8k16 bf16 mma a 16-deep
-// step, f32 sums); the splits are added in the same fixed order and the
-// sum is rounded to bf16 once (round_splits_kernel), never a split alone.
-// Its bound is operations at the bf16 tensor-core rate (0.011 ms at the
-// training shape, bytes 0.009): the recurrence's 40 dependent steps, not
-// the rate, are what holds it there.
+// g and W), two launches:
+//   - the walk on the tensor cores (rnn_cluster.cuh's tc_walk_kernel, run
+//     backwards: W's rows as the bf16 mma's A fragments in registers, da
+//     formed in f32 and rounded to bf16 once; that value is written as
+//     dxin, passed on as the next step's row, and written a row up into
+//     dW's operand, shifted[b, t-1] = da_t, shifted[b, T-1] = 0);
+//   - dW = hs^T shifted over all B T rows as one plain TN product on
+//     wgmma from TMA-staged bf16 tiles (bf16_gemm.cuh's bg::product, the
+//     plan of ops/encoder_train.py::product_plan): its splits of the rows
+//     are one cluster that sums them in rank order through distributed
+//     shared memory, and the epilogue rounds the f32 sum to bf16 once,
+//     never a split alone.
+// No widened copy of hs or dxin: dW reads the bf16 values as they are,
+// from a scratch of B T H bf16 (shifted). Its bound is operations at the
+// bf16 tensor-core rate (0.0106 ms at the training shape, bytes 0.0097):
+// the recurrence's 40 dependent steps, not the rate, are what hold it
+// there.
 
+#include "bf16_gemm.cuh"
 #include "rnn_cluster.cuh"
 #include "train_mma.cuh"
 
 namespace {
 
 // dW's partial product of split blockIdx.z (rows [z kchunk, (z + 1)
-// kchunk) of B T): part + z H H, or dw itself when there is one split.
-// kBf16: hs and da the f32 images of bf16 values, bf16 products
-template <class L, bool kBf16>
+// kchunk) of B T): part + z H H, or dw itself when there is one split
+template <class L>
 __global__ void __launch_bounds__(L::THREADS, 2)
 dw_kernel(const float* __restrict__ hs, const float* __restrict__ da,
           float* __restrict__ part, int H, int rows, int T, int kchunk) {
@@ -69,7 +75,7 @@ dw_kernel(const float* __restrict__ hs, const float* __restrict__ da,
   const int k_end = min(rows, k_begin + kchunk);
   float acc[L::MT][L::NT][4];
   // A = h_{t-1} stored (B T, H) as hs a row up; B = da (B T, H)
-  tf3::mma_tile<true, false, L, true, true, kBf16>(
+  tf3::mma_tile<true, false, L, true, true>(
       hs, da, H, H, H, H, m0, n0, k_begin, k_end, sm, acc, T);
   float* out = part + static_cast<size_t>(blockIdx.z) * H * H;
 #pragma unroll
@@ -85,73 +91,36 @@ dw_kernel(const float* __restrict__ hs, const float* __restrict__ da,
       }
 }
 
-template <class L, bool kBf16 = false>
+template <class L>
 cudaError_t launch_dw(const float* hs, const float* da, float* part, int H,
                       int rows, int T, int kchunk, int splits,
                       cudaStream_t st) {
   constexpr size_t smem = tf3::Stage<true, false, L>::BYTES;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      dw_kernel<L, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dw_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   dim3 grid((H + L::BN - 1) / L::BN, (H + L::BM - 1) / L::BM, splits);
-  dw_kernel<L, kBf16><<<grid, L::THREADS, smem, st>>>(hs, da, part, H, rows,
-                                                      T, kchunk);
+  dw_kernel<L><<<grid, L::THREADS, smem, st>>>(hs, da, part, H, rows, T,
+                                              kchunk);
   return cudaGetLastError();
 }
 
-template <bool kBf16 = false>
 cudaError_t dw_product(const float* hs, const float* da, float* out, int H,
                        int rows, int T, int kchunk, int splits,
                        cudaStream_t st) {
-  return H <= 256 ? launch_dw<tf3::NarrowTile, kBf16>(hs, da, out, H, rows, T,
-                                                      kchunk, splits, st)
-                  : launch_dw<tf3::WideTile, kBf16>(hs, da, out, H, rows, T,
-                                                    kchunk, splits, st);
+  return H <= 256 ? launch_dw<tf3::NarrowTile>(hs, da, out, H, rows, T,
+                                               kchunk, splits, st)
+                  : launch_dw<tf3::WideTile>(hs, da, out, H, rows, T, kchunk,
+                                             splits, st);
 }
 
-// dst[a] = f32(src[a]) exactly, 4 bf16 values a load, n4 loads, for the
-// array a = blockIdx.y (hs and dxin, the bf16 variant's dW operands)
-struct Widen2 {
-  const uint2* src[2];
-  float4* dst[2];
-  long long n4;
-};
-
-__global__ void widen2_kernel(Widen2 w) {
-  const uint2* src = w.src[blockIdx.y];
-  float4* dst = w.dst[blockIdx.y];
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < w.n4; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const uint2 u = src[i];
-    dst[i] = make_float4(__uint_as_float(u.x << 16),
-                         __uint_as_float(u.x & 0xffff0000u),
-                         __uint_as_float(u.y << 16),
-                         __uint_as_float(u.y & 0xffff0000u));
-  }
-}
-
-// out[i] = bf16(sum over s of part[s * n + i]), s in order (the order of
-// tg::sum_splits_kernel), rounded once after the sum
-__global__ void round_splits_kernel(const float* __restrict__ part,
-                                    __nv_bfloat16* __restrict__ out, int n,
-                                    int splits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float v = 0.0f;
-  for (int s = 0; s < splits; ++s) v += part[static_cast<size_t>(s) * n + i];
-  out[i] = __float2bfloat16_rn(v);
-}
-
-// The checked launch plan of both entry points: the walk's
-// (rnnc::walk_plan_ok, W stored w_bytes an entry) and dW's split
+// The checked launch plan of the f32 entry point: the walk's
+// (rnnc::walk_plan_ok) and dW's split
 bool bwd_plan_ok(int B, int T, int H, int cluster, int cols, int bt,
-                 int clusters, long long smem, int dw_rows, int dw_splits,
-                 int w_bytes) {
+                 int clusters, long long smem, int dw_rows, int dw_splits) {
   const long long rows = static_cast<long long>(B) * T;
-  return rnnc::walk_plan_ok(B, H, cluster, cols, bt, clusters, smem,
-                            w_bytes) &&
+  return rnnc::walk_plan_ok(B, H, cluster, cols, bt, clusters, smem) &&
          dw_rows > 0 && dw_rows % tf3::BK == 0 && dw_splits > 0 &&
          static_cast<long long>(dw_rows) * dw_splits >= rows &&
          static_cast<long long>(dw_rows) * (dw_splits - 1) < rows &&
@@ -174,7 +143,7 @@ extern "C" int fused_rnn_bwd_launch(const void* hs, const void* w_hh,
                                     void* stream) {
   if (B <= 0 || T <= 0 || H <= 0) return 0;
   if (!bwd_plan_ok(B, T, H, cluster, cols, bt, clusters, smem, dw_rows,
-                   dw_splits, 4) ||
+                   dw_splits) ||
       (dw_splits > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = B * T;
@@ -195,48 +164,40 @@ extern "C" int fused_rnn_bwd_launch(const void* hs, const void* w_hh,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 variant: hs, w_hh, g, dx and dw bf16; the plan as
-// fused_rnn_bwd_launch's with `smem` counting W's slice at 2 bytes an
-// entry; `scratch`: 2 B T H + dw_splits H H floats (hs and dx widened,
-// then the partial products, one where dW is not split).
+// The bf16 variant: hs, w_hh, g, dx and dw bf16. The walk's plan as
+// fused_rnn_bf16_launch's (rnnc::tc_plan_ok, backwards); dW's product plan
+// (dw_bm x dw_bn tiles, dw_kchunk rows a split, dw_splits splits:
+// bg::plan_ok for (H, H, B T)); `shifted`: B T H bf16 of scratch (dW's
+// operand); clock: null, or 7 u64 for the walk's step clock.
 extern "C" int fused_rnn_bwd_bf16_launch(const void* hs, const void* w_hh,
                                          const void* g, void* dx, void* dw,
-                                         void* scratch, int B, int T, int H,
+                                         void* shifted, int B, int T, int H,
                                          int cluster, int cols, int bt,
                                          int clusters, long long smem,
-                                         int dw_rows, int dw_splits,
+                                         int dw_bm, int dw_bn, int dw_kchunk,
+                                         int dw_splits, void* clock,
                                          void* stream) {
   using S = __nv_bfloat16;
   if (B <= 0 || T <= 0 || H <= 0) return 0;
-  if (!bwd_plan_ok(B, T, H, cluster, cols, bt, clusters, smem, dw_rows,
-                   dw_splits, 2) ||
-      scratch == nullptr)
+  const long long rows = static_cast<long long>(B) * T;
+  const bg::Plan dw_plan{dw_bm, dw_bn, dw_kchunk, dw_splits};
+  if (!rnnc::tc_plan_ok(B, H, cluster, cols, bt, clusters, smem, true) ||
+      rows * H > 0x7fffffffLL ||
+      !bg::plan_ok(dw_plan, H, H, static_cast<int>(rows)) ||
+      shifted == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = B * T;
-  const size_t n_rows = static_cast<size_t>(rows) * H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = rnnc::walk<true, S>(
+  cudaError_t err = rnnc::tc_walk<true>(
       static_cast<const S*>(g), static_cast<const S*>(hs),
-      static_cast<const S*>(w_hh), static_cast<S*>(dx), B, T, H, cols, bt,
-      clusters, smem, st);
+      static_cast<const S*>(w_hh), static_cast<S*>(dx),
+      static_cast<S*>(shifted), B, T, H, cols, bt, clusters, smem,
+      static_cast<unsigned long long*>(clock), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  float* hs_img = static_cast<float*>(scratch);
-  float* dx_img = hs_img + n_rows;
-  float* part = dx_img + n_rows;
-  Widen2 w{{static_cast<const uint2*>(hs), static_cast<const uint2*>(dx)},
-           {reinterpret_cast<float4*>(hs_img),
-            reinterpret_cast<float4*>(dx_img)},
-           static_cast<long long>(n_rows / 4)};
-  const long long blocks = (w.n4 + 255) / 256;
-  widen2_kernel<<<dim3(blocks < 264 ? static_cast<int>(blocks) : 264, 2),
-                  256, 0, st>>>(w);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = dw_product<true>(hs_img, dx_img, part, H, rows, T, dw_rows,
-                         dw_splits, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n = H * H;
-  round_splits_kernel<<<(n + 255) / 256, 256, 0, st>>>(
-      part, static_cast<S*>(dw), n, dw_splits);
-  return static_cast<int>(cudaGetLastError());
+  bg::EpiArgs ep{};
+  ep.kind = tg::E_STORE;
+  ep.out_bf16 = 1;
+  ep.out = dw;
+  // dW (H, H) = hs^T shifted: A = hs stored (B T, H), B = shifted (B T, H)
+  return static_cast<int>(bg::product<true, false>(
+      dw_plan, hs, shifted, H, H, static_cast<int>(rows), ep, st));
 }

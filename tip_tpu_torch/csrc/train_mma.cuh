@@ -37,15 +37,10 @@
 // rows whose partial products a second pass adds in a fixed order
 // (tg::sum_splits_kernel). No atomics: two calls give the same bits.
 //
-// bf16 products (kBf16: K10 bf16's dW, fused_rnn_bwd.cu, on hs and dxin
-// widened to f32): the same tiles and staging, and one
-// mma.sync.aligned.m16n8k16 in bf16 with f32 sums a 16-deep step where
-// 3xTF32 takes six m16n8k8. Each operand is rounded to bf16 (cvt.rn) as
-// its fragment is formed from the staged f32 values, as tip_tpu's dot
-// casts both operands; staged values that are bf16 already pass
-// unchanged. The bf16 encoder layer (K11 bf16, K12 bf16) has its own
-// products on wgmma from bf16 tiles, bf16_gemm.cuh; its bound is
-// operations at the bf16 tensor-core rate at B 256.
+// pack_bf16 and mma_bf16 below are the bf16 fragments and m16n8k16 mma
+// that encoder_train.cu's bf16 attention uses. The bf16 encoder layer's
+// products (K11 bf16, K12 bf16) and K10 bf16's dW run on wgmma from bf16
+// tiles, bf16_gemm.cuh.
 
 #pragma once
 
@@ -207,49 +202,12 @@ __device__ __forceinline__ void mma3_promoted(float (&acc)[NT][4],
 // products a sum takes; kPromote sums each 8-deep step's three products
 // from 0 and adds them to acc in f32 (round to nearest), which keeps the
 // error of a long K near that of f32 sums (K12 sums straight into acc).
-// kBf16: one bf16 product a 16-deep step instead, summed straight into acc
-// (kPromote is not read).
-template <bool TA, bool TB, class L, bool kPromote = false,
-          bool kBf16 = false>
+template <bool TA, bool TB, class L, bool kPromote = false>
 __device__ __forceinline__ void mma_slice(const float* As, const float* Bs,
                                           float (&acc)[L::MT][L::NT][4],
                                           int wm, int wn, int g, int q) {
   using S = Stage<TA, TB, L>;
   using W = L;
-  if constexpr (kBf16) {
-    auto a_at = [&](int m, int k) {
-      return TA ? As[k * S::A_LD + m] : As[m * S::A_LD + k];
-    };
-    auto b_at = [&](int k, int n) {
-      return TB ? Bs[n * S::B_LD + k] : Bs[k * S::B_LD + n];
-    };
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t b[W::NT][2];   // rows 2q, 2q+1 (+8) of column g
-#pragma unroll
-      for (int nt = 0; nt < W::NT; ++nt) {
-        const int n = wn * W::TN + nt * 8 + g;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int k = kk + 2 * q + 8 * r;
-          b[nt][r] = pack_bf16(b_at(k, n), b_at(k + 1, n));
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < W::MT; ++mt) {
-        uint32_t a[4];   // rows g, g+8; columns 2q, 2q+1 (+8)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int m = wm * W::TM + mt * 16 + g + 8 * (r & 1);
-          const int k = kk + 2 * q + 8 * (r >> 1);
-          a[r] = pack_bf16(a_at(m, k), a_at(m, k + 1));
-        }
-#pragma unroll
-        for (int nt = 0; nt < W::NT; ++nt) mma_bf16(acc[mt][nt], a, b[nt]);
-      }
-    }
-    return;
-  }
 #pragma unroll
   for (int kk = 0; kk < BK; kk += 8) {
     uint32_t bh[W::NT][2], bl[W::NT][2];
@@ -295,9 +253,9 @@ __device__ __forceinline__ void mma_slice(const float* As, const float* Bs,
 // syncs the block first. kPromote: as mma_slice's.
 // A logical (M, K): stored (M, K) with row stride lda, or (K, M) if TA.
 // B logical (K, N): stored (K, N) with row stride ldb, or (N, K) if TB.
-// kShiftA, a_period: as load_stage's. kBf16: as mma_slice's.
+// kShiftA, a_period: as load_stage's.
 template <bool TA, bool TB, class L, bool kPromote = false,
-          bool kShiftA = false, bool kBf16 = false>
+          bool kShiftA = false>
 __device__ __forceinline__ void mma_tile(const float* __restrict__ A,
                                          const float* __restrict__ B, int M,
                                          int N, int lda, int ldb, int m0,
@@ -341,16 +299,14 @@ __device__ __forceinline__ void mma_tile(const float* __restrict__ A,
     }
     cp_commit();
     const float* As = sm + (kt % kStages) * S::FLOATS;
-    mma_slice<TA, TB, L, kPromote, kBf16>(As, As + S::A_FLOATS, acc, wm, wn,
-                                          g, q);
+    mma_slice<TA, TB, L, kPromote>(As, As + S::A_FLOATS, acc, wm, wn, g, q);
   }
   cp_wait<0>();
 }
 
 // blockIdx.z takes rows [z * kchunk, (z + 1) * kchunk) of K (kchunk a
 // multiple of BK) and writes its partial product to C + z * M * N.
-// kBf16: bf16 products (mma_slice's).
-template <bool TA, bool TB, int EPI, class L, bool kBf16 = false>
+template <bool TA, bool TB, int EPI, class L>
 __global__ void __launch_bounds__(L::THREADS, 2)
 mma_kernel(const float* __restrict__ A, const float* __restrict__ B,
            float* __restrict__ C, int M, int N, int K, int lda, int ldb,
@@ -365,8 +321,8 @@ mma_kernel(const float* __restrict__ A, const float* __restrict__ B,
   const int k_begin = blockIdx.z * kchunk;
   const int k_end = min(K, k_begin + kchunk);
   float acc[W::MT][W::NT][4];
-  mma_tile<TA, TB, L, false, false, kBf16>(A, B, M, N, lda, ldb, m0, n0,
-                                           k_begin, k_end, sm, acc);
+  mma_tile<TA, TB, L>(A, B, M, N, lda, ldb, m0, n0, k_begin, k_end, sm,
+                      acc);
 
   float* Cz = C + static_cast<size_t>(blockIdx.z) * M * N;
 #pragma unroll
@@ -382,35 +338,34 @@ mma_kernel(const float* __restrict__ A, const float* __restrict__ B,
       }
 }
 
-template <bool TA, bool TB, int EPI, class L, bool kBf16 = false>
+template <bool TA, bool TB, int EPI, class L>
 inline void launch(const float* A, const float* B, float* C, int M, int N,
                    int K, int lda, int ldb, tg::EpiArgs ep, cudaStream_t st,
                    int kchunk, int splits) {
   constexpr size_t smem = Stage<TA, TB, L>::BYTES;
   // once per process and instantiation; a refusal shows at the launch
   static const cudaError_t attr = cudaFuncSetAttribute(
-      mma_kernel<TA, TB, EPI, L, kBf16>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      mma_kernel<TA, TB, EPI, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   (void)attr;
   dim3 grid((N + L::BN - 1) / L::BN, (M + L::BM - 1) / L::BM, splits);
-  mma_kernel<TA, TB, EPI, L, kBf16><<<grid, L::THREADS, smem, st>>>(
+  mma_kernel<TA, TB, EPI, L><<<grid, L::THREADS, smem, st>>>(
       A, B, C, M, N, K, lda, ldb, kchunk, ep);
 }
 
 inline int tile_n(int N) { return N <= 256 ? NarrowTile::BN : WideTile::BN; }
 
-// kBf16: bf16 products (mma_slice's)
-template <bool TA, bool TB, int EPI, bool kBf16 = false>
+template <bool TA, bool TB, int EPI>
 inline void gemm(const float* A, const float* B, float* C, int M, int N,
                  int K, int lda, int ldb, tg::EpiArgs ep, cudaStream_t st,
                  int kchunk = 0, int splits = 1) {
   if (kchunk <= 0) kchunk = K;
   if (N <= 256)
-    launch<TA, TB, EPI, NarrowTile, kBf16>(A, B, C, M, N, K, lda, ldb, ep,
-                                           st, kchunk, splits);
+    launch<TA, TB, EPI, NarrowTile>(A, B, C, M, N, K, lda, ldb, ep, st,
+                                    kchunk, splits);
   else
-    launch<TA, TB, EPI, WideTile, kBf16>(A, B, C, M, N, K, lda, ldb, ep, st,
-                                         kchunk, splits);
+    launch<TA, TB, EPI, WideTile>(A, B, C, M, N, K, lda, ldb, ep, st, kchunk,
+                                  splits);
 }
 
 // How a reduction over K rows into an (M, N) result is split: enough
@@ -436,20 +391,17 @@ inline size_t wgrad_scratch(int M, int N, int K) {
 }
 
 // out (M, N) = A^T B over the K rows of A (K, M) and B (K, N): a weight
-// gradient. `part`: wgrad_scratch(M, N, K) floats. kBf16: bf16 products
-// (mma_slice's), the partial sums added in f32 in the same order.
-template <bool kBf16 = false>
+// gradient. `part`: wgrad_scratch(M, N, K) floats.
 inline void wgrad(const float* A, const float* B, float* out, int M, int N,
                   int K, float* part, cudaStream_t st) {
   const tg::Split p = split_plan(M, N, K);
   if (p.splits == 1) {
-    tf3::gemm<true, false, tg::E_STORE, kBf16>(A, B, out, M, N, K, M, N,
-                                               tg::EpiArgs{}, st);
+    tf3::gemm<true, false, tg::E_STORE>(A, B, out, M, N, K, M, N,
+                                        tg::EpiArgs{}, st);
     return;
   }
-  tf3::gemm<true, false, tg::E_STORE, kBf16>(A, B, part, M, N, K, M, N,
-                                             tg::EpiArgs{}, st, p.kchunk,
-                                             p.splits);
+  tf3::gemm<true, false, tg::E_STORE>(A, B, part, M, N, K, M, N,
+                                      tg::EpiArgs{}, st, p.kchunk, p.splits);
   const int n = M * N;
   tg::sum_splits_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, out, n,
                                                           p.splits);

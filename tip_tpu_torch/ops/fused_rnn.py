@@ -23,6 +23,13 @@ In bf16 (hs, g and W_hh bf16) both K10 and its plain version compute in
 f32 on bf16 operands where tip_tpu's kernel rounds: da_t is rounded to
 bf16 once, and that value is dxin_t, the next step's operand and dW's;
 dW is summed in f32 and rounded to bf16 at the end.
+
+The bf16 variants walk on the tensor cores (``rnn_cluster.cuh``'s
+``tc_walk_kernel``: W_hh's slice in registers as bf16 mma fragments), and
+K10 bf16 forms dW as one product of hs and its own output written a row
+up (``shifted_rows``: the operand in a scratch of B T H bf16) on wgmma.
+``clock=`` runs either with its per-step clock (``K1_PHASES``,
+``step_ns``).
 """
 
 import ctypes
@@ -34,14 +41,21 @@ from tip_tpu_torch.ops import _kernels as K
 
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_longlong,
                                                       ctypes.c_void_p]
-_SIG = {"fused_rnn_launch": _ARGS, "fused_rnn_bf16_launch": _ARGS}
+# the bf16 entry point also takes the clock
+_ARGS_BF16 = _ARGS[:-1] + [ctypes.c_void_p, ctypes.c_void_p]
+_SIG = {"fused_rnn_launch": _ARGS, "fused_rnn_bf16_launch": _ARGS_BF16}
 # the entry point and the launch counter of each storage dtype
 _VARIANT = {torch.float32: "fused_rnn", torch.bfloat16: "fused_rnn_bf16"}
 _ARGS_BWD = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p])
+# bf16: the shifted operand for the scratch, dW's product plan (bm, bn,
+# kchunk, splits) and the clock
+_ARGS_BWD_BF16 = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                  + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p, ctypes.c_void_p])
 _SIG_BWD = {"fused_rnn_bwd_launch": _ARGS_BWD,
-            "fused_rnn_bwd_bf16_launch": _ARGS_BWD}
+            "fused_rnn_bwd_bf16_launch": _ARGS_BWD_BF16}
 _VARIANT_BWD = {torch.float32: "fused_rnn_bwd",
                 torch.bfloat16: "fused_rnn_bwd_bf16"}
 
@@ -65,16 +79,31 @@ def fused_rnn_plain(xin, w_hh):
 
 # The walk of K1 and K10 (csrc/rnn_cluster.cuh): a cluster of 8 blocks (the
 # portable cluster size) shares W_hh, each block 32 or 64 output columns of
-# it in its shared memory and 256 threads (8 warps, one per eighth of the
-# depth); a cluster owns a tile of batch rows. 16 clusters are 128 of the
-# H100's 132 SMs, so the tile grows with B until B fills them, up to 16
-# rows (the largest tile whose two row buffers and partial sums fit beside
-# a 512-wide slice)
+# it and 256 threads (8 warps, one per eighth of the depth); a cluster owns
+# a tile of batch rows.
+#   f32: W's slice in shared memory, the depth padded to 8 slices of a
+#   multiple of 4; the tile grows with B (RNN_TILES) until 16 clusters
+#   (128 of the H100's 132 SMs) hold B.
+#   bf16: the walk on the tensor cores, W's slice in registers (staged once
+#   through shared memory), the depth padded to 8 slices of 64 (TC_DEPTH),
+#   the row buffers bf16 and the partial sums f32. An H100 runs at most 15
+#   clusters of 8 such blocks at once at one block an SM
+#   (cudaOccupancyMaxActiveClusters; a 16th waits for one of them to end,
+#   doubling the time; two blocks on one SM slow both), and a step costs
+#   little more with each row of the tile, so a block takes more than half
+#   an SM's shared memory and the tile is the fewest rows (up to
+#   TC_MAX_TILE) that hold B in TC_CLUSTERS clusters
 RNN_CLUSTER = 8
 RNN_SPLITS = 8
 RNN_TILES = (1, 2, 4, 8, 16)
 RNN_FULL_CLUSTERS = 16
 MAX_SMEM = 232448            # bytes of shared memory a block can have
+RNN_THREADS = 256
+TC_DEPTH = RNN_SPLITS * 64   # the bf16 walk's padded depth
+TC_LDH = TC_DEPTH + 8        # bf16 stride of its buffered rows
+TC_CLUSTERS = 15
+TC_MAX_TILE = 32
+TC_MIN_SMEM = 120 * 1024     # more than half an SM's shared memory
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,19 +115,54 @@ class RNNPlan:
     smem_bytes: int          # shared memory of a block
 
 
-def _walk_plan(B: int, H: int, cols: int, name: str,
-               w_bytes: int = 4) -> RNNPlan:
-    """The walk's plan for B rows of width H, ``cols`` columns a block of
-    W_hh stored ``w_bytes`` bytes an entry: the depth padded to 8 slices of
-    a multiple of 4 (rnn_cluster.cuh's slice_depth); raises where W_hh's
-    slice and the row buffers (f32) do not fit in a block's shared
-    memory."""
+def _walk_plan(B: int, H: int, cols: int, name: str) -> RNNPlan:
+    """The f32 walk's plan for B rows of width H, ``cols`` columns a
+    block: the depth padded to 8 slices of a multiple of 4 (rnn_cluster.cuh's
+    slice_depth); raises where W_hh's slice and the row buffers do not fit
+    in a block's shared memory."""
     want = -(-B // RNN_FULL_CLUSTERS)
     bt = next((t for t in RNN_TILES if t >= want), RNN_TILES[-1])
     slice_depth = -(-H // RNN_SPLITS)
     depth = RNN_SPLITS * (-(-slice_depth // 4) * 4)
-    smem = (w_bytes * depth * cols
-            + 4 * (2 * bt * depth + RNN_SPLITS * bt * cols))
+    smem = 4 * (depth * cols + 2 * bt * depth + RNN_SPLITS * bt * cols)
+    if smem > MAX_SMEM:
+        raise ValueError(f"{name}: H={H} needs {smem} bytes of shared "
+                         f"memory a block, more than {MAX_SMEM}")
+    return RNNPlan(RNN_CLUSTER, cols, bt, -(-B // bt), smem)
+
+
+def tc_rows(bt: int) -> int:
+    """Rows of the bf16 walk's row buffers: the mma's 8-wide side, 1 to 4
+    times."""
+    return -(-bt // 8) * 8
+
+
+def tc_batch_tile(B: int) -> int:
+    """The bf16 walk's tile: the fewest rows that hold B in TC_CLUSTERS
+    clusters, at most TC_MAX_TILE (past TC_CLUSTERS TC_MAX_TILE rows the
+    clusters run in turns)."""
+    return min(-(-B // TC_CLUSTERS), TC_MAX_TILE)
+
+
+def tc_smem_bytes(cols: int, bt: int, back: bool) -> int:
+    """rnn_cluster.cuh's tc_smem_bytes: W's slice as staged (forward (depth,
+    cols + 8), backward (cols, TC_LDH), bf16), the two row buffers (bf16)
+    and the 8 warps' partial sums (f32, bt rows of cols + 4); at least
+    TC_MIN_SMEM, so that no two blocks share an SM."""
+    w = cols * TC_LDH if back else TC_DEPTH * (cols + 8)
+    return max(2 * w + 2 * 2 * tc_rows(bt) * TC_LDH
+               + 4 * RNN_SPLITS * bt * (cols + 4), TC_MIN_SMEM)
+
+
+def _tc_walk_plan(B: int, H: int, cols: int, name: str,
+                  back: bool) -> RNNPlan:
+    """The bf16 walk's plan (csrc/rnn_cluster.cuh's tc_plan_ok): H a
+    multiple of 8 (16-byte rows) of at most TC_DEPTH."""
+    if H % 8 or H > TC_DEPTH:
+        raise ValueError(f"{name}: H={H} is not a multiple of 8 of at most "
+                         f"{TC_DEPTH} (the bf16 walk)")
+    bt = tc_batch_tile(B)
+    smem = tc_smem_bytes(cols, bt, back)
     if smem > MAX_SMEM:
         raise ValueError(f"{name}: H={H} needs {smem} bytes of shared "
                          f"memory a block, more than {MAX_SMEM}")
@@ -107,8 +171,8 @@ def _walk_plan(B: int, H: int, cols: int, name: str,
 
 def fused_rnn_plan(B: int, H: int, w_bytes: int = 4) -> RNNPlan:
     """K1's launch plan for B rows of width H, W_hh stored ``w_bytes``
-    bytes an entry (4 f32, 2 bf16: the slice a block keeps is half as
-    large): W_hh's columns split evenly over the cluster, H/8 a multiple
+    bytes an entry (4: the f32 walk; 2: the bf16 walk on the tensor
+    cores): W_hh's columns split evenly over the cluster, H/8 a multiple
     of 32. Raises where that does not hold or does not fit (there is no
     other kernel to fall back to)."""
     if B <= 0 or H <= 0:
@@ -117,11 +181,13 @@ def fused_rnn_plan(B: int, H: int, w_bytes: int = 4) -> RNNPlan:
     if H % RNN_CLUSTER or cols % 32 or H % (4 * RNN_SPLITS):
         raise ValueError(f"fused_rnn: H={H} does not split into "
                          f"{RNN_CLUSTER} blocks of a multiple of 32 columns")
-    return _walk_plan(B, H, cols, "fused_rnn", w_bytes)
+    if w_bytes == 2:
+        return _tc_walk_plan(B, H, cols, "fused_rnn", back=False)
+    return _walk_plan(B, H, cols, "fused_rnn")
 
 
-# dW's product (csrc/train_mma.cuh's tiles): 128 rows x 64 columns a block
-# where N <= 256, else 128 x 128; the B T rows split into chunks of a
+# f32 dW's product (csrc/train_mma.cuh's tiles): 128 rows x 64 columns a
+# block where N <= 256, else 128 x 128; the B T rows split into chunks of a
 # multiple of 32 (at least 256 rows) until the card has about 264 blocks
 # (two an SM), as train_mma.cuh's split_plan cuts a weight gradient
 DW_TILE_M = 128
@@ -134,13 +200,18 @@ class RNNBwdPlan:
     walk: RNNPlan            # the walk backwards (K1's, W's rows in a block)
     dw_rows: int             # rows of B T a split of dW's product takes
     dw_splits: int           # partial products, added in order (1: none)
+    dw_tile: tuple = ()      # bf16: (bm, bn) of bf16_gemm.cuh's product;
+    #                          f32: () (train_mma.cuh's tile, by H)
 
 
 def fused_rnn_bwd_plan(B: int, T: int, H: int,
                       w_bytes: int = 4) -> RNNBwdPlan:
     """K10's launch plan: the walk's (a block keeps 32 columns of W where
     H <= 256, else 64, so H <= 512 and a multiple of 4; W stored
-    ``w_bytes`` bytes an entry, as ``fused_rnn_plan``) and dW's split.
+    ``w_bytes`` bytes an entry: 2 is the bf16 walk on the tensor cores, H a
+    multiple of 8) and dW's split. f32: train_mma.cuh's split of the B T
+    rows. bf16: ops/encoder_train.py's product plan of dW = hs^T shifted,
+    an (H, H, B T) product (its splits one cluster, summed in rank order).
     Raises where W's slice and the row buffers do not fit."""
     if B <= 0 or T <= 0 or H <= 0:
         raise ValueError(f"fused_rnn_bwd: B={B}, T={T}, H={H}")
@@ -148,9 +219,14 @@ def fused_rnn_bwd_plan(B: int, T: int, H: int,
         raise ValueError(f"fused_rnn_bwd: H={H} is not a multiple of 4 "
                          f"that {RNN_CLUSTER} blocks of at most 64 columns "
                          f"cover")
-    walk = _walk_plan(B, H, 32 if H <= 32 * RNN_CLUSTER else 64,
-                      "fused_rnn_bwd", w_bytes)
+    cols = 32 if H <= 32 * RNN_CLUSTER else 64
     rows = B * T
+    if w_bytes == 2:
+        from tip_tpu_torch.ops.encoder_train import product_plan
+        walk = _tc_walk_plan(B, H, cols, "fused_rnn_bwd", back=True)
+        dw = product_plan("dW", "hs^T shifted", H, H, rows)
+        return RNNBwdPlan(walk, dw.kchunk, dw.splits, (dw.bm, dw.bn))
+    walk = _walk_plan(B, H, cols, "fused_rnn_bwd")
     tile_n = 64 if H <= 256 else 128
     tiles = -(-H // DW_TILE_M) * -(-H // tile_n)
     splits = max(1, min(-(-DW_TARGET_BLOCKS // tiles), -(-rows // 256)))
@@ -159,39 +235,80 @@ def fused_rnn_bwd_plan(B: int, T: int, H: int,
     return RNNBwdPlan(walk, chunk, -(-rows // chunk))
 
 
-def _launch(xin, w_hh):
-    """K1 in xin's dtype, float32 or bfloat16 (W_hh in the same)."""
+def bwd_scratch(plan: RNNBwdPlan, B: int, T: int, H: int, dtype):
+    """(entries, dtype) of K10's scratch: bf16, the shifted operand of dW
+    (B T H bf16, written by the walk, read by dW's product); f32, dW's
+    partial products where it is split (else none)."""
+    if dtype == torch.bfloat16:
+        return B * T * H, torch.bfloat16
+    n = plan.dw_splits * H * H if plan.dw_splits > 1 else 0
+    return n, torch.float32
+
+
+def shifted_rows(dx):
+    """Plain model of K10 bf16's dW operand (B, T, H): dx a row up within
+    each sequence, shifted[:, t - 1] = dx[:, t], shifted[:, T - 1] = 0, so
+    that dW = hs^T shifted over all B T rows (h_{t-1} pairs with da_t)."""
+    return torch.cat([dx[:, 1:], torch.zeros_like(dx[:, :1])], dim=1)
+
+
+# the phases of the bf16 walk's per-step clock (csrc/rnn_cluster.cuh's
+# StepClock), in the order of the step
+K1_PHASES = ("product", "split_sum", "epilogue", "broadcast", "barrier_wait")
+CLOCK_ROWS = 2 + len(K1_PHASES)
+
+
+def step_ns(stamps, T: int, cycles_per_ns: float) -> dict:
+    """The bf16 walk's clock (block 0's thread 0: the kernel's start, the
+    loop's start, then the end of each phase as if the phases of all T
+    steps ran one after another, SM cycles) -> {"prologue": ns, phase: ns
+    a step, "step": ns a step}."""
+    out = {"prologue": (stamps[1] - stamps[0]) / cycles_per_ns}
+    for i, name in enumerate(K1_PHASES):
+        out[name] = (stamps[2 + i] - stamps[1 + i]) / cycles_per_ns / T
+    out["step"] = (stamps[-1] - stamps[1]) / cycles_per_ns / T
+    return out
+
+
+def _launch(xin, w_hh, clock=None):
+    """K1 in xin's dtype, float32 or bfloat16 (W_hh in the same); clock
+    (bf16 only): None or a (CLOCK_ROWS,) int64 tensor."""
     B, T, H = xin.shape
     name = _VARIANT.get(xin.dtype)
     if name is None:
         raise TypeError(f"xin: dtype {xin.dtype}, expected float32 or "
                         f"bfloat16")
+    bf16 = xin.dtype == torch.bfloat16
+    if clock is not None and not bf16:
+        raise ValueError("fused_rnn: the clock is the bf16 walk's")
     K.check_input(xin, "xin", (B, T, H), xin.dtype, xin.device)
     K.check_input(w_hh, "w_hh", (H, H), xin.dtype, xin.device)
     plan = fused_rnn_plan(B, H, xin.element_size())
     out = torch.empty_like(xin)
     so = K.lib("fused_rnn", _SIG)
-    stream = torch.cuda.current_stream(xin.device).cuda_stream
-    err = getattr(so, f"{name}_launch")(
-        xin.data_ptr(), w_hh.data_ptr(), out.data_ptr(), B, T, H,
-        plan.cluster, plan.cols, plan.batch_tile, plan.clusters,
-        plan.smem_bytes, stream)
+    args = [xin.data_ptr(), w_hh.data_ptr(), out.data_ptr(), B, T, H,
+            plan.cluster, plan.cols, plan.batch_tile, plan.clusters,
+            plan.smem_bytes]
+    if bf16:
+        args.append(K.clock_ptr(clock, CLOCK_ROWS, xin.device))
+    err = getattr(so, f"{name}_launch")(*args, K.stream_of(xin.device))
     K.check(err, name)
     K.launch_counts[name] += 1
     return out
 
 
-def fused_rnn(xin, w_hh, impl: str = "auto"):
+def fused_rnn(xin, w_hh, impl: str = "auto", clock=None):
     """The RNN head by ``impl``: "kernel" launches K1 (CUDA tensors only),
     "plain" runs ``fused_rnn_plain``, "auto" launches K1 for a CUDA tensor
     and runs the plain version for a CPU tensor. K1 takes float32 or
     bfloat16 (xin and W_hh alike; counted as ``fused_rnn`` and
-    ``fused_rnn_bf16``)."""
+    ``fused_rnn_bf16``). clock: None, or a (CLOCK_ROWS,) int64 tensor on
+    the device for the bf16 walk's per-step clock (``step_ns``)."""
     if xin.dtype != w_hh.dtype:
         raise TypeError(f"fused_rnn: xin is {xin.dtype}, w_hh {w_hh.dtype}; "
                         f"both float32 or both bfloat16")
     if K.use_kernel(impl, xin, "rnn_impl", "kernel"):
-        return _launch(xin, w_hh)
+        return _launch(xin, w_hh, clock)
     return fused_rnn_plain(xin, w_hh)
 
 
@@ -227,51 +344,56 @@ def fused_rnn_bwd_plain(hs, w_hh, g):
     return dx, dw.to(w_hh.dtype)
 
 
-def _launch_bwd(hs, w_hh, g):
-    """K10 in hs's dtype, float32 or bfloat16 (W and g in the same)."""
+def _launch_bwd(hs, w_hh, g, clock=None):
+    """K10 in hs's dtype, float32 or bfloat16 (W and g in the same); clock
+    (bf16 only): None or a (CLOCK_ROWS,) int64 tensor for the walk's."""
     B, T, H = hs.shape
     name = _VARIANT_BWD.get(hs.dtype)
     if name is None:
         raise TypeError(f"hs: dtype {hs.dtype}, expected float32 or "
                         f"bfloat16")
+    bf16 = hs.dtype == torch.bfloat16
+    if clock is not None and not bf16:
+        raise ValueError("fused_rnn_bwd: the clock is the bf16 walk's")
     for t, tn, shape in ((hs, "hs", (B, T, H)), (w_hh, "w_hh", (H, H)),
                          (g, "g", (B, T, H))):
         K.check_input(t, tn, shape, hs.dtype, hs.device)
-    bf16 = hs.dtype == torch.bfloat16
     plan = fused_rnn_bwd_plan(B, T, H, hs.element_size())
     walk = plan.walk
     so = K.lib("fused_rnn_bwd", _SIG_BWD)
     dx = torch.empty_like(hs)
     dw = torch.empty((H, H), dtype=hs.dtype, device=hs.device)
-    # f32: dW's partial products where it is split; bf16: hs and dx widened
-    # to f32, then the partial products (one where it is not split)
-    n_part = (2 * B * T * H + plan.dw_splits * H * H if bf16
-              else plan.dw_splits * H * H if plan.dw_splits > 1 else 0)
-    part = (torch.empty(n_part, dtype=torch.float32, device=hs.device)
+    n_part, part_dtype = bwd_scratch(plan, B, T, H, hs.dtype)
+    part = (torch.empty(n_part, dtype=part_dtype, device=hs.device)
             if n_part else None)
-    stream = torch.cuda.current_stream(hs.device).cuda_stream
-    err = getattr(so, f"{name}_launch")(
-        hs.data_ptr(), w_hh.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        dw.data_ptr(), None if part is None else part.data_ptr(), B, T, H,
-        walk.cluster, walk.cols, walk.batch_tile, walk.clusters,
-        walk.smem_bytes, plan.dw_rows, plan.dw_splits, stream)
+    args = [hs.data_ptr(), w_hh.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            dw.data_ptr(), None if part is None else part.data_ptr(), B, T,
+            H, walk.cluster, walk.cols, walk.batch_tile, walk.clusters,
+            walk.smem_bytes]
+    if bf16:
+        args += [*plan.dw_tile, plan.dw_rows, plan.dw_splits,
+                 K.clock_ptr(clock, CLOCK_ROWS, hs.device)]
+    else:
+        args += [plan.dw_rows, plan.dw_splits]
+    err = getattr(so, f"{name}_launch")(*args, K.stream_of(hs.device))
     K.check(err, name)
     K.launch_counts[name] += 1
     return dx, dw
 
 
-def fused_rnn_bwd(hs, w_hh, g, impl: str = "auto"):
+def fused_rnn_bwd(hs, w_hh, g, impl: str = "auto", clock=None):
     """The RNN head's backward by ``impl``, as ``fused_rnn``: "kernel"
     launches K10 (CUDA tensors only), "plain" runs ``fused_rnn_bwd_plain``,
     "auto" K10 for a CUDA tensor and the plain version for a CPU one. K10
     takes float32 or bfloat16 (hs, W and g alike; counted as
-    ``fused_rnn_bwd`` and ``fused_rnn_bwd_bf16``)."""
+    ``fused_rnn_bwd`` and ``fused_rnn_bwd_bf16``). clock: as
+    ``fused_rnn``'s, for the bf16 walk."""
     if not hs.dtype == w_hh.dtype == g.dtype:
         raise TypeError(f"fused_rnn_bwd: hs is {hs.dtype}, w_hh "
                         f"{w_hh.dtype}, g {g.dtype}; all float32 or all "
                         f"bfloat16")
     if K.use_kernel(impl, hs, "rnn_impl", "kernel"):
-        return _launch_bwd(hs, w_hh, g)
+        return _launch_bwd(hs, w_hh, g, clock)
     return fused_rnn_bwd_plain(hs, w_hh, g)
 
 
