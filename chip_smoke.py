@@ -4223,6 +4223,422 @@ def race_check(dev, gen, skel, pairs=20, replays=4):
     return err
 
 
+# ROADMAP C12: K1 and K10 at the RNN widths off the model's 512 that
+# tip_tpu's kernels take, so that every instantiation of the walk and of
+# K10's dW runs: 24 (the CPU tests' width: one block of the cluster), 384
+# (two column tiles a block), rows not a multiple of 16 bytes (the walk
+# reads a value at a time and K10 pads dW's operands: bf16 20 and 516, f32
+# 42 on dW's narrow tile and 514 on its wide one) and 96 columns a block
+# (f32 514 and 516, whose tile shrinks to 2 rows at B 64; bf16 516 and 768
+# on the deeper instantiation, 768's tile shrinking too)
+RNN_WIDTHS = {"float32": (20, 24, 42, 384, 514, 516),
+              "bfloat16": (20, 24, 384, 516, 768)}
+RNN_WIDTH_B = (1, 64)
+# ROADMAP C13: the whole-model kernels past 64 window rows, 63 ring slots
+# and heads 64 wide. LONG_T rows (slots) at full width, through a wrap of
+# the ring; 2 heads of 128 (d 256); and WIDEST rows (slots), the least
+# each kernel must take, at full width in f32
+LONG_T = 80
+WIDEST = 256
+WRAP_SLOTS = (LONG_T - 2, LONG_T - 1, 0, 1)
+
+
+def check_rnn_widths(dev, gen):
+    """K1 and K10 (f32 and bf16) against their plain versions at
+    RNN_WIDTHS and RNN_WIDTH_B (K10 on K1's own hidden states), each plan
+    logged; timed at B 64. Returns {case: {max errs, plan, ms}}."""
+    from tip_tpu_torch.ops import fused_rnn as FR
+    T = 40
+    errs, out = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        bf = dtype == torch.bfloat16
+        tol_f = TOL_RNN_BF16 if bf else TOL
+        tol_b = TOL_RNN_BWD_BF16 if bf else TOL_TRAIN_K["fused_rnn_bwd"]
+        size = 2 if bf else 4
+        for H in RNN_WIDTHS[dn]:
+            w = ((torch.rand(H, H, generator=gen, device=dev) * 2 - 1)
+                 / math.sqrt(H)).to(dtype)
+            for B in RNN_WIDTH_B:
+                xin = (torch.randn(B, T, H, generator=gen, device=dev)
+                       * 0.5).to(dtype)
+                g = torch.randn(B, T, H, generator=gen, device=dev).to(dtype)
+                hs = FR.fused_rnn(xin, w, impl="kernel")
+                e_f = max_err(hs.float(), FR.fused_rnn_plain(xin, w).float())
+                dx, dw = FR.fused_rnn_bwd(hs, w, g, impl="kernel")
+                rx, rw = FR.fused_rnn_bwd_plain(hs, w, g)
+                key = f"{dn}_H{H}_B{B}"
+                errs[f"K1_{key}"] = (e_f, tol_f)
+                errs[f"K10_dx_{key}"] = (rel_err(dx, rx), tol_b)
+                errs[f"K10_dw_{key}"] = (rel_err(dw, rw), tol_b)
+                case = dict(
+                    K1_max_abs_err=e_f, K10_dx_rel_err=rel_err(dx, rx),
+                    K10_dw_rel_err=rel_err(dw, rw),
+                    K1_plan=dataclasses.asdict(FR.fused_rnn_plan(B, H,
+                                                                 size)),
+                    K10_plan=dataclasses.asdict(
+                        FR.fused_rnn_bwd_plan(B, T, H, size).walk))
+                if B == RNN_WIDTH_B[-1]:
+                    t1 = timings(lambda: FR.fused_rnn(xin, w, impl="kernel"),
+                                 lambda: FR.fused_rnn_plain(xin, w),
+                                 light=True)
+                    t10 = timings(
+                        lambda: FR.fused_rnn_bwd(hs, w, g, impl="kernel"),
+                        lambda: FR.fused_rnn_bwd_plain(hs, w, g), light=True)
+                    peak = PEAK_BF16_FLOP_S if bf else PEAK_F32_FLOP_S
+                    b1 = bound(*rnn_work(B, T, H, size), peak)
+                    b10 = bound(*rnn_bwd_work(B, T, H, size), peak)
+                    case.update(K1_ms=t1["ms"], K1_plain_ms=t1["plain_ms"],
+                                K1_bound_ms=b1[0], K1_bound_by=b1[1],
+                                K10_ms=t10["ms"],
+                                K10_plain_ms=t10["plain_ms"],
+                                K10_bound_ms=b10[0], K10_bound_by=b10[1])
+                out[key] = case
+                log(f"  rnn widths {key}: {json.dumps(case)}")
+    check("rnn widths", errs)
+    return out
+
+
+# the kernels line's entry of each kernel that the width checks hold
+KERNEL_OF = {"K1": "fused_rnn", "K4": "fused_forward_last",
+             "K5": "fused_forward", "K7": "fused_cached_forward_step",
+             "K8": "fused_cached_batch", "K9": "fused_recompute_batch",
+             "K10": "fused_rnn_bwd"}
+
+
+def widths_by_kernel(cases):
+    """{case: {"K<n>_<field>": value}} -> {kernel name: {case: {field:
+    value}}}, the case's own name dropped from the field; K1's and K10's
+    bf16 cases under their bf16 entries."""
+    out = {}
+    for case, fields in cases.items():
+        for key, value in fields.items():
+            kn, field = key.split("_", 1)
+            name = KERNEL_OF[kn]
+            if kn in ("K1", "K10") and "bfloat16" in case:
+                name += "_bf16"
+            field = field.replace(case, "").strip("_") or "max_abs_err"
+            out.setdefault(name, {}).setdefault(case, {})[field] = value
+    return out
+
+
+def long_model(dev, **kw):
+    """ModelConfig()'s full width (d 256, ff 1024, 4 layers, RNN 512) with
+    the given changes, K4/K5 on."""
+    from tip_tpu_torch.models import tip_model as M
+    return M.TIPModel(M.ModelConfig(forward_impl="fused", **kw), device=dev,
+                      generator=torch.Generator().manual_seed(4))
+
+
+def full_ring(SC, cfg, W, gen, dev, batch=None):
+    """Rings of random rows, every slot valid but slot 3 (of each
+    stream)."""
+    c = SC.cache_init(cfg, W, device=dev, batch=batch)
+    for n in ("k", "v", "enc", "h"):
+        getattr(c, n).copy_(torch.randn(getattr(c, n).shape, generator=gen,
+                                        device=dev) * 0.5)
+    c.valid.fill_(True)
+    c.valid[..., 3] = False
+    return c
+
+
+def hold_rings(key, ck, cp, name, errs):
+    for n in ("k", "v", "enc", "h"):
+        a, b = getattr(ck, n).float(), getattr(cp, n).float()
+        if n != "h":
+            m = cp.valid[..., None] if n == "enc" else \
+                cp.valid[..., None, :, None]
+            a, b = a * m, b * m
+        tol = TOL_FF[name] if name == "float32" else \
+            TOL_RING_BF16_REL * max(1.0, b.abs().max().item())
+        errs[f"{key}_{n}"] = (max_err(a, b), tol)
+    if not torch.equal(ck.valid, cp.valid):
+        raise AssertionError(f"{key}: validity bits differ")
+
+
+def check_whole_model_widths(dev, gen):
+    """K4/K5 and K9 at T LONG_T (K9 at B 64), K7 and K8 (B 64) at W LONG_T
+    through a wrap of full rings, replay and carry, and all five with 2
+    heads of 128, both packings, against their plain versions; then each at
+    T or W WIDEST in f32 (K8, K9 at B 8). Times at LONG_T (f32, replay),
+    and each kernel's shared memory at WIDEST. Returns {case: ...}."""
+    from tip_tpu_torch.ops import fused_forward as FF
+    from tip_tpu_torch.runtime import streaming_cache as SC
+    long, wide = long_model(dev), long_model(dev, n_heads=2)
+    errs, out = {}, {}
+    for tag, mdl, T in (("T80", long, LONG_T), ("heads128", wide, 12),
+                        ("T256", long, WIDEST)):
+        for dt in ((torch.float32,) if tag == "T256" else
+                   (torch.float32, torch.bfloat16)):
+            name = str(dt).split(".")[1]
+            cfg = dataclasses.replace(mdl.cfg, compute_dtype=name)
+            ws = mdl.packed_weights(dt)
+            key = f"{tag}_{name}"
+            tol = TOL_FF[name]
+            # K4/K5
+            x = torch.randn(T, cfg.input_dim, generator=gen, device=dev)
+            x[::3, 100] = float("nan")
+            x[:, 90 + 108:90 + 111] = 5.0
+            y5 = FF.fused_forward(ws, x, cfg, impl="fused")
+            errs[f"K5_{key}"] = (max_err(y5, FF.fused_forward_plain(
+                ws, x, cfg)), tol)
+            y4 = FF.fused_forward_last(ws, x, T - 1, cfg, impl="fused")
+            errs[f"K4_{key}"] = (max_err(y4, FF.fused_forward_last_plain(
+                ws, x, T - 1, cfg)), tol)
+            # K9
+            B9 = 8 if tag == "T256" else POOL_CAPACITY
+            xb = torch.randn(B9, T, cfg.input_dim, generator=gen, device=dev)
+            xb[:, :, 90 + 108:90 + 111] = 5.0
+            ks = [(T - 1, T // 2, 3, 0)[b % 4] for b in range(B9)]
+            y9 = FF.fused_recompute_batch(ws, xb, ks, cfg, impl="fused")
+            errs[f"K9_{key}"] = (max_err(y9, FF.fused_recompute_batch_plain(
+                ws, xb, ks, cfg)), tol)
+            # K7 and K8 on rings of T slots, the cursor across the wrap
+            slots = (T - 2, T - 1, 0, 1)
+            for rnn_carry in (False, True):
+                var = "carry" if rnn_carry else "replay"
+                ck, cp = full_ring(SC, cfg, T, gen, dev), None
+                cp = ck.clone()
+                bk = full_ring(SC, cfg, T, gen, dev, batch=B9)
+                bp = bk.clone()
+                e7 = e8 = 0.0
+                for i, slot in enumerate(slots):
+                    xt = torch.randn(cfg.input_dim, generator=gen,
+                                     device=dev)
+                    _, y7 = SC.fused_cached_step_slot(
+                        ws, ck, xt, slot, True, cfg, rnn_carry=rnn_carry,
+                        impl="fused")
+                    _, r7 = SC.fused_cached_forward_step_plain(
+                        ws, cp, xt, slot, True, cfg, rnn_carry=rnn_carry)
+                    e7 = max(e7, max_err(y7, r7))
+                    xs = torch.randn(B9, cfg.input_dim, generator=gen,
+                                     device=dev)
+                    commit = torch.arange(B9, device=dev) % 3 != i % 3
+                    _, y8 = SC.fused_cached_batch(ws, bk, xs, slot, commit,
+                                                  cfg, rnn_carry=rnn_carry,
+                                                  impl="fused")
+                    _, r8 = SC.fused_cached_batch_plain(
+                        ws, bp, xs, slot, commit, cfg, rnn_carry=rnn_carry)
+                    e8 = max(e8, max_err(y8[commit], r8[commit]))
+                errs[f"K7_{key}_{var}_y"] = (e7, tol)
+                errs[f"K8_{key}_{var}_y"] = (e8, tol)
+                hold_rings(f"K7_{key}_{var}", ck, cp, name, errs)
+                hold_rings(f"K8_{key}_{var}", bk, bp, name, errs)
+            case = {k: v[0] for k, v in errs.items() if key in k}
+            if tag == "T80" and name == "float32":
+                k_dev = torch.full((B9,), T - 1, dtype=torch.int32,
+                                   device=dev)
+                for kern, run, plain in (
+                        ("K4", lambda: FF.fused_forward_last(
+                            ws, x, T - 1, cfg, impl="fused"),
+                         lambda: FF.fused_forward_last_plain(
+                             ws, x, T - 1, cfg)),
+                        ("K9", lambda: FF._launch_batch(ws, xb, k_dev, cfg),
+                         lambda: FF._recompute_batch_rows(ws, xb, k_dev,
+                                                          cfg)),
+                        ("K7", lambda: SC.fused_cached_step_slot(
+                            ws, ck, xt, 7, False, cfg, impl="fused"),
+                         lambda: SC.fused_cached_forward_step_plain(
+                             ws, cp, xt, 7, False, cfg)),
+                        ("K8", lambda: SC.fused_cached_batch(
+                            ws, bk, xs, 7, torch.zeros_like(commit), cfg,
+                            impl="fused"),
+                         lambda: SC.fused_cached_batch_plain(
+                             ws, bp, xs, 7, torch.zeros_like(commit),
+                             cfg))):
+                    t = timings(run, plain, light=True)
+                    case[f"{kern}_ms"] = t["ms"]
+                    case[f"{kern}_plain_ms"] = t["plain_ms"]
+                b4 = bound(*fused_forward_work(cfg, T, 1, 4))
+                b9 = bound(*fused_recompute_batch_work(cfg, T, [T - 1] * B9,
+                                                       4))
+                b7 = bound(*fused_cached_work(cfg, T, 4, False,
+                                              int(ck.valid.sum().item())))
+                b8 = bound(*fused_cached_work(cfg, T, 4, False,
+                                              int(bk.valid.sum().item()),
+                                              B=B9))
+                case.update(K4_bound_ms=b4[0], K4_bound_by=b4[1],
+                            K9_bound_ms=b9[0], K9_bound_by=b9[1],
+                            K7_bound_ms=b7[0], K7_bound_by=b7[1],
+                            K8_bound_ms=b8[0], K8_bound_by=b8[1])
+            out[key] = case
+            log(f"  whole-model widths {key}: {json.dumps(case)}")
+    check("whole-model widths", errs)
+    return out
+
+
+# the widened paths: the small model's default route (K1 at H 24, K11 at
+# d 32) over PATH_FRAMES, and a window of LONG_T rows (recompute through K4,
+# kv_cache through K7) over WIDE_FRAMES frames, each against its plain path
+WIDE_FRAMES = 120
+# path O: the evaluation harness on the card (ModelConfig() at full width,
+# seeded random weights) over EVAL_MOTIONS in-tree motions at EVAL_LEN
+# frames, the minimal and the full runner, against the same harness through
+# the plain versions on the card: each metric within TOL_EVAL relative, each
+# SBP channel's predicted flag within EVAL_FLAG_FRAMES frames of the plain
+# run's (so each of its TP/FP/FN/TN counts too)
+EVAL_MOTIONS = 4
+EVAL_LEN = 300
+TOL_EVAL = 1e-3
+EVAL_FLAG_FRAMES = 2
+
+
+def widened_paths(dev, state_dict):
+    """Runner paths at the widths ROADMAP C12 and C13 opened, each against
+    its plain path on the card (TOL_PATH): S, the small model (TINY
+    widths: H 24, d 32) through the default route (K1 and 2 x K11 a frame,
+    K2, K3); W80, RunnerConfig(window=LONG_T, with_acc_sum=False) with
+    forward_impl="fused" in f32 (K4 over up to LONG_T rows, K2, K3); W80-kv
+    the same window in kv_cache (K7 over LONG_T slots). Returns launches by
+    path."""
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.ops import kinematics as kin
+    from tip_tpu_torch.runtime import runner as R
+
+    imu, s_init = load_motion()
+    skel = kin.amass_skeleton(device=dev)
+    tiny = dict(tf_in_dim=32, tf_hid_size=64, n_heads=4, tf_layers=2,
+                rnn_hid_size=24)
+    no_sum = dict(with_acc_sum=False)
+    plain = dict(rnn_impl="plain", encoder_impl="plain")
+    f32 = dict(forward_impl="fused", compute_dtype="float32")
+    cfgs = {
+        "S": R.RunnerConfig(model=M.ModelConfig(**tiny)),
+        "S-plain": R.RunnerConfig(model=M.ModelConfig(**tiny, **plain),
+                                  tail_impl="plain"),
+        "W80": R.RunnerConfig(model=M.ModelConfig(**no_sum, **f32),
+                              window=LONG_T, **no_sum),
+        "W80-kv": R.RunnerConfig(model=M.ModelConfig(**no_sum, **f32),
+                                 window=LONG_T, serving_mode="kv_cache",
+                                 **no_sum),
+        "W80-plain": R.RunnerConfig(model=M.ModelConfig(**no_sum, **plain),
+                                    window=LONG_T, tail_impl="plain",
+                                    **no_sum),
+        "W80-kv-plain": R.RunnerConfig(
+            model=M.ModelConfig(**no_sum, **plain), window=LONG_T,
+            serving_mode="kv_cache", tail_impl="plain", **no_sum),
+    }
+    k7 = "fused_cached_forward_step"
+    on_path = {"S": {"fused_rnn": 1, "encoder_layer_fwd": 2,
+                     "decode_fused": 1, "tail_fused": 1},
+               "W80": ("fused_forward_last", "decode_fused", "tail_fused"),
+               "W80-kv": (k7, "decode_fused", "tail_fused")}
+    models = {}
+    for name, cfg in cfgs.items():
+        seed = 5 if name.startswith("S") else 6
+        models[name] = M.TIPModel(cfg.model, device=dev,
+                                  generator=torch.Generator().manual_seed(
+                                      seed))
+    runs, launches = {}, {}
+    frames = {"S": PATH_FRAMES, "W80": WIDE_FRAMES, "W80-kv": WIDE_FRAMES}
+    for name, n in frames.items():
+        runs[name], launches[name] = run_path(
+            name, models[name], cfgs[name], skel, s_init, imu[:n + 1], dev,
+            on_path[name])
+        runs[f"{name}-plain"], _ = run_path(
+            f"{name}-plain", models[f"{name}-plain"], cfgs[f"{name}-plain"],
+            skel, s_init, imu[:n + 1], dev, ())
+        compare_runs(f"path {name} vs its plain path (card)", runs[name],
+                     runs[f"{name}-plain"], n, TOL_PATH)
+    return launches
+
+
+def eval_path(dev):
+    """Path O: tip_tpu_torch.eval_harness.evaluate on the card, ModelConfig()
+    at full width with seeded random weights, over EVAL_MOTIONS in-tree
+    motions at test_len EVAL_LEN with extras_out, in the minimal runner
+    (recompute, the default route: 4 x K11, K1, K2, K3) and the full runner
+    with multi_sbp (path N's model: K1, K2, K3), each with its launch
+    counters set to 0 before and read after; against the same harness
+    through the plain versions on the card (TOL_EVAL a metric,
+    EVAL_FLAG_FRAMES a channel's flags). Returns (launches by path,
+    summary)."""
+    from tip_tpu_torch import eval_harness as H
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.runtime import runner as R
+
+    files = [str(CORPUS / f"freeform2_{i:04d}.pkl")
+             for i in range(EVAL_MOTIONS)]
+    plain = dict(rnn_impl="plain", encoder_impl="plain")
+    runners = {
+        "O": (R.RunnerConfig(model=M.ModelConfig()), False,
+              {"encoder_layer_fwd": 4, "fused_rnn": 1, "decode_fused": 1,
+               "tail_fused": 1}),
+        "O-full": (R.RunnerConfig(model=M.ModelConfig(encoder_impl="plain")),
+                   True, {"fused_rnn": 1, "decode_fused": 1,
+                          "tail_fused": 1}),
+    }
+    plains = {
+        "O": R.RunnerConfig(model=M.ModelConfig(**plain), tail_impl="plain"),
+        "O-full": R.RunnerConfig(model=M.ModelConfig(**plain),
+                                 tail_impl="plain"),
+    }
+    launches, summary = {}, {}
+    for name, (rcfg, full, per_frame) in runners.items():
+        res = {}
+        for side, cfg in (("kernels", rcfg), ("plain", plains[name])):
+            model = M.TIPModel(cfg.model, device=dev,
+                               generator=torch.Generator().manual_seed(0))
+            ecfg = H.EvalConfig(runner=cfg, use_full_runner=full,
+                                multi_sbp=full, test_len=EVAL_LEN)
+            flags, extras = [], {}
+
+            def hook(f, gt, pred, info):
+                lo, hi = ecfg.crop_head, len(gt) - ecfg.crop_tail
+                flags.append(info["c_traj"][lo:hi, 0::4] > 0.5)
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = H.evaluate(model, ecfg, files, log=lambda *_: None,
+                             viz_hook=hook, extras_out=extras, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: K.launch_counts.get(k, 0) for k in KERNELS}
+            res[side] = dict(out=out, flags=flags, extras=extras, wall=wall,
+                             launches=counts)
+        n_model = EVAL_MOTIONS * (EVAL_LEN - 1 - rcfg.imu_n_smooth)
+        got = res["kernels"]["launches"]
+        for k in KERNELS:
+            if got[k] != n_model * per_frame.get(k, 0):
+                raise AssertionError(f"path {name}: {k} launched {got[k]} "
+                                     f"times, expected "
+                                     f"{n_model * per_frame.get(k, 0)}")
+        if any(res["plain"]["launches"].values()):
+            raise AssertionError(f"path {name}'s plain run launched "
+                                 f"{res['plain']['launches']}")
+        (km, kmeans, _), (pm, pmeans, _) = (res["kernels"]["out"],
+                                            res["plain"]["out"])
+        if len(km) != EVAL_MOTIONS or len(pm) != EVAL_MOTIONS:
+            raise AssertionError(f"path {name}: {len(km)} and {len(pm)} "
+                                 f"motions evaluated")
+        rel = {}
+        for k in H.METRIC_NAMES:
+            for a, b in zip(km, pm):
+                if not math.isfinite(a[k]):
+                    raise AssertionError(f"path {name}: {k} = {a[k]}")
+                rel[k] = max(rel.get(k, 0.0),
+                             abs(a[k] - b[k]) / max(abs(b[k]), 1e-12))
+        flips = [int((a != b).sum(0).max()) for a, b in
+                 zip(res["kernels"]["flags"], res["plain"]["flags"])]
+        check(f"path {name} vs its plain run",
+              {**{k: (v, TOL_EVAL) for k, v in rel.items()},
+               "sbp_flag_frames": (max(flips), EVAL_FLAG_FRAMES)})
+        wall = res["kernels"]["wall"]
+        summary[name] = dict(
+            means=kmeans, plain_means=pmeans, max_rel_diff=rel,
+            sbp_flag_frames_off=flips, sbp=res["kernels"]["extras"]["sbp"],
+            s_per_motion=wall / EVAL_MOTIONS,
+            frames_per_s=EVAL_MOTIONS * EVAL_LEN / wall,
+            plain_s_per_motion=res["plain"]["wall"] / EVAL_MOTIONS,
+            launches={k: v for k, v in got.items() if v})
+        if full:
+            summary[name]["terrain"] = res["kernels"]["extras"]["terrain"]
+        launches[name] = got
+        log(json.dumps({"eval_path": {name: summary[name]}}))
+    return launches, summary
+
+
 # the path whose launches a kernel's entry reports
 COUNTED_ON = {"fused_rnn": "A", "decode_fused": "A", "tail_fused": "A",
               "fused_forward_last": "B", "fused_forward": "replay",
@@ -4280,6 +4696,8 @@ def main():
         kernels.append(check_bf16())
         log(f"  {kernels[-1]['name']} checked and timed in "
             f"{time.perf_counter() - t0:.1f} s")
+    widths = {**widths_by_kernel(check_rnn_widths(dev, gen)),
+              **widths_by_kernel(check_whole_model_widths(dev, gen))}
     batched = check_batched_tail(dev, gen, skel)
     children_first = check_children_first(dev, gen)
     deep_chains = check_deep_chains(dev, gen)
@@ -4298,6 +4716,8 @@ def main():
             k["deep_chains_max_abs_err"] = deep_chains[k["name"]]
         if k["name"] == "decode_fused":
             k["long_filter_max_abs_err"] = long_filter
+        if k["name"] in widths:
+            k["widths"] = widths[k["name"]]
     torch.cuda.synchronize()
     for k in kernels:
         log(f"  {k['name']}: max err {k['max_abs_err']:.3g} (tol "
@@ -4311,6 +4731,9 @@ def main():
     launches.update(full_launches)
     pool_launches, pool_summary = pool_paths(dev, runs, state_dict)
     launches.update(pool_launches)
+    launches.update(widened_paths(dev, state_dict))
+    eval_launches, eval_summary = eval_path(dev)
+    launches.update(eval_launches)
     train_launches, train_summary = training_paths(dev)
     launches.update(train_launches)
     for k in kernels:
@@ -4333,6 +4756,8 @@ def main():
                                      for n, v in pool_summary.items()},
                     "train_step_ms": {n: v["step_ms"]
                                       for n, v in train_summary.items()},
+                    "eval_s_per_motion": {n: v["s_per_motion"]
+                                          for n, v in eval_summary.items()},
                     "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -35,6 +35,13 @@ this checkout has are not called on the other build). Then:
     B 64 and 256; K9 12 cases; K11 and K12 in f32 at (256, 40, 256) p 0.1
     and a small case, and in bf16 at B 1, 64 and 256, T 40, the full-width
     model's layer 0 with chip_smoke.py's ff1 shift, p 0);
+  - K1 and K10 (f32; each build through its own wrapper), K4 (row 39) and
+    K5 in both packings, K7 (replay and carry, both packings, an
+    uncommitted step at slot 7 of full rings), K8 (B 64, likewise) and K9
+    (B 64, every window full, both packings) at those shapes: device ms
+    (chip_smoke.graph_ms) of each build in turns (other, this, this,
+    other), "turns" in the JSON line, with this build's best over the
+    other's;
   - unless --bits_only, K2, K3 and K6 at B 1 and 64: device ms
     (chip_smoke.graph_ms), eager
     ms (chip_smoke.time_ms) and the host us of one call without a sync
@@ -45,8 +52,26 @@ this checkout has are not called on the other build). Then:
     (torch.profiler over 50 steady frames, chip_smoke.profile_frames) and
     the two kernels' share.
 
-Prints one JSON line with the card's name and power limit. Exits non-zero
-without CUDA, and 2 when an output that must be bit-equal differs.
+Both builds are made here, from the same nvcc flags, with the shared
+headers' namespaces renamed to names of one length (the other's
+``renamed("other")``, this checkout's ``renamed("local")`` into
+build/tip_tpu_torch/compare_local/), so that neither side runs code built
+otherwise than the other's. Renaming only the other build moved some
+kernels' times by a few per cent when a checkout of this tree was the
+other (on an H100 80GB HBM3: K9 bf16 at B 64 +2.6%, K4/K5 f32 +1.3%, K9
+f32 -1.3%), and renaming both alike did not remove it (K9 bf16 +2.5%, K10
+f32 +3.0%, K9 f32 -1.4%, this build going second). So every run takes
+both orders: first the other build goes first (its libraries load first,
+each of its kernels launches first, turns run other, this, this, other),
+then the script runs itself again in a child process with --this_first
+on the same libraries (this build first); the last JSON line pairs each
+timed case's this_vs_other of the two orders with their geometric mean,
+in which a bias that follows the order cancels. K2, K3, K6 and the paths
+(without --bits_only) run the other build first in both.
+
+Prints a JSON line of each order's results, then the pairs, each with the
+card's name and power limit. Exits non-zero without CUDA, and 2 when an
+output that must be bit-equal differs in either order.
 """
 
 import ctypes
@@ -162,37 +187,47 @@ def this_signatures():
             "encoder_train": ET._SIG}
 
 
-# the shared headers' named namespaces, renamed in the other build: the
-# same template kernels in both libraries would otherwise share their
-# symbols (a launch attribute set on one kernel, the other one launched)
-RENAMED = ("-Drnnc=rnnc_other", "-Dtf3=tf3_other", "-Dtg=tg_other",
-           "-Dhm=hm_other", "-Dtipq=tipq_other", "-Dbg=bg_other")
+# the shared headers' named namespaces, renamed in both builds: the same
+# template kernels in both libraries would otherwise share their symbols (a
+# launch attribute set on one kernel, the other one launched)
+SHARED_NAMESPACES = ("rnnc", "tf3", "tg", "hm", "tipq", "bg")
+COMPARED = TAIL_SOURCES + SAME_SOURCES + RNN_SOURCES + (ENCODER,)
 
 
-def start_parent_builds(parent: Path):
-    """Start one nvcc a source of the other checkout, all together."""
+def renamed(suffix: str):
+    """nvcc's -D flags that rename the shared namespaces to <ns>_<suffix>
+    (the two builds' suffixes have one length)."""
+    return tuple(f"-D{ns}={ns}_{suffix}" for ns in SHARED_NAMESPACES)
+
+
+def start_builds(root: Path, out: Path, suffix: str, reuse: bool = False):
+    """Start one nvcc a compared source of the checkout at root, all
+    together, into out, the namespaces renamed with suffix (reuse: keep the
+    libraries an earlier run of this script left there)."""
     from tip_tpu_torch.ops import _kernels as K
-    out = parent / "build"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in TAIL_SOURCES + SAME_SOURCES + RNN_SOURCES + (ENCODER,):
-        src = parent / "tip_tpu_torch" / "csrc" / f"{name}.cu"
-        cmd = [K._nvcc(), *K.NVCC_FLAGS, *RENAMED, "-o",
-               str(out / f"{name}.so"), str(src)]
+    for name in COMPARED:
+        so = out / f"{name}.so"
+        if reuse and so.exists():
+            procs[name] = (None, so)
+            continue
+        src = root / "tip_tpu_torch" / "csrc" / f"{name}.cu"
+        cmd = [K._nvcc(), *K.NVCC_FLAGS, *renamed(suffix), "-o", str(so),
+               str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT),
-                       out / f"{name}.so")
+                                        stderr=subprocess.STDOUT), so)
     return procs
 
 
-def parent_libs(procs, sigs):
-    """The other checkout's libraries, once built, with `sigs` (by source)
-    declared."""
+def load_libs(procs, sigs, side: str):
+    """The libraries of one side (``side`` names it in an error), once
+    built, with `sigs` (by source) declared."""
     libs = {}
     for name, (proc, so_path) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the other {name}.cu:\n"
+        log, _ = proc.communicate() if proc else (b"", None)
+        if proc and proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {side} {name}.cu:\n"
                                + log.decode(errors="replace"))
         so = ctypes.CDLL(str(so_path))
         for fn, argtypes in sigs[name].items():
@@ -221,11 +256,57 @@ class Swapped:
         self.K._libs[self.name] = self.mine
 
 
-def both(libs, name, fn):
-    """fn() with the other build's library, then with this one's."""
+# which build goes first: its libraries are loaded first, each of its
+# kernels is launched before the other build's, and turns run (first,
+# second, second, first). The other build, unless --this_first.
+THIS_FIRST = False
+
+
+def with_lib(libs, name, fn):
+    """fn() with the other build's library of `name`."""
     with Swapped(libs, name):
-        o = fn()
-    return o, fn()
+        return fn()
+
+
+def in_order(other, this):
+    """(other(), this()), called in the order THIS_FIRST says."""
+    if THIS_FIRST:
+        m = this()
+        return other(), m
+    o = other()
+    return o, this()
+
+
+def four(other, this):
+    """Two calls of each side in turns, the side THIS_FIRST names first and
+    last: ([other's], [this one's])."""
+    if THIS_FIRST:
+        m1, o1, o2, m2 = this(), other(), other(), this()
+    else:
+        o1, m1, m2, o2 = other(), this(), this(), other()
+    return [o1, o2], [m1, m2]
+
+
+def both(libs, name, fn):
+    """fn() with the other build's library and with this one's."""
+    return in_order(lambda: with_lib(libs, name, fn), fn)
+
+
+# device ms of each build in turns, by case: filled by the bit checks
+TURNS = {}
+
+
+def turns(libs, lib, case, this, other=None):
+    """Device ms (chip_smoke.graph_ms) of other() with the other build's
+    library of `lib` and of this() with this build's, in turns (``four``),
+    into TURNS[case]. other: the other checkout's own wrapper call where it
+    differs from this()."""
+    other = other or this
+    o, m = four(lambda: with_lib(libs, lib, lambda: CS.graph_ms(other)),
+                lambda: CS.graph_ms(this))
+    TURNS[case] = {"other_ms": o, "this_ms": m,
+                   "this_vs_other": min(m) / min(o)}
+    print(f"  turns {case}: {json.dumps(TURNS[case])}", flush=True)
 
 
 def equal(a, b):
@@ -260,6 +341,10 @@ def k9_bits(libs, model, dev):
             o, m = both(libs, "fused_recompute_batch",
                         lambda: FF._launch_batch(ws, x, k_dev, cfg))
             out[f"{tag}_B{B}_{str(dt).split('.')[1]}"] = equal(o, m)
+            if tag == "timed" and B == CS.POOL_CAPACITY:
+                turns(libs, "fused_recompute_batch",
+                      f"K9_B{B}_{str(dt).split('.')[1]}",
+                      lambda: FF._launch_batch(ws, x, k_dev, cfg))
     return out
 
 
@@ -304,6 +389,12 @@ def k8_bits(libs, model, dev):
                 o, m = both(libs, "fused_cached_batch", run)
                 var = "carry" if rnn_carry else "replay"
                 out[f"{var}_{name}_B{B}"] = equal(o, m)
+                if B == CS.POOL_CAPACITY:
+                    idle = torch.zeros_like(commit)
+                    turns(libs, "fused_cached_batch", f"K8_{var}_{name}_B{B}",
+                          lambda: SC.fused_cached_batch(
+                              ws, c, x, 7, idle, cfg, rnn_carry=rnn_carry,
+                              impl="fused"))
     return out
 
 
@@ -316,9 +407,14 @@ def k1_bits(libs, pfr, dev):
     out = {}
     for B in CS.RNN_CHECKED_B:
         xin = torch.randn(B, 40, 512, generator=gen, device=dev)
-        with Swapped(libs, "fused_rnn"):
-            o = pfr.fused_rnn(xin, w, impl="kernel")
-        out[f"B{B}_float32"] = equal(o, FR.fused_rnn(xin, w, impl="kernel"))
+        o, m = in_order(lambda: with_lib(libs, "fused_rnn", lambda:
+                                         pfr.fused_rnn(xin, w, impl="kernel")),
+                        lambda: FR.fused_rnn(xin, w, impl="kernel"))
+        out[f"B{B}_float32"] = equal(o, m)
+        if B in CS.RNN_TIMED_B:
+            turns(libs, "fused_rnn", f"K1_B{B}_float32",
+                  lambda: FR.fused_rnn(xin, w, impl="kernel"),
+                  lambda: pfr.fused_rnn(xin, w, impl="kernel"))
     return out
 
 
@@ -331,10 +427,14 @@ def k10_bits(libs, pfr, dev):
     hs = torch.tanh(torch.randn(B, T, H, generator=gen, device=dev))
     w = torch.randn(H, H, generator=gen, device=dev) / H ** 0.5
     g = torch.randn(B, T, H, generator=gen, device=dev)
-    with Swapped(libs, "fused_rnn_bwd"):
-        o = pfr.fused_rnn_bwd(hs, w, g, impl="kernel")
-    return {f"B{B}_T{T}_H{H}_float32": equal(
-        o, FR.fused_rnn_bwd(hs, w, g, impl="kernel"))}
+    o, m = in_order(lambda: with_lib(libs, "fused_rnn_bwd", lambda:
+                                     pfr.fused_rnn_bwd(hs, w, g,
+                                                       impl="kernel")),
+                    lambda: FR.fused_rnn_bwd(hs, w, g, impl="kernel"))
+    turns(libs, "fused_rnn_bwd", f"K10_B{B}_float32",
+          lambda: FR.fused_rnn_bwd(hs, w, g, impl="kernel"),
+          lambda: pfr.fused_rnn_bwd(hs, w, g, impl="kernel"))
+    return {f"B{B}_T{T}_H{H}_float32": equal(o, m)}
 
 
 def rnn_bf16_turns(libs, pfr, dev):
@@ -364,15 +464,10 @@ def rnn_bf16_turns(libs, pfr, dev):
         for name, (lib, other, mine) in calls.items():
             t = {}
             for what, timer in (("ms", CS.graph_ms), ("call_ms", CS.time_ms)):
-                with Swapped(libs, lib):
-                    o1 = timer(other)
-                m1, m2 = timer(mine), timer(mine)
-                with Swapped(libs, lib):
-                    o2 = timer(other)
-                t[f"other_{what}"], t[f"this_{what}"] = [o1, o2], [m1, m2]
-            with Swapped(libs, lib):
-                o = other()
-            m = mine()
+                t[f"other_{what}"], t[f"this_{what}"] = four(
+                    lambda: with_lib(libs, lib, lambda: timer(other)),
+                    lambda: timer(mine))
+            o, m = in_order(lambda: with_lib(libs, lib, other), mine)
             share = CS.OffShare()
             for a, b in zip(*(x if isinstance(x, tuple) else (x,)
                               for x in (m, o))):
@@ -402,6 +497,10 @@ def k4_bits(libs, model, dev):
         o, m = both(libs, "fused_forward",
                     lambda: FF.fused_forward(ws, x, cfg, impl="fused"))
         out[f"K5_{dn}"] = equal(o, m)
+        turns(libs, "fused_forward", f"K4_row39_{dn}",
+              lambda: FF.fused_forward_last(ws, x, 39, cfg, impl="fused"))
+        turns(libs, "fused_forward", f"K5_{dn}",
+              lambda: FF.fused_forward(ws, x, cfg, impl="fused"))
     return out
 
 
@@ -429,7 +528,12 @@ def k7_bits(libs, model, dev):
                                                  impl="fused")
                 return [y] + rings(c)
             o, m = both(libs, "fused_cached", run)
-            out[f"{'carry' if rnn_carry else 'replay'}_{name}"] = equal(o, m)
+            var = "carry" if rnn_carry else "replay"
+            out[f"{var}_{name}"] = equal(o, m)
+            turns(libs, "fused_cached", f"K7_{var}_{name}",
+                  lambda: SC.fused_cached_step_slot(
+                      ws, cache, x, 7, False, cfg, rnn_carry=rnn_carry,
+                      impl="fused"))
     return out
 
 
@@ -452,9 +556,10 @@ def k11_k12_bits(libs, pet, model, dev):
                         ("K12", lambda et: et.encoder_layer_bwd(
                             x, ws, -123457, dy, nh, 0.1, True, 8,
                             impl="kernel"))):
-            with Swapped(libs, ENCODER):
-                o = tensors(call(pet))
-            out[f"{k}_{tag}"] = equal(o, tensors(call(ET)))
+            o, m = in_order(lambda: with_lib(libs, ENCODER,
+                                             lambda: tensors(call(pet))),
+                            lambda: tensors(call(ET)))
+            out[f"{k}_{tag}"] = equal(o, m)
     return out
 
 
@@ -485,9 +590,10 @@ def encoder_bf16_bits(libs, pet, model, dev):
                         ("K12_bf16", lambda et: et.encoder_layer_bwd(
                             x, ws, 0, dy, nh, 0.0, False, 8,
                             impl="kernel"))):
-            with Swapped(libs, ENCODER):
-                o = tensors(call(pet))
-            out[f"{k}_B{B}"] = equal(o, tensors(call(ET)))
+            o, m = in_order(lambda: with_lib(libs, ENCODER,
+                                             lambda: tensors(call(pet))),
+                            lambda: tensors(call(ET)))
+            out[f"{k}_B{B}"] = equal(o, m)
     return out
 
 
@@ -590,9 +696,44 @@ def path_profiles(libs, pft, pkin, dev):
     return out
 
 
+# --this_first: the second order, run by the script itself
+FLAGS = ("--bits_only", "--this_first")
+
+
+def crossover(argv, result):
+    """Run this script again with this build first (--this_first, on the
+    libraries this run built) and pair each case's this_vs_other of both
+    orders:
+    {case: {"other_first", "this_first", "geomean"}}, and the child's exit
+    code. A bias that follows the order (which build's libraries load and
+    launch first) cancels in the geometric mean."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), *argv,
+           "--this_first"]
+    child = subprocess.run(cmd, stdout=subprocess.PIPE, text=True)
+    print(child.stdout, end="", flush=True)
+    lines = [ln for ln in child.stdout.splitlines() if ln.startswith("{")]
+    if not lines:
+        raise SystemExit(f"the --this_first run printed no result "
+                         f"(exit {child.returncode})")
+    other = json.loads(lines[-1])
+
+    def ratios(res):
+        out = {k: v["this_vs_other"] for k, v in res["turns"].items()}
+        out.update({k: v["this_vs_other"]
+                    for k, v in res["rnn_bf16"].items()})
+        return out
+    a, b = ratios(result), ratios(other)
+    return {k: {"other_first": a[k], "this_first": b[k],
+                "geomean": (a[k] * b[k]) ** 0.5} for k in a}, \
+        child.returncode
+
+
 def main():
-    args = [a for a in sys.argv[1:] if a != "--bits_only"]
-    bits_only = len(args) < len(sys.argv) - 1
+    global THIS_FIRST
+    flags = {a for a in sys.argv[1:] if a in FLAGS}
+    args = [a for a in sys.argv[1:] if a not in FLAGS]
+    bits_only = "--bits_only" in flags
+    THIS_FIRST = "--this_first" in flags
     if not torch.cuda.is_available() or len(args) != 1:
         print(__doc__, file=sys.stderr)
         return 1
@@ -615,12 +756,20 @@ def main():
     check_abi(parent, other_sigs)
     sigs = this_signatures()
     sigs.update(other_sigs)
-    procs = start_parent_builds(parent)
-    K.build_all()
-    libs = parent_libs(procs, sigs)
+    procs = start_builds(parent, parent / "build", "other", THIS_FIRST)
+    mine = start_builds(ROOT, K.BUILD_DIR / "compare_local", "local",
+                        THIS_FIRST)
+    # this checkout's wrappers call this side's renamed build; the side
+    # that goes first is loaded first
+    sides = [(procs, sigs, "the other"),
+             (mine, this_signatures(), "this checkout's")]
+    loaded = [load_libs(*side) for side in
+              (sides[::-1] if THIS_FIRST else sides)]
+    libs = loaded[1] if THIS_FIRST else loaded[0]
+    K._libs.update(loaded[0] if THIS_FIRST else loaded[1])
     model = M.TIPModel(M.ModelConfig(forward_impl="fused"), device=dev,
                        generator=torch.Generator().manual_seed(0))
-    result = {"card": card, "other": args[0],
+    result = {"card": card, "other": args[0], "this_first": THIS_FIRST,
               "rnn_bf16": rnn_bf16_turns(libs, pfr, dev)}
     if not bits_only:
         result.update(tail=tail_times(libs, pft, pkin, dev),
@@ -632,8 +781,15 @@ def main():
             "k11_k12": k11_k12_bits(libs, pet, model, dev),
             "k11_k12_bf16": encoder_bf16_bits(libs, pet, model, dev)}
     result["bit_equal"] = bits
+    result["turns"] = TURNS
     print(json.dumps(result), flush=True)
-    return 0 if all(v for b in bits.values() for v in b.values()) else 2
+    rc = 0 if all(v for b in bits.values() for v in b.values()) else 2
+    if not THIS_FIRST:
+        pairs, child_rc = crossover(sys.argv[1:], result)
+        print(json.dumps({"card": card, "other": args[0],
+                          "crossover": pairs}), flush=True)
+        rc = rc or child_rc
+    return rc
 
 
 if __name__ == "__main__":

@@ -59,16 +59,16 @@ static int max_clusters(F kernel, long long smem) {
 extern "C" int tc_max_clusters(int nb, long long smem) {
   using rnnc::tc_walk_kernel;
   switch (nb) {
-    case 1: return max_clusters(tc_walk_kernel<4, 1, false, false>, smem);
-    case 2: return max_clusters(tc_walk_kernel<4, 2, false, false>, smem);
-    case 3: return max_clusters(tc_walk_kernel<4, 3, false, false>, smem);
-    default: return max_clusters(tc_walk_kernel<4, 4, false, false>, smem);
+    case 1: return max_clusters(tc_walk_kernel<4, 1, false, false, true>, smem);
+    case 2: return max_clusters(tc_walk_kernel<4, 2, false, false, true>, smem);
+    case 3: return max_clusters(tc_walk_kernel<4, 3, false, false, true>, smem);
+    default: return max_clusters(tc_walk_kernel<4, 4, false, false, true>, smem);
   }
 }
 
 // the f32 forward walk at 16 rows, 64 columns a block
 extern "C" int f32_max_clusters(long long smem) {
-  return max_clusters(rnnc::walk_kernel<16, 2, false>, smem);
+  return max_clusters(rnnc::walk_kernel<16, 2, false, true>, smem);
 }
 '''
 

@@ -52,7 +52,12 @@ def test_port_files_found():
             "tip_tpu_torch/ops/hashmask.py",
             "tip_tpu_torch/ops/encoder_train.py",
             "tip_tpu_torch/train/train.py", "tip_tpu_torch/cli/train.py",
-            "tip_tpu_torch/data_gen/combine.py"} <= names
+            "tip_tpu_torch/data_gen/combine.py",
+            "tip_tpu_torch/data_gen/dip.py",
+            "tip_tpu_torch/eval_harness.py",
+            "tip_tpu_torch/eval_corruption.py",
+            "tip_tpu_torch/cli/evaluate.py",
+            "tip_tpu_torch/cli/import_torch_ckpt.py"} <= names
 
 
 def _no_cuda():
@@ -108,6 +113,31 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         else:
             resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("entry", ["evaluate", "cli_evaluate",
+                                   "cli_import"])
+def test_eval_entry_points_default_to_cuda(entry, tmp_path):
+    """The evaluation harness and its CLIs run on cuda unless asked for
+    the CPU (the harness's model is on the CPU here: the device is
+    resolved before anything runs)."""
+    from tip_tpu_torch import eval_harness as TH
+    from tip_tpu_torch.cli import evaluate as TCE
+    from tip_tpu_torch.cli import import_torch_ckpt as TCI
+    _no_cuda()
+    pt = tmp_path / "m.pt"
+    torch.save({}, pt)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "evaluate":
+            cfg = TR.RunnerConfig(model=TM.ModelConfig(
+                tf_in_dim=32, tf_hid_size=64, n_heads=4, tf_layers=2,
+                rnn_hid_size=24))
+            TH.evaluate(TM.TIPModel(cfg.model, device="cpu"),
+                        TH.EvalConfig(runner=cfg), [])
+        elif entry == "cli_evaluate":
+            TCE.main(["--ckpt", str(pt), "--data_root", str(tmp_path)])
+        else:
+            TCI.main(["--pt", str(pt), "--out", str(tmp_path / "o")])
 
 
 def _tiny_blobs(d):

@@ -67,8 +67,17 @@ def test_fused_rnn_plan_fits_and_covers_every_row(B):
 
 @pytest.mark.parametrize("H", [1024, 2048, 24, 100])
 def test_fused_rnn_plan_raises_where_the_slice_cannot_fit(H):
-    with pytest.raises(ValueError, match="fused_rnn"):
+    """H 1024 and 2048 raise (W's f32 slice alone is past a block's shared
+    memory), naming the bytes; H 24 and 100 plan (one and four blocks of
+    32 columns, the others' columns zero)."""
+    if H in (24, 100):
+        plan = TFR.fused_rnn_plan(1, H)
+        assert plan.cols == 32 and plan.cluster * plan.cols >= H
+        assert plan.smem_bytes == TFR.walk_smem_bytes(H, 32, 1)
+        return
+    with pytest.raises(ValueError, match="fused_rnn") as e:
         TFR.fused_rnn_plan(1, H)
+    assert f"{TFR.MAX_SMEM} a block" in str(e.value)
 
 
 def _decode_inputs(rng, dtype):

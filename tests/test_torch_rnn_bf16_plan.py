@@ -200,9 +200,9 @@ def test_step_clock_reads_ns_a_step_by_phase():
 
 def test_clock_is_the_bf16_walks_and_bf16_needs_rows_of_16_bytes():
     """The clock belongs to the bf16 walk: the f32 wrappers refuse it
-    before they launch. The bf16 walk reads and writes 16-byte rows, so
-    its plans refuse an H that is not a multiple of 8 (the f32 walk takes
-    it)."""
+    before they launch. dW's product reads 16-byte rows, so at an H that is
+    not a multiple of 8 the bf16 K10 plans dW over H rounded up to 8 (the
+    walk writes its operands padded) and asks for the padded scratch."""
     x = torch.zeros(2, 3, 256)
     clock = torch.zeros(FR.CLOCK_ROWS, dtype=torch.int64)
     with pytest.raises(ValueError, match="bf16 walk"):
@@ -210,5 +210,9 @@ def test_clock_is_the_bf16_walks_and_bf16_needs_rows_of_16_bytes():
     with pytest.raises(ValueError, match="bf16 walk"):
         FR._launch_bwd(x, torch.zeros(256, 256), x, clock)
     FR.fused_rnn_bwd_plan(4, 40, 44)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        FR.fused_rnn_bwd_plan(4, 40, 44, 2)
+    plan = FR.fused_rnn_bwd_plan(4, 40, 44, 2)
+    assert FR.pad_width(44, 2) == 48 and plan.walk.cols == 32
+    assert plan == FR.fused_rnn_bwd_plan(4, 40, 48, 2)
+    assert FR.bwd_scratch(plan, 4, 40, 44, BF) == (4 * 40 * 48, BF)
+    assert FR.pad_scratch(4, 40, 44, BF) == 4 * 40 * 48 + 48 * 48
+    assert FR.pad_scratch(4, 40, 48, BF) == 0

@@ -116,5 +116,21 @@ def test_fused_rnn_bwd_plan_at_the_training_shape():
 
 @pytest.mark.parametrize("H", [1024, 2048, 516, 42, 0])
 def test_fused_rnn_bwd_plan_raises_where_the_slice_cannot_fit(H):
+    """H 1024 and 2048 (W's f32 slice alone is past a block's shared
+    memory) and 0 raise, naming the bytes; H 516 (96 columns a block, the
+    tile shrunk to fit) and 42 (rows not a multiple of 4: dW's operands
+    padded to 44) plan."""
+    if H in (516, 42):
+        plan = FR.fused_rnn_bwd_plan(4, 40, H)
+        walk = plan.walk
+        assert walk.cols == FR.block_cols(H) == (96 if H == 516 else 32)
+        assert walk.smem_bytes <= FR.MAX_SMEM
+        assert walk.batch_tile * walk.clusters >= 4
+        assert FR.pad_scratch(4, 40, H, torch.float32) == (
+            0 if H == 516 else 2 * 4 * 40 * 44)
+        return
     with pytest.raises(ValueError, match="fused_rnn_bwd"):
         FR.fused_rnn_bwd_plan(4, 40, H)
+    if H:
+        with pytest.raises(ValueError, match=f"{FR.MAX_SMEM} a block"):
+            FR.fused_rnn_bwd_plan(4, 40, H)

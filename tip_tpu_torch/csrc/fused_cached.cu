@@ -205,8 +205,14 @@ __device__ inline void layernorm_row(float* v, int d,
 // from qkv (shared memory), not from the ring, so the ring row may be
 // written while this runs. A slot that is not valid gets the additive
 // -1e30: its weight is an exact 0 unless no slot counts at all (uniform
-// weights over whatever the ring holds, as the plain versions). ps:
-// kWarps (kMaxT + kMaxHeadDim) floats.
+// weights over whatever the ring holds, as the plain versions). A lane
+// takes slots lane, lane + 32, ... and channels lane, lane + 32, ..., so
+// any W and head width run. ps: attend_floats(W, hd) floats (a group's
+// score row of score_rows(W), then a warp's hd partial sums).
+__host__ __device__ constexpr int attend_floats(int W, int hd) {
+  return kWarps * (score_rows(W) + (hd > kMaxHeadDim ? hd : kMaxHeadDim));
+}
+
 template <typename WT>
 __device__ void attend_heads(const float* qkv, const WT* kr, const WT* vr,
                              const unsigned char* valid, const Dims& p,
@@ -217,8 +223,9 @@ __device__ void attend_heads(const float* qkv, const WT* kr, const WT* vr,
   const int nh = h_hi - h_lo + 1;
   const int wph = nh >= kWarps ? 1 : kWarps / nh;    // warps of a head
   const int groups = kWarps / wph, g = warp / wph, part = warp % wph;
-  float* pw = ps + g * kMaxT;                         // [groups][kMaxT]
-  float* red = ps + kWarps * kMaxT;                   // [kWarps][hd]
+  const int pst = score_rows(W);
+  float* pw = ps + g * pst;                           // [groups][pst]
+  float* red = ps + kWarps * pst;                     // [kWarps][hd]
   const float scale = 1.0f / sqrtf(static_cast<float>(hd));
   for (int h0 = h_lo; h0 <= h_hi; h0 += groups) {
     const int hh = h0 + g;
@@ -419,14 +426,15 @@ fused_cached_kernel(const float* __restrict__ tok, Weights w, Dims p,
   const int k_max = (max(max(p.Din, d), max(p.ff, H)) + 3) / 4 * 4;
   // shared memory: the rounded input of the next product, the residual
   // row, qkv, the warps' partial sums, the softmax weights, the replay's
-  // step list, then a replay's region
+  // step list and its step count, then a replay's region
   float* vin = reinterpret_cast<float*>(sm_raw);          // [k_max]
   float* xres = vin + k_max;                              // [d]
   float* qkv = xres + d;                                  // [3 d]
   float* red = qkv + 3 * d;                               // [kWarps][kTile]
-  float* ps = red + kWarps * kTile;  // [kWarps (kMaxT + kMaxHeadDim)]
-  int* rows = reinterpret_cast<int*>(ps + kWarps * (kMaxT + kMaxHeadDim));
-  float* rep = reinterpret_cast<float*>(rows + kMaxT);
+  float* ps = red + kWarps * kTile;                 // [attend_floats(W, hd)]
+  int* rows = reinterpret_cast<int*>(ps + attend_floats(W, hd));
+  int* n_steps = rows + score_rows(W);                    // [4]
+  float* rep = reinterpret_cast<float*>(n_steps + 4);
   auto Wt = [](const void* q) { return static_cast<const WT*>(q); };
   const bool writer = blockIdx.x == 0 && p.commit;
   WT* k_ring = static_cast<WT*>(r.k);
@@ -583,7 +591,7 @@ fused_cached_kernel(const float* __restrict__ tok, Weights w, Dims p,
         const int idx = (p.slot + 1 + t) % W;
         if (r.valid[idx] || (p.commit && idx == p.slot)) rows[n++] = idx;
       }
-      rows[kMaxT - 1] = n;        // W < kMaxT leaves the last entry free
+      *n_steps = n;
     }
     // the committed token's RNN input replaces its ring row's, each block
     // for the walk columns it owns
@@ -595,7 +603,7 @@ fused_cached_kernel(const float* __restrict__ tok, Weights w, Dims p,
       }
     asm volatile("cp.async.wait_group 0;\n" ::);   // the walk's slice
     __syncthreads();
-    const int steps = rows[kMaxT - 1];
+    const int steps = *n_steps;
     float* walk_sm = rows_s;
     if (slice_vec<WT>(rp.hh))
       walk_phase<WT>(s.xin, rows, steps, H, rp.hh,
@@ -636,6 +644,24 @@ inline void scratch_parts(int W, int d, int ff, int H, size_t* n) {
   n[9] = 2 * n[8];
 }
 
+// the launch's shared memory: the head region of fused_cached_kernel (the
+// product input, the residual row, qkv, the partial sums, the attention's
+// scores and sums, the step list and count) and p.stage floats of a
+// replay's region
+inline size_t smem_bytes(const Dims& p) {
+  int k_max = p.Din;
+  if (p.d > k_max) k_max = p.d;
+  if (p.ff > k_max) k_max = p.ff;
+  if (p.H > k_max) k_max = p.H;
+  k_max = (k_max + 3) / 4 * 4;
+  const size_t head_floats = static_cast<size_t>(k_max) + 4 * p.d +
+                             kWarps * kTile +
+                             attend_floats(p.W, p.d / p.heads) +
+                             score_rows(p.W) + 4;
+  const size_t head_bytes = (head_floats * sizeof(float) + 15) / 16 * 16;
+  return head_bytes + sizeof(float) * p.stage;
+}
+
 template <typename WT>
 int launch(const float* tok, const Weights& w, Dims p, float* scratch,
            const Rings& r, float* y, PhaseClock clock, cudaStream_t stream) {
@@ -658,17 +684,8 @@ int launch(const float* tok, const Weights& w, Dims p, float* scratch,
   }
   s.hp = reinterpret_cast<unsigned long long*>(at);
 
-  int k_max = p.Din;
-  if (p.d > k_max) k_max = p.d;
-  if (p.ff > k_max) k_max = p.ff;
-  if (p.H > k_max) k_max = p.H;
-  k_max = (k_max + 3) / 4 * 4;
-  const size_t head_floats = static_cast<size_t>(k_max) + 4 * p.d +
-                             kWarps * kTile + kWarps * (kMaxT + kMaxHeadDim) +
-                             kMaxT;
-  const size_t head_bytes = (head_floats * sizeof(float) + 15) / 16 * 16;
   p.stage = p.rnn_carry ? 0 : replay_floats<WT>(w, p, grid);
-  const size_t smem = head_bytes + sizeof(float) * p.stage;
+  const size_t smem = smem_bytes(p);
   if (smem > static_cast<size_t>(smem_max)) return kErrSmem;
   Weights w_arg = w;
   Rings r_arg = r;
@@ -679,6 +696,33 @@ int launch(const float* tok, const Weights& w, Dims p, float* scratch,
 }
 
 }  // namespace
+
+// The shared memory (bytes) a block of fused_cached_launch needs at these
+// widths on this device, or -1 for a shape outside the kernel's limits.
+extern "C" long long fused_cached_smem_bytes(int is_bf16, int W, int Din,
+                                             int d, int heads, int ff,
+                                             int layers, int H, int S,
+                                             int rnn_carry) {
+  int sms = 0, smem_max = 0;
+  if (W < 1 || layers < 1 || layers > kMaxLayers || heads < 1 || d < 1 ||
+      d % heads != 0 || device_limits(&sms, &smem_max) != cudaSuccess)
+    return -1;
+  const Weights w{};
+  Dims p{};
+  p.W = W;
+  p.Din = Din;
+  p.d = d;
+  p.heads = heads;
+  p.ff = ff;
+  p.layers = layers;
+  p.H = H;
+  p.S = S;
+  p.rnn_carry = rnn_carry != 0;
+  p.stage = p.rnn_carry ? 0
+            : is_bf16  ? replay_floats<__nv_bfloat16>(w, p, sms)
+                       : replay_floats<float>(w, p, sms);
+  return static_cast<long long>(smem_bytes(p));
+}
 
 // The scratch (in floats) fused_cached_launch takes, so that the caller
 // can allocate it.
@@ -693,9 +737,10 @@ extern "C" int fused_cached_scratch_floats(int W, int d, int ff, int H) {
 // 2 + 12 * layers + 5 device pointers. tok (Din,) f32; k, v (layers, W, d),
 // enc (W, d), h (H,) in the packing dtype, valid (W,) bytes; y (S,) f32;
 // scratch: fused_cached_scratch_floats floats, 16-byte aligned. slot in
-// [0, W). Returns a CUDA error code, or -1 for a shape outside the
-// kernel's limits (or a scratch too small), -2 when the widths need more
-// shared memory than a block has. clock: null, or clock_rows rows of 4 u64
+// [0, W). Any W and head width whose tiles fit a block. Returns a CUDA
+// error code, or -1 for a shape outside the kernel's limits (or a scratch
+// too small), -2 when the widths need more shared memory than a block has
+// (fused_cached_smem_bytes gives the bytes). clock: null, or clock_rows rows of 4 u64
 // for the per-phase clock (PhaseClock).
 extern "C" int fused_cached_launch(
     const void* tok, const void* const* weights, int n_w, int is_bf16, int W,
@@ -703,9 +748,9 @@ extern "C" int fused_cached_launch(
     int slot, int commit, int rnn_carry, void* k, void* v, void* enc, void* h,
     void* valid, void* scratch, int scratch_floats, void* y, void* clock,
     int clock_rows, void* stream) {
-  if (W < 1 || W >= kMaxT || layers < 1 || layers > kMaxLayers ||
+  if (W < 1 || layers < 1 || layers > kMaxLayers ||
       n_w != 2 + 12 * layers + 5 || heads < 1 || d < 1 || d % heads != 0 ||
-      d / heads > kMaxHeadDim || Din < 1 || ff < 1 || H < 1 || S < 1 ||
+      Din < 1 || ff < 1 || H < 1 || S < 1 ||
       slot < 0 || slot >= W ||
       (reinterpret_cast<uintptr_t>(scratch) & 15) != 0 ||
       scratch_floats < fused_cached_scratch_floats(W, d, ff, H))

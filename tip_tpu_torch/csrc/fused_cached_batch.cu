@@ -126,7 +126,8 @@ struct RingGate {
 // One head of the token's attention over its stream's ring, by one warp:
 // attend_head's function (fused_phases.cuh: the same roundings, the cursor
 // slot evicted unless it is the token's own) with the ring's loads in
-// parallel. A lane scores slots lane and lane + 32 (W < kMaxT), its row of
+// parallel, for W < kMaxT slots and hd <= kMaxHeadDim (the other shapes:
+// attend_ring_head_wide). A lane scores slots lane and lane + 32, its row of
 // k loaded whole before its dot. For the output, where hd divides 32, the
 // lanes split into 32 / hd groups over the slots (a lane one channel of
 // every group's slots), the groups' sums added by a butterfly; otherwise
@@ -206,6 +207,61 @@ __device__ void attend_ring_head(const float* q, const float* k_own,
   __syncwarp();
 }
 
+// attend_ring_head's function for the shapes it does not hold (W >= kMaxT
+// slots or heads wider than kMaxHeadDim), by one warp in loops: a lane
+// scores slots lane, lane + 32, ... into pw (score_rows(W) floats of this
+// warp), then takes channels lane, lane + 32, ..., each over every slot in
+// order. A separate path, so that the narrow shapes keep their code.
+template <typename WT>
+__device__ void attend_ring_head_wide(const float* q, const float* k_own,
+                                      const float* v_own, const WT* kr,
+                                      const WT* vr, int ld,
+                                      const unsigned char* valid, int W,
+                                      int hd, int slot, bool own, float* pw,
+                                      float* out) {
+  const int lane = threadIdx.x & 31;
+  const float scale = 1.0f / sqrtf(static_cast<float>(hd));
+  float mx = -INFINITY;
+  for (int w = lane; w < W; w += 32) {
+    const bool own_w = own && w == slot;
+    const WT* kw = kr + static_cast<size_t>(w) * ld;
+    float s = 0.0f;
+    for (int c = 0; c < hd; ++c)
+      s = fmaf(round_cd<WT>(q[c]),
+               own_w ? round_cd<WT>(k_own[c]) : wvalue(kw[c]), s);
+    const bool counts = own_w || (valid[w] && w != slot);
+    s = s * scale + (counts ? 0.0f : -1e30f);
+    pw[w] = s;
+    mx = fmaxf(mx, s);
+  }
+  mx = warp_max(mx);
+  float sum = 0.0f;
+  for (int w = lane; w < W; w += 32) {
+    const float e = expf(pw[w] - mx);
+    pw[w] = e;
+    sum += e;
+  }
+  sum = warp_sum(sum);
+  for (int w = lane; w < W; w += 32) pw[w] = round_cd<WT>(pw[w] / sum);
+  __syncwarp();
+  for (int c = lane; c < hd; c += 32) {
+    float o = 0.0f;
+    for (int w = 0; w < W; ++w) {
+      const float v = (own && w == slot)
+                          ? round_cd<WT>(v_own[c])
+                          : wvalue(vr[static_cast<size_t>(w) * ld + c]);
+      o = fmaf(pw[w], v, o);
+    }
+    out[c] = round_cd<WT>(o);
+  }
+  __syncwarp();
+}
+
+// a warp's attention floats: q, k, v of its head, then its score row
+__host__ __device__ constexpr int warp_attn_floats(int W, int hd) {
+  return 3 * hd + score_rows(W);
+}
+
 template <typename WT>
 __global__ void __launch_bounds__(kThreads)
 fused_cached_batch_kernel(const float* __restrict__ tok, Weights w, Dims p,
@@ -249,7 +305,9 @@ fused_cached_batch_kernel(const float* __restrict__ tok, Weights w, Dims p,
     clock.sync(grid, kPhQkv);
     // ---- attention and the ring write: a warp per (stream, head) -----------
     {
-      float* mine = sm + warp * (3 * hd + kMaxT);   // q, k, v, then weights
+      // q, k, v, then weights; the loops' path past the registers' shapes
+      float* mine = sm + warp * warp_attn_floats(W, hd);
+      const bool wide = W >= kMaxT || hd > kMaxHeadDim;
       for (int unit = blockIdx.x * kWarps + warp; unit < B * p.heads;
            unit += gridDim.x * kWarps) {
         const int b = unit / p.heads, hh = unit - b * p.heads;
@@ -263,9 +321,16 @@ fused_cached_batch_kernel(const float* __restrict__ tok, Weights w, Dims p,
         const size_t ring0 =
             (static_cast<size_t>(b) * p.layers + l) * W * d + hh * hd;
         float* att = s.att + static_cast<size_t>(b) * d + hh * hd;
-        attend_ring_head<WT>(mine, mine + hd, mine + 2 * hd, k_ring + ring0,
-                             v_ring + ring0, d, r.valid + b * W, W, hd,
-                             p.slot, own, mine + 3 * hd, att);
+        if (wide)
+          attend_ring_head_wide<WT>(mine, mine + hd, mine + 2 * hd,
+                                    k_ring + ring0, v_ring + ring0, d,
+                                    r.valid + b * W, W, hd, p.slot, own,
+                                    mine + 3 * hd, att);
+        else
+          attend_ring_head<WT>(mine, mine + hd, mine + 2 * hd,
+                               k_ring + ring0, v_ring + ring0, d,
+                               r.valid + b * W, W, hd, p.slot, own,
+                               mine + 3 * hd, att);
         if (own) {
           const size_t at = ring0 + static_cast<size_t>(p.slot) * d;
           for (int c = lane; c < hd; c += 32) {
@@ -353,6 +418,36 @@ inline void scratch_parts(const Dims& p, size_t* n) {
   n[7] = p.rnn_carry ? 0 : B * p.W * p.H;
 }
 
+// the replay's RNN: column groups of 16 columns (32 where 16 would give a
+// block more than one pass of streams a step), the streams split over the
+// groups the grid holds; LayerNorm holds a row in registers. False for
+// widths outside those limits.
+inline bool plan_rnn(Dims* p, int grid) {
+  if (p->H > 16 * kRnnKRegs || p->d > 32 * kLnRegs) return false;
+  if (grid < rnn_groups(p->H, 1)) return false;
+  auto group_streams = [&](int cp) {
+    const int groups = grid / rnn_groups(p->H, cp);
+    return (p->B + groups - 1) / groups;
+  };
+  p->rnn_cp = group_streams(1) > kRnnPass ? 2 : 1;
+  p->spb = group_streams(p->rnn_cp);
+  return true;
+}
+
+// shared memory, one region the phases take in turn: the products'
+// stages, the warps' attention vectors, or the RNN's hidden states
+template <typename WT>
+size_t smem_bytes(const Dims& p) {
+  size_t smem = split_smem<WT>();
+  if (!p.rnn_carry) {
+    smem = max_bytes(smem, product_smem());
+    smem = max_bytes(smem, rnn_groups_smem(p.H, p.rnn_cp));
+  }
+  const size_t attn = static_cast<size_t>(kWarps) *
+                      warp_attn_floats(p.W, p.d / p.heads) * sizeof(float);
+  return max_bytes(smem, attn);
+}
+
 template <typename WT>
 int launch(const float* tok, const Weights& w, Dims p, float* scratch,
            long long scratch_floats, const Rings& r, float* y,
@@ -372,29 +467,8 @@ int launch(const float* tok, const Weights& w, Dims p, float* scratch,
     *bufs[i] = scratch;
     scratch += n[i];
   }
-  // the replay's RNN: column groups of 16 columns (32 where 16 would give
-  // a block more than one pass of streams a step), the streams split over
-  // the groups the grid holds; LayerNorm holds a row in registers
-  if (p.H > 16 * kRnnKRegs || p.d > 32 * kLnRegs) return kErrShape;
-  if (grid < rnn_groups(p.H, 1)) return kErrShape;
-  auto group_streams = [&](int cp) {
-    const int groups = grid / rnn_groups(p.H, cp);
-    return (p.B + groups - 1) / groups;
-  };
-  p.rnn_cp = group_streams(1) > kRnnPass ? 2 : 1;
-  p.spb = group_streams(p.rnn_cp);
-
-  // shared memory, one region the phases take in turn: the products'
-  // stages, the warps' attention vectors, or the RNN's hidden states
-  size_t smem = split_smem<WT>();
-  if (!p.rnn_carry) {
-    smem = max_bytes(smem, product_smem());
-    smem = max_bytes(smem, rnn_groups_smem(p.H, p.rnn_cp));
-  }
-  const size_t attn =
-      static_cast<size_t>(kWarps) * (3 * (p.d / p.heads) + kMaxT) *
-      sizeof(float);
-  smem = max_bytes(smem, attn);
+  if (!plan_rnn(&p, grid)) return kErrShape;
+  const size_t smem = smem_bytes<WT>(p);
   if (smem > static_cast<size_t>(smem_max)) return kErrSmem;
   Weights w_arg = w;
   Rings r_arg = r;
@@ -405,6 +479,28 @@ int launch(const float* tok, const Weights& w, Dims p, float* scratch,
 }
 
 }  // namespace
+
+// The shared memory (bytes) a block of fused_cached_batch_launch needs at
+// these widths on this device, or -1 for a shape outside the kernel's
+// limits.
+extern "C" long long fused_cached_batch_smem_bytes(int is_bf16, int B, int W,
+                                                   int d, int heads, int H,
+                                                   int rnn_carry) {
+  int sms = 0, smem_max = 0;
+  if (B < 1 || W < 1 || heads < 1 || d < 1 || d % heads != 0 || H < 1 ||
+      device_limits(&sms, &smem_max) != cudaSuccess)
+    return -1;
+  Dims p{};
+  p.B = B;
+  p.W = W;
+  p.d = d;
+  p.heads = heads;
+  p.H = H;
+  p.rnn_carry = rnn_carry != 0;
+  if (!plan_rnn(&p, sms)) return -1;
+  return static_cast<long long>(is_bf16 ? smem_bytes<__nv_bfloat16>(p)
+                                        : smem_bytes<float>(p));
+}
 
 // The least scratch (in floats) fused_cached_batch_launch takes, so that
 // the caller can allocate it.
@@ -427,9 +523,11 @@ extern "C" int fused_cached_batch_scratch_floats(int B, int W, int d, int ff,
 // 2 + 12 * layers + 5 device pointers. tok (B, Din) f32; commit (B,) bytes;
 // k, v (B, layers, W, d), enc (B, W, d), h (B, H) in the packing dtype,
 // valid (B, W) bytes; y (B, S) f32; scratch: at least
-// fused_cached_batch_scratch_floats floats. slot in [0, W). Returns a CUDA
-// error code, or -1 for a shape outside the kernel's limits (or a scratch
-// too small), -2 when the widths need more shared memory than a block has.
+// fused_cached_batch_scratch_floats floats. slot in [0, W): any W and head
+// width whose tiles fit a block. Returns a CUDA error code, or -1 for a
+// shape outside the kernel's limits (or a scratch too small), -2 when the
+// widths need more shared memory than a block has
+// (fused_cached_batch_smem_bytes gives the bytes).
 // clock: null, or clock_rows rows of 4 u64 for the per-phase clock
 // (PhaseClock).
 extern "C" int fused_cached_batch_launch(
@@ -438,9 +536,9 @@ extern "C" int fused_cached_batch_launch(
     int zero0, int slot, int rnn_carry, const void* commit, void* k, void* v,
     void* enc, void* h, void* valid, void* scratch, long long scratch_floats,
     void* y, void* clock, int clock_rows, void* stream) {
-  if (B < 1 || W < 1 || W >= kMaxT || layers < 1 || layers > kMaxLayers ||
+  if (B < 1 || W < 1 || layers < 1 || layers > kMaxLayers ||
       n_w != 2 + 12 * layers + 5 || heads < 1 || d < 1 || d % heads != 0 ||
-      d / heads > kMaxHeadDim || Din < 1 || ff < 1 || H < 1 || S < 1 ||
+      Din < 1 || ff < 1 || H < 1 || S < 1 ||
       slot < 0 || slot >= W ||
       static_cast<long long>(B) * W * (H > d ? H : d) > 0x7fffffffLL)
     return kErrShape;

@@ -73,6 +73,7 @@ struct Dims {
   int Din, d, heads, ff, layers, H, S;
   int zero0;    // first of the three zeroed input columns
   int k_last;   // >= 0: emit that row only; -1: every row
+  int chunk;    // rows of a tile staged at a time (all of them: T)
   int raw;      // floats of one weight slot
   int stage;    // floats of the row stage (and attention's, the walk's)
   int red;      // floats of the partial sums
@@ -270,7 +271,9 @@ __device__ Part job_part(const char* tiles, const JobTable& jt, int j,
   return q;
 }
 
-template <typename WT>
+// kWide: windows of more than kMaxT rows or tiles whose rows are staged
+// in chunks (a separate instantiation: the default shapes keep their code)
+template <typename WT, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_forward_kernel(const float* __restrict__ x, Weights w,
                      const char* __restrict__ tiles, JobTable jt, Dims p,
@@ -305,14 +308,26 @@ fused_forward_kernel(const float* __restrict__ x, Weights w,
   };
   // a product phase over job j: the block's rows of src staged, its tile's
   // sums
+  // (p.chunk rows at a time where a tile's rows do not fit at once: an
+  // output's bits do not depend on the rows staged beside it)
   auto product = [&](int j, const Rows& src, int K, int N, const void* bias,
                      const float* res, float* o, int act) {
     const Part q = take(j);
     if (q.bytes == 0) return;
     const int lds = stage_ld(K);
-    stage_rows<WT>(src, q.row0, q.nr, K, As, lds, q.n0 == 0);
-    rows_product<WT>(As, lds, q.nr, K, wc(j), q.ldw, q.nc, q.row0, q.n0,
-                     static_cast<const WT*>(bias), N, res, o, N, act, red);
+    if constexpr (!kWide) {
+      stage_rows<WT>(src, q.row0, q.nr, K, As, lds, q.n0 == 0);
+      rows_product<WT>(As, lds, q.nr, K, wc(j), q.ldw, q.nc, q.row0, q.n0,
+                       static_cast<const WT*>(bias), N, res, o, N, act, red);
+      return;
+    }
+    for (int r0 = 0; r0 < q.nr; r0 += p.chunk) {
+      const int nr = min(p.chunk, q.nr - r0);
+      stage_rows<WT>(src, q.row0 + r0, nr, K, As, lds, q.n0 == 0);
+      rows_product<WT>(As, lds, nr, K, wc(j), q.ldw, q.nc, q.row0 + r0,
+                       q.n0, static_cast<const WT*>(bias), N, res, o, N, act,
+                       red);
+    }
   };
 
   ring.init();
@@ -344,7 +359,7 @@ fused_forward_kernel(const float* __restrict__ x, Weights w,
     }
     product(j, in, d, 3 * d, Ly.b_qkv, nullptr, s.qkv, kActNone);
     clock.sync(grid, kPhQkv);
-    attention_phase<WT>(s.qkv, T, d, p.heads, s.att, As);
+    attention_phase<WT, kWide>(s.qkv, T, d, p.heads, s.att, As);
     clock.sync(grid, kPhAttn);
     product(j + 1, rows_of(s.att, d, true), d, d, Ly.b_o, s.x, s.a,
             kActNone);
@@ -389,10 +404,21 @@ fused_forward_kernel(const float* __restrict__ x, Weights w,
                                      q.n0 + c, nullptr, 0, kActNone);
       } else {
         const int lds = stage_ld(p.H);
-        stage_pairs<WT>(s.hp, q.row0, q.nr, p.H, As, lds);
-        rows_product<WT>(As, lds, q.nr, p.H, wc(j), q.ldw, q.nc, q.row0, q.n0,
-                         static_cast<const WT*>(w.b_out), p.S, nullptr, out,
-                         p.S, kActNone, red);
+        if constexpr (!kWide) {
+          stage_pairs<WT>(s.hp, q.row0, q.nr, p.H, As, lds);
+          rows_product<WT>(As, lds, q.nr, p.H, wc(j), q.ldw, q.nc, q.row0,
+                           q.n0, static_cast<const WT*>(w.b_out), p.S,
+                           nullptr, out, p.S, kActNone, red);
+        } else {
+          for (int r0 = 0; r0 < q.nr; r0 += p.chunk) {
+            const int nr = min(p.chunk, q.nr - r0);
+            stage_pairs<WT>(s.hp, q.row0 + r0, nr, p.H, As, lds);
+            rows_product<WT>(As, lds, nr, p.H, wc(j), q.ldw, q.nc,
+                             q.row0 + r0, q.n0,
+                             static_cast<const WT*>(w.b_out), p.S, nullptr,
+                             out, p.S, kActNone, red);
+          }
+        }
       }
     }
   }
@@ -411,8 +437,9 @@ inline void scratch_parts(int T, int d, int ff, int H, size_t* n) {
   n[6] = 2 * n[5];                // the pairs, 8 bytes each
 }
 
-// the shared memory regions of Dims for the launch's T rows over G blocks
-void size_regions(const Weights& w, Dims* p, int G) {
+// the shared memory regions of Dims for the launch's T rows over G blocks,
+// a block staging at most p->chunk rows of its tile at a time
+void size_regions_at(const Weights& w, Dims* p, int G) {
   const int T = p->T, d = p->d;
   int raw = 0, stage = 0, red = 0;
   for (int j = 0; j < n_jobs(p->layers); ++j) {
@@ -421,14 +448,15 @@ void size_regions(const Weights& w, Dims* p, int G) {
     if (j == 4 * p->layers + 2) continue;          // the walk: below
     const bool out1 = j == 4 * p->layers + 3 && p->k_last >= 0;
     const Cut c = rows_cut(out1 ? 1 : T, t.n_ct, G);
-    const int st = c.rg * stage_ld(t.K);
-    const int rd = out1 ? 2 * vec_red_floats(t.nc) : kWarps * c.rg * t.ldw;
+    const int rg = c.rg < p->chunk ? c.rg : p->chunk;
+    const int st = rg * stage_ld(t.K);
+    const int rd = out1 ? 2 * vec_red_floats(t.nc) : kWarps * rg * t.ldw;
     stage = st > stage ? st : stage;
     red = rd > red ? rd : red;
   }
   // attention's q, k, v and weights; the walk's hidden state and sums
   const int hs = (d / p->heads) | 1;
-  const int attn = kWarps * hs + 2 * T * hs + kWarps * kMaxT;
+  const int attn = kWarps * hs + 2 * T * hs + kWarps * score_rows(T);
   const int cpb = job_tiles(w, *p, 4 * p->layers + 2, G).nc;
   const int walk = p->H + vec_red_floats(cpb) + cpb;
   stage = attn > stage ? attn : stage;
@@ -437,6 +465,26 @@ void size_regions(const Weights& w, Dims* p, int G) {
   p->raw = r4(raw);
   p->stage = r4(stage);
   p->red = r4(red);
+}
+
+inline size_t smem_bytes(const Dims& p);
+
+// size_regions_at with every tile's rows staged at once where that fits
+// smem_max bytes (the default shapes: one chunk), else with the rows a
+// stage holds halved until it fits or holds one
+void size_regions(const Weights& w, Dims* p, int G, int smem_max) {
+  p->chunk = p->T;
+  size_regions_at(w, p, G);
+  while (smem_bytes(*p) > static_cast<size_t>(smem_max) && p->chunk > 1) {
+    p->chunk = (p->chunk + 1) / 2;
+    size_regions_at(w, p, G);
+  }
+}
+
+// a block's shared memory for the regions of size_regions
+inline size_t smem_bytes(const Dims& p) {
+  return sizeof(float) * (kSlots * static_cast<size_t>(p.raw) + kBarFloats +
+                          p.stage + p.red);
 }
 
 template <typename WT>
@@ -448,10 +496,8 @@ int launch(const float* x, const Weights& w, const char* tiles, Dims p,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = sms;           // one block per SM, all co-resident
   if (grid < kColTiles) return kErrShape;
-  size_regions(w, &p, grid);
-  const size_t smem =
-      sizeof(float) * (kSlots * static_cast<size_t>(p.raw) + kBarFloats +
-                       p.stage + p.red);
+  size_regions(w, &p, grid, smem_max);
+  const size_t smem = smem_bytes(p);
   if (smem > static_cast<size_t>(smem_max)) return kErrSmem;
   JobTable jt;
   jt.n = n_jobs(p.layers);
@@ -464,8 +510,13 @@ int launch(const float* x, const Weights& w, const char* tiles, Dims p,
   Weights w_arg = w;
   Scratch s_arg = s;
   void* args[] = {&x, &w_arg, &tiles, &jt, &p, &s_arg, &out, &clock};
+  if (p.T > kMaxT || p.chunk < p.T) {
+    static size_t allowed = 0;
+    return launch_cooperative(fused_forward_kernel<WT, true>, grid, smem,
+                              args, stream, &allowed);
+  }
   static size_t allowed = 0;
-  return launch_cooperative(fused_forward_kernel<WT>, grid, smem, args,
+  return launch_cooperative(fused_forward_kernel<WT, false>, grid, smem, args,
                             stream, &allowed);
 }
 
@@ -489,8 +540,8 @@ __global__ void widen_tiles(const WT* __restrict__ w, JobTiles t,
 bool dims_ok(int layers, int n_w, int heads, int d, int Din, int ff, int H,
              int S) {
   return layers >= 1 && layers <= kMaxLayers && n_w == 2 + 12 * layers + 5 &&
-         heads >= 1 && d >= 1 && d % heads == 0 &&
-         d / heads <= kMaxHeadDim && Din >= 1 && ff >= 1 && H >= 1 && S >= 1;
+         heads >= 1 && d >= 1 && d % heads == 0 && Din >= 1 && ff >= 1 &&
+         H >= 1 && S >= 1;
 }
 
 Dims model_dims(int Din, int d, int heads, int ff, int layers, int H, int S) {
@@ -505,11 +556,31 @@ Dims model_dims(int Din, int d, int heads, int ff, int layers, int H, int S) {
   p.S = S;
   p.zero0 = -1;
   p.k_last = -1;
+  p.chunk = 1;
   p.raw = p.stage = p.red = 0;
   return p;
 }
 
 }  // namespace
+
+// The shared memory (bytes) a block of fused_forward_launch needs for T
+// rows (k_last as the launch's) at these widths on this device, or -1 for
+// widths outside the kernel's limits.
+extern "C" long long fused_forward_smem_bytes(int T, int Din, int d,
+                                              int heads, int ff, int layers,
+                                              int H, int S, int k_last) {
+  int sms = 0, smem_max = 0;
+  if (T < 1 || k_last < -1 || k_last >= T ||
+      !dims_ok(layers, 2 + 12 * layers + 5, heads, d, Din, ff, H, S) ||
+      device_limits(&sms, &smem_max) != cudaSuccess)
+    return -1;
+  const Weights w{};
+  Dims p = model_dims(Din, d, heads, ff, layers, H, S);
+  p.T = k_last >= 0 ? k_last + 1 : T;
+  p.k_last = k_last;
+  size_regions(w, &p, sms, smem_max);
+  return static_cast<long long>(smem_bytes(p));
+}
 
 // Bytes of the weights' tile-major copy on this device (the tiles of every
 // job, job_tiles), or -1 for widths outside the kernel's limits or a copy
@@ -568,9 +639,10 @@ extern "C" int fused_forward_tiles(const void* const* weights, int n_w,
 // (fused_forward_tiles). scratch: the floats of scratch_parts for T rows
 // (ops/fused_forward.py::scratch_floats), 16-byte aligned. k_last >= 0
 // writes out (S,) for that row and computes rows 0..k_last only; k_last ==
-// -1 writes out (T, S). Returns a CUDA error code, or -1 for a shape outside
-// the kernel's limits, -2 when the widths need more shared memory than a
-// block has. clock: null, or clock_rows rows of 4 u64 for the per-phase
+// -1 writes out (T, S). Any T and head width whose tiles fit a block:
+// returns a CUDA error code, or -1 for a shape outside the kernel's limits,
+// -2 when the rows and widths need more shared memory than a block has
+// (fused_forward_smem_bytes gives the bytes). clock: null, or clock_rows rows of 4 u64 for the per-phase
 // clock (PhaseClock).
 extern "C" int fused_forward_launch(const void* x, const void* const* weights,
                                     const void* tiles, int n_w, int is_bf16,
@@ -579,7 +651,7 @@ extern "C" int fused_forward_launch(const void* x, const void* const* weights,
                                     int k_last, void* scratch, void* out,
                                     void* clock, int clock_rows,
                                     void* stream) {
-  if (T < 1 || T > kMaxT || !dims_ok(layers, n_w, heads, d, Din, ff, H, S) ||
+  if (T < 1 || !dims_ok(layers, n_w, heads, d, Din, ff, H, S) ||
       k_last < -1 || k_last >= T ||
       (reinterpret_cast<uintptr_t>(scratch) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(tiles) & 15) != 0)

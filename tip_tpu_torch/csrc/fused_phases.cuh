@@ -31,9 +31,20 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kActNone = 0, kActRelu = 1, kActTanh = 2;
+// kMaxT: the rows of a warp's score buffer when a window or ring holds at
+// most that many (the default shapes); past it a buffer takes the rows the
+// launch has, in dynamic shared memory (score_rows). kMaxHeadDim: the head
+// width that the attention of K8 and K9 holds in a lane's registers (two
+// channels a lane); wider heads take their own, looped instantiation.
 constexpr int kMaxT = 64;
 constexpr int kMaxLayers = 8;
 constexpr int kMaxHeadDim = 64;
+
+// the floats of a warp's score row for n keys: kMaxT up to kMaxT keys (the
+// layout of the narrow shapes), else n rounded up to 4
+__host__ __device__ constexpr int score_rows(int n) {
+  return n <= kMaxT ? kMaxT : (n + 3) / 4 * 4;
+}
 constexpr int kErrShape = -1;
 constexpr int kErrSmem = -2;
 
@@ -180,7 +191,9 @@ __device__ __forceinline__ float input_fix(float v, int k, int zero0) {
 // their product. Masked keys contribute an exact 0, so they are skipped.
 // n_streams windows of T rows each lie one after the other in qkv and att;
 // attention never crosses from one to the next.
-template <typename WT>
+// kLong: windows of more than kMaxT rows, each warp's score row
+// score_rows(T) floats (a separate instantiation; kMaxT otherwise).
+template <typename WT, bool kLong = false>
 __device__ void attention_phase(const float* qkv, int T, int d, int heads,
                                 float* att, float* sm, int n_streams = 1) {
   const int hd = d / heads;
@@ -189,7 +202,8 @@ __device__ void attention_phase(const float* qkv, int T, int d, int heads,
   float* qs = sm;                 // [kWarps][hs]
   float* ks = qs + kWarps * hs;   // [T][hs]
   float* vs = ks + T * hs;        // [T][hs]
-  float* ps = vs + T * hs;        // [kWarps][kMaxT]
+  float* ps = vs + T * hs;        // [kWarps][pst]
+  const int pst = kLong ? score_rows(T) : kMaxT;
   const int n_rb = (T + kWarps - 1) / kWarps;
   const float scale = 1.0f / sqrtf(static_cast<float>(hd));
   const float* qkv0 = qkv;
@@ -212,7 +226,7 @@ __device__ void attention_phase(const float* qkv, int T, int d, int heads,
     __syncthreads();
     const int i = i0 + warp;
     if (i < T) {
-      float* p = ps + warp * kMaxT;
+      float* p = ps + warp * pst;
       const float* q = qs + warp * hs;
       float mx = -INFINITY;
       for (int j = lane; j <= i; j += 32) {

@@ -192,23 +192,39 @@ __device__ void attention_lanes_phase(const float* qkv, int T, int d,
   }
 }
 
-// the head width's register row: 16 where it fits, else 64
-__host__ __device__ constexpr int attention_hd(int hd) {
-  return hd <= 16 ? 16 : kMaxHeadDim;
+// the head width's register row: 16 where it fits, else 64; 0 past a
+// window of kMaxT rows or a head of kMaxHeadDim (the loops of
+// fused_phases.cuh's attention_phase, K4's attention, take those)
+__host__ __device__ constexpr int attention_hd(int T, int hd) {
+  return T > kMaxT || hd > kMaxHeadDim ? 0 : hd <= 16 ? 16 : kMaxHeadDim;
 }
 
-template <typename WT>
+// the attention's shared memory (floats) for windows of T rows
+__host__ __device__ inline size_t attention_floats(int T, int d, int heads) {
+  const int hd = d / heads, HD = attention_hd(T, hd);
+  if (HD > 0) return kWarps * 2 * static_cast<size_t>(T) * HD;
+  const int hs = hd | 1;
+  return static_cast<size_t>(kWarps) * hs + 2 * static_cast<size_t>(T) * hs +
+         kWarps * static_cast<size_t>(score_rows(T));
+}
+
+// kWide: attention_hd 0, K4's attention (a separate instantiation of the
+// kernel, so that the default shapes keep their code)
+template <typename WT, bool kWide>
 __device__ void attention_heads_phase(const float* qkv, int T, int d,
                                       int heads, float* att, float* sm,
                                       int n_streams) {
-  if (attention_hd(d / heads) == 16)
+  if constexpr (kWide) {
+    attention_phase<WT, true>(qkv, T, d, heads, att, sm, n_streams);
+  } else if (d / heads <= 16) {
     attention_lanes_phase<WT, 16>(qkv, T, d, heads, att, sm, n_streams);
-  else
+  } else {
     attention_lanes_phase<WT, kMaxHeadDim>(qkv, T, d, heads, att, sm,
                                            n_streams);
+  }
 }
 
-template <typename WT>
+template <typename WT, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 fused_recompute_batch_kernel(const float* __restrict__ x,
                              const int* __restrict__ k_last, Weights w,
@@ -236,7 +252,7 @@ fused_recompute_batch_kernel(const float* __restrict__ x,
       product<WT>(s.x, d, R, d, W(L.w_qkv), W(L.b_qkv), 3 * d, nullptr,
                   s.qkv, kActNone, mode, -1, sm);
       clock.sync(grid, kPhQkv);
-      attention_heads_phase<WT>(s.qkv, T, d, p.heads, s.att, sm, nb);
+      attention_heads_phase<WT, kWide>(s.qkv, T, d, p.heads, s.att, sm, nb);
       clock.sync(grid, kPhAttn);
       product<WT>(s.att, d, R, d, W(L.w_o), W(L.b_o), d, s.x, s.a, kActNone,
                   mode, -1, sm);
@@ -272,6 +288,25 @@ inline size_t scratch_total(int B, int T, int d, int ff, int H) {
          static_cast<size_t>(B) * T * H + 2 * static_cast<size_t>(B) * H;
 }
 
+// the RNN: column groups of kRnnCols, the streams split over the groups
+// the grid holds; LayerNorm holds a row in registers. False for widths
+// outside those limits.
+inline bool plan_rnn(Dims* p, int grid) {
+  if (p->H > 16 * kRnnKRegs || p->d > 32 * kLnRegs) return false;
+  const int n_cg = (p->H + kRnnCols - 1) / kRnnCols;
+  p->spb = (p->B + grid / n_cg - 1) / (grid / n_cg);
+  return true;
+}
+
+// shared memory, one region the phases take in turn: the products'
+// stages, attention's rows, or the RNN's columns and hidden states
+inline size_t smem_bytes(const Dims& p) {
+  const size_t attn = attention_floats(p.T, p.d, p.heads) * sizeof(float);
+  size_t smem = product_smem() > attn ? product_smem() : attn;
+  if (rnn_groups_smem(p.H) > smem) smem = rnn_groups_smem(p.H);
+  return smem;
+}
+
 template <typename WT>
 int launch(const float* x, const int* k_last, const Weights& w, Dims p,
            float* scratch, float* out, PhaseClock clock,
@@ -293,24 +328,41 @@ int launch(const float* x, const int* k_last, const Weights& w, Dims p,
 
   // shared memory, one region the phases take in turn: the products'
   // stages, attention's rows, or the RNN's columns and hidden states
-  const size_t attn = kWarps * 2 * static_cast<size_t>(p.T) *
-                      attention_hd(p.d / p.heads) * sizeof(float);
-  size_t smem = product_smem() > attn ? product_smem() : attn;
-  // the RNN: column groups of kRnnCols, the streams split over the groups
-  // the grid holds; LayerNorm holds a row in registers
-  if (p.H > 16 * kRnnKRegs || p.d > 32 * kLnRegs) return kErrShape;
-  const int n_cg = (p.H + kRnnCols - 1) / kRnnCols;
-  p.spb = (p.B + grid / n_cg - 1) / (grid / n_cg);
-  if (rnn_groups_smem(p.H) > smem) smem = rnn_groups_smem(p.H);
+  if (!plan_rnn(&p, grid)) return kErrShape;
+  const size_t smem = smem_bytes(p);
   if (smem > static_cast<size_t>(smem_max)) return kErrSmem;
   Weights w_arg = w;
   void* args[] = {&x, &k_last, &w_arg, &p, &s, &out, &clock};
+  if (attention_hd(p.T, p.d / p.heads) == 0) {
+    static size_t allowed = 0;
+    return launch_cooperative(fused_recompute_batch_kernel<WT, true>, grid,
+                              smem, args, stream, &allowed);
+  }
   static size_t allowed = 0;
-  return launch_cooperative(fused_recompute_batch_kernel<WT>, grid, smem,
-                            args, stream, &allowed);
+  return launch_cooperative(fused_recompute_batch_kernel<WT, false>, grid,
+                            smem, args, stream, &allowed);
 }
 
 }  // namespace
+
+// The shared memory (bytes) a block of fused_recompute_batch_launch needs
+// at these widths on this device, or -1 for a shape outside the kernel's
+// limits.
+extern "C" long long fused_recompute_batch_smem_bytes(int B, int T, int d,
+                                                      int heads, int H) {
+  int sms = 0, smem_max = 0;
+  if (B < 1 || T < 1 || heads < 1 || d < 1 || d % heads != 0 || H < 1 ||
+      device_limits(&sms, &smem_max) != cudaSuccess)
+    return -1;
+  Dims p{};
+  p.B = B;
+  p.T = T;
+  p.d = d;
+  p.heads = heads;
+  p.H = H;
+  if (!plan_rnn(&p, sms)) return -1;
+  return static_cast<long long>(smem_bytes(p));
+}
 
 // The scratch (in floats) fused_recompute_batch_launch needs, so that the
 // caller can allocate it; -1 when it does not fit 31 bits.
@@ -323,18 +375,20 @@ extern "C" int fused_recompute_batch_scratch_floats(int B, int T, int d,
 // weights: the packed list of ops/fused_forward.py::pack_weights, n_w =
 // 2 + 12 * layers + 5 device pointers. x (B, T, Din) f32, k_last (B,) int32
 // with 0 <= k_last[b] < T (the caller checks), out (B, S) f32. scratch:
-// fused_recompute_batch_scratch_floats floats. Returns a CUDA error code,
-// or -1 for a shape outside the kernel's limits (or a scratch too small),
-// -2 when the widths need more shared memory than a block has. clock:
+// fused_recompute_batch_scratch_floats floats. Any T and head width whose
+// tiles fit a block. Returns a CUDA error code, or -1 for a shape outside
+// the kernel's limits (or a scratch too small), -2 when the widths need
+// more shared memory than a block has (fused_recompute_batch_smem_bytes
+// gives the bytes). clock:
 // null, or clock_rows rows of 4 u64 for the per-phase clock (PhaseClock).
 extern "C" int fused_recompute_batch_launch(
     const void* x, const void* k_last, const void* const* weights, int n_w,
     int is_bf16, int B, int T, int Din, int d, int heads, int ff, int layers,
     int H, int S, int zero0, void* scratch, long long scratch_floats,
     void* out, void* clock, int clock_rows, void* stream) {
-  if (B < 1 || T < 1 || T > kMaxT || layers < 1 || layers > kMaxLayers ||
+  if (B < 1 || T < 1 || layers < 1 || layers > kMaxLayers ||
       n_w != 2 + 12 * layers + 5 || heads < 1 || d < 1 || d % heads != 0 ||
-      d / heads > kMaxHeadDim || Din < 1 || ff < 1 || H < 1 || S < 1 ||
+      Din < 1 || ff < 1 || H < 1 || S < 1 ||
       static_cast<long long>(B) * T * (H > Din ? H : Din) > 0x7fffffffLL ||
       scratch_floats < 0 ||
       static_cast<size_t>(scratch_floats) < scratch_total(B, T, d, ff, H))

@@ -30,7 +30,13 @@
 // memory, tanh, the broadcast and the cluster barrier), which no longer
 // grows with the batch tile. The launch plan (cluster, columns a block,
 // batch tile, clusters, shared bytes) comes from
-// ops/fused_rnn.py::fused_rnn_plan and is checked here.
+// ops/fused_rnn.py::fused_rnn_plan and is checked here. Any H whose slice
+// and one row's buffers fit a block runs: a block keeps H / 8 columns
+// rounded up to 32 (the columns past H zero), the depth is padded (f32 to
+// 8 slices of a multiple of 4; bf16 to 512, or 768 past H 512 by a second,
+// deeper instantiation), rows of an H that is not a multiple of 4 (f32) or
+// 8 (bf16) move a value at a time, and where the tile's buffers do not fit
+// the plan takes fewer rows a cluster.
 
 #include "rnn_cluster.cuh"
 
@@ -47,13 +53,13 @@ extern "C" int fused_rnn_launch(const void* xin, const void* w_hh, void* out,
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(rnnc::walk<false>(
       static_cast<const float*>(xin), nullptr,
-      static_cast<const float*>(w_hh), static_cast<float*>(out), B, T, H,
-      cols, bt, clusters, smem, static_cast<cudaStream_t>(stream)));
+      static_cast<const float*>(w_hh), static_cast<float*>(out), nullptr, B,
+      T, H, cols, bt, clusters, smem, static_cast<cudaStream_t>(stream)));
 }
 
 // xin, w_hh, out bf16: the plan of the tensor-core walk
 // (rnnc::tc_plan_ok); clock: null, or 7 u64 for the step's clock
-// (rnnc::StepClock)
+// (rnnc::StepClock; up to 64 columns a block)
 extern "C" int fused_rnn_bf16_launch(const void* xin, const void* w_hh,
                                      void* out, int B, int T, int H,
                                      int cluster, int cols, int bt,
@@ -65,7 +71,8 @@ extern "C" int fused_rnn_bf16_launch(const void* xin, const void* w_hh,
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(rnnc::tc_walk<false>(
       static_cast<const S*>(xin), nullptr, static_cast<const S*>(w_hh),
-      static_cast<S*>(out), nullptr, B, T, H, cols, bt, clusters, smem,
+      static_cast<S*>(out), nullptr, nullptr, B, T, H, cols, bt, clusters,
+      smem,
       static_cast<unsigned long long*>(clock),
       static_cast<cudaStream_t>(stream)));
 }

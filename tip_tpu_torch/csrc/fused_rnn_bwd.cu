@@ -61,10 +61,13 @@ namespace {
 
 // dW's partial product of split blockIdx.z (rows [z kchunk, (z + 1)
 // kchunk) of B T): part + z H H, or dw itself when there is one split
-template <class L>
+// (kPadded: hs and da are the padded copies, rows of ld floats; else rows
+// of H)
+template <class L, bool kPadded>
 __global__ void __launch_bounds__(L::THREADS, 2)
 dw_kernel(const float* __restrict__ hs, const float* __restrict__ da,
-          float* __restrict__ part, int H, int rows, int T, int kchunk) {
+          float* __restrict__ part, int H, int ld, int rows, int T,
+          int kchunk) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -75,8 +78,12 @@ dw_kernel(const float* __restrict__ hs, const float* __restrict__ da,
   const int k_end = min(rows, k_begin + kchunk);
   float acc[L::MT][L::NT][4];
   // A = h_{t-1} stored (B T, H) as hs a row up; B = da (B T, H)
-  tf3::mma_tile<true, false, L, true, true>(
-      hs, da, H, H, H, H, m0, n0, k_begin, k_end, sm, acc, T);
+  if constexpr (kPadded)
+    tf3::mma_tile<true, false, L, true, true>(
+        hs, da, ld, ld, ld, ld, m0, n0, k_begin, k_end, sm, acc, T);
+  else
+    tf3::mma_tile<true, false, L, true, true>(
+        hs, da, H, H, H, H, m0, n0, k_begin, k_end, sm, acc, T);
   float* out = part + static_cast<size_t>(blockIdx.z) * H * H;
 #pragma unroll
   for (int mt = 0; mt < L::MT; ++mt)
@@ -91,28 +98,36 @@ dw_kernel(const float* __restrict__ hs, const float* __restrict__ da,
       }
 }
 
-template <class L>
+template <class L, bool kPadded>
 cudaError_t launch_dw(const float* hs, const float* da, float* part, int H,
-                      int rows, int T, int kchunk, int splits,
+                      int ld, int rows, int T, int kchunk, int splits,
                       cudaStream_t st) {
   constexpr size_t smem = tf3::Stage<true, false, L>::BYTES;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      dw_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dw_kernel<L, kPadded>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   dim3 grid((H + L::BN - 1) / L::BN, (H + L::BM - 1) / L::BM, splits);
-  dw_kernel<L><<<grid, L::THREADS, smem, st>>>(hs, da, part, H, rows, T,
-                                              kchunk);
+  dw_kernel<L, kPadded><<<grid, L::THREADS, smem, st>>>(hs, da, part, H, ld,
+                                                       rows, T, kchunk);
   return cudaGetLastError();
 }
 
+template <bool kPadded>
 cudaError_t dw_product(const float* hs, const float* da, float* out, int H,
-                       int rows, int T, int kchunk, int splits,
+                       int ld, int rows, int T, int kchunk, int splits,
                        cudaStream_t st) {
-  return H <= 256 ? launch_dw<tf3::NarrowTile>(hs, da, out, H, rows, T,
-                                               kchunk, splits, st)
-                  : launch_dw<tf3::WideTile>(hs, da, out, H, rows, T, kchunk,
-                                             splits, st);
+  return H <= 256 ? launch_dw<tf3::NarrowTile, kPadded>(
+                        hs, da, out, H, ld, rows, T, kchunk, splits, st)
+                  : launch_dw<tf3::WideTile, kPadded>(
+                        hs, da, out, H, ld, rows, T, kchunk, splits, st);
+}
+
+// dst (H, H) = the first H columns of the first H rows of src (rows of ld)
+__global__ void crop_kernel(const __nv_bfloat16* __restrict__ src,
+                            __nv_bfloat16* __restrict__ dst, int H, int ld) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < H * H) dst[e] = src[static_cast<size_t>(e / H) * ld + e % H];
 }
 
 // The checked launch plan of the f32 entry point: the walk's
@@ -133,30 +148,40 @@ bool bwd_plan_ok(int B, int T, int H, int cluster, int cols, int bt,
 // fused_rnn_launch's (rnnc::walk_plan_ok); dW's: `dw_rows` rows a split (a
 // multiple of tf3::BK), `dw_splits` splits that cover the B T rows
 // exactly, and `part` dw_splits H H floats of scratch where dw_splits > 1
-// (unused otherwise). Returns a CUDA error code.
+// (unused otherwise); `pad` 2 B T round_up(H, 4) floats of scratch where H
+// is not a multiple of 4 (dW's operands with padded rows; unused
+// otherwise). Returns a CUDA error code.
 extern "C" int fused_rnn_bwd_launch(const void* hs, const void* w_hh,
                                     const void* g, void* dx, void* dw,
                                     void* part, int B, int T, int H,
                                     int cluster, int cols, int bt,
                                     int clusters, long long smem,
-                                    int dw_rows, int dw_splits,
+                                    int dw_rows, int dw_splits, void* pad,
                                     void* stream) {
   if (B <= 0 || T <= 0 || H <= 0) return 0;
   if (!bwd_plan_ok(B, T, H, cluster, cols, bt, clusters, smem, dw_rows,
                    dw_splits) ||
-      (dw_splits > 1 && part == nullptr))
+      (dw_splits > 1 && part == nullptr) || (H % 4 != 0 && pad == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = B * T;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* hs_f = static_cast<const float*>(hs);
   float* dx_f = static_cast<float*>(dx);
   float* dw_f = static_cast<float*>(dw);
+  float* pad_f = H % 4 != 0 ? static_cast<float*>(pad) : nullptr;
   cudaError_t err = rnnc::walk<true>(static_cast<const float*>(g), hs_f,
                                      static_cast<const float*>(w_hh), dx_f,
-                                     B, T, H, cols, bt, clusters, smem, st);
+                                     pad_f, B, T, H, cols, bt, clusters, smem,
+                                     st);
   if (err != cudaSuccess) return static_cast<int>(err);
   float* out = dw_splits > 1 ? static_cast<float*>(part) : dw_f;
-  err = dw_product(hs_f, dx_f, out, H, rows, T, dw_rows, dw_splits, st);
+  // dW's operands: hs and dx, or their copies with rows padded to 4
+  const int ld = rnnc::round_up(H, 4);
+  err = pad_f != nullptr
+            ? dw_product<true>(pad_f, pad_f + static_cast<size_t>(rows) * ld,
+                               out, H, ld, rows, T, dw_rows, dw_splits, st)
+            : dw_product<false>(hs_f, dx_f, out, H, H, rows, T, dw_rows,
+                                dw_splits, st);
   if (err != cudaSuccess || dw_splits == 1) return static_cast<int>(err);
   const int n = H * H;
   tg::sum_splits_kernel<<<(n + 255) / 256, 256, 0, st>>>(out, dw_f, n,
@@ -167,8 +192,11 @@ extern "C" int fused_rnn_bwd_launch(const void* hs, const void* w_hh,
 // The bf16 variant: hs, w_hh, g, dx and dw bf16. The walk's plan as
 // fused_rnn_bf16_launch's (rnnc::tc_plan_ok, backwards); dW's product plan
 // (dw_bm x dw_bn tiles, dw_kchunk rows a split, dw_splits splits:
-// bg::plan_ok for (H, H, B T)); `shifted`: B T H bf16 of scratch (dW's
-// operand); clock: null, or 7 u64 for the walk's step clock.
+// bg::plan_ok for (Hp, Hp, B T), Hp = round_up(H, 8)); `shifted`: B T Hp
+// bf16 of scratch (dW's operand); `pad` where H is not a multiple of 8
+// (unused otherwise): B T Hp bf16 (hs with rows padded, dW's other
+// operand) then Hp Hp bf16 (dW before its crop to (H, H)); clock: null, or
+// 7 u64 for the walk's step clock.
 extern "C" int fused_rnn_bwd_bf16_launch(const void* hs, const void* w_hh,
                                          const void* g, void* dx, void* dw,
                                          void* shifted, int B, int T, int H,
@@ -176,28 +204,39 @@ extern "C" int fused_rnn_bwd_bf16_launch(const void* hs, const void* w_hh,
                                          int clusters, long long smem,
                                          int dw_bm, int dw_bn, int dw_kchunk,
                                          int dw_splits, void* clock,
-                                         void* stream) {
+                                         void* pad, void* stream) {
   using S = __nv_bfloat16;
   if (B <= 0 || T <= 0 || H <= 0) return 0;
   const long long rows = static_cast<long long>(B) * T;
   const bg::Plan dw_plan{dw_bm, dw_bn, dw_kchunk, dw_splits};
+  const bool padded = H % 8 != 0;
+  const int hp = rnnc::round_up(H, 8);
   if (!rnnc::tc_plan_ok(B, H, cluster, cols, bt, clusters, smem, true) ||
-      rows * H > 0x7fffffffLL ||
-      !bg::plan_ok(dw_plan, H, H, static_cast<int>(rows)) ||
-      shifted == nullptr)
+      rows * hp > 0x7fffffffLL ||
+      !bg::plan_ok(dw_plan, hp, hp, static_cast<int>(rows)) ||
+      shifted == nullptr || (padded && pad == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  S* hs_pad = padded ? static_cast<S*>(pad) : nullptr;
   cudaError_t err = rnnc::tc_walk<true>(
       static_cast<const S*>(g), static_cast<const S*>(hs),
       static_cast<const S*>(w_hh), static_cast<S*>(dx),
-      static_cast<S*>(shifted), B, T, H, cols, bt, clusters, smem,
+      static_cast<S*>(shifted), hs_pad, B, T, H, cols, bt, clusters, smem,
       static_cast<unsigned long long*>(clock), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   bg::EpiArgs ep{};
   ep.kind = tg::E_STORE;
   ep.out_bf16 = 1;
-  ep.out = dw;
-  // dW (H, H) = hs^T shifted: A = hs stored (B T, H), B = shifted (B T, H)
-  return static_cast<int>(bg::product<true, false>(
-      dw_plan, hs, shifted, H, H, static_cast<int>(rows), ep, st));
+  // dW (H, H) = hs^T shifted: A = hs stored (B T, H), B = shifted (B T, H);
+  // where H is not a multiple of 8, the padded copies (rows of hp, the
+  // TMA's 16-byte rows) into an (hp, hp) dW, then cropped
+  S* dw_pad = padded ? hs_pad + static_cast<size_t>(rows) * hp : nullptr;
+  ep.out = padded ? static_cast<void*>(dw_pad) : dw;
+  err = bg::product<true, false>(dw_plan, padded ? hs_pad : hs, shifted, hp,
+                                 hp, static_cast<int>(rows), ep, st);
+  if (err != cudaSuccess || !padded) return static_cast<int>(err);
+  const int n = H * H;
+  crop_kernel<<<(n + 255) / 256, 256, 0, st>>>(dw_pad, static_cast<S*>(dw),
+                                                H, hp);
+  return static_cast<int>(cudaGetLastError());
 }

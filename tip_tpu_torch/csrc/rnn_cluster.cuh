@@ -80,6 +80,18 @@ __host__ __device__ constexpr int slice_depth(int H) {
   return ((H + kSplits - 1) / kSplits + 3) / 4 * 4;
 }
 
+// the columns a block of the cluster keeps: H / 8 rounded up to a
+// multiple of `unit` (f32 32, bf16 16 a column tile of the mma), so that
+// the 8 blocks cover H; the last blocks' columns past H are zero
+__host__ __device__ constexpr int block_cols(int H, int unit) {
+  return ((H + kCluster - 1) / kCluster + unit - 1) / unit * unit;
+}
+
+// H rounded up to a multiple of m: the row stride of a padded copy
+__host__ __device__ constexpr int round_up(int H, int m) {
+  return (H + m - 1) / m * m;
+}
+
 // the f32 walk's W slice, two row buffers and partial sums
 __host__ __device__ constexpr size_t smem_bytes(int H, int cols, int bt) {
   return sizeof(float) *
@@ -110,13 +122,18 @@ struct Bf16Step {
 };
 
 // The f32 walk. BT batch rows a cluster; C = cols / 32 columns a thread
-// (lane, lane + 32). kBack: in = g, hs = the hidden states, out = da; else
-// in = xin, out = h.
-template <int BT, int C, bool kBack>
+// (lane, lane + 32, ...). kBack: in = g, hs = the hidden states, out = da;
+// else in = xin, out = h. Rows of global memory are read and written 16
+// bytes at a time where H is a multiple of 4, else a value at a time (the
+// values past H read as zero); there the backward also writes hs and da
+// with rows padded to a multiple of 4 (pad: hs's copy, then da's, B T
+// round_up(H, 4) each, zero past H), dW's operands. kAligned (H a multiple of
+// 4) and the other case are separate instantiations.
+template <int BT, int C, bool kBack, bool kAligned>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 walk_kernel(const float* __restrict__ in, const float* __restrict__ hs,
-            const float* __restrict__ w, float* __restrict__ out, int B,
-            int T, int H) {
+            const float* __restrict__ w, float* __restrict__ out,
+            float* __restrict__ pad, int B, int T, int H) {
   using S = float;
   constexpr int cols = 32 * C;
   constexpr int quads = BT * cols / 4;   // float4 outputs of a block a step
@@ -170,10 +187,18 @@ walk_kernel(const float* __restrict__ in, const float* __restrict__ hs,
   const bool live = owner && orow < B && col0 + oc < H;
   const size_t o_at = static_cast<size_t>(orow) * T * H + col0 + oc;
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  constexpr bool vec = kAligned;     // 16-byte rows
+  const int ldp = round_up(H, 4);
+  const bool pad_live = !vec && pad != nullptr && owner && orow < B &&
+                        col0 + oc < ldp;
+  const size_t p_at = static_cast<size_t>(orow) * T * ldp + col0 + oc;
   auto t_of = [&](int s) { return kBack ? T - 1 - s : s; };
   auto ld4 = [&](const S* p, int s) {
-    return *reinterpret_cast<const float4*>(
-        p + o_at + static_cast<size_t>(t_of(s)) * H);
+    const S* a = p + o_at + static_cast<size_t>(t_of(s)) * H;
+    if (vec) return *reinterpret_cast<const float4*>(a);
+    const int c = col0 + oc;
+    return make_float4(a[0], c + 1 < H ? a[1] : 0.0f, c + 2 < H ? a[2] : 0.0f,
+                       c + 3 < H ? a[3] : 0.0f);
   };
   float4 in_next = live ? ld4(in, 0) : zero;
   float4 h_next = kBack && live ? ld4(hs, 0) : zero;
@@ -247,8 +272,24 @@ walk_kernel(const float* __restrict__ in, const float* __restrict__ hs,
                         F32Step::step(iv.z, sm.z), F32Step::step(iv.w, sm.w));
       }
       if (!live) o = zero;   // the padding past H stays 0
-      if (live)
-        *reinterpret_cast<float4*>(out + o_at + static_cast<size_t>(t) * H) = o;
+      if (live) {
+        float* at = out + o_at + static_cast<size_t>(t) * H;
+        if (vec) {
+          *reinterpret_cast<float4*>(at) = o;
+        } else {
+          const int c = col0 + oc;
+          at[0] = o.x;
+          if (c + 1 < H) at[1] = o.y;
+          if (c + 2 < H) at[2] = o.z;
+          if (c + 3 < H) at[3] = o.w;
+        }
+      }
+      if (kBack && pad_live) {   // dW's operands, rows padded
+        const size_t at = p_at + static_cast<size_t>(t) * ldp;
+        *reinterpret_cast<float4*>(pad + at) = hv;
+        *reinterpret_cast<float4*>(
+            pad + static_cast<size_t>(B) * T * ldp + at) = o;
+      }
       float4* dst = reinterpret_cast<float4*>(hn + ob * ld + col0 + oc);
       if (col0 + oc < ld) {
 #pragma unroll
@@ -261,73 +302,99 @@ walk_kernel(const float* __restrict__ in, const float* __restrict__ hs,
   }
 }
 
-template <int BT, int C, bool kBack>
-cudaError_t launch(const float* in, const float* hs, const float* w,
-                   float* out, int B, int T, int H, int clusters, size_t smem,
-                   cudaStream_t st) {
+template <int BT, int C, bool kBack, bool kAligned>
+cudaError_t launch_one(const float* in, const float* hs, const float* w,
+                       float* out, float* pad, int B, int T, int H,
+                       int clusters, size_t smem, cudaStream_t st) {
   // the attribute once per process and kernel: kMaxSmem covers every plan
   static const cudaError_t attr = cudaFuncSetAttribute(
-      walk_kernel<BT, C, kBack>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxSmem);
+      walk_kernel<BT, C, kBack, kAligned>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return attr;
-  walk_kernel<BT, C, kBack><<<clusters * kCluster, kThreads, smem, st>>>(
-      in, hs, w, out, B, T, H);
+  walk_kernel<BT, C, kBack, kAligned>
+      <<<clusters * kCluster, kThreads, smem, st>>>(in, hs, w, out, pad, B,
+                                                    T, H);
   return cudaGetLastError();
+}
+
+template <int BT, int C, bool kBack>
+cudaError_t launch(const float* in, const float* hs, const float* w,
+                   float* out, float* pad, int B, int T, int H, int clusters,
+                   size_t smem, cudaStream_t st) {
+  return H % 4 == 0
+             ? launch_one<BT, C, kBack, true>(in, hs, w, out, pad, B, T, H,
+                                              clusters, smem, st)
+             : launch_one<BT, C, kBack, false>(in, hs, w, out, pad, B, T, H,
+                                               clusters, smem, st);
 }
 
 template <int C, bool kBack>
 cudaError_t launch_tile(int bt, const float* in, const float* hs,
-                        const float* w, float* out, int B, int T, int H,
-                        int clusters, size_t smem, cudaStream_t st) {
+                        const float* w, float* out, float* pad, int B, int T,
+                        int H, int clusters, size_t smem, cudaStream_t st) {
   switch (bt) {
-    case 1: return launch<1, C, kBack>(in, hs, w, out, B, T, H, clusters,
-                                       smem, st);
-    case 2: return launch<2, C, kBack>(in, hs, w, out, B, T, H, clusters,
-                                       smem, st);
-    case 4: return launch<4, C, kBack>(in, hs, w, out, B, T, H, clusters,
-                                       smem, st);
-    case 8: return launch<8, C, kBack>(in, hs, w, out, B, T, H, clusters,
-                                       smem, st);
-    case 16: return launch<16, C, kBack>(in, hs, w, out, B, T, H, clusters,
-                                         smem, st);
+    case 1: return launch<1, C, kBack>(in, hs, w, out, pad, B, T, H,
+                                       clusters, smem, st);
+    case 2: return launch<2, C, kBack>(in, hs, w, out, pad, B, T, H,
+                                       clusters, smem, st);
+    case 4: return launch<4, C, kBack>(in, hs, w, out, pad, B, T, H,
+                                       clusters, smem, st);
+    case 8: return launch<8, C, kBack>(in, hs, w, out, pad, B, T, H,
+                                       clusters, smem, st);
+    case 16: return launch<16, C, kBack>(in, hs, w, out, pad, B, T, H,
+                                         clusters, smem, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // A plan of the f32 walk (ops/fused_rnn.py), checked: a cluster of 8
-// blocks of `cols` columns each (32 or 64, the 8 blocks covering H, a
-// multiple of 4), `bt` batch rows a cluster (1, 2, 4, 8 or 16), `clusters`
-// clusters that cover the B rows exactly, `smem` bytes of shared memory.
+// blocks of `cols` columns each (block_cols(H, 32): 32, 64 or 96), `bt`
+// batch rows a cluster (1, 2, 4, 8 or 16), `clusters` clusters that cover
+// the B rows exactly, `smem` bytes of shared memory.
 inline bool walk_plan_ok(int B, int H, int cluster, int cols, int bt,
                          int clusters, long long smem) {
-  return cluster == kCluster && (cols == 32 || cols == 64) &&
-         cols * kCluster >= H && (cols == 32 || cols * kCluster / 2 < H) &&
-         H % 4 == 0 && (bt == 1 || bt == 2 || bt == 4 || bt == 8 ||
-                        bt == 16) &&
+  return cluster == kCluster && cols == block_cols(H, 32) && cols <= 96 &&
+         (bt == 1 || bt == 2 || bt == 4 || bt == 8 || bt == 16) &&
          clusters > 0 && static_cast<long long>(clusters) * bt >= B &&
          static_cast<long long>(clusters - 1) * bt < B &&
          smem == static_cast<long long>(smem_bytes(H, cols, bt)) &&
          smem <= kMaxSmem;
 }
 
-// one f32 walk by a checked plan
+// one f32 walk by a checked plan; pad: the backward's padded operands
+// where H is not a multiple of 4 (else null)
 template <bool kBack>
 cudaError_t walk(const float* in, const float* hs, const float* w,
-                 float* out, int B, int T, int H, int cols, int bt,
-                 int clusters, long long smem, cudaStream_t st) {
+                 float* out, float* pad, int B, int T, int H, int cols,
+                 int bt, int clusters, long long smem, cudaStream_t st) {
   const size_t sm = static_cast<size_t>(smem);
-  return cols == 64 ? launch_tile<2, kBack>(bt, in, hs, w, out, B, T, H,
-                                            clusters, sm, st)
-                    : launch_tile<1, kBack>(bt, in, hs, w, out, B, T, H,
-                                            clusters, sm, st);
+  switch (cols) {
+    case 32: return launch_tile<1, kBack>(bt, in, hs, w, out, pad, B, T, H,
+                                          clusters, sm, st);
+    case 64: return launch_tile<2, kBack>(bt, in, hs, w, out, pad, B, T, H,
+                                          clusters, sm, st);
+    case 96: return launch_tile<3, kBack>(bt, in, hs, w, out, pad, B, T, H,
+                                          clusters, sm, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // ---- the bf16 walk on the tensor cores ----
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTcDepth = kSplits * 64;   // the padded depth: 64 a warp
-constexpr int kLdh = kTcDepth + 8;       // bf16 stride of a buffered row
+// The walk's padded depth: 64 a warp (512) up to 64 columns a block, the
+// block's columns a warp past that (768 at 96 columns, H up to 768: the
+// deep instantiation, W's slice 96 x 96 a warp in registers)
+__host__ __device__ constexpr int tc_depth(int cols) {
+  return kSplits * (cols > 64 ? cols : 64);
+}
+constexpr int kTcDepth = tc_depth(64);   // H up to 512
+// bf16 stride of a buffered row
+__host__ __device__ constexpr int tc_ldh(int cols) {
+  return tc_depth(cols) + 8;
+}
+constexpr int kLdh = tc_ldh(64);
 // the phases of the step's clock (kClock), in the order of the step
 constexpr int kTcPhases = 5;
 
@@ -338,15 +405,16 @@ __host__ __device__ constexpr int tc_rows(int bt) { return (bt + 7) / 8 * 8; }
 // a block asks for at least this much, so that no two share an SM
 constexpr size_t kTcMinSmem = 120 * 1024;
 
-// W's slice as staged (forward (depth, cols + 8), backward (cols, kLdh)),
+// W's slice as staged (forward (depth, cols + 8), backward (cols, ldh)),
 // the two row buffers (bf16) and the partial sums (f32, (kSplits, bt, cols
 // + 4)); every part a multiple of 16 bytes; at least kTcMinSmem
 __host__ __device__ constexpr size_t tc_smem_bytes(int cols, int bt,
                                                    bool back) {
-  const size_t need = 2 * (back ? static_cast<size_t>(cols) * kLdh
-                                : static_cast<size_t>(kTcDepth) * (cols + 8)) +
-                      2 * 2 * static_cast<size_t>(tc_rows(bt)) * kLdh +
-                      4 * static_cast<size_t>(kSplits) * bt * (cols + 4);
+  const size_t need =
+      2 * (back ? static_cast<size_t>(cols) * tc_ldh(cols)
+                : static_cast<size_t>(tc_depth(cols)) * (cols + 8)) +
+      2 * 2 * static_cast<size_t>(tc_rows(bt)) * tc_ldh(cols) +
+      4 * static_cast<size_t>(kSplits) * bt * (cols + 4);
   return need > kTcMinSmem ? need : kTcMinSmem;
 }
 
@@ -432,21 +500,31 @@ __device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
   return Bf16Step::bits(lo) | (Bf16Step::bits(hi) << 16);
 }
 
-// MT = cols / 16 column tiles of a block (2 or 4), NB = batch tiles of 8
-// rows (1 to 4: tiles of up to 8 NB rows); bt the tile (runtime). kBack:
+// MT = cols / 16 column tiles of a block (2, 4 or 6), NB = batch tiles of
+// 8 rows (1 to 4: tiles of up to 8 NB rows); bt the tile (runtime); the
+// depth tc_depth(cols), KS 16-deep steps a warp (4; 6 at 96 columns). kBack:
 // in = g, hs = the hidden states, out = da, shifted = da a row up (dW's
 // operand); else in = xin, out = h. kClock: the step's clock into clk.
-template <int MT, int NB, bool kBack, bool kClock>
+// Rows of global memory are read and written 16 bytes at a time where H is
+// a multiple of 8, else a value at a time (the values past H read as
+// zero); there the backward writes shifted with rows padded to a multiple
+// of 8 (zero past H) and hs likewise into hs_pad, dW's operands. kAligned (H a
+// multiple of 8) and the other case are separate instantiations.
+template <int MT, int NB, bool kBack, bool kClock, bool kAligned>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 tc_walk_kernel(const bf16* __restrict__ in, const bf16* __restrict__ hs,
                const bf16* __restrict__ w, bf16* __restrict__ out,
-               bf16* __restrict__ shifted, int B, int T, int H, int bt,
-               unsigned long long* __restrict__ clk) {
+               bf16* __restrict__ shifted, bf16* __restrict__ hs_pad, int B,
+               int T, int H, int bt, unsigned long long* __restrict__ clk) {
   constexpr int cols = 16 * MT;
-  constexpr int ldw = kBack ? kLdh : cols + 8;   // W's slice, staged
+  constexpr int depth = tc_depth(cols);
+  constexpr int ldh = tc_ldh(cols);
+  constexpr int KS = depth / kSplits / 16;       // 16-deep steps a warp
+  constexpr int ldw = kBack ? ldh : cols + 8;    // W's slice, staged
   constexpr int ldr = cols + 4;                  // the partial sums
   constexpr int R = 8 * NB;                      // rows of a row buffer
-  // the epilogue's quads (four outputs) a thread takes: 1, or 2 at tiles
+  static_assert(KS % 2 == 0, "a row's fragments come 32 deep at a time");
+  // the epilogue's quads (four outputs) a thread takes: 1, or 2-3 at tiles
   // past 16 rows of 64 columns
   constexpr int QPT = (R * cols / 4 + kThreads - 1) / kThreads;
   StepClock<kClock> clock;
@@ -457,40 +535,54 @@ tc_walk_kernel(const bf16* __restrict__ in, const bf16* __restrict__ hs,
   const int col0 = rank * cols;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane >> 2, q = lane & 3;
-  const int kw = warp * 64;   // the warp's depth slice
+  const int kw = warp * 16 * KS;   // the warp's depth slice
+  constexpr bool vec = kAligned;       // 16-byte rows
+  const int lds = vec ? H : round_up(H, 8);   // shifted's row stride
 
   extern __shared__ float4 sh4[];
   bf16* Ws = reinterpret_cast<bf16*>(sh4);
-  bf16* hbuf = Ws + (kBack ? cols * kLdh : kTcDepth * ldw);   // 2 x (R, kLdh)
-  float* red = reinterpret_cast<float*>(hbuf + 2 * R * kLdh);  // (8, bt, ldr)
+  bf16* hbuf = Ws + (kBack ? cols * ldh : depth * ldw);   // 2 x (R, ldh)
+  float* red = reinterpret_cast<float*>(hbuf + 2 * R * ldh);  // (8, bt, ldr)
 
   // W's slice, 16 bytes a copy, zero past H: forward Ws[i, c] = W[i, col0
-  // + c], backward Ws[c, i] = W[col0 + c, i] (a row of W as it lies)
-  constexpr int per_row = (kBack ? kTcDepth : cols) / 8;
-  for (int e = tid; e < (kBack ? cols : kTcDepth) * per_row; e += kThreads) {
+  // + c], backward Ws[c, i] = W[col0 + c, i] (a row of W as it lies); a
+  // value at a time where H is not a multiple of 8
+  constexpr int per_row = (kBack ? depth : cols) / 8;
+  for (int e = tid; e < (kBack ? cols : depth) * per_row; e += kThreads) {
     const int r = e / per_row, c = 8 * (e % per_row);
     const int i = kBack ? c : r, j = kBack ? r : c;   // W[i, col0 + j]...
     bf16* dst = Ws + r * ldw + c;
     const bool in_w = i < H && col0 + j < H;
     const bf16* src = kBack ? w + static_cast<size_t>(col0 + j) * H + i
                             : w + static_cast<size_t>(i) * H + col0 + j;
-    if (in_w) {
+    if (in_w && vec) {
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                        static_cast<unsigned>(__cvta_generic_to_shared(dst))),
                    "l"(src));
+    } else if (in_w) {
+      // forward: W[i, col0 + j + u]; backward: W[col0 + j, i + u]
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const bool ok = kBack ? i + u < H : col0 + j + u < H;
+        dst[u] = ok ? src[u] : __float2bfloat16_rn(0.0f);
+      }
     } else {
       *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
     }
   }
   asm volatile("cp.async.commit_group;\n" ::);
-  for (int e = tid; e < 2 * R * kLdh / 8; e += kThreads)
+  for (int e = tid; e < 2 * R * ldh / 8; e += kThreads)
     reinterpret_cast<uint4*>(hbuf)[e] = make_uint4(0, 0, 0, 0);
 
   // quad j of the thread, qd = tid + j kThreads: four outputs (row ob,
   // columns oc..oc+3; lanes qd and qd ^ 1 hold eight) and its inputs,
   // loaded a step ahead
   const int quads = bt * cols / 4;
-  bool owner[QPT], live[QPT];
+  // pair_live: the lane pair's first column lies inside H, so both lanes
+  // broadcast the pair's eight columns (where H is not a multiple of 8 the
+  // odd lane's four may lie past H while the even lane's do not; they are
+  // zero, and the even lane's reach ranks 4-7 only through the odd lane)
+  bool owner[QPT], live[QPT], pad_live[QPT], pair_live[QPT];
   int ob[QPT], oc[QPT];
   size_t o_at[QPT];
   uint2 in_next[QPT], h_next[QPT];
@@ -503,11 +595,18 @@ tc_walk_kernel(const bf16* __restrict__ in, const bf16* __restrict__ hs,
     ob[j] = qd / (cols / 4);
     oc[j] = 4 * (qd % (cols / 4));
     live[j] = owner[j] && b0 + ob[j] < B && col0 + oc[j] < H;
+    pad_live[j] = !vec && owner[j] && b0 + ob[j] < B && col0 + oc[j] < lds;
+    pair_live[j] = owner[j] && b0 + ob[j] < B && col0 + (oc[j] & ~4) < H;
     o_at[j] = static_cast<size_t>(b0 + ob[j]) * T * H + col0 + oc[j];
   }
   auto ld4 = [&](const bf16* p, int j, int s) {
-    return *reinterpret_cast<const uint2*>(
-        p + o_at[j] + static_cast<size_t>(t_of(s)) * H);
+    const bf16* a = p + o_at[j] + static_cast<size_t>(t_of(s)) * H;
+    if (vec) return *reinterpret_cast<const uint2*>(a);
+    const unsigned short* u = reinterpret_cast<const unsigned short*>(a);
+    const int c = col0 + oc[j];
+    const unsigned v1 = c + 1 < H ? u[1] : 0u, v2 = c + 2 < H ? u[2] : 0u,
+                   v3 = c + 3 < H ? u[3] : 0u;
+    return make_uint2(u[0] | (v1 << 16), v2 | (v3 << 16));
   };
 #pragma unroll
   for (int j = 0; j < QPT; ++j) {
@@ -517,16 +616,16 @@ tc_walk_kernel(const bf16* __restrict__ in, const bf16* __restrict__ hs,
 
   asm volatile("cp.async.wait_all;\n" ::);
   __syncthreads();
-  // the mma's A fragments of W_slice^T (cols x 64 of the warp's depth):
-  // column tile mt, 16-deep step kk; ldmatrix matrix lane / 8 holds rows
-  // 8 (m % 2) and depth 8 (m / 2) of the 16 x 16 piece
-  uint32_t wa[MT][4][4];
+  // the mma's A fragments of W_slice^T (cols x the warp's depth): column
+  // tile mt, 16-deep step kk; ldmatrix matrix lane / 8 holds rows 8 (m % 2)
+  // and depth 8 (m / 2) of the 16 x 16 piece
+  uint32_t wa[MT][KS][4];
   {
     const int mat = lane >> 3, r8 = lane & 7;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < KS; ++kk) {
         const int m = 16 * mt + 8 * (mat & 1);
         const int k = kw + 16 * kk + 8 * (mat >> 1);
         if (kBack)
@@ -540,8 +639,8 @@ tc_walk_kernel(const bf16* __restrict__ in, const bf16* __restrict__ hs,
 
   for (int s = 0; s < T; ++s) {
     const int t = t_of(s);
-    const bf16* hc = hbuf + (s & 1) * R * kLdh;
-    bf16* hn = hbuf + ((s + 1) & 1) * R * kLdh;
+    const bf16* hc = hbuf + (s & 1) * R * ldh;
+    bf16* hn = hbuf + ((s + 1) & 1) * R * ldh;
     uint2 iv[QPT], hv[QPT];
 #pragma unroll
     for (int j = 0; j < QPT; ++j) {
@@ -553,19 +652,19 @@ tc_walk_kernel(const bf16* __restrict__ in, const bf16* __restrict__ hs,
       }
     }
     // the product, a batch tile of 8 rows at a time: the B fragments of
-    // h^T (the warp's 64-deep slice of rows 8 nb..), ldmatrix matrix lane /
-    // 8 holding depth 8 (lane / 8) of 32; then the warp's partial sums,
+    // h^T (the warp's depth slice of rows 8 nb..), ldmatrix matrix lane / 8
+    // holding depth 8 (lane / 8) of 32; then the warp's partial sums,
     // red[warp, n, m]: fragment register r holds column m = 16 mt + g (+8
     // for r >= 2) and row n = 8 nb + 2 q (+1 for odd r)
     float* rw = red + warp * bt * ldr;
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
       if (8 * nb >= bt) break;
-      uint32_t hb[4][2];
+      uint32_t hb[KS][2];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
+      for (int half = 0; half < KS / 2; ++half) {
         uint32_t r[4];
-        ldsm_x4(r, hc + (8 * nb + (lane & 7)) * kLdh + kw + 32 * half +
+        ldsm_x4(r, hc + (8 * nb + (lane & 7)) * ldh + kw + 32 * half +
                        8 * (lane >> 3));
         hb[2 * half][0] = r[0];
         hb[2 * half][1] = r[1];
@@ -578,7 +677,7 @@ tc_walk_kernel(const bf16* __restrict__ in, const bf16* __restrict__ hs,
 #pragma unroll
         for (int r = 0; r < 4; ++r) acc[mt][r] = 0.0f;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) mma16816(acc[mt], wa[mt][kk], hb[kk]);
 #pragma unroll
@@ -646,8 +745,8 @@ tc_walk_kernel(const bf16* __restrict__ in, const bf16* __restrict__ hs,
                      __shfl_xor_sync(0xffffffffu, mine[j].y, 1));
       v8[j] = odd ? make_uint4(other.x, other.y, mine[j].x, mine[j].y)
                   : make_uint4(mine[j].x, mine[j].y, other.x, other.y);
-      if (live[j]) {
-        uint4* dst = reinterpret_cast<uint4*>(hn + ob[j] * kLdh + col0 +
+      if (vec ? live[j] : pair_live[j]) {
+        uint4* dst = reinterpret_cast<uint4*>(hn + ob[j] * ldh + col0 +
                                               (oc[j] & ~4));
 #pragma unroll
         for (int r = 0; r < kCluster / 2; ++r)
@@ -656,19 +755,60 @@ tc_walk_kernel(const bf16* __restrict__ in, const bf16* __restrict__ hs,
     }
     asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
     clock.mark(3);   // broadcast
+    if (vec) {
 #pragma unroll
-    for (int j = 0; j < QPT; ++j) {
-      if (!live[j] || odd) continue;
-      const size_t at = o_at[j] - (oc[j] & 4);   // the pair's eight columns
-      *reinterpret_cast<uint4*>(out + at + static_cast<size_t>(t) * H) = v8[j];
-      if (kBack) {   // dW's operand: da_t a row up, zero in the last row
-        if (t > 0)
-          *reinterpret_cast<uint4*>(shifted + at +
-                                    static_cast<size_t>(t - 1) * H) = v8[j];
-        if (t == T - 1)
-          *reinterpret_cast<uint4*>(shifted + at +
-                                    static_cast<size_t>(t) * H) =
-              make_uint4(0, 0, 0, 0);
+      for (int j = 0; j < QPT; ++j) {
+        if (!live[j] || odd) continue;
+        const size_t at = o_at[j] - (oc[j] & 4);   // the pair's eight columns
+        *reinterpret_cast<uint4*>(out + at + static_cast<size_t>(t) * H) =
+            v8[j];
+        if (kBack) {   // dW's operand: da_t a row up, zero in the last row
+          if (t > 0)
+            *reinterpret_cast<uint4*>(shifted + at +
+                                      static_cast<size_t>(t - 1) * H) = v8[j];
+          if (t == T - 1)
+            *reinterpret_cast<uint4*>(shifted + at +
+                                      static_cast<size_t>(t) * H) =
+                make_uint4(0, 0, 0, 0);
+        }
+      }
+    } else {
+      // a value at a time; the backward's operands padded to lds columns
+#pragma unroll
+      for (int j = 0; j < QPT; ++j) {
+        const unsigned short o4[4] = {
+            static_cast<unsigned short>(mine[j].x),
+            static_cast<unsigned short>(mine[j].x >> 16),
+            static_cast<unsigned short>(mine[j].y),
+            static_cast<unsigned short>(mine[j].y >> 16)};
+        const int c = col0 + oc[j];
+        if (live[j]) {
+          unsigned short* o = reinterpret_cast<unsigned short*>(
+              out + o_at[j] + static_cast<size_t>(t) * H);
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (c + u < H) o[u] = o4[u];
+        }
+        if (kBack && pad_live[j]) {
+          const unsigned short h4[4] = {
+              static_cast<unsigned short>(hv[j].x),
+              static_cast<unsigned short>(hv[j].x >> 16),
+              static_cast<unsigned short>(hv[j].y),
+              static_cast<unsigned short>(hv[j].y >> 16)};
+          const size_t p_at = (static_cast<size_t>(b0 + ob[j]) * T + t) * lds +
+                              c;
+          unsigned short* hp =
+              reinterpret_cast<unsigned short*>(hs_pad + p_at);
+          unsigned short* sp =
+              reinterpret_cast<unsigned short*>(shifted + p_at);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (c + u >= lds) break;
+            hp[u] = h4[u];
+            if (t > 0) sp[u - lds] = o4[u];
+            if (t == T - 1) sp[u] = 0;
+          }
+        }
       }
     }
     // the new row is in every block; everyone is done with the old and red
@@ -678,76 +818,105 @@ tc_walk_kernel(const bf16* __restrict__ in, const bf16* __restrict__ hs,
   clock.write(clk);
 }
 
-template <int MT, int NB, bool kBack, bool kClock>
+template <int MT, int NB, bool kBack, bool kClock, bool kAligned>
 cudaError_t tc_launch(const bf16* in, const bf16* hs, const bf16* w,
-                      bf16* out, bf16* shifted, int B, int T, int H, int bt,
-                      int clusters, size_t smem, unsigned long long* clk,
-                      cudaStream_t st) {
+                      bf16* out, bf16* shifted, bf16* hs_pad, int B, int T,
+                      int H, int bt, int clusters, size_t smem,
+                      unsigned long long* clk, cudaStream_t st) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      tc_walk_kernel<MT, NB, kBack, kClock>,
+      tc_walk_kernel<MT, NB, kBack, kClock, kAligned>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return attr;
-  tc_walk_kernel<MT, NB, kBack, kClock>
-      <<<clusters * kCluster, kThreads, smem, st>>>(in, hs, w, out, shifted,
-                                                    B, T, H, bt, clk);
+  tc_walk_kernel<MT, NB, kBack, kClock, kAligned>
+      <<<clusters * kCluster, kThreads, smem, st>>>(
+          in, hs, w, out, shifted, hs_pad, B, T, H, bt, clk);
   return cudaGetLastError();
 }
 
-template <int MT, bool kBack, bool kClock>
+template <int MT, bool kBack, bool kClock, bool kAligned>
 cudaError_t tc_launch_rows(const bf16* in, const bf16* hs, const bf16* w,
-                           bf16* out, bf16* shifted, int B, int T, int H,
-                           int bt, int clusters, size_t smem,
+                           bf16* out, bf16* shifted, bf16* hs_pad, int B,
+                           int T, int H, int bt, int clusters, size_t smem,
                            unsigned long long* clk, cudaStream_t st) {
   switch (tc_rows(bt) / 8) {
-    case 1: return tc_launch<MT, 1, kBack, kClock>(
-        in, hs, w, out, shifted, B, T, H, bt, clusters, smem, clk, st);
-    case 2: return tc_launch<MT, 2, kBack, kClock>(
-        in, hs, w, out, shifted, B, T, H, bt, clusters, smem, clk, st);
-    case 3: return tc_launch<MT, 3, kBack, kClock>(
-        in, hs, w, out, shifted, B, T, H, bt, clusters, smem, clk, st);
-    case 4: return tc_launch<MT, 4, kBack, kClock>(
-        in, hs, w, out, shifted, B, T, H, bt, clusters, smem, clk, st);
+    case 1: return tc_launch<MT, 1, kBack, kClock, kAligned>(
+        in, hs, w, out, shifted, hs_pad, B, T, H, bt, clusters, smem, clk,
+        st);
+    case 2: return tc_launch<MT, 2, kBack, kClock, kAligned>(
+        in, hs, w, out, shifted, hs_pad, B, T, H, bt, clusters, smem, clk,
+        st);
+    case 3: return tc_launch<MT, 3, kBack, kClock, kAligned>(
+        in, hs, w, out, shifted, hs_pad, B, T, H, bt, clusters, smem, clk,
+        st);
+    case 4: return tc_launch<MT, 4, kBack, kClock, kAligned>(
+        in, hs, w, out, shifted, hs_pad, B, T, H, bt, clusters, smem, clk,
+        st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // A plan of the bf16 walk, checked: a cluster of 8 blocks of `cols`
-// columns each (32 or 64, the 8 blocks covering H, a multiple of 8 of at
-// most the padded depth), `bt` batch rows a cluster (1 to kTcMaxTile),
-// `clusters` clusters that cover the B rows exactly, `smem` bytes of
-// shared memory.
+// columns each (block_cols(H, 32): 32, 64 or 96; the depth tc_depth(cols)),
+// `bt` batch rows a cluster (1 to kTcMaxTile), `clusters` clusters that
+// cover the B rows exactly, `smem` bytes of shared memory.
 inline bool tc_plan_ok(int B, int H, int cluster, int cols, int bt,
                        int clusters, long long smem, bool back) {
-  return cluster == kCluster && (cols == 32 || cols == 64) &&
-         cols * kCluster >= H && (cols == 32 || cols * kCluster / 2 < H) &&
-         H % 8 == 0 && H <= kTcDepth && bt >= 1 && bt <= kTcMaxTile &&
-         clusters > 0 && static_cast<long long>(clusters) * bt >= B &&
+  return cluster == kCluster && cols == block_cols(H, 32) && cols <= 96 &&
+         bt >= 1 && bt <= kTcMaxTile && clusters > 0 &&
+         static_cast<long long>(clusters) * bt >= B &&
          static_cast<long long>(clusters - 1) * bt < B &&
          smem == static_cast<long long>(tc_smem_bytes(cols, bt, back)) &&
          smem <= kMaxSmem;
 }
 
-// one bf16 walk by a checked plan; shifted: the backward's dW operand
-// (B, T, H), clk: null or the clock's 7 u64 (a separate instantiation)
+// one bf16 walk by a checked plan, with rows of 16 bytes (kAligned) or not;
+// shifted: the backward's dW operand (B, T, H; rows of round_up(H, 8)
+// where H is not a multiple of 8, and then hs_pad the same of hs), clk:
+// null or the clock's 7 u64 (a separate instantiation, up to 64 columns a
+// block, 16-byte rows)
+template <bool kBack, bool kAligned>
+cudaError_t tc_walk_rows(const bf16* in, const bf16* hs, const bf16* w,
+                         bf16* out, bf16* shifted, bf16* hs_pad, int B,
+                         int T, int H, int cols, int bt, int clusters,
+                         size_t sm, cudaStream_t st) {
+  switch (cols) {
+    case 32: return tc_launch_rows<2, kBack, false, kAligned>(
+        in, hs, w, out, shifted, hs_pad, B, T, H, bt, clusters, sm, nullptr,
+        st);
+    case 64: return tc_launch_rows<4, kBack, false, kAligned>(
+        in, hs, w, out, shifted, hs_pad, B, T, H, bt, clusters, sm, nullptr,
+        st);
+    case 96: return tc_launch_rows<6, kBack, false, kAligned>(
+        in, hs, w, out, shifted, hs_pad, B, T, H, bt, clusters, sm, nullptr,
+        st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <bool kBack>
 cudaError_t tc_walk(const bf16* in, const bf16* hs, const bf16* w, bf16* out,
-                    bf16* shifted, int B, int T, int H, int cols, int bt,
-                    int clusters, long long smem, unsigned long long* clk,
-                    cudaStream_t st) {
+                    bf16* shifted, bf16* hs_pad, int B, int T, int H,
+                    int cols, int bt, int clusters, long long smem,
+                    unsigned long long* clk, cudaStream_t st) {
   const size_t sm = static_cast<size_t>(smem);
-  if (clk != nullptr)
-    return cols == 64 ? tc_launch_rows<4, kBack, true>(
-                            in, hs, w, out, shifted, B, T, H, bt, clusters,
-                            sm, clk, st)
-                      : tc_launch_rows<2, kBack, true>(
-                            in, hs, w, out, shifted, B, T, H, bt, clusters,
-                            sm, clk, st);
-  return cols == 64 ? tc_launch_rows<4, kBack, false>(
-                          in, hs, w, out, shifted, B, T, H, bt, clusters, sm,
-                          nullptr, st)
-                    : tc_launch_rows<2, kBack, false>(
-                          in, hs, w, out, shifted, B, T, H, bt, clusters, sm,
-                          nullptr, st);
+  const bool vec = H % 8 == 0;
+  if (clk != nullptr) {
+    if (!vec) return cudaErrorInvalidValue;
+    switch (cols) {
+      case 32: return tc_launch_rows<2, kBack, true, true>(
+          in, hs, w, out, shifted, hs_pad, B, T, H, bt, clusters, sm, clk,
+          st);
+      case 64: return tc_launch_rows<4, kBack, true, true>(
+          in, hs, w, out, shifted, hs_pad, B, T, H, bt, clusters, sm, clk,
+          st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  return vec ? tc_walk_rows<kBack, true>(in, hs, w, out, shifted, hs_pad, B,
+                                         T, H, cols, bt, clusters, sm, st)
+             : tc_walk_rows<kBack, false>(in, hs, w, out, shifted, hs_pad,
+                                          B, T, H, cols, bt, clusters, sm,
+                                          st);
 }
 
 }  // namespace rnnc

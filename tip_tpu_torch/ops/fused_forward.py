@@ -42,22 +42,24 @@ from tip_tpu_torch.models import tip_model as M
 from tip_tpu_torch.ops import _kernels as K
 
 PACK_DTYPES = (torch.float32, torch.bfloat16)
-# limits of csrc/fused_phases.cuh (kMaxT, kMaxLayers, kMaxHeadDim)
-MAX_T = 64
+# the layer limit of csrc/fused_phases.cuh (kMaxLayers, tip_tpu's own);
+# rows and head widths have none but a block's shared memory, which the
+# launch checks (the kernels' *_smem_bytes give the bytes)
 MAX_LAYERS = 8
-MAX_HEAD_DIM = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {"fused_forward_launch": [_P, _P, _P, _I, _I] + [_I] * 10
         + [_P, _P, _P, _I, _P],
         "fused_forward_tiles_bytes": [_I] * 8,
+        "fused_forward_smem_bytes": [_I] * 9,
         "fused_forward_tiles": [_P, _I, _I] + [_I] * 7
         + [_P, ctypes.c_longlong, _P]}
 _SIG_BATCH = {
     "fused_recompute_batch_launch": [_P, _P, _P] + [_I] * 12
     + [_P, ctypes.c_longlong, _P, _P, _I, _P],
-    "fused_recompute_batch_scratch_floats": [_I] * 5}
+    "fused_recompute_batch_scratch_floats": [_I] * 5,
+    "fused_recompute_batch_smem_bytes": [_I] * 5}
 # launcher's own return codes (CUDA's are positive)
 _ERR_SHAPE = -1
 _ERR_SMEM = -2
@@ -273,12 +275,11 @@ def _check_packed(packed_ws, cfg: M.ModelConfig, dev, name: str):
                          f"{n_packed(cfg)}")
     if cd not in PACK_DTYPES:
         raise TypeError(f"packing dtype {cd}: float32 or bfloat16")
-    if not (1 <= cfg.tf_layers <= MAX_LAYERS and d % cfg.n_heads == 0
-            and cfg.head_dim <= MAX_HEAD_DIM):
+    if not (1 <= cfg.tf_layers <= MAX_LAYERS and d % cfg.n_heads == 0):
         raise ValueError(
-            f"{name}: the kernel holds 1..{MAX_LAYERS} layers and heads up "
-            f"to {MAX_HEAD_DIM} wide; got {cfg.tf_layers} layers, d={d}, "
-            f"{cfg.n_heads} heads")
+            f"{name}: the kernel holds 1..{MAX_LAYERS} layers of heads that "
+            f"split d; got {cfg.tf_layers} layers, d={d}, {cfg.n_heads} "
+            f"heads")
     f32 = torch.float32
     shapes = [((cfg.input_dim, d), cd), ((d,), cd)]
     for _ in range(cfg.tf_layers):
@@ -291,15 +292,30 @@ def _check_packed(packed_ws, cfg: M.ModelConfig, dev, name: str):
         K.check_input(t, f"packed_ws[{i}]", shape, dt, dev)
 
 
-def check_launch(err: int, name: str, cfg: M.ModelConfig):
-    """Raise for a launcher's return code other than 0."""
+def smem_bytes(so, fn: str, *args) -> int:
+    """A kernel's ``*_smem_bytes`` entry point: the shared memory a block
+    of that launch needs (64-bit)."""
+    f = getattr(so, fn)
+    f.restype = ctypes.c_longlong
+    return int(f(*args))
+
+
+def check_launch(err: int, name: str, cfg: M.ModelConfig, rows: str, need,
+                 dev):
+    """Raise for a launcher's return code other than 0. ``rows``: the rows
+    or slots of the launch, for the message; ``need``: a callable giving
+    the shared memory (bytes) a block of the launch needs, stated with what
+    a block of ``dev`` has where the launch found too little."""
     if err == _ERR_SHAPE:
         raise ValueError(f"{name}: the kernel refused the shape")
     if err == _ERR_SMEM:
+        have = torch.cuda.get_device_properties(
+            dev).shared_memory_per_block_optin
         raise ValueError(
-            f"{name}: d={cfg.tf_in_dim}, ff={cfg.tf_hid_size}, "
-            f"H={cfg.rnn_hid_size} need more shared memory or registers "
-            f"than a block of this card has")
+            f"{name}: {rows}d={cfg.tf_in_dim} ({cfg.n_heads} heads), "
+            f"ff={cfg.tf_hid_size}, H={cfg.rnn_hid_size} need {need()} bytes "
+            f"of shared memory a block, more than the {have} a block of this "
+            f"card has")
     K.check(err, name)
 
 
@@ -364,9 +380,8 @@ def _launch(packed_ws, x, k_last: int, cfg: M.ModelConfig, name: str,
     dev = x.device
     cd = packed_ws[0].dtype
     d, ff, H = cfg.tf_in_dim, cfg.tf_hid_size, cfg.rnn_hid_size
-    if not 1 <= T <= MAX_T:
-        raise ValueError(f"{name}: the kernel holds 1..{MAX_T} rows, got "
-                         f"T={T}")
+    if T < 1:
+        raise ValueError(f"{name}: a window of T={T} rows")
     ptrs = check_packed(packed_ws, cfg, dev, name)
     K.check_input(x, "x", (T, cfg.input_dim), torch.float32, dev)
     tiles = tile_major(packed_ws, cfg, dev, ptrs)
@@ -383,7 +398,9 @@ def _launch(packed_ws, x, k_last: int, cfg: M.ModelConfig, name: str,
         _imu_dim(cfg) + 108, k_last, scratch.data_ptr(), out.data_ptr(),
         None if clock is None else clock.data_ptr(),
         0 if clock is None else clock.shape[0], stream)
-    check_launch(err, name, cfg)
+    check_launch(err, name, cfg, f"T={T}, ", lambda: smem_bytes(
+        so, "fused_forward_smem_bytes", T, cfg.input_dim, d, cfg.n_heads,
+        ff, cfg.tf_layers, H, cfg.size_s, k_last), dev)
     K.launch_counts[name] += 1
     return out
 
@@ -493,7 +510,9 @@ def _launch_batch(packed_ws, x, k_dev, cfg: M.ModelConfig, clock=None):
         None if clock is None else clock.data_ptr(),
         0 if clock is None else clock.shape[0],
         torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(err, name, cfg)
+    check_launch(err, name, cfg, f"B={B}, T={T}, ", lambda: smem_bytes(
+        so, "fused_recompute_batch_smem_bytes", B, T, d, cfg.n_heads, H),
+        dev)
     K.launch_counts[name] += 1
     return out
 
@@ -578,9 +597,6 @@ def fused_recompute_batch(packed_ws, x, k_last, cfg: M.ModelConfig,
                          f"{tuple(x.shape)}")
     B, T = x.shape[:2]
     dev = x.device
-    if not 1 <= T <= MAX_T:
-        raise ValueError(f"{name}: the kernel holds 1..{MAX_T} rows, got "
-                         f"T={T}")
     ks = _check_k_last_batch(k_last, B, T)
     check_packed(packed_ws, cfg, dev, name)
     K.check_input(x, "x", (B, T, cfg.input_dim), torch.float32, dev)

@@ -48,12 +48,13 @@ _SIG = {"fused_rnn_launch": _ARGS, "fused_rnn_bf16_launch": _ARGS_BF16}
 _VARIANT = {torch.float32: "fused_rnn", torch.bfloat16: "fused_rnn_bf16"}
 _ARGS_BWD = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p])
+                ctypes.c_void_p, ctypes.c_void_p])
 # bf16: the shifted operand for the scratch, dW's product plan (bm, bn,
-# kchunk, splits) and the clock
+# kchunk, splits) and the clock; both take the padded operands' scratch
+# (pad_scratch) last
 _ARGS_BWD_BF16 = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                   + [ctypes.c_longlong] + [ctypes.c_int] * 4
-                  + [ctypes.c_void_p, ctypes.c_void_p])
+                  + [ctypes.c_void_p] * 3)
 _SIG_BWD = {"fused_rnn_bwd_launch": _ARGS_BWD,
             "fused_rnn_bwd_bf16_launch": _ARGS_BWD_BF16}
 _VARIANT_BWD = {torch.float32: "fused_rnn_bwd",
@@ -78,28 +79,33 @@ def fused_rnn_plain(xin, w_hh):
 
 
 # The walk of K1 and K10 (csrc/rnn_cluster.cuh): a cluster of 8 blocks (the
-# portable cluster size) shares W_hh, each block 32 or 64 output columns of
-# it and 256 threads (8 warps, one per eighth of the depth); a cluster owns
-# a tile of batch rows.
+# portable cluster size) shares W_hh, each block H/8 of its output columns
+# rounded up to 32 (32, 64 or 96: wider never fits; the columns past H
+# zero) and 256 threads (8 warps, one per eighth of the depth); a cluster
+# owns a tile of batch rows. Any H >= 1 whose W slice and one row's
+# buffers fit a block runs; where the tile's buffers do not fit, the tile
+# shrinks (more clusters, which then run in turns).
 #   f32: W's slice in shared memory, the depth padded to 8 slices of a
 #   multiple of 4; the tile grows with B (RNN_TILES) until 16 clusters
 #   (128 of the H100's 132 SMs) hold B.
 #   bf16: the walk on the tensor cores, W's slice in registers (staged once
-#   through shared memory), the depth padded to 8 slices of 64 (TC_DEPTH),
-#   the row buffers bf16 and the partial sums f32. An H100 runs at most 15
-#   clusters of 8 such blocks at once at one block an SM
-#   (cudaOccupancyMaxActiveClusters; a 16th waits for one of them to end,
-#   doubling the time; two blocks on one SM slow both), and a step costs
-#   little more with each row of the tile, so a block takes more than half
-#   an SM's shared memory and the tile is the fewest rows (up to
-#   TC_MAX_TILE) that hold B in TC_CLUSTERS clusters
+#   through shared memory), the depth padded to 8 slices of 64 (TC_DEPTH)
+#   up to 64 columns a block and to 8 slices of the block's columns past
+#   that (768 at 96: a second, deeper instantiation), the row buffers bf16
+#   and the partial sums f32. An H100 runs at most 15 clusters of 8 such
+#   blocks at once at one block an SM (cudaOccupancyMaxActiveClusters; a
+#   16th waits for one of them to end, doubling the time; two blocks on one
+#   SM slow both), and a step costs little more with each row of the tile,
+#   so a block takes more than half an SM's shared memory and the tile is
+#   the fewest rows (up to TC_MAX_TILE) that hold B in TC_CLUSTERS clusters
 RNN_CLUSTER = 8
 RNN_SPLITS = 8
 RNN_TILES = (1, 2, 4, 8, 16)
 RNN_FULL_CLUSTERS = 16
+RNN_COL_UNIT = 32            # a block's columns, a multiple of this
 MAX_SMEM = 232448            # bytes of shared memory a block can have
 RNN_THREADS = 256
-TC_DEPTH = RNN_SPLITS * 64   # the bf16 walk's padded depth
+TC_DEPTH = RNN_SPLITS * 64   # the bf16 walk's padded depth up to H 512
 TC_LDH = TC_DEPTH + 8        # bf16 stride of its buffered rows
 TC_CLUSTERS = 15
 TC_MAX_TILE = 32
@@ -115,20 +121,55 @@ class RNNPlan:
     smem_bytes: int          # shared memory of a block
 
 
-def _walk_plan(B: int, H: int, cols: int, name: str) -> RNNPlan:
-    """The f32 walk's plan for B rows of width H, ``cols`` columns a
-    block: the depth padded to 8 slices of a multiple of 4 (rnn_cluster.cuh's
-    slice_depth); raises where W_hh's slice and the row buffers do not fit
-    in a block's shared memory."""
-    want = -(-B // RNN_FULL_CLUSTERS)
-    bt = next((t for t in RNN_TILES if t >= want), RNN_TILES[-1])
-    slice_depth = -(-H // RNN_SPLITS)
-    depth = RNN_SPLITS * (-(-slice_depth // 4) * 4)
-    smem = 4 * (depth * cols + 2 * bt * depth + RNN_SPLITS * bt * cols)
-    if smem > MAX_SMEM:
-        raise ValueError(f"{name}: H={H} needs {smem} bytes of shared "
-                         f"memory a block, more than {MAX_SMEM}")
-    return RNNPlan(RNN_CLUSTER, cols, bt, -(-B // bt), smem)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def block_cols(H: int) -> int:
+    """rnn_cluster.cuh's block_cols(H, 32): the columns of W_hh a block
+    keeps, H / 8 rounded up to a multiple of 32."""
+    return _cdiv(_cdiv(H, RNN_CLUSTER), RNN_COL_UNIT) * RNN_COL_UNIT
+
+
+def walk_smem_bytes(H: int, cols: int, bt: int) -> int:
+    """rnn_cluster.cuh's smem_bytes: the f32 walk's W slice (depth, cols),
+    its two row buffers (bt, depth) and the 8 warps' partial sums."""
+    slice_depth = _cdiv(_cdiv(H, RNN_SPLITS), 4) * 4
+    depth = RNN_SPLITS * slice_depth
+    return 4 * (depth * cols + 2 * bt * depth + RNN_SPLITS * bt * cols)
+
+
+def _refuse(name: str, H: int, need: int, slice_bytes: int):
+    raise ValueError(
+        f"{name}: H={H} needs {need} bytes of shared memory a block (W_hh's "
+        f"slice {slice_bytes} bytes and the buffers of one batch row), more "
+        f"than the {MAX_SMEM} a block can have ({RNN_CLUSTER} blocks of a "
+        f"cluster hold {RNN_CLUSTER * MAX_SMEM})")
+
+
+def _fit_tile(want: int, tiles, smem, name: str, H: int,
+              slice_bytes: int) -> int:
+    """The largest of ``tiles`` up to ``want`` whose block fits MAX_SMEM
+    (``smem(bt)``); refuses where one row does not fit."""
+    fits = [t for t in tiles if t <= want and smem(t) <= MAX_SMEM]
+    if not fits:
+        _refuse(name, H, smem(min(tiles)), slice_bytes)
+    return max(fits)
+
+
+def _walk_plan(B: int, H: int, name: str) -> RNNPlan:
+    """The f32 walk's plan for B rows of width H: block_cols(H) columns a
+    block, the depth padded to 8 slices of a multiple of 4 (rnn_cluster.cuh's
+    slice_depth); the tile of RNN_TILES that holds B in RNN_FULL_CLUSTERS
+    clusters, or the largest smaller one whose buffers fit."""
+    cols = block_cols(H)
+    want = _cdiv(B, RNN_FULL_CLUSTERS)
+    want = next((t for t in RNN_TILES if t >= want), RNN_TILES[-1])
+    w_bytes = walk_smem_bytes(H, cols, 0)
+    bt = _fit_tile(want, RNN_TILES, lambda t: walk_smem_bytes(H, cols, t),
+                   name, H, w_bytes)
+    return RNNPlan(RNN_CLUSTER, cols, bt, _cdiv(B, bt),
+                   walk_smem_bytes(H, cols, bt))
 
 
 def tc_rows(bt: int) -> int:
@@ -144,46 +185,47 @@ def tc_batch_tile(B: int) -> int:
     return min(-(-B // TC_CLUSTERS), TC_MAX_TILE)
 
 
+def tc_depth(cols: int) -> int:
+    """rnn_cluster.cuh's tc_depth: the bf16 walk's padded depth, TC_DEPTH up
+    to 64 columns a block, 8 slices of the block's columns past that."""
+    return RNN_SPLITS * max(cols, 64)
+
+
 def tc_smem_bytes(cols: int, bt: int, back: bool) -> int:
     """rnn_cluster.cuh's tc_smem_bytes: W's slice as staged (forward (depth,
-    cols + 8), backward (cols, TC_LDH), bf16), the two row buffers (bf16)
+    cols + 8), backward (cols, depth + 8), bf16), the two row buffers (bf16)
     and the 8 warps' partial sums (f32, bt rows of cols + 4); at least
     TC_MIN_SMEM, so that no two blocks share an SM."""
-    w = cols * TC_LDH if back else TC_DEPTH * (cols + 8)
-    return max(2 * w + 2 * 2 * tc_rows(bt) * TC_LDH
+    depth = tc_depth(cols)
+    ldh = depth + 8
+    w = cols * ldh if back else depth * (cols + 8)
+    return max(2 * w + 2 * 2 * tc_rows(bt) * ldh
                + 4 * RNN_SPLITS * bt * (cols + 4), TC_MIN_SMEM)
 
 
-def _tc_walk_plan(B: int, H: int, cols: int, name: str,
-                  back: bool) -> RNNPlan:
-    """The bf16 walk's plan (csrc/rnn_cluster.cuh's tc_plan_ok): H a
-    multiple of 8 (16-byte rows) of at most TC_DEPTH."""
-    if H % 8 or H > TC_DEPTH:
-        raise ValueError(f"{name}: H={H} is not a multiple of 8 of at most "
-                         f"{TC_DEPTH} (the bf16 walk)")
-    bt = tc_batch_tile(B)
-    smem = tc_smem_bytes(cols, bt, back)
-    if smem > MAX_SMEM:
-        raise ValueError(f"{name}: H={H} needs {smem} bytes of shared "
-                         f"memory a block, more than {MAX_SMEM}")
-    return RNNPlan(RNN_CLUSTER, cols, bt, -(-B // bt), smem)
+def _tc_walk_plan(B: int, H: int, name: str, back: bool) -> RNNPlan:
+    """The bf16 walk's plan (csrc/rnn_cluster.cuh's tc_plan_ok):
+    block_cols(H) columns a block, the tile ``tc_batch_tile``, or the
+    largest smaller one whose buffers fit."""
+    cols = block_cols(H)
+    depth = tc_depth(cols)
+    w_bytes = 2 * (cols * (depth + 8) if back else depth * (cols + 8))
+    bt = _fit_tile(tc_batch_tile(B), range(1, TC_MAX_TILE + 1),
+                   lambda t: tc_smem_bytes(cols, t, back), name, H, w_bytes)
+    return RNNPlan(RNN_CLUSTER, cols, bt, _cdiv(B, bt),
+                   tc_smem_bytes(cols, bt, back))
 
 
 def fused_rnn_plan(B: int, H: int, w_bytes: int = 4) -> RNNPlan:
     """K1's launch plan for B rows of width H, W_hh stored ``w_bytes``
     bytes an entry (4: the f32 walk; 2: the bf16 walk on the tensor
-    cores): W_hh's columns split evenly over the cluster, H/8 a multiple
-    of 32. Raises where that does not hold or does not fit (there is no
-    other kernel to fall back to)."""
+    cores). Raises where W_hh's slice and one row's buffers do not fit a
+    block (there is no other kernel to fall back to), with the bytes."""
     if B <= 0 or H <= 0:
         raise ValueError(f"fused_rnn: B={B}, H={H}")
-    cols = H // RNN_CLUSTER
-    if H % RNN_CLUSTER or cols % 32 or H % (4 * RNN_SPLITS):
-        raise ValueError(f"fused_rnn: H={H} does not split into "
-                         f"{RNN_CLUSTER} blocks of a multiple of 32 columns")
     if w_bytes == 2:
-        return _tc_walk_plan(B, H, cols, "fused_rnn", back=False)
-    return _walk_plan(B, H, cols, "fused_rnn")
+        return _tc_walk_plan(B, H, "fused_rnn", back=False)
+    return _walk_plan(B, H, "fused_rnn")
 
 
 # f32 dW's product (csrc/train_mma.cuh's tiles): 128 rows x 64 columns a
@@ -204,29 +246,33 @@ class RNNBwdPlan:
     #                          f32: () (train_mma.cuh's tile, by H)
 
 
+def pad_width(H: int, w_bytes: int) -> int:
+    """The row of K10's dW operands: H, or H rounded up to 16 bytes (4 f32,
+    8 bf16) where it is not a multiple of them (the walk then writes padded
+    copies of hs and da)."""
+    unit = 16 // w_bytes
+    return _cdiv(H, unit) * unit
+
+
 def fused_rnn_bwd_plan(B: int, T: int, H: int,
                       w_bytes: int = 4) -> RNNBwdPlan:
-    """K10's launch plan: the walk's (a block keeps 32 columns of W where
-    H <= 256, else 64, so H <= 512 and a multiple of 4; W stored
-    ``w_bytes`` bytes an entry: 2 is the bf16 walk on the tensor cores, H a
-    multiple of 8) and dW's split. f32: train_mma.cuh's split of the B T
-    rows. bf16: ops/encoder_train.py's product plan of dW = hs^T shifted,
-    an (H, H, B T) product (its splits one cluster, summed in rank order).
-    Raises where W's slice and the row buffers do not fit."""
+    """K10's launch plan: the walk's (K1's, W's rows in a block; W stored
+    ``w_bytes`` bytes an entry: 2 is the bf16 walk on the tensor cores) and
+    dW's split. f32: train_mma.cuh's split of the B T rows. bf16:
+    ops/encoder_train.py's product plan of dW = hs^T shifted, an (Hp, Hp,
+    B T) product, Hp = ``pad_width(H, 2)`` (its splits one cluster, summed
+    in rank order). Raises where W's slice and one row's buffers do not
+    fit, with the bytes."""
     if B <= 0 or T <= 0 or H <= 0:
         raise ValueError(f"fused_rnn_bwd: B={B}, T={T}, H={H}")
-    if H % 4 or H > 2 * 32 * RNN_CLUSTER:
-        raise ValueError(f"fused_rnn_bwd: H={H} is not a multiple of 4 "
-                         f"that {RNN_CLUSTER} blocks of at most 64 columns "
-                         f"cover")
-    cols = 32 if H <= 32 * RNN_CLUSTER else 64
     rows = B * T
     if w_bytes == 2:
         from tip_tpu_torch.ops.encoder_train import product_plan
-        walk = _tc_walk_plan(B, H, cols, "fused_rnn_bwd", back=True)
-        dw = product_plan("dW", "hs^T shifted", H, H, rows)
+        walk = _tc_walk_plan(B, H, "fused_rnn_bwd", back=True)
+        hp = pad_width(H, 2)
+        dw = product_plan("dW", "hs^T shifted", hp, hp, rows)
         return RNNBwdPlan(walk, dw.kchunk, dw.splits, (dw.bm, dw.bn))
-    walk = _walk_plan(B, H, cols, "fused_rnn_bwd")
+    walk = _walk_plan(B, H, "fused_rnn_bwd")
     tile_n = 64 if H <= 256 else 128
     tiles = -(-H // DW_TILE_M) * -(-H // tile_n)
     splits = max(1, min(-(-DW_TARGET_BLOCKS // tiles), -(-rows // 256)))
@@ -237,12 +283,24 @@ def fused_rnn_bwd_plan(B: int, T: int, H: int,
 
 def bwd_scratch(plan: RNNBwdPlan, B: int, T: int, H: int, dtype):
     """(entries, dtype) of K10's scratch: bf16, the shifted operand of dW
-    (B T H bf16, written by the walk, read by dW's product); f32, dW's
-    partial products where it is split (else none)."""
+    (B T Hp bf16, Hp = ``pad_width(H, 2)``, written by the walk, read by
+    dW's product); f32, dW's partial products where it is split (else
+    none)."""
     if dtype == torch.bfloat16:
-        return B * T * H, torch.bfloat16
+        return B * T * pad_width(H, 2), torch.bfloat16
     n = plan.dw_splits * H * H if plan.dw_splits > 1 else 0
     return n, torch.float32
+
+
+def pad_scratch(B: int, T: int, H: int, dtype) -> int:
+    """Entries of K10's scratch for its padded operands where a row of H is
+    not a multiple of 16 bytes (else 0): f32, hs's and da's copies (2 B T
+    Hp); bf16, hs's copy and dW before its crop (B T Hp + Hp Hp)."""
+    w_bytes = 2 if dtype == torch.bfloat16 else 4
+    hp = pad_width(H, w_bytes)
+    if hp == H:
+        return 0
+    return B * T * hp + hp * hp if w_bytes == 2 else 2 * B * T * hp
 
 
 def shifted_rows(dx):
@@ -270,6 +328,14 @@ def step_ns(stamps, T: int, cycles_per_ns: float) -> dict:
     return out
 
 
+def _check_clock(clock, plan: RNNPlan, H: int, name: str):
+    """The bf16 walk's clock is built for blocks of up to 64 columns and
+    rows of 16 bytes."""
+    if clock is not None and (plan.cols > 64 or H % 8):
+        raise ValueError(f"{name}: the bf16 walk's clock is built for H a "
+                         f"multiple of 8 up to {RNN_CLUSTER * 64}")
+
+
 def _launch(xin, w_hh, clock=None):
     """K1 in xin's dtype, float32 or bfloat16 (W_hh in the same); clock
     (bf16 only): None or a (CLOCK_ROWS,) int64 tensor."""
@@ -284,6 +350,7 @@ def _launch(xin, w_hh, clock=None):
     K.check_input(xin, "xin", (B, T, H), xin.dtype, xin.device)
     K.check_input(w_hh, "w_hh", (H, H), xin.dtype, xin.device)
     plan = fused_rnn_plan(B, H, xin.element_size())
+    _check_clock(clock, plan, H, "fused_rnn")
     out = torch.empty_like(xin)
     so = K.lib("fused_rnn", _SIG)
     args = [xin.data_ptr(), w_hh.data_ptr(), out.data_ptr(), B, T, H,
@@ -360,12 +427,17 @@ def _launch_bwd(hs, w_hh, g, clock=None):
         K.check_input(t, tn, shape, hs.dtype, hs.device)
     plan = fused_rnn_bwd_plan(B, T, H, hs.element_size())
     walk = plan.walk
+    _check_clock(clock, walk, H, "fused_rnn_bwd")
     so = K.lib("fused_rnn_bwd", _SIG_BWD)
     dx = torch.empty_like(hs)
     dw = torch.empty((H, H), dtype=hs.dtype, device=hs.device)
     n_part, part_dtype = bwd_scratch(plan, B, T, H, hs.dtype)
-    part = (torch.empty(n_part, dtype=part_dtype, device=hs.device)
-            if n_part else None)
+
+    def scratch(n):
+        return torch.empty(n, dtype=part_dtype, device=hs.device) if n else None
+
+    part = scratch(n_part)
+    pad = scratch(pad_scratch(B, T, H, hs.dtype))
     args = [hs.data_ptr(), w_hh.data_ptr(), g.data_ptr(), dx.data_ptr(),
             dw.data_ptr(), None if part is None else part.data_ptr(), B, T,
             H, walk.cluster, walk.cols, walk.batch_tile, walk.clusters,
@@ -375,6 +447,7 @@ def _launch_bwd(hs, w_hh, g, clock=None):
                  K.clock_ptr(clock, CLOCK_ROWS, hs.device)]
     else:
         args += [plan.dw_rows, plan.dw_splits]
+    args.append(None if pad is None else pad.data_ptr())
     err = getattr(so, f"{name}_launch")(*args, K.stream_of(hs.device))
     K.check(err, name)
     K.launch_counts[name] += 1

@@ -63,18 +63,17 @@ from tip_tpu_torch.models import tip_model as M
 from tip_tpu_torch.ops import _kernels as K
 from tip_tpu_torch.ops import fused_forward as FF
 
-# limit of csrc/fused_cached.cu: ring slots below kMaxT
-MAX_WINDOW = 63
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {"fused_cached_launch": [_P, _P] + [_I] * 14 + [_P] * 6
         + [_I, _P, _P, _I, _P],
-        "fused_cached_scratch_floats": [_I] * 4}
+        "fused_cached_scratch_floats": [_I] * 4,
+        "fused_cached_smem_bytes": [_I] * 10}
 _SIG_BATCH = {
     "fused_cached_batch_launch": [_P, _P] + [_I] * 14 + [_P] * 7
     + [ctypes.c_longlong, _P, _P, _I, _P],
-    "fused_cached_batch_scratch_floats": [_I] * 6}
+    "fused_cached_batch_scratch_floats": [_I] * 6,
+    "fused_cached_batch_smem_bytes": [_I] * 7}
 
 
 _LEAVES = ("k", "v", "enc", "h", "valid")
@@ -384,9 +383,6 @@ def _launch(packed_ws, cache: KVCache, x_token, slot: int, commit: bool,
     d, ff, H = cfg.tf_in_dim, cfg.tf_hid_size, cfg.rnn_hid_size
     ptrs = FF.check_packed(packed_ws, cfg, dev, name)
     W = _check_cache(cache, packed_ws, cfg, dev)
-    if not 1 <= W <= MAX_WINDOW:
-        raise ValueError(f"{name}: the kernel holds 1..{MAX_WINDOW} ring "
-                         f"slots, got {W}")
     K.check_input(x_token, "x_token", (cfg.input_dim,), torch.float32, dev)
     so = K.lib("fused_cached", _SIG)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -404,7 +400,10 @@ def _launch(packed_ws, cache: KVCache, x_token, slot: int, commit: bool,
         scratch.numel(), y.data_ptr(),
         None if clock is None else clock.data_ptr(),
         0 if clock is None else clock.shape[0], stream)
-    FF.check_launch(err, name, cfg)
+    is_bf16 = int(cd == torch.bfloat16)
+    FF.check_launch(err, name, cfg, f"W={W}, ", lambda: FF.smem_bytes(
+        so, "fused_cached_smem_bytes", is_bf16, W, cfg.input_dim, d,
+        cfg.n_heads, ff, cfg.tf_layers, H, cfg.size_s, int(rnn_carry)), dev)
     K.launch_counts[name] += 1
     return cache, y
 
@@ -692,7 +691,9 @@ def _launch_batch(packed_ws, cache: KVCache, x_tokens, slot: int, commit,
         None if clock is None else clock.data_ptr(),
         0 if clock is None else clock.shape[0],
         torch.cuda.current_stream(dev).cuda_stream)
-    FF.check_launch(err, name, cfg)
+    FF.check_launch(err, name, cfg, f"B={B}, W={W}, ", lambda: FF.smem_bytes(
+        so, "fused_cached_batch_smem_bytes", int(cd == torch.bfloat16), B,
+        W, d, cfg.n_heads, H, int(rnn_carry)), dev)
     K.launch_counts[name] += 1
     return y
 
@@ -754,9 +755,6 @@ def fused_cached_batch(packed_ws, cache: KVCache, x_tokens, slot, commit,
     dev = x_tokens.device
     FF.check_packed(packed_ws, cfg, dev, name)
     B, W = _check_cache_batch(cache, packed_ws, cfg, dev)
-    if not 1 <= W <= MAX_WINDOW:
-        raise ValueError(f"{name}: the kernel holds 1..{MAX_WINDOW} ring "
-                         f"slots, got {W}")
     K.check_input(x_tokens, "x_tokens", (B, cfg.input_dim), torch.float32,
                   dev)
     K.check_input(commit, "commit", (B,), torch.bool, dev)
