@@ -92,6 +92,34 @@ Phases, in order; any failure exits non-zero:
      with J, four streams of K-bf16 teacher-forced against A-bf16's
      single-stream model from each stream's own first frame; time and
      profile ticks;
+  5b. the serving daemon, the live demo and data generation, through
+     their CLIs' own builders (cli/serve.build_daemon, cli/live_demo's
+     build_runner and run_loop) on checkpoints of seeded random weights
+     written under output/, over in-process sockets that speak the
+     imu_bridge wire protocol (tests/torch_wire.py):
+       P  cli/serve --five_sbp --with_acc_sum --serving_mode
+          kv_cache_rnn_carry --forward_impl fused --bf16 (G's route: K8,
+          K2, K3) with 64 clients replaying the in-tree motions: 120 ticks
+          in lockstep, each client's lines equal to a twin pool stepped on
+          the same parsed batches, a client leaving and a new one taking
+          its recycled slot; the schedule's streams in f32 against the
+          single-stream runner; then ServeDaemon.run free at 60 Hz for
+          10 s, one client stopping to read halfway: ticks done and due,
+          the tick's host ms split into the pool step and the rest, lines
+          dropped (that client's only), no failed tick, one launch of K8,
+          K2 and K3 a tick;
+       P-2  cli/serve's defaults (2 SBPs, recompute, the plain forward,
+          tail_impl auto: K11, K1 and the plain decode and tail, ROADMAP
+          C14) with 16 clients, 120 lockstep ticks against the plain route
+          on the card; cli/evaluate without --five_sbp over one motion;
+       Q  cli/live_demo's loop through IMUClient from a 60 Hz replay
+          server, --five_sbp --with_acc_sum --multi_sbp_correction (K11,
+          K1, K2, K3), 300 frames with --out, --record and --metrics; the
+          recorded frames through run_offline_full give --out's poses, and
+          through the plain versions, frame by frame from the kernels' own
+          carry, agree within TOL_PATH; the step's latency;
+       R  amass_syn.synthesize of a 1200-frame procedural SMPL motion in
+          float64 on the card against the CPU, timed by stage;
   6. the training paths: pack the 60 in-tree motions with the port's
      data_gen/combine.py into output/, then
        L  one epoch of train_loop at the paper recipe (B 256, T 40, AdamW,
@@ -4639,6 +4667,664 @@ def eval_path(dev):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# serving: the daemon (paths P, P-2), the live demo (Q), data generation (R)
+# ---------------------------------------------------------------------------
+
+# path P: cli/serve's --five_sbp --with_acc_sum --serving_mode
+# kv_cache_rnn_carry --forward_impl fused --bf16 (path G's configuration)
+# at capacity 64, one socket client a slot, each replaying an in-tree
+# motion (the 60, then 0-3 again). (a) in lockstep: at SERVE_REJOIN[0] the
+# client of slot SERVE_REJOIN[1] leaves and a new one takes the recycled
+# slot with motion SERVE_REJOIN[2] from its first frame; (b) free-running
+# under ServeDaemon.run at 60 Hz, the client SERVE_SLOW stopping to read
+# halfway, its socket buffers capped so that its lines are dropped
+SERVE_CLIENTS = 64
+SERVE_LOCKSTEP = 120
+SERVE_REJOIN = (60, 7, 10)
+# the free run lasts SERVE_FREE_S, and longer (up to SERVE_FREE_MAX_S) until
+# SERVE_FREE_TICKS ticks have served every client: the daemon's tick rate
+# at 64 clients varies by a factor of ten between hosts (ROADMAP C15)
+SERVE_FREE_S = 10.0
+SERVE_FREE_TICKS = 60
+SERVE_FREE_MAX_S = 120.0
+# the slow client reads SERVE_SLOW_LINES lines, then stops; its socket
+# buffers (both ends) and the daemon's per-client line buffer are cut
+# small, so that its lines are dropped after ~20 ticks
+SERVE_SLOW = 13
+SERVE_SLOW_LINES = 2
+SERVE_SOCKBUF = 4096
+SERVE_OUTBUF = 8192
+# path P-2: cli/serve's defaults (2 SBPs, no acc-sum, recompute, the plain
+# forward, tail_impl auto) with 16 clients, against the plain route
+P2_CLIENTS = 16
+# path Q: cli/live_demo's loop over a 60 Hz replay of motion 0
+LIVE_FRAMES = 300
+# path R: amass_syn.synthesize of a procedural SMPL motion at 60 Hz
+SYN_FRAMES = 1200
+TOL_SYN_IMU = 1e-9
+
+
+def wire_helper():
+    """tests/torch_wire.py: the wire protocol's peers (numpy, scipy and the
+    standard library)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_wire
+    return torch_wire
+
+
+def corpus_wire_frames(W):
+    """The 60 in-tree motions as wire frames, (720, 42) each."""
+    out = []
+    for i in range(60):
+        with open(CORPUS / f"freeform2_{i:04d}.pkl", "rb") as f:
+            d = pickle.load(f)    # in-tree motions written by data gen
+        out.append(W.wire_frames(d["imu"]))
+    return out
+
+
+def random_checkpoint(name, n_sbps, with_acc_sum, dev):
+    """A checkpoint directory of this package under output/ holding the
+    seeded random weights of a full-width model (cli/train's format)."""
+    import shutil
+    from tip_tpu_torch import constants as cst
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.train import train as TT
+    path = ROOT / "output" / f"chip_smoke_serve_{name}"
+    shutil.rmtree(path, ignore_errors=True)
+    cfg = M.ModelConfig(size_s=cst.state_dim(n_sbps),
+                        with_acc_sum=with_acc_sum)
+    TT.save_checkpoint(str(path), TT.init_state(
+        TT.TrainConfig(model=cfg, n_sbps=n_sbps), dev), 0)
+    return str(path)
+
+
+def twin_pool(daemon, dev, model=None, cfg=None):
+    """A StreamPool of the daemon pool's configuration (or of ``cfg`` with
+    ``model``), stepped directly."""
+    from tip_tpu_torch.runtime.serving import StreamPool
+    pool = daemon.pool
+    return StreamPool(model or pool.model, cfg or pool.cfg,
+                      capacity=pool.capacity, device=dev, chunk=pool.chunk)
+
+
+def lockstep_serve(name, W, daemon, ref, frames, n_clients, ticks,
+                   rejoin=None):
+    """Drive the daemon in lockstep with n_clients socket clients (client i
+    replays frames[i]), and step the pool ``ref`` directly on the same
+    parsed batches. Returns the streams: slot, join tick, the frames fed
+    (parsed), the lines received and ref's qdq of the slot, per tick."""
+    import numpy as np
+    from tip_tpu_torch.runtime.imu_client import parse_wire_frame
+
+    accept = W.start_accepting(daemon)
+    clients, streams = [], []
+    batch = np.tile(daemon._idle, (ref.capacity, 1))
+    try:
+        for i in range(n_clients):
+            clients.append(W.LineClient(daemon.port))
+            slot = ref.add_stream(daemon.s_init)
+            if not clients[-1].slot == slot == i:
+                raise AssertionError(f"path {name}: client {i} got slot "
+                                     f"{clients[-1].slot}, the twin pool "
+                                     f"{slot}")
+            streams.append(dict(slot=i, motion=i, join=0, fed=[], lines=[],
+                                ref=[]))
+        live = list(streams)
+        for t in range(ticks):
+            if rejoin is not None and t == rejoin[0]:
+                slot = rejoin[1]
+                clients[slot].close()
+                W.wait_dropped(daemon, daemon.pool, slot)
+                ref.remove_stream(slot)
+                batch[slot] = daemon._idle
+                clients[slot] = W.LineClient(daemon.port)
+                if not clients[slot].slot == ref.add_stream(daemon.s_init) \
+                        == slot:
+                    raise AssertionError(f"path {name}: the rejoining "
+                                         f"client did not get slot {slot}")
+                live[slot] = dict(slot=slot, motion=rejoin[2], join=t,
+                                  fed=[], lines=[], ref=[])
+                streams.append(live[slot])
+            sends = []
+            for st in live:
+                frame = frames[st["motion"]][t - st["join"]]
+                parsed = parse_wire_frame(
+                    np.array(W.wire_text(frame).split(), dtype=float))
+                batch[st["slot"]] = parsed
+                st["fed"].append(parsed)
+                sends.append((clients[st["slot"]], frame))
+            lines = W.lockstep_tick(daemon, parse_wire_frame, sends)
+            qdq = ref.step(batch)["qdq"].cpu().numpy()
+            for st, line in zip(live, lines):
+                if line["t"] != t:
+                    raise AssertionError(f"path {name}: slot {st['slot']} "
+                                         f"got tick {line['t']} at {t}")
+                st["lines"].append(line["qdq"])
+                st["ref"].append(qdq[st["slot"]])
+    finally:
+        for c in clients:
+            c.close()
+        W.stop_accepting(daemon, accept)
+    return streams
+
+
+def serve_lockstep_p(W, dev, ckpt, frames):
+    """Path P (a): the daemon's lines equal a twin pool's poses rounded as
+    the daemon rounds them; the schedule's streams against the
+    single-stream runner (single_stream_f32)."""
+    import numpy as np
+    from tip_tpu_torch.cli import serve as TSV
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.ops import kinematics as kin
+
+    daemon = TSV.build_daemon(TSV.parse_args(P_ARGS + [
+        "--ckpt", ckpt, "--port", "0"]), log=lambda *_: None)
+    ref = twin_pool(daemon, dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    streams = lockstep_serve("P", W, daemon, ref, frames, SERVE_CLIENTS,
+                             SERVE_LOCKSTEP, rejoin=SERVE_REJOIN)
+    wall = time.perf_counter() - t0
+    counts = {k: K.launch_counts.get(k, 0) for k in KERNELS}
+    want = {"fused_cached_batch": 2 * SERVE_LOCKSTEP,
+            "decode_fused": 2 * SERVE_LOCKSTEP,
+            "tail_fused": 2 * SERVE_LOCKSTEP}
+    if counts != {k: want.get(k, 0) for k in KERNELS}:
+        raise AssertionError(f"path P lockstep (daemon and twin pool): "
+                             f"launches {counts}, expected {want}")
+    n_lines = 0
+    for st in streams:
+        got = np.array(st["lines"])
+        want_lines = np.round(np.array(st["ref"]), 5)
+        n_lines += len(got)
+        if not np.isfinite(got).all() or not np.array_equal(got,
+                                                           want_lines):
+            raise AssertionError(
+                f"path P: slot {st['slot']} (joined at tick {st['join']}): "
+                f"the daemon's lines differ from the twin pool's poses by "
+                f"{np.abs(got - want_lines).max():.3g}")
+    log(f"  path P lockstep: {len(streams)} streams, {n_lines} lines over "
+        f"{SERVE_LOCKSTEP} ticks, each equal to the twin pool's poses "
+        f"rounded to 5 places ({wall:.1f} s)")
+    f32 = single_stream_f32(streams, daemon.pool.model,
+                            kin.amass_skeleton(device=dev), daemon.s_init,
+                            dev)
+    log(f"  path P's schedule in f32 vs the single-stream runner: max "
+        f"|diff| {f32:.3g} over {len(streams)} streams")
+    return dict(lines=n_lines, wall_s=wall, single_f32_max_abs_diff=f32)
+
+
+def single_stream_diff(model, cfg, skel, s_init, st, dev, pooled):
+    """Max |pooled - the single-stream runner's qdq| of one stream over its
+    fed frames from its join tick."""
+    import numpy as np
+    from tip_tpu_torch.runtime import runner as R
+    fed = np.array(st["fed"] + st["fed"][-1:])
+    single = R.run_offline(model, cfg, skel, s_init, fed,
+                           device=dev)[0][1:].double().cpu()
+    a = torch.as_tensor(np.array(pooled), dtype=torch.float64)
+    return (a - single).abs().max().item()
+
+
+def single_stream_f32(streams, model, skel, s_init, dev):
+    """Path P's schedule (every stream's fed frames from its join tick, the
+    rejoin on a recycled slot) through a pool of P's serving mode in f32,
+    each stream held against the single-stream runner within TOL_PATH, as
+    H against D. In bf16 the pooled and the single-stream products round
+    apart (one bf16 step, 2^-8 relative), and with random weights the
+    decode's Shepperd near-ties (ROADMAP C4) turn that into a joint's
+    flip (P's bf16 streams read up to 5.5 off the single-stream runner on
+    an H100), so P's own configuration is held against its twin pool,
+    not against the single-stream runner."""
+    import numpy as np
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.runtime import runner as R
+    from tip_tpu_torch.runtime.serving import StreamPool
+
+    cfg = R.RunnerConfig(model=M.ModelConfig(forward_impl="fused",
+                                             compute_dtype="float32"),
+                         serving_mode="kv_cache_rnn_carry")
+    f32 = M.TIPModel(cfg.model, device=dev)
+    f32.load_state_dict(model.state_dict())
+    pool = StreamPool(f32, cfg, capacity=POOL_CAPACITY, device=dev)
+    idle = np.zeros(72, np.float32)
+    idle[[0, 4, 8]] = 1.0
+    batch = np.tile(idle, (POOL_CAPACITY, 1))
+    ticks = max(st["join"] + len(st["fed"]) for st in streams)
+    outs = {id(st): [] for st in streams}
+    for t in range(ticks):
+        for st in streams:
+            if st["join"] == t:
+                if t > 0:
+                    pool.remove_stream(st["slot"])
+                if pool.add_stream(s_init) != st["slot"]:
+                    raise AssertionError("path P (f32): slot mismatch")
+        live = [st for st in streams
+                if st["join"] <= t < st["join"] + len(st["fed"])]
+        for st in live:
+            batch[st["slot"]] = st["fed"][t - st["join"]]
+        qdq = pool.step(batch)["qdq"].cpu().numpy()
+        for st in live:
+            outs[id(st)].append(qdq[st["slot"]])
+    worst = max(single_stream_diff(f32, cfg, skel, s_init, st, dev,
+                                   outs[id(st)]) for st in streams)
+    check(f"path P's schedule in f32 ({len(streams)} streams) vs the "
+          f"single-stream runner", {"qdq": (worst, TOL_PATH)})
+    return worst
+
+
+P_ARGS = ["--five_sbp", "--with_acc_sum", "--serving_mode",
+          "kv_cache_rnn_carry", "--forward_impl", "fused", "--bf16"]
+
+
+def serve_free_p(W, dev, ckpt, frames, card):
+    """Path P (b): ServeDaemon.run at 60 Hz with 64 clients pushing at 60
+    Hz from another process, for SERVE_FREE_S or until SERVE_FREE_TICKS
+    ticks have served every client; the client SERVE_SLOW stops reading
+    early. The tick is timed from outside the daemon: its _tick_once and
+    its pool's step (synchronised) are wrapped."""
+    import multiprocessing
+    import socket
+    import threading
+    from tip_tpu_torch.cli import serve as TSV
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.runtime import serve_daemon as SD
+
+    logged = []
+    daemon = TSV.build_daemon(TSV.parse_args(P_ARGS + [
+        "--ckpt", ckpt, "--port", "0"]), log=logged.append)
+    tick_ms, pool_ms = [], []
+    step, tick_once = daemon.pool.step, daemon._tick_once
+
+    def timed_step(batch):
+        t0 = time.perf_counter()
+        out = step(batch)
+        torch.cuda.synchronize()
+        pool_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_tick(batch):
+        t0 = time.perf_counter()
+        tick_once(batch)
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+    daemon.pool.step = timed_step
+    daemon._tick_once = timed_tick
+    # warm the pool's first tick outside the timed run
+    daemon.pool.step(daemon._batch)
+    torch.cuda.synchronize()
+    tick_ms.clear()
+    pool_ms.clear()
+
+    K.reset_launch_counts()
+    span = {}
+
+    def run():
+        span["t0"] = time.perf_counter()
+        daemon.run()
+        span["t1"] = time.perf_counter()
+    ticker = threading.Thread(target=run, daemon=True)
+    # the clients live in a process of their own, as they would on the
+    # network: in the daemon's process their pushing, formatting and
+    # parsing would take the interpreter lock from its ticker. The daemon
+    # starts once every client sits in its listen backlog
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    load = ctx.Process(target=W.client_load, args=(
+        daemon.port, frames, SERVE_SLOW, SERVE_SOCKBUF, SERVE_SLOW_LINES,
+        results), daemon=True)
+    outbuf = SD.MAX_OUTBUF
+    SD.MAX_OUTBUF = SERVE_OUTBUF
+    load.start()
+    try:
+        results.get(timeout=120)
+        ticker.start()
+        kind, slot_of = results.get(timeout=SERVE_FREE_MAX_S)
+        connected_at = daemon.ticks
+        with daemon._lock:
+            served = dict(daemon._clients)
+        served[slot_of[SERVE_SLOW]].conn.setsockopt(
+            socket.SOL_SOCKET, socket.SO_SNDBUF, SERVE_SOCKBUF)
+        W.wait_until(lambda: time.perf_counter() - span["t0"] >= SERVE_FREE_S
+                     and daemon.ticks >= connected_at + SERVE_FREE_TICKS,
+                     "the free run's ticks", SERVE_FREE_MAX_S, poll=0.05)
+        daemon.stop()
+        ticker.join(60)
+        kind, n_lines, bad = results.get(timeout=120)
+        load.join(30)
+    finally:
+        SD.MAX_OUTBUF = outbuf
+        daemon.stop()
+        if load.is_alive():
+            load.terminate()
+    if ticker.is_alive() or load.exitcode != 0 or len(served) != \
+            SERVE_CLIENTS:
+        raise AssertionError(f"path P free run: the ticker alive "
+                             f"{ticker.is_alive()}, the clients' exit code "
+                             f"{load.exitcode}, {len(served)} clients "
+                             f"registered")
+    counts = {k: K.launch_counts.get(k, 0) for k in KERNELS}
+    ticks = daemon.ticks
+    want = {"fused_cached_batch": ticks, "decode_fused": ticks,
+            "tail_fused": ticks}
+    if counts != {k: want.get(k, 0) for k in KERNELS}:
+        raise AssertionError(f"path P free run: launches {counts}, "
+                             f"expected one of K8, K2, K3 a tick ({ticks})")
+    failed = [m for m in logged if "failed" in m]
+    dropped = {c.slot: c.dropped for c in served.values()}
+    slow_slot = slot_of[SERVE_SLOW]
+    due = int((span["t1"] - span["t0"]) * 60.0)
+    steady = list(zip(tick_ms, pool_ms))[connected_at:]
+    tick_s, pool_s = (sorted(x) for x in zip(*steady))
+    rest_s = sorted(t - p for t, p in steady)
+
+    def pct(xs, q):
+        return xs[min(len(xs) - 1, int(q * len(xs)))]
+    summary = dict(
+        ticks_done=ticks, ticks_due=due, seconds=span["t1"] - span["t0"],
+        connected_at_tick=connected_at,
+        tick_ms_p50=pct(tick_s, 0.5), tick_ms_p99=pct(tick_s, 0.99),
+        pool_step_ms_p50=pct(pool_s, 0.5), pool_step_ms_p99=pct(pool_s, 0.99),
+        rest_ms_p50=pct(rest_s, 0.5), rest_ms_p99=pct(rest_s, 0.99),
+        slow_slot=slow_slot,
+        lines_dropped={str(k): v for k, v in dropped.items() if v},
+        lines_received_min=min(n for i, n in enumerate(n_lines)
+                               if i != SERVE_SLOW),
+        failed_ticks=len(failed), launches={k: v for k, v in counts.items()
+                                            if v}, card=card)
+    log(json.dumps({"serve_free_run": summary}))
+    if failed or bad:
+        raise AssertionError(f"path P free run: {len(failed)} failed ticks "
+                             f"({failed[:2]}), non-finite lines {bad[:4]}")
+    if any(v for k, v in dropped.items() if k != slow_slot) or \
+            not dropped.get(slow_slot):
+        raise AssertionError(f"path P free run: lines dropped {dropped}; "
+                             f"expected drops for slot {slow_slot} only")
+    return summary, counts
+
+
+def serve_defaults_p2(W, dev, ckpt, frames):
+    """Path P-2: cli/serve at its defaults (2 SBPs: ROADMAP C14's route,
+    the plain versions of K2 and K3 under tail_impl "auto") in lockstep
+    with P2_CLIENTS clients, against a twin pool of the plain route on the
+    card; then cli/evaluate without --five_sbp over one motion."""
+    import numpy as np
+    from tip_tpu_torch import constants as cst
+    from tip_tpu_torch.cli import evaluate as TCE
+    from tip_tpu_torch.cli import serve as TSV
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.runtime import runner as R
+
+    daemon = TSV.build_daemon(TSV.parse_args(["--ckpt", ckpt, "--port",
+                                              "0"]), log=lambda *_: None)
+    cfg = daemon.pool.cfg
+    if cfg.n_sbps != 2 or cfg.resolved_tail_impl("cuda") != "plain":
+        raise AssertionError(f"path P-2: n_sbps {cfg.n_sbps}, tail route "
+                             f"{cfg.resolved_tail_impl('cuda')}")
+    plain_cfg = R.RunnerConfig(
+        model=M.ModelConfig(size_s=cst.state_dim(2), with_acc_sum=False,
+                            rnn_impl="plain", encoder_impl="plain"),
+        n_sbps=2, with_acc_sum=False, tail_impl="plain")
+    plain = M.TIPModel(plain_cfg.model, device=dev)
+    plain.load_state_dict(daemon.pool.model.state_dict())
+    ref = twin_pool(daemon, dev, plain, plain_cfg)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    streams = lockstep_serve("P-2", W, daemon, ref, frames, P2_CLIENTS,
+                             SERVE_LOCKSTEP)
+    wall = time.perf_counter() - t0
+    counts = {k: K.launch_counts.get(k, 0) for k in KERNELS}
+    want = {"encoder_layer_fwd": 4 * SERVE_LOCKSTEP,
+            "fused_rnn": SERVE_LOCKSTEP}
+    if counts != {k: want.get(k, 0) for k in KERNELS}:
+        raise AssertionError(f"path P-2: launches {counts}, expected "
+                             f"{want} (the plain decode and tail)")
+    got = np.array([st["lines"] for st in streams])
+    ref_q = np.array([st["ref"] for st in streams])
+    if not np.isfinite(got).all():
+        raise AssertionError("path P-2: a line is not finite")
+    # the lines are rounded to 5 places
+    err = np.abs(got - ref_q).max()
+    check("path P-2 (cli/serve defaults) vs the plain route on the card",
+          {"qdq": (err, TOL_PATH + 5e-6)})
+    log(f"  path P-2: {P2_CLIENTS} clients x {SERVE_LOCKSTEP} ticks, max "
+        f"|line - plain| {err:.3g} ({wall:.1f} s)")
+
+    # cli/evaluate without --five_sbp (2 SBPs) over one in-tree motion
+    root = ROOT / "output" / "chip_smoke_serve_eval" / "syn_AMASS_CMU_v0"
+    root.mkdir(parents=True, exist_ok=True)
+    (root / MOTION.name).write_bytes(MOTION.read_bytes())
+    K.reset_launch_counts()
+    _, means, _ = TCE.main(["--ckpt", ckpt, "--data_root", str(root.parent),
+                            "--name_contains", "freeform2", "--test_len",
+                            "300"])
+    ev = {k: K.launch_counts.get(k, 0) for k in KERNELS}
+    if not (ev["fused_rnn"] > 0 and ev["encoder_layer_fwd"] > 0
+            and ev["tail_fused"] == ev["decode_fused"] == 0) or \
+            not all(math.isfinite(v) for v in means.values()):
+        raise AssertionError(f"path P-2 cli/evaluate: launches {ev}, "
+                             f"means {means}")
+    return counts, dict(lines=int(got.size // 114), max_abs_diff=float(err),
+                        wall_s=wall, evaluate_means=means,
+                        evaluate_launches={k: v for k, v in ev.items() if v})
+
+
+def all_latencies():
+    """A LatencyHistogram that also keeps every record in ``all``."""
+    from tip_tpu_torch.utils.observability import LatencyHistogram
+
+    class AllLatencies(LatencyHistogram):
+        def __init__(self):
+            super().__init__()
+            self.all = []
+
+        def record(self, seconds):
+            super().record(seconds)
+            self.all.append(seconds)
+    return AllLatencies()
+
+
+def live_demo_q(W, dev, ckpt, frames, card):
+    """Path Q: cli/live_demo's loop (run_loop) through IMUClient, fed by a
+    60 Hz replay server of motion 0, in the CLI's --five_sbp --with_acc_sum
+    --multi_sbp_correction configuration (bench.py's full runner; the
+    encoder through K11), LIVE_FRAMES frames with --out, --record and
+    --metrics; the recorded frames through run_offline_full give --out's
+    poses, and through the plain versions on the card, frame by frame
+    from the kernels' own carry, agree within TOL_PATH."""
+    import numpy as np
+    from tip_tpu_torch.cli import live_demo as TLD
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.runtime import calibration as cal
+    from tip_tpu_torch.runtime import full_runner as FR
+    from tip_tpu_torch.runtime import runner as R
+    from tip_tpu_torch.runtime.imu_client import IMUClient
+
+    out_dir = ROOT / "output" / "chip_smoke_live"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = {k: str(out_dir / n) for k, n in (
+        ("out", "poses.jsonl"), ("record", "frames.f32"),
+        ("metrics", "metrics.jsonl"))}
+    args = TLD.parse_args(["--ckpt", ckpt, "--five_sbp", "--with_acc_sum",
+                           "--multi_sbp_correction", "--skip_calibration"])
+    model, cfg, skel, _ = TLD.build_runner(args)
+    server = W.ReplayServer(frames[0], hz=60.0)
+    client = IMUClient(port=server.port)
+    hist = all_latencies()
+    try:
+        client.start()
+        W.wait_until(lambda: client.current_reading() is not None,
+                     "the first frame", 30.0)
+        K.reset_launch_counts()
+        n, summ = TLD.run_loop(model, cfg, skel, client, None, dev,
+                               max_frames=LIVE_FRAMES, out_path=paths["out"],
+                               record_path=paths["record"],
+                               metrics_path=paths["metrics"], hist=hist,
+                               log=log)
+        counts = {k: K.launch_counts.get(k, 0) for k in KERNELS}
+    finally:
+        client.stop()
+        server.stop()
+    # run_loop's warm-up makes one model frame, the loop one a frame past
+    # the smoothing warm-up
+    model_frames = 1 + LIVE_FRAMES - cfg.base.imu_n_smooth
+    want = {"encoder_layer_fwd": 4 * model_frames, "fused_rnn": model_frames,
+            "decode_fused": model_frames, "tail_fused": model_frames}
+    if n != LIVE_FRAMES or counts != {k: want.get(k, 0) for k in KERNELS}:
+        raise AssertionError(f"path Q: {n} frames, launches {counts}, "
+                             f"expected {want}")
+    poses = np.array([json.loads(ln)["qdq"] for ln in
+                      Path(paths["out"]).read_text().splitlines()])
+    fed = np.fromfile(paths["record"], np.float32).reshape(-1, 72)
+    metrics = [json.loads(ln) for ln in
+               Path(paths["metrics"]).read_text().splitlines()]
+    if not (len(poses) == len(fed) == LIVE_FRAMES and np.isfinite(poses).all()
+            and metrics[-1]["kind"] == "final"
+            and metrics[-1]["frames"] == LIVE_FRAMES):
+        raise AssertionError(f"path Q: {len(poses)} poses, {len(fed)} "
+                             f"frames recorded, metrics {metrics[-1]}")
+    frames_in = np.concatenate([fed, fed[-1:]])
+    s_init = cal.t_pose_init_state()
+    again = FR.run_offline_full(model, cfg, skel, s_init, frames_in,
+                                device=dev)[0][1:].double().cpu().numpy()
+    plain_model = M.TIPModel(dataclasses.replace(
+        cfg.base.model, rnn_impl="plain", encoder_impl="plain"), device=dev)
+    plain_model.load_state_dict(model.state_dict())
+    plain_cfg = dataclasses.replace(cfg, base=dataclasses.replace(
+        cfg.base, model=plain_model.cfg, tail_impl="plain"))
+    errs = {"rerun of --record": (np.abs(poses - again).max(), TOL_SAME),
+            "plain versions, teacher-forced": (teacher_forced_full(
+                model, cfg, plain_model, plain_cfg, skel, s_init, fed, dev),
+                TOL_PATH)}
+    check("path Q (cli/live_demo) --out against", errs)
+    lat = sorted(1e3 * x for x in hist.all)
+    summary = dict(frames=n, p50_ms=summ["p50_ms"], p99_ms=summ["p99_ms"],
+                   max_ms=summ["max_ms"],
+                   over_16_7_ms=sum(x > 1e3 / 60 for x in lat),
+                   rerun_max_abs_diff=float(errs["rerun of --record"][0]),
+                   plain_teacher_forced_max_abs_diff=float(
+                       errs["plain versions, teacher-forced"][0]),
+                   launches={k: v for k, v in counts.items() if v},
+                   card=card)
+    log(json.dumps({"live_demo": summary}))
+    return counts, summary
+
+
+def teacher_forced_full(model, cfg, plain, plain_cfg, skel, s_init, frames,
+                        dev):
+    """Max |qdq| between the full runner's step through the kernels and
+    through the plain versions, each frame from the kernels' run's own
+    carry (a step leaves the carry it is given as it was). Free-running,
+    a random model's decode meets Shepperd near-ties (ROADMAP C4) where a
+    1e-6 difference turns a joint; the live feed, sampled latest-wins, is
+    another sequence in every run (measured on one H100: 3.6 free-running
+    at one such tie)."""
+    from tip_tpu_torch.runtime import full_runner as FR
+    from tip_tpu_torch.runtime import runner as R
+    packed = R.pack_fused_weights(model, cfg.base, torch.float32)
+    carry = FR.full_runner_init(cfg, skel, s_init, device=dev)
+    worst = 0.0
+    for x in torch.as_tensor(frames, dtype=torch.float32, device=dev):
+        nxt, out = FR.full_runner_step(model, carry, x, cfg, skel,
+                                       packed_ws=packed)
+        _, ref = FR.full_runner_step(plain, carry, x, plain_cfg, skel)
+        worst = max(worst, (out["qdq"] - ref["qdq"]).abs().max().item())
+        carry = nxt
+    return worst
+
+
+def procedural_motion(T, fps, seed=17):
+    """A procedural SMPL motion (scripts/e2e_synthetic_demo.py's): a
+    randomised swing of 14 joints and a drifting, bobbing root."""
+    import numpy as np
+    from tip_tpu_torch.data_gen import smpl
+    rng = np.random.default_rng(seed)
+    t = np.arange(T) / fps
+    poses = np.zeros((T, 24, 3))
+    poses[:, 0] = [1.20919958, 1.20919958, 1.20919958]
+    for j in (1, 2, 4, 5, 7, 8, 3, 6, 12, 15, 16, 17, 18, 19):
+        amp, f = rng.uniform(0.05, 0.45), rng.uniform(0.3, 1.2)
+        ph = rng.uniform(0, 2 * np.pi)
+        ax = rng.normal(size=3)
+        ax /= np.linalg.norm(ax)
+        poses[:, j] = np.outer(amp * np.sin(2 * np.pi * f * t + ph), ax)
+    trans = np.zeros((T, 3))
+    trans[:, 2] = 0.95 + 0.03 * np.sin(2 * np.pi * 0.9 * t)
+    trans[:, 0] = rng.uniform(-0.5, 0.5) * t
+    trans[:, 1] = rng.uniform(-0.3, 0.3) * t
+    return smpl.SmplMotion(poses=poses, trans=trans, fps=fps)
+
+
+def datagen_r(dev, card):
+    """Path R: amass_syn.synthesize of a SYN_FRAMES-frame procedural motion
+    at 60 Hz in float64 on the card equals the same on the CPU (imu
+    TOL_SYN_IMU, the SBP flags equal); its stages timed on the card."""
+    import numpy as np
+    from tip_tpu_torch.data_gen import amass_syn as S
+    from tip_tpu_torch.data_gen import smpl
+
+    motion = procedural_motion(SYN_FRAMES, 60.0)
+    S.synthesize(procedural_motion(120, 60.0, seed=3), height=1.7,
+                 device=dev)                      # first use on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_out = S.synthesize(motion, height=1.7, device=dev)
+    card_s = time.perf_counter() - t0
+    cpu_out = S.synthesize(motion, height=1.7, device="cpu")
+    T = len(card_out["imu"])
+    errs = {"imu": (np.abs(card_out["imu"] - cpu_out["imu"]).max(),
+                    TOL_SYN_IMU),
+            "nimble_qdq": (np.abs(card_out["nimble_qdq"]
+                                  - cpu_out["nimble_qdq"]).max(), TOL_SYN_IMU),
+            "sbp_flags_off": (int((card_out["constrs"][:, 0::4]
+                                   != cpu_out["constrs"][:, 0::4]).sum()), 0),
+            "constrs": (np.abs(card_out["constrs"]
+                               - cpu_out["constrs"]).max(), TOL_SYN_IMU)}
+    check(f"path R (synthesize, {T} frames) card vs CPU", errs)
+    # the stages one by one, each ended by a synchronise
+    split = {}
+
+    def timed(name, fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        split[name] = (time.perf_counter() - t0) * 1e3 / T
+        return out
+    aa60, trans60, _ = timed("resample", smpl.resample_motion, motion)
+    fk = timed("fk", S.fk_motion, aa60, trans60, 1.7, device=dev)
+    timed("imu", S.imu_from_fk, fk["pq_imu"])
+    timed("labels", S.sbp_labels, fk["pq_sbp"])
+    timed("qdq", S.nimble_qdq, aa60, trans60, device=dev)
+    summary = dict(frames=T, s_per_1000_frames=card_s * 1e3 / T,
+                   s_per_1000_frames_by_stage=split,
+                   sbp_active_share=float(card_out["constrs"][:, 0::4]
+                                          .mean()), card=card)
+    log(json.dumps({"datagen": summary}))
+    return summary
+
+
+def serving_paths(dev, card):
+    """Paths P, P-2, Q and R. Returns (launches by path, summary)."""
+    W = wire_helper()
+    frames = corpus_wire_frames(W)
+    clients = [frames[i % 60] for i in range(SERVE_CLIENTS)]
+    ck5 = random_checkpoint("5sbp", 5, True, dev)
+    ck2 = random_checkpoint("2sbp", 2, False, dev)
+    launches, summary = {}, {}
+    t0 = time.perf_counter()
+    summary["P"] = serve_lockstep_p(W, dev, ck5, clients)
+    summary["P"]["free_run"], launches["P"] = serve_free_p(
+        W, dev, ck5, clients, card)
+    launches["P-2"], summary["P-2"] = serve_defaults_p2(W, dev, ck2, frames)
+    launches["Q"], summary["Q"] = live_demo_q(W, dev, ck5, frames, card)
+    summary["R"] = datagen_r(dev, card)
+    log(f"  serving paths P, P-2, Q, R: {time.perf_counter() - t0:.1f} s")
+    return launches, summary
+
+
 # the path whose launches a kernel's entry reports
 COUNTED_ON = {"fused_rnn": "A", "decode_fused": "A", "tail_fused": "A",
               "fused_forward_last": "B", "fused_forward": "replay",
@@ -4734,6 +5420,8 @@ def main():
     launches.update(widened_paths(dev, state_dict))
     eval_launches, eval_summary = eval_path(dev)
     launches.update(eval_launches)
+    serve_launches, serve_summary = serving_paths(dev, card)
+    launches.update(serve_launches)
     train_launches, train_summary = training_paths(dev)
     launches.update(train_launches)
     for k in kernels:
@@ -4744,6 +5432,8 @@ def main():
             if launches[p][k["name"]]}
         k["launches_pool"] = {p: launches[p][k["name"]] for p in (
             "G", "H", "I", "J", "K", "K-bf16") if launches[p][k["name"]]}
+        k["launches_serving"] = {p: launches[p][k["name"]] for p in (
+            "P", "P-2", "Q") if launches[p][k["name"]]}
         if not k["launches"] > 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
         if k["name"] in abf_calls:
@@ -4758,6 +5448,11 @@ def main():
                                       for n, v in train_summary.items()},
                     "eval_s_per_motion": {n: v["s_per_motion"]
                                           for n, v in eval_summary.items()},
+                    "serve_tick_ms_p50": serve_summary["P"]["free_run"][
+                        "tick_ms_p50"],
+                    "live_frame_ms_p50": serve_summary["Q"]["p50_ms"],
+                    "datagen_s_per_1000_frames": serve_summary["R"][
+                        "s_per_1000_frames"],
                     "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

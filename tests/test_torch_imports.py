@@ -1,6 +1,7 @@
-"""The port stands alone: no module of tip_tpu_torch, and not chip_smoke.py
-or scripts/torch_k12_variants.py, imports JAX, Flax or tip_tpu; and its entry points run on CUDA unless the
-caller asks for the CPU."""
+"""The port stands alone: no module of tip_tpu_torch, and not chip_smoke.py,
+scripts/torch_k12_variants.py or the wire helper tests/torch_wire.py that
+chip_smoke.py imports, imports JAX, Flax or tip_tpu; and its entry points
+run on CUDA unless the caller asks for the CPU."""
 
 import ast
 from pathlib import Path
@@ -20,7 +21,19 @@ from tip_tpu_torch.cli import train as TCT
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "tip_tpu")
 PORT_FILES = sorted((ROOT / "tip_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_k12_variants.py"]
+    [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_k12_variants.py",
+     ROOT / "tests" / "torch_wire.py"]
+# the serving daemon, live I/O and data generation from SMPL motions
+SERVING_AND_DATAGEN = (
+    "tip_tpu_torch/runtime/calibration.py",
+    "tip_tpu_torch/runtime/imu_client.py",
+    "tip_tpu_torch/utils/observability.py",
+    "tip_tpu_torch/runtime/serve_daemon.py",
+    "tip_tpu_torch/cli/serve.py", "tip_tpu_torch/cli/live_demo.py",
+    "tip_tpu_torch/ops/sbp.py", "tip_tpu_torch/data_gen/smpl.py",
+    "tip_tpu_torch/data_gen/amass_syn.py", "tip_tpu_torch/data_gen/dip.py",
+    "tip_tpu_torch/cli/preprocess_dip.py", "tip_tpu_torch/cli/gen_data.py",
+    "tests/torch_wire.py")
 
 
 def _imported_roots(path):
@@ -58,6 +71,16 @@ def test_port_files_found():
             "tip_tpu_torch/eval_corruption.py",
             "tip_tpu_torch/cli/evaluate.py",
             "tip_tpu_torch/cli/import_torch_ckpt.py"} <= names
+
+
+@pytest.mark.parametrize("name", SERVING_AND_DATAGEN)
+def test_serving_and_datagen_files_are_checked(name):
+    """Each module of the serving daemon, live I/O and data generation is
+    among the files checked above, and imports no JAX and nothing of
+    tip_tpu."""
+    assert ROOT / name in PORT_FILES, name
+    bad = sorted(set(_imported_roots(ROOT / name)) & set(FORBIDDEN))
+    assert not bad, f"{name} imports {bad}"
 
 
 def _no_cuda():
@@ -138,6 +161,35 @@ def test_eval_entry_points_default_to_cuda(entry, tmp_path):
             TCE.main(["--ckpt", str(pt), "--data_root", str(tmp_path)])
         else:
             TCI.main(["--pt", str(pt), "--out", str(tmp_path / "o")])
+
+
+@pytest.mark.parametrize("entry", ["synthesize", "nimble_qdq", "cli_serve",
+                                   "cli_live_demo", "cli_gen_data",
+                                   "cli_preprocess_dip"])
+def test_serving_and_datagen_entry_points_default_to_cuda(entry, tmp_path):
+    """Data generation and the serving CLIs run on cuda unless asked for
+    the CPU: each resolves its device before it runs anything."""
+    import numpy as np
+    from tip_tpu_torch.cli import gen_data, live_demo, preprocess_dip, serve
+    from tip_tpu_torch.data_gen import amass_syn, smpl
+    _no_cuda()
+    pt = str(tmp_path / "m.pt")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "synthesize":
+            amass_syn.synthesize(smpl.SmplMotion(
+                np.zeros((40, 24, 3)), np.zeros((40, 3)), 60.0), height=1.7)
+        elif entry == "nimble_qdq":
+            amass_syn.nimble_qdq(np.zeros((4, 24, 3)), np.zeros((4, 3)))
+        elif entry == "cli_serve":
+            serve.main(["--ckpt", pt, "--port", "0"])
+        elif entry == "cli_live_demo":
+            live_demo.main(["--ckpt", pt, "--port", "0"])
+        elif entry == "cli_gen_data":
+            gen_data.main(["--src_dir", str(tmp_path),
+                           "--save_dir", str(tmp_path / "o")])
+        else:
+            preprocess_dip.main(["--dip", "--src_dir", str(tmp_path),
+                                 "--save_dir", str(tmp_path / "o")])
 
 
 def _tiny_blobs(d):

@@ -39,6 +39,14 @@ NON_ROOT_ACTIVE_IDX = np.array(
 BULLET_FROM_NIMBLE_GATHER = np.array(
     [NIMBLE_STATE_MAP[int(i)] - 1 for i in NON_ROOT_ACTIVE_IDX], np.int64)
 
+# IMU sensor placement, bullet joint indices. Order defines the 6x(9+3)
+# feature layout: [root, lwrist, rwrist, lknee, rknee, upperneck] (the
+# knee-IMU variant); the ankle-IMU variant below
+IMU_JOINTS_KNEE = (-1, _JID["lwrist"], _JID["rwrist"], _JID["lknee"],
+                   _JID["rknee"], _JID["upperneck"])
+IMU_JOINTS_ANKLE = (-1, _JID["rankle"], _JID["lankle"], _JID["lwrist"],
+                    _JID["rwrist"], _JID["upperneck"])
+
 # SBP-constrained links, order defines the n_sbps*4 label layout
 SBP_LINKS = (_JID["lankle"], _JID["rankle"], _JID["lwrist"], _JID["rwrist"],
              -1)

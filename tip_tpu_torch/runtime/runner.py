@@ -81,9 +81,12 @@ class RunnerConfig:
     # exponential output filter weights 0.6^[5..0]
     filter_len: int = 6
     # stages 4-7: "fused" launches kernels K2 (decode) and K3 (tail) and
-    # needs CUDA tensors; "plain" runs their plain PyTorch versions; "auto"
-    # is fused on a CUDA device and plain on the CPU. K3 takes the 5-SBP
-    # layout only: another SBP count on the card needs "plain"
+    # needs CUDA tensors and the 5-SBP layout; "plain" runs the plain ops.
+    # "auto" is resolved once from the configuration by
+    # ``resolved_tail_impl``, as tip_tpu's: "fused" on a CUDA device with
+    # 5 SBPs, else the plain versions of K2 and K3 (with another SBP count
+    # on the card too, which K3 does not take). K2 takes any count, but
+    # the route keeps decode and tail together, as tip_tpu's XLA tail does
     tail_impl: str = "auto"
     # FK of the plain tail (tail_impl="plain"; the fused tail holds its own
     # tree walk): "plain" is the level-parallel ops/kinematics.fk, "kernel"
@@ -118,6 +121,18 @@ class RunnerConfig:
                 f"fk_impl={self.fk_impl!r} selects the FK of the plain tail: "
                 f"it needs tail_impl='plain' (the fused tail holds its own "
                 f"FK), got tail_impl={self.tail_impl!r}")
+
+    def resolved_tail_impl(self, device_type: str) -> str:
+        """The route of stages 4-7 on a device of ``device_type`` ("cuda",
+        "cpu"), for K2's and K3's wrappers: "auto" is "fused" on "cuda" with
+        the 5-SBP layout and "plain" otherwise; an explicit value passes
+        through (an explicit "fused" with another SBP count is refused in
+        ``__post_init__``). Pure in (tail_impl, n_sbps, device_type): the
+        route comes from the configuration, never from a failed launch."""
+        if self.tail_impl != "auto":
+            return self.tail_impl
+        return ("fused" if device_type == "cuda" and self.n_sbps == 5
+                else "plain")
 
     @property
     def cached(self) -> bool:
@@ -423,7 +438,7 @@ def sense_and_predict(model: M.TIPModel, carry: RunnerCarry, cur_imu,
     dec = FT.decode_fused(y_t, filt_view, _filter_coeff(cfg, dtype, dev),
                           n_out >= cfg.filter_len, local[:9],
                           filter_len=cfg.filter_len, n_sbps=cfg.n_sbps,
-                          impl=cfg.tail_impl)
+                          impl=cfg.resolved_tail_impl(dev.type))
     y_f = dec.y_f
     c_t = dec.c_t.reshape(-1)
     # quat -> axis-angle stays outside the kernel, as in tip_tpu
@@ -456,10 +471,12 @@ def _tail(cfg: RunnerConfig, skel: kin.Skeleton, s_t, c_t,
     runs the plain ops with the FK of ``fk_impl`` and leaves ``hist_sixd``
     None (the caller encodes the history with ``state_to_history``, which
     never reads the root position the correction moves); otherwise kernel
-    K3, or its plain version for CPU tensors."""
+    K3, or its plain version where ``resolved_tail_impl`` says "plain"
+    (CPU tensors, or an SBP count other than 5)."""
     if cfg.tail_impl != "plain":
         return FT.tail_fused(skel, s_t, c_t, prev_pq, dt=cfg.dt,
-                             impl=cfg.tail_impl, n_sbps=cfg.n_sbps)
+                             impl=cfg.resolved_tail_impl(s_t.device.type),
+                             n_sbps=cfg.n_sbps)
     pq_com, pq_jf = _fk(cfg, skel, s_t)
     corr = sbp_ops.root_correction_from_constrs(
         prev_pq, pq_com, c_t, n_sbps=cfg.n_sbps,
@@ -853,7 +870,7 @@ def pool_step(model: M.TIPModel, carries: PoolCarry, imu_batch,
     dec = FT.decode_fused(y_t, filt_view, _filter_coeff(cfg, dtype, dev),
                           use_filter, local[:, :9].contiguous(),
                           filter_len=cfg.filter_len, n_sbps=cfg.n_sbps,
-                          impl=cfg.tail_impl)
+                          impl=cfg.resolved_tail_impl(dev.type))
     y_f = dec.y_f
     c_t = dec.c_t.reshape(B, -1)
     aa18 = rot.q_to_aa(dec.q_rows)              # row 0: root ori from IMU0
