@@ -34,8 +34,8 @@ Phases, in order; any failure exits non-zero:
      stage by stage);
   4. run the main paths: the full-width model (ModelConfig() defaults,
      random weights from a seeded generator) in the streaming runner over
-     the in-tree 720-frame motion, each path with every launch counter
-     reset just before and read just after. Recompute mode:
+     the first 360 frames of an in-tree motion, each path with every launch
+     counter reset just before and read just after. Recompute mode:
        A  eager model with the plain encoder loop (encoder_impl="plain")
           and K1, decode K2, tail K3;
        A-enc  A with the encoder layers through K11 (encoder_impl="kernel",
@@ -63,7 +63,8 @@ Phases, in order; any failure exits non-zero:
      configuration, hold every frame of E against K7's plain version on
      E's own tokens; time and profile frames;
   4b. the full runner (terrain + leg IK, run_offline_full), counters reset
-     before and read after each:
+     before and read after each, N and N-gt over the motion's first 360
+     frames:
        N  bench.py's configuration: recompute, K1, K2, K3, multi_sbp,
           default TerrainConfig, f32, the plain encoder loop;
        N-gt  ground-truth playback of the motion (nimble_qdq, constrs),
@@ -114,11 +115,11 @@ Phases, in order; any failure exits non-zero:
           on the card; cli/evaluate without --five_sbp over one motion;
        Q  cli/live_demo's loop through IMUClient from a 60 Hz replay
           server, --five_sbp --with_acc_sum --multi_sbp_correction (K11,
-          K1, K2, K3), 300 frames with --out, --record and --metrics; the
+          K1, K2, K3), 200 frames with --out, --record and --metrics; the
           recorded frames through run_offline_full give --out's poses, and
           through the plain versions, frame by frame from the kernels' own
           carry, agree within TOL_PATH; the step's latency;
-       R  amass_syn.synthesize of a 1200-frame procedural SMPL motion in
+       R  amass_syn.synthesize of a 600-frame procedural SMPL motion in
           float64 on the card against the CPU, timed by stage;
   6. the training paths: pack the 60 in-tree motions with the port's
      data_gen/combine.py into output/, then
@@ -142,6 +143,23 @@ Phases, in order; any failure exits non-zero:
           and, ten steps, against
        M-bf16  the same bf16 training with the plain versions on the card;
      (K10, K11, K12 are held against their plain versions in phase 3);
+  6b. the convergence recipe (scripts/torch_train_convergence.py):
+       T  its corpus phase, 4 training motions (seed 100) and 1 held-out
+          motion (seed 900, 12.5 s) in float64 on the card and on the CPU:
+          the same files, the payloads within path R's tolerance;
+       U  the recipe's configuration over T's files (bf16, K1 bf16 and
+          K10 bf16, the xla layer loop, rng dropout, B 256, AdamW): one
+          epoch of make_epoch_fn with the device sampler under torch's
+          sync debug mode "error" (one K1 bf16 and one K10 bf16 a step,
+          nothing else), against the same epoch with rnn_impl="plain";
+          phase_train for two epochs, a run resumed from epoch 1's
+          checkpoint ending bit-equal, and phase_eval on the held-out
+          motion (K1, K2, K3); one epoch of cli/train with the recipe's
+          flags (K1 bf16, K10 bf16) and with tip_tpu's defaults (none);
+       V  make_epoch_fn in the kernel configuration (f32, hash dropout; K1,
+          K10 and four each of K11 and K12 a step) over given ends with no
+          host sync, bit-equal to as many train_step calls; an epoch of a
+          batch with an inf: skipped, the state kept;
   7. print one {"kernels": [...]} line (sixteen entries: K1-K12 and the
      bf16 variants of K1, K10, K11 and K12), then the {"ok": true, ...}
      line.
@@ -235,7 +253,12 @@ CPU_FRAMES = 120
 # path A-enc (the encoder through K11) against path A
 ENC_FRAMES = 120
 # frames of the per-frame timing pass of each single-stream path
-TIMED_FRAMES = 300
+TIMED_FRAMES = 150
+# the single-stream paths A-F run over the motion's first MAIN_FRAMES
+# frames, and a profile reads PROFILED_FRAMES steady frames: the script's
+# whole run must end well inside its time limit on a slow host
+MAIN_FRAMES = 360
+PROFILED_FRAMES = 20
 # K4/K5 against their plain versions. f32 packing: the same f32 products
 # summed in another order over up to 1024 terms, through 4 layers and 40
 # RNN steps; the card shows 1.3e-6, so 1e-5 (not the 1e-4 a first guess
@@ -288,6 +311,15 @@ OPS_FEET_MEAN = 15
 
 def log(msg):
     print(msg, flush=True)
+
+
+T0 = time.perf_counter()
+
+
+def stamp(what):
+    """A line with the seconds since the script started: where its time
+    limit goes."""
+    log(f"[{time.perf_counter() - T0:.1f} s] {what}")
 
 
 def time_ms(fn, n=200, warmup=20):
@@ -1430,7 +1462,8 @@ def frame_times_ms(model, cfg, skel, s_init, imu, dev):
     return statistics.median(times)
 
 
-def profile_frames(model, cfg, skel, s_init, imu, dev, first=100, n=50):
+def profile_frames(model, cfg, skel, s_init, imu, dev, first=100,
+                   n=PROFILED_FRAMES):
     """Device time per frame by kernel over n steady frames
     (torch.profiler), from frame `first` on, and the median host time of
     those same frames (synchronised each frame, profiler on)."""
@@ -1761,6 +1794,7 @@ def main_paths(dev):
     from tip_tpu_torch.runtime import runner as R
 
     imu, s_init = load_motion()
+    imu = imu[:MAIN_FRAMES + 1]
     skel = kin.amass_skeleton(device=dev)
     plain_enc = dict(encoder_impl="plain")
     cfgs = {
@@ -1940,6 +1974,10 @@ TOL_GT_VIZ = 1e-4
 TOL_GT_MAE = 1e-3
 # path N-E: frames of the full runner in kv_cache_rnn_carry, fused, bf16
 NE_FRAMES = 120
+# paths N and N-gt (and N-gt's float64 CPU playback): the motion's first
+# FULL_FRAMES frames, half of it, so that the script ends well inside its
+# time limit on a slow host
+FULL_FRAMES = 360
 
 
 def load_gt():
@@ -2016,6 +2054,7 @@ def full_runner_paths(dev, state_dict):
 
     imu, s_init = load_motion()
     gt_qdq, gt_c = load_gt()
+    imu, gt_qdq, gt_c = (a[:FULL_FRAMES + 1] for a in (imu, gt_qdq, gt_c))
     skel = kin.amass_skeleton(device=dev)
     plain_enc = dict(encoder_impl="plain")
     cfgs = {
@@ -4505,7 +4544,7 @@ WIDE_FRAMES = 120
 # the plain versions on the card: each metric within TOL_EVAL relative, each
 # SBP channel's predicted flag within EVAL_FLAG_FRAMES frames of the plain
 # run's (so each of its TP/FP/FN/TN counts too)
-EVAL_MOTIONS = 4
+EVAL_MOTIONS = 2
 EVAL_LEN = 300
 TOL_EVAL = 1e-3
 EVAL_FLAG_FRAMES = 2
@@ -4699,9 +4738,9 @@ SERVE_OUTBUF = 8192
 # forward, tail_impl auto) with 16 clients, against the plain route
 P2_CLIENTS = 16
 # path Q: cli/live_demo's loop over a 60 Hz replay of motion 0
-LIVE_FRAMES = 300
+LIVE_FRAMES = 200
 # path R: amass_syn.synthesize of a procedural SMPL motion at 60 Hz
-SYN_FRAMES = 1200
+SYN_FRAMES = 600
 TOL_SYN_IMU = 1e-9
 
 
@@ -5325,6 +5364,421 @@ def serving_paths(dev, card):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# 6b. the convergence recipe: paths T, U, V
+# ---------------------------------------------------------------------------
+
+# path T: the recipe's corpus phase (4 training motions, seed 100; 1
+# held-out motion, seed 900, 12.5 s) on the card and on the CPU, f64
+RECIPE_TRAIN, RECIPE_TEST = 4, 1
+# path U: the recipe's two epochs; its eval over the held-out motion's
+# first RECIPE_EVAL_LEN frames in the script's four serving modes
+RECIPE_EPOCHS = 2
+RECIPE_EVAL_LEN = 300
+# path V: the epoch function in the kernel configuration over V_BATCHES
+# batches of given ends of the packed in-tree motions
+V_BATCHES = 8
+
+
+def recipe_script():
+    """scripts/torch_train_convergence.py as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_convergence",
+        ROOT / "scripts" / "torch_train_convergence.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fresh_dir(name):
+    import shutil
+    d = ROOT / "output" / name
+    if d.exists():
+        shutil.rmtree(d)
+    d.mkdir(parents=True)
+    return d
+
+
+def corpus_t(dev, TTC):
+    """Path T: the recipe's corpus phase in float64 on the card, then the
+    same on the CPU: the same file names, the payloads within path R's
+    tolerance and the SBP flags equal. Returns (the card's directory, a
+    summary)."""
+    import numpy as np
+    card_dir, cpu_dir = fresh_dir("chip_smoke_recipe"), fresh_dir(
+        "chip_smoke_recipe_cpu")
+    quiet = lambda *a: None  # noqa: E731
+    t0 = time.perf_counter()
+    TTC.phase_corpus(str(card_dir), RECIPE_TRAIN, RECIPE_TEST, device=dev,
+                     log=quiet)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    TTC.phase_corpus(str(cpu_dir), RECIPE_TRAIN, RECIPE_TEST, device="cpu",
+                     log=quiet)
+    cpu_s = time.perf_counter() - t0
+    errs, frames, names = {}, 0, {}
+    for sub in ("corpus_train", "corpus_test"):
+        a = sorted(p.name for p in (card_dir / sub).iterdir())
+        b = sorted(p.name for p in (cpu_dir / sub).iterdir())
+        if a != b:
+            raise AssertionError(f"path T {sub}: files {a} on the card, {b} "
+                                 f"on the CPU")
+        names[sub] = a
+        for n in a:
+            with open(card_dir / sub / n, "rb") as f:
+                x = pickle.load(f)    # written by this run
+            with open(cpu_dir / sub / n, "rb") as f:
+                y = pickle.load(f)    # written by this run
+            frames += len(x["imu"])
+            for k in ("imu", "nimble_qdq", "constrs"):
+                e = float(np.abs(x[k] - y[k]).max())
+                errs[k] = (max(errs.get(k, (0.0,))[0], e), TOL_SYN_IMU)
+            off = int((x["constrs"][:, 0::4] != y["constrs"][:, 0::4]).sum())
+            errs["sbp_flags_off"] = (errs.get("sbp_flags_off", (0,))[0]
+                                     + off, 0)
+    check("path T (the corpus phase) card vs CPU", errs)
+    n = RECIPE_TRAIN + RECIPE_TEST
+    summary = dict(files=names, frames=frames, card_s=card_s, cpu_s=cpu_s,
+                   card_s_per_motion=card_s / n, cpu_s_per_motion=cpu_s / n,
+                   card_s_per_1000_frames=card_s * 1e3 / frames,
+                   max_err={k: v[0] for k, v in errs.items()})
+    log(f"path T: {n} motions, {frames} frames at 60 Hz: card "
+        f"{card_s:.2f} s ({card_s / n:.2f} s a motion), CPU {cpu_s:.2f} s; "
+        f"{json.dumps(summary)}")
+    return card_dir, summary
+
+
+def clone_state(state):
+    """A deep copy of a TrainState, its generators included."""
+    import copy
+    from tip_tpu_torch.train import train as TT
+    gen = torch.Generator().manual_seed(0)
+    gen.set_state(state.gen.get_state())
+    noise = torch.Generator(device=state.noise_gen.device).manual_seed(0)
+    noise.set_state(state.noise_gen.get_state())
+    return TT.TrainState(
+        model=copy.deepcopy(state.model),
+        mu={k: v.clone() for k, v in state.mu.items()},
+        nu={k: v.clone() for k, v in state.nu.items()},
+        step=state.step.clone(), gen=gen, noise_gen=noise)
+
+
+def states_equal(a, b):
+    """Whether two TrainStates are bit-equal: parameters, moments, step
+    and both generators."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    return (all(torch.equal(sa[k], sb[k]) and torch.equal(a.mu[k], b.mu[k])
+                and torch.equal(a.nu[k], b.nu[k]) for k in sa)
+            and torch.equal(a.step, b.step)
+            and torch.equal(a.gen.get_state(), b.gen.get_state())
+            and torch.equal(a.noise_gen.get_state(),
+                            b.noise_gen.get_state()))
+
+
+def sync_free_epoch(epoch, state, *args):
+    """One call of an epoch function with torch's sync debug mode at
+    "error" (a host sync inside raises), the launch counters set to 0 just
+    before; synchronised after. Returns (state, aux, launches, synced
+    ms)."""
+    from tip_tpu_torch.ops import _kernels as K
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, aux = epoch(state, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: K.launch_counts.get(k, 0) for k in KERNELS}
+    return state, aux, launches, ms
+
+
+def profiled_epoch(epoch, state, *args):
+    """Device ms (the sum of the kernels' device time, torch.profiler) and
+    kernels of one epoch call, and its synced ms under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        epoch(state, *args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    return dict(device_ms=sum(e.self_device_time_total for e in rows) / 1e3,
+                kernels=sum(e.count for e in rows), synced_ms_profiled=ms)
+
+
+def hold_launches(name, launches, steps, per_step):
+    for k in KERNELS:
+        want = steps * per_step.get(k, 0)
+        if launches[k] != want:
+            raise AssertionError(f"path {name}: {k} launched {launches[k]} "
+                                 f"times, expected {want} ({steps} steps)")
+
+
+def recipe_u(dev, TTC, corpus_dir):
+    """Path U: the recipe (scripts/torch_train_convergence.py, bf16, K1 bf16
+    and K10 bf16, the xla layer loop, rng dropout, B 256, T 40, AdamW) over
+    path T's files: its epoch function run once with no host sync (one K1
+    bf16 and one K10 bf16 a step, nothing else), against the same epoch
+    with rnn_impl="plain" from the same state and generators; then
+    phase_train for RECIPE_EPOCHS epochs with the device sampler and a
+    checkpoint after each, a run resumed from the first checkpoint (epoch
+    2's ends and the final state bit-equal to the uninterrupted run's),
+    phase_eval on the held-out motion, and one epoch of cli/train with the
+    recipe's flags and with tip_tpu's default flags. Returns (launches by
+    path, summary)."""
+    import shutil
+    import numpy as np
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.train import data as TD
+    from tip_tpu_torch.train import train as TT
+    run = fresh_dir("chip_smoke_recipe_run")
+    quiet = lambda *a: None  # noqa: E731
+    prefix = TTC.phase_pack(str(run), [str(corpus_dir / "corpus_train")],
+                            log=quiet)
+    cfg = TTC.make_train_cfg(RECIPE_EPOCHS)
+    ds = TD.PackedDataset.from_prefix(prefix)
+    n_windows, n_batches = TTC.epoch_batches(ds.info, cfg)
+    dds = TD.to_device(ds, dev)
+    sampler = TD.make_window_sampler(ds.info, cfg.seq_len, dev)
+    per_step = {"fused_rnn_bf16": 1, "fused_rnn_bwd_bf16": 1}
+
+    # the epoch function: kernels against the plain RNN, then no host sync
+    state0 = TT.init_state(cfg, dev)
+    plain_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, rnn_impl="plain"))
+    runs = {}
+    for name, c in (("U", cfg), ("U-plain", plain_cfg)):
+        st = clone_state(state0)
+        st.model = TT.M.TIPModel(c.model, device=dev)
+        st.model.load_state_dict(state0.model.state_dict())
+        st.model.requires_grad_(True)
+        K.reset_launch_counts()
+        st, aux = TT.make_epoch_fn(c, dds, sampler=sampler,
+                                   n_batches=n_batches)(st)
+        torch.cuda.synchronize()
+        runs[name] = (aux["loss"].tolist(), dict(
+            (k, v) for k, v in K.launch_counts.items() if v))
+    if runs["U-plain"][1]:
+        raise AssertionError(f"path U-plain launched {runs['U-plain'][1]}")
+    errs = [abs(a - b) / abs(b) for a, b in zip(runs["U"][0],
+                                                 runs["U-plain"][0])]
+    log(f"  path U vs U-plain over one epoch of {n_batches} steps: loss rel "
+        f"diff {max(errs):.3g}; U {runs['U'][0]}; U-plain "
+        f"{runs['U-plain'][0]}")
+    if not max(errs) <= TOL_LM_LOSS:
+        raise AssertionError(f"path U vs U-plain: {errs}")
+    epoch = TT.make_epoch_fn(cfg, dds, sampler=sampler, n_batches=n_batches)
+    st, aux, launches, synced_ms = sync_free_epoch(epoch, clone_state(state0))
+    hold_launches("U (epoch)", launches, n_batches, per_step)
+    skipped = int(aux["skipped"].sum().item())
+    if skipped or not torch.isfinite(aux["loss"]).all():
+        raise AssertionError(f"path U: skipped {skipped}, loss "
+                             f"{aux['loss'].tolist()}")
+    prof = profiled_epoch(epoch, clone_state(state0))
+    del st, state0
+
+    # the script: two epochs with a checkpoint after each
+    after = {}
+
+    def on_epoch(ep, state, aux):
+        after[ep] = (clone_state(state), aux)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    TTC.phase_train(str(run), prefix, RECIPE_EPOCHS, sampler="device",
+                    device=dev, save_every=1, on_epoch=on_epoch, log=log)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k: K.launch_counts.get(k, 0) for k in KERNELS}
+    hold_launches("U (phase_train)", launches, RECIPE_EPOCHS * n_batches,
+                  per_step)
+    for ep, (_, aux) in after.items():
+        if aux["skipped"].sum() or not np.isfinite(aux["loss"]).all():
+            raise AssertionError(f"path U epoch {ep}: {aux}")
+    # a run resumed from the first checkpoint
+    resumed = fresh_dir("chip_smoke_recipe_resumed")
+    (resumed / "ckpt").mkdir()
+    shutil.copy(run / "ckpt" / f"ckpt_{n_batches}.pt", resumed / "ckpt")
+    back = TT.restore_checkpoint(str(resumed / "ckpt"), cfg, device=dev)
+    if not states_equal(back, after[1][0]):
+        raise AssertionError("path U: the checkpoint after epoch 1 is not "
+                             "the live state")
+
+    def ends_of(state):
+        g = torch.Generator(device=dev).manual_seed(0)
+        g.set_state(state.noise_gen.get_state())
+        return TD.device_sample_epoch(sampler, g, n_batches, cfg.batch_size)
+    if not torch.equal(ends_of(back), ends_of(after[1][0])):
+        raise AssertionError("path U: epoch 2's ends differ after a restore")
+    del back
+    TTC.phase_train(str(resumed), prefix, RECIPE_EPOCHS, sampler="device",
+                    device=dev, log=quiet)
+    final = TT.restore_checkpoint(str(resumed / "ckpt"), cfg, device=dev)
+    if not states_equal(final, after[RECIPE_EPOCHS][0]):
+        raise AssertionError("path U: the resumed run ends elsewhere than "
+                             "the uninterrupted one")
+    del final, after
+
+    # the eval phase on the held-out motion
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = TTC.phase_eval(str(run), RECIPE_EPOCHS,
+                             test_dir=str(corpus_dir / "corpus_test"),
+                             test_len=RECIPE_EVAL_LEN, device=dev, log=quiet)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = {k: K.launch_counts.get(k, 0) for k in KERNELS}
+    for mode, r in results["modes"].items():
+        if r["n_motions"] != 1 or not all(
+                math.isfinite(v) for v in r["means"].values()):
+            raise AssertionError(f"path U eval {mode}: {r}")
+    if not (eval_launches["fused_rnn"] and eval_launches["decode_fused"]
+            and eval_launches["tail_fused"]):
+        raise AssertionError(f"path U eval: launches {eval_launches}")
+    metrics = {m: r["means"] for m, r in results["modes"].items()}
+
+    # cli/train on the same blobs, one epoch: the recipe's flags (the RNN
+    # kernels in bf16), then tip_tpu's default flags (the plain RNN: no
+    # kernel)
+    from tip_tpu_torch.cli import train as TCT
+    cli = {}
+    for name, flags, per in (
+            ("U-cli", ["--bf16", "--rnn_impl", "pallas", "--encoder_impl",
+                       "xla", "--dropout_impl", "rng", "--dropout_rng",
+                       "rbg"], per_step),
+            ("U-cli-defaults", ["--rnn_impl", "scan", "--encoder_impl", "xla",
+                                "--dropout_impl", "rng"], {})):
+        out = fresh_dir(f"chip_smoke_{name}")
+        K.reset_launch_counts()
+        st = TCT.main(["--data_prefix", prefix, "--save_path", str(out),
+                       "--epochs", "1", "--with_acc_sum", "--optim", "AdamW",
+                       "--cosine_lr", *flags])
+        torch.cuda.synchronize()
+        cli_launches = {k: K.launch_counts.get(k, 0) for k in KERNELS}
+        hold_launches(name, cli_launches, n_batches, per)
+        with open(out / "metrics.jsonl") as f:
+            recs = [json.loads(ln) for ln in f]
+        loss = [r["mean_loss"] for r in recs if "mean_loss" in r]
+        if int(st.step) != n_batches or len(loss) != 1 or not (
+                loss[0] is not None and math.isfinite(loss[0])):
+            raise AssertionError(f"path {name}: step {int(st.step)}, "
+                                 f"{recs}")
+        cli[name] = dict(flags=flags, steps=int(st.step), mean_loss=loss[0],
+                         launches={k: v for k, v in cli_launches.items()
+                                   if v})
+        del st
+    log(f"  path U: cli/train with the recipe's flags and with tip_tpu's "
+        f"defaults: {json.dumps(cli)}")
+    with open(run / "train_metrics.jsonl") as f:
+        losses = {ep: json.loads(ln)["mean_loss"]
+                  for ep, ln in enumerate(f, 1)}
+    summary = dict(windows=n_windows, steps_per_epoch=n_batches,
+                   loss_rel_vs_plain=max(errs), epoch_synced_ms=synced_ms,
+                   epoch_step_ms=synced_ms / n_batches, **prof,
+                   phase_train_s=train_s, mean_loss_by_epoch=losses,
+                   resume_bit_equal=True, eval_s=eval_s,
+                   eval_metrics=metrics, cli_train=cli)
+    log(f"path U: {n_batches} steps an epoch, epoch {synced_ms:.1f} ms "
+        f"synced, {prof['device_ms']:.1f} device ms; "
+        f"{json.dumps(summary)}")
+    return {"U": launches, "U-eval": eval_launches,
+            "U-cli": cli["U-cli"]["launches"]}, summary
+
+
+def epoch_v(dev):
+    """Path V: the epoch function in the kernel configuration (f32, hash
+    dropout; K1, K10 and four each of K11 and K12 a step) over V_BATCHES
+    batches of given ends of the packed in-tree motions, with no host
+    sync; held against as many train_step calls (path L's) on the same
+    ends from the same state: bit-equal state and aux. Then an epoch of a
+    batch with an inf in its windows: skipped, the state as before it."""
+    import numpy as np
+    from tip_tpu_torch.train import data as TD
+    from tip_tpu_torch.train import train as TT
+    cfg = train_config()
+    ds = TD.PackedDataset.from_prefix(str(ROOT / "output"
+                                          / "chip_smoke_train"))
+    dds = TD.to_device(ds, dev)
+    idx = TD.sample_epoch_indices(ds.info, cfg.seq_len,
+                                  np.random.default_rng(21))
+    ends = torch.as_tensor(idx[:V_BATCHES * cfg.batch_size].reshape(
+        V_BATCHES, cfg.batch_size), device=dev)
+    epoch = TT.make_epoch_fn(cfg, dds)
+    state0 = TT.init_state(cfg, dev)
+    a, aux, launches, synced_ms = sync_free_epoch(epoch, clone_state(state0),
+                                                  ends)
+    hold_launches("V", launches, V_BATCHES,
+                  {"fused_rnn": 1, "fused_rnn_bwd": 1,
+                   "encoder_layer_fwd": 4, "encoder_layer_bwd": 4})
+    b = clone_state(state0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = [TT.train_step(b, TD.device_gather(dds, e, cfg.seq_len), cfg)
+             for e in ends]
+    steps_ms = (time.perf_counter() - t0) * 1e3
+    table = {k: v.tolist() for k, v in aux.items()}
+    equal = states_equal(a, b) and all(
+        table[k] == [float(s[k]) for s in steps] for k in TT.AUX)
+    log(f"  path V vs {V_BATCHES} train_step calls: "
+        f"{'bit-equal' if equal else 'NOT bit-equal'}; losses "
+        f"{table['loss']} vs {[s['loss'] for s in steps]}")
+    if not equal:
+        raise AssertionError("path V: the epoch and the train steps differ")
+    # the epoch again, warm
+    warm = clone_state(state0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch(warm, ends)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    del warm
+    prof = profiled_epoch(epoch, clone_state(state0), ends)
+    # a poisoned batch: an inf in the first window of a batch
+    imu = dds.imu.clone()
+    imu[int(ends[1, 0]) - 1] = float("inf")
+    poisoned = TT.make_epoch_fn(cfg, TD.DeviceDataset(
+        imu=imu, acc_sum=dds.acc_sum, s=dds.s))
+    before = clone_state(a)
+    a, aux, _, _ = sync_free_epoch(poisoned, a, ends[1:2])
+    if aux["skipped"].tolist() != [1.0]:
+        raise AssertionError(f"path V: the poisoned batch gave {aux}")
+    kept = (states_equal(dataclasses.replace(a, gen=before.gen,
+                                             noise_gen=before.noise_gen),
+                         before)
+            and not torch.equal(a.gen.get_state(), before.gen.get_state()))
+    if not kept:
+        raise AssertionError("path V: the poisoned batch changed the state "
+                             "or left the generators")
+    summary = dict(steps=V_BATCHES, bit_equal_to_train_steps=True,
+                   epoch_synced_ms_first=synced_ms, epoch_synced_ms=warm_ms,
+                   epoch_step_ms=warm_ms / V_BATCHES,
+                   train_step_ms=steps_ms / V_BATCHES, **prof,
+                   poisoned_batch_skipped=True)
+    log(f"path V: {V_BATCHES} steps, epoch {warm_ms:.1f} ms synced, "
+        f"{prof['device_ms']:.1f} device ms; {json.dumps(summary)}")
+    return {"V": launches}, summary
+
+
+def recipe_paths(dev):
+    """Paths T, U and V. Returns (launches by path, summary)."""
+    TTC = recipe_script()
+    t0 = time.perf_counter()
+    corpus_dir, t_summary = corpus_t(dev, TTC)
+    launches, u_summary = recipe_u(dev, TTC, corpus_dir)
+    v_launches, v_summary = epoch_v(dev)
+    launches.update(v_launches)
+    log(f"  recipe paths T, U, V: {time.perf_counter() - t0:.1f} s")
+    return launches, {"T": t_summary, "U": u_summary, "V": v_summary}
+
+
 # the path whose launches a kernel's entry reports
 COUNTED_ON = {"fused_rnn": "A", "decode_fused": "A", "tail_fused": "A",
               "fused_forward_last": "B", "fused_forward": "replay",
@@ -5360,6 +5814,7 @@ def main():
     t0 = time.perf_counter()
     K.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s: {K.sources()}")
+    stamp("built")
 
     gen = torch.Generator(device=dev).manual_seed(1)
     skel = kin.amass_skeleton(device=dev)
@@ -5382,6 +5837,7 @@ def main():
         kernels.append(check_bf16())
         log(f"  {kernels[-1]['name']} checked and timed in "
             f"{time.perf_counter() - t0:.1f} s")
+    stamp("kernels checked")
     widths = {**widths_by_kernel(check_rnn_widths(dev, gen)),
               **widths_by_kernel(check_whole_model_widths(dev, gen))}
     batched = check_batched_tail(dev, gen, skel)
@@ -5412,18 +5868,28 @@ def main():
             f"({k['plain_call_ms']:.4f}), bound {k['bound_ms']:.2e} ms "
             f"({k['bound_by']}), library {k['library_ms']}")
 
+    stamp("widths and tail checks")
     launches, frame_ms, runs, state_dict, abf_calls = main_paths(dev)
+    stamp("main paths")
     full_launches, full_summary = full_runner_paths(dev, state_dict)
     launches.update(full_launches)
+    stamp("full runner paths")
     pool_launches, pool_summary = pool_paths(dev, runs, state_dict)
     launches.update(pool_launches)
+    stamp("pool paths")
     launches.update(widened_paths(dev, state_dict))
     eval_launches, eval_summary = eval_path(dev)
     launches.update(eval_launches)
+    stamp("widened paths and eval")
     serve_launches, serve_summary = serving_paths(dev, card)
     launches.update(serve_launches)
+    stamp("serving paths")
     train_launches, train_summary = training_paths(dev)
     launches.update(train_launches)
+    stamp("training paths")
+    recipe_launches, recipe_summary = recipe_paths(dev)
+    launches.update(recipe_launches)
+    stamp("recipe paths")
     for k in kernels:
         k["launches"] = launches[COUNTED_ON[k["name"]]][k["name"]]
         k["launches_on"] = COUNTED_ON[k["name"]]
@@ -5434,6 +5900,8 @@ def main():
             "G", "H", "I", "J", "K", "K-bf16") if launches[p][k["name"]]}
         k["launches_serving"] = {p: launches[p][k["name"]] for p in (
             "P", "P-2", "Q") if launches[p][k["name"]]}
+        k["launches_recipe"] = {p: launches[p].get(k["name"], 0) for p in (
+            "U", "U-eval", "U-cli", "V") if launches[p].get(k["name"])}
         if not k["launches"] > 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
         if k["name"] in abf_calls:
@@ -5453,8 +5921,15 @@ def main():
                     "live_frame_ms_p50": serve_summary["Q"]["p50_ms"],
                     "datagen_s_per_1000_frames": serve_summary["R"][
                         "s_per_1000_frames"],
+                    "corpus_s_per_motion": recipe_summary["T"][
+                        "card_s_per_motion"],
+                    "epoch_ms": {p: {k: recipe_summary[p][k] for k in (
+                        "epoch_synced_ms", "device_ms", "kernels")}
+                        for p in ("U", "V")},
+                    "recipe_eval": recipe_summary["U"]["eval_metrics"],
                     "card": card}))
     print(json.dumps({"kernels": kernels}))
+    stamp("done")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """The port stands alone: no module of tip_tpu_torch, and not chip_smoke.py,
-scripts/torch_k12_variants.py or the wire helper tests/torch_wire.py that
-chip_smoke.py imports, imports JAX, Flax or tip_tpu; and its entry points
-run on CUDA unless the caller asks for the CPU."""
+scripts/torch_k12_variants.py, scripts/torch_train_convergence.py or the
+wire helper tests/torch_wire.py that chip_smoke.py imports, imports JAX,
+Flax or tip_tpu; and its entry points run on CUDA unless the caller asks
+for the CPU."""
 
 import ast
 from pathlib import Path
@@ -22,6 +23,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "tip_tpu")
 PORT_FILES = sorted((ROOT / "tip_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_k12_variants.py",
+     ROOT / "scripts" / "torch_train_convergence.py",
      ROOT / "tests" / "torch_wire.py"]
 # the serving daemon, live I/O and data generation from SMPL motions
 SERVING_AND_DATAGEN = (
@@ -34,6 +36,12 @@ SERVING_AND_DATAGEN = (
     "tip_tpu_torch/data_gen/amass_syn.py", "tip_tpu_torch/data_gen/dip.py",
     "tip_tpu_torch/cli/preprocess_dip.py", "tip_tpu_torch/cli/gen_data.py",
     "tests/torch_wire.py")
+# the convergence recipe: the procedural corpus, the epoch function and its
+# sampler, the xla loop and the rng masks, the recipe's script
+CONVERGENCE_RECIPE = (
+    "tip_tpu_torch/data_gen/corpus.py", "tip_tpu_torch/train/data.py",
+    "tip_tpu_torch/train/train.py", "tip_tpu_torch/models/tip_model.py",
+    "tip_tpu_torch/cli/train.py", "scripts/torch_train_convergence.py")
 
 
 def _imported_roots(path):
@@ -73,7 +81,7 @@ def test_port_files_found():
             "tip_tpu_torch/cli/import_torch_ckpt.py"} <= names
 
 
-@pytest.mark.parametrize("name", SERVING_AND_DATAGEN)
+@pytest.mark.parametrize("name", SERVING_AND_DATAGEN + CONVERGENCE_RECIPE)
 def test_serving_and_datagen_files_are_checked(name):
     """Each module of the serving daemon, live I/O and data generation is
     among the files checked above, and imports no JAX and nothing of
@@ -190,6 +198,31 @@ def test_serving_and_datagen_entry_points_default_to_cuda(entry, tmp_path):
         else:
             preprocess_dip.main(["--dip", "--src_dir", str(tmp_path),
                                  "--save_dir", str(tmp_path / "o")])
+
+
+@pytest.mark.parametrize("entry", ["generate_corpus", "window_sampler",
+                                   "convergence_script"])
+def test_convergence_recipe_entry_points_default_to_cuda(entry, tmp_path):
+    """The corpus, the on-device sampler and the recipe's script run on
+    cuda unless asked for the CPU: each resolves its device first."""
+    import importlib.util
+    import numpy as np
+    from tip_tpu_torch.data_gen import corpus
+    from tip_tpu_torch.train import data as TD
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "generate_corpus":
+            corpus.generate_corpus(str(tmp_path), 1)
+        elif entry == "window_sampler":
+            TD.make_window_sampler(np.array([[0, 60, 1]]), 10)
+        else:
+            spec = importlib.util.spec_from_file_location(
+                "torch_train_convergence",
+                ROOT / "scripts" / "torch_train_convergence.py")
+            script = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(script)
+            script.main(["--out", str(tmp_path / "o")])
+    assert not (tmp_path / "o").exists()
 
 
 def _tiny_blobs(d):

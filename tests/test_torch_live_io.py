@@ -525,7 +525,14 @@ def test_cli_live_demo_streams_records_and_replays(tmp_path):
 def test_cli_live_demo_calibrated(tmp_path, monkeypatch):
     """The two-stage calibration on a simulated sensor stack, answered
     through a monkeypatched input(): the recorded frames are the bone
-    frames and free accelerations the stack was given."""
+    frames and free accelerations the stack was given.
+
+    Each stage change waits until the demo's own client reads a frame of
+    the new stage (the client keeps the latest frame, and the server's
+    count of frames sent says nothing of what the client has parsed), and
+    the streaming loop runs a budget of frames, not of seconds, so that a
+    loaded host neither mixes two stages into one calibration mean nor
+    records too few frames."""
     pt = _reference_pt(tmp_path / "m.pt", 2, False)
     reading, r_b0_s0 = simulate_sensor_stack(np.random.default_rng(5))
     r_true = Rotation.from_rotvec(
@@ -536,15 +543,26 @@ def test_cli_live_demo_calibrated(tmp_path, monkeypatch):
         reading(np.transpose(r_b0_s0, (0, 2, 1)), np.zeros((6, 3))),
         reading(tcal.aligned_t_pose_bone_rotations(), np.zeros((6, 3))),
         reading(r_true, acc_free))]
+    # each stage's frame as the client parses it off the wire
+    parsed = [tio.parse_wire_frame(np.array(W.wire_text(f).split(),
+                                            dtype=float)) for f in frames]
     stage = [0]
     server = W.ReplayServer(hz=240.0, source=lambda i: frames[stage[0]])
+    clients = []
+
+    class Client(tio.IMUClient):
+        def start(self):
+            clients.append(self)
+            super().start()
+    monkeypatch.setattr(tio, "IMUClient", Client)
 
     def move_to(k):
-        """Switch the stream to stage k and wait until the client has had
-        a few of its frames."""
+        """Switch the stream to stage k and wait until the demo's client
+        reads it: from then on every frame it reads is of stage k."""
         stage[0] = k
-        n = server.sent
-        W.wait_until(lambda: server.sent >= n + 8, f"stage {k}'s frames")
+        W.wait_until(lambda: np.array_equal(clients[0].current_reading(),
+                                            parsed[k]),
+                     f"the client to read stage {k}")
 
     prompts = []
 
@@ -558,21 +576,22 @@ def test_cli_live_demo_calibrated(tmp_path, monkeypatch):
     monkeypatch.setattr(TLD, "calibrate_client", functools.partial(
         TLD.calibrate_client, seconds=0.3))
     orig = TLD.run_loop
+    n_frames = 12
 
     def run_loop(*a, **kw):
         move_to(2)
-        return orig(*a, **kw)
+        return orig(*a, **dict(kw, seconds=0.0, max_frames=n_frames))
     monkeypatch.setattr(TLD, "run_loop", run_loop)
     rec = tmp_path / "rec.f32"
     try:
         TLD.main(["--ckpt", pt, "--port", str(server.port),
-                  "--seconds", "0.5",
                   "--record", str(rec), "--device", "cpu"])
     finally:
         server.stop()
+    assert len(clients) == 1
     assert len(prompts) == 2 and "T-pose" in prompts[1]
     fed = np.fromfile(rec, np.float32).reshape(-1, 72)
-    assert len(fed) > 5
+    assert len(fed) == n_frames
     # the wire carries float32 quaternions and accs (a relative 6e-8), so
     # the calibrated frames hold the truth to float32's precision: the
     # rotations to 1e-5, the accs (norm ~10 with gravity) to 1e-4

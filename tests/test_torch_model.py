@@ -215,12 +215,18 @@ def test_causal_mask_matches_tip_tpu():
 
 
 def test_unported_modes_raise():
-    """tip_tpu's rng dropout stream is not ported (the training forward
-    is: train=True runs it, and without seeds it is deterministic);
-    forward_impl="fused" is: the model builds, and its own forward stays
-    the plain one."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.ModelConfig(**TINY, dropout_impl="rng")
+    """tip_tpu's rng dropout is ported: the model builds, its training
+    forward without a generator is deterministic, and it refuses hash seeds
+    (tests/test_torch_dropout.py holds its masks); forward_impl="fused" is:
+    the model builds, and its own forward stays the plain one."""
+    rng = TM.TIPModel(TM.ModelConfig(**TINY, dropout_impl="rng"),
+                      device="cpu")
+    x = torch.zeros(1, 4, 90)
+    with torch.no_grad():
+        assert torch.equal(rng(x, torch.ones(1, 4, 131), train=True),
+                           rng(x, torch.ones(1, 4, 131), train=True))
+        with pytest.raises(TypeError, match="Generator"):
+            rng(x, torch.ones(1, 4, 131), train=True, seeds=(1, [2, 3]))
     model = TM.TIPModel(TM.ModelConfig(**TINY, forward_impl="fused"),
                         device="cpu")
     plain = TM.TIPModel(TM.ModelConfig(**TINY), device="cpu")
@@ -235,7 +241,9 @@ def test_unported_modes_raise():
 
 
 @pytest.mark.parametrize("kw", [dict(forward_impl="xla"),
-                                dict(compute_dtype="float16")])
+                                dict(compute_dtype="float16"),
+                                dict(dropout_impl="bernoulli"),
+                                dict(encoder_impl="pallas")])
 def test_model_config_rejects_unknown_values(kw):
     with pytest.raises(ValueError):
         TM.ModelConfig(**kw)

@@ -383,10 +383,41 @@ def test_cli_train_on_cpu(tmp_path):
     assert [r["epoch"] for r in lines if "mean_loss" in r] == [1, 2]
 
 
-@pytest.mark.parametrize("flag", [["--n_model_shards", "2"],
-                                  ["--dropout_rng", "rbg"],
-                                  ["--dropout_impl", "rng"],
-                                  ["--encoder_impl", "xla"]])
+@pytest.mark.parametrize("flag", [["--n_model_shards", "2"]])
 def test_cli_train_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TCT.main(["--data_prefix", "x", "--save_path", "y", *flag])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--dropout_rng", "rbg"], ["--dropout_impl", "rng"],
+    ["--encoder_impl", "xla"],
+    ["--dropout_impl", "rng", "--rnn_impl", "scan", "--encoder_impl", "xla"],
+], ids=["dropout_rng_rbg", "dropout_impl_rng", "encoder_impl_xla",
+        "tip_tpu_defaults"])
+def test_cli_train_flags_train_on_cpu(flags, tmp_path):
+    """The flags that raised before the rng masks and the xla loop were
+    ported now train, and so does tip_tpu's default flag set: two epochs
+    on two in-tree motions, a finite loss, the checkpoint, and the model
+    configuration the flags name."""
+    TCC.main(["--data_root", os.path.dirname(CORPUS), "--datasets",
+              "corpus_extra", "--rates", "60", "--name_contains",
+              "freeform2_000[01]", "--out_prefix", str(tmp_path / "d")])
+    state = TCT.main([
+        "--data_prefix", str(tmp_path / "d"), "--save_path",
+        str(tmp_path / "run"), "--batch_size", "8", "--seq_len", "10",
+        "--epochs", "2", "--with_acc_sum", "--tf_in_dim", "32", "--tf_nhid",
+        "64", "--n_heads", "4", "--tf_layers", "2", "--rnn_nhid", "24",
+        "--device", "cpu", *flags])
+    assert state.step > 0
+    assert os.path.exists(tmp_path / "run" / "ckpt_2.pt")
+    lines = [json.loads(l) for l in open(tmp_path / "run" / "metrics.jsonl")]
+    means = [r["mean_loss"] for r in lines if "mean_loss" in r]
+    assert len(means) == 2 and all(np.isfinite(means))
+    cfg = state.model.cfg
+    given = dict(zip(flags[::2], flags[1::2]))
+    assert cfg.dropout_impl == given.get("--dropout_impl", "hash")
+    assert cfg.encoder_impl == ("xla" if given.get("--encoder_impl") == "xla"
+                                else "auto")
+    assert cfg.rnn_impl == ("plain" if given.get("--rnn_impl") == "scan"
+                            else "auto")

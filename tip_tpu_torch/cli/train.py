@@ -6,28 +6,25 @@ Paper run, on the card (pack the blobs first, cli/combine_data.py):
       --seq_len 40 --cosine_lr --weight_decay 1e-4 --optim AdamW --n_sbps 5 \
       --with_acc_sum --noise_input_hist 0.15 --seed 5104
 
-The port trains tip_tpu's kernel configuration (``--dropout_impl hash
---rnn_impl pallas --encoder_impl pallas``, here the defaults) in float32,
-or with ``--bf16`` in bfloat16 compute (K1, K10, K11, K12 in bf16 on the
-card; the parameters, Adam's moments and the checkpoints stay float32),
-on ``cuda`` unless ``--device cpu`` is given; the windows are always
-gathered on the device, so ``--device_data`` is accepted and changes
-nothing. What it does not port raises: more than one model
-shard, ``--dropout_rng rbg``, ``--dropout_impl rng``,
-``--encoder_impl xla`` (ROADMAP.md, queue A, training).
+The port's defaults are tip_tpu's kernel configuration (``--dropout_impl
+hash --rnn_impl pallas --encoder_impl pallas``: K1, K10, K11, K12 on the
+card). tip_tpu's own defaults (``--dropout_impl rng --rnn_impl scan
+--encoder_impl xla``) train too: the rng masks from a torch.Generator on
+the device, the plain RNN, the per-op encoder layer loop. ``--dropout_rng
+threefry|rbg`` names tip_tpu's JAX generator; the port has one generator
+and draws the same masks for either. Training runs in float32, or with
+``--bf16`` in bfloat16 compute (the kernels' bf16 variants on the card;
+the parameters, Adam's moments and the checkpoints stay float32), on
+``cuda`` unless ``--device cpu`` is given; the windows are always gathered
+on the device, so ``--device_data`` is accepted and changes nothing. More
+than one model shard raises (ROADMAP.md, queue A, training: the mesh).
 """
 
 import argparse
 
 # what the port does not train yet, by flag value -> the ROADMAP item
 UNPORTED = {
-    "n_model_shards": "a model-sharded mesh (ROADMAP A, training: the mesh)",
-    "dropout_rng": "tip_tpu's rbg dropout generator (ROADMAP A, training: "
-                   "the rng dropout path)",
-    "dropout_impl": "tip_tpu's rng dropout path (ROADMAP A, training: the "
-                    "rng dropout path)",
-    "encoder_impl": "tip_tpu's xla encoder loop (ROADMAP A, training: the "
-                    "encoder_impl='xla' loop)",
+    "n_model_shards": "a model-sharded mesh (ROADMAP A6, training: the mesh)",
 }
 
 
@@ -70,28 +67,29 @@ def main(argv=None):
                          "and checkpoints stay float32")
     ap.add_argument("--dropout_rng", default="threefry",
                     choices=["threefry", "rbg"],
-                    help="only the hash masks are ported; rbg raises")
-    ap.add_argument("--dropout_impl", default="hash", choices=["rng", "hash"])
+                    help="tip_tpu's JAX generator for the rng masks; the "
+                         "port draws them from one torch.Generator on the "
+                         "device for either")
+    ap.add_argument("--dropout_impl", default="hash", choices=["rng", "hash"],
+                    help="hash: counter-based masks from int32 seeds "
+                         "(tip_tpu's bit for bit); rng: Bernoulli masks "
+                         "from the device generator")
     ap.add_argument("--rnn_impl", default="pallas", choices=["scan", "pallas"],
                     help="pallas: the RNN kernels K1/K10 on the card; scan: "
                          "the plain loop")
     ap.add_argument("--encoder_impl", default="pallas",
                     choices=["xla", "pallas"],
                     help="pallas: the encoder-layer kernels K11/K12 on the "
-                         "card")
+                         "card; xla: the per-op layer loop, no kernel")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "versions)")
     args = ap.parse_args(argv)
 
-    given = {"n_model_shards": args.n_model_shards > 1,
-             "dropout_rng": args.dropout_rng == "rbg",
-             "dropout_impl": args.dropout_impl == "rng",
-             "encoder_impl": args.encoder_impl == "xla"}
-    for flag, on in given.items():
-        if on:
-            raise NotImplementedError(f"--{flag}: {UNPORTED[flag]} is not "
-                                      f"ported")
+    if args.n_model_shards > 1:
+        raise NotImplementedError(f"--n_model_shards: "
+                                  f"{UNPORTED['n_model_shards']} is not "
+                                  f"ported")
 
     import os
     from tip_tpu_torch import constants as cst
@@ -106,13 +104,15 @@ def main(argv=None):
         rnn_hid_size=args.rnn_nhid, in_dropout=args.in_dropout,
         past_dropout=args.past_dropout,
         compute_dtype="bfloat16" if args.bf16 else None,
-        rnn_impl="auto" if args.rnn_impl == "pallas" else "plain")
+        rnn_impl="auto" if args.rnn_impl == "pallas" else "plain",
+        encoder_impl="auto" if args.encoder_impl == "pallas" else "xla",
+        dropout_impl=args.dropout_impl)
     cfg = train_lib.TrainConfig(
         model=model_cfg, n_sbps=args.n_sbps, batch_size=args.batch_size,
         seq_len=args.seq_len, lr=args.lr, optimizer=args.optim,
         weight_decay=args.weight_decay, clip=args.clip, epochs=args.epochs,
         cosine_lr=args.cosine_lr, noise_input_hist=args.noise_input_hist,
-        seed=args.seed)
+        seed=args.seed, dropout_rng_impl=args.dropout_rng)
     ds = data_lib.PackedDataset.from_prefix(args.data_prefix,
                                             with_acc_sum=args.with_acc_sum)
     metrics = args.metrics or os.path.join(args.save_path, "metrics.jsonl")

@@ -15,13 +15,18 @@ Reproduced forward quirks (they affect checkpoint compatibility):
   * the RNN hidden state is re-zeroed on every call;
   * inference is deterministic (no dropout); its encoder layers run
     through K11 as tip_tpu's run its Pallas layer (``encoder_impl``, no
-    custom mask). ``train=True`` runs the
-    training forward of tip_tpu's kernel configuration
-    (``encoder_impl="pallas"``, ``rnn_impl="pallas"``,
-    ``dropout_impl="hash"``): hash-mask dropout on the IMU input (site 200)
-    and the past-state history (site 201), the differentiable encoder
-    layers of ``ops/encoder_train.py`` (K11/K12) and the differentiable RNN
-    of ``ops/fused_rnn.py`` (K1/K10).
+    custom mask), or through the per-op layer loop of this module under
+    ``encoder_impl="xla"`` or "plain". ``train=True`` runs the training
+    forward: dropout on the IMU input and the past-state history, the
+    encoder layers and the differentiable RNN of ``ops/fused_rnn.py``
+    (K1/K10). Its layers are the differentiable layers of
+    ``ops/encoder_train.py`` (K11/K12), as tip_tpu's
+    ``encoder_impl="pallas"``, or, under ``encoder_impl="xla"``, the per-op
+    layer loop with four dropout sites a layer, as tip_tpu's "xla". Its
+    masks are tip_tpu's ``dropout_impl="hash"`` (counter-based, from int32
+    seeds) or ``dropout_impl="rng"`` (Bernoulli draws from a
+    ``torch.Generator`` on the device; the stream differs from
+    ``jax.random``'s, the distribution is the same).
 
 The layers are written out from matmuls, softmax and LayerNorm: torch's
 ``nn.TransformerEncoderLayer``/``nn.MultiheadAttention`` switch to fused
@@ -47,6 +52,8 @@ from tip_tpu_torch.ops.hashmask import hash_keep_mask
 # dropout sites of the model's inputs (tip_tpu/models/tip_model.py)
 SITE_IMU = 200
 SITE_PAST = 201
+# the xla loop's dropout sites: layer li's site k is SITE_LAYER0 + 4 li + k
+SITE_LAYER0 = 210
 # the batch tile of the encoder layers' dropout masks, as tip_tpu's model
 # passes it
 ENCODER_TILE = 8
@@ -68,17 +75,22 @@ class ModelConfig:
     rnn_impl: str = "auto"
     # the encoder layers, as tip_tpu's encoder_impl: "auto" (K11, and with
     # grad on K12, for a CUDA tensor; their plain versions for a CPU
-    # tensor) | "kernel" | "plain" (the layer loop of this module, tip_tpu's
-    # "xla"; the training forward takes ops/encoder_train.py's plain
-    # versions). The inference forward takes the plain loop also with a
-    # custom mask, as tip_tpu does
+    # tensor; tip_tpu's "pallas") | "kernel" | "plain" (the inference
+    # forward takes the layer loop of this module, the training forward
+    # ops/encoder_train.py's plain versions of K11/K12) | "xla" (the layer
+    # loop of this module in every forward, training included, with its
+    # dropout sites: tip_tpu's "xla", no kernel). The inference forward
+    # takes the layer loop also with a custom mask, as tip_tpu does
     encoder_impl: str = "auto"
     # dropout of the training forward (train=True with seeds)
     in_dropout: float = 0.0
     past_dropout: float = 0.8
     layer_dropout: float = 0.1        # torch TransformerEncoderLayer default
-    # "hash": counter-based masks (ops/hashmask.py), tip_tpu's
-    # dropout_impl="hash"; tip_tpu's "rng" stream is not ported
+    # "hash": counter-based masks (ops/hashmask.py) from int32 seeds,
+    # tip_tpu's dropout_impl="hash" bit for bit | "rng": Bernoulli masks
+    # drawn from a torch.Generator on the device, tip_tpu's "rng" (its
+    # jax.random stream, threefry or rbg, is not reproduced: the
+    # distribution is the same)
     dropout_impl: str = "hash"
     # "plain" (this module's forward) | "fused" (the whole-model kernel K4,
     # ops/fused_forward.py — inference only, taken by the streaming runner
@@ -100,14 +112,11 @@ class ModelConfig:
             raise ValueError(f"compute_dtype must be float32|bfloat16, got "
                              f"{self.compute_dtype!r}")
         K.check_impl(self.rnn_impl, "rnn_impl", "kernel")
-        K.check_impl(self.encoder_impl, "encoder_impl", "kernel")
-        if self.dropout_impl == "rng":
-            raise NotImplementedError(
-                "dropout_impl='rng' (tip_tpu's jax.random masks) is not "
-                "ported; the port trains with dropout_impl='hash' (ROADMAP "
-                "A, training: the rng dropout path)")
-        if self.dropout_impl != "hash":
-            raise ValueError(f"dropout_impl must be hash, got "
+        if self.encoder_impl not in ("auto", "kernel", "plain", "xla"):
+            raise ValueError(f"encoder_impl must be auto|kernel|plain|xla, "
+                             f"got {self.encoder_impl!r}")
+        if self.dropout_impl not in ("hash", "rng"):
+            raise ValueError(f"dropout_impl must be hash|rng, got "
                              f"{self.dropout_impl!r}")
 
     @property
@@ -267,9 +276,33 @@ def _layer_norm(x, scale, bias, eps=1e-5):
     return (x - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
-def _encoder_layer(p, pre: str, x, mask, n_heads: int):
+def hash_dropout(x, rate: float, seed, site: int):
+    """tip_tpu's hash-mask dropout: x times the keep mask of (seed, site)
+    in {0, 1/keep}, keep = 1 - rate; x itself when rate is 0."""
+    if rate == 0.0:
+        return x
+    return x * hash_keep_mask(seed, site, x.shape, 1.0 - rate,
+                              torch.float32, x.device).to(x.dtype)
+
+
+def rng_dropout(x, rate: float, generator: torch.Generator):
+    """tip_tpu's ``_dropout``: each entry kept with probability keep = 1 -
+    rate (a float32 uniform draw from ``generator`` below keep) and divided
+    by keep, the others 0; x itself when rate is 0."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, dtype=torch.float32,
+                   device=x.device)
+    return torch.where(u < keep, x / keep, x.new_zeros(()))
+
+
+def _encoder_layer(p, pre: str, x, mask, n_heads: int, drop=None):
     """One post-norm layer over the parameters ``p[pre + name]``:
-    x = LN1(x + MHA(x)); x = LN2(x + FF(x))."""
+    x = LN1(x + MHA(x)); x = LN2(x + FF(x)). ``drop(t, k)``: the dropout
+    of site k of the layer (0 the attention probabilities, 1 the attention
+    output, 2 the ReLU, 3 FF2's output), as tip_tpu's xla loop places it;
+    None: no dropout."""
     B, T, d = x.shape
     h = n_heads
     hd = d // h
@@ -280,14 +313,17 @@ def _encoder_layer(p, pre: str, x, mask, n_heads: int):
     q = split_heads(x @ p[pre + "w_q"] + p[pre + "b_q"])
     k = split_heads(x @ p[pre + "w_k"] + p[pre + "b_k"])
     v = split_heads(x @ p[pre + "w_v"] + p[pre + "b_v"])
+    if drop is None:
+        def drop(t, k):
+            return t
     logits = q @ k.transpose(-1, -2) / math.sqrt(hd) + mask
-    o = torch.softmax(logits, dim=-1) @ v
+    o = drop(torch.softmax(logits, dim=-1), 0) @ v
     a = o.transpose(1, 2).reshape(B, T, d) @ p[pre + "out_proj.w"] \
         + p[pre + "out_proj.b"]
-    x = _layer_norm(x + a, p[pre + "ln1_s"], p[pre + "ln1_b"])
-    f = torch.relu(x @ p[pre + "ff1.w"] + p[pre + "ff1.b"])
+    x = _layer_norm(x + drop(a, 1), p[pre + "ln1_s"], p[pre + "ln1_b"])
+    f = drop(torch.relu(x @ p[pre + "ff1.w"] + p[pre + "ff1.b"]), 2)
     f = f @ p[pre + "ff2.w"] + p[pre + "ff2.b"]
-    return _layer_norm(x + f, p[pre + "ln2_s"], p[pre + "ln2_b"])
+    return _layer_norm(x + drop(f, 3), p[pre + "ln2_s"], p[pre + "ln2_b"])
 
 
 class _EncoderLayer(nn.Module):
@@ -411,7 +447,8 @@ class TIPModel(nn.Module):
           x_s:   (B, T, size_s) past-state history.
           mask:  optional additive attention mask (T, T); defaults to causal.
           train: run the training forward (``train_forward``) instead.
-          seeds: with ``train``, the dropout seeds (seed0, layer_seeds).
+          seeds: with ``train``, what draws the dropout masks
+                 (``train_forward``).
         Returns:
           (B, T, size_s) next-state predictions at every window position.
         """
@@ -432,7 +469,7 @@ class TIPModel(nn.Module):
         x = torch.cat([x_imu, x_s], dim=-1) @ p["in_linear.w"] \
             + p["in_linear.b"]
         x = x[..., self.perm]
-        if mask is None and self.cfg.encoder_impl != "plain":
+        if mask is None and self.cfg.encoder_impl not in ("plain", "xla"):
             x = self._encoder_layers(x, p)
         else:
             if mask is None:
@@ -490,21 +527,32 @@ class TIPModel(nn.Module):
 
     def train_forward(self, x_imu, x_s, seeds=None):
         """The differentiable training forward, tip_tpu's ``forward(...,
-        train=True, rng)`` with ``encoder_impl="pallas"``,
-        ``rnn_impl="pallas"`` and ``dropout_impl="hash"``, in
-        ``cfg.compute_dtype`` (the parameters' dtype when it is None). In
-        bf16 the parameters stay float32: each is cast to bf16 on every
-        call with a differentiable cast (``_params``; the LayerNorm vectors
-        too, which ``pack_layer_weights`` widens back to f32, as tip_tpu
-        casts its whole tree), both inputs are cast to bf16, the layers and
-        the RNN run K11/K12 and K1/K10 in bf16, and the output comes back
-        in the inputs' dtype.
+        train=True, rng)``, in ``cfg.compute_dtype`` (the parameters' dtype
+        when it is None). Its encoder layers are those of
+        ``ops/encoder_train.py`` (K11/K12 or their plain versions, tip_tpu's
+        ``encoder_impl="pallas"``), or the per-op layer loop under
+        ``encoder_impl="xla"``; its RNN is ``fused_rnn_train`` (K1/K10 or
+        the plain version, by ``rnn_impl``). In bf16 the parameters stay
+        float32: each is cast to bf16 on every call with a differentiable
+        cast (``_params``; the LayerNorm vectors too, which
+        ``pack_layer_weights`` widens back to f32, as tip_tpu casts its
+        whole tree), both inputs are cast to bf16, and the output comes
+        back in the inputs' dtype.
 
-        seeds: (seed0, layer_seeds), int32 values: seed0 seeds the IMU
-        (site 200) and past-state (site 201) masks, ``layer_seeds[li]`` the
-        masks of encoder layer li. tip_tpu draws them from its rng as
-        ``bits(rng)`` and ``bits(split(rng, 2 + 4L)[2 + 4 li])``. None:
-        dropout off, as tip_tpu without an rng.
+        seeds: what draws the dropout masks; None: dropout off, as tip_tpu
+        without an rng.
+          * ``dropout_impl="hash"``: (seed0, layer_seeds), int32 values.
+            seed0 seeds the IMU (site 200) and past-state (site 201) masks
+            and, in the xla loop, layer li's four sites 210-213 + 4 li;
+            ``layer_seeds[li]`` the masks of K11/K12's layer li. tip_tpu
+            draws them from its rng as ``bits(rng)`` and ``bits(split(rng,
+            2 + 4L)[2 + 4 li])``.
+          * ``dropout_impl="rng"``: a ``torch.Generator`` on the inputs'
+            device. It draws the IMU and past-state masks, then, in the
+            xla loop, each layer's four masks in the order of the layer;
+            with K11/K12 layers, the layers' int32 seeds (read back to the
+            host: one sync a call), as tip_tpu draws them from the layer
+            keys.
         """
         cfg = self.cfg
         out_dtype = x_imu.dtype
@@ -512,34 +560,65 @@ class TIPModel(nn.Module):
         if cfg.compute_dtype is not None:
             cd = getattr(torch, cfg.compute_dtype)
             x_imu, x_s = x_imu.to(cd), x_s.to(cd)
-        drop = seeds is not None
-        if drop:
-            seed0, layer_seeds = seeds
-            if len(layer_seeds) != cfg.tf_layers:
-                raise ValueError(f"{len(layer_seeds)} layer seeds for "
-                                 f"{cfg.tf_layers} layers")
+        drop_in, drop_layer, layer_seeds = self._dropout(seeds, x_imu.device)
         x_s = torch.nan_to_num(x_s, nan=0.0)
-        if drop and cfg.in_dropout > 0.0:
-            x_imu = x_imu * hash_keep_mask(
-                seed0, SITE_IMU, x_imu.shape, 1.0 - cfg.in_dropout,
-                torch.float32, x_imu.device).to(x_imu.dtype)
+        x_imu = drop_in(x_imu, cfg.in_dropout, SITE_IMU)
         x_s = torch.cat([x_s[..., :108], torch.zeros_like(x_s[..., 108:111]),
                          x_s[..., 111:]], dim=-1)
-        if drop and cfg.past_dropout > 0.0:
-            x_s = x_s * hash_keep_mask(
-                seed0, SITE_PAST, x_s.shape, 1.0 - cfg.past_dropout,
-                torch.float32, x_s.device).to(x_s.dtype)
+        x_s = drop_in(x_s, cfg.past_dropout, SITE_PAST)
         x = torch.cat([x_imu, x_s], dim=-1) @ p["in_linear.w"] \
             + p["in_linear.b"]
         x = x[..., self.perm]
-        for li in range(cfg.tf_layers):
-            ws = pack_layer_weights(p, f"layers.{li}.", x.dtype)
-            x = encoder_layer_train(
-                x.contiguous(), ws, layer_seeds[li] if drop else 0,
-                cfg.n_heads, cfg.layer_dropout, drop, ENCODER_TILE,
-                impl=cfg.encoder_impl)
+        if cfg.encoder_impl == "xla":
+            mask = causal_mask(x.shape[1], x.dtype, x.device)
+            for li in range(cfg.tf_layers):
+                x = _encoder_layer(p, f"layers.{li}.", x, mask, cfg.n_heads,
+                                   drop_layer(li))
+        else:
+            seeds_l = layer_seeds()
+            for li in range(cfg.tf_layers):
+                ws = pack_layer_weights(p, f"layers.{li}.", x.dtype)
+                x = encoder_layer_train(
+                    x.contiguous(), ws, seeds_l[li], cfg.n_heads,
+                    cfg.layer_dropout, seeds is not None, ENCODER_TILE,
+                    impl=cfg.encoder_impl)
         if cfg.with_rnn:
             xin = x @ p["rnn.w_ih"] + p["rnn.b_ih"] + p["rnn.b_hh"]
             x = fused_rnn_train(xin.contiguous(), p["rnn.w_hh"],
                                 impl=cfg.rnn_impl)
         return (x @ p["out.w"] + p["out.b"]).to(out_dtype)
+
+    def _dropout(self, seeds, device):
+        """What ``train_forward`` drops with: drop_in(x, rate, site) for the
+        inputs, drop_layer(li) the xla loop's ``drop`` of layer li, and
+        layer_seeds() the K11/K12 layers' int32 seeds (drawn when called)."""
+        cfg = self.cfg
+        L = cfg.tf_layers
+        if seeds is None:
+            return ((lambda x, rate, site: x), (lambda li: None),
+                    (lambda: [0] * L))
+        if cfg.dropout_impl == "rng":
+            gen = seeds
+            if not isinstance(gen, torch.Generator):
+                raise TypeError("dropout_impl='rng' draws its masks from a "
+                                "torch.Generator, not from seeds")
+            if gen.device.type != device.type:
+                raise ValueError(f"the dropout generator is on "
+                                 f"{gen.device}, the inputs on {device}")
+            return ((lambda x, rate, site: rng_dropout(x, rate, gen)),
+                    (lambda li: lambda t, k: rng_dropout(
+                        t, cfg.layer_dropout, gen)),
+                    (lambda: torch.randint(
+                        -2 ** 31, 2 ** 31, (L,), generator=gen,
+                        device=gen.device).tolist()))
+        if isinstance(seeds, torch.Generator):
+            raise TypeError("dropout_impl='hash' takes (seed0, layer_seeds), "
+                            "not a generator")
+        seed0, layer_seeds = seeds
+        if len(layer_seeds) != L:
+            raise ValueError(f"{len(layer_seeds)} layer seeds for {L} "
+                             f"layers")
+        return ((lambda x, rate, site: hash_dropout(x, rate, seed0, site)),
+                (lambda li: lambda t, k: hash_dropout(
+                    t, cfg.layer_dropout, seed0, SITE_LAYER0 + 4 * li + k)),
+                (lambda: list(layer_seeds)))

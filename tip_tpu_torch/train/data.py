@@ -5,7 +5,10 @@ The blobs (``data_gen/combine.py``) are memory-mapped once; an epoch draws
 new window-end indices with numpy's ``default_rng`` in tip_tpu's order, so
 one seed gives tip_tpu's windows. ``to_device`` puts the blobs on the card
 once and ``device_gather`` gathers a batch's windows there from a (B,)
-index tensor, so a step copies B indices up instead of the batch.
+index tensor, so a step copies B indices up instead of the batch. The
+on-device sampler (``make_window_sampler``, ``device_sample_epoch``) draws
+a whole epoch's ends on the card from a ``torch.Generator``, so an epoch
+needs nothing from the host.
 
 Blob format:
   <prefix>_imu.npy      (N, 72)  root-local IMU features, float32
@@ -117,3 +120,84 @@ def device_gather(dds: DeviceDataset, ends: torch.Tensor, seq_len: int):
     if dds.acc_sum is not None:
         x_imu = torch.cat([x_imu, dds.acc_sum[win]], dim=-1)
     return x_imu, dds.s[win], dds.s[win + 1]
+
+
+# ---------------------------------------------------------------------------
+# on-device epoch sampling
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class WindowSampler:
+    """The static candidate table from which ``device_sample_epoch`` draws
+    an epoch's window ends on the device (tip_tpu's ``WindowSampler``, the
+    same integers).
+
+    The distribution is ``sample_epoch_indices``'s: per segment k_i =
+    clamp(round(n_i / downsample), 1, n_i) of its n_i candidate ends drawn
+    uniformly without replacement, then a global shuffle. The layout
+    depends only on the segment table: the candidates of a segment are one
+    contiguous block, and ``keep`` marks the first k_i positions of each.
+    """
+    cands: torch.Tensor    # (N_tot,) int64: the valid ends, segment-ordered
+    seg_id: torch.Tensor   # (N_tot,) int64: the segment of each candidate
+    keep: torch.Tensor     # (N_tot,) bool: position in its segment < k_i
+    n_select: int          # sum(k_i): the windows an epoch can draw
+
+
+def make_window_sampler(info: np.ndarray, seq_len: int,
+                        device=None) -> WindowSampler:
+    """The sampler's tables from the segment table, once, on ``device``
+    (``cuda`` unless the caller asks for another)."""
+    from tip_tpu_torch import resolve_device
+    device = resolve_device(device)
+    cands, seg_id, keep = [], [], []
+    sid = 0
+    for start, end, rate in np.asarray(info).astype(np.int64):
+        lo, hi = start + seq_len, end - 1
+        n = hi - lo
+        if n <= 0:
+            continue
+        k = min(max(int(round(n / rate)), 1), n)
+        cands.append(np.arange(lo, hi))
+        seg_id.append(np.full(n, sid))
+        keep.append(np.arange(n) < k)
+        sid += 1
+
+    def put(parts, dtype):
+        a = (np.concatenate(parts) if parts else np.zeros((0,), dtype))
+        return torch.as_tensor(a.astype(dtype), device=device)
+
+    keep_t = put(keep, bool)
+    return WindowSampler(cands=put(cands, np.int64),
+                         seg_id=put(seg_id, np.int64), keep=keep_t,
+                         n_select=int(sum(int(k.sum()) for k in keep)))
+
+
+def device_sample_epoch(sampler: WindowSampler, generator: torch.Generator,
+                        n_batches: int, batch_size: int) -> torch.Tensor:
+    """(n_batches, batch_size) int64 window ends drawn on the sampler's
+    device from ``generator`` (on that device), with no host sync;
+    ValueError when the epoch needs more windows than the sampler has.
+
+    tip_tpu's two stages: (1) a random order within each segment, a uniform
+    key r per candidate sorted by (seg_id, r): torch has no lexsort, so a
+    stable sort by r and then a stable sort by seg_id; each segment stays
+    its static block, so ``keep`` (its first k_i positions) picks k_i of
+    n_i uniformly without replacement. (2) A global shuffle of the kept
+    candidates (a second key, 2.0 for the others, so they sort last),
+    truncated to the epoch's batch grid. The stream is torch's, not
+    jax.random's: the distribution is the same.
+    """
+    need = n_batches * batch_size
+    if need > sampler.n_select:
+        raise ValueError(f"the epoch needs {need} windows, the sampler has "
+                         f"{sampler.n_select}")
+    dev = sampler.cands.device
+    r = torch.rand(sampler.cands.shape, generator=generator, device=dev)
+    by_r = torch.argsort(r, stable=True)
+    order = by_r[torch.argsort(sampler.seg_id[by_r], stable=True)]
+    vals = sampler.cands[order]
+    r2 = torch.rand(vals.shape, generator=generator, device=dev)
+    pick = torch.argsort(torch.where(sampler.keep, r2, r2.new_full((), 2.0)),
+                         stable=True)
+    return vals[pick[:need]].reshape(n_batches, batch_size)

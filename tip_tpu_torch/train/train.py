@@ -1,6 +1,10 @@
 """Training of the TIP state predictor on one device (twin of
-tip_tpu/train/train.py in tip_tpu's kernel configuration:
-``rnn_impl="pallas"``, ``encoder_impl="pallas"``, ``dropout_impl="hash"``).
+tip_tpu/train/train.py): tip_tpu's kernel configuration
+(``rnn_impl="pallas"``, ``encoder_impl="pallas"``, ``dropout_impl="hash"``:
+K1, K10, K11, K12 on the card) and its default one (``encoder_impl="xla"``,
+the per-op layer loop, with ``dropout_impl="rng"``; the RNN by
+``rnn_impl``), a step at a time (``train_step``, ``train_loop``) or an
+epoch at a time (``make_epoch_fn``).
 
 The reference recipe: Adam or AdamW, cosine learning rate stepped per
 batch with T_max = epochs + 850, global-norm clip 5.0, uniform noise on the
@@ -16,9 +20,12 @@ the moment update):
   p <- p + (-lr(step)) u
 
 Random numbers come from two explicit generators of the train state: a
-CPU one for the dropout seeds (host ints, no device sync) and one on the
-device for the history noise. ``train_step`` also takes the noise and the
-seeds as arguments, so that a test can hand it tip_tpu's.
+CPU one for the hash masks' seeds (host ints, no device sync) and one on
+the device for the history noise, the rng masks (``dropout_impl="rng"``)
+and the epoch's window ends (``data.device_sample_epoch``). Both are
+checkpointed. ``train_step`` also takes the noise and the seeds as
+arguments, so that a test can hand it tip_tpu's. The step count lives on
+the device, so that an epoch runs with no host sync (``make_epoch_fn``).
 
 ``cfg.model.compute_dtype="bfloat16"`` (the CLI's ``--bf16``) trains as
 tip_tpu does: the forward and backward compute in bf16 (K1, K10, K11, K12
@@ -62,11 +69,18 @@ class TrainConfig:
     noise_input_hist: float = 0.15
     seed: int = 5104
     log_interval: int = 100
+    # tip_tpu's choice of jax.random implementation for the rng masks,
+    # "threefry" or "rbg". Both name JAX generators; the port draws the rng
+    # masks from one torch.Generator on the device whichever is given
+    dropout_rng_impl: str = "threefry"
 
     def __post_init__(self):
         if self.optimizer not in ("Adam", "AdamW"):
             raise ValueError(f"optimizer must be Adam|AdamW, got "
                              f"{self.optimizer!r}")
+        if self.dropout_rng_impl not in ("threefry", "rbg"):
+            raise ValueError(f"dropout_rng_impl must be threefry|rbg, got "
+                             f"{self.dropout_rng_impl!r}")
 
 
 @dataclasses.dataclass
@@ -74,17 +88,27 @@ class TrainState:
     model: M.TIPModel                  # its parameters require grad
     mu: Dict[str, torch.Tensor]        # Adam's moments, by parameter name
     nu: Dict[str, torch.Tensor]
-    step: int                          # updates so far (Adam's count)
-    gen: torch.Generator               # CPU: dropout seeds
-    noise_gen: torch.Generator         # on the device: history noise
+    step: torch.Tensor                 # () int64 on the device: updates so
+                                       # far (Adam's count)
+    gen: torch.Generator               # CPU: the hash masks' seeds
+    noise_gen: torch.Generator         # on the device: history noise, rng
+                                       # masks, the sampler's window ends
 
 
 def lr_schedule(cfg: TrainConfig):
     """torch CosineAnnealingLR with eta_min=0 stepped per batch:
-    lr(t) = lr0 (1 + cos(pi t / T_max)) / 2, periodic beyond T_max."""
+    lr(t) = lr0 (1 + cos(pi t / T_max)) / 2, periodic beyond T_max. A
+    Python int step gives a float; a step tensor gives a float64 tensor on
+    its device, computed there."""
     t_max = cfg.epochs + cfg.cosine_extra
 
-    def sched(step: int) -> float:
+    def sched(step):
+        if torch.is_tensor(step):
+            if not cfg.cosine_lr:
+                return torch.full((), cfg.lr, dtype=torch.float64,
+                                  device=step.device)
+            t = step.to(torch.float64)
+            return cfg.lr * (1.0 + torch.cos(math.pi * t / t_max)) / 2.0
         if not cfg.cosine_lr:
             return cfg.lr
         return cfg.lr * (1.0 + math.cos(math.pi * step / t_max)) / 2.0
@@ -95,7 +119,8 @@ def lr_schedule(cfg: TrainConfig):
 def _state(cfg, model, mu, nu, step, device):
     model.requires_grad_(True)
     return TrainState(
-        model=model, mu=mu, nu=nu, step=step,
+        model=model, mu=mu, nu=nu,
+        step=torch.tensor(int(step), dtype=torch.int64, device=device),
         gen=torch.Generator().manual_seed(cfg.seed),
         noise_gen=torch.Generator(device=device).manual_seed(cfg.seed + 1))
 
@@ -133,8 +158,8 @@ def train_state_from_jax(params, count, mu, nu, cfg: TrainConfig,
 
 def loss_fn(model, x_imu, x_s, y, noise, seeds, cfg: TrainConfig):
     """Composite loss on one batch: the training forward of ``x_s + noise``
-    with dropout ``seeds`` (None: off), then jerk + pose and root velocity
-    + SBP."""
+    with dropout drawn by ``seeds`` (the model's ``train_forward``; None:
+    off), then jerk + pose and root velocity + SBP."""
     y_pred = model.train_forward(x_imu, x_s + noise, seeds)
     nc = cfg.n_sbps * 4
     l_jerk = L.loss_jerk(y_pred[:, :, :-3 - nc])
@@ -148,8 +173,11 @@ def loss_fn(model, x_imu, x_s, y, noise, seeds, cfg: TrainConfig):
 
 
 def draw_seeds(state: TrainState):
-    """(seed0, layer_seeds) as int32 values from the state's CPU
-    generator."""
+    """What draws this step's dropout masks: under ``dropout_impl="hash"``
+    (seed0, layer_seeds) as int32 values from the state's CPU generator;
+    under "rng" the state's device generator itself."""
+    if state.model.cfg.dropout_impl == "rng":
+        return state.noise_gen
     s = torch.randint(-2 ** 31, 2 ** 31, (1 + state.model.cfg.tf_layers,),
                       generator=state.gen, dtype=torch.int64).tolist()
     return s[0], s[1:]
@@ -163,21 +191,15 @@ def draw_noise(state: TrainState, x_s, cfg: TrainConfig):
     return (u - 0.5) * (2.0 * cfg.noise_input_hist)
 
 
-def train_step(state: TrainState, batch, cfg: TrainConfig, noise=None,
-               seeds=None):
-    """One update on ``batch`` = (x_imu, x_s, y) tensors on the model's
-    device. ``noise`` and ``seeds`` default to draws from the state's
-    generators. Returns tip_tpu's aux as floats: loss, loss_q, loss_c,
-    loss_jerk, the pre-clip grad_norm, lr at the step before the update,
-    and ``skipped``. A step whose loss is not finite changes nothing: not
-    the parameters, the moments, the step or the generators.
-    """
+AUX = ("loss", "loss_q", "loss_c", "loss_jerk", "grad_norm", "lr",
+       "skipped")
+
+
+def _grads(state: TrainState, batch, cfg: TrainConfig, noise, seeds):
+    """The loss and the gradients of one batch, on the device with no host
+    sync: (names, parameters, gradients, the aux of ``AUX`` as one float64
+    tensor, whether the loss is finite as a () bool tensor)."""
     x_imu, x_s, y = batch
-    rng_states = (state.gen.get_state(), state.noise_gen.get_state())
-    if seeds is None:
-        seeds = draw_seeds(state)
-    if noise is None:
-        noise = draw_noise(state, x_s, cfg)
     model = state.model
     params = dict(model.named_parameters())
     for p in params.values():
@@ -187,18 +209,22 @@ def train_step(state: TrainState, batch, cfg: TrainConfig, noise=None,
     names = list(params)
     grads = [params[k].grad for k in names]
     g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-    vals = torch.stack([aux["loss"], aux["loss_q"], aux["loss_c"],
-                        aux["loss_jerk"], g_norm]).tolist()
-    out = dict(zip(("loss", "loss_q", "loss_c", "loss_jerk", "grad_norm"),
-                   vals))
-    out["lr"] = lr_schedule(cfg)(state.step)
-    out["skipped"] = not math.isfinite(out["loss"])
-    if out["skipped"]:
-        state.gen.set_state(rng_states[0])
-        state.noise_gen.set_state(rng_states[1])
-        for p in params.values():
-            p.grad = None
-        return out
+    ok = torch.isfinite(total)
+    with torch.no_grad():
+        vals = torch.stack([aux["loss"], aux["loss_q"], aux["loss_c"],
+                            aux["loss_jerk"], g_norm]).to(torch.float64)
+        vals = torch.cat([vals, torch.stack([lr_schedule(cfg)(state.step),
+                                             (~ok).to(torch.float64)])])
+    return names, params, grads, g_norm, vals, ok
+
+
+def _apply(state: TrainState, names, params, grads, g_norm, lr,
+           cfg: TrainConfig, ok=None):
+    """Clip, Adam(W) and the parameter update with optax's formulas, on the
+    device with no host sync. ``ok`` (a () bool tensor, or None: apply):
+    where it is False the parameters, the moments and the step stay as
+    they were (an exact select, so a kept update is bit for bit the
+    unguarded one)."""
     with torch.no_grad():
         if cfg.clip > 0:
             trig = g_norm < cfg.clip
@@ -213,23 +239,115 @@ def train_step(state: TrainState, batch, cfg: TrainConfig, noise=None,
         g2 = torch._foreach_mul(grads, grads)
         new_nu = torch._foreach_add(torch._foreach_mul(g2, 1.0 - B2),
                                     torch._foreach_mul(nu, B2))
-        c = state.step + 1
-        m_hat = torch._foreach_div(new_mu, 1.0 - B1 ** c)
-        v_hat = torch._foreach_div(new_nu, 1.0 - B2 ** c)
+        # the bias corrections and lr in float64 on the device, each
+        # rounded to the moments' dtype as a Python float would be
+        c = (state.step + 1).to(torch.float64)
+        dt = new_mu[0].dtype
+        m_hat = torch._foreach_div(new_mu, (1.0 - torch.pow(B1, c)).to(dt))
+        v_hat = torch._foreach_div(new_nu, (1.0 - torch.pow(B2, c)).to(dt))
         u = torch._foreach_div(m_hat, torch._foreach_add(
             torch._foreach_sqrt(v_hat), EPS))
         plist = [params[k] for k in names]
         if cfg.optimizer == "AdamW":
             u = torch._foreach_add(u, torch._foreach_mul(plist,
                                                          cfg.weight_decay))
-        torch._foreach_add_(plist, torch._foreach_mul(u, -out["lr"]))
-        for k, m, v in zip(names, new_mu, new_nu):
-            state.mu[k] = m
-            state.nu[k] = v
+        delta = torch._foreach_mul(u, (-lr).to(dt))
+        if ok is None:
+            torch._foreach_add_(plist, delta)
+            state.mu.update(zip(names, new_mu))
+            state.nu.update(zip(names, new_nu))
+            state.step = state.step + 1
+        else:
+            for k, p, d, m, v in zip(names, plist, delta, new_mu, new_nu):
+                p.copy_(torch.where(ok, p + d, p))
+                state.mu[k] = torch.where(ok, m, state.mu[k])
+                state.nu[k] = torch.where(ok, v, state.nu[k])
+            state.step = torch.where(ok, state.step + 1, state.step)
         for p in plist:
             p.grad = None
-    state.step += 1
+
+
+def train_step(state: TrainState, batch, cfg: TrainConfig, noise=None,
+               seeds=None):
+    """One update on ``batch`` = (x_imu, x_s, y) tensors on the model's
+    device. ``noise`` and ``seeds`` (``draw_seeds``) default to draws from
+    the state's generators, seeds first. Returns tip_tpu's aux as floats:
+    loss, loss_q, loss_c, loss_jerk, the pre-clip grad_norm, lr at the step
+    before the update, and ``skipped``: one host sync, after the backward.
+    A step whose loss is not finite changes nothing: not the parameters,
+    the moments, the step or the generators.
+    """
+    rng_states = (state.gen.get_state(), state.noise_gen.get_state())
+    if seeds is None:
+        seeds = draw_seeds(state)
+    if noise is None:
+        noise = draw_noise(state, batch[1], cfg)
+    names, params, grads, g_norm, vals, _ = _grads(state, batch, cfg, noise,
+                                                   seeds)
+    out = dict(zip(AUX, vals.tolist()))
+    out["skipped"] = not math.isfinite(out["loss"])
+    if out["skipped"]:
+        state.gen.set_state(rng_states[0])
+        state.noise_gen.set_state(rng_states[1])
+        for p in params.values():
+            p.grad = None
+        return out
+    _apply(state, names, params, grads, g_norm, vals[AUX.index("lr")], cfg)
     return out
+
+
+def make_epoch_fn(cfg: TrainConfig, device_data, sampler=None,
+                  n_batches: Optional[int] = None):
+    """Whole-epoch training (twin of tip_tpu's ``make_epoch_fn``): the train
+    step over each row of an epoch's (n_batches, B) window ends, the
+    windows gathered on the device from ``device_data``
+    (``data.device_gather``), with no host sync from the first batch to the
+    last. The non-finite guard runs on the device: a batch whose loss is
+    not finite keeps the parameters, Adam's moments and the step (the
+    generators advance, as tip_tpu's ``kept`` state's rng does) and is
+    reported in ``skipped``.
+
+    Returns epoch_fn(state, ends) -> (state, aux): the state is updated in
+    place and returned; aux maps each name of ``AUX`` to an (n_batches,)
+    float64 tensor on the device, to be read once an epoch. ``ends``: an
+    (n_batches, B) integer tensor (copied to the state's device first if
+    it is not there: a host sync before the epoch).
+
+    sampler: a ``data.WindowSampler`` (with n_batches). The epoch's ends
+    are then drawn on the device from the state's device generator before
+    the first batch (``data.device_sample_epoch``), and the function is
+    epoch_fn(state) -> (state, aux): the schedule is a pure function of
+    the checkpointed state.
+    """
+    if sampler is not None and n_batches is None:
+        raise ValueError("a sampler needs n_batches")
+
+    def run(state, ends):
+        dev = state.step.device
+        ends = torch.as_tensor(ends, device=dev)
+        rows = []
+        for i in range(ends.shape[0]):
+            batch = data_lib.device_gather(device_data, ends[i], cfg.seq_len)
+            seeds = draw_seeds(state)
+            noise = draw_noise(state, batch[1], cfg)
+            names, params, grads, g_norm, vals, ok = _grads(
+                state, batch, cfg, noise, seeds)
+            _apply(state, names, params, grads, g_norm,
+                   vals[AUX.index("lr")], cfg, ok=ok)
+            rows.append(vals)
+        table = (torch.stack(rows) if rows else
+                 torch.zeros((0, len(AUX)), dtype=torch.float64, device=dev))
+        return state, {k: table[:, j] for j, k in enumerate(AUX)}
+
+    if sampler is None:
+        return run
+
+    def epoch_sampled(state):
+        ends = data_lib.device_sample_epoch(sampler, state.noise_gen,
+                                            n_batches, cfg.batch_size)
+        return run(state, ends)
+
+    return epoch_sampled
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +370,7 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, step: int,
     tmp = path + ".tmp"
     torch.save({"params": {k: v.detach() for k, v in
                            state.model.state_dict().items()},
-                "mu": state.mu, "nu": state.nu, "step": state.step,
+                "mu": state.mu, "nu": state.nu, "step": int(state.step),
                 "gen": state.gen.get_state(),
                 "noise_gen": state.noise_gen.get_state(),
                 "compute_dtype": state.model.cfg.compute_dtype}, tmp)
@@ -295,7 +413,8 @@ def restore_checkpoint(ckpt_dir: str, cfg: TrainConfig,
     if not params_only:
         state.mu = {k: v.to(device) for k, v in ck["mu"].items()}
         state.nu = {k: v.to(device) for k, v in ck["nu"].items()}
-    state.step = int(ck["step"])
+    state.step = torch.tensor(int(ck["step"]), dtype=torch.int64,
+                              device=device)
     state.gen.set_state(ck["gen"])
     state.noise_gen.set_state(ck["noise_gen"])
     return state
