@@ -160,6 +160,21 @@ Phases, in order; any failure exits non-zero:
           K10 and four each of K11 and K12 a step) over given ends with no
           host sync, bit-equal to as many train_step calls; an epoch of a
           batch with an inf: skipped, the state kept;
+  6c. tip_tpu's orbax checkpoint:
+       X  tests/data/orbax_tiny (tip_tpu's own save_checkpoint at path S's
+          widths, 5 SBPs, acc-sum, AdamW with the clip, after two of its
+          train steps; scripts/torch_make_orbax_fixture.py) read on the
+          card's host by utils/orbax_read.py (libzstd.so.1 through ctypes):
+          every array equal to tests/data/orbax_tiny.json's digests;
+          cli/evaluate's load_model from it serves an in-tree motion over
+          X_FRAMES frames through the default route (K1, 2 x K11, K2, K3 a
+          model frame), within TOL_EVAL of the same weights through the
+          plain versions on the card; a full resume from it
+          (train.restore_checkpoint, params_only=False: parameters, Adam's
+          moments and count, step, generators) takes X_STEPS steps of
+          X_BATCH windows in the kernel configuration (K1, K10, 2 x K11, 2
+          x K12 a step), its first step's loss and parameters within
+          TOL_PATH of the plain versions' step from the same restore;
   7. print one {"kernels": [...]} line (sixteen entries: K1-K12 and the
      bf16 variants of K1, K10, K11 and K12), then the {"ok": true, ...}
      line.
@@ -5779,6 +5794,144 @@ def recipe_paths(dev):
     return launches, {"T": t_summary, "U": u_summary, "V": v_summary}
 
 
+# ---------------------------------------------------------------------------
+# path X: tip_tpu's orbax checkpoint, read by the port's own reader
+# ---------------------------------------------------------------------------
+
+ORBAX_FIXTURE = ROOT / "tests" / "data" / "orbax_tiny"
+ORBAX_DIGESTS = ROOT / "tests" / "data" / "orbax_tiny.json"
+X_FRAMES = 120
+X_STEPS = 2
+X_BATCH = 8
+
+
+def orbax_read_x():
+    """The fixture read by utils/orbax_read.py on this host, every array
+    against the digests of tip_tpu's restore. Returns (seconds, count)."""
+    import hashlib
+    from tip_tpu_torch.utils import orbax_read as OR
+    t0 = time.perf_counter()
+    arrays = OR.read_orbax(OR.step_dir(str(ORBAX_FIXTURE)))
+    read_s = time.perf_counter() - t0
+    with open(ORBAX_DIGESTS) as f:
+        want = json.load(f)["arrays"]
+    if set(arrays) != set(want):
+        diff = sorted(set(arrays) ^ set(want))[:5]
+        raise AssertionError(f"path X: the names {diff} are in one of the "
+                             f"read arrays and the digests only")
+    for name, a in arrays.items():
+        got = dict(shape=list(a.shape), dtype=a.dtype.str,
+                   sha256=hashlib.sha256(a.tobytes()).hexdigest())
+        if got != want[name]:
+            raise AssertionError(f"path X: {name} read as {got}, tip_tpu's "
+                                 f"restore gives {want[name]}")
+    return read_s, len(arrays)
+
+
+def orbax_serve_x(dev):
+    """cli/evaluate's load_model from the fixture, served over X_FRAMES
+    frames of an in-tree motion on the default route and through the plain
+    versions on the card. Returns the launches."""
+    from tip_tpu_torch.cli import evaluate as TCE
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.ops import kinematics as kin
+    from tip_tpu_torch.runtime import runner as R
+    imu, s_init = load_motion()
+    skel = kin.amass_skeleton(device=dev)
+    tiny = dict(tf_in_dim=32, tf_hid_size=64, n_heads=4, tf_layers=2,
+                rnn_hid_size=24)
+    cfgs = {"X": R.RunnerConfig(model=M.ModelConfig(**tiny)),
+            "X-plain": R.RunnerConfig(model=M.ModelConfig(
+                **tiny, rnn_impl="plain", encoder_impl="plain"),
+                tail_impl="plain")}
+    on_path = {"X": {"fused_rnn": 1, "encoder_layer_fwd": 2,
+                     "decode_fused": 1, "tail_fused": 1}, "X-plain": ()}
+    runs, launches = {}, {}
+    for name, cfg in cfgs.items():
+        model = TCE.load_model(str(ORBAX_FIXTURE), cfg.model, 5, dev)
+        runs[name], launches[name] = run_path(
+            name, model, cfg, skel, s_init, imu[:X_FRAMES + 1], dev,
+            on_path[name])
+    compare_runs("path X (orbax weights) vs its plain path (card)",
+                 runs["X"], runs["X-plain"], X_FRAMES, TOL_EVAL)
+    return launches["X"]
+
+
+def orbax_train_x(dev):
+    """A full resume from the fixture (train.restore_checkpoint,
+    params_only=False) in the kernel configuration takes X_STEPS steps of
+    X_BATCH windows of the packed in-tree motions; the same restore with
+    the plain versions takes the first step on the same batch, noise and
+    masks (both restores seed the generators from the checkpoint's key).
+    Returns (launches, first step's loss rel diff, params max diff)."""
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.train import data as TD
+    from tip_tpu_torch.train import train as TT
+    with open(ORBAX_DIGESTS) as f:
+        meta = json.load(f)
+    ds = TD.PackedDataset.from_prefix(str(ROOT / "output" /
+                                          "chip_smoke_train"))
+    batches = step_batches(ds, X_STEPS, X_BATCH, dev, seed=19)
+
+    def cfg(**kw):
+        return TT.TrainConfig(model=M.ModelConfig(**meta["widths"], **kw),
+                              n_sbps=meta["n_sbps"], batch_size=X_BATCH,
+                              lr=1e-3, optimizer=meta["optimizer"],
+                              clip=meta["clip"])
+    kern, plain = cfg(), cfg(rnn_impl="plain", encoder_impl="plain")
+    state = TT.restore_checkpoint(str(ORBAX_FIXTURE), kern, device=dev)
+    if int(state.step) != meta["step"]:
+        raise AssertionError(f"path X: restored step {int(state.step)}")
+    ref = TT.restore_checkpoint(str(ORBAX_FIXTURE), plain, device=dev)
+    K.reset_launch_counts()
+    auxes = [TT.train_step(state, b, kern) for b in batches]
+    torch.cuda.synchronize()
+    launches = {k: K.launch_counts.get(k, 0) for k in KERNELS}
+    hold_launches("X-train", launches, X_STEPS,
+                  {"fused_rnn": 1, "fused_rnn_bwd": 1,
+                   "encoder_layer_fwd": 2, "encoder_layer_bwd": 2})
+    if int(state.step) != meta["step"] + X_STEPS or any(
+            a["skipped"] or not math.isfinite(a["loss"]) for a in auxes):
+        raise AssertionError(f"path X-train: step {int(state.step)}, "
+                             f"{auxes}")
+    # the kernels' first step again, from the same restore, beside the
+    # plain versions' first step
+    first = TT.restore_checkpoint(str(ORBAX_FIXTURE), kern, device=dev)
+    aux_k = TT.train_step(first, batches[0], kern)
+    aux_p = TT.train_step(ref, batches[0], plain)
+    loss_rel = abs(aux_k["loss"] - aux_p["loss"]) / abs(aux_p["loss"])
+    pk, pp = dict(first.model.named_parameters()), dict(
+        ref.model.named_parameters())
+    p_err = max((pk[n] - pp[n]).abs().max().item() for n in pk)
+    check("path X-train first step vs the plain versions' (card)",
+          {"loss_rel": (loss_rel, TOL_PATH), "params": (p_err, TOL_PATH)})
+    if aux_k["loss"] != auxes[0]["loss"]:
+        raise AssertionError(f"path X-train: two restores' first steps "
+                             f"differ: {aux_k['loss']} vs "
+                             f"{auxes[0]['loss']}")
+    return launches, loss_rel, p_err, [a["loss"] for a in auxes]
+
+
+def orbax_path_x(dev, card):
+    """Path X. Returns (launches by path, summary)."""
+    t0 = time.perf_counter()
+    read_s, n_arrays = orbax_read_x()
+    serve = orbax_serve_x(dev)
+    train, loss_rel, p_err, losses = orbax_train_x(dev)
+    secs = time.perf_counter() - t0
+    summary = dict(seconds=secs, read_s=read_s, arrays=n_arrays,
+                   serve_frames=X_FRAMES, train_steps=X_STEPS,
+                   train_losses=losses, first_step_loss_rel=loss_rel,
+                   first_step_params_max_diff=p_err,
+                   launches={"X": {k: v for k, v in serve.items() if v},
+                             "X-train": {k: v for k, v in train.items()
+                                         if v}}, card=card)
+    log(json.dumps({"orbax_path": summary}))
+    log(f"path X: {secs:.1f} s ({card})")
+    return {"X": serve, "X-train": train}, summary
+
+
 # the path whose launches a kernel's entry reports
 COUNTED_ON = {"fused_rnn": "A", "decode_fused": "A", "tail_fused": "A",
               "fused_forward_last": "B", "fused_forward": "replay",
@@ -5890,6 +6043,9 @@ def main():
     recipe_launches, recipe_summary = recipe_paths(dev)
     launches.update(recipe_launches)
     stamp("recipe paths")
+    orbax_launches, orbax_summary = orbax_path_x(dev, card)
+    launches.update(orbax_launches)
+    stamp("path X")
     for k in kernels:
         k["launches"] = launches[COUNTED_ON[k["name"]]][k["name"]]
         k["launches_on"] = COUNTED_ON[k["name"]]
@@ -5902,6 +6058,8 @@ def main():
             "P", "P-2", "Q") if launches[p][k["name"]]}
         k["launches_recipe"] = {p: launches[p].get(k["name"], 0) for p in (
             "U", "U-eval", "U-cli", "V") if launches[p].get(k["name"])}
+        k["launches_orbax"] = {p: launches[p][k["name"]] for p in (
+            "X", "X-train") if launches[p][k["name"]]}
         if not k["launches"] > 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
         if k["name"] in abf_calls:
@@ -5927,6 +6085,7 @@ def main():
                         "epoch_synced_ms", "device_ms", "kernels")}
                         for p in ("U", "V")},
                     "recipe_eval": recipe_summary["U"]["eval_metrics"],
+                    "orbax_path_s": orbax_summary["seconds"],
                     "card": card}))
     print(json.dumps({"kernels": kernels}))
     stamp("done")

@@ -13,7 +13,8 @@ motions in the serving modes tip_tpu's script evaluates. Results land in
 <out>/results.json.
 
 Every phase is resumable: corpus files are skipped when present, packing
-is skipped when the blobs exist, training restores the newest ckpt_*.pt
+is skipped when the blobs exist, training restores the newest checkpoint
+under <out>/ckpt, its own ckpt_*.pt or a tip_tpu run's orbax step
 (parameters, moments, step and generators) and, with the host sampler,
 replays the numpy stream of the epochs already done; the eval caches each
 mode's metrics for the checkpoint's step.
@@ -43,12 +44,12 @@ TEST_DURATION_S = 12.5          # fixed-length held-out clips, >= 12.5 s so
 SAVE_EVERY = 25                 # epochs between checkpoints, as tip_tpu's
 EVAL_MODES = (("recompute", False), ("kv_cache", False),
               ("kv_cache_rnn_carry", False), ("recompute_full_terrain", True))
-# what this script does not do, by flag -> the ROADMAP item
+# what this script leaves out on purpose, by flag -> why (ROADMAP A7)
 UNPORTED = {
     "git_ckpt_every": "committing checkpoints into the repo (a TPU host's "
-                      "durability step; ROADMAP A7)",
-    "platform": "choosing a JAX backend (ROADMAP A7; the port takes "
-                "--device)",
+                      "durability step, not carried over; ROADMAP A7)",
+    "platform": "choosing a JAX backend (none here; ROADMAP A7: the port "
+                "takes --device)",
 }
 # the recipe's widths (ModelConfig's defaults) and batch size
 RECIPE = dict(tf_in_dim=256, tf_hid_size=1024, n_heads=16, tf_layers=4,

@@ -1,8 +1,9 @@
 """The port stands alone: no module of tip_tpu_torch, and not chip_smoke.py,
 scripts/torch_k12_variants.py, scripts/torch_train_convergence.py or the
 wire helper tests/torch_wire.py that chip_smoke.py imports, imports JAX,
-Flax or tip_tpu; and its entry points run on CUDA unless the caller asks
-for the CPU."""
+Flax or tip_tpu, nor orbax, tensorstore or zstandard (the port reads
+tip_tpu's checkpoints with a reader of its own); and its entry points run
+on CUDA unless the caller asks for the CPU."""
 
 import ast
 from pathlib import Path
@@ -20,7 +21,8 @@ from tip_tpu_torch.train import train as TT
 from tip_tpu_torch.cli import train as TCT
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "tip_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "tip_tpu", "orbax", "tensorstore",
+             "zstandard")
 PORT_FILES = sorted((ROOT / "tip_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_k12_variants.py",
      ROOT / "scripts" / "torch_train_convergence.py",
@@ -42,6 +44,14 @@ CONVERGENCE_RECIPE = (
     "tip_tpu_torch/data_gen/corpus.py", "tip_tpu_torch/train/data.py",
     "tip_tpu_torch/train/train.py", "tip_tpu_torch/models/tip_model.py",
     "tip_tpu_torch/cli/train.py", "scripts/torch_train_convergence.py")
+# the orbax reader and the last single-device modules (ROADMAP A6, A7)
+ORBAX_AND_A7 = (
+    "tip_tpu_torch/utils/orbax_read.py", "tip_tpu_torch/ops/dynamics.py",
+    "tip_tpu_torch/utils/seeding.py", "tip_tpu_torch/viz/plots.py",
+    "tip_tpu_torch/viz/skeleton_render.py",
+    "tip_tpu_torch/viz/urdf_export.py", "tip_tpu_torch/viz/pybullet_viz.py",
+    "tip_tpu_torch/cli/render.py", "tip_tpu_torch/cli/evaluate.py",
+    "tip_tpu_torch/cli/live_demo.py")
 
 
 def _imported_roots(path):
@@ -81,7 +91,8 @@ def test_port_files_found():
             "tip_tpu_torch/cli/import_torch_ckpt.py"} <= names
 
 
-@pytest.mark.parametrize("name", SERVING_AND_DATAGEN + CONVERGENCE_RECIPE)
+@pytest.mark.parametrize("name", SERVING_AND_DATAGEN + CONVERGENCE_RECIPE
+                         + ORBAX_AND_A7)
 def test_serving_and_datagen_files_are_checked(name):
     """Each module of the serving daemon, live I/O and data generation is
     among the files checked above, and imports no JAX and nothing of

@@ -15,6 +15,7 @@ import os
 import pickle
 import socket
 import subprocess
+import sys
 import threading
 from pathlib import Path
 
@@ -474,16 +475,24 @@ def test_cli_serve_answers_a_client(tmp_path):
                for ln in lines)
 
 
-def test_cli_serve_and_live_demo_refuse_what_is_not_ported(tmp_path):
+def test_cli_serve_and_live_demo_refuse_what_is_not_ported(tmp_path,
+                                                           monkeypatch):
+    """Both read orbax directories now (tests/test_torch_orbax.py) and
+    refuse one that holds no item, naming what is missing; --viz without
+    the pybullet wheel names the package and the flag."""
     orbax = tmp_path / "orbax" / "389400"
     orbax.mkdir(parents=True)
     (orbax / "_CHECKPOINT_METADATA").write_text("{}")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(FileNotFoundError, match="no _METADATA under"):
         TSV.main(["--ckpt", str(orbax.parent), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(FileNotFoundError, match="no _METADATA under"):
         TLD.main(["--ckpt", str(orbax), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        TLD.main(["--ckpt", str(orbax), "--viz", "--device", "cpu"])
+    pt = _reference_pt(tmp_path / "m.pt", 5, True)
+    monkeypatch.setitem(sys.modules, "pybullet", None)
+    with pytest.raises(ImportError, match="pybullet is not installed; the "
+                       "viewer .*cli/live_demo --viz"):
+        TLD.main(["--ckpt", pt, "--port", "0", "--five_sbp",
+                  "--with_acc_sum", "--viz", "--device", "cpu"])
 
 
 def test_cli_live_demo_streams_records_and_replays(tmp_path):

@@ -6,11 +6,14 @@ offline_testing_simple.py + README step 5).
       --with_acc_sum --five_sbp [--full_runner] [--data_root data]
 
 ``--ckpt`` takes a checkpoint directory of this package (cli/train.py's,
-cli/import_torch_ckpt.py's; its parameters only) or a reference ``.pt``
-state dict. The run is on ``cuda`` unless ``--device cpu`` is given
-(there the kernels' plain versions run). What the port does not evaluate
-yet raises and names its ROADMAP item: an orbax checkpoint of tip_tpu
-(A6) and the viewers ``--viz_compare`` and ``--render_gifs`` (A7).
+cli/import_torch_ckpt.py's), tip_tpu's orbax checkpoint (a step directory
+or a manager's directory of numbered steps, read with
+utils/orbax_read.py: no orbax or tensorstore, the system's
+``libzstd.so.1``), their parameters only, or a reference ``.pt`` state
+dict. The run is on ``cuda`` unless ``--device cpu`` is given (there the
+kernels' plain versions run). ``--viz_compare`` replays each motion in the
+PyBullet viewer (needs the pybullet wheel), ``--render_gifs`` writes a
+stick-figure GIF a motion (needs matplotlib and Pillow).
 """
 
 import argparse
@@ -26,33 +29,12 @@ TEST_DIRS_V0 = [
     "preprocessed_TotalCapture_v0", "syn_TotalCapture_v0", "syn_DanceDB_v0",
 ]
 
-# what the port does not evaluate yet, by flag -> the ROADMAP item
-UNPORTED = {
-    "viz_compare": "the PyBullet viewer (ROADMAP A7, viz/pybullet_viz.py)",
-    "render_gifs": "the stick-figure renderer (ROADMAP A7, "
-                   "viz/skeleton_render.py)",
-    "orbax": "reading tip_tpu's orbax checkpoints (ROADMAP A6, orbax "
-             "import); convert one to a .pt state dict or train with "
-             "tip_tpu_torch.cli.train",
-}
-
-
-def is_orbax_dir(path: str) -> bool:
-    """An orbax checkpoint: a step directory (``_CHECKPOINT_METADATA``) or
-    a directory of numbered step directories."""
-    if not os.path.isdir(path):
-        return False
-    if os.path.exists(os.path.join(path, "_CHECKPOINT_METADATA")):
-        return True
-    return any(n.isdigit() and os.path.exists(
-        os.path.join(path, n, "_CHECKPOINT_METADATA"))
-        for n in os.listdir(path))
-
 
 def load_model(ckpt: str, model_cfg, n_sbps: int, device):
     """A TIPModel on ``device`` with the weights of ``ckpt``: a reference
-    ``.pt`` state dict, or a checkpoint directory of this package (its
-    parameters only). An orbax directory raises (ROADMAP A6)."""
+    ``.pt`` state dict, or a checkpoint directory of this package or
+    tip_tpu's orbax checkpoint (its parameters only,
+    ``train.restore_checkpoint``)."""
     import torch
     from tip_tpu_torch.models import tip_model as M
     from tip_tpu_torch.train import train as train_lib
@@ -61,9 +43,6 @@ def load_model(ckpt: str, model_cfg, n_sbps: int, device):
         model = M.TIPModel(model_cfg, device=device)
         model.load_state_dict(M.params_from_torch_state_dict(sd, model_cfg))
         return model
-    if is_orbax_dir(ckpt):
-        raise NotImplementedError(f"--ckpt {ckpt}: {UNPORTED['orbax']} is "
-                                  f"not ported")
     cfg_t = train_lib.TrainConfig(model=model_cfg, n_sbps=n_sbps)
     model = train_lib.restore_checkpoint(ckpt, cfg_t, params_only=True,
                                          device=device).model
@@ -71,11 +50,64 @@ def load_model(ckpt: str, model_cfg, n_sbps: int, device):
     return model
 
 
+def make_viz_hook(args, n_sbps: int, device):
+    """The harness's per-motion hook of ``--viz_compare`` (the PyBullet
+    viewer) and ``--render_gifs`` (a GIF a motion), chained as tip_tpu's
+    are, or None. The viewer is made here, before the first motion."""
+    import numpy as np
+    import torch
+
+    from tip_tpu_torch.ops import kinematics as kin
+    from tip_tpu_torch.runtime import terrain as terrain_lib
+
+    hooks = []
+    if args.viz_compare:
+        from tip_tpu_torch.viz import pybullet_viz, urdf_export
+        viewer = pybullet_viz.Viewer(urdf_export.default_urdf_path(),
+                                     n_markers=2 * n_sbps, compare_gt=True)
+
+        def to_bullet(qdq):
+            return kin.our_pose_to_bullet(
+                torch.as_tensor(np.asarray(qdq), dtype=torch.float32)).numpy()
+
+        def compare(f, gt, pred, info):
+            heights = (terrain_lib.height_field(info["terrain"]).cpu().numpy()
+                       if "terrain" in info else None)
+            gsz = (info["terrain_cfg"].grid_size if "terrain_cfg" in info
+                   else 0.1)
+            pybullet_viz.replay_compare(
+                viewer, to_bullet(pred), to_bullet(gt),
+                viz_locs=info.get("viz_locs"), heights=heights,
+                grid_size=gsz)
+        hooks.append(compare)
+    if args.render_gifs:
+        from tip_tpu_torch.viz import skeleton_render as SR
+        os.makedirs(args.render_gifs, exist_ok=True)
+        rskel = kin.amass_skeleton(device=device)
+
+        def gif(f, gt, pred, info):
+            name = os.path.splitext(os.path.basename(f))[0] + ".gif"
+            SR.render_motion(
+                rskel, np.asarray(pred), os.path.join(args.render_gifs, name),
+                gt_qdq=np.asarray(gt), viz_locs=info.get("viz_locs"),
+                terrain_state=info.get("terrain"),
+                terrain_cfg=info.get("terrain_cfg"),
+                stride=args.render_stride)
+        hooks.append(gif)
+    if not hooks:
+        return None
+
+    def viz_hook(f, gt, pred, info):
+        for hook in hooks:
+            hook(f, gt, pred, info)
+    return viz_hook
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--ckpt", required=True,
-                    help="checkpoint dir of this package (or .pt torch "
-                         "state_dict)")
+                    help="checkpoint dir of this package, tip_tpu's orbax "
+                         "checkpoint dir (or .pt torch state_dict)")
     ap.add_argument("--name_contains", default="")
     ap.add_argument("--data_root", default="data")
     ap.add_argument("--tag", default="v0")
@@ -99,9 +131,14 @@ def main(argv=None):
     ap.add_argument("--metrics", default=None,
                     help="structured jsonl results (per-motion + summary)")
     ap.add_argument("--viz_compare", action="store_true",
-                    help="the PyBullet viewer: not ported (ROADMAP A7)")
+                    help="replay each motion in the PyBullet viewer: ours vs "
+                         "GT + SBP markers + terrain (needs the pybullet "
+                         "wheel; reference --compare_gt viz)")
     ap.add_argument("--render_gifs", default=None, metavar="DIR",
-                    help="stick-figure GIFs: not ported (ROADMAP A7)")
+                    help="write one ours-vs-GT stick-figure GIF per motion "
+                         "into DIR (matplotlib renderer, no pybullet; "
+                         "includes SBP markers and, with --full_runner, the "
+                         "final terrain map)")
     ap.add_argument("--render_stride", type=int, default=4)
     ap.add_argument("--extras", action="store_true",
                     help="also report capability metrics beyond the "
@@ -123,10 +160,6 @@ def main(argv=None):
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "versions)")
     args = ap.parse_args(argv)
-    for flag in ("viz_compare", "render_gifs"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}: {UNPORTED[flag]} is not "
-                                      f"ported")
 
     from tip_tpu_torch import constants as cst
     from tip_tpu_torch import eval_harness as H
@@ -155,6 +188,8 @@ def main(argv=None):
                                  args.name_contains.split())
     print(f"{len(files)} candidate motions")
 
+    viz_hook = make_viz_hook(args, n_sbps, device)
+
     mw = None
     if args.metrics:
         from tip_tpu_torch.utils.observability import MetricsWriter
@@ -163,6 +198,7 @@ def main(argv=None):
     extras = {} if args.extras else None
     per_motion, means, maxima = H.evaluate(model, cfg, files,
                                            save_trajs_path=args.save_trajs,
+                                           viz_hook=viz_hook,
                                            metrics_writer=mw,
                                            extras_out=extras, device=device)
     if mw is not None:

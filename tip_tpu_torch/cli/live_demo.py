@@ -13,10 +13,11 @@ streams poses through the full runner to a jsonl pose writer.
       [--out poses.jsonl] [--record frames.f32] [--metrics m.jsonl] \
       [--device cpu]
 
-``--ckpt`` takes what cli/evaluate.py's ``load_model`` takes; an orbax
-checkpoint of tip_tpu raises (ROADMAP A6). The runner is on ``cuda``
-unless ``--device cpu`` is given. ``--viz`` (the PyBullet viewer) is not
-ported and raises (ROADMAP A7).
+``--ckpt`` takes what cli/evaluate.py's ``load_model`` takes: a checkpoint
+directory of this package, tip_tpu's orbax checkpoint or a reference
+``.pt`` state dict. The runner is on ``cuda`` unless ``--device cpu`` is
+given. ``--viz`` shows the live pose, its SBP markers and the terrain in
+the PyBullet viewer (needs the pybullet wheel).
 """
 
 import argparse
@@ -24,9 +25,6 @@ import json
 import time
 
 import numpy as np
-
-# what the port does not run yet, by flag -> the ROADMAP item
-UNPORTED = {"viz": "the PyBullet viewer (ROADMAP A7, viz/pybullet_viz.py)"}
 
 
 def mean_readings(client, seconds: float = 3.0, dt: float = 1.0 / 60.0):
@@ -57,7 +55,8 @@ def calibrate_client(client, seconds: float = 3.0, prompt=None):
 
 def run_loop(model, cfg, skel, client, cal=None, device=None,
              seconds: float = 0.0, max_frames=None, out_path=None,
-             record_path=None, metrics_path=None, hist=None, log=print):
+             record_path=None, metrics_path=None, hist=None, viewer=None,
+             log=print):
     """Stream the client's readings through the full runner at 60 Hz until
     ``seconds`` have passed or ``max_frames`` frames were served (neither:
     until ^C). Each frame reads the client's latest reading, calibrates it
@@ -65,7 +64,9 @@ def run_loop(model, cfg, skel, client, cal=None, device=None,
     the pose to the host, timed into ``hist`` (a LatencyHistogram).
     ``out_path``: a jsonl line {"t", "qdq"} a frame; ``record_path``: the
     readings fed, as raw float32 (T, 72), a snapshot every 15 s and at the
-    end; ``metrics_path``: the latency summary each second and at the end.
+    end; ``metrics_path``: the latency summary each second and at the end;
+    ``viewer``: a viz/pybullet_viz.Viewer shown each frame's pose and SBP
+    markers and, every 15 frames, the terrain.
     Returns (frames served, the latency summary)."""
     import torch
 
@@ -73,7 +74,9 @@ def run_loop(model, cfg, skel, client, cal=None, device=None,
     from tip_tpu_torch import resolve_device
     from tip_tpu_torch.runtime import calibration as cal_lib
     from tip_tpu_torch.runtime import full_runner as FR
+    from tip_tpu_torch.ops import kinematics as kin
     from tip_tpu_torch.runtime import runner as runner_lib
+    from tip_tpu_torch.runtime import terrain as terrain_lib
     from tip_tpu_torch.utils.observability import (LatencyHistogram,
                                                    MetricsWriter)
 
@@ -122,6 +125,14 @@ def run_loop(model, cfg, skel, client, cal=None, device=None,
                 qdq = out["qdq"].cpu().numpy()
             if out_f:
                 out_f.write(json.dumps({"t": t, "qdq": qdq.tolist()}) + "\n")
+            if viewer is not None:
+                viewer.set_pose(kin.our_pose_to_bullet(out["qdq"]).cpu()
+                                .numpy())
+                viewer.set_markers(out["viz_locs"].cpu().numpy())
+                if t % 15 == 0:   # heightfield re-mesh (ref :293-305)
+                    viewer.update_heightfield(
+                        terrain_lib.height_field(carry.terrain).cpu().numpy(),
+                        cfg.terrain.grid_size)
             if rec is not None:
                 rec.append(reading.astype(np.float32))
                 # persist a snapshot every 15 s (reference
@@ -180,7 +191,8 @@ def parse_args(argv=None):
                          "layouts only). auto (default) = fused on the card "
                          "with 5 SBPs, plain otherwise")
     ap.add_argument("--viz", action="store_true",
-                    help="the PyBullet viewer: not ported (ROADMAP A7)")
+                    help="show the live pose in the PyBullet viewer (needs "
+                         "the pybullet wheel)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "versions)")
@@ -215,12 +227,14 @@ def build_runner(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.viz:
-        raise NotImplementedError(f"--viz: {UNPORTED['viz']} is not ported")
-
     from tip_tpu_torch.runtime.imu_client import IMUClient
 
     model, cfg, skel, device = build_runner(args)
+    viewer = None
+    if args.viz:
+        from tip_tpu_torch.viz import pybullet_viz, urdf_export
+        viewer = pybullet_viz.Viewer(urdf_export.default_urdf_path(),
+                                     compare_gt=False)
     client = IMUClient(args.host, args.port)
     client.start()
     try:
@@ -230,7 +244,8 @@ def main(argv=None):
         cal = None if args.skip_calibration else calibrate_client(client)
         return run_loop(model, cfg, skel, client, cal, device,
                         seconds=args.seconds, out_path=args.out,
-                        record_path=args.record, metrics_path=args.metrics)
+                        record_path=args.record, metrics_path=args.metrics,
+                        viewer=viewer)
     finally:
         client.stop()
 

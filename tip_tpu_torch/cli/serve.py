@@ -12,8 +12,8 @@ runtime/serve_daemon.py).
       [--device cpu]
 
 ``--ckpt`` takes what cli/evaluate.py's ``load_model`` takes: a checkpoint
-directory of this package or a reference ``.pt`` state dict; an orbax
-checkpoint of tip_tpu raises (ROADMAP A6). The pool runs on ``cuda``
+directory of this package, tip_tpu's orbax checkpoint or a reference
+``.pt`` state dict. The pool runs on ``cuda``
 unless ``--device cpu`` is given (there the kernels' plain versions run).
 """
 

@@ -16,8 +16,11 @@ and draws the same masks for either. Training runs in float32, or with
 ``--bf16`` in bfloat16 compute (the kernels' bf16 variants on the card;
 the parameters, Adam's moments and the checkpoints stay float32), on
 ``cuda`` unless ``--device cpu`` is given; the windows are always gathered
-on the device, so ``--device_data`` is accepted and changes nothing. More
-than one model shard raises (ROADMAP.md, queue A, training: the mesh).
+on the device, so ``--device_data`` is accepted and changes nothing.
+``--warm_start`` takes a checkpoint directory of this package, tip_tpu's
+orbax checkpoint (read without orbax: utils/orbax_read.py) or a reference
+``.pt`` state dict. More than one model shard raises (ROADMAP.md, queue A,
+training: the mesh).
 """
 
 import argparse
@@ -54,8 +57,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=5104)
     ap.add_argument("--n_model_shards", type=int, default=1)
     ap.add_argument("--warm_start", default=None,
-                    help="checkpoint dir of this package or reference .pt: "
-                         "load weights only")
+                    help="checkpoint dir of this package, tip_tpu's orbax "
+                         "checkpoint dir or reference .pt: load weights "
+                         "only")
     ap.add_argument("--device_data", action="store_true",
                     help="accepted for tip_tpu's command lines; the port "
                          "always gathers the windows on the device")

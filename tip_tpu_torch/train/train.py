@@ -38,6 +38,7 @@ import dataclasses
 import math
 import os
 import re
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -47,6 +48,7 @@ from tip_tpu_torch import resolve_device
 from tip_tpu_torch.models import losses as L
 from tip_tpu_torch.models import tip_model as M
 from tip_tpu_torch.train import data as data_lib
+from tip_tpu_torch.utils import orbax_read
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 MAX_BAD_STEPS = 20
@@ -382,13 +384,24 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, step: int,
 def restore_checkpoint(ckpt_dir: str, cfg: TrainConfig,
                        step: Optional[int] = None, params_only: bool = False,
                        device=None) -> TrainState:
-    """The state saved at ``step`` (None: the newest). The parameters must
-    match the model config (names and shapes), and, unless
-    ``params_only``, the compute dtype it was trained in must be
-    ``cfg.model.compute_dtype``; else ValueError. ``params_only``: the
-    parameters, step and generators with fresh moments (a warm start)."""
+    """The state saved at ``step`` (None: the newest) in a checkpoint
+    directory of this package (``ckpt_<step>.pt``) or in tip_tpu's orbax
+    checkpoint (a step directory, or a manager's directory of numbered
+    steps: ``_restore_orbax``). Where one directory holds both (a run of
+    this package resumed from tip_tpu's), the newest step is taken, this
+    package's on a tie. The parameters must match the model config (names
+    and shapes); else ValueError. ``params_only``: the parameters, step and
+    generators with fresh moments (a warm start). A ``.pt`` checkpoint
+    records the compute dtype it was trained in, which a full resume
+    requires to be ``cfg.model.compute_dtype``."""
     device = resolve_device(device)
     steps = _ckpt_steps(ckpt_dir)
+    if orbax_read.is_orbax_dir(ckpt_dir):
+        newest = orbax_read.latest_step(ckpt_dir)
+        if (not steps or (step is None and newest is not None
+                          and newest > steps[-1])
+                or (step is not None and step not in steps)):
+            return _restore_orbax(ckpt_dir, cfg, step, params_only, device)
     if not steps:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     step = steps[-1] if step is None else step
@@ -420,6 +433,124 @@ def restore_checkpoint(ckpt_dir: str, cfg: TrainConfig,
     return state
 
 
+def orbax_adam_prefix(cfg: TrainConfig) -> str:
+    """The name under which tip_tpu's optimizer state for ``cfg`` keeps
+    Adam's count, mu and nu: ``chain([clip_by_global_norm,] adam|adamw)``,
+    adam(w) itself a chain whose first state is scale_by_adam's
+    (tip_tpu/train/train.py ``make_optimizer``)."""
+    return ("opt_state.1" if cfg.clip > 0 else "opt_state.0") + ".0"
+
+
+def orbax_optimizer_names(cfg: TrainConfig, param_names) -> set:
+    """The array names of the optimizer state tip_tpu keeps for ``cfg``:
+    Adam's count, mu and nu and the count of the schedule that ends the
+    inner chain (``scale_by_adam, [add_decayed_weights,]
+    scale_by_schedule``). Empty states hold no array."""
+    adam = orbax_adam_prefix(cfg)
+    sched = 2 if cfg.optimizer == "AdamW" else 1
+    return ({f"{adam}.count", f"{adam[:-1]}{sched}.count"}
+            | {f"{adam}.{m}.{p}" for m in ("mu", "nu")
+               for p in param_names})
+
+
+def seed_generators(state: TrainState, rng) -> None:
+    """Seeds the state's generators from tip_tpu's threefry key (two
+    uint32): with s = (key[0] << 32) | key[1], the CPU generator from s and
+    the device generator from (s + 1) mod 2^64. Two restores of one
+    checkpoint then draw the same masks and noise; the draws are torch's,
+    not jax.random's."""
+    key = np.asarray(rng, dtype=np.uint64).reshape(-1)
+    if key.shape != (2,):
+        raise ValueError(f"rng: expected tip_tpu's key of two uint32, got "
+                         f"shape {key.shape}")
+    s = (int(key[0]) << 32) | int(key[1])
+    state.gen.manual_seed(s)
+    state.noise_gen.manual_seed((s + 1) % 2 ** 64)
+
+
+def _restore_orbax(ckpt_dir, cfg: TrainConfig, step, params_only,
+                   device) -> TrainState:
+    """tip_tpu's orbax checkpoint (tip_tpu/train/train.py
+    ``restore_checkpoint``) -> a port state, read with
+    ``utils.orbax_read`` (no orbax, no tensorstore). ``params.*`` become the
+    model's parameters (float32 as stored, whatever ``compute_dtype``
+    says); Adam's ``mu``, ``nu`` and ``count``, under the name the chain of
+    ``cfg.optimizer`` and ``cfg.clip`` gives them (``orbax_adam_prefix``),
+    the moments; ``step`` the step, which a full resume
+    requires to equal Adam's count (the port keeps one counter);
+    ``rng`` seeds the generators (``seed_generators``).
+
+    Errors, in tip_tpu's words: the old packed ``w_qkv`` layout, another
+    parameter structure, parameter shapes that do not match, and for a full
+    resume an optimizer state other than ``cfg.optimizer`` and ``cfg.clip``
+    make; ``params_only`` accepts another optimizer state with a warning
+    and restores the parameters, step and generators with fresh moments.
+    """
+    arrays = orbax_read.read_orbax(orbax_read.step_dir(ckpt_dir, step))
+    params = {k[len("params."):]: v for k, v in arrays.items()
+              if k.startswith("params.")}
+    if any("w_qkv" in k for k in params):
+        raise ValueError(
+            f"checkpoint at {ckpt_dir} uses the old packed-qkv parameter "
+            f"layout; current checkpoints store q/k/v separately (head-clean "
+            f"tensor parallelism). Re-export the weights or retrain.")
+    state = init_state(cfg, device, dtype=torch.float32)
+    want = {k: tuple(v.shape) for k, v in state.model.state_dict().items()}
+    if set(params) != set(want):
+        diff = sorted(set(params) ^ set(want))[:5]
+        raise ValueError(
+            f"checkpoint at {ckpt_dir} stores a different PARAMETER "
+            f"structure than the model config — check "
+            f"tf_layers/with_rnn/size_s. Differing names: {diff}")
+    opt = {k for k in arrays if k.startswith("opt_state.")}
+    opt_ok = opt == orbax_optimizer_names(cfg, want)
+    if not opt_ok and not params_only:
+        raise ValueError(
+            f"checkpoint at {ckpt_dir} stores a different optimizer-state "
+            f"structure than TrainConfig(optimizer={cfg.optimizer!r}, "
+            f"clip={cfg.clip}); resume with that config, or restore with "
+            f"params_only=True")
+    shape_mism = [f"params.{k}: checkpoint {tuple(params[k].shape)} vs "
+                  f"model {want[k]}" for k in sorted(want)
+                  if tuple(params[k].shape) != want[k]]
+    if shape_mism and opt_ok:
+        raise ValueError(
+            f"checkpoint at {ckpt_dir} does not match the model config "
+            f"(size_s={cfg.model.size_s}, with_acc_sum="
+            f"{cfg.model.with_acc_sum}) — check the --five_sbp / "
+            f"--with_acc_sum flags used at training time. Mismatches: "
+            + "; ".join(shape_mism[:5]))
+    if shape_mism:
+        raise ValueError(
+            f"checkpoint at {ckpt_dir} stores parameters whose SHAPES do not "
+            f"match the model config — check size_s/tf_in_dim/rnn_nhid "
+            f"flags. Mismatches: " + "; ".join(shape_mism[:5]))
+    if not opt_ok:
+        warnings.warn(
+            f"checkpoint at {ckpt_dir} stores a different optimizer-state "
+            f"structure than TrainConfig(optimizer={cfg.optimizer!r}); "
+            f"restoring params/step/rng only (fresh optimizer state).",
+            stacklevel=3)
+    with torch.no_grad():
+        for k, p in state.model.named_parameters():
+            p.copy_(torch.from_numpy(params[k]))
+    n_step = int(arrays["step"])
+    if not params_only:
+        adam = orbax_adam_prefix(cfg)
+        count = int(arrays[f"{adam}.count"])
+        if count != n_step:
+            raise ValueError(
+                f"checkpoint at {ckpt_dir}: step {n_step} but Adam's count "
+                f"{count}; the port keeps one counter for both")
+        for m, dst in (("mu", state.mu), ("nu", state.nu)):
+            for k in want:
+                dst[k] = torch.from_numpy(arrays[f"{adam}.{m}.{k}"]).to(
+                    device=device, dtype=torch.float32)
+    state.step = torch.tensor(n_step, dtype=torch.int64, device=device)
+    seed_generators(state, arrays["rng"])
+    return state
+
+
 def train_loop(cfg: TrainConfig, dataset, *, ckpt_dir=None, log_fn=print,
                max_epochs: Optional[int] = None,
                warm_start: Optional[str] = None,
@@ -434,7 +565,8 @@ def train_loop(cfg: TrainConfig, dataset, *, ckpt_dir=None, log_fn=print,
 
     dataset: ``data.PackedDataset``. The run starts from
     ``init_state(cfg, device)``; warm_start: a checkpoint directory of
-    this package or a reference ``.pt`` state dict, weights only.
+    this package, tip_tpu's orbax checkpoint or a reference ``.pt`` state
+    dict, weights only.
     metrics_path: jsonl file receiving every record.
     """
     state = init_state(cfg, device)
