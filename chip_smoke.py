@@ -175,6 +175,27 @@ Phases, in order; any failure exits non-zero:
           X_BATCH windows in the kernel configuration (K1, K10, 2 x K11, 2
           x K12 a step), its first step's loss and parameters within
           TOL_PATH of the plain versions' step from the same restore;
+  6d. the (data, model) mesh (parallel/mesh.py), in child processes of
+     this script that share the card (``chip_smoke.py --mesh-child``; they
+     load the kernels this process built), all started together, each
+     case's ranks on gloo with CUDA tensors (NCCL refuses two ranks on one
+     device), the launch counters reset just before and read just after
+     on each rank:
+       Y  (a) a 2x1 mesh: three steps of the paper recipe at full width
+          in the kernel configuration (hash dropout, f32, B 256, T 40; a
+          mesh trains the xla layer loop: one K1 and one K10 a step on
+          every rank, nothing else) against the same steps in one process
+          on the same global batches (TOL_Y_*: loss, grad norm, Adam's
+          moments and the update leaf by leaf, the share of parameter
+          entries off; the leaves a rank holds whole alike on every rank
+          bit for bit); (b) a 1x2 mesh (tensor
+          parallel, 8 heads a rank): one step, likewise; (c)
+          StreamPool(mesh=) 2x1 in path H's configuration (K8, K2, K3 one
+          launch a tick on each rank), capacity 64, 60 ticks with streams
+          joining at ticks 7 and 50, against one card's pool (TOL_Y_POOL);
+          (d) a one-rank NCCL mesh whose step is the unmeshed step bit for
+          bit; it prints a {"mesh_path": ...} line with each check's worst
+          difference and the step and tick times;
   7. print one {"kernels": [...]} line (sixteen entries: K1-K12 and the
      bf16 variants of K1, K10, K11 and K12), then the {"ok": true, ...}
      line.
@@ -5932,6 +5953,337 @@ def orbax_path_x(dev, card):
     return {"X": serve, "X-train": train}, summary
 
 
+# ---------------------------------------------------------------------------
+# 11. path Y: the (data, model) mesh, in processes that share the card
+# ---------------------------------------------------------------------------
+
+# mesh shape (n_data, n_model) and backend of each case: two ranks on one
+# card run on gloo (NCCL refuses two ranks on one device), one rank on NCCL
+Y_CASES = {"a": ((2, 1), "gloo"), "b": ((1, 2), "gloo"),
+           "c": ((2, 1), "gloo"), "d": ((1, 1), "nccl")}
+Y_STEPS = {"a": 3, "b": 1, "d": 1}
+Y_BATCH = 256
+Y_TICKS = 60
+# the children's own limit: a hung collective ends the phase, not the call
+Y_TIMEOUT = 420
+# the mesh's step against one process's on the same global batch, f32 with
+# TF32 off: the loss's sums and the gradients' all-reduce add in another
+# order (relative)
+TOL_Y_LOSS = 1e-5
+TOL_Y_NORM = 1e-4
+# Adam's moments after the steps, leaf by leaf (the relative norm of the
+# difference): a moment is a running mean of the gradients, so it carries
+# their rounding (about 1e-6 relative) and no more, while a leaf whose
+# gradient the mesh got wrong is off by the order of 1
+TOL_Y_MOMENTS = 1e-3
+# ...but for the key biases: a key bias adds one constant to every logit of
+# a query's row, which the softmax drops, so their gradient is 0 in exact
+# arithmetic and rounding alone in both runs (moments and updates apart by
+# their own size). Their moments' RMS over the median RMS of the other
+# leaves' (the reference's) must stay below this: a gradient that the
+# mesh gave them would be of the others' size
+TOL_Y_ZERO_GRAD = 1e-3
+# the parameters after the steps, leaf by leaf: the norm of the difference
+# over the norm of the reference's update (p - p0). An Adam update is about
+# lr times the sign of the gradient, so where a gradient entry near 0 comes
+# out of the sums in another order its update may flip, by at most 2 lr a
+# step: k flips among a leaf's n entries give about 2 sqrt(k / n) (one flip
+# in the smallest leaf, 256 entries: 0.125), a wrong update of the leaf 1
+# or more
+TOL_Y_UPDATE = 0.25
+# and over all parameters, the share of entries off by more than
+# TOL_Y_PARAMS_NEAR (0.017-0.048% on an H100 80GB HBM3 at 700 W, 0.17-0.19%
+# in a CPU rehearsal at small widths)
+TOL_Y_PARAMS_NEAR = 1e-6
+TOL_Y_OFF_SHARE = 5e-3
+# the meshed pool (32 slots a rank) against one card's pool of 64, path H
+TOL_Y_POOL = 1e-4
+
+
+def hold_y(name, errs):
+    """``check``, and a line with each worst difference and its
+    tolerance."""
+    log(f"  {name}: " + ", ".join(f"{k} {e:.3g} (tol {t:g})"
+                                  for k, (e, t) in errs.items()))
+    check(name, errs)
+
+
+def y_train(mesh, rank, dev, steps):
+    """Y_STEPS steps of the paper recipe at full width in the kernel
+    configuration (hash dropout, f32, B 256, T 40) over ``mesh``; rank 0
+    then runs the same steps in one process, unmeshed, in the configuration
+    a mesh trains (train._mesh_safe: the xla loop, K1/K10), from the same
+    seed, on the same global batches."""
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.parallel import mesh as mesh_lib
+    from tip_tpu_torch.train import data as TD
+    from tip_tpu_torch.train import train as TT
+    cfg = train_config()
+    ds = TD.PackedDataset.from_prefix(str(ROOT / "output" /
+                                          "chip_smoke_train"))
+    batches = step_batches(ds, steps, Y_BATCH, dev, seed=23)
+    rows = mesh_lib.rows(mesh, Y_BATCH)
+    state = TT.shard_state(TT.init_state(cfg, dev), mesh)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    auxes, times = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        auxes.append(TT.train_step(state, tuple(x[rows] for x in b), cfg,
+                                   mesh=mesh))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: K.launch_counts.get(k, 0) for k in KERNELS}
+    params, mu, nu = TT.gather_state(state, mesh)
+    # the parameters this rank holds whole, which every rank must hold alike
+    whole = {k: v.detach().cpu() for k, v in state.model.named_parameters()
+             if v.shape == params[k].shape}
+    out = dict(aux=auxes, launches=launches, step_ms=times, whole=whole,
+               local_w_q=list(state.model.layers[0].w_q.shape))
+    if rank != 0:
+        return out
+    ref_cfg = train_config(encoder_impl="xla")
+    ref = TT.init_state(ref_cfg, dev)
+    p0 = {k: v.detach().clone() for k, v in ref.model.named_parameters()}
+    ref_aux, ref_times = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        ref_aux.append(TT.train_step(ref, b, ref_cfg))
+        torch.cuda.synchronize()
+        ref_times.append((time.perf_counter() - t0) * 1e3)
+    want = {k: v.detach() for k, v in ref.model.named_parameters()}
+
+    def rel(d, u):
+        d, u = d.norm().item(), u.norm().item()
+        return d / u if u else (0.0 if d == 0 else math.inf)
+
+    def rms(t):
+        return t.norm().item() / math.sqrt(t.numel())
+
+    out.update(
+        ref_step_ms=ref_times,
+        loss_rel=max(abs(a["loss"] - r["loss"]) / abs(r["loss"])
+                     for a, r in zip(auxes, ref_aux)),
+        grad_norm_rel=max(abs(a["grad_norm"] - r["grad_norm"])
+                          / r["grad_norm"] for a, r in zip(auxes, ref_aux)),
+        leaves={k: dict(mu=rel(mu[k] - ref.mu[k], ref.mu[k]),
+                        nu=rel(nu[k] - ref.nu[k], ref.nu[k]),
+                        update=rel(params[k] - w, w - p0[k]),
+                        mu_rms=rms(mu[k]), ref_mu_rms=rms(ref.mu[k]))
+                for k, w in want.items()},
+        params_max_abs=max((params[k] - w).abs().max().item()
+                           for k, w in want.items()),
+        params_off_share=sum(
+            int(((params[k] - w).abs() > TOL_Y_PARAMS_NEAR).sum())
+            for k, w in want.items()) / sum(w.numel() for w in want.values()),
+        bit_equal=all(a == r for a, r in zip(auxes, ref_aux)) and all(
+            torch.equal(params[k], w) for k, w in want.items()),
+        clipped=sum(r["grad_norm"] > cfg.clip for r in ref_aux))
+    if mesh.size() == 1:
+        # the NCCL group itself: one all-reduce of the parameters' bytes
+        import torch.distributed as dist
+        w = want["out.w"]
+        out["nccl_merge_equal"] = torch.equal(
+            mesh_lib.merge([w], dist.group.WORLD)[0], w)
+    return out
+
+
+def y_pool(mesh, rank, dev):
+    """StreamPool(mesh=) in path H's configuration (kv_cache, fused, f32:
+    K8, K2, K3) at capacity 64, Y_TICKS ticks of the pool schedule (streams
+    join at ticks 7 and 50), with the launch counters reset just before
+    and read just after; rank 0 then runs one card's pool of 64 on the
+    same weights and ticks."""
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.ops import kinematics as kin
+    from tip_tpu_torch.runtime import runner as R
+    from tip_tpu_torch.runtime.serving import StreamPool
+    cfg = R.RunnerConfig(model=M.ModelConfig(forward_impl="fused",
+                                             compute_dtype="float32"),
+                         serving_mode="kv_cache")
+    model = M.TIPModel(cfg.model, device=dev,
+                       generator=torch.Generator().manual_seed(0))
+    skel = kin.amass_skeleton(device=dev)
+    batch, active, events, s_inits = pool_schedule(Y_TICKS)
+
+    def drive(pool):
+        qdq, times = [], []
+        for t in range(Y_TICKS):
+            for kind, slot, motion in events.get(t, ()):
+                if kind == "remove":
+                    pool.remove_stream(slot)
+                else:
+                    pool.add_stream(s_inits[motion])
+            t0 = time.perf_counter()
+            qdq.append(pool.step(batch[t])["qdq"])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return torch.stack(qdq), statistics.median(times[Y_TICKS // 2:])
+
+    pool = StreamPool(model, cfg, skel, capacity=POOL_CAPACITY, device=dev,
+                      mesh=mesh)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    qdq, tick_ms = drive(pool)
+    launches = {k: K.launch_counts.get(k, 0) for k in KERNELS}
+    out = dict(launches=launches, tick_ms=tick_ms,
+               local_slots=pool._carries.n_streams)
+    if rank != 0:
+        return out
+    ref_qdq, ref_tick_ms = drive(StreamPool(model, cfg, skel,
+                                            capacity=POOL_CAPACITY,
+                                            device=dev))
+    on = active[:Y_TICKS].to(dev)
+    out.update(ref_tick_ms=ref_tick_ms,
+               max_abs=(qdq - ref_qdq)[on].abs().max().item(),
+               finite=bool(torch.isfinite(qdq[on]).all()))
+    return out
+
+
+def mesh_child(case, rank, world, d):
+    """One rank of path Y: ``chip_smoke.py --mesh-child <case> <rank>
+    <world> <dir>``. Loads the kernels the parent built (it builds
+    nothing), joins the case's group through a file rendezvous in <dir>,
+    runs the case on cuda:0 and writes its result to <dir>."""
+    import torch.distributed as dist
+    from tip_tpu_torch.parallel import mesh as mesh_lib
+    exact_math()
+    rank, world = int(rank), int(world)
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    shape, backend = Y_CASES[case]
+    mesh_lib.init_distributed("file://" + str(Path(d) / f"rendezvous_{case}"),
+                              world_size=world, rank=rank, backend=backend)
+    try:
+        mesh = mesh_lib.make_mesh(*shape, device_type="cuda")
+        out = (y_pool(mesh, rank, dev) if case == "c"
+               else y_train(mesh, rank, dev, Y_STEPS[case]))
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, Path(d) / f"y_{case}_{rank}.pt")
+    return 0
+
+
+def mesh_path_y(card):
+    """Path Y: every case's ranks started together as child processes of
+    this script on the one card (the kernels already built), waited for
+    with a limit, and their results held. Returns (launches by case: a
+    list by rank, summary)."""
+    t0 = time.perf_counter()
+    d = ROOT / "output" / "chip_smoke_mesh"
+    if d.exists():
+        import shutil
+        shutil.rmtree(d)
+    d.mkdir(parents=True)
+    procs = []
+    for case, ((n_data, n_model), _) in Y_CASES.items():
+        world = n_data * n_model
+        for rank in range(world):
+            log_f = open(d / f"log_{case}_{rank}.txt", "w")
+            procs.append((case, rank, log_f, subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-child",
+                 case, str(rank), str(world), str(d)], cwd=ROOT,
+                stdout=log_f, stderr=subprocess.STDOUT)))
+    deadline = time.perf_counter() + Y_TIMEOUT
+    try:
+        for _, _, _, p in procs:
+            p.wait(timeout=max(deadline - time.perf_counter(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for _, _, log_f, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log_f.close()
+    failed = [(c, r, p.returncode) for c, r, _, p in procs if p.returncode]
+    if failed:
+        for c, r, _, _ in procs:
+            log(f"--- path Y ({c}) rank {r}:\n"
+                + (d / f"log_{c}_{r}.txt").read_text()[-4000:])
+        raise AssertionError(f"path Y: ranks failed or hung (case, rank, "
+                             f"exit code): {failed}")
+    res = {c: [torch.load(d / f"y_{c}_{r}.pt", weights_only=False)
+               for r in range(n_data * n_model)]
+           for c, ((n_data, n_model), _) in Y_CASES.items()}
+    summary, launches = {}, {}
+    for case in ("a", "b", "d"):
+        ranks, steps = res[case], Y_STEPS[case]
+        r0 = ranks[0]
+        if any(r["aux"] != r0["aux"] for r in ranks):
+            raise AssertionError(f"path Y ({case}): the ranks' aux differ")
+        differ = [k for r in ranks[1:] for k, v in r["whole"].items()
+                  if not torch.equal(v, r0["whole"][k])]
+        if differ:
+            raise AssertionError(f"path Y ({case}): the ranks' copies of "
+                                 f"{sorted(set(differ))} differ")
+        for r in ranks:
+            hold_launches(f"Y ({case})", r["launches"], steps,
+                          {"fused_rnn": 1, "fused_rnn_bwd": 1})
+        launches[f"Y-{case}"] = [r["launches"] for r in ranks]
+        leaves = r0["leaves"]
+        grad = [k for k in leaves if not k.endswith(".b_k")]
+        worst = {m: max(((leaves[k][m], k) for k in grad))
+                 for m in ("mu", "nu", "update")}
+        floor = statistics.median(leaves[k]["ref_mu_rms"] for k in grad)
+        key_bias = max(leaves[k]["mu_rms"] for k in leaves
+                       if k not in grad) / floor
+        summary[case] = dict(
+            mesh=list(Y_CASES[case][0]), backend=Y_CASES[case][1],
+            steps=steps, loss=[a["loss"] for a in r0["aux"]],
+            loss_rel=r0["loss_rel"], grad_norm_rel=r0["grad_norm_rel"],
+            worst_leaf=worst, key_bias_mu=key_bias,
+            params_max_abs=r0["params_max_abs"],
+            leaves_alike_on_every_rank=len(r0["whole"]),
+            params_off_share=r0["params_off_share"], clipped=r0["clipped"],
+            bit_equal=r0["bit_equal"], local_w_q=r0["local_w_q"],
+            step_ms=[r["step_ms"] for r in ranks],
+            single_step_ms=r0["ref_step_ms"],
+            launches=[{k: v for k, v in r["launches"].items() if v}
+                      for r in ranks])
+        if case == "d":
+            if not (r0["bit_equal"] and r0["nccl_merge_equal"]):
+                raise AssertionError("path Y (d): the one-rank NCCL mesh's "
+                                     "step is not the unmeshed step bit for "
+                                     "bit")
+        else:
+            hold_y(f"path Y ({case}) mesh {Y_CASES[case][0]} vs one process "
+                   f"(card)", {"loss_rel": (r0["loss_rel"], TOL_Y_LOSS),
+                               "grad_norm_rel": (r0["grad_norm_rel"],
+                                                 TOL_Y_NORM),
+                               **{f"{m}({k})": (e, tol) for m, (e, k), tol
+                                  in zip(worst, worst.values(),
+                                         (TOL_Y_MOMENTS, TOL_Y_MOMENTS,
+                                          TOL_Y_UPDATE))},
+                               "key_bias_mu": (key_bias, TOL_Y_ZERO_GRAD),
+                               "params_off_share": (r0["params_off_share"],
+                                                    TOL_Y_OFF_SHARE)})
+    ranks = res["c"]
+    for r in ranks:
+        per = {"fused_cached_batch": 1, "decode_fused": 1, "tail_fused": 1}
+        hold_launches("Y (c)", r["launches"], Y_TICKS, per)
+    launches["Y-c"] = [r["launches"] for r in ranks]
+    if not ranks[0]["finite"]:
+        raise AssertionError("path Y (c): the meshed pool's qdq is not "
+                             "finite")
+    hold_y("path Y (c) StreamPool(mesh=) 2x1 vs one card's pool",
+           {"qdq": (ranks[0]["max_abs"], TOL_Y_POOL)})
+    summary["c"] = dict(mesh=list(Y_CASES["c"][0]), ticks=Y_TICKS,
+                        capacity=POOL_CAPACITY,
+                        local_slots=[r["local_slots"] for r in ranks],
+                        max_abs=ranks[0]["max_abs"],
+                        tick_ms=[r["tick_ms"] for r in ranks],
+                        single_tick_ms=ranks[0]["ref_tick_ms"],
+                        launches=[{k: v for k, v in r["launches"].items()
+                                   if v} for r in ranks])
+    secs = time.perf_counter() - t0
+    summary.update(seconds=secs, card=card)
+    log(json.dumps({"mesh_path": summary}))
+    log(f"path Y: {secs:.1f} s ({card})")
+    return launches, summary
+
+
 # the path whose launches a kernel's entry reports
 COUNTED_ON = {"fused_rnn": "A", "decode_fused": "A", "tail_fused": "A",
               "fused_forward_last": "B", "fused_forward": "replay",
@@ -5944,16 +6296,23 @@ COUNTED_ON = {"fused_rnn": "A", "decode_fused": "A", "tail_fused": "A",
               "encoder_layer_bwd_bf16": "L-bf16"}
 
 
+def exact_math():
+    """TF32 off, and cuBLAS's bf16 products (the in-projection, W_ih, the
+    out-projection and the plain versions in bf16) summed in f32, as
+    XLA's are."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run on a GPU",
               file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # cuBLAS's bf16 products (the in-projection, W_ih, the out-projection
-    # and the plain versions in bf16) sum in f32, as XLA's do
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    if sys.argv[1:2] == ["--mesh-child"]:
+        return mesh_child(*sys.argv[2:])
+    exact_math()
     from tip_tpu_torch.models import tip_model as M
     from tip_tpu_torch.ops import _kernels as K
     from tip_tpu_torch.ops import kinematics as kin
@@ -6046,6 +6405,8 @@ def main():
     orbax_launches, orbax_summary = orbax_path_x(dev, card)
     launches.update(orbax_launches)
     stamp("path X")
+    mesh_launches, mesh_summary = mesh_path_y(card)
+    stamp("path Y")
     for k in kernels:
         k["launches"] = launches[COUNTED_ON[k["name"]]][k["name"]]
         k["launches_on"] = COUNTED_ON[k["name"]]
@@ -6060,6 +6421,10 @@ def main():
             "U", "U-eval", "U-cli", "V") if launches[p].get(k["name"])}
         k["launches_orbax"] = {p: launches[p][k["name"]] for p in (
             "X", "X-train") if launches[p][k["name"]]}
+        k["launches_mesh"] = {
+            p: [r[k["name"]] for r in by_rank]
+            for p, by_rank in mesh_launches.items()
+            if any(r[k["name"]] for r in by_rank)}
         if not k["launches"] > 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
         if k["name"] in abf_calls:
@@ -6086,6 +6451,7 @@ def main():
                         for p in ("U", "V")},
                     "recipe_eval": recipe_summary["U"]["eval_metrics"],
                     "orbax_path_s": orbax_summary["seconds"],
+                    "mesh_path_s": mesh_summary["seconds"],
                     "card": card}))
     print(json.dumps({"kernels": kernels}))
     stamp("done")

@@ -1,6 +1,7 @@
 """The port stands alone: no module of tip_tpu_torch, and not chip_smoke.py,
-scripts/torch_k12_variants.py, scripts/torch_train_convergence.py or the
-wire helper tests/torch_wire.py that chip_smoke.py imports, imports JAX,
+scripts/torch_k12_variants.py, scripts/torch_train_convergence.py, the
+wire helper tests/torch_wire.py that chip_smoke.py imports or the mesh's
+test worker tests/torch_mesh_worker.py, imports JAX,
 Flax or tip_tpu, nor orbax, tensorstore or zstandard (the port reads
 tip_tpu's checkpoints with a reader of its own); and its entry points run
 on CUDA unless the caller asks for the CPU."""
@@ -26,7 +27,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "tip_tpu", "orbax", "tensorstore",
 PORT_FILES = sorted((ROOT / "tip_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_k12_variants.py",
      ROOT / "scripts" / "torch_train_convergence.py",
-     ROOT / "tests" / "torch_wire.py"]
+     ROOT / "tests" / "torch_wire.py", ROOT / "tests" / "torch_mesh_worker.py"]
 # the serving daemon, live I/O and data generation from SMPL motions
 SERVING_AND_DATAGEN = (
     "tip_tpu_torch/runtime/calibration.py",
@@ -52,6 +53,10 @@ ORBAX_AND_A7 = (
     "tip_tpu_torch/viz/urdf_export.py", "tip_tpu_torch/viz/pybullet_viz.py",
     "tip_tpu_torch/cli/render.py", "tip_tpu_torch/cli/evaluate.py",
     "tip_tpu_torch/cli/live_demo.py")
+# the (data, model) mesh (ROADMAP A6, the last module) and its test worker,
+# which runs in processes of its own beside the tests that import JAX
+MESH = ("tip_tpu_torch/parallel/__init__.py", "tip_tpu_torch/parallel/mesh.py",
+        "tests/torch_mesh_worker.py")
 
 
 def _imported_roots(path):
@@ -92,7 +97,7 @@ def test_port_files_found():
 
 
 @pytest.mark.parametrize("name", SERVING_AND_DATAGEN + CONVERGENCE_RECIPE
-                         + ORBAX_AND_A7)
+                         + ORBAX_AND_A7 + MESH)
 def test_serving_and_datagen_files_are_checked(name):
     """Each module of the serving daemon, live I/O and data generation is
     among the files checked above, and imports no JAX and nothing of

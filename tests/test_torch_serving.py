@@ -254,8 +254,9 @@ def test_stream_pool_arguments(motions):
     _, s_inits = motions
     _, port = _pair("recompute")
     tcfg, model, skel, tdt = port
-    with pytest.raises(TypeError):
-        StreamPool(model, tcfg, skel, capacity=2, device="cpu", mesh=None)
+    # mesh=None is one process's pool (the meshed pool: test_torch_mesh.py)
+    assert StreamPool(model, tcfg, skel, capacity=2, dtype=tdt, device="cpu",
+                      mesh=None)._carries.n_streams == 2
     other = TR.RunnerConfig(model=TM.ModelConfig())
     with pytest.raises(ValueError, match="ModelConfig"):
         StreamPool(model, other, skel, capacity=2, device="cpu")

@@ -19,16 +19,20 @@ the parameters, Adam's moments and the checkpoints stay float32), on
 on the device, so ``--device_data`` is accepted and changes nothing.
 ``--warm_start`` takes a checkpoint directory of this package, tip_tpu's
 orbax checkpoint (read without orbax: utils/orbax_read.py) or a reference
-``.pt`` state dict. More than one model shard raises (ROADMAP.md, queue A,
-training: the mesh).
+``.pt`` state dict.
+
+Over a (data, model) mesh, one process a device, under torchrun:
+  torchrun --nproc_per_node 8 -m tip_tpu_torch.cli.train ... \
+      --n_model_shards 2
+builds a mesh of (world / n_model_shards, n_model_shards), each rank on
+``cuda:LOCAL_RANK`` over NCCL (with ``--device cpu``, on the CPU over
+gloo; ``--init_method`` names another rendezvous than torchrun's
+MASTER_ADDR and MASTER_PORT). Rank 0 logs and writes the checkpoints,
+which hold the whole state. With one process there is no mesh and
+``--n_model_shards`` is ignored, as tip_tpu ignores it on one device.
 """
 
 import argparse
-
-# what the port does not train yet, by flag value -> the ROADMAP item
-UNPORTED = {
-    "n_model_shards": "a model-sharded mesh (ROADMAP A6, training: the mesh)",
-}
 
 
 def main(argv=None):
@@ -55,7 +59,12 @@ def main(argv=None):
     ap.add_argument("--n_heads", type=int, default=16)
     ap.add_argument("--tf_layers", type=int, default=4)
     ap.add_argument("--seed", type=int, default=5104)
-    ap.add_argument("--n_model_shards", type=int, default=1)
+    ap.add_argument("--n_model_shards", type=int, default=1,
+                    help="tensor-parallel mesh axis size (several "
+                         "processes only)")
+    ap.add_argument("--init_method", default=None,
+                    help="the process group's rendezvous (default: "
+                         "torchrun's MASTER_ADDR and MASTER_PORT)")
     ap.add_argument("--warm_start", default=None,
                     help="checkpoint dir of this package, tip_tpu's orbax "
                          "checkpoint dir or reference .pt: load weights "
@@ -90,14 +99,11 @@ def main(argv=None):
                          "versions)")
     args = ap.parse_args(argv)
 
-    if args.n_model_shards > 1:
-        raise NotImplementedError(f"--n_model_shards: "
-                                  f"{UNPORTED['n_model_shards']} is not "
-                                  f"ported")
-
     import os
+    import torch
     from tip_tpu_torch import constants as cst
     from tip_tpu_torch.models.tip_model import ModelConfig
+    from tip_tpu_torch.parallel import mesh as mesh_lib
     from tip_tpu_torch.train import data as data_lib
     from tip_tpu_torch.train import train as train_lib
 
@@ -120,9 +126,28 @@ def main(argv=None):
     ds = data_lib.PackedDataset.from_prefix(args.data_prefix,
                                             with_acc_sum=args.with_acc_sum)
     metrics = args.metrics or os.path.join(args.save_path, "metrics.jsonl")
-    return train_lib.train_loop(cfg, ds, ckpt_dir=args.save_path,
-                                warm_start=args.warm_start,
-                                metrics_path=metrics, device=args.device)
+    device, mesh = args.device, None
+    kind = torch.device(device or "cuda").type
+    if kind == "cuda" and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # each rank binds its card before it joins the NCCL group
+        if device in (None, "cuda"):
+            device = f"cuda:{mesh_lib.local_rank()}"
+        torch.cuda.set_device(torch.device(device))
+    joined = mesh_lib.init_distributed(args.init_method, device=kind)
+    try:
+        if joined:
+            mesh = mesh_lib.make_mesh(n_model=args.n_model_shards,
+                                      device_type=kind)
+            if torch.distributed.get_rank() == 0:
+                print("mesh:", dict(zip(mesh.mesh_dim_names,
+                                        mesh.mesh.shape)))
+        return train_lib.train_loop(cfg, ds, mesh=mesh,
+                                    ckpt_dir=args.save_path,
+                                    warm_start=args.warm_start,
+                                    metrics_path=metrics, device=device)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -57,6 +57,10 @@ SITE_LAYER0 = 210
 # the batch tile of the encoder layers' dropout masks, as tip_tpu's model
 # passes it
 ENCODER_TILE = 8
+# the xla loop's sites whose tensor splits over a mesh's model axis, and
+# the dim it splits: the attention probabilities' heads (B, h, T, T) and
+# the ReLU's FF1 columns (B, T, ff)
+MODEL_SPLIT_SITES = {0: 1, 2: 2}
 
 
 @dataclass(frozen=True)
@@ -276,53 +280,77 @@ def _layer_norm(x, scale, bias, eps=1e-5):
     return (x - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
-def hash_dropout(x, rate: float, seed, site: int):
+def hash_dropout(x, rate: float, seed, site: int, at=None):
     """tip_tpu's hash-mask dropout: x times the keep mask of (seed, site)
-    in {0, 1/keep}, keep = 1 - rate; x itself when rate is 0."""
+    in {0, 1/keep}, keep = 1 - rate; x itself when rate is 0. ``at``:
+    (offsets, full shape) when x is one rank's part of a larger tensor
+    under a mesh, whose mask it then takes (``hash_keep_mask``)."""
     if rate == 0.0:
         return x
+    offsets, full = (None, None) if at is None else at
     return x * hash_keep_mask(seed, site, x.shape, 1.0 - rate,
-                              torch.float32, x.device).to(x.dtype)
+                              torch.float32, x.device, offsets,
+                              full).to(x.dtype)
 
 
-def rng_dropout(x, rate: float, generator: torch.Generator):
+def rng_dropout(x, rate: float, generator: torch.Generator, at=None):
     """tip_tpu's ``_dropout``: each entry kept with probability keep = 1 -
     rate (a float32 uniform draw from ``generator`` below keep) and divided
-    by keep, the others 0; x itself when rate is 0."""
+    by keep, the others 0; x itself when rate is 0. ``at``: (offsets, full
+    shape) when x is one rank's part of a larger tensor under a mesh: the
+    draw is the whole tensor's, and x takes its part."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, dtype=torch.float32,
+    shape = x.shape if at is None else at[1]
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
                    device=x.device)
+    if at is not None:
+        u = u[tuple(slice(o, o + n) for o, n in zip(at[0], x.shape))]
     return torch.where(u < keep, x / keep, x.new_zeros(()))
 
 
-def _encoder_layer(p, pre: str, x, mask, n_heads: int, drop=None):
+def _encoder_layer(p, pre: str, x, mask, n_heads: int, drop=None, tp=None):
     """One post-norm layer over the parameters ``p[pre + name]``:
     x = LN1(x + MHA(x)); x = LN2(x + FF(x)). ``drop(t, k)``: the dropout
     of site k of the layer (0 the attention probabilities, 1 the attention
     output, 2 the ReLU, 3 FF2's output), as tip_tpu's xla loop places it;
-    None: no dropout."""
+    None: no dropout.
+
+    ``tp`` (``parallel.mesh.TensorParallel``): this rank's part of a
+    tensor-parallel layer, whose q/k/v and FF1 parameters are its columns
+    (whole heads) and whose out-projection and FF2 weights are its rows.
+    The column-parallel products take x through ``tp.enter``, and the
+    row-parallel products' partial sums meet in ``tp.reduce`` before their
+    biases. None: the whole layer."""
     B, T, d = x.shape
-    h = n_heads
-    hd = d // h
+    hd = d // n_heads
+    xin = x if tp is None else tp.enter(x)
+    q = xin @ p[pre + "w_q"] + p[pre + "b_q"]
+    h = q.shape[-1] // hd                                 # this rank's heads
 
     def split_heads(t):
         return t.reshape(B, T, h, hd).transpose(1, 2)   # (B,h,T,hd)
 
-    q = split_heads(x @ p[pre + "w_q"] + p[pre + "b_q"])
-    k = split_heads(x @ p[pre + "w_k"] + p[pre + "b_k"])
-    v = split_heads(x @ p[pre + "w_v"] + p[pre + "b_v"])
+    q = split_heads(q)
+    k = split_heads(xin @ p[pre + "w_k"] + p[pre + "b_k"])
+    v = split_heads(xin @ p[pre + "w_v"] + p[pre + "b_v"])
     if drop is None:
         def drop(t, k):
             return t
     logits = q @ k.transpose(-1, -2) / math.sqrt(hd) + mask
     o = drop(torch.softmax(logits, dim=-1), 0) @ v
-    a = o.transpose(1, 2).reshape(B, T, d) @ p[pre + "out_proj.w"] \
-        + p[pre + "out_proj.b"]
+    a = o.transpose(1, 2).reshape(B, T, h * hd) @ p[pre + "out_proj.w"]
+    if tp is not None:
+        a = tp.reduce(a)
+    a = a + p[pre + "out_proj.b"]
     x = _layer_norm(x + drop(a, 1), p[pre + "ln1_s"], p[pre + "ln1_b"])
-    f = drop(torch.relu(x @ p[pre + "ff1.w"] + p[pre + "ff1.b"]), 2)
-    f = f @ p[pre + "ff2.w"] + p[pre + "ff2.b"]
+    xin = x if tp is None else tp.enter(x)
+    f = drop(torch.relu(xin @ p[pre + "ff1.w"] + p[pre + "ff1.b"]), 2)
+    f = f @ p[pre + "ff2.w"]
+    if tp is not None:
+        f = tp.reduce(f)
+    f = f + p[pre + "ff2.b"]
     return _layer_norm(x + drop(f, 3), p[pre + "ln2_s"], p[pre + "ln2_b"])
 
 
@@ -525,7 +553,7 @@ class TIPModel(nn.Module):
                                       ENCODER_TILE, impl=cfg.encoder_impl)
         return x
 
-    def train_forward(self, x_imu, x_s, seeds=None):
+    def train_forward(self, x_imu, x_s, seeds=None, mesh=None):
         """The differentiable training forward, tip_tpu's ``forward(...,
         train=True, rng)``, in ``cfg.compute_dtype`` (the parameters' dtype
         when it is None). Its encoder layers are those of
@@ -553,14 +581,40 @@ class TIPModel(nn.Module):
             with K11/K12 layers, the layers' int32 seeds (read back to the
             host: one sync a call), as tip_tpu draws them from the layer
             keys.
+
+        mesh: a ``torch.distributed`` DeviceMesh (``parallel/mesh.py``) of
+        which this process is one rank. x_imu and x_s are then its rows of
+        the global batch, every mask is the global batch's at those rows
+        (and at its heads and FF1 columns), and with a model axis the
+        encoder layers are tensor-parallel over parameters that
+        ``train.shard_state`` split. Under a mesh the encoder takes the xla
+        loop (``encoder_impl="xla"``, as ``train.shard_state`` sets it):
+        K11/K12's per-layer masks are not the loop's, and tensor
+        parallelism splits the layer that K11 fuses.
         """
         cfg = self.cfg
         out_dtype = x_imu.dtype
         p = self._params()
+        coords = tp = None
+        if mesh is not None:
+            from tip_tpu_torch.parallel import mesh as mesh_lib
+            if cfg.encoder_impl != "xla":
+                raise ValueError("under a mesh the encoder trains in the xla "
+                                 "loop (train.shard_state sets "
+                                 "encoder_impl='xla')")
+            coords = mesh_lib.coords(mesh)
+            tp = mesh_lib.tensor_parallel(mesh)
+            cols = cfg.tf_in_dim // coords.n_model
+            if cfg.tf_layers and p["layers.0.w_q"].shape[1] != cols:
+                raise ValueError(f"the model's q columns are "
+                                 f"{p['layers.0.w_q'].shape[1]}, a rank of "
+                                 f"a {coords.n_model}-way model axis holds "
+                                 f"{cols} (train.shard_state)")
         if cfg.compute_dtype is not None:
             cd = getattr(torch, cfg.compute_dtype)
             x_imu, x_s = x_imu.to(cd), x_s.to(cd)
-        drop_in, drop_layer, layer_seeds = self._dropout(seeds, x_imu.device)
+        drop_in, drop_layer, layer_seeds = self._dropout(seeds, x_imu.device,
+                                                         coords)
         x_s = torch.nan_to_num(x_s, nan=0.0)
         x_imu = drop_in(x_imu, cfg.in_dropout, SITE_IMU)
         x_s = torch.cat([x_s[..., :108], torch.zeros_like(x_s[..., 108:111]),
@@ -573,7 +627,7 @@ class TIPModel(nn.Module):
             mask = causal_mask(x.shape[1], x.dtype, x.device)
             for li in range(cfg.tf_layers):
                 x = _encoder_layer(p, f"layers.{li}.", x, mask, cfg.n_heads,
-                                   drop_layer(li))
+                                   drop_layer(li), tp)
         else:
             seeds_l = layer_seeds()
             for li in range(cfg.tf_layers):
@@ -588,12 +642,29 @@ class TIPModel(nn.Module):
                                 impl=cfg.rnn_impl)
         return (x @ p["out.w"] + p["out.b"]).to(out_dtype)
 
-    def _dropout(self, seeds, device):
+    def _dropout(self, seeds, device, coords=None):
         """What ``train_forward`` drops with: drop_in(x, rate, site) for the
         inputs, drop_layer(li) the xla loop's ``drop`` of layer li, and
-        layer_seeds() the K11/K12 layers' int32 seeds (drawn when called)."""
+        layer_seeds() the K11/K12 layers' int32 seeds (drawn when called).
+        ``coords`` (``parallel.mesh.Coords``): the masks are taken at this
+        rank's place in the global tensors; None: the tensors are whole."""
         cfg = self.cfg
         L = cfg.tf_layers
+
+        def placed(drop, t, *args, model_dim=None):
+            """drop(t, *args), with ``at=`` this rank's place in the
+            global tensor under a mesh: its rows, and its part of dim
+            ``model_dim`` on the model axis."""
+            if coords is None:
+                return drop(t, *args)
+            offsets, full = [0] * t.dim(), list(t.shape)
+            offsets[0], full[0] = coords.data * t.shape[0], \
+                t.shape[0] * coords.n_data
+            if model_dim is not None:
+                offsets[model_dim] = coords.model * t.shape[model_dim]
+                full[model_dim] *= coords.n_model
+            return drop(t, *args, at=(offsets, full))
+
         if seeds is None:
             return ((lambda x, rate, site: x), (lambda li: None),
                     (lambda: [0] * L))
@@ -605,9 +676,11 @@ class TIPModel(nn.Module):
             if gen.device.type != device.type:
                 raise ValueError(f"the dropout generator is on "
                                  f"{gen.device}, the inputs on {device}")
-            return ((lambda x, rate, site: rng_dropout(x, rate, gen)),
-                    (lambda li: lambda t, k: rng_dropout(
-                        t, cfg.layer_dropout, gen)),
+            return ((lambda x, rate, site: placed(rng_dropout, x, rate,
+                                                  gen)),
+                    (lambda li: lambda t, k: placed(
+                        rng_dropout, t, cfg.layer_dropout, gen,
+                        model_dim=MODEL_SPLIT_SITES.get(k))),
                     (lambda: torch.randint(
                         -2 ** 31, 2 ** 31, (L,), generator=gen,
                         device=gen.device).tolist()))
@@ -618,7 +691,10 @@ class TIPModel(nn.Module):
         if len(layer_seeds) != L:
             raise ValueError(f"{len(layer_seeds)} layer seeds for {L} "
                              f"layers")
-        return ((lambda x, rate, site: hash_dropout(x, rate, seed0, site)),
-                (lambda li: lambda t, k: hash_dropout(
-                    t, cfg.layer_dropout, seed0, SITE_LAYER0 + 4 * li + k)),
+        return ((lambda x, rate, site: placed(hash_dropout, x, rate, seed0,
+                                              site)),
+                (lambda li: lambda t, k: placed(
+                    hash_dropout, t, cfg.layer_dropout, seed0,
+                    SITE_LAYER0 + 4 * li + k,
+                    model_dim=MODEL_SPLIT_SITES.get(k))),
                 (lambda: list(layer_seeds)))

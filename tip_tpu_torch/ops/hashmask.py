@@ -23,19 +23,26 @@ def _mul32(a, c: int):
     return (lo + hi) & _M32
 
 
-def linear_index(shape, device=None):
+def linear_index(shape, device=None, offsets=None, full_shape=None):
     """Each element's linear index over ``shape`` as tip_tpu computes it:
     the sum of index times stride, every stride and the sum wrapped to 32
-    bits (int64 values in [0, 2**32))."""
+    bits (int64 values in [0, 2**32)).
+
+    ``offsets`` and ``full_shape``: the indices of a part of a larger
+    tensor (one rank's rows or columns under a mesh), element (i_0, ...) of
+    the part being element (offsets[0] + i_0, ...) of a tensor of
+    ``full_shape``, whose strides the index takes; None: the whole."""
+    offsets = (0,) * len(shape) if offsets is None else tuple(offsets)
+    full_shape = tuple(shape) if full_shape is None else tuple(full_shape)
     idx = torch.zeros(shape, dtype=torch.int64, device=device)
     stride = 1
     for d in reversed(range(len(shape))):
         view = [1] * len(shape)
         view[d] = shape[d]
-        iota = torch.arange(shape[d], dtype=torch.int64,
-                            device=device).reshape(view)
+        iota = torch.arange(offsets[d], offsets[d] + shape[d],
+                            dtype=torch.int64, device=device).reshape(view)
         idx = (idx + _mul32(iota, stride & _M32)) & _M32
-        stride *= shape[d]
+        stride *= full_shape[d]
     return idx
 
 
@@ -62,14 +69,18 @@ def keep_mask_at(seed, site: int, idx, p_keep: float, dtype):
 
 
 def hash_keep_mask(seed, site: int, shape, p_keep: float,
-                   dtype=torch.float32, device=None):
+                   dtype=torch.float32, device=None, offsets=None,
+                   full_shape=None):
     """Keep-mask in {0, 1/p_keep} of ``dtype`` for any rank, bit for bit
-    tip_tpu's ``hash_keep_mask(seed, site, shape, p_keep, dtype)``.
+    tip_tpu's ``hash_keep_mask(seed, site, shape, p_keep, dtype)``; with
+    ``offsets`` and ``full_shape`` (``linear_index``), the part of
+    ``hash_keep_mask(seed, site, full_shape, ...)`` at those offsets.
 
     Args:
       seed: int32 stream seed (vary per step and per layer call).
       site: dropout-site id (decorrelates masks within a call).
       p_keep: keep probability.
     """
-    return keep_mask_at(seed, site, linear_index(tuple(shape), device),
+    return keep_mask_at(seed, site, linear_index(tuple(shape), device,
+                                                 offsets, full_shape),
                         p_keep, dtype)

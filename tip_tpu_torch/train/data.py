@@ -8,7 +8,10 @@ once and ``device_gather`` gathers a batch's windows there from a (B,)
 index tensor, so a step copies B indices up instead of the batch. The
 on-device sampler (``make_window_sampler``, ``device_sample_epoch``) draws
 a whole epoch's ends on the card from a ``torch.Generator``, so an epoch
-needs nothing from the host.
+needs nothing from the host. Under a mesh (``parallel/mesh.py``) every rank
+holds the whole blobs, as tip_tpu replicates them, draws or takes the
+whole epoch's ends and gathers the windows of its own rows
+(``train.make_epoch_fn``, ``train.train_loop``).
 
 Blob format:
   <prefix>_imu.npy      (N, 72)  root-local IMU features, float32

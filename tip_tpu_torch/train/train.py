@@ -32,6 +32,17 @@ tip_tpu does: the forward and backward compute in bf16 (K1, K10, K11, K12
 in bf16 on the card), while the parameters, Adam's moments, the gradients,
 the clip and the checkpoints stay float32. A checkpoint records the
 compute dtype it was trained in.
+
+``mesh=`` (a (data, model) ``DeviceMesh`` of ``parallel/mesh.py``, one
+process a device) trains as tip_tpu's SPMD program over its mesh: the
+batch over the data axis, the encoder's parameters over the model axis
+(``shard_state``). Every rank draws what one device draws (the noise and
+the masks over the global batch, the seeds, the epoch's window ends) and
+takes its part; the loss is the global batch's, its gradients are summed
+over the data group before the norm, which counts each parameter once;
+clipping and Adam(W) run on each rank's part. The generators and the step
+stay replicated. Checkpoints hold the whole state: rank 0 writes what one
+device would, and a restore shards it again.
 """
 
 import dataclasses
@@ -47,6 +58,7 @@ import torch
 from tip_tpu_torch import resolve_device
 from tip_tpu_torch.models import losses as L
 from tip_tpu_torch.models import tip_model as M
+from tip_tpu_torch.parallel import mesh as mesh_lib
 from tip_tpu_torch.train import data as data_lib
 from tip_tpu_torch.utils import orbax_read
 
@@ -158,17 +170,20 @@ def train_state_from_jax(params, count, mu, nu, cfg: TrainConfig,
     return _state(cfg, model, moments(mu), moments(nu), int(count), device)
 
 
-def loss_fn(model, x_imu, x_s, y, noise, seeds, cfg: TrainConfig):
+def loss_fn(model, x_imu, x_s, y, noise, seeds, cfg: TrainConfig,
+            mesh=None):
     """Composite loss on one batch: the training forward of ``x_s + noise``
     with dropout drawn by ``seeds`` (the model's ``train_forward``; None:
-    off), then jerk + pose and root velocity + SBP."""
-    y_pred = model.train_forward(x_imu, x_s + noise, seeds)
+    off), then jerk + pose and root velocity + SBP. Under ``mesh`` the
+    inputs are this rank's rows and the loss is the global batch's."""
+    y_pred = model.train_forward(x_imu, x_s + noise, seeds, mesh)
+    psum = mesh_lib.data_sum(mesh)
     nc = cfg.n_sbps * 4
-    l_jerk = L.loss_jerk(y_pred[:, :, :-3 - nc])
+    l_jerk = L.loss_jerk(y_pred[:, :, :-3 - nc], psum)
     yp = y_pred.reshape(-1, y_pred.shape[-1])
     yt = y.reshape(-1, y.shape[-1])
-    l_q = L.loss_q_only_2axis(yt[:, :-nc], yp[:, :-nc])
-    l_c = L.loss_constr_multi(yt[:, -nc:], yp[:, -nc:], cfg.n_sbps)
+    l_q = L.loss_q_only_2axis(yt[:, :-nc], yp[:, :-nc], psum)
+    l_c = L.loss_constr_multi(yt[:, -nc:], yp[:, -nc:], cfg.n_sbps, psum)
     total = l_q + l_c + l_jerk
     return total, {"loss": total, "loss_q": l_q, "loss_c": l_c,
                    "loss_jerk": l_jerk}
@@ -193,24 +208,40 @@ def draw_noise(state: TrainState, x_s, cfg: TrainConfig):
     return (u - 0.5) * (2.0 * cfg.noise_input_hist)
 
 
+def _draw_noise(state: TrainState, x_s, cfg: TrainConfig, mesh):
+    """``draw_noise`` for x_s; under ``mesh`` x_s is this rank's rows, the
+    draw is the global batch's and the rank takes its rows."""
+    if mesh is None:
+        return draw_noise(state, x_s, cfg)
+    n = x_s.shape[0] * mesh.size(0)
+    whole = x_s.new_empty((n,) + tuple(x_s.shape[1:]))
+    return draw_noise(state, whole, cfg)[mesh_lib.rows(mesh, n)]
+
+
 AUX = ("loss", "loss_q", "loss_c", "loss_jerk", "grad_norm", "lr",
        "skipped")
 
 
-def _grads(state: TrainState, batch, cfg: TrainConfig, noise, seeds):
+def _grads(state: TrainState, batch, cfg: TrainConfig, noise, seeds,
+           mesh=None):
     """The loss and the gradients of one batch, on the device with no host
     sync: (names, parameters, gradients, the aux of ``AUX`` as one float64
-    tensor, whether the loss is finite as a () bool tensor)."""
+    tensor, whether the loss is finite as a () bool tensor). Under
+    ``mesh`` the loss, the gradients of this rank's parameters and their
+    norm are the global step's, the same on every rank, so a non-finite
+    loss on one rank's rows is not finite on any."""
     x_imu, x_s, y = batch
     model = state.model
     params = dict(model.named_parameters())
     for p in params.values():
         p.grad = None
-    total, aux = loss_fn(model, x_imu, x_s, y, noise, seeds, cfg)
+    total, aux = loss_fn(model, x_imu, x_s, y, noise, seeds, cfg, mesh)
     total.backward()
     names = list(params)
     grads = [params[k].grad for k in names]
-    g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if mesh is not None and mesh.size(0) > 1:
+        mesh_lib.all_sum_(grads, mesh.get_group(mesh_lib.DATA_AXIS))
+    g_norm = mesh_lib.global_norm(grads, names, mesh)
     ok = torch.isfinite(total)
     with torch.no_grad():
         vals = torch.stack([aux["loss"], aux["loss_q"], aux["loss_c"],
@@ -270,7 +301,7 @@ def _apply(state: TrainState, names, params, grads, g_norm, lr,
 
 
 def train_step(state: TrainState, batch, cfg: TrainConfig, noise=None,
-               seeds=None):
+               seeds=None, mesh=None):
     """One update on ``batch`` = (x_imu, x_s, y) tensors on the model's
     device. ``noise`` and ``seeds`` (``draw_seeds``) default to draws from
     the state's generators, seeds first. Returns tip_tpu's aux as floats:
@@ -278,14 +309,19 @@ def train_step(state: TrainState, batch, cfg: TrainConfig, noise=None,
     before the update, and ``skipped``: one host sync, after the backward.
     A step whose loss is not finite changes nothing: not the parameters,
     the moments, the step or the generators.
+
+    mesh: every rank of the mesh calls with its rows of the global batch
+    (``parallel.mesh.rows``), and of the noise where it is given, and a
+    state that ``shard_state`` split for this mesh. The aux is the global
+    step's on every rank.
     """
     rng_states = (state.gen.get_state(), state.noise_gen.get_state())
     if seeds is None:
         seeds = draw_seeds(state)
     if noise is None:
-        noise = draw_noise(state, batch[1], cfg)
+        noise = _draw_noise(state, batch[1], cfg, mesh)
     names, params, grads, g_norm, vals, _ = _grads(state, batch, cfg, noise,
-                                                   seeds)
+                                                   seeds, mesh)
     out = dict(zip(AUX, vals.tolist()))
     out["skipped"] = not math.isfinite(out["loss"])
     if out["skipped"]:
@@ -299,7 +335,7 @@ def train_step(state: TrainState, batch, cfg: TrainConfig, noise=None,
 
 
 def make_epoch_fn(cfg: TrainConfig, device_data, sampler=None,
-                  n_batches: Optional[int] = None):
+                  n_batches: Optional[int] = None, mesh=None):
     """Whole-epoch training (twin of tip_tpu's ``make_epoch_fn``): the train
     step over each row of an epoch's (n_batches, B) window ends, the
     windows gathered on the device from ``device_data``
@@ -320,6 +356,11 @@ def make_epoch_fn(cfg: TrainConfig, device_data, sampler=None,
     the first batch (``data.device_sample_epoch``), and the function is
     epoch_fn(state) -> (state, aux): the schedule is a pure function of
     the checkpointed state.
+
+    mesh: every rank runs the epoch on a state that ``shard_state`` split,
+    with the whole ``ends`` (or draws them whole) and gathers its columns'
+    windows; the guard's ``ok`` is the global loss's, so every rank keeps
+    or drops a batch alike.
     """
     if sampler is not None and n_batches is None:
         raise ValueError("a sampler needs n_batches")
@@ -327,13 +368,15 @@ def make_epoch_fn(cfg: TrainConfig, device_data, sampler=None,
     def run(state, ends):
         dev = state.step.device
         ends = torch.as_tensor(ends, device=dev)
+        if mesh is not None:
+            ends = ends[:, mesh_lib.rows(mesh, ends.shape[1])]
         rows = []
         for i in range(ends.shape[0]):
             batch = data_lib.device_gather(device_data, ends[i], cfg.seq_len)
             seeds = draw_seeds(state)
-            noise = draw_noise(state, batch[1], cfg)
+            noise = _draw_noise(state, batch[1], cfg, mesh)
             names, params, grads, g_norm, vals, ok = _grads(
-                state, batch, cfg, noise, seeds)
+                state, batch, cfg, noise, seeds, mesh)
             _apply(state, names, params, grads, g_norm,
                    vals[AUX.index("lr")], cfg, ok=ok)
             rows.append(vals)
@@ -353,6 +396,73 @@ def make_epoch_fn(cfg: TrainConfig, device_data, sampler=None,
 
 
 # ---------------------------------------------------------------------------
+# the mesh: this rank's part of the state
+# ---------------------------------------------------------------------------
+
+def _mesh_safe(cfg: M.ModelConfig, mesh) -> M.ModelConfig:
+    """The model configuration a mesh trains (tip_tpu's ``_mesh_safe``):
+    the encoder in the xla loop, since K11/K12's per-layer hash masks are
+    not the loop's, which tip_tpu trains under any mesh, and tensor
+    parallelism splits the layer that K11 fuses. The RNN keeps its kernels
+    (K1 and K10 on every rank): its rows are independent and W_hh is
+    replicated. tip_tpu swaps its Pallas RNN for the scan only because
+    ``pallas_call`` has no partitioning rule."""
+    if mesh is None or cfg.encoder_impl == "xla":
+        return cfg
+    return dataclasses.replace(cfg, encoder_impl="xla")
+
+
+def shard_state(state: TrainState, mesh) -> TrainState:
+    """This rank's part of a whole state, in place (tip_tpu's
+    ``shard_state``): the parameters split as
+    ``parallel.mesh.param_shardings`` places them, Adam's moments as their
+    parameter, the step and the generators replicated (every rank made the
+    same), and the model set to the configuration a mesh trains
+    (``_mesh_safe``). A model axis must divide the heads and the FF width,
+    so that each rank owns whole heads; else ValueError."""
+    cfg = state.model.cfg
+    n_model = mesh.size(1)
+    bad = [f"{k}={v}" for k, v in (("n_heads", cfg.n_heads),
+                                    ("tf_hid_size", cfg.tf_hid_size))
+           if v % n_model]
+    if bad:
+        raise ValueError(f"a model axis of {n_model} ranks must divide "
+                         f"n_heads and tf_hid_size; the model has "
+                         f"{', '.join(bad)}")
+    params = dict(state.model.named_parameters())
+    for name, pl in mesh_lib.param_shardings(mesh, params).items():
+        if not mesh_lib.is_sharded(pl):
+            continue
+        owner, _, attr = name.rpartition(".")
+        setattr(state.model.get_submodule(owner), attr, torch.nn.Parameter(
+            mesh_lib.shard(params[name].detach(), pl, mesh)))
+        state.mu[name] = mesh_lib.shard(state.mu[name], pl, mesh)
+        state.nu[name] = mesh_lib.shard(state.nu[name], pl, mesh)
+    state.model.cfg = _mesh_safe(cfg, mesh)
+    return state
+
+
+def gather_state(state: TrainState, mesh):
+    """The whole parameters and moments of a state that ``shard_state``
+    split, by name, on every rank (exact: ``parallel.mesh.gather``);
+    a collective, which every rank calls. Returns (params, mu, nu)."""
+    params = {k: v.detach() for k, v in state.model.named_parameters()}
+    names = list(params)
+    placed = mesh_lib.param_shardings(mesh, names)
+    whole = mesh_lib.gather(
+        [params[k] for k in names] + [state.mu[k] for k in names]
+        + [state.nu[k] for k in names], [placed[k] for k in names] * 3,
+        mesh)
+    n = len(names)
+    return tuple(dict(zip(names, whole[i * n:(i + 1) * n]))
+                 for i in range(3))
+
+
+def _is_rank0(mesh) -> bool:
+    return mesh is None or torch.distributed.get_rank() == 0
+
+
+# ---------------------------------------------------------------------------
 # checkpoints: parameters, moments, step and generators, resume-exact
 # ---------------------------------------------------------------------------
 
@@ -364,15 +474,21 @@ def _ckpt_steps(ckpt_dir: str):
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState, step: int,
-                    max_to_keep: int = 4):
+                    max_to_keep: int = 4, mesh=None):
     """Write the full state as ``<ckpt_dir>/ckpt_<step>.pt`` and keep only
-    the newest ``max_to_keep`` checkpoints."""
+    the newest ``max_to_keep`` checkpoints. Under ``mesh`` every rank calls
+    it: the parts are gathered, and rank 0 writes what one device would."""
+    params = {k: v.detach() for k, v in state.model.state_dict().items()}
+    mu, nu = state.mu, state.nu
+    if mesh is not None:
+        params, mu, nu = gather_state(state, mesh)
+        if not _is_rank0(mesh):
+            return
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"ckpt_{step}.pt")
     tmp = path + ".tmp"
-    torch.save({"params": {k: v.detach() for k, v in
-                           state.model.state_dict().items()},
-                "mu": state.mu, "nu": state.nu, "step": int(state.step),
+    torch.save({"params": params, "mu": mu, "nu": nu,
+                "step": int(state.step),
                 "gen": state.gen.get_state(),
                 "noise_gen": state.noise_gen.get_state(),
                 "compute_dtype": state.model.cfg.compute_dtype}, tmp)
@@ -383,7 +499,16 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, step: int,
 
 def restore_checkpoint(ckpt_dir: str, cfg: TrainConfig,
                        step: Optional[int] = None, params_only: bool = False,
-                       device=None) -> TrainState:
+                       device=None, mesh=None) -> TrainState:
+    """``_restore`` the whole state, then, under ``mesh``, this rank's part
+    of it (``shard_state``): checkpoints hold no mesh, so a run under one
+    resumes on one device and the other way round."""
+    state = _restore(ckpt_dir, cfg, step, params_only, device)
+    return state if mesh is None else shard_state(state, mesh)
+
+
+def _restore(ckpt_dir: str, cfg: TrainConfig, step: Optional[int],
+             params_only: bool, device) -> TrainState:
     """The state saved at ``step`` (None: the newest) in a checkpoint
     directory of this package (``ckpt_<step>.pt``) or in tip_tpu's orbax
     checkpoint (a step directory, or a manager's directory of numbered
@@ -530,7 +655,7 @@ def _restore_orbax(ckpt_dir, cfg: TrainConfig, step, params_only,
             f"checkpoint at {ckpt_dir} stores a different optimizer-state "
             f"structure than TrainConfig(optimizer={cfg.optimizer!r}); "
             f"restoring params/step/rng only (fresh optimizer state).",
-            stacklevel=3)
+            stacklevel=4)
     with torch.no_grad():
         for k, p in state.model.named_parameters():
             p.copy_(torch.from_numpy(params[k]))
@@ -551,8 +676,8 @@ def _restore_orbax(ckpt_dir, cfg: TrainConfig, step, params_only,
     return state
 
 
-def train_loop(cfg: TrainConfig, dataset, *, ckpt_dir=None, log_fn=print,
-               max_epochs: Optional[int] = None,
+def train_loop(cfg: TrainConfig, dataset, *, mesh=None, ckpt_dir=None,
+               log_fn=print, max_epochs: Optional[int] = None,
                warm_start: Optional[str] = None,
                metrics_path: Optional[str] = None,
                device=None) -> TrainState:
@@ -568,9 +693,17 @@ def train_loop(cfg: TrainConfig, dataset, *, ckpt_dir=None, log_fn=print,
     this package, tip_tpu's orbax checkpoint or a reference ``.pt`` state
     dict, weights only.
     metrics_path: jsonl file receiving every record.
+    mesh: every rank of the mesh runs the loop alike, with the whole blobs
+    on its device (``device``: this rank's); each takes its rows of every
+    batch (``train_step``), and only rank 0 logs and writes files.
     """
     state = init_state(cfg, device)
     device = state.model.out.w.device
+    if not _is_rank0(mesh):
+        metrics_path = None
+
+        def log_fn(record):
+            pass
     writer = None
     if metrics_path is not None:
         from tip_tpu_torch.utils.observability import MetricsWriter
@@ -592,6 +725,8 @@ def train_loop(cfg: TrainConfig, dataset, *, ckpt_dir=None, log_fn=print,
             with torch.no_grad():
                 for k, p in state.model.named_parameters():
                     p.copy_(sd[k])
+        if mesh is not None:
+            shard_state(state, mesh)
         dds = data_lib.to_device(dataset, device)
         np_rng = np.random.default_rng(cfg.seed)
         epochs = max_epochs if max_epochs is not None else cfg.epochs
@@ -603,8 +738,10 @@ def train_loop(cfg: TrainConfig, dataset, *, ckpt_dir=None, log_fn=print,
             running = []
             for bi in range(len(idx) // cfg.batch_size):
                 ends = idx[bi * cfg.batch_size:(bi + 1) * cfg.batch_size]
+                if mesh is not None:
+                    ends = ends[mesh_lib.rows(mesh, cfg.batch_size)]
                 aux = train_step(state, data_lib.device_gather(
-                    dds, ends, cfg.seq_len), cfg)
+                    dds, ends, cfg.seq_len), cfg, mesh=mesh)
                 if aux["skipped"]:
                     bad_steps += 1
                     log_fn({"epoch": ep, "batch": bi + 1,
@@ -622,11 +759,11 @@ def train_loop(cfg: TrainConfig, dataset, *, ckpt_dir=None, log_fn=print,
                                 running[-cfg.log_interval:])),
                             "lr": aux["lr"], "grad_norm": aux["grad_norm"]})
             if ckpt_dir and (ep == 1 or ep % 10 == 0):
-                save_checkpoint(ckpt_dir, state, ep)
+                save_checkpoint(ckpt_dir, state, ep, mesh=mesh)
             log_fn({"epoch": ep, "mean_loss": float(np.mean(running))
                     if running else None})
         if ckpt_dir:
-            save_checkpoint(ckpt_dir, state, epochs)
+            save_checkpoint(ckpt_dir, state, epochs, mesh=mesh)
     finally:
         if writer is not None:
             writer.close()
