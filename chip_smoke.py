@@ -105,10 +105,13 @@ Phases, in order; any failure exits non-zero:
           the same parsed batches, a client leaving and a new one taking
           its recycled slot; the schedule's streams in f32 against the
           single-stream runner; then ServeDaemon.run free at 60 Hz for
-          10 s, one client stopping to read halfway: ticks done and due,
-          the tick's host ms split into the pool step and the rest, lines
-          dropped (that client's only), no failed tick, one launch of K8,
-          K2 and K3 a tick;
+          10 s, one client stopping to read halfway
+          (scripts/torch_serve_load.py's harness): ticks done and due,
+          the tick's host ms split into the fill, the pool step, the
+          encode and the sends, beside the bare pool step; the ticker's
+          CPU time, the daemon's threads, the connects' add_stream; lines
+          for every client, dropped for that client's only, no failed
+          tick, one launch of K8, K2 and K3 a tick;
        P-2  cli/serve's defaults (2 SBPs, recompute, the plain forward,
           tail_impl auto: K11, K1 and the plain decode and tail, ROADMAP
           C14) with 16 clients, 120 lockstep ticks against the plain route
@@ -197,10 +200,14 @@ Phases, in order; any failure exits non-zero:
           bit; it prints a {"mesh_path": ...} line with each check's worst
           difference and the step and tick times;
   7. print one {"kernels": [...]} line (sixteen entries: K1-K12 and the
-     bf16 variants of K1, K10, K11 and K12), then the {"ok": true, ...}
-     line.
+     bf16 variants of K1, K10, K11 and K12), then a "summary" line a path
+     (passed, with its key number: P's ticks done of due, Y's checks),
+     then the {"ok": true, ...} line. A failure prints the summary of
+     what passed and the stage that failed before it exits: a chip call
+     returns only the last 24 KB of the output.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -356,6 +363,44 @@ def stamp(what):
     """A line with the seconds since the script started: where its time
     limit goes."""
     log(f"[{time.perf_counter() - T0:.1f} s] {what}")
+
+
+class Report:
+    """The end of the output: a "summary" line a path, passed with its key
+    number, and on a failure the stage that failed with its error. The
+    whole log runs to hundreds of KB and a chip call returns its last 24
+    KB, so these lines come last."""
+
+    WIDTH = 96                  # a line's characters: all under 4 KB
+
+    def __init__(self):
+        self.lines = []
+
+    def add(self, path, key):
+        self.lines.append(f"summary {path}: passed; {key}"[:self.WIDTH])
+
+    def paths(self, launches, numbers=None):
+        """A line a path of ``launches``: its launches, and its number from
+        ``numbers`` where it has one."""
+        for path, counts in launches.items():
+            key = f"{sum(counts.values())} launches"
+            if numbers and path in numbers:
+                key += f"; {numbers[path]}"
+            self.add(path, key)
+
+    @contextlib.contextmanager
+    def stage(self, name):
+        try:
+            yield
+        except BaseException as e:
+            first = (str(e).splitlines() or [""])[0]
+            self.lines.append(f"summary {name}: FAILED; "
+                              f"{type(e).__name__}: {first}"[:4 * self.WIDTH])
+            self.print()
+            raise
+
+    def print(self):
+        print("\n".join(self.lines), flush=True)
 
 
 def time_ms(fn, n=200, warmup=20):
@@ -4885,8 +4930,8 @@ def lockstep_serve(name, W, daemon, ref, frames, n_clients, ticks,
 
 
 def serve_lockstep_p(W, dev, ckpt, frames):
-    """Path P (a): the daemon's lines equal a twin pool's poses rounded as
-    the daemon rounds them; the schedule's streams against the
+    """Path P (a): the daemon's lines equal a twin pool's poses rounded and
+    written as the daemon writes them; the schedule's streams against the
     single-stream runner (single_stream_f32)."""
     import numpy as np
     from tip_tpu_torch.cli import serve as TSV
@@ -4911,7 +4956,11 @@ def serve_lockstep_p(W, dev, ckpt, frames):
     n_lines = 0
     for st in streams:
         got = np.array(st["lines"])
-        want_lines = np.round(np.array(st["ref"]), 5)
+        # rounded to 5 places in the poses' float32 (tip_tpu's rounding),
+        # then written with 5 decimals (encode_lines): each value reads
+        # back as the double nearest to its 5-place decimal
+        want_lines = np.round(np.round(np.array(st["ref"]), 5)
+                              .astype(np.float64), 5)
         n_lines += len(got)
         if not np.isfinite(got).all() or not np.array_equal(got,
                                                            want_lines):
@@ -4993,91 +5042,42 @@ P_ARGS = ["--five_sbp", "--with_acc_sum", "--serving_mode",
           "kv_cache_rnn_carry", "--forward_impl", "fused", "--bf16"]
 
 
+def serve_load_script():
+    """scripts/torch_serve_load.py as a module: the free run's harness."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_load", ROOT / "scripts" / "torch_serve_load.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def serve_free_p(W, dev, ckpt, frames, card):
     """Path P (b): ServeDaemon.run at 60 Hz with 64 clients pushing at 60
     Hz from another process, for SERVE_FREE_S or until SERVE_FREE_TICKS
     ticks have served every client; the client SERVE_SLOW stops reading
-    early. The tick is timed from outside the daemon: its _tick_once and
-    its pool's step (synchronised) are wrapped."""
-    import multiprocessing
-    import socket
-    import threading
+    early (scripts/torch_serve_load.py's free_run: each part of the tick
+    timed from outside the daemon, the pool step synchronised). Before it,
+    the bare pool step over 64 streams. The times are printed, not held
+    to a limit: hosts differ 2-3x between calls."""
     from tip_tpu_torch.cli import serve as TSV
     from tip_tpu_torch.ops import _kernels as K
-    from tip_tpu_torch.runtime import serve_daemon as SD
 
+    harness = serve_load_script()
     logged = []
     daemon = TSV.build_daemon(TSV.parse_args(P_ARGS + [
         "--ckpt", ckpt, "--port", "0"]), log=logged.append)
-    tick_ms, pool_ms = [], []
-    step, tick_once = daemon.pool.step, daemon._tick_once
-
-    def timed_step(batch):
-        t0 = time.perf_counter()
-        out = step(batch)
-        torch.cuda.synchronize()
-        pool_ms.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    def timed_tick(batch):
-        t0 = time.perf_counter()
-        tick_once(batch)
-        tick_ms.append((time.perf_counter() - t0) * 1e3)
-    daemon.pool.step = timed_step
-    daemon._tick_once = timed_tick
-    # warm the pool's first tick outside the timed run
-    daemon.pool.step(daemon._batch)
-    torch.cuda.synchronize()
-    tick_ms.clear()
-    pool_ms.clear()
-
+    sync = torch.cuda.synchronize
+    bare, bare_add = harness.bare_step_ms(daemon.pool, W, frames, sync)
     K.reset_launch_counts()
-    span = {}
-
-    def run():
-        span["t0"] = time.perf_counter()
-        daemon.run()
-        span["t1"] = time.perf_counter()
-    ticker = threading.Thread(target=run, daemon=True)
-    # the clients live in a process of their own, as they would on the
-    # network: in the daemon's process their pushing, formatting and
-    # parsing would take the interpreter lock from its ticker. The daemon
-    # starts once every client sits in its listen backlog
-    ctx = multiprocessing.get_context("spawn")
-    results = ctx.Queue()
-    load = ctx.Process(target=W.client_load, args=(
-        daemon.port, frames, SERVE_SLOW, SERVE_SOCKBUF, SERVE_SLOW_LINES,
-        results), daemon=True)
-    outbuf = SD.MAX_OUTBUF
-    SD.MAX_OUTBUF = SERVE_OUTBUF
-    load.start()
-    try:
-        results.get(timeout=120)
-        ticker.start()
-        kind, slot_of = results.get(timeout=SERVE_FREE_MAX_S)
-        connected_at = daemon.ticks
-        with daemon._lock:
-            served = dict(daemon._clients)
-        served[slot_of[SERVE_SLOW]].conn.setsockopt(
-            socket.SOL_SOCKET, socket.SO_SNDBUF, SERVE_SOCKBUF)
-        W.wait_until(lambda: time.perf_counter() - span["t0"] >= SERVE_FREE_S
-                     and daemon.ticks >= connected_at + SERVE_FREE_TICKS,
-                     "the free run's ticks", SERVE_FREE_MAX_S, poll=0.05)
-        daemon.stop()
-        ticker.join(60)
-        kind, n_lines, bad = results.get(timeout=120)
-        load.join(30)
-    finally:
-        SD.MAX_OUTBUF = outbuf
-        daemon.stop()
-        if load.is_alive():
-            load.terminate()
-    if ticker.is_alive() or load.exitcode != 0 or len(served) != \
-            SERVE_CLIENTS:
-        raise AssertionError(f"path P free run: the ticker alive "
-                             f"{ticker.is_alive()}, the clients' exit code "
-                             f"{load.exitcode}, {len(served)} clients "
-                             f"registered")
+    summary, served, slot_of, n_lines, bad = harness.free_run(
+        daemon, W, frames, SERVE_FREE_S, sync, min_ticks=SERVE_FREE_TICKS,
+        max_seconds=SERVE_FREE_MAX_S, slow=SERVE_SLOW,
+        slow_sockbuf=SERVE_SOCKBUF, slow_lines=SERVE_SLOW_LINES,
+        outbuf=SERVE_OUTBUF)
+    if len(served) != SERVE_CLIENTS:
+        raise AssertionError(f"path P free run: {len(served)} clients "
+                             f"registered, expected {SERVE_CLIENTS}")
     counts = {k: K.launch_counts.get(k, 0) for k in KERNELS}
     ticks = daemon.ticks
     want = {"fused_cached_batch": ticks, "decode_fused": ticks,
@@ -5088,25 +5088,11 @@ def serve_free_p(W, dev, ckpt, frames, card):
     failed = [m for m in logged if "failed" in m]
     dropped = {c.slot: c.dropped for c in served.values()}
     slow_slot = slot_of[SERVE_SLOW]
-    due = int((span["t1"] - span["t0"]) * 60.0)
-    steady = list(zip(tick_ms, pool_ms))[connected_at:]
-    tick_s, pool_s = (sorted(x) for x in zip(*steady))
-    rest_s = sorted(t - p for t, p in steady)
-
-    def pct(xs, q):
-        return xs[min(len(xs) - 1, int(q * len(xs)))]
-    summary = dict(
-        ticks_done=ticks, ticks_due=due, seconds=span["t1"] - span["t0"],
-        connected_at_tick=connected_at,
-        tick_ms_p50=pct(tick_s, 0.5), tick_ms_p99=pct(tick_s, 0.99),
-        pool_step_ms_p50=pct(pool_s, 0.5), pool_step_ms_p99=pct(pool_s, 0.99),
-        rest_ms_p50=pct(rest_s, 0.5), rest_ms_p99=pct(rest_s, 0.99),
-        slow_slot=slow_slot,
-        lines_dropped={str(k): v for k, v in dropped.items() if v},
-        lines_received_min=min(n for i, n in enumerate(n_lines)
-                               if i != SERVE_SLOW),
-        failed_ticks=len(failed), launches={k: v for k, v in counts.items()
-                                            if v}, card=card)
+    summary.update(
+        bare_step_ms_p50=bare, bare_add_stream_ms_p50=bare_add,
+        step_over_bare=summary["pool_step_ms_p50"] / bare,
+        slow_slot=slow_slot, failed_ticks=len(failed),
+        launches={k: v for k, v in counts.items() if v}, card=card)
     log(json.dumps({"serve_free_run": summary}))
     if failed or bad:
         raise AssertionError(f"path P free run: {len(failed)} failed ticks "
@@ -5115,6 +5101,9 @@ def serve_free_p(W, dev, ckpt, frames, card):
             not dropped.get(slow_slot):
         raise AssertionError(f"path P free run: lines dropped {dropped}; "
                              f"expected drops for slot {slow_slot} only")
+    if not min(n for i, n in enumerate(n_lines) if i != SERVE_SLOW):
+        raise AssertionError(f"path P free run: a client got no line "
+                             f"({n_lines})")
     return summary, counts
 
 
@@ -6305,108 +6294,10 @@ def exact_math():
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's kernels run on a GPU",
-              file=sys.stderr)
-        return 1
-    if sys.argv[1:2] == ["--mesh-child"]:
-        return mesh_child(*sys.argv[2:])
-    exact_math()
-    from tip_tpu_torch.models import tip_model as M
-    from tip_tpu_torch.ops import _kernels as K
-    from tip_tpu_torch.ops import kinematics as kin
-
-    dev = torch.device("cuda")
-    card = card_info()
-    log(card)
-    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)}")
-
-    t0 = time.perf_counter()
-    K.build_all()
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s: {K.sources()}")
-    stamp("built")
-
-    gen = torch.Generator(device=dev).manual_seed(1)
-    skel = kin.amass_skeleton(device=dev)
-    model = M.TIPModel(M.ModelConfig(forward_impl="fused"), device=dev,
-                       generator=torch.Generator().manual_seed(0))
-    kernels = [check_fused_rnn(dev, gen), check_decode_fused(dev, gen),
-               check_tail_fused(dev, gen, skel),
-               *check_fused_forward(dev, gen, model),
-               check_fk_bullet_fused(dev, gen, skel),
-               check_fused_cached(dev, gen, model),
-               check_fused_cached_batch(dev, gen, model),
-               check_fused_recompute_batch(dev, gen, model),
-               check_fused_rnn_bwd(dev, gen),
-               *check_encoder_train(dev, gen, model)]
-    for check_bf16 in (lambda: check_fused_rnn(dev, gen, torch.bfloat16),
-                       lambda: check_encoder_fwd_bf16(dev, gen, model),
-                       lambda: check_fused_rnn_bwd(dev, gen, torch.bfloat16),
-                       lambda: check_encoder_bwd_bf16(dev, gen, model)):
-        t0 = time.perf_counter()
-        kernels.append(check_bf16())
-        log(f"  {kernels[-1]['name']} checked and timed in "
-            f"{time.perf_counter() - t0:.1f} s")
-    stamp("kernels checked")
-    widths = {**widths_by_kernel(check_rnn_widths(dev, gen)),
-              **widths_by_kernel(check_whole_model_widths(dev, gen))}
-    batched = check_batched_tail(dev, gen, skel)
-    children_first = check_children_first(dev, gen)
-    deep_chains = check_deep_chains(dev, gen)
-    long_filter = check_long_filter(dev, gen, skel)
-    tail = tail_floor_and_clocks(dev, gen, skel)
-    race_err = race_check(dev, gen, skel)
-    for k in kernels:
-        if k["name"] in batched:
-            k.update({f: v for f, v in tail[k["name"]].items()
-                      if f != "pool"})
-            k["pool"] = dict(batched[k["name"]], **tail[k["name"]]["pool"])
-        if k["name"] in ("decode_fused", "tail_fused"):
-            k["race_check_max_abs_err"] = race_err
-        if k["name"] in children_first:
-            k["children_first_max_abs_err"] = children_first[k["name"]]
-            k["deep_chains_max_abs_err"] = deep_chains[k["name"]]
-        if k["name"] == "decode_fused":
-            k["long_filter_max_abs_err"] = long_filter
-        if k["name"] in widths:
-            k["widths"] = widths[k["name"]]
-    torch.cuda.synchronize()
-    for k in kernels:
-        log(f"  {k['name']}: max err {k['max_abs_err']:.3g} (tol "
-            f"{k['tol']:g}), device {k['ms']:.4f} ms (eager call "
-            f"{k['call_ms']:.4f}), plain {k['plain_ms']:.4f} "
-            f"({k['plain_call_ms']:.4f}), bound {k['bound_ms']:.2e} ms "
-            f"({k['bound_by']}), library {k['library_ms']}")
-
-    stamp("widths and tail checks")
-    launches, frame_ms, runs, state_dict, abf_calls = main_paths(dev)
-    stamp("main paths")
-    full_launches, full_summary = full_runner_paths(dev, state_dict)
-    launches.update(full_launches)
-    stamp("full runner paths")
-    pool_launches, pool_summary = pool_paths(dev, runs, state_dict)
-    launches.update(pool_launches)
-    stamp("pool paths")
-    launches.update(widened_paths(dev, state_dict))
-    eval_launches, eval_summary = eval_path(dev)
-    launches.update(eval_launches)
-    stamp("widened paths and eval")
-    serve_launches, serve_summary = serving_paths(dev, card)
-    launches.update(serve_launches)
-    stamp("serving paths")
-    train_launches, train_summary = training_paths(dev)
-    launches.update(train_launches)
-    stamp("training paths")
-    recipe_launches, recipe_summary = recipe_paths(dev)
-    launches.update(recipe_launches)
-    stamp("recipe paths")
-    orbax_launches, orbax_summary = orbax_path_x(dev, card)
-    launches.update(orbax_launches)
-    stamp("path X")
-    mesh_launches, mesh_summary = mesh_path_y(card)
-    stamp("path Y")
+def count_launches(kernels, launches, mesh_launches, abf_calls,
+                   pool_summary):
+    """Each kernel's launches on its path and on every other path that
+    launched it; raise if a kernel was not launched on its path."""
     for k in kernels:
         k["launches"] = launches[COUNTED_ON[k["name"]]][k["name"]]
         k["launches_on"] = COUNTED_ON[k["name"]]
@@ -6431,6 +6322,165 @@ def main():
             k["calls_held"] = {
                 "A-bf16": abf_calls[k["name"]],
                 "K-bf16": pool_summary["K-bf16"]["calls"][k["name"]]}
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run on a GPU",
+              file=sys.stderr)
+        return 1
+    if sys.argv[1:2] == ["--mesh-child"]:
+        return mesh_child(*sys.argv[2:])
+    exact_math()
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.ops import kinematics as kin
+
+    dev = torch.device("cuda")
+    card = card_info()
+    log(card)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+
+    report = Report()
+    with report.stage("build and kernel checks"):
+        t0 = time.perf_counter()
+        K.build_all()
+        log(f"kernels built in {time.perf_counter() - t0:.1f} s: "
+            f"{K.sources()}")
+        stamp("built")
+
+        gen = torch.Generator(device=dev).manual_seed(1)
+        skel = kin.amass_skeleton(device=dev)
+        model = M.TIPModel(M.ModelConfig(forward_impl="fused"), device=dev,
+                           generator=torch.Generator().manual_seed(0))
+        kernels = [check_fused_rnn(dev, gen), check_decode_fused(dev, gen),
+                   check_tail_fused(dev, gen, skel),
+                   *check_fused_forward(dev, gen, model),
+                   check_fk_bullet_fused(dev, gen, skel),
+                   check_fused_cached(dev, gen, model),
+                   check_fused_cached_batch(dev, gen, model),
+                   check_fused_recompute_batch(dev, gen, model),
+                   check_fused_rnn_bwd(dev, gen),
+                   *check_encoder_train(dev, gen, model)]
+        for check_bf16 in (
+                lambda: check_fused_rnn(dev, gen, torch.bfloat16),
+                lambda: check_encoder_fwd_bf16(dev, gen, model),
+                lambda: check_fused_rnn_bwd(dev, gen, torch.bfloat16),
+                lambda: check_encoder_bwd_bf16(dev, gen, model)):
+            t0 = time.perf_counter()
+            kernels.append(check_bf16())
+            log(f"  {kernels[-1]['name']} checked and timed in "
+                f"{time.perf_counter() - t0:.1f} s")
+        stamp("kernels checked")
+        widths = {**widths_by_kernel(check_rnn_widths(dev, gen)),
+                  **widths_by_kernel(check_whole_model_widths(dev, gen))}
+        batched = check_batched_tail(dev, gen, skel)
+        children_first = check_children_first(dev, gen)
+        deep_chains = check_deep_chains(dev, gen)
+        long_filter = check_long_filter(dev, gen, skel)
+        tail = tail_floor_and_clocks(dev, gen, skel)
+        race_err = race_check(dev, gen, skel)
+        for k in kernels:
+            if k["name"] in batched:
+                k.update({f: v for f, v in tail[k["name"]].items()
+                          if f != "pool"})
+                k["pool"] = dict(batched[k["name"]],
+                                 **tail[k["name"]]["pool"])
+            if k["name"] in ("decode_fused", "tail_fused"):
+                k["race_check_max_abs_err"] = race_err
+            if k["name"] in children_first:
+                k["children_first_max_abs_err"] = children_first[k["name"]]
+                k["deep_chains_max_abs_err"] = deep_chains[k["name"]]
+            if k["name"] == "decode_fused":
+                k["long_filter_max_abs_err"] = long_filter
+            if k["name"] in widths:
+                k["widths"] = widths[k["name"]]
+        torch.cuda.synchronize()
+        for k in kernels:
+            log(f"  {k['name']}: max err {k['max_abs_err']:.3g} (tol "
+                f"{k['tol']:g}), device {k['ms']:.4f} ms (eager call "
+                f"{k['call_ms']:.4f}), plain {k['plain_ms']:.4f} "
+                f"({k['plain_call_ms']:.4f}), bound {k['bound_ms']:.2e} "
+                f"ms ({k['bound_by']}), library {k['library_ms']}")
+
+    stamp("widths and tail checks")
+    report.add("kernels", f"{len(kernels)} checked; worst err/tol "
+               f"{max(k['max_abs_err'] / k['tol'] for k in kernels):.3g}")
+    with report.stage("main paths"):
+        launches, frame_ms, runs, state_dict, abf_calls = main_paths(dev)
+    report.paths(launches, {p: f"frame {v:.3f} ms"
+                            for p, v in frame_ms.items()})
+    stamp("main paths")
+    with report.stage("full runner paths"):
+        full_launches, full_summary = full_runner_paths(dev, state_dict)
+    launches.update(full_launches)
+    report.paths(full_launches, {p: f"frame {v:.3f} ms" for p, v in
+                                 full_summary["frame_ms"].items()})
+    stamp("full runner paths")
+    with report.stage("pool paths"):
+        pool_launches, pool_summary = pool_paths(dev, runs, state_dict)
+    launches.update(pool_launches)
+    report.paths(pool_launches, {p: f"tick {v['tick_ms']:.3f} ms"
+                                 for p, v in pool_summary.items()})
+    stamp("pool paths")
+    with report.stage("widened paths and eval"):
+        widened = widened_paths(dev, state_dict)
+        eval_launches, eval_summary = eval_path(dev)
+    launches.update(widened)
+    launches.update(eval_launches)
+    report.paths(widened)
+    report.paths(eval_launches, {p: f"{v['s_per_motion']:.3f} s a motion"
+                                 for p, v in eval_summary.items()})
+    stamp("widened paths and eval")
+    with report.stage("serving paths"):
+        serve_launches, serve_summary = serving_paths(dev, card)
+    launches.update(serve_launches)
+    free = serve_summary["P"]["free_run"]
+    report.paths(serve_launches, {
+        "P": f"{free['ticks_done']}/{free['ticks_due']} ticks "
+             f"({free['ticks_share']:.1%}); tick p50 "
+             f"{free['tick_ms_p50']:.2f}, p99 {free['tick_ms_p99']:.2f} ms; "
+             f"{free['threads']} threads",
+        "Q": f"step p50 {serve_summary['Q']['p50_ms']:.2f} ms"})
+    report.add("P tick", f"ms p50 fill {free['fill_ms_p50']:.2f}, step "
+               f"{free['pool_step_ms_p50']:.2f} (bare "
+               f"{free['bare_step_ms_p50']:.2f}), encode "
+               f"{free['encode_ms_p50']:.2f}, send {free['send_ms_p50']:.2f}")
+    report.add("R", f"{serve_summary['R']['s_per_1000_frames']:.3f} s a "
+               f"1,000 frames")
+    stamp("serving paths")
+    with report.stage("training paths"):
+        train_launches, train_summary = training_paths(dev)
+    launches.update(train_launches)
+    report.paths(train_launches, {p: f"step {v['step_ms']:.2f} ms"
+                                  for p, v in train_summary.items()})
+    stamp("training paths")
+    with report.stage("recipe paths"):
+        recipe_launches, recipe_summary = recipe_paths(dev)
+    launches.update(recipe_launches)
+    report.add("T", f"{recipe_summary['T']['card_s_per_motion']:.3f} s a "
+               f"motion on the card")
+    report.paths(recipe_launches, {
+        p: f"epoch {recipe_summary[p]['epoch_synced_ms']:.1f} ms"
+        for p in ("U", "V")})
+    stamp("recipe paths")
+    with report.stage("path X"):
+        orbax_launches, orbax_summary = orbax_path_x(dev, card)
+    launches.update(orbax_launches)
+    report.paths(orbax_launches)
+    stamp("path X")
+    with report.stage("path Y"):
+        mesh_launches, mesh_summary = mesh_path_y(card)
+    ys = mesh_summary
+    report.add("Y", "loss/grad " + ", ".join(
+        f"({c}) {ys[c]['loss_rel']:.2g}/{ys[c]['grad_norm_rel']:.2g}"
+        for c in "ab") + f"; pool (c) {ys['c']['max_abs']:.2g}; (d) "
+        f"bit-equal {ys['d']['bit_equal']}")
+    stamp("path Y")
+    with report.stage("launch counts"):
+        count_launches(kernels, launches, mesh_launches, abf_calls,
+                       pool_summary)
     frame_ms.update(full_summary["frame_ms"])
     log(json.dumps({"frame_ms": frame_ms, "launches": launches,
                     "pool_tick_ms": {n: v["tick_ms"]
@@ -6455,6 +6505,7 @@ def main():
                     "card": card}))
     print(json.dumps({"kernels": kernels}))
     stamp("done")
+    report.print()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,9 @@ calibration, the wire format, the seqlock slot, the latency histogram and
 the profiler trace; IMUClient against an in-process wire server (and the
 native bridge where it is built); ServeDaemon driven in lockstep beside
 tip_tpu's on the same float64 weights, a pool-full refusal and a recycled
-slot included; the slow-client path; the serve and live-demo CLIs.
+slot included, at 8 clients and with a malformed client; the port's two
+threads; a client the ticker drops and a new one on its descriptor; the
+slow-client path; the one-pass line encode; the serve and live-demo CLIs.
 Mirrors tests/test_live_io.py. Every socket and thread wait has a deadline
 (tests/torch_wire.py).
 """
@@ -14,6 +16,7 @@ import json
 import os
 import pickle
 import socket
+import struct
 import subprocess
 import sys
 import threading
@@ -406,6 +409,324 @@ def test_serve_daemon_slow_client_never_stalls_tick(monkeypatch):
         for c in (fast, slow):
             if c is not None:
                 c.close()
+
+
+def _tiny_pools(capacity):
+    """tip_tpu's and the port's pool of capacity streams on the same
+    float64 weights."""
+    (jcfg, params), (tcfg, model) = _pair()
+    jpool = JS.StreamPool(params, jcfg, jkin.amass_skeleton(
+        dtype=jnp.float64), capacity=capacity, dtype=jnp.float64)
+    tpool = TS.StreamPool(model, tcfg, tkin.amass_skeleton(
+        dtype=torch.float64), capacity=capacity, dtype=torch.float64,
+        device="cpu")
+    return jpool, tpool
+
+
+def _both_daemons(capacity, drive):
+    """drive(daemon, pool, parse) on tip_tpu's daemon and on the port's,
+    each over its pool of capacity streams; returns {name: drive's
+    result}."""
+    jpool, tpool = _tiny_pools(capacity)
+    out = {}
+    for name, pool, daemon_cls, parse in (
+            ("tip_tpu", jpool, jsd.ServeDaemon, jio.parse_wire_frame),
+            ("port", tpool, tsd.ServeDaemon, tio.parse_wire_frame)):
+        logs = []
+        daemon = daemon_cls(pool, jcal.t_pose_init_state(), port=0,
+                            log=logs.append)
+        out[name] = drive(daemon, pool, parse, logs)
+    return out
+
+
+def _assert_lines_equal(got, want):
+    assert len(got) == len(want) > 0
+    assert [g["t"] for g in got] == [w["t"] for w in want]
+    q_got = np.array([g["qdq"] for g in got])
+    assert q_got.shape == (len(got), 114) and np.isfinite(q_got).all()
+    np.testing.assert_allclose(q_got, np.array([w["qdq"] for w in want]),
+                               atol=TOL_LINE, rtol=0)
+
+
+def test_serve_daemon_runs_two_named_threads_at_16_clients():
+    """The port's daemon serves 16 clients from two threads of its own, the
+    ticker and the I/O thread, where tip_tpu's runs a reader a client."""
+    _, (tcfg, model) = _pair()
+    pool = TS.StreamPool(model, tcfg, tkin.amass_skeleton(
+        dtype=torch.float64), capacity=16, dtype=torch.float64, device="cpu")
+    daemon = tsd.ServeDaemon(pool, tcal.t_pose_init_state(), port=0,
+                             hz=240.0, log=lambda *a: None)
+    before = set(threading.enumerate())
+    ticker = threading.Thread(target=daemon.run, kwargs={"seconds": 120.0},
+                              daemon=True)
+    ticker.start()
+    clients = []
+    try:
+        frames = _motion_frames(0, 1)
+        for _ in range(16):
+            clients.append(W.LineClient(daemon.port))
+            clients[-1].send(frames[0])
+        for c in clients:
+            assert json.loads(c.read_line())["t"] >= 0
+        with daemon._lock:
+            assert len(daemon._clients) == 16
+        ours = set(threading.enumerate()) - before
+        assert sorted(t.name for t in ours) == ["serve-io", "serve-tick"]
+    finally:
+        daemon.stop()
+        W.join(ticker, "the ticker")
+        for t in set(threading.enumerate()) - before:
+            W.join(t, t.name)
+        for c in clients:
+            c.close()
+    assert ticker.name != "serve-tick"       # run() gave the name back
+
+
+def test_serve_daemon_reads_between_ticks():
+    """The I/O thread leaves a frame that arrives during a tick unread
+    until the tick ends (at most a tick's period: 1 s at hz 1), so that it
+    does not take the interpreter lock from the tick's ops."""
+    _, (tcfg, model) = _pair()
+    pool = TS.StreamPool(model, tcfg, tkin.amass_skeleton(
+        dtype=torch.float64), capacity=1, dtype=torch.float64, device="cpu")
+    daemon = tsd.ServeDaemon(pool, tcal.t_pose_init_state(), port=0, hz=1.0,
+                             log=lambda *a: None)
+    in_step, release = threading.Event(), threading.Event()
+    step = pool.step
+
+    def held_step(batch):
+        in_step.set()
+        assert release.wait(W.DEADLINE_S)
+        return step(batch)
+    pool.step = held_step
+    frames = _motion_frames(0, 2)
+    want = tio.parse_wire_frame(np.array(W.wire_text(frames[1]).split(),
+                                         dtype=float))
+    accept = W.start_accepting(daemon)
+    client = None
+    try:
+        client = W.LineClient(daemon.port)
+        W.wait_until(lambda: client.slot in daemon._clients,
+                     "the client's registration")
+        slot = daemon._clients[client.slot].input
+        ticker = threading.Thread(target=daemon._tick_once,
+                                  args=(daemon._batch,), daemon=True)
+        ticker.start()
+        W.wait_until(in_step.is_set, "the tick to step the pool")
+        client.send(frames[1])
+        assert not release.wait(0.3)            # 0.3 s into the tick
+        assert slot.read() is None              # the frame is not read
+        release.set()
+        W.join(ticker, "the tick")
+        W.wait_until(lambda: np.array_equal(slot.read(), want),
+                     "the frame after the tick")
+        assert json.loads(client.read_line())["t"] == 0
+    finally:
+        release.set()
+        if client is not None:
+            client.close()
+        W.stop_accepting(daemon, accept)
+
+
+def test_serve_daemon_lockstep_8_clients_equal_tip_tpus():
+    """Eight clients in lockstep on both daemons: every client's lines are
+    tip_tpu's to TOL_LINE."""
+    n, ticks = 8, 6
+    frames = [_motion_frames(i, ticks) for i in range(n)]
+
+    def drive(daemon, pool, parse, logs):
+        accept = W.start_accepting(daemon)
+        clients = []
+        try:
+            clients = [W.LineClient(daemon.port) for _ in range(n)]
+            assert [c.slot for c in clients] == list(range(n))
+            return [W.lockstep_tick(daemon, parse, [
+                (c, frames[i][t]) for i, c in enumerate(clients)])
+                for t in range(ticks)]
+        finally:
+            for c in clients:
+                c.close()
+            W.stop_accepting(daemon, accept)
+
+    lines = _both_daemons(n, drive)
+    for i in range(n):
+        _assert_lines_equal([tick[i] for tick in lines["port"]],
+                            [tick[i] for tick in lines["tip_tpu"]])
+
+
+@pytest.mark.filterwarnings(
+    "ignore::pytest.PytestUnhandledThreadExceptionWarning")
+@pytest.mark.parametrize("garbage", [b"\xff\xfe ", b"0.5 not-a-float "],
+                         ids=["non-ascii", "not-a-float"])
+def test_serve_daemon_malformed_client_keeps_its_slot(garbage):
+    """A client that sends bytes the wire format refuses is no longer read
+    (tip_tpu's reader thread dies on them; the port's I/O thread stops
+    reading that socket only): it keeps its slot and its last frame and
+    still gets a line each tick, while the other clients go on being read;
+    both daemons write the same lines."""
+    ticks = 5
+    frames = [_motion_frames(i, ticks + 1) for i in range(3)]
+
+    def drive(daemon, pool, parse, logs):
+        accept = W.start_accepting(daemon)
+        clients = []
+        try:
+            clients = a, bad, c = [W.LineClient(daemon.port)
+                                   for _ in range(3)]
+            out = [W.lockstep_tick(daemon, parse, [
+                (a, frames[0][0]), (bad, frames[1][0]), (c, frames[2][0])])]
+            # the frame after the garbage is never read
+            bad.sock.sendall(garbage + W.wire_text(frames[1][1]).encode())
+            if daemon.__module__ == tsd.__name__:
+                W.wait_until(lambda: any("malformed input" in m
+                                         for m in logs),
+                             "the port's daemon to log the malformed input")
+            for t in range(1, ticks):
+                line_a, line_c = W.lockstep_tick(
+                    daemon, parse, [(a, frames[0][t]), (c, frames[2][t])])
+                out.append([line_a, json.loads(bad.read_line()), line_c])
+            with daemon._lock:
+                kept = daemon._clients.get(bad.slot)
+            assert kept is not None and kept.alive and pool.active[bad.slot]
+            np.testing.assert_array_equal(kept.input.read(), parse(
+                np.array(W.wire_text(frames[1][0]).split(), dtype=float)))
+            return out
+        finally:
+            for cl in clients:
+                cl.close()
+            W.stop_accepting(daemon, accept)
+
+    lines = _both_daemons(3, drive)
+    for i in range(3):
+        _assert_lines_equal([tick[i] for tick in lines["port"]],
+                            [tick[i] for tick in lines["tip_tpu"]])
+
+
+def test_serve_daemon_client_dropped_by_the_ticker_then_a_new_one(
+        monkeypatch):
+    """The ticker drops a client whose sends fail (small send buffers, the
+    reader gone) while its socket is still registered with the I/O
+    thread's selector (held in add_stream meanwhile). A new client then
+    gets the dropped socket's descriptor number; the I/O thread must read
+    and serve it all the same."""
+    _, (tcfg, model) = _pair()
+    pool = TS.StreamPool(model, tcfg, tkin.amass_skeleton(
+        dtype=torch.float64), capacity=3, dtype=torch.float64, device="cpu")
+    monkeypatch.setattr(tsd, "MAX_OUTBUF", 4096)
+    daemon = tsd.ServeDaemon(pool, tcal.t_pose_init_state(), port=0,
+                             log=lambda *a: None, sndbuf=4096)
+    gate, held = threading.Event(), threading.Event()
+    gate.set()
+    add_stream = pool.add_stream
+
+    def gated(s_init):
+        held.set()
+        assert gate.wait(W.DEADLINE_S)
+        return add_stream(s_init)
+    pool.add_stream = gated
+    frames = [_motion_frames(i, 4) for i in range(3)]
+    parse = tio.parse_wire_frame
+    accept = W.start_accepting(daemon)
+    a = b = c = None
+    spare, b_sock, placeholders = socket.socket(), None, []
+    try:
+        a = W.LineClient(daemon.port)
+        W.lockstep_tick(daemon, parse, [(a, frames[0][0])])
+        with daemon._lock:
+            dropped_fd = daemon._clients[a.slot].conn.fileno()
+        # the I/O thread takes b's connection and waits in add_stream
+        gate.clear()
+        held.clear()
+        b_sock = socket.create_connection(("127.0.0.1", daemon.port),
+                                          timeout=W.DEADLINE_S)
+        W.wait_until(held.is_set, "the I/O thread to wait in add_stream")
+        # a stops reading until its lines are dropped, then resets
+        W.wait_until(lambda: (daemon._tick_once(daemon._batch),
+                              daemon._clients[a.slot].dropped > 0)[1],
+                     "a's lines to be dropped")
+        a.sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                          struct.pack("ii", 1, 0))
+        a.close()
+
+        def a_dropped():
+            daemon._tick_once(daemon._batch)
+            with daemon._lock:
+                return a.slot not in daemon._clients
+        W.wait_until(a_dropped, "the ticker to drop a")
+        # every lower descriptor taken, so the next accepted socket gets
+        # the dropped one's number
+        while (fd := os.open(os.devnull, os.O_RDONLY)) < dropped_fd:
+            placeholders.append(fd)
+        os.close(fd)
+        assert fd == dropped_fd
+        gate.set()
+        b = W.LineClient(daemon.port, sock=b_sock)
+        spare.connect(("127.0.0.1", daemon.port))
+        c = W.LineClient(daemon.port, sock=spare)
+        # the greeting comes before the registration
+        W.wait_until(lambda: c.slot in daemon._clients, "c's registration")
+        with daemon._lock:
+            assert daemon._clients[c.slot].conn.fileno() == dropped_fd
+        assert {b.slot, c.slot} == {1, a.slot}
+        for t in range(1, 4):
+            line_b, line_c = W.lockstep_tick(
+                daemon, parse, [(b, frames[1][t]), (c, frames[2][t])])
+            assert line_b["t"] == line_c["t"]
+            assert np.isfinite(line_c["qdq"]).all()
+    finally:
+        gate.set()
+        for fd in placeholders:
+            os.close(fd)
+        for cl in (b, c):
+            if cl is not None:
+                cl.close()
+        spare.close()
+        if b_sock is not None:
+            b_sock.close()
+        W.stop_accepting(daemon, accept)
+
+
+def _encode_rows(dtype):
+    """Random rows (64, 114) with values at the fifth place's ties, at
+    +0 and -0 (and -1e-7, which rounds to -0), NaN and +-inf."""
+    rng = np.random.default_rng(21)
+    rows = rng.normal(scale=3.0, size=(64, 114))
+    k = rng.integers(-300000, 300000, size=(64, 114))
+    ties = (k + 0.5) * 1e-5
+    rows = np.where(rng.random((64, 114)) < 0.3, ties, rows)
+    rows[0, :5] = [0.0, -0.0, -1e-7, 1e-7, 0.5e-5]
+    rows[1, 3], rows[2, 7], rows[2, 8], rows[3, 0] = (np.nan, np.inf,
+                                                      -np.inf, np.nan)
+    return rows.astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_encode_lines_against_the_per_row_json_encoding(dtype):
+    """The daemon's one-pass encode against its per-row json.dumps of
+    np.round(row, 5) (tip_tpu's encode): the same json, each value within
+    TOL_LINE (float64 rows: equal), the same signs of zero and the same
+    non-finite entries."""
+    rows = _encode_rows(dtype)
+    lines = tsd.encode_lines(41, rows)
+    assert len(lines) == len(rows)
+    for row, line in zip(rows, lines):
+        assert line.endswith(b"\n") and line.count(b"\n") == 1
+        got = json.loads(line)
+        want = json.loads(json.dumps({"t": 41,
+                                      "qdq": np.round(row, 5).tolist()}))
+        assert list(got) == ["t", "qdq"] and got["t"] == 41
+        g, w = np.array(got["qdq"]), np.array(want["qdq"])
+        assert g.shape == w.shape == (114,)
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+        fin = np.isfinite(w)
+        np.testing.assert_array_equal(g[~fin & ~np.isnan(w)],
+                                      w[~fin & ~np.isnan(w)])
+        np.testing.assert_allclose(g[fin], w[fin], atol=TOL_LINE, rtol=0)
+        np.testing.assert_array_equal(np.signbit(g[fin]), np.signbit(w[fin]))
+        if dtype == np.float64:
+            np.testing.assert_array_equal(g[fin], w[fin])
+    assert b"NaN" in lines[1] and b"-Infinity" in lines[2]
+    assert max(len(ln) for ln in lines[4:]) < 1300
 
 
 # ---------------------------------------------------------------------------

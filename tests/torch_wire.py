@@ -98,11 +98,16 @@ class ReplayServer:
 
 class LineClient:
     """A client of the serve daemon: reads the greeting, sends wire frames,
-    reads jsonl lines. Socket operations time out after ``timeout``."""
+    reads jsonl lines. Socket operations time out after ``timeout``.
+    ``sock``: a socket already connected to the daemon, in place of a new
+    connection."""
 
-    def __init__(self, port: int, timeout: float = DEADLINE_S):
-        self.sock = socket.create_connection(("127.0.0.1", port),
-                                             timeout=timeout)
+    def __init__(self, port: int, timeout: float = DEADLINE_S, sock=None):
+        if sock is None:
+            sock = socket.create_connection(("127.0.0.1", port),
+                                            timeout=timeout)
+        self.sock = sock
+        self.sock.settimeout(timeout)
         self._buf = b""
         self.hello = json.loads(self.read_line())
         self.slot = self.hello.get("slot")
