@@ -92,7 +92,20 @@ Phases, in order; any failure exits non-zero:
      frame, G teacher-forced with K8's plain version on its own tokens, K
      with J, four streams of K-bf16 teacher-forced against A-bf16's
      single-stream model from each stream's own first frame; time and
-     profile ticks;
+     profile ticks; then
+       G-4096  tip_tpu's headline throughput row (bench_throughput.py's
+          last: 4,096 streams, G's route) through run_pool_row, which
+          scripts/torch_pool_sizes.py drives for all twelve rows: 80
+          checked ticks (four slots join later, a stream leaves and its
+          slot is handed out again), (a) one launch of K8, K2, K3 a tick,
+          (b) eleven ticks, three after the window slid, from the pool's
+          state through the plain versions, (c) four sentinel slots
+          against single-stream runs through K7 (path E's route) on their
+          own inputs; then 30 ticks timed alone: fill, tick, peak memory;
+       churn  scripts/torch_soak_pool.py's core at 64 streams, G's route,
+          300 ticks: the sentinel against a churn-free pool, a failure
+          injected at tick 150 that poisons the pool's state and raises,
+          every later active output finite;
   5b. the serving daemon, the live demo and data generation, through
      their CLIs' own builders (cli/serve.build_daemon, cli/live_demo's
      build_runner and run_loop) on checkpoints of seeded random weights
@@ -218,6 +231,7 @@ import dataclasses
 import hashlib
 import json
 import math
+import os
 import pickle
 import statistics
 import subprocess
@@ -225,6 +239,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -2613,6 +2628,865 @@ def pool_paths(dev, single_runs, state_dict):
     log(f"  pool path K vs J over {POOL_TICKS_K} ticks: max |diff| = "
         f"{d[on[:POOL_TICKS_K]].max().item():.3g} (no tolerance)")
     return launches, summary
+
+
+# ---------------------------------------------------------------------------
+# 5b. pools at tip_tpu's sizes: bench_throughput.py's twelve rows
+# ---------------------------------------------------------------------------
+
+# tip_tpu's throughput rows (bench_throughput.py:39-54), in its order:
+# (row, streams, compute dtype, serving mode, forward); tip_tpu's
+# forward_impl="xla" is the port's "plain"
+POOL_ROWS = (
+    (1, 256, "float32", "recompute", "plain"),
+    (2, 256, "bfloat16", "recompute", "plain"),
+    (3, 512, "bfloat16", "recompute", "plain"),
+    (4, 512, "bfloat16", "recompute", "fused"),
+    (5, 256, "bfloat16", "kv_cache", "plain"),
+    (6, 256, "bfloat16", "kv_cache_rnn_carry", "plain"),
+    (7, 256, "bfloat16", "kv_cache_rnn_carry", "fused"),
+    (8, 512, "bfloat16", "kv_cache_rnn_carry", "fused"),
+    (9, 1024, "bfloat16", "kv_cache_rnn_carry", "fused"),
+    (10, 512, "bfloat16", "kv_cache", "fused"),
+    (11, 2048, "bfloat16", "kv_cache_rnn_carry", "fused"),
+    (12, 4096, "bfloat16", "kv_cache_rnn_carry", "fused"),
+)
+# tip_tpu's own frames/s of each row on a TPU v5e, a yardstick and not the
+# port's number (PERF_TPU_v5e.md:35-45; row 4, the batched fused recompute,
+# from the round-3 note below that table: 91-95k at 256-1,024 streams)
+TPU_FRAMES_S = {1: "95k", 2: "104k", 3: "103k", 4: "91k-95k", 5: "543k",
+                6: "660k", 7: "589k", 8: "854k", 9: "1,097k", 10: "600k",
+                11: "1,265k", 12: "1,354k"}
+# a row's schedule: slots 0 .. B-5 join at tick 0 with motion slot % 60,
+# slots B-4 .. B-1 at ROW_JOINS, and slot ROW_REMOVE[1]'s stream leaves at
+# ROW_REMOVE[0] and rejoins at ROW_READD with its motion from the first
+# frame. A stream's first model frame comes 5 ticks after its join (the
+# smoothing warm-up), its window is full 40 later and slides from tick 45
+# (tick 70 for the last to join). The first ROW_CHECKED ticks are recorded
+# for checks (b) and (c); the ROW_TIMED ticks after them, every slot's
+# window full and sliding, are timed with nothing of the checks in them
+ROW_CHECKED, ROW_TIMED = 80, 30
+ROW_TICKS = ROW_CHECKED + ROW_TIMED
+ROW_JOINS = (7, 13, 19, 25)
+ROW_REMOVE = (30, 5)
+ROW_READD = 33
+# check (b): the ticks held against the plain versions, three after the
+# slide
+ROW_CHECKED_TICKS = (5, 6, 8, 14, 26, 34, 40, 44, 45, 46, 49)
+
+
+def row_config(dtype, mode, forward, **model_kw):
+    """A row's RunnerConfig: ModelConfig() at full width unless
+    ``model_kw`` narrows it (the CPU tests)."""
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.runtime import runner as R
+    return R.RunnerConfig(model=M.ModelConfig(compute_dtype=dtype,
+                                              forward_impl=forward,
+                                              **model_kw),
+                          serving_mode=mode)
+
+
+def row_kernels(cfg):
+    """The launches of each kernel a tick of a pool on this route makes
+    (runtime/runner.py's routing), every other kernel none."""
+    m = cfg.model
+    bf16 = "_bf16" if m.compute_dtype == "bfloat16" else ""
+    tail = {"decode_fused": 1, "tail_fused": 1}
+    if m.forward_impl == "fused":
+        return dict(tail, **{("fused_cached_batch" if cfg.cached
+                              else "fused_recompute_batch"): 1})
+    if cfg.cached:
+        return tail             # the plain batched cached step
+    return dict(tail, **{f"encoder_layer_fwd{bf16}": m.tf_layers,
+                         f"fused_rnn{bf16}": 1})
+
+
+def row_sentinels(B):
+    """The slots held against single-stream runs (check (c)): the pool's
+    edges and the two sides of its middle."""
+    return (0, B // 2 - 1, B // 2, B - 1)
+
+
+def load_motions():
+    """The 60 in-tree motions, each cut to the shortest one's 480 frames:
+    imu (60, 480, 72) float32, s_init (60, 114)."""
+    imus, s_inits = [], []
+    for i in range(60):
+        with open(CORPUS / f"freeform2_{i:04d}.pkl", "rb") as f:
+            d = pickle.load(f)    # in-tree motions written by data gen
+        imus.append(d["imu"])
+        s_inits.append(d["nimble_qdq"][0])
+    n = min(len(a) for a in imus)
+    return (np.asarray([a[:n] for a in imus], np.float32),
+            np.asarray(s_inits, np.float64))
+
+
+def row_schedule(B, motions):
+    """A row's traffic (ROW_JOINS, ROW_REMOVE, ROW_READD): the IMU batch
+    of every tick (ROW_TICKS, B, 72), the events {tick: [(kind, slot,
+    motion)]} and each slot's motion. A slot with no stream is fed zeros."""
+    imus, _ = motions
+    n_late = len(ROW_JOINS)
+    motion = np.arange(B) % len(imus)
+    events = {0: [("add", s, motion[s]) for s in range(B - n_late)]}
+    starts = {s: 0 for s in range(B - n_late)}
+    for tick, slot in zip(ROW_JOINS, range(B - n_late, B)):
+        events.setdefault(tick, []).append(("add", slot, motion[slot]))
+        starts[slot] = tick
+    r_tick, r_slot = ROW_REMOVE
+    events.setdefault(r_tick, []).append(("remove", r_slot, None))
+    events.setdefault(ROW_READD, []).append(("add", r_slot, motion[r_slot]))
+    batch = np.zeros((ROW_TICKS, B, 72), np.float32)
+    for slot, t0 in starts.items():
+        batch[t0:, slot] = imus[motion[slot], :ROW_TICKS - t0]
+    batch[r_tick:, r_slot] = 0.0
+    batch[ROW_READD:, r_slot] = imus[motion[r_slot], :ROW_TICKS - ROW_READD]
+    return batch, events, motion
+
+
+def clone_carry(c):
+    """A copy of a pool's carry, cache rings included."""
+    from tip_tpu_torch.runtime import runner as R
+    kw = {n: getattr(c, n).copy() for n in R._COUNTERS}
+    for n in R._TENSOR_LEAVES:
+        leaf = getattr(c, n)
+        kw[n] = None if leaf is None else leaf.clone()
+    return R.PoolCarry(cache=None if c.cache is None else c.cache.clone(),
+                       **kw)
+
+
+@contextlib.contextmanager
+def patched(*subs):
+    """Within this context each (module, name, function) of ``subs`` stands
+    in for the module's own."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in subs]
+    for m, n, f in subs:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def model_call(cfg):
+    """(module, name) of the function through which pool_step runs the
+    model on this route, or None where it calls the model itself."""
+    from tip_tpu_torch.ops import fused_forward as FF
+    from tip_tpu_torch.runtime import streaming_cache as SC
+    fused = cfg.model.forward_impl == "fused"
+    if cfg.cached:
+        return SC, ("fused_cached_batch" if fused
+                    else "cached_forward_step_batch")
+    return (FF, "fused_recompute_batch") if fused else None
+
+
+class PoolCalls:
+    """Within this context every pool tick's model call (K8, the plain
+    batched cached step, K9 or the model) keeps its whole output in
+    ``last_y`` and appends to ``records`` the inputs and the output of the
+    rows ``rows``, copied on ``dev`` with nothing read back: cached routes
+    x, slot, commit, y; K9 x, k_last, y; the model x_imu, x_s, y (every
+    window row)."""
+
+    def __init__(self, model, cfg, rows, dev):
+        self.model, self.cfg = model, cfg
+        self.rows = list(rows)
+        self.idx = torch.as_tensor(self.rows, device=dev)
+        self.records, self.last_y, self.last_args = [], None, None
+
+    def __enter__(self):
+        r = self.idx
+        where = model_call(self.cfg)
+        if where is None:
+            model = self.model
+
+            def forward(x_imu, x_s):
+                y = type(model).forward(model, x_imu, x_s)
+                self.last_y = y
+                self.records.append(dict(x_imu=x_imu[r], x_s=x_s[r], y=y[r]))
+                return y
+            model.forward = forward
+            self.ctx = contextlib.nullcontext()
+        elif self.cfg.cached:
+            orig = getattr(*where)
+
+            def call(ws, cache, x, slot, commit, mcfg, **kw):
+                out = orig(ws, cache, x, slot, commit, mcfg, **kw)
+                self.last_y = out[1]
+                self.last_args = (ws, cache, x, int(slot), commit)
+                self.records.append(dict(x=x[r], slot=int(slot),
+                                         commit=commit[r], y=out[1][r]))
+                return out
+            self.ctx = patched((*where, call))
+        else:
+            orig = getattr(*where)
+
+            def call(ws, x, k_last, mcfg, **kw):
+                y = orig(ws, x, k_last, mcfg, **kw)
+                self.last_y = y
+                self.last_args = (ws, x, np.asarray(k_last).copy())
+                self.records.append(dict(x=x[r],
+                                         k=np.asarray(k_last)[self.rows],
+                                         y=y[r]))
+                return y
+            self.ctx = patched((*where, call))
+        self.ctx.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.ctx.__exit__(*exc)
+        self.model.__dict__.pop("forward", None)
+
+
+class PlainTick:
+    """Within this context pool_step runs the plain versions of every kernel
+    of the tick (``impl="plain"`` on the card's tensors: K2, K3, K8, K9 and,
+    in the model, K11 and K1) and its model call returns ``teacher`` (the
+    kernel tick's output, so that K2 and K3 see their inputs) after it has
+    run its plain version into ``y_plain``: the tick held piece by piece
+    against the plain route from one state."""
+
+    def __init__(self, model, cfg, teacher):
+        self.model, self.cfg, self.teacher = model, cfg, teacher
+        self.y_plain = None
+
+    def __enter__(self):
+        from tip_tpu_torch.ops import fused_tail as FT
+        plain = dict(impl="plain")
+        dec, tail = FT.decode_fused, FT.tail_fused
+        subs = [(FT, "decode_fused",
+                 lambda *a, **kw: dec(*a, **dict(kw, **plain))),
+                (FT, "tail_fused",
+                 lambda *a, **kw: tail(*a, **dict(kw, **plain)))]
+        where = model_call(self.cfg)
+        self.versions = None
+        if where is None:
+            model = self.model
+            self.versions = PlainVersions()
+
+            def forward(x_imu, x_s):
+                self.y_plain = type(model).forward(model, x_imu, x_s)
+                return self.teacher
+            model.forward = forward
+        elif self.cfg.cached:
+            orig = getattr(*where)
+            kw_plain = plain if self.cfg.model.forward_impl == "fused" \
+                else {}
+
+            def call(ws, cache, x, slot, commit, mcfg, **kw):
+                cache, self.y_plain = orig(ws, cache, x, slot, commit, mcfg,
+                                           **dict(kw, **kw_plain))
+                return cache, self.teacher
+            subs.append((*where, call))
+        else:
+            orig = getattr(*where)
+
+            def call(ws, x, k_last, mcfg, **kw):
+                self.y_plain = orig(ws, x, k_last, mcfg, **dict(kw, **plain))
+                return self.teacher
+            subs.append((*where, call))
+        self.ctx = patched(*subs)
+        self.ctx.__enter__()
+        if self.versions is not None:
+            self.versions.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.versions is not None:
+            self.versions.__exit__(*exc)
+        self.ctx.__exit__(*exc)
+        self.model.__dict__.pop("forward", None)
+
+
+def row_tols(cfg):
+    """(the model's output, the tick's outputs): chip_smoke's pool paths'
+    tolerances, TOL_PATH for an f32 route and TOL_FF["bfloat16"] for the
+    model's output on a bf16 one (paths G and K-bf16, teacher-forced)."""
+    bf16 = cfg.model.compute_dtype == "bfloat16"
+    return (TOL_FF["bfloat16"] if bf16 else TOL_PATH), TOL_PATH
+
+
+def hold_plain_tick(what, pool, snap, imu_t, tick, active, k_last, y_k,
+                    out_k):
+    """Check (b) at one tick: the pool's state before the tick (``snap``)
+    through the plain versions of the tick's kernels, the model's output
+    held against the kernel tick's (``y_k``) and, fed that same output, K2's
+    and K3's plain versions' outputs against the tick's (``out_k``); the
+    cache rings the two wrote (the kernel's, now the pool's, and the plain
+    versions', in ``snap``). Returns {name: max |diff|}."""
+    from tip_tpu_torch.runtime import runner as R
+    cfg = pool.cfg
+    dev = y_k.device
+    with PlainTick(pool.model, cfg, y_k) as pt:
+        carries, out_p = R.pool_step(pool.model, snap, imu_t, cfg, pool.skel,
+                                     tick, pool._packed)
+    a = torch.as_tensor(active, device=dev)
+    y_p = pt.y_plain
+    if y_k.dim() == 3:                  # every window row: the row read
+        rows = torch.arange(y_k.shape[0], device=dev)
+        k = torch.as_tensor(k_last, device=dev)
+        y_k, y_p = y_k[rows, k], y_p[rows, k]
+    tol_y, tol_out = row_tols(cfg)
+    errs = {"y": (max_err(y_k[a].float(), y_p[a].float()), tol_y)}
+    for n in ("qdq", "viz_locs", "ct"):
+        errs[n] = (max_err(out_k[n][a].double(), out_p[n][a].double()),
+                   tol_out)
+    if cfg.cached:
+        ck, cp = pool._carries.cache, carries.cache
+        if not torch.equal(ck.valid, cp.valid):
+            raise AssertionError(f"{what}: the validity bits differ from "
+                                 f"the plain versions' at tick {tick}")
+        for n in ("k", "v", "enc", "h"):
+            a_, b_ = getattr(ck, n), getattr(cp, n)
+            if n != "h":
+                a_, b_ = _masked(a_, cp.valid), _masked(b_, cp.valid)
+            a_, b_ = a_.float(), b_.float()
+            tol = TOL_FF["float32"] if getattr(ck, n).dtype == \
+                torch.float32 else \
+                TOL_RING_BF16_REL * max(1.0, b_.abs().max().item())
+            errs[f"ring_{n}"] = (max_err(a_, b_), tol)
+    check(f"{what} tick {tick} against the plain versions", errs)
+    return {n: e for n, (e, _) in errs.items()}
+
+
+def hold_sentinels(what, pool, calls, starts, fresh, ticks_on):
+    """Check (c): each sentinel slot's model output at every tick it counted
+    (``ticks_on[slot]``), held against a single-stream run of the same
+    inputs from the stream's own first frame: the route of paths D and E
+    (K7) for K8, of the single-stream cached step for the plain batched
+    one, of path B (K4) for K9, and of the single-stream model (K11 and K1
+    at one stream, paths A-enc and A-bf16) for the pooled model; ``fresh``:
+    each cached sentinel's cache when it joined. Returns {slot: max
+    |diff|}."""
+    from tip_tpu_torch.ops import fused_forward as FF
+    from tip_tpu_torch.runtime import streaming_cache as SC
+    cfg = pool.cfg
+    mcfg = cfg.model
+    rnn_carry = cfg.serving_mode == "kv_cache_rnn_carry"
+    fused = mcfg.forward_impl == "fused"
+    tol = row_tols(cfg)[0]
+    out = {}
+    with torch.no_grad():
+        for r, slot in enumerate(calls.rows):
+            err, n = 0.0, 0
+            cache = fresh[slot].clone() if cfg.cached else None
+            for t, k in ticks_on[slot]:
+                rec = calls.records[t]
+                if cfg.cached:
+                    if not rec["commit"][r].item():
+                        continue
+                    if fused:
+                        y1 = SC.fused_cached_step_slot(
+                            pool._packed, cache, rec["x"][r], rec["slot"],
+                            True, mcfg, rnn_carry=rnn_carry)[1]
+                    else:
+                        y1 = SC.cached_forward_step(
+                            pool.model, cache, rec["x"][r], 0, mcfg,
+                            rnn_carry=rnn_carry, slot_override=rec["slot"],
+                            commit=True)[1]
+                    y = rec["y"][r]
+                elif fused:
+                    y1 = FF.fused_forward_last(pool._packed, rec["x"][r],
+                                               int(rec["k"][r]), mcfg)
+                    y = rec["y"][r]
+                else:
+                    y1 = pool.model(rec["x_imu"][r:r + 1],
+                                    rec["x_s"][r:r + 1])[0, k]
+                    y = rec["y"][r, k]
+                err = max(err, max_err(y.float(), y1.float()))
+                n += 1
+            if n == 0:
+                raise AssertionError(f"{what}: sentinel slot {slot} never "
+                                     f"counted (joined at {starts[slot]})")
+            check(f"{what} sentinel slot {slot} (joined at tick "
+                  f"{starts[slot]}) against one stream",
+                  {"y": (err, tol)})
+            out[slot] = err
+    return out
+
+
+def hold_free_running(what, pool, trajs, starts, motions, motion, dev):
+    """For an f32 route, each sentinel's trajectory against the single
+    runner of the same route from the stream's own first frame, as paths H,
+    J against D, C (the pool's output at tick t of a stream that joined at
+    j is the single stream's row t - j + 1)."""
+    from tip_tpu_torch.runtime import runner as R
+    imus, s_inits = motions
+    worst = 0.0
+    for slot, rows in trajs.items():
+        j = starts[slot]
+        m = motion[slot]
+        n = len(rows)
+        single = R.run_offline(pool.model, pool.cfg, pool.skel, s_inits[m],
+                               imus[m, :n + 1], device=dev)
+        for name, ref in zip(("qdq", "ct", "viz_locs"), single):
+            a = torch.stack([o[name] for o in rows]).double().cpu()
+            err = max_err(a, ref[1:n + 1].double().cpu())
+            if not err <= TOL_PATH:
+                raise AssertionError(
+                    f"{what}: slot {slot} (joined at tick {j}) {name} "
+                    f"differs from the single stream by {err:.3g} > "
+                    f"{TOL_PATH:g}")
+            worst = max(worst, err)
+    return worst
+
+
+def run_pool_row(row, B, dtype, mode, forward, state_dict, skel, dev,
+                 motions, rebuild=True, model_kw=None):
+    """Drive one of tip_tpu's throughput rows through StreamPool.step at
+    capacity B on the row's schedule, every launch counter set to 0 just
+    before the first tick and read just after the last. The first
+    ROW_CHECKED ticks are recorded and held by checks (a) launches (each
+    kernel of row_kernels as often a tick as it says, every other kernel
+    never), (b) ROW_CHECKED_TICKS against the plain versions and (c) the
+    sentinels against single-stream runs (and, on an f32 route, their
+    free-running trajectories against the single runner); the ROW_TIMED
+    ticks after them are timed alone. Returns the row's summary."""
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.runtime import runner as R
+    from tip_tpu_torch.runtime import streaming_cache as SC
+    from tip_tpu_torch.runtime.serving import StreamPool
+    what = f"pool row {row} ({B} streams, {dtype}, {mode}, {forward})"
+    t_row = time.perf_counter()
+    cfg = row_config(dtype, mode, forward, **(model_kw or {}))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    batch, events, motion = row_schedule(B, motions)
+    imu = torch.as_tensor(batch, device=dev)
+    s_inits = motions[1]
+    sentinels = row_sentinels(B)
+    model = M.TIPModel(cfg.model, device=dev)
+    model.load_state_dict(state_dict)
+    pool = StreamPool(model, cfg, skel, capacity=B, device=dev)
+    starts, fresh, held_b, timed = {}, {}, {}, []
+    ticks_on = {s: [] for s in sentinels}
+    trajs = {s: [] for s in sentinels}
+    fill_s, steady_mem = None, None
+    calls = PoolCalls(model, cfg, sentinels, dev)
+    K.reset_launch_counts()
+    with torch.no_grad():
+        for t in range(ROW_CHECKED):
+            t0 = time.perf_counter()
+            for kind, slot, m in events.get(t, ()):
+                if kind == "remove":
+                    pool.remove_stream(slot)
+                    continue
+                got = pool.add_stream(s_inits[m])
+                if got != slot:
+                    raise AssertionError(f"{what}: slot {got} handed out at "
+                                         f"tick {t}, expected {slot}")
+                starts[slot] = t
+                if slot in ticks_on:
+                    ticks_on[slot], trajs[slot] = [], []
+                if slot in ticks_on and cfg.cached:
+                    c = pool._carries.cache
+                    fresh[slot] = SC.KVCache(*(getattr(c, n)[slot].clone()
+                                               for n in SC._LEAVES))
+            sync()
+            if t == 0:
+                fill_s = time.perf_counter() - t0
+            _, _, active, k_last = R._pool_counters(cfg, pool._carries)
+            snap = clone_carry(pool._carries) if t in ROW_CHECKED_TICKS \
+                else None
+            with calls:
+                out = pool.step(imu[t])
+            for s in sentinels:
+                if s not in starts:
+                    continue            # its stream has not joined yet
+                if active[s]:
+                    ticks_on[s].append((t, int(k_last[s])))
+                if dtype == "float32":
+                    trajs[s].append({n: out[n][s] for n in out})
+            if snap is not None:
+                held_b[t] = hold_plain_tick(what, pool, snap, imu[t], t,
+                                            active, k_last, calls.last_y,
+                                            out)
+            if len(calls.records) != t + 1:
+                raise AssertionError(f"{what}: {len(calls.records)} model "
+                                     f"calls in {t + 1} ticks")
+        # K8's or K9's inputs of the last checked tick (K8's rings are the
+        # pool's own) for row_kernel; nothing else of the checks' is kept
+        kernel_args = calls.last_args if forward == "fused" else None
+        calls.last_y = calls.last_args = snap = None
+        sync()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        for t in range(ROW_CHECKED, ROW_TICKS):
+            t0 = time.perf_counter()
+            out = pool.step(imu[t])
+            sync()
+            timed.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: K.launch_counts.get(k, 0) for k in KERNELS}
+    if dev.type == "cuda":
+        steady_mem = torch.cuda.max_memory_allocated(dev)
+    want = row_kernels(cfg)
+    if dev.type == "cuda":
+        for k in KERNELS:
+            if launches[k] != ROW_TICKS * want.get(k, 0):
+                raise AssertionError(
+                    f"{what}: {k} launched {launches[k]} times in "
+                    f"{ROW_TICKS} ticks, expected "
+                    f"{ROW_TICKS * want.get(k, 0)}")
+    for name in ("qdq", "viz_locs", "ct"):
+        if not torch.isfinite(out[name][torch.as_tensor(
+                pool.active, device=dev)]).all():
+            raise AssertionError(f"{what}: {name} of an active stream is "
+                                 f"not finite")
+    held_c = hold_sentinels(what, pool, calls, starts, fresh, ticks_on)
+    free = None
+    if dtype == "float32":
+        free = hold_free_running(what, pool, trajs, starts, motions, motion,
+                                 dev)
+    tick_ms = statistics.median(timed)
+    masks_us = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        R._pool_masks(cfg, pool._carries, dev)
+        masks_us.append((time.perf_counter() - t0) * 1e6)
+    rebuild_s = None
+    if rebuild:
+        sync()
+        t0 = time.perf_counter()
+        pool._rebuild_carries()
+        sync()
+        rebuild_s = time.perf_counter() - t0
+    summary = dict(
+        row=row, streams=B, compute_dtype=dtype, serving_mode=mode,
+        forward=forward, ticks=ROW_TICKS, timed_ticks=len(timed),
+        tick_ms=tick_ms, tick_ms_min=min(timed),
+        stream_frames_per_s=B / tick_ms * 1e3,
+        launches_per_tick={k: v / ROW_TICKS for k, v in launches.items()
+                           if v},
+        fill_s=fill_s, fill_streams=B - len(ROW_JOINS),
+        rebuild_s=rebuild_s, rebuild_streams=int(pool.n_active),
+        pool_masks_us=statistics.median(masks_us),
+        peak_mib=(None if steady_mem is None else steady_mem / 2 ** 20),
+        worst_b={n: max(h[n] for h in held_b.values())
+                 for n in next(iter(held_b.values()))},
+        checked_ticks=sorted(held_b), worst_c=max(held_c.values()),
+        sentinels={str(s): e for s, e in held_c.items()},
+        free_running_worst=free,
+        tpu_v5e_frames_s_yardstick=TPU_FRAMES_S.get(row),
+        seconds=time.perf_counter() - t_row)
+    if kernel_args is not None and dev.type == "cuda":
+        summary.update(row_kernel(cfg, kernel_args))
+    del pool
+    return summary
+
+
+def row_kernel(cfg, args):
+    """K8 or K9 at the pool's size on the inputs of the row's last tick:
+    its scratch (floats; -1 past 31-bit offsets) and shared memory
+    (bytes), as its wrapper asks the kernel's own entry points, its device
+    time (graph_ms; K8 on a copy of the rings) and its bound on those
+    inputs (fused_cached_work: the valid ring slots a replay walks;
+    fused_recompute_batch_work: the rows each window's output needs)."""
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.ops import fused_forward as FF
+    from tip_tpu_torch.runtime import streaming_cache as SC
+    m = cfg.model
+    bf16 = m.compute_dtype == "bfloat16"
+    itemsize, peak = (2, PEAK_BF16_FLOP_S) if bf16 else (4, PEAK_F32_FLOP_S)
+    d, ff, H, W = m.tf_in_dim, m.tf_hid_size, m.rnn_hid_size, cfg.window
+    if cfg.cached:
+        ws, cache, x, slot, commit = args
+        cache = cache.clone()
+        B = x.shape[0]
+        carry = cfg.serving_mode == "kv_cache_rnn_carry"
+        so = K.lib("fused_cached_batch", SC._SIG_BATCH)
+        sizes = dict(scratch_floats=so.fused_cached_batch_scratch_floats(
+            B, W, d, ff, H, int(carry)), smem_bytes=FF.smem_bytes(
+            so, "fused_cached_batch_smem_bytes", int(bf16), B, W, d,
+            m.n_heads, H, int(carry), dev=x.device))
+        work = fused_cached_work(m, W, itemsize, carry,
+                                 int(cache.valid.sum()), int(commit.sum()))
+
+        def fn():
+            SC.fused_cached_batch(ws, cache, x, slot, commit, m,
+                                  rnn_carry=carry, impl="fused")
+    else:
+        ws, x, k_last = args
+        B = x.shape[0]
+        so = K.lib("fused_recompute_batch", FF._SIG_BATCH)
+        sizes = dict(scratch_floats=so.fused_recompute_batch_scratch_floats(
+            B, W, d, ff, H), smem_bytes=FF.smem_bytes(
+            so, "fused_recompute_batch_smem_bytes", B, W, d, m.n_heads, H,
+            dev=x.device))
+        k_dev = torch.as_tensor(k_last, dtype=torch.int32, device=x.device)
+        work = fused_recompute_batch_work(m, x.shape[1],
+                                          [int(k) for k in k_last], itemsize)
+
+        def fn():
+            FF._launch_batch(ws, x, k_dev, m)
+    b_ms, b_by = bound(*work, peak)
+    return dict(sizes, kernel_ms=graph_ms(fn, per_graph=5, replays=10),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+# the churn run: the soak's core at path G's size and route, one injected
+# failure at its middle tick
+CHURN_CAPACITY = 64
+CHURN_TICKS = 300
+
+
+def pool_rows_paths(dev, state_dict, card):
+    """Path G-4096, tip_tpu's headline row (POOL_ROWS' row 12: 4,096
+    streams, kv_cache_rnn_carry, the fused forward, bf16; K8 carry bf16,
+    K2, K3) through run_pool_row with checks (a)-(c), then the churn run
+    (the soak's core, CHURN_TICKS ticks at CHURN_CAPACITY on path G's
+    route, a failure injected at the middle tick). Returns the launches
+    by path and both summaries."""
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.ops import kinematics as kin
+    from tip_tpu_torch.runtime import runner as R
+    from tip_tpu_torch.runtime.serving import StreamPool
+    skel = kin.amass_skeleton(device=dev)
+    row = POOL_ROWS[-1]
+    g = run_pool_row(*row, state_dict, skel, dev, load_motions(),
+                     rebuild=False)
+    g["card"] = card
+    log(json.dumps({"pool_row": g}))
+    launches = {"G-4096": {k: round(g["launches_per_tick"].get(k, 0)
+                                    * g["ticks"]) for k in KERNELS}}
+    t0 = time.perf_counter()
+    cfg = R.RunnerConfig(model=M.ModelConfig(forward_impl="fused",
+                                             compute_dtype="bfloat16"),
+                         serving_mode="kv_cache_rnn_carry")
+    model = M.TIPModel(cfg.model, device=dev)
+    model.load_state_dict(state_dict)
+    pools = [StreamPool(model, cfg, skel, capacity=CHURN_CAPACITY,
+                        device=dev) for _ in range(2)]
+    K.reset_launch_counts()
+    with torch.no_grad():
+        churn = soak(*pools, CHURN_TICKS, make_stream(600), s_init_pose(),
+                     log=log)
+    launches["churn"] = {k: K.launch_counts.get(k, 0) for k in KERNELS}
+    # a tick of each pool but the failed one and the ticks of the
+    # churn-free pool, which stops at the injection
+    want = 2 * CHURN_TICKS - CHURN_TICKS // 2
+    for k in KERNELS:
+        n = want if k in ("fused_cached_batch", "decode_fused",
+                          "tail_fused") else 0
+        if launches["churn"][k] != n:
+            raise AssertionError(f"churn run: {k} launched "
+                                 f"{launches['churn'][k]} times, expected "
+                                 f"{n}")
+    churn["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"churn": churn}))
+    if not churn["ok"]:
+        raise AssertionError(f"churn run failed: {json.dumps(churn)}")
+    return launches, g, churn
+
+
+# ---------------------------------------------------------------------------
+# 5c. the churn soak: scripts/torch_soak_pool.py's core (twin of
+# scripts/soak_pool.py), also chip_smoke's churn run
+# ---------------------------------------------------------------------------
+
+# the sentinel's largest difference from the churn-free pool
+# (scripts/soak_pool.py's limit)
+ISO_TOL = 1e-4
+# RSS and device memory are read as warmed up at this tick, or a quarter
+# into a shorter run
+WARM_TICK = 500
+
+
+def make_stream(N=600, seed=0):
+    """bench.py's synthetic IMU stream: 6 drifting orientations and noisy
+    accelerations, (N, 72) float32."""
+    from scipy.spatial.transform import Rotation
+    rng = np.random.default_rng(seed)
+    frames = []
+    base = Rotation.from_rotvec(rng.normal(size=(6, 3)) * 0.3)
+    for _ in range(N):
+        base = Rotation.from_rotvec(rng.normal(size=(6, 3)) * 0.02) * base
+        frames.append(np.concatenate([
+            base.as_matrix().reshape(-1),
+            rng.normal(size=18) * 0.5]).astype(np.float32))
+    return np.stack(frames)
+
+
+def idle_frame():
+    """The frame of a slot with no stream: identity orientations (72,)."""
+    idle = np.zeros(72, np.float32)
+    idle[0] = idle[4] = idle[8] = 1.0
+    return idle
+
+
+def s_init_pose():
+    s = np.zeros(114, np.float32)
+    s[2] = 0.9
+    s[3:6] = [1.20919958] * 3
+    return s
+
+
+def rss_now_mb():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**20
+
+
+def device_mb(dev):
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.memory_allocated(dev) / 2**20
+
+
+def poison_and_raise(carries, imu, tick):
+    """A tick that fails after it wrote the pool's state in place: every
+    floating tensor of the carry (the cache rings, the hidden state, the
+    windows) becomes NaN, then it raises."""
+    leaves = [v for v in vars(carries).values() if torch.is_tensor(v)]
+    if carries.cache is not None:
+        leaves += [v for v in vars(carries.cache).values()]
+    for leaf in leaves:
+        if leaf.is_floating_point():
+            leaf.fill_(float("nan"))
+    raise RuntimeError("injected failure after the tick wrote the pool's "
+                       "state")
+
+
+def soak(pool, ref_pool, ticks, stream, s_init, *, block_each_tick=False,
+         device_time_window=0, log=print, keep=False):
+    """The soak's core over two pools of one capacity, both empty: the
+    churned ``pool`` and the churn-free ``ref_pool``. Returns the result
+    dict; with ``keep`` also the events of every tick (``events``) and the
+    sentinel's outputs of both pools before the injection
+    (``sentinel``, ``sentinel_ref``), as numpy arrays."""
+    from tip_tpu_torch.utils.observability import LatencyHistogram
+    dev = pool.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    capacity = pool.capacity
+    rng = np.random.default_rng(0)
+    idle = idle_frame()
+    batch = np.tile(idle, (capacity, 1))
+    ref_batch = np.tile(idle, (capacity, 1))
+    events = {}
+
+    assert pool.add_stream(s_init) == 0          # the sentinel
+    assert ref_pool.add_stream(s_init) == 0
+    for _ in range(capacity // 2 - 1):
+        pool.add_stream(s_init)
+
+    names = ("qdq", "viz_locs", "ct")
+    iso = torch.zeros((), dtype=torch.float64, device=dev)
+    bad = torch.zeros((), dtype=torch.bool, device=dev)
+    sentinel, sentinel_ref = [], []
+    hist = LatencyHistogram(capacity=ticks)
+    windows = []
+    drops = adds = 0
+    recovered = rebuilt_finite = False
+    inject_at = ticks // 2
+    mem_warm = None
+    warm_tick = min(WARM_TICK, ticks // 4)
+    W = device_time_window
+    t0 = time.time()
+    t_win = None
+    for t in range(ticks):
+        ev = []
+        if t % 8 == 3 and pool.n_active > 4:
+            others = np.flatnonzero(pool.active[1:]) + 1
+            if len(others):
+                slot = int(rng.choice(others))
+                pool.remove_stream(slot)
+                batch[slot] = idle
+                ev.append(("remove", slot))
+                drops += 1
+        if t % 8 == 7 and pool.n_active < capacity:
+            ev.append(("add", pool.add_stream(s_init)))
+            adds += 1
+        if keep and ev:
+            events[t] = ev
+        for slot in np.flatnonzero(pool.active):
+            batch[slot] = stream[(t + slot) % len(stream)]
+        ref_batch[0] = batch[0]
+
+        if t == inject_at:
+            orig = pool._step
+            pool._step = poison_and_raise
+            try:
+                pool.step(batch)
+            except RuntimeError as e:
+                recovered = "injected failure" in str(e)
+            finally:
+                pool._step = orig
+            rebuilt_finite = all(
+                bool(torch.isfinite(v).all())
+                for v in list(vars(pool._carries).values())
+                + (list(vars(pool._carries.cache).values())
+                   if pool._carries.cache is not None else [])
+                if torch.is_tensor(v) and v.is_floating_point())
+
+        k = t - inject_at - 1            # ticks since the injection
+        if block_each_tick:
+            t_tick = time.perf_counter()
+            out = pool.step(batch)
+            sync()
+            hist.record(time.perf_counter() - t_tick)
+        else:
+            if W and k >= 0 and k % W == 0:
+                sync()
+                t_win = time.perf_counter()
+            out = pool.step(batch)
+            if W and k >= 0 and k % W == W - 1:
+                sync()
+                windows.append((time.perf_counter() - t_win) / W)
+        # no boolean indexing: it would read a count back every tick
+        on = torch.as_tensor(pool.active, device=dev)
+        for n in names:
+            fin = torch.isfinite(out[n]).reshape(capacity, -1).all(1)
+            bad |= (on & ~fin).any()
+
+        if t < inject_at:
+            ref_out = ref_pool.step(ref_batch)
+            for n in names:
+                iso = torch.maximum(iso, (out[n][0] - ref_out[n][0]).abs()
+                                    .max().double())
+            if keep:
+                sentinel.append({n: out[n][0].cpu().numpy() for n in names})
+                sentinel_ref.append({n: ref_out[n][0].cpu().numpy()
+                                     for n in names})
+
+        if t == warm_tick:
+            sync()
+            mem_warm = (rss_now_mb(), device_mb(dev))
+        if t % 500 == 0 or t == ticks - 1:
+            log(f"tick {t}  active={pool.n_active}  churn={adds + drops}  "
+                f"iso_max={float(iso):.2e}  rss={rss_now_mb():.0f} MB  "
+                f"device={device_mb(dev)} MB")
+    sync()
+    mem_end = (rss_now_mb(), device_mb(dev))
+    iso_max, finite = float(iso), not bool(bad)
+    ok = finite and iso_max <= ISO_TOL and recovered and rebuilt_finite
+    res = {
+        "metric": "soak_stream_pool_churn",
+        "serving_mode": pool.cfg.serving_mode,
+        "forward_impl": pool.cfg.model.forward_impl,
+        "ticks": ticks, "capacity": capacity,
+        "adds": adds, "drops": drops,
+        "sentinel_isolation_max_diff": iso_max,
+        "injected_failure_recovered": recovered,
+        "rebuilt_state_finite": rebuilt_finite,
+        "active_outputs_finite": finite,
+        "ok": ok,
+        "ms_per_tick_incl_host": (time.time() - t0) / ticks * 1e3,
+        "rss_mb_warm": mem_warm[0], "rss_mb_end": mem_end[0],
+        "rss_growth_mb_after_warmup": mem_end[0] - mem_warm[0],
+        "device_mb_warm": mem_warm[1], "device_mb_end": mem_end[1],
+        "device_growth_mb_after_warmup": (
+            None if mem_end[1] is None else mem_end[1] - mem_warm[1]),
+        "tick_latency": hist.summary() if block_each_tick else None,
+        "tick_device_ms": ({
+            "window": W, "n_windows": len(windows),
+            "p50": float(np.percentile(windows, 50)) * 1e3,
+            "p95": float(np.percentile(windows, 95)) * 1e3,
+            "max": float(np.max(windows)) * 1e3} if windows else None),
+    }
+    if keep:
+        res.update(events=events, sentinel=sentinel,
+                   sentinel_ref=sentinel_ref)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -6407,7 +7281,8 @@ def count_launches(kernels, launches, mesh_launches, abf_calls,
             p: launches[p][k["name"]] for p in ("N", "N-gt", "N-E")
             if launches[p][k["name"]]}
         k["launches_pool"] = {p: launches[p][k["name"]] for p in (
-            "G", "H", "I", "J", "K", "K-bf16") if launches[p][k["name"]]}
+            "G", "H", "I", "J", "K", "K-bf16", "G-4096", "churn")
+            if launches[p][k["name"]]}
         k["launches_serving"] = {p: launches[p][k["name"]] for p in (
             "P", "P-2", "Q") if launches[p][k["name"]]}
         k["launches_recipe"] = {p: launches[p].get(k["name"], 0) for p in (
@@ -6526,6 +7401,18 @@ def main():
     report.paths(pool_launches, {p: f"tick {v['tick_ms']:.3f} ms"
                                  for p, v in pool_summary.items()})
     stamp("pool paths")
+    with report.stage("path G-4096 and the churn run"):
+        t0 = time.perf_counter()
+        rows_launches, g4096, churn = pool_rows_paths(dev, state_dict, card)
+        rows_s = time.perf_counter() - t0
+    launches.update(rows_launches)
+    report.paths(rows_launches, {
+        "G-4096": f"tick {g4096['tick_ms']:.3f} ms, fill "
+                  f"{g4096['fill_s']:.1f} s, (b) {g4096['worst_b']['y']:.2g}"
+                  f", (c) {g4096['worst_c']:.2g}",
+        "churn": f"iso {churn['sentinel_isolation_max_diff']:.2g}, "
+                 f"recovered; {rows_s:.1f} s both"})
+    stamp("path G-4096 and the churn run")
     with report.stage("widened paths and eval"):
         widened = widened_paths(dev, state_dict)
         eval_launches, eval_summary = eval_path(dev)

@@ -54,8 +54,8 @@ VARIANTS = {
                            "tf3::mma_slice<false, false, L, false>")],
     # diagnostics, their outputs wrong: the pipelined products' staging
     # without their mma, and their mma on whatever shared memory holds
-    "staging_only": [(MMA, "    mma_slice<TA, TB, L, kPromote, kBf16>(",
-                      "    if (false) mma_slice<TA, TB, L, kPromote, kBf16>("),
+    "staging_only": [(MMA, "    mma_slice<TA, TB, L, kPromote>(",
+                      "    if (false) mma_slice<TA, TB, L, kPromote>("),
                      (POOL, "    bf16_slice<L>(As, reinterpret_cast",
                       "    if (false) bf16_slice<L>(As, reinterpret_cast")],
     "mma_only": [(MMA, "      load_stage<TA, TB, L, kShiftA>(sm + s",
@@ -70,11 +70,10 @@ VARIANTS = {
 DIAGNOSTIC = ("staging_only", "mma_only")
 
 
-def start_build(i, name):
-    """Write the variant's sources and start its nvcc."""
-    d = OUT / f"v{i}"
-    shutil.rmtree(d, ignore_errors=True)
-    d.mkdir(parents=True)
+def patched_sources(name):
+    """The kernel sources with variant ``name``'s patches applied, by file
+    name; raises where a patch's text is not in its file."""
+    out = {}
     for f in sorted(K.CSRC.iterdir()):
         if f.suffix not in (".cu", ".cuh"):
             continue
@@ -84,11 +83,21 @@ def start_build(i, name):
                 if old not in text:
                     raise RuntimeError(f"{name}: the patch does not apply")
                 text = text.replace(old, new)
+        out[f.name] = text
+    return out
+
+
+def start_build(i, name):
+    """Write the variant's sources and start its nvcc."""
+    d = OUT / f"v{i}"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    for fname, text in patched_sources(name).items():
         for ns in ("tf3", "tg"):
             text = text.replace(f"namespace {ns} {{",
                                 f"namespace {ns}_v{i} {{")
             text = text.replace(f"{ns}::", f"{ns}_v{i}::")
-        (d / f.name).write_text(text)
+        (d / fname).write_text(text)
     so = d / "fused_recompute_batch.so"
     cmd = [K._nvcc(), *K.NVCC_FLAGS, "-o", str(so), str(d / K9)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,

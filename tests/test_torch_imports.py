@@ -1,7 +1,9 @@
 """The port stands alone: no module of tip_tpu_torch, and not chip_smoke.py,
 scripts/torch_k12_variants.py, scripts/torch_train_convergence.py, the
 four-card mesh scripts scripts/torch_mesh_cards.py and
-scripts/torch_mesh_convergence.py, the
+scripts/torch_mesh_convergence.py, the pools at tip_tpu's sizes
+scripts/torch_pool_sizes.py and the churn soak scripts/torch_soak_pool.py,
+the
 wire helper tests/torch_wire.py that chip_smoke.py imports or the mesh's
 test worker tests/torch_mesh_worker.py, imports JAX,
 Flax or tip_tpu, nor orbax, tensorstore or zstandard (the port reads
@@ -31,6 +33,8 @@ PORT_FILES = sorted((ROOT / "tip_tpu_torch").rglob("*.py")) + \
      ROOT / "scripts" / "torch_train_convergence.py",
      ROOT / "scripts" / "torch_mesh_cards.py",
      ROOT / "scripts" / "torch_mesh_convergence.py",
+     ROOT / "scripts" / "torch_pool_sizes.py",
+     ROOT / "scripts" / "torch_soak_pool.py",
      ROOT / "tests" / "torch_wire.py", ROOT / "tests" / "torch_mesh_worker.py"]
 # the serving daemon, live I/O and data generation from SMPL motions
 SERVING_AND_DATAGEN = (
@@ -65,6 +69,8 @@ MESH = ("tip_tpu_torch/parallel/__init__.py", "tip_tpu_torch/parallel/mesh.py",
 # scripts/mesh_convergence.py
 MESH_CARDS = ("scripts/torch_mesh_cards.py",
               "scripts/torch_mesh_convergence.py")
+# tip_tpu's throughput rows on the card and the churn soak's twin
+POOL_SIZES = ("scripts/torch_pool_sizes.py", "scripts/torch_soak_pool.py")
 
 
 def _imported_roots(path):
@@ -105,7 +111,7 @@ def test_port_files_found():
 
 
 @pytest.mark.parametrize("name", SERVING_AND_DATAGEN + CONVERGENCE_RECIPE
-                         + ORBAX_AND_A7 + MESH + MESH_CARDS)
+                         + ORBAX_AND_A7 + MESH + MESH_CARDS + POOL_SIZES)
 def test_serving_and_datagen_files_are_checked(name):
     """Each module of the serving daemon, live I/O and data generation is
     among the files checked above, and imports no JAX and nothing of

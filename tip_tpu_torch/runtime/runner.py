@@ -711,6 +711,19 @@ def pool_carry_from_jax(carry, dtype=None, device="cpu") -> PoolCarry:
     return PoolCarry(cache=cache, **kw)
 
 
+def _pool_counters(cfg: RunnerConfig, carries: PoolCarry):
+    """What the host counters say about this tick, per stream (numpy):
+    have (a smoothed frame: the commit), k_new, active (the model's output
+    counts) and k_last (the window row the recompute forward reads)."""
+    have = carries.t >= cfg.imu_n_smooth
+    k_new = carries.k + have
+    active = k_new >= 1
+    # the port's clamp: the last valid row is min(k_new, W) - 1, and row 0
+    # for a stream with no frame yet
+    k_last = np.where(active, np.minimum(k_new, cfg.window) - 1, 0)
+    return have, k_new, active, k_last
+
+
 def _pool_masks(cfg: RunnerConfig, carries: PoolCarry, dev):
     """What the host counters say about this tick, per stream: the new
     counters, and two small tensors on ``dev`` (one copy up each, nothing
@@ -720,13 +733,8 @@ def _pool_masks(cfg: RunnerConfig, carries: PoolCarry, dev):
     window row]."""
     t, k, n_out = carries.t, carries.k, carries.n_out
     W = cfg.window
-    have = t >= cfg.imu_n_smooth
-    k_new = k + have
-    active = k_new >= 1
+    have, k_new, active, k_last = _pool_counters(cfg, carries)
     n_out_new = n_out + active
-    # the port's clamp: the last valid row is min(k_new, W) - 1, and row 0
-    # for a stream with no frame yet
-    k_last = np.where(active, np.minimum(k_new, W) - 1, 0)
     flags = np.stack([t == 0, have, k >= W, active,
                       n_out_new >= cfg.filter_len, n_out >= 1])
     idx = np.stack([have & (k >= W), np.minimum(k, W - 1),

@@ -204,9 +204,15 @@ class StreamPool:
                 out, failed = self._gather(out)
             if error is not None or failed:
                 self._rebuild_carries()
-                raise error or RuntimeError(
-                    f"the tick failed on rank(s) {failed} of the mesh; the "
-                    f"pool restarted its streams")
+                try:
+                    raise error or RuntimeError(
+                        f"the tick failed on rank(s) {failed} of the mesh; "
+                        f"the pool restarted its streams")
+                finally:
+                    # this frame holding the error, whose traceback holds
+                    # this frame, would keep the failed tick's state (the
+                    # old rings) allocated until the cyclic collector runs
+                    error = None
             self._carries = carries
             self._tick += 1
         return out
