@@ -34,7 +34,7 @@ Phases, in order; any failure exits non-zero:
      stage by stage);
   4. run the main paths: the full-width model (ModelConfig() defaults,
      random weights from a seeded generator) in the streaming runner over
-     the first 360 frames of an in-tree motion, each path with every launch
+     the first 300 frames of an in-tree motion, each path with every launch
      counter reset just before and read just after. Recompute mode:
        A  eager model with the plain encoder loop (encoder_impl="plain")
           and K1, decode K2, tail K3;
@@ -63,18 +63,25 @@ Phases, in order; any failure exits non-zero:
      configuration, hold every frame of E against K7's plain version on
      E's own tokens; time and profile frames;
   4b. the full runner (terrain + leg IK, run_offline_full), counters reset
-     before and read after each, N and N-gt over the motion's first 360
+     before and read after each, N and N-gt over the motion's first 300
      frames:
        N  bench.py's configuration: recompute, K1, K2, K3, multi_sbp,
           default TerrainConfig, f32, the plain encoder loop;
        N-gt  ground-truth playback of the motion (nimble_qdq, constrs),
           multi_sbp, through K3 on every frame;
        N-E  120 frames in kv_cache_rnn_carry, fused, bf16: K7, K2, K3;
-     compare N with the plain versions on the card (300 frames, terrain at
-     frame 300) and a float64 CPU run (120), N-gt with a float64 CPU
+     compare N with the plain versions on the card (240 frames, terrain at
+     frame 240) and a float64 CPU run (120), N-gt with a float64 CPU
      playback (contacts, updates, terrain, terrain metrics), hold every
      frame of N-E against K7's plain version; time and profile N, and
-     count the host syncs of a steady frame of A and N;
+     count the host syncs of a steady frame of A and N; then
+       N-soak  scripts/torch_soak.py's core (twin of scripts/soak.py) in
+          N's configuration with a terrain table of 16 regions (tip_tpu's
+          scaled soak test's): 4 chunks of 150 frames, each frame's root
+          kept on the card and read back once a chunk; outputs finite,
+          the table within capacity, the carry's shapes fixed, device
+          memory grown at most 1 MiB from chunk 1 on, one launch of K1, K2
+          and K3 a model frame;
   5. run the pool paths: StreamPool at capacity 64 over the 60 in-tree
      motions (four slots join later, one stream is removed and its slot
      re-added), 300 ticks, counters reset before and read after each:
@@ -313,16 +320,18 @@ TOL_RES = 1e-4
 # main path, kernels vs plain on the card, and card f32 vs CPU f64: an
 # autoregressive 40-frame window of a random model feeds rounding back
 TOL_PATH = 1e-3
-PATH_FRAMES = 300
+# (PATH_FRAMES, MAIN_FRAMES, FULL_FRAMES and TIMED_FRAMES are cut so that
+# path N-soak's seconds fit in the script's time limit)
+PATH_FRAMES = 240
 CPU_FRAMES = 120
 # path A-enc (the encoder through K11) against path A
 ENC_FRAMES = 120
 # frames of the per-frame timing pass of each single-stream path
-TIMED_FRAMES = 150
+TIMED_FRAMES = 100
 # the single-stream paths A-F run over the motion's first MAIN_FRAMES
 # frames, and a profile reads PROFILED_FRAMES steady frames: the script's
 # whole run must end well inside its time limit on a slow host
-MAIN_FRAMES = 360
+MAIN_FRAMES = 300
 PROFILED_FRAMES = 20
 # K4/K5 against their plain versions. f32 packing: the same f32 products
 # summed in another order over up to 1024 terms, through 4 layers and 40
@@ -513,16 +522,27 @@ GONE_KERNELS = ("widen_bf16", "narrow_bf16", "widen2_kernel",
 
 def kernel_breakdown(fn, n=5):
     """Device ms a call by kernel of fn (torch.profiler over n calls after
-    one warm-up call), largest first: [[name, ms, launches], ...]."""
+    one warm-up call), largest first: [[name, ms, launches], ...]. A
+    profile that holds no device event at all (CUPTI saw none of the
+    calls) is taken once more; a second empty one fails."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = [[e.key[:80], e.self_device_time_total / 1e3 / n, e.count / n]
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [[e.key[:80], e.self_device_time_total / 1e3 / n,
+                 e.count / n]
+                for e in prof.key_averages() if e.self_device_time_total > 0]
+        if rows:
+            break
+        log(f"  kernel_breakdown: profile {attempt + 1} of {n} calls holds "
+            f"no device event")
+    else:
+        raise AssertionError(f"two profiles of {n} calls each held no "
+                             f"device event")
     gone = [r[0] for r in rows if any(k in r[0] for k in GONE_KERNELS)]
     if gone:
         raise AssertionError(f"kernels that no longer exist ran: {gone}")
@@ -2078,9 +2098,9 @@ TOL_GT_MAE = 1e-3
 # path N-E: frames of the full runner in kv_cache_rnn_carry, fused, bf16
 NE_FRAMES = 120
 # paths N and N-gt (and N-gt's float64 CPU playback): the motion's first
-# FULL_FRAMES frames, half of it, so that the script ends well inside its
-# time limit on a slow host
-FULL_FRAMES = 360
+# FULL_FRAMES frames, so that the script ends well inside its time limit
+# on a slow host
+FULL_FRAMES = 300
 
 
 def load_gt():
@@ -3487,6 +3507,159 @@ def soak(pool, ref_pool, ticks, stream, s_init, *, block_each_tick=False,
         res.update(events=events, sentinel=sentinel,
                    sentinel_ref=sentinel_ref)
     return res
+
+
+# ---------------------------------------------------------------------------
+# 5d. the full-runner soak: scripts/torch_soak.py's core (twin of
+# scripts/soak.py), also chip_smoke's path N-soak
+# ---------------------------------------------------------------------------
+
+# device memory allocated after the first chunk may grow by at most this
+# (MiB) to the end: the carry is a fixed set of tensors (O(window) memory)
+SOAK_MEM_MIB = 1.0
+# path N-soak: chunks of frames, and the terrain table's capacity (that of
+# tip_tpu's scaled soak test, tests/test_terrain_full_runner.py)
+NSOAK_CHUNKS = 4
+NSOAK_CHUNK = 150
+NSOAK_REGIONS = 16
+
+
+def soak_config(serving_mode="recompute", terrain=None):
+    """scripts/soak.py's configuration in the port's spelling, as path N
+    spells bench.py's: K1 (rnn_impl "auto"), tip_tpu's default encoder
+    route (its "xla", the port's plain layer loop), the default tail (K3
+    on the card), multi_sbp, the default TerrainConfig unless ``terrain``
+    is given."""
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.runtime import full_runner as FR
+    from tip_tpu_torch.runtime import runner as R
+    from tip_tpu_torch.runtime import terrain as terrain_lib
+    return FR.FullRunnerConfig(
+        base=R.RunnerConfig(model=M.ModelConfig(rnn_impl="auto",
+                                                encoder_impl="plain"),
+                            serving_mode=serving_mode),
+        terrain=terrain or terrain_lib.TerrainConfig(), multi_sbp=True)
+
+
+def carry_shapes(carry, prefix=""):
+    """{field: shape} of every tensor of a carry and its nested carries."""
+    out = {}
+    for k, v in vars(carry).items():
+        if torch.is_tensor(v):
+            out[prefix + k] = tuple(v.shape)
+        elif dataclasses.is_dataclass(v):
+            out.update(carry_shapes(v, f"{prefix}{k}."))
+    return out
+
+
+def full_soak(model, cfg, skel, s_init, frames, chunk, dev, log=print):
+    """scripts/soak.py's loop through the port's full runner: chunk i is
+    make_stream(chunk, seed=i), frames // chunk of them; a chunk's frames
+    are queued with no host sync, each frame's root (qdq[:3]) written into
+    a (chunk, 3) tensor on the device that comes back once a chunk. The
+    launch counters are set to 0 just before the first frame. Returns
+    (soak.py's JSON dict with the device-memory keys added, the roots
+    (frames, 3) as numpy, the final carry)."""
+    import resource
+    from tip_tpu_torch.ops import _kernels as K
+    from tip_tpu_torch.runtime import full_runner as FR
+    from tip_tpu_torch.runtime.runner import pack_fused_weights
+    dtype = next(model.parameters()).dtype
+    cuda = dev.type == "cuda"
+    carry = FR.full_runner_init(cfg, skel, torch.as_tensor(s_init),
+                                dtype=dtype, device=dev)
+    packed = pack_fused_weights(model, cfg.base, dtype)
+    shapes0 = carry_shapes(carry)
+    n_chunks = frames // chunk
+    roots, rss, mem = [], [], []
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(n_chunks):
+            x = torch.as_tensor(make_stream(chunk, seed=i), dtype=dtype,
+                                device=dev)
+            r = torch.empty((chunk, 3), dtype=dtype, device=dev)
+            for t in range(chunk):
+                carry, out = FR.full_runner_step(model, carry, x[t], cfg,
+                                                 skel, packed_ws=packed)
+                r[t] = out["qdq"][:3]
+            roots.append(r.cpu().numpy())       # the chunk's one read-back
+            del x, r, out
+            rss.append(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)
+            mem.append(device_mb(dev))
+            log(f"chunk {i + 1}/{n_chunks}  t={carry.base.t}  "
+                f"rss={rss[-1] // 1024} MB  device={mem[-1]} MB")
+    wall = time.perf_counter() - t0
+    launches = dict(K.launch_counts)
+
+    roots = np.concatenate(roots)
+    n_regions = int(carry.terrain.n_regions)
+    ok = bool(np.isfinite(roots).all()
+              and n_regions <= cfg.terrain.max_regions
+              and torch.isfinite(carry.terrain.region_height).all()
+              and torch.isfinite(carry.base.last_s).all())
+    # host RSS growth after the first chunk (compile) must be ~flat
+    rss_growth_mb = (rss[-1] - rss[1]) / 1024 if len(rss) > 2 else 0.0
+    growth = mem[-1] - mem[0] if cuda else None
+    ok = ok and (growth is None or growth <= SOAK_MEM_MIB)
+    res = {
+        "metric": "soak_full_runner",
+        "serving_mode": cfg.base.serving_mode,
+        "frames": frames,
+        "ok": ok,
+        "per_frame_ms": round(wall / frames * 1e3, 4),
+        "root_drift_final_m": round(float(np.linalg.norm(roots[-1][:2])), 3),
+        "root_abs_max_m": round(float(np.abs(roots).max()), 3),
+        "terrain_regions_used": n_regions,
+        "terrain_capacity": cfg.terrain.max_regions,
+        "rss_growth_mb_after_warmup": round(rss_growth_mb, 1),
+        "device_mb_after_chunk1": mem[0],
+        "device_mb_end": mem[-1],
+        "device_growth_mb_after_chunk1": growth,
+        "device_mb_by_chunk": mem,
+        "device_peak_mb": (torch.cuda.max_memory_allocated(dev) / 2**20
+                           if cuda else None),
+        "launches": {k: n for k, n in sorted(launches.items()) if n},
+        "launches_per_frame": {k: n / (n_chunks * chunk)
+                               for k, n in sorted(launches.items()) if n},
+        "carry_shapes_fixed": carry_shapes(carry) == shapes0,
+    }
+    return res, roots, carry
+
+
+def path_n_soak(dev, state_dict):
+    """Path N-soak: the soak's core in N's configuration with a terrain
+    table of NSOAK_REGIONS, NSOAK_CHUNKS chunks of NSOAK_CHUNK frames.
+    Holds: outputs finite, the table within capacity, the carry's shapes
+    fixed, device memory grown at most SOAK_MEM_MIB from chunk 1 on (all
+    three in full_soak's ``ok``), one launch of K1, K2 and K3 a model frame
+    and of nothing else. Returns (launches, result)."""
+    from tip_tpu_torch.models import tip_model as M
+    from tip_tpu_torch.ops import kinematics as kin
+    from tip_tpu_torch.runtime import terrain as terrain_lib
+    cfg = soak_config(terrain=terrain_lib.TerrainConfig(
+        max_regions=NSOAK_REGIONS))
+    model = M.TIPModel(cfg.base.model, device=dev)
+    model.load_state_dict(state_dict)
+    frames = NSOAK_CHUNKS * NSOAK_CHUNK
+    t0 = time.perf_counter()
+    res, _, _ = full_soak(model, cfg, kin.amass_skeleton(device=dev),
+                          s_init_pose(), frames, NSOAK_CHUNK, dev, log=log)
+    res["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"n_soak": res}))
+    n_model = frames - cfg.base.imu_n_smooth
+    launches = {k: res["launches"].get(k, 0) for k in KERNELS}
+    for k in KERNELS:
+        want = n_model if k in ("fused_rnn", "decode_fused",
+                                "tail_fused") else 0
+        if launches[k] != want:
+            raise AssertionError(f"path N-soak: {k} launched {launches[k]} "
+                                 f"times, expected {want}")
+    if not (res["ok"] and res["carry_shapes_fixed"]):
+        raise AssertionError(f"path N-soak failed: {json.dumps(res)}")
+    return {"N-soak": launches}, res
 
 
 # ---------------------------------------------------------------------------
@@ -7278,7 +7451,8 @@ def count_launches(kernels, launches, mesh_launches, abf_calls,
         k["launches"] = launches[COUNTED_ON[k["name"]]][k["name"]]
         k["launches_on"] = COUNTED_ON[k["name"]]
         k["launches_full_runner"] = {
-            p: launches[p][k["name"]] for p in ("N", "N-gt", "N-E")
+            p: launches[p][k["name"]] for p in ("N", "N-gt", "N-E",
+                                                "N-soak")
             if launches[p][k["name"]]}
         k["launches_pool"] = {p: launches[p][k["name"]] for p in (
             "G", "H", "I", "J", "K", "K-bf16", "G-4096", "churn")
@@ -7395,6 +7569,14 @@ def main():
     report.paths(full_launches, {p: f"frame {v:.3f} ms" for p, v in
                                  full_summary["frame_ms"].items()})
     stamp("full runner paths")
+    with report.stage("path N-soak"):
+        soak_launches, n_soak = path_n_soak(dev, state_dict)
+    launches.update(soak_launches)
+    report.paths(soak_launches, {"N-soak": (
+        f"{n_soak['per_frame_ms']:.1f} ms/frame, regions "
+        f"{n_soak['terrain_regions_used']}/{n_soak['terrain_capacity']}, "
+        f"{n_soak['device_growth_mb_after_chunk1']:+.2f} MiB after chunk 1")})
+    stamp("path N-soak")
     with report.stage("pool paths"):
         pool_launches, pool_summary = pool_paths(dev, runs, state_dict)
     launches.update(pool_launches)
@@ -7498,6 +7680,10 @@ def main():
                     "recipe_eval": recipe_summary["U"]["eval_metrics"],
                     "orbax_path_s": orbax_summary["seconds"],
                     "mesh_path_s": mesh_summary["seconds"],
+                    "n_soak": {k: n_soak[k] for k in (
+                        "per_frame_ms", "terrain_regions_used",
+                        "device_mb_by_chunk", "device_peak_mb",
+                        "seconds")},
                     "card": card}))
     print(json.dumps({"kernels": kernels}))
     stamp("done")

@@ -3,7 +3,9 @@ scripts/torch_k12_variants.py, scripts/torch_train_convergence.py, the
 four-card mesh scripts scripts/torch_mesh_cards.py and
 scripts/torch_mesh_convergence.py, the pools at tip_tpu's sizes
 scripts/torch_pool_sizes.py and the churn soak scripts/torch_soak_pool.py,
-the
+the full-runner soak scripts/torch_soak.py, the end-to-end demo
+scripts/torch_e2e_synthetic_demo.py and the corruption sweep
+scripts/torch_eval_corruption.py, the
 wire helper tests/torch_wire.py that chip_smoke.py imports or the mesh's
 test worker tests/torch_mesh_worker.py, imports JAX,
 Flax or tip_tpu, nor orbax, tensorstore or zstandard (the port reads
@@ -35,6 +37,9 @@ PORT_FILES = sorted((ROOT / "tip_tpu_torch").rglob("*.py")) + \
      ROOT / "scripts" / "torch_mesh_convergence.py",
      ROOT / "scripts" / "torch_pool_sizes.py",
      ROOT / "scripts" / "torch_soak_pool.py",
+     ROOT / "scripts" / "torch_soak.py",
+     ROOT / "scripts" / "torch_e2e_synthetic_demo.py",
+     ROOT / "scripts" / "torch_eval_corruption.py",
      ROOT / "tests" / "torch_wire.py", ROOT / "tests" / "torch_mesh_worker.py"]
 # the serving daemon, live I/O and data generation from SMPL motions
 SERVING_AND_DATAGEN = (
@@ -71,6 +76,10 @@ MESH_CARDS = ("scripts/torch_mesh_cards.py",
               "scripts/torch_mesh_convergence.py")
 # tip_tpu's throughput rows on the card and the churn soak's twin
 POOL_SIZES = ("scripts/torch_pool_sizes.py", "scripts/torch_soak_pool.py")
+# the last three scripts of tip_tpu's surface: the full-runner soak,
+# synthesize -> train -> evaluate, and the corruption sweep
+LAST_DRIVERS = ("scripts/torch_soak.py", "scripts/torch_e2e_synthetic_demo.py",
+                "scripts/torch_eval_corruption.py")
 
 
 def _imported_roots(path):
@@ -111,7 +120,8 @@ def test_port_files_found():
 
 
 @pytest.mark.parametrize("name", SERVING_AND_DATAGEN + CONVERGENCE_RECIPE
-                         + ORBAX_AND_A7 + MESH + MESH_CARDS + POOL_SIZES)
+                         + ORBAX_AND_A7 + MESH + MESH_CARDS + POOL_SIZES
+                         + LAST_DRIVERS)
 def test_serving_and_datagen_files_are_checked(name):
     """Each module of the serving daemon, live I/O and data generation is
     among the files checked above, and imports no JAX and nothing of
